@@ -11,13 +11,15 @@ ragged shapes, then drives the port's main path at the paper's sizes:
 
 * the ring (Cannon) all-gather matmul at N = 30240 in bf16 over 4 virtual
   ranks, fused and host-ring;
-* Minimod at 1024³ over nz = 4, 10 steps, fused (carried halos) and host;
+* Minimod at 1024³ over nz = 4, 10 steps from random fields, fused
+  (carried halos) and host, each held against a single-grid oracle;
 * one fused wave step at (256, 1024, 1024) per rank over nz = 4;
 
 with every kernel's launch count zeroed just before that run and read just
 after it.  Then it times each kernel at the main path's shapes beside its
 plain version and, where one exists, the one PyTorch call that computes the
-same function, and prints one JSON line of per-kernel numbers, the card's
+same function, times Minimod's two modes over repeated alternated runs, and
+prints one JSON line of per-kernel numbers, the card's
 name and power limit, and a last JSON line with the device.  Any failed
 phase exits non-zero; so does a machine without CUDA and a directory that
 does not hold the port.
@@ -26,6 +28,7 @@ does not hold the port.
 from __future__ import annotations
 
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -42,6 +45,7 @@ STENCIL_OPS_PER_POINT = 41      # 1 + 12·3 (star) + 4 (leapfrog) flops
 # the main path's sizes
 RING_N, RING_RANKS = 30240, 4
 GRID, NZ, STEPS = 1024, 4, 10
+MINIMOD_REPS = 5                # timed runs of each Minimod mode
 
 
 def log(msg: str) -> None:
@@ -100,67 +104,101 @@ def load_port():
         fused_step_plain=st_fused.fused_wave_step_plain)
 
 
-def small_checks(torch, k) -> None:
-    """Every kernel against its plain version on small, ragged shapes."""
-    from repro_torch.kernels.plan import RingPlan
-    dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
+# -- every kernel against its plain version on small, ragged shapes ----------
+# Tolerances, relative to the result's largest magnitude: f32 1e-5 (GEMM) /
+# 2e-5 (stencil), f32 sums in another order with fused multiply-adds; f16
+# 2e-3 and bf16 1.6e-2, one ulp of the output type (2^-10 / 2^-7 relative)
+# plus the accumulation order.  Each check also holds the wrapper to one
+# launch count per call.  tests/test_torch_cuda.py runs the same checks.
 
-    def rnd(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
 
-    # matmul: ragged edges, every dtype (f32: f32 rounding; f16/bf16: one
-    # ulp of the output type, 2^-10 / 2^-7 relative)
+def _counted(wrapper, fn):
+    """``fn()``, checking that ``wrapper`` counted exactly one launch."""
+    before = wrapper.launches
+    got = fn()
+    check(wrapper.launches == before + 1,
+          f"{wrapper.__name__}: {wrapper.launches - before} launches counted")
+    return got
+
+
+def check_matmul(torch, k, g) -> None:
+    """Ragged edges, every dtype."""
     for (M, K, N, dt, tol) in [(33, 65, 17, torch.float32, 1e-5),
                                (100, 130, 70, torch.float16, 2e-3),
                                (64, 96, 48, torch.bfloat16, 1.6e-2),
                                (256, 512, 256, torch.float32, 1e-5)]:
-        x, w = rnd(M, K, dtype=dt), rnd(K, N, dtype=dt)
+        x = torch.randn(M, K, generator=g, device="cuda").to(dt)
+        w = torch.randn(K, N, generator=g, device="cuda").to(dt)
         want = k.matmul_ref(x, w)
-        err = max_err(torch, k.matmul_kernel(x, w), want)
+        err = max_err(torch, _counted(k.matmul_kernel,
+                                      lambda: k.matmul_kernel(x, w)), want)
         check(err <= tol * float(want.float().abs().max()),
               f"matmul {M}x{K}x{N} {dt}: err {err}")
-    # fused ring: n = 1..5, both dtypes, both directions and bidi
+
+
+def check_ring(torch, k, g) -> None:
+    """n = 1..5 ranks, f32 and bf16, both directions and bidi."""
+    from repro_torch.kernels.plan import RingPlan
     for n in range(1, 6):
         for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)):
             for direction in ("bidi", "cw", "ccw"):
-                x, w = rnd(n, 5, 33, dtype=dt), rnd(n, 33, 7, dtype=dt)
+                x = torch.randn(n, 5, 33, generator=g, device="cuda").to(dt)
+                w = torch.randn(n, 33, 7, generator=g, device="cuda").to(dt)
                 plan = RingPlan(n=n, direction=direction,
                                 slots=1 if n == 1 else 2)
                 want = k.ring_allgather_matmul_plain(x, w)
-                got = k.fused_ring_allgather_matmul_kernel(x, w, plan=plan)
+                kern = k.fused_ring_allgather_matmul_kernel
+                got = _counted(kern, lambda: kern(x, w, plan=plan))
                 err = max_err(torch, got, want)
                 check(err <= tol * float(want.float().abs().max()),
                       f"ring n={n} {dt} {direction}: err {err}")
-    # leap: ragged tile edges, scalar and per-point c2, sliced operands
+
+
+def check_leap(torch, k, g) -> None:
+    """Ragged tile edges, scalar and per-point c2, sliced operands."""
     R = 4
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
     for (Z, Y, X) in [(17, 12, 20), (9, 33, 70), (40, 8, 8)]:
         uext, prev = rnd(2, Z + 2 * R, Y + 2 * R, X + 2 * R), rnd(2, Z, Y, X)
-        c2 = torch.rand(2, Z, Y, X, generator=g, device=dev) * 0.2
+        c2 = torch.rand(2, Z, Y, X, generator=g, device="cuda") * 0.2
         for c in (0.1, c2):
             want = k.leap_plain(uext, prev, c, dx=1.5)
-            err = max_err(torch, k.leap(uext, prev, c, dx=1.5), want)
+            got = _counted(k.leap, lambda: k.leap(uext, prev, c, dx=1.5))
+            err = max_err(torch, got, want)
             check(err <= 2e-5 * float(want.abs().max()),
                   f"leap {Z}x{Y}x{X}: err {err}")
         big = rnd(2, Z + 4 * R, Y + 2 * R, X + 2 * R)   # a slice view
-        out = torch.zeros(2, Z + 2 * R, Y, X, device=dev)
-        k.leap(big[:, R:Z + 3 * R], prev, 0.1, out=out[:, R:Z + R])
+        out = torch.zeros(2, Z + 2 * R, Y, X, device="cuda")
+        _counted(k.leap, lambda: k.leap(big[:, R:Z + 3 * R], prev, 0.1,
+                                        out=out[:, R:Z + R]))
         want = k.leap_plain(big[:, R:Z + 3 * R], prev, 0.1)
         check(max_err(torch, out[:, R:Z + R], want)
               <= 2e-5 * float(want.abs().max()), "leap on views")
-    # fused step: overlap, no interior (Z = 2R), one rank, per-point c2
+
+
+def check_fused_step(torch, k, g) -> None:
+    """Overlap, no interior (Z = 2R), one rank, odd ranks, per-point c2."""
     from repro_torch.kernels.plan import OverlapPlanner
     for (nz, Z, Y, X) in [(4, 12, 10, 9), (4, 8, 10, 9), (1, 12, 6, 40),
                           (3, 20, 33, 35)]:
         plan = OverlapPlanner().plan_halo_slots(Z, Y, X, torch.float32, nz)
-        u, up = rnd(nz, 1, Z, Y, X), rnd(nz, 1, Z, Y, X)
-        c2 = torch.rand(nz, 1, Z, Y, X, generator=g, device=dev) * 0.2
+        u = torch.randn(nz, 1, Z, Y, X, generator=g, device="cuda")
+        up = torch.randn(nz, 1, Z, Y, X, generator=g, device="cuda")
+        c2 = torch.rand(nz, 1, Z, Y, X, generator=g, device="cuda") * 0.2
         for c in (0.1, c2):
             want = k.fused_step_plain(u, up, c, dx=1.0)
-            got = k.fused_wave_step_kernel(u, up, c, plan=plan)
+            kern = k.fused_wave_step_kernel
+            got = _counted(kern, lambda: kern(u, up, c, plan=plan))
             err = max_err(torch, got, want)
             check(err <= 2e-5 * float(want.abs().max()),
                   f"fused step nz={nz} Z={Z}: err {err}")
+
+
+SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
+                "leap": check_leap, "fused_step": check_fused_step}
 
 
 def main() -> int:
@@ -214,7 +252,9 @@ def main() -> int:
 
     # -- phase 3: every kernel against its plain version, small shapes --------
     t0 = time.perf_counter()
-    small_checks(torch, k)
+    g = torch.Generator(device=dev).manual_seed(1)
+    for check_kernel in SMALL_CHECKS.values():
+        check_kernel(torch, k, g)
     torch.cuda.synchronize()
     log(f"small-shape checks passed in {time.perf_counter() - t0:.1f} s")
 
@@ -241,10 +281,15 @@ def main() -> int:
         y_host = ring_allgather_matmul(x, w, ring, impl="host")
     torch.cuda.synchronize()
     ring_s = time.perf_counter() - t0
+    # Minimod's initial fields: random, so every rank boundary, both
+    # Dirichlet edges and the ring's zeroed wrap carry data from step one
+    u0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
+    up0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
+    # the fused step's stacked (nz, 1, Z, Y, X) fields: views of the same grid
+    u1, up1 = (a.view(NZ, 1, zl, GRID, GRID) for a in (u0, up0))
     mm = {mode: run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode=mode,
-                            device=dev) for mode in ("fused", "host")}
-    u1 = torch.randn(NZ, 1, zl, GRID, GRID, generator=g, device=dev) * 0.1
-    up1 = torch.randn(NZ, 1, zl, GRID, GRID, generator=g, device=dev) * 0.1
+                            u0=u0, u_prev0=up0, device=dev)
+          for mode in ("fused", "host")}
     step_ctx = DiompContext(mesh=RankMesh(("z", "y"), (NZ, 1)), device=dev)
     with use_default(step_ctx):
         y_step = st_fused.fused_wave_step(u1, up1, 0.1,
@@ -270,9 +315,10 @@ def main() -> int:
         # accumulation-order difference
         check(err <= 1.6e-2 * scale_y, f"ring {mode}: err {err}")
     del want, y_fused, y_host
-    u = torch.zeros((GRID,) * 3, device=dev)
-    u[GRID // 2, GRID // 2, GRID // 2] = 1.0
-    up = torch.zeros_like(u)
+    # the single-grid oracle on the same inputs; tolerance 1e-5 of the
+    # field's largest magnitude: f32 with fused multiply-adds, each of the
+    # ten steps' rounding (about 1e-7 of the field) carried forward
+    u, up = u0, up0
     for _ in range(STEPS):
         u, up = wave_step_ref(u, up, 0.1), u
     del up
@@ -286,6 +332,11 @@ def main() -> int:
         check(r.field.shape == (GRID,) * 3
               and bool(torch.isfinite(r.field).all()), f"minimod {mode}")
         check(err <= 1e-5 * oracle_max, f"minimod {mode}: err {err}")
+        # every rank boundary and both Dirichlet edges carry data
+        for z in (0, zl - 1, zl, 2 * zl - 1, 2 * zl, 3 * zl - 1, 3 * zl,
+                  GRID - 1):
+            check(float(r.field[z].abs().max()) > 0.1 * oracle_max,
+                  f"minimod {mode}: plane {z} carries no data")
     check(mm["fused"].plan.overlap, "fused Minimod fell back to no overlap")
     check(mm["fused"].put_bytes == mm["fused"].tracker_put_bytes > 0,
           "fused Minimod: OMPCCL put bytes != tracker bytes")
@@ -378,6 +429,20 @@ def main() -> int:
           cuda_ms(torch, lambda: k.fused_step_plain(
               u1, up1, 0.1, dx=1.0), 2),
           4 * 3 * pts, STENCIL_OPS_PER_POINT * pts, "float32", None)
+
+    # Minimod's time per step: the modes alternated over repeated runs on
+    # the same inputs, each run's time loop timed with CUDA events
+    per_step = {"fused": [], "host": []}
+    for _ in range(MINIMOD_REPS):
+        for mode, times in per_step.items():
+            r = run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode=mode,
+                            u0=u0, u_prev0=up0, device=dev)
+            times.append(r.wall_s / STEPS * 1e3)
+            del r
+    for mode, times in per_step.items():
+        log(f"minimod {mode}: ms per step over {len(times)} runs: median "
+            f"{statistics.median(times):.3f}, min {min(times):.3f}, max "
+            f"{max(times):.3f} ({', '.join(f'{t:.3f}' for t in times)})")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -345,8 +345,7 @@ class AnalyticBackend(CclBackend):
 
     def put(self, x, group, mesh, *, shift: int = 1):
         self._note("put", x, group, mesh,
-                   lambda b, n: b / self.link.bandwidth_Bps
-                   + self.link.latency_s)
+                   lambda b, n: b / self.link.bandwidth_Bps)
         return super().put(x, group, mesh, shift=shift)
 
 
@@ -400,32 +399,24 @@ class LinkModel:
 
     ``bandwidth_Bps``: 900 GB/s to the other cards of the host, all to all,
     i.e. 450 GB/s each way (NVIDIA's H100 SXM data sheet, as tabled in the
-    hopper-kernels guide).  ``latency_s`` and ``dispatch_s`` are not in that
-    table: they are the order of one NVLink hop and one kernel launch,
-    standing until a run on the card measures them.
+    hopper-kernels guide).  The model is bandwidth only: that table gives no
+    per-hop latency or launch overhead, so none is added until a run on the
+    card measures them.
     """
 
     bandwidth_Bps: float = 450e9
-    latency_s: float = 1e-6
-    dispatch_s: float = 5e-6
-
-    def collective_time(self, nbytes: int, ndev: int) -> float:
-        """One ring all-reduce including the per-call dispatch overhead."""
-        return self.dispatch_s + ring_allreduce_time(nbytes, ndev, self)
 
 
 def ring_allreduce_time(bytes_: int, ndev: int,
                         link: LinkModel = LinkModel()) -> float:
-    """2(n-1)/n · B / bw + 2(n-1) · lat — the classic ring bound."""
+    """2(n-1)/n · B / bw — the classic ring bound, bandwidth term only."""
     if ndev <= 1:
         return 0.0
-    steps = 2 * (ndev - 1)
-    return steps * link.latency_s + (steps / ndev) * bytes_ / link.bandwidth_Bps
+    return 2 * (ndev - 1) / ndev * bytes_ / link.bandwidth_Bps
 
 
 def ring_allgather_time(bytes_out: int, ndev: int,
                         link: LinkModel = LinkModel()) -> float:
     if ndev <= 1:
         return 0.0
-    steps = ndev - 1
-    return steps * link.latency_s + (steps / ndev) * bytes_out / link.bandwidth_Bps
+    return (ndev - 1) / ndev * bytes_out / link.bandwidth_Bps

@@ -268,10 +268,10 @@ class HaloPlan:
 
     Extents are LOCAL (the per-rank maximum when extents are asymmetric).
     ``slab_bytes``/``strip_bytes`` are the wire sizes of one Z-slab /
-    Y-strip halo put; ``bz`` is the Z chunk one block of the wave-step
-    kernel walks, ``by`` its Y tile, and ``slots`` the number of staging
-    buffers granted by ``StreamPool.plan_slots`` against the shared-memory
-    budget.
+    Y-strip halo put; ``slots`` is the number of staging buffers granted by
+    ``StreamPool.plan_slots`` against the shared-memory budget.  The Z chunk
+    of each wave-step pass is not part of the plan: ``leap`` asks the
+    planner's ``plan_stencil_bz`` for the shape of the pass it launches.
     """
 
     nz: int
@@ -281,8 +281,6 @@ class HaloPlan:
     y_loc: int = 0
     x: int = 0
     slots: int = 2
-    bz: int = 8
-    by: int = 0               # Y staging chunk (== y_loc when untiled)
     slab_bytes: int = 0
     strip_bytes: int = 0
     staging_bytes: int = 0
@@ -438,15 +436,13 @@ class OverlapPlanner:
         item = _itemsize(dtype)
         slab = halo * y_loc * x * item if nz > 1 else 0
         strip = z_loc * halo * x * item if ny > 1 else 0
-        bz = self.plan_stencil_bz(z_loc, y_loc, x, dtype, radius=halo)
         stage = self.stencil_stage_bytes(y_loc, x, dtype, radius=halo)
         slots = self.pool.plan_slots(stage, self.smem_budget)
         slots = max(2, min(slots, max(self.smem_budget // max(stage, 1), 2)))
         plan = HaloPlan(
             nz=nz, ny=ny, halo=halo, z_loc=z_loc, y_loc=y_loc, x=x,
-            slots=slots, bz=bz, by=min(STENCIL_TILE[0], y_loc),
-            slab_bytes=slab, strip_bytes=strip, staging_bytes=slots * stage,
-            overlap=True)
+            slots=slots, slab_bytes=slab, strip_bytes=strip,
+            staging_bytes=slots * stage, overlap=True)
         has_interior = plan.interior_z > 0 and plan.interior_y > 0
         overlap = bool(plan.exchange_axes) and has_interior and \
             2 * stage <= self.smem_budget

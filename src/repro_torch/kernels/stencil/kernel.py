@@ -20,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from .._build import check_launch, library, stream_handle
-from ..plan import OverlapPlanner
+from ..plan import default_planner
 from .ref import COEFFS, RADIUS
 
 __all__ = ["leap", "leap_plain", "wave_step_kernel"]
@@ -64,15 +64,15 @@ def _batched(t: torch.Tensor, what: str) -> torch.Tensor:
 
 
 def leap(uext: torch.Tensor, prev: torch.Tensor, c2: C2, *, dx: float = 1.0,
-         out: Optional[torch.Tensor] = None,
-         bz: Optional[int] = None) -> torch.Tensor:
+         out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """``out = 2u - prev + c2·lap(u)/dx²`` on the core of ``uext``.
 
     ``uext (..., Z+2R, Y+2R, X+2R)`` carries R planes of halo on every
     side; ``prev``, ``out`` and a tensor ``c2`` are ``(..., Z, Y, X)``; any
     of them may be a slice of a larger tensor (unit X stride).  The result
     is written into ``out`` when given (the port's in-place path: the fused
-    step writes each pass straight into its output's slice).
+    step writes each pass straight into its output's slice).  The Z chunk a
+    block walks is the active planner's ``plan_stencil_bz`` for this pass.
     """
     R = RADIUS
     Z, Y, X = prev.shape[-3:]
@@ -104,9 +104,7 @@ def leap(uext: torch.Tensor, prev: torch.Tensor, c2: C2, *, dx: float = 1.0,
         cptr, cs, c2s = c4.data_ptr(), c4.stride()[:3], 0.0
     else:
         cptr, cs, c2s = None, (0, 0, 0), float(c2)
-    if bz is None:
-        bz = OverlapPlanner().plan_stencil_bz(Z, Y, X, torch.float32,
-                                              radius=R)
+    bz = default_planner().plan_stencil_bz(Z, Y, X, torch.float32, radius=R)
     bz = max(bz, math.ceil(B * Z / _MAX_GRID_Z))   # keep the grid legal
     status = library("wave_step").repro_leap(
         u4.data_ptr(), *u4.stride()[:3], p4.data_ptr(), *p4.stride()[:3],

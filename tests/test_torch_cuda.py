@@ -1,88 +1,27 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
-These tests import no JAX, so they also run where only the port is
-installed: ``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
-tests/test_torch_cuda.py``.  Without a CUDA device they skip.
-
-Tolerances: f32 results agree to 1e-5 (GEMM) / 2e-5 (stencil) of the
-result's scale — f32 sums in another order, with fused multiply-adds;
-bf16 GEMM outputs to 1.6e-2 of it (one bf16 ulp is 2^-8 relative, plus the
-accumulation order).
+The checks, their shapes and their tolerances are ``chip_smoke.py``'s
+(``SMALL_CHECKS``); this file runs each as a test of its own.  It imports
+no JAX, so it also runs where only the port is installed:
+``PYTHONPATH=src python -m pytest -q --noconftest -m cuda
+tests/test_torch_cuda.py``.  Without a CUDA device the tests skip.
 """
+
+import sys
+from pathlib import Path
 
 import pytest
 import torch
 
-from repro_torch.kernels.plan import OverlapPlanner, RingPlan
-from repro_torch.kernels.ring_matmul import fused as ring_fused
-from repro_torch.kernels.ring_matmul.kernel import matmul_kernel
-from repro_torch.kernels.ring_matmul.ref import (matmul_ref,
-                                                 ring_allgather_matmul_plain)
-from repro_torch.kernels.stencil import fused as st_fused
-from repro_torch.kernels.stencil.kernel import leap, leap_plain
-from repro_torch.kernels.stencil.ref import RADIUS, wave_step_ref
-
-R = RADIUS
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402
 
 
-@pytest.fixture
-def gen():
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(chip_smoke.SMALL_CHECKS))
+def test_kernel_against_plain(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
-    return torch.Generator(device="cuda").manual_seed(0)
-
-
-def _rnd(gen, *shape, dtype=torch.float32):
-    return torch.randn(*shape, generator=gen, device="cuda").to(dtype)
-
-
-def _close(got, want, tol):
-    want = want.float()
-    assert (got.float() - want).abs().max() <= tol * want.abs().max()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-5),
-                                    (torch.float16, 2e-3),
-                                    (torch.bfloat16, 1.6e-2)])
-def test_matmul_kernel(gen, dt, tol):
-    for M, K, N in ((100, 130, 70), (33, 65, 17), (128, 64, 256)):
-        x, w = _rnd(gen, M, K, dtype=dt), _rnd(gen, K, N, dtype=dt)
-        before = matmul_kernel.launches
-        _close(matmul_kernel(x, w), matmul_ref(x, w), tol)
-        assert matmul_kernel.launches == before + 1
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dt,tol", [(torch.float32, 1e-5),
-                                    (torch.bfloat16, 1.6e-2)])
-@pytest.mark.parametrize("direction", ["bidi", "cw", "ccw"])
-def test_ring_kernel(gen, dt, tol, direction):
-    for n in (1, 2, 4, 7):
-        x, w = _rnd(gen, n, 5, 33, dtype=dt), _rnd(gen, n, 33, 9, dtype=dt)
-        plan = RingPlan(n=n, direction=direction, slots=1 if n == 1 else 2)
-        got = ring_fused.fused_ring_allgather_matmul_kernel(x, w, plan=plan)
-        _close(got, ring_allgather_matmul_plain(x, w), tol)
-
-
-@pytest.mark.cuda
-def test_leap_kernel(gen):
-    for Z, Y, X in ((17, 12, 40), (9, 33, 70)):
-        uext = _rnd(gen, 2, Z + 2 * R, Y + 2 * R, X + 2 * R)
-        prev = _rnd(gen, 2, Z, Y, X)
-        c2 = torch.rand(2, Z, Y, X, generator=gen, device="cuda") * 0.2
-        for c in (0.1, c2):
-            _close(leap(uext, prev, c, dx=1.5), leap_plain(uext, prev, c,
-                                                           dx=1.5), 2e-5)
-
-
-@pytest.mark.cuda
-def test_fused_step_kernel(gen):
-    for nz, Z, Y, X in ((4, 12, 10, 33), (4, 8, 10, 9), (1, 12, 6, 40)):
-        u, up = _rnd(gen, nz, 1, Z, Y, X), _rnd(gen, nz, 1, Z, Y, X)
-        plan = OverlapPlanner().plan_halo_slots(Z, Y, X, torch.float32, nz)
-        want = wave_step_ref(u.reshape(nz * Z, Y, X),
-                             up.reshape(nz * Z, Y, X), 0.1)
-        got = st_fused.fused_wave_step_kernel(u, up, 0.1, plan=plan)
-        _close(got.reshape(nz * Z, Y, X), want, 2e-5)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    chip_smoke.SMALL_CHECKS[name](torch, chip_smoke.load_port(), gen)

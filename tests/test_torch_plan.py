@@ -119,7 +119,8 @@ def test_halo_plan_fallbacks():
                                        ny=2).overlap
     tiny = tplan.OverlapPlanner(smem_budget=1024)
     plan = tiny.plan_halo_slots(64, 64, 64, torch.float32, 4)
-    assert plan.bz == 1 and not plan.overlap
+    assert tiny.plan_stencil_bz(64, 64, 64, torch.float32) == 1
+    assert not plan.overlap
     assert plan.schedule() == ("put", "fence", "all")
 
 
