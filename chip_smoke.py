@@ -14,11 +14,16 @@ ragged shapes, then drives the port's main path at the paper's sizes:
 * Minimod at 1024³ over nz = 4, 10 steps from random fields, fused
   (carried halos) and host, each held against a single-grid oracle;
 * one fused wave step at (256, 1024, 1024) per rank over nz = 4;
+* the serving engine on glm4-9b at full width (random weights from a seed,
+  two TP ranks stacked on the card): 8 requests of 256-3000 prompt tokens,
+  32 new tokens each, 4 slots, chunked prefill of 512 — every attention of
+  the model runs the flash-attention kernel;
 
-with every kernel's launch count zeroed just before that run and read just
+with every kernel's launch count zeroed just before each path and read just
 after it.  Then it times each kernel at the main path's shapes beside its
 plain version and, where one exists, the one PyTorch call that computes the
-same function, times Minimod's two modes over repeated alternated runs, and
+same function, times Minimod's two modes over repeated alternated runs,
+prints the serving phase's time to first token and decode step time, and
 prints one JSON line of per-kernel numbers, the card's
 name and power limit, and a last JSON line with the device.  Any failed
 phase exits non-zero; so does a machine without CUDA and a directory that
@@ -28,6 +33,7 @@ does not hold the port.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -46,6 +52,10 @@ STENCIL_OPS_PER_POINT = 41      # 1 + 12·3 (star) + 4 (leapfrog) flops
 RING_N, RING_RANKS = 30240, 4
 GRID, NZ, STEPS = 1024, 4, 10
 MINIMOD_REPS = 5                # timed runs of each Minimod mode
+# serving: glm4-9b at full width on the data 1 x model 2 smoke mesh
+SERVE_ARCH, SERVE_RANKS = "glm4-9b", 2
+SLOTS, MAX_LEN, CHUNK, PAGE_TOKENS = 4, 4096, 512, 64
+REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 256, 3000, 32
 
 
 def log(msg: str) -> None:
@@ -94,7 +104,10 @@ def load_port():
         matmul_ref, ring_allgather_matmul_plain)
     from repro_torch.kernels.stencil import fused as st_fused
     from repro_torch.kernels.stencil.kernel import leap, leap_plain
+    from repro_torch.kernels.flash_attention import kernel as fa
     return SimpleNamespace(
+        flash_attention_kernel=fa.flash_attention_kernel,
+        flash_attention_plain=fa.flash_attention_plain,
         matmul_kernel=matmul_kernel, matmul_ref=matmul_ref,
         fused_ring_allgather_matmul_kernel=(
             ring_fused.fused_ring_allgather_matmul_kernel),
@@ -197,8 +210,367 @@ def check_fused_step(torch, k, g) -> None:
                   f"fused step nz={nz} Z={Z}: err {err}")
 
 
+def check_flash(torch, k, g) -> None:
+    """The reference's sweep (tests/test_kernels.py:39), per-row offsets
+    (decode and a chunk with a padded tail), rows that see no key, a decode
+    tile at GQA 16:1, a strided layer of a stacked cache with NaN past
+    ``valid_len``; f32, f16 and bf16.  The plain version folds keys in the
+    kernel's key tile, so both sum in the same blocks."""
+    from repro_torch.kernels.plan import default_planner
+    tols = {torch.float32: 2e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
+    cases = [
+        # B, Tq, Tk, H, KH, D, Dv, causal, q_offset, prefix, valid_len
+        (2, 16, 16, 4, 2, 64, 64, True, 0, 0, None),
+        (1, 8, 24, 4, 1, 32, 32, True, 16, 0, None),
+        (2, 12, 12, 6, 6, 64, 64, False, 0, 0, None),
+        (1, 20, 20, 8, 2, 64, 64, True, 0, 5, None),
+        (1, 1, 33, 4, 2, 64, 64, True, 32, 0, None),
+        (1, 16, 16, 4, 2, 32, 16, True, 0, 0, None),
+        (3, 1, 200, 16, 1, 128, 128, True, [5, 99, 199], 0, [6, 100, 200]),
+        (2, 70, 300, 8, 2, 80, 80, True, [0, 130], 0, [70, 200]),
+        (2, 5, 40, 4, 2, 64, 64, True, 0, 0, [0, 3]),
+        (1, 33, 90, 6, 3, 48, 24, True, 10, 30, [60]),
+    ]
+    for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx, valid) in cases:
+        for dt in tols:
+            q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+            kk = torch.randn(B, Tk, KH, D, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, Tk, KH, Dv, generator=g, device="cuda").to(dt)
+            qo = torch.tensor(off, dtype=torch.int32, device="cuda")
+            vl = None if valid is None else torch.tensor(
+                valid, dtype=torch.int32, device="cuda")
+            block = default_planner().plan_attention_block(Tq, Tk, D, Dv, dt)
+            kw = dict(causal=causal, q_offset=qo, prefix_len=pfx,
+                      valid_len=vl, block=block)
+            want = k.flash_attention_plain(q, kk, v, **kw)
+            kern = k.flash_attention_kernel
+            got = _counted(kern, lambda: kern(q, kk, v, **kw))
+            err = max_err(torch, got, want)
+            check(bool(torch.isfinite(got).all())
+                  and err <= tols[dt] * max(float(want.float().abs().max()),
+                                            1e-6),
+                  f"flash {B}x{Tq}x{Tk} H{H}/{KH} D{D}/{Dv} {dt}: err {err}")
+    # one layer of a stacked (ranks, L, B, S, KH, D) cache, per-slot
+    # positions per rank, rows past valid_len holding NaN
+    R, L, B, S, H, D = 2, 3, 2, 64, 16, 128
+    cache = torch.randn(2, R, L, B, S, 1, D, generator=g,
+                        device="cuda").to(torch.bfloat16)
+    pos = torch.tensor([[3, 40], [63, 0]], dtype=torch.int32, device="cuda")
+    rows = torch.arange(S, device="cuda").reshape(1, 1, S)
+    dead = (rows > pos[..., None]).reshape(R, 1, B, S, 1, 1)
+    clean = cache.masked_fill(dead, 0.0)
+    dirty = cache.masked_fill(dead, float("nan"))
+    q = torch.randn(R, B, 1, H, D, generator=g, device="cuda").to(
+        torch.bfloat16)
+    kw = dict(causal=True, q_offset=pos, valid_len=pos + 1, block=64)
+    want = k.flash_attention_plain(q, clean[0, :, 1], clean[1, :, 1], **kw)
+    got = _counted(k.flash_attention_kernel, lambda: k.flash_attention_kernel(
+        q, dirty[0, :, 1], dirty[1, :, 1], **kw))
+    err = max_err(torch, got, want)
+    check(bool(torch.isfinite(got).all())
+          and err <= 1.6e-2 * float(want.float().abs().max()),
+          f"flash on a cache layer view: err {err}")
+
+
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
-                "leap": check_leap, "fused_step": check_fused_step}
+                "leap": check_leap, "fused_step": check_fused_step,
+                "flash": check_flash}
+
+
+# -- the serving phase ---------------------------------------------------------
+
+
+def _sdpa(torch, q, kk, v, visible):
+    """``scaled_dot_product_attention`` on the flash kernel's operands
+    (``(..., B, T, H, D)``, GQA) under a boolean ``(N, Tq, Tk)`` mask: the
+    library yardstick, never called by the port."""
+    import torch.nn.functional as F
+    q4 = q.reshape(-1, *q.shape[-3:]).transpose(1, 2)
+    k4 = kk.reshape(-1, *kk.shape[-3:]).transpose(1, 2).contiguous()
+    v4 = v.reshape(-1, *v.shape[-3:]).transpose(1, 2).contiguous()
+    mask = visible[:, None]
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
+                                                  enable_gqa=True)
+
+
+def _flash_at(torch, k, name, q, kk, v, q_off, valid):
+    """The flash kernel against its plain version and SDPA at one shape of
+    the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors."""
+    from repro_torch.kernels.plan import default_planner
+    Tq, H, D = q.shape[-3:]
+    Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
+    block = default_planner().plan_attention_block(Tq, Tk, D, Dv, q.dtype)
+    kw = dict(causal=True, q_offset=q_off, valid_len=valid, block=block)
+    got = k.flash_attention_kernel(q, kk, v, **kw)
+    want = k.flash_attention_plain(q, kk, v, **kw)
+    err = max_err(torch, got, want)
+    # bf16 output: one ulp of the output (2^-7 relative) plus the
+    # accumulation order
+    check(bool(torch.isfinite(got).all())
+          and err <= 1.6e-2 * float(want.float().abs().max()),
+          f"flash {name}: err {err}")
+    del got, want
+    # keys each query row sees: k <= q_offset + t and k < valid_len
+    t = torch.arange(Tq, device=q.device)
+    kpos = torch.arange(Tk, device=q.device)
+    qo, vl = q_off.reshape(-1, 1, 1), valid.reshape(-1, 1, 1)
+    visible = (kpos <= qo + t[:, None]) & (kpos < vl)       # (N, Tq, Tk)
+    pairs = int(visible.sum()) * H                          # (row, key) pairs
+    rows_read = int(torch.clamp(valid, max=Tk).sum())
+    nbytes = 2 * (q.numel() + rows_read * KH * (D + Dv)
+                  + q.numel() // D * Dv)
+    ops = 2 * pairs * (D + Dv)
+    ms = cuda_ms(torch, lambda: k.flash_attention_kernel(q, kk, v, **kw), 10)
+    plain = cuda_ms(torch, lambda: k.flash_attention_plain(q, kk, v, **kw), 3)
+    library = cuda_ms(torch, _sdpa(torch, q, kk, v, visible), 10)
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    log(f"flash {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
+        f"(keys seen {pairs // H}): {ms:.3f} ms, plain {plain:.3f}, sdpa "
+        f"{library:.3f}, bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+
+
+def _breakdown(torch, fn, reps: int = 3) -> str:
+    """Device time of ``fn`` by kernel group from ``torch.profiler`` (ms a
+    call), and the device's busy share of the wall time of those calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    groups, top = {}, []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total",
+                     getattr(evt, "self_cuda_time_total", 0))
+        if us <= 0 or getattr(evt, "device_type", None) is not None and \
+                "CUDA" not in str(evt.device_type):
+            continue
+        name = evt.key
+        group = ("flash" if "flash_fwd" in name else
+                 "gemm" if any(t in name.lower() for t in
+                               ("gemm", "cutlass", "sm90", "cublas",
+                                "nvjet"))
+                 else "other")
+        groups[group] = groups.get(group, 0.0) + us / 1e3 / reps
+        top.append((us / 1e3 / reps, name[:60]))
+    busy = sum(groups.values())
+    if not busy:
+        return "device time not measured (the profiler saw no kernels)"
+    top = ", ".join(f"{n} {t:.2f}" for t, n in sorted(top)[::-1][:6])
+    parts = ", ".join(f"{g} {t:.2f}" for g, t in sorted(groups.items()))
+    return (f"{wall_ms / reps:.2f} ms a call, kernels {busy:.2f} ms "
+            f"({parts}); device busy {100 * busy * reps / wall_ms:.1f} %; "
+            f"top: {top}")
+
+
+
+def _serve_bounds(cfg, schema, lengths, positions, kv_bytes_per_token):
+    """The least device time (ms, bf16) of each serving metric, from the
+    model's shapes: a request's time to first token alone on the card (its
+    prompt's matmul and causal-attention flops, or its chunks' weight reads)
+    and one decode step with the slots at ``positions`` (every weight but
+    the embedding table read once, and every cached K/V row)."""
+    mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    size = {n: math.prod(s.shape) for n, s in schema.items()}
+    layer = sum(v for n, v in size.items() if n.split("/")[-1] in mm)
+    head = size["lm_head"]
+    w_bytes = 2 * (sum(size.values()) - size["embed/table"])
+    L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    ttft = []
+    for n in lengths:
+        chunks = -(-int(n) // CHUNK)
+        ops = 2 * layer * n + 2 * L * H * D * n * (n + 1) + 2 * head * chunks
+        ttft.append(bound(chunks * w_bytes, ops, "bfloat16")[0])
+    kv = kv_bytes_per_token * int(sum(positions))
+    step = bound(w_bytes + kv, 2 * (layer + head) * len(positions),
+                 "bfloat16")[0]
+    return ttft, step
+
+
+def serve_phase(torch, k, dev, wrappers) -> dict:
+    """Serve glm4-9b at full width through the port's engine; returns the
+    flash kernel's line of the ``kernels`` JSON."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.engine import ServeEngine
+
+    cfg = configs.get(SERVE_ARCH)
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"serve: {cfg.name} on {mesh.shape}, {nbytes / 1e9:.2f} GB of "
+        f"random bf16 weights in {time.perf_counter() - t0:.1f} s")
+
+    def engine(c, params, **kw):
+        ctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 31,
+                           allocator="buddy")
+        return ServeEngine(c, mesh, pctx, params, context=ctx,
+                           page_tokens=PAGE_TOKENS, **kw)
+
+    rng = np.random.RandomState(0)
+    # warm-up: library handles and allocator pools, off the record
+    warm = engine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                  prefill_chunk=CHUNK)
+    warm.submit(rng.randint(0, cfg.vocab_size, 40), max_new=2)
+    warm.run()
+    del warm
+
+    lengths = rng.randint(MIN_PROMPT, MAX_PROMPT + 1, size=REQUESTS)
+    eng = engine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
+                 prefill_chunk=CHUNK)
+    step_events, finite = [], []
+    fn = eng.decode_step.fn
+
+    def timed_decode(*args):
+        a, b = torch.cuda.Event(enable_timing=True), \
+            torch.cuda.Event(enable_timing=True)
+        a.record()
+        logits, cache = fn(*args)
+        b.record()
+        step_events.append((a, b))
+        finite.append(torch.isfinite(logits).all())
+        return logits, cache
+
+    eng.decode_step.fn = timed_decode
+    reqs = [eng.submit(rng.randint(0, cfg.vocab_size, n), max_new=MAX_NEW)
+            for n in lengths]
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+    t0 = time.perf_counter()
+    eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: wr.launches for name, wr in wrappers.items()}
+    log(f"serve: {REQUESTS} requests (prompts {sorted(lengths.tolist())}), "
+        f"{eng.steps} engine steps, {eng.device_calls} device calls in "
+        f"{wall:.2f} s; launches {launches}")
+    for r, n in zip(reqs, lengths):
+        check(r.done and len(r.out) == MAX_NEW, f"request of {n} unfinished")
+        check(r.prefill_steps == -(-n // CHUNK),
+              f"request of {n}: {r.prefill_steps} prefill steps")
+        check(all(0 <= t < cfg.vocab_size for t in r.out), "bad token")
+    check(bool(torch.stack(finite).all()), "non-finite decode logits")
+    flash = launches["flash_attention"]
+    check(flash == cfg.num_layers * eng.device_calls,
+          f"flash launches {flash} != {cfg.num_layers} x "
+          f"{eng.device_calls} device calls")
+    stats = eng.latency_stats()
+    ttft = stats["ttft_s"]
+    steps_ms = [a.elapsed_time(b) for a, b in step_events]
+    steady = steps_ms[2:] or steps_ms
+    log(f"serve: time to first token p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
+        f"{ttft['p99'] * 1e3:.1f} ms (mean {ttft['mean'] * 1e3:.1f}, max "
+        f"{ttft['max'] * 1e3:.1f}); decode step median "
+        f"{statistics.median(steady):.3f} ms over {len(steady)} steps (min "
+        f"{min(steady):.3f}, max {max(steady):.3f}); "
+        f"{stats['tokens']} tokens; kv {eng.kv_stats}")
+    from repro_torch.serve.slo import percentiles
+    pos = (MAX_LEN * np.array([2, 3, 4, 5]) // 8).astype(np.int32)
+    kc = eng.cache["k"]
+    per_token = 2 * kc.element_size() * kc.numel() // (
+        kc.shape[mesh.ndim + 1] * kc.shape[mesh.ndim + 2])
+    ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), lengths, pos,
+                                   per_token)
+    tb = percentiles(ttft_b, (50, 99))
+    log(f"serve: bounds (bf16 at {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s, "
+        f"{PEAK_BYTES / 1e12:.2f} TB/s): time to first token alone on the "
+        f"card p50 {tb['p50']:.2f} ms, p99 {tb['p99']:.2f} ms; decode step "
+        f"at positions {pos.tolist()} {step_b:.3f} ms")
+
+    # where a decode step and a chunk-prefill call spend their time: the
+    # engine's own steps on its cache, at mid-length positions
+    nd = mesh.ndim
+    from repro_torch.core.context import use_default
+    eng._set_pos(pos)
+    toks = eng.decode_step.token_spec
+    from repro_torch.interop import stack_shards
+    dtoks = stack_shards(rng.randint(0, cfg.vocab_size, (SLOTS, 1)), mesh,
+                         toks, device=dev, dtype=torch.int64)
+
+    def decode_once():
+        eng.cache["pos"] = stack_shards(pos, mesh, eng._specs["pos"],
+                                        device=dev)
+        with use_default(eng.dctx):
+            eng.decode_step(params, dtoks, eng.cache)
+
+    ctoks = stack_shards(rng.randint(0, cfg.vocab_size, (1, CHUNK)), mesh,
+                         eng.chunk_step.token_spec, device=dev,
+                         dtype=torch.int64)
+    eng.host_pos[0] = MAX_LEN // 2
+
+    def chunk_once():
+        with use_default(eng.dctx):
+            eng.chunk_step(params, ctoks, eng._slot_cache(0), CHUNK)
+
+    log(f"serve: decode step at positions {pos.tolist()}: "
+        f"{_breakdown(torch, decode_once)}")
+    log(f"serve: chunk prefill of {CHUNK} at position {MAX_LEN // 2}: "
+        f"{_breakdown(torch, chunk_once)}")
+
+    # the flash kernel at the path's two shapes, on the served cache
+    g = torch.Generator(device=dev).manual_seed(5)
+    H, hd = cfg.num_heads // mesh.shape["model"], cfg.head_dim
+    ends = [len(r.prompt) + r.max_new - 1 for r in reqs[-SLOTS:]]
+    pos = torch.tensor(ends, dtype=torch.int32, device=dev).expand(
+        *mesh.sizes, SLOTS).contiguous()
+    q = torch.randn(*mesh.sizes, SLOTS, 1, H, hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    kc, vc = eng.cache["k"].select(nd, 0), eng.cache["v"].select(nd, 0)
+    line = {"name": "flash_attention", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
+            "launches": flash, "shape": "decode"}
+    line.update(_flash_at(torch, k, "decode", q, kc, vc, pos, pos + 1))
+    q = torch.randn(*mesh.sizes, 1, CHUNK, H, hd, generator=g,
+                    device=dev).to(torch.bfloat16)
+    p0 = torch.full((*mesh.sizes, 1), MAX_LEN - CHUNK, dtype=torch.int32,
+                    device=dev)
+    line["chunk"] = _flash_at(torch, k, "chunk", q, kc[..., :1, :, :, :],
+                              vc[..., :1, :, :, :], p0, p0 + CHUNK)
+    del eng, q, kc, vc
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"serve: peak device memory {peak:.1f} GB")
+    del params
+    torch.cuda.empty_cache()
+
+    # chunked prefill == token by token (greedy), at full width with the
+    # depth cut to 2 layers and float32 weights: a 512-row and a 1-row GEMM
+    # round bf16 at other places, enough to flip a near-tied argmax over
+    # 151552 logits; in float32 the two orders agree to about 1e-6
+    import dataclasses
+    small = dataclasses.replace(cfg, num_layers=2)
+    params = sch.init_params(small, mesh, torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+    params = {n: p.float() for n, p in params.items()}
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 37, 70)]
+    outs = {}
+    for chunk in (1, 32):
+        e = engine(small, params, slots=SLOTS, max_len=128,
+                   prefill_chunk=chunk)
+        rs = [e.submit(p, max_new=8) for p in prompts]
+        e.run()
+        outs[chunk] = [r.out for r in rs]
+    check(outs[1] == outs[32], f"chunked != token by token: {outs}")
+    log(f"serve: chunked prefill (32) == token by token over 3 prompts, "
+        f"{sum(map(len, outs[1]))} greedy tokens")
+    del params
+    torch.cuda.empty_cache()
+    return line
 
 
 def main() -> int:
@@ -240,7 +612,8 @@ def main() -> int:
                 "fused_ring_allgather_matmul":
                     k.fused_ring_allgather_matmul_kernel,
                 "wave_step": k.leap,
-                "fused_wave_step": k.fused_wave_step_kernel}
+                "fused_wave_step": k.fused_wave_step_kernel,
+                "flash_attention": k.flash_attention_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -295,7 +668,8 @@ def main() -> int:
         y_step = st_fused.fused_wave_step(u1, up1, 0.1,
                                           DiompGroup(("z",), name="z"))
     torch.cuda.synchronize()
-    launches = {name: wr.launches for name, wr in wrappers.items()}
+    launches = {name: wr.launches for name, wr in wrappers.items()
+                if name != "flash_attention"}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path: launches {launches}; ring {ring_s:.2f} s (fused+host); "
         f"minimod fused {mm['fused'].wall_s:.3f} s, host "
@@ -443,6 +817,11 @@ def main() -> int:
         log(f"minimod {mode}: ms per step over {len(times)} runs: median "
             f"{statistics.median(times):.3f}, min {min(times):.3f}, max "
             f"{max(times):.3f} ({', '.join(f'{t:.3f}' for t in times)})")
+    del u0, up0, u1, up1
+    torch.cuda.empty_cache()
+
+    # -- phase 7: serving glm4-9b at full width ---------------------------------
+    kernels.append(serve_phase(torch, k, dev, wrappers))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

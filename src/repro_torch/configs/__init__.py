@@ -1,0 +1,37 @@
+"""Architecture registry: ``get(name)`` / ``get_reduced(name)``.
+
+Only the dense configs this slice serves are ported; the reference's other
+eight architectures wait for their families (ROADMAP queue 1, item 9).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from ..models.config import ModelConfig
+
+ARCHS = ("glm4_9b", "stablelm_3b")
+
+# CLI ids (--arch) use dashes, matching the reference
+CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}
+
+
+def _module(name: str):
+    mod = CLI_IDS.get(name, name)
+    if mod not in ARCHS:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet (ported: "
+            f"{', '.join(all_archs())}): ROADMAP queue 1, item 9")
+    return importlib.import_module(f"{__name__}.{mod}")
+
+
+def get(name: str) -> ModelConfig:
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    return _module(name).REDUCED
+
+
+def all_archs():
+    return [a.replace("_", "-") for a in ARCHS]

@@ -23,6 +23,7 @@ import dataclasses
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Type
 
+import numpy as np
 import torch
 
 from ..launch.mesh import RankMesh
@@ -135,8 +136,12 @@ def payload_bytes(x, ranks: int = 1) -> int:
     The reference counts one rank's shard (``shard_map`` sees local
     shapes); a stacked tensor carries every rank, so its bytes are divided
     by ``ranks`` — the ONE byte counter behind the communicator's
-    wire-volume log and the analytic backend's estimates.
+    wire-volume log and the analytic backend's estimates.  A numpy array
+    is one rank's host buffer (the serving allocator's page payload) and
+    counts whole.
     """
+    if isinstance(x, np.ndarray):
+        return int(x.nbytes)
     total = sum(t.numel() * t.element_size() for t in _leaves(x))
     if total % ranks:
         raise ValueError(

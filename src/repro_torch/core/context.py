@@ -47,6 +47,8 @@ __all__ = [
     "install_default",
     "use_default",
     "reset_default_context",
+    "scratch_context",
+    "recorded_once",
 ]
 
 BackendLike = Union[str, CclBackend, None]
@@ -421,6 +423,36 @@ def default_communicator(group: DiompGroup,
                          backend: BackendLike = None) -> Communicator:
     """The active context's communicator handle for ``group``."""
     return default_context().communicator(group, backend)
+
+
+_scratch: Dict[tuple, "DiompContext"] = {}
+
+
+def scratch_context(ctx: DiompContext) -> DiompContext:
+    """A context with ``ctx``'s mesh and device whose logs nobody reads.
+
+    The reference records the verbs of a traced body once, however often
+    the compiled body runs (a ``lax.scan`` body, a jitted step).  The port
+    runs Python loops eagerly, so it replays every pass after the first
+    against this context: ``ctx``'s call, byte and RMA logs then hold what
+    the reference's hold."""
+    key = (ctx.mesh, str(ctx.device))
+    with _default_lock:
+        if key not in _scratch:
+            _scratch[key] = DiompContext(mesh=ctx.mesh, device=ctx.device,
+                                         segment_bytes=1 << 20)
+        return _scratch[key]
+
+
+@contextmanager
+def recorded_once(first: bool):
+    """Run the block against the active context when ``first``, else
+    against its :func:`scratch_context` (the trace-time logging rule)."""
+    if first:
+        yield default_context()
+        return
+    with use_default(scratch_context(default_context())) as ctx:
+        yield ctx
 
 
 def reset_default_context() -> None:

@@ -20,7 +20,8 @@ import torch
 
 from .launch.mesh import RankMesh
 
-__all__ = ["stack_shards", "unstack_shards"]
+__all__ = ["stack_shards", "unstack_shards", "local_shape",
+           "params_from_reference"]
 
 SpecEntry = Union[None, str, Tuple[str, ...]]
 
@@ -47,7 +48,7 @@ def stack_shards(global_array, mesh: RankMesh, spec: Sequence[SpecEntry],
                  *, device="cpu", dtype: Optional[torch.dtype] = None
                  ) -> torch.Tensor:
     """Global array -> stacked tensor ``(*mesh.sizes, *local_shape)``."""
-    g = torch.as_tensor(np.ascontiguousarray(global_array)) \
+    g = torch.as_tensor(np.array(global_array, order="C")) \
         if isinstance(global_array, np.ndarray) else torch.as_tensor(global_array)
     _check_spec(mesh, spec, g.dim())
     shape, order = [], []            # split every sharded dim into its axes
@@ -97,3 +98,36 @@ def unstack_shards(stacked: torch.Tensor, mesh: RankMesh,
         shape.append(int(np.prod([mesh.shape[a] for a in axes]))
                      * t.shape[len(kept) + d])
     return t.permute(perm).reshape(shape).numpy()
+
+
+def local_shape(global_shape: Sequence[int], mesh: RankMesh,
+                spec: Sequence[SpecEntry]) -> Tuple[int, ...]:
+    """The stacked shape ``(*mesh.sizes, *local_shape)`` of a global
+    array laid out by ``spec``."""
+    _check_spec(mesh, spec, len(global_shape))
+    local = []
+    for n, e in zip(global_shape, spec):
+        div = int(np.prod([mesh.shape[a] for a in _axes_of(e)]))
+        if n % div:
+            raise ValueError(f"extent {n} does not split over {e}")
+        local.append(n // div)
+    return (*mesh.sizes, *local)
+
+
+def params_from_reference(cfg, mesh: RankMesh, np_params, *, device="cpu",
+                          dtype: Optional[torch.dtype] = None, rules=None):
+    """The reference's parameters (a dict of numpy arrays, global view) as
+    the port's stacked per-rank tensors, split by the schema's
+    ``partition_specs``.  Each lands in its schema dtype unless ``dtype``
+    is given (numpy has no bfloat16: pass bf16 weights as float32)."""
+    from .models.schema import build_schema, partition_specs, torch_dtype
+
+    schema = build_schema(cfg)
+    specs = partition_specs(cfg, mesh, rules)
+    if set(np_params) != set(schema):
+        raise ValueError(f"parameter names differ from the schema: "
+                         f"{sorted(set(np_params) ^ set(schema))}")
+    return {name: stack_shards(
+                np.asarray(np_params[name]), mesh, specs[name], device=device,
+                dtype=dtype or torch_dtype(schema[name].dtype))
+            for name in sorted(schema)}

@@ -47,6 +47,9 @@ LIBRARIES: Dict[str, tuple] = {
     "fused_wave_step": ("fused_wave_step.cu", {
         "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
                                   _I, _F, _P]}),
+    "flash_attention": ("flash_attention.cu", {
+        "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
+        + [_P, _P] + [_I] * 11 + [_F, _I, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

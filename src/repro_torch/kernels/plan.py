@@ -33,10 +33,13 @@ __all__ = [
     "OverlapPlanner",
     "default_planner",
     "resolve_ring_impl",
+    "resolve_dispatch_impl",
+    "resolve_seq_parallel",
     "split_extents",
     "SMEM_BUDGET_DEFAULT",
     "MM_TILE",
     "STENCIL_TILE",
+    "FLASH_BQ",
 ]
 
 # Shared memory one block may use on an H100: 232,448 bytes (227 KB) of the
@@ -51,6 +54,11 @@ __all__ = [
 #   block — ``STENCIL_TILE``, (8 + 8)·(32 + 8)·4 B = 2.5 KiB at R = 4 — and
 #   carries the Z neighbours in registers, so its stage does not grow with
 #   the Z chunk a block walks;
+# * flash attention stages, per block, the scaled q^T of a FLASH_BQ-row tile
+#   and, per key tile of ``block`` keys, k^T, v and the probabilities, all in
+#   f32 with one column of padding against bank conflicts
+#   (``OverlapPlanner.flash_stage_bytes``): 113 KiB at D = Dv = 128 and
+#   block = 64;
 # * the fused ring's stripe slots and the fused step's landing windows live
 #   in device memory, not shared memory.
 #
@@ -60,6 +68,8 @@ __all__ = [
 SMEM_BUDGET_DEFAULT = 232_448
 MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh
 STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu
+FLASH_BQ = 64                   # query rows of a csrc/flash_attention.cu tile
+FLASH_BLOCKS = (64, 32, 16)     # the key tiles that kernel takes
 
 
 def _itemsize(dtype) -> int:
@@ -78,6 +88,36 @@ def resolve_ring_impl(impl: Optional[str]) -> str:
     if impl in ("host", "fused"):
         return impl
     raise ValueError(f"unknown ring matmul impl {impl!r}")
+
+
+def resolve_dispatch_impl(impl: Optional[str]) -> str:
+    """Resolve a MoE dispatch implementation knob to a concrete mode.
+
+    ``"auto"``/None keep the host collective ``"a2a"`` path; the dropless
+    one-sided ``"host"`` and ``"fused"`` paths are explicit opt-ins (they
+    change the numbers whenever the capacity path would drop tokens).  The
+    step builders call this once per built step.
+    """
+    if impl in (None, "auto"):
+        return "a2a"
+    if impl in ("a2a", "host", "fused"):
+        return impl
+    raise ValueError(f"unknown moe dispatch impl {impl!r}")
+
+
+def resolve_seq_parallel(impl: Optional[str]) -> str:
+    """Resolve the sequence-parallel attention knob to a concrete mode.
+
+    ``"auto"``/None keep the collective ``"allgather"`` path (K/V gathered
+    over the model group, then local flash attention); ``"ring"`` (K/V
+    stripes rotated through the one-sided ring) is an explicit opt-in.  The
+    step builders call this once per built step.
+    """
+    if impl in (None, "auto"):
+        return "allgather"
+    if impl in ("allgather", "ring"):
+        return impl
+    raise ValueError(f"unknown seq_parallel mode {impl!r}")
 
 
 def split_extents(total: int, parts: int,
@@ -421,6 +461,33 @@ class OverlapPlanner:
                                                    radius=radius)):
             return 1
         return bz
+
+    # -- flash attention -------------------------------------------------------
+    @staticmethod
+    def flash_stage_bytes(d: int, dv: int, block: int) -> int:
+        """Shared memory one flash-attention block stages (f32): q^T of a
+        FLASH_BQ-row tile, and per key tile k^T, v and the probabilities."""
+        return 4 * (d * (FLASH_BQ + 1) + d * (block + 1) + block * dv
+                    + FLASH_BQ * (block + 1))
+
+    def plan_attention_block(self, tq: int, tk: int, d: int, dv: int, dtype,
+                             *, block: int = 512) -> int:
+        """Keys folded per online-softmax update: the largest of the flash
+        kernel's key tiles (64, 32, 16), at most ``block``, whose shared-
+        memory stage double-buffers in the budget.
+
+        The plain version folds the same number of keys per update, so the
+        two sum in the same blocks.  Raises when even the smallest tile does
+        not fit (a head too wide for the kernel).
+        """
+        del tq, tk, dtype             # the kernel stages every dtype in f32
+        for b in FLASH_BLOCKS:
+            if b <= max(block, FLASH_BLOCKS[-1]) \
+                    and self._fits(self.flash_stage_bytes(d, dv, b)):
+                return b
+        raise ValueError(
+            f"flash attention with D = {d}, Dv = {dv} does not fit a "
+            f"shared-memory budget of {self.smem_budget} bytes")
 
     # -- halo exchange (Minimod) ----------------------------------------------
     def plan_halo_slots(self, z_loc: int, y_loc: int, x: int, dtype,

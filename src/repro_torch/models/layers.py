@@ -1,0 +1,349 @@
+"""Manual-SPMD layer library on stacked ranks (dense family).
+
+The reference runs every function here inside ``shard_map`` on one rank's
+shard; the port runs it once on stacked tensors whose leading dims are the
+mesh axes of the active :class:`~repro_torch.core.context.DiompContext`,
+and issues every cross-rank movement through its OMPCCL verbs.  Layouts
+follow the reference (per rank):
+
+* activations ``(B_loc, T, d)``; weights TP-sharded over "model" (column /
+  row Megatron style), ZeRO-3-sharded over "data" and gathered at use;
+* attention head-parallel when the heads divide ``MAX_TP``; decode caches
+  head-sharded or replicated per the same rules.
+
+Not ported here: the context-parallel decode (``cp_decode_attention``) and
+its seq-sharded cache, the token-parallel and ring-attention branches, MLA,
+MoE, ``ring_fsdp_matmul`` and the int8 weight gather; each raises
+``NotImplementedError`` naming its ROADMAP item where it would be reached.
+
+The decode and chunk-prefill branches write the new K/V rows into the
+cache in place (the reference returns an updated copy): a step's cache is
+the engine's own tensor, so no second copy of it is ever held.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..core import ompccl
+from ..core.backends import group_rank
+from ..core.context import default_context
+from ..kernels.flash_attention.ops import flash_attention
+from ..kernels.plan import resolve_seq_parallel
+from .config import ModelConfig, ParallelCtx
+from .schema import head_parallel, kv_sharded, vocab_sharded
+
+__all__ = [
+    "rmsnorm", "rope", "gather_fsdp", "tp_allreduce", "col_matmul",
+    "row_matmul", "embed_lookup", "KVCache", "local_kv_heads",
+    "attention_block", "mlp_block", "dot",
+]
+
+
+def _mesh():
+    return default_context().require_mesh()
+
+
+def _lift(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A stacked per-rank ``w (*mesh, *s)`` viewed to broadcast against a
+    stacked ``x (*mesh, ..., *s)``."""
+    nd = _mesh().ndim
+    extra = x.dim() - w.dim()
+    return w.reshape(*w.shape[:nd], *([1] * extra), *w.shape[nd:])
+
+
+def _rank_index(group, ndim: int, device) -> torch.Tensor:
+    """Every rank's index within ``group``, shaped ``(*mesh, 1, ...)`` to
+    broadcast against a stacked tensor of ``ndim`` dims (``axis_index``)."""
+    mesh = _mesh()
+    r = group_rank(group, mesh, device)
+    return r.reshape(*mesh.sizes, *([1] * (ndim - mesh.ndim)))
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x, w, preferred_element_type=f32).astype(x.dtype)`` per
+    rank: ``x (*mesh, ..., k)`` @ ``w (*mesh, k, n)`` as one batched matmul
+    over the ranks (f32 accumulation; a mixed pair promotes first)."""
+    nd = _mesh().ndim
+    dt = torch.promote_types(x.dtype, w.dtype)
+    x2 = x.reshape(*x.shape[:nd], -1, x.shape[-1])
+    y = torch.matmul(x2.to(dt), w.to(dt))
+    return y.reshape(*x.shape[:-1], w.shape[-1]).to(x.dtype)
+
+
+def dot_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x.astype(f32), w.astype(f32))`` per rank (the LM head)."""
+    return dot(x.float(), w.float())
+
+
+# ---------------------------------------------------------------------------
+# numerics
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x, scale, eps: float = 1e-5, plus_one: bool = False):
+    xf = x.float()
+    inv = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    s = _lift(scale, x).float()
+    if plus_one:
+        s = 1.0 + s
+    return (xf * inv * s).to(x.dtype)
+
+
+def rope(x, positions, *, theta: float = 10_000.0, fraction: float = 1.0):
+    """x ``(..., T, H, D)``; positions ``(T,)`` or any ``(..., T)`` that
+    broadcasts against x's leading dims (per-rank, per-slot offsets)."""
+    D = x.shape[-1]
+    rot = int(D * fraction) // 2 * 2
+    if rot == 0:
+        return x
+    xr, xp = x[..., :rot], x[..., rot:]
+    half = rot // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions.to(x.device, torch.float32)[..., None] * freqs
+    cos = torch.cos(ang).unsqueeze(-2)                  # (..., T, 1, half)
+    sin = torch.sin(ang).unsqueeze(-2)
+    x1, x2 = xr[..., :half].float(), xr[..., half:].float()
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return torch.cat([out.to(x.dtype), xp], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# communication helpers (all traffic through OMPCCL)
+# ---------------------------------------------------------------------------
+
+def gather_fsdp(w, ctx: ParallelCtx, dim: int = 0):
+    """ZeRO-3 weight all-gather over the data axis (no-op if fsdp == 1 or
+    the weights arrive whole); ``dim`` is the per-rank axis."""
+    if ctx.fsdp <= 1 or not ctx.fsdp_params:
+        return w
+    if ctx.gather_codec == "int8":
+        raise NotImplementedError(
+            "the int8 weight gather is not ported yet: ROADMAP queue 1, "
+            "item 8")
+    return ompccl.allgather(w, ctx.fsdp_group, axis=dim,
+                            invariant=ctx.inference)
+
+
+def tp_allreduce(x, ctx: ParallelCtx):
+    if ctx.tp <= 1:
+        return x
+    return ompccl.allreduce(x, ctx.tp_group)
+
+
+def col_matmul(x, w_local, ctx: ParallelCtx, bias_local=None):
+    """Megatron column-parallel: x (…, d) × W (d/fsdp, out/tp) -> (…, out/tp)."""
+    if ctx.use_ring_matmul:
+        raise NotImplementedError(
+            "ring_fsdp_matmul (use_ring_matmul) is not ported yet: ROADMAP "
+            "queue 1, item 9")
+    y = dot(x, gather_fsdp(w_local, ctx, dim=0))
+    if bias_local is not None:
+        y = y + _lift(bias_local, y).to(y.dtype)
+    return y
+
+
+def row_matmul(x, w_local, ctx: ParallelCtx):
+    """Megatron row-parallel: x (…, in/tp) × W (in/tp, d/fsdp) -> allreduced."""
+    return tp_allreduce(dot(x, gather_fsdp(w_local, ctx, dim=1)), ctx)
+
+
+# ---------------------------------------------------------------------------
+# embedding (vocab-sharded over the TP group)
+# ---------------------------------------------------------------------------
+
+def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Per-rank ``table[idx]``: table ``(*mesh, V, d)``, idx ``(*mesh, ...)``."""
+    mesh = _mesh()
+    R = mesh.size
+    t = table.reshape(R, *table.shape[mesh.ndim:])
+    i = idx.reshape(R, -1)
+    rows = torch.arange(R, device=t.device)[:, None]
+    return t[rows, i].reshape(*idx.shape, *t.shape[2:])
+
+
+def embed_lookup(tokens, table_local, cfg: ModelConfig, ctx: ParallelCtx):
+    """tokens ``(*mesh, B, T)`` int; table_local ``(*mesh, V/tp, d)``."""
+    if not vocab_sharded(cfg) or ctx.tp <= 1:
+        return _take_rows(table_local, tokens)
+    vloc = table_local.shape[-2]
+    off = _rank_index(ctx.tp_group, tokens.dim(), tokens.device) * vloc
+    local = tokens - off
+    hit = (local >= 0) & (local < vloc)
+    e = _take_rows(table_local, local.clamp(0, vloc - 1))
+    e = torch.where(hit[..., None], e, torch.zeros_like(e))
+    return tp_allreduce(e, ctx)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class KVCache:
+    """One layer's decode cache on stacked ranks: ``k``/``v`` are
+    ``(*mesh, B, S, KH_loc, D)`` (views of the stacked cache), ``pos`` is
+    ``(*mesh,)`` (one position a rank) or ``(*mesh, B)`` (per slot)."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+    pos: torch.Tensor
+    seq_sharded: bool = False
+
+
+def _per_row(pos: torch.Tensor) -> torch.Tensor:
+    """A cache position as ``(*mesh, B|1)`` per-row offsets."""
+    return pos if pos.dim() > _mesh().ndim else pos[..., None]
+
+
+def _write_rows(dst: torch.Tensor, src: torch.Tensor,
+                start: torch.Tensor) -> None:
+    """In place: ``dst[..., b, start + t] = src[..., b, t]`` for every rank
+    and batch row; dst ``(*mesh, B, S, ...)``, src ``(*mesh, B, T, ...)``,
+    start broadcasting to ``(*mesh, B)``.  The start clamps to ``S - T``,
+    as ``lax.dynamic_update_slice`` does."""
+    nd = _mesh().ndim
+    lead = dst.shape[:nd + 1]
+    S, T = dst.shape[nd + 1], src.shape[nd + 1]
+    dev = dst.device
+    start = _per_row(start).to(dev).expand(lead).clamp(0, S - T)
+    rows = start[..., None] + torch.arange(T, device=dev)
+    idx = [torch.arange(n, device=dev).reshape(
+        [n if i == j else 1 for i in range(nd + 2)])
+        for j, n in enumerate(lead)]
+    dst.index_put_((*idx, rows), src.to(dst.dtype))
+
+
+def _update_cache(cache: KVCache, k_new, v_new) -> KVCache:
+    """Write one decode step's K/V at ``cache.pos`` (scalar or per slot)."""
+    if cache.seq_sharded:
+        raise NotImplementedError(
+            "the context(seq)-sharded decode cache (cp_decode_attention) is "
+            "not ported yet: ROADMAP queue 1, item 9")
+    _write_rows(cache.k, k_new, cache.pos)
+    _write_rows(cache.v, v_new, cache.pos)
+    return KVCache(cache.k, cache.v, cache.pos + 1)
+
+
+def local_kv_heads(cfg: ModelConfig, ctx: ParallelCtx) -> int:
+    """KV heads each rank keeps (cache + attention operand width)."""
+    if kv_sharded(cfg):
+        return cfg.kv_heads // ctx.tp
+    if head_parallel(cfg) and ctx.tp > 1:
+        H_loc = cfg.num_heads // ctx.tp
+        group = cfg.num_heads // cfg.kv_heads
+        assert H_loc % group == 0 or group % H_loc == 0, (H_loc, group)
+        return max(1, H_loc // group)
+    return cfg.kv_heads
+
+
+def _slice_kv(kv, cfg: ModelConfig, ctx: ParallelCtx):
+    """With heads sharded but KV replicated, keep only the KV heads each
+    rank's q-head block maps to (q head h -> kv head h // (H/KV))."""
+    keep = local_kv_heads(cfg, ctx)
+    if keep == kv.shape[-2]:
+        return kv
+    H_loc = cfg.num_heads // ctx.tp
+    group = cfg.num_heads // cfg.kv_heads
+    first = _rank_index(ctx.tp_group, kv.dim(), kv.device) * H_loc // group
+    idx = first + torch.arange(keep, device=kv.device).reshape(keep, 1)
+    return torch.gather(kv, -2, idx.expand(*kv.shape[:-2], keep,
+                                           kv.shape[-1]))
+
+
+def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    ctx: ParallelCtx, *, positions=None, prefix_len: int = 0,
+                    cache: Optional[KVCache] = None,
+                    causal: Optional[bool] = None, chunked: bool = False):
+    """GQA attention on the residual input x ``(*mesh, B, T, d)``; returns
+    ``(out, cache')``.  Head-parallel prefill, decode (T == 1 with a cache)
+    and chunked prefill (``chunked=True`` with a cache: the chunk's K/V go
+    in at the running position and its queries attend over the whole valid
+    prefix; any padded tail sits after every real query, so the causal mask
+    hides it)."""
+    nd = _mesh().ndim
+    T = x.shape[nd + 1]
+    hp = head_parallel(cfg)
+    kvs = kv_sharded(cfg)
+    hd = cfg.head_dim
+    H_loc = cfg.num_heads // ctx.tp if hp else cfg.num_heads
+    KV_loc = cfg.kv_heads // ctx.tp if kvs else cfg.kv_heads
+    causal = cfg.causal if causal is None else causal
+    if positions is None:
+        positions = torch.arange(T, device=x.device)
+
+    decode = cache is not None and T == 1
+    chunkfill = chunked and cache is not None and not decode
+    if (not hp) and (not decode) and (not chunkfill) and T % ctx.tp == 0 \
+            and ctx.tp > 1:
+        raise NotImplementedError(
+            "token-parallel attention (heads that do not divide MAX_TP) is "
+            "not ported yet: ROADMAP queue 1, item 9")
+    if ctx.tp > 1 and not hp and not kvs \
+            and resolve_seq_parallel(ctx.seq_parallel) == "ring":
+        raise NotImplementedError(
+            "seq_parallel='ring' (fused ring attention) is not ported yet: "
+            "ROADMAP queue 1, item 13")
+
+    lead = x.shape[:-1]
+    q = col_matmul(x, lp["wq"], ctx, lp.get("bq")).reshape(*lead, H_loc, hd)
+    k = col_matmul(x, lp["wk"], ctx, lp.get("bk")).reshape(*lead, KV_loc, hd)
+    v = col_matmul(x, lp["wv"], ctx, lp.get("bv")).reshape(*lead, KV_loc, hd)
+    if hp and not kvs and ctx.tp > 1:
+        k = _slice_kv(k, cfg, ctx)
+        v = _slice_kv(v, cfg, ctx)
+    if cfg.rope_fraction > 0:
+        q = rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        k = rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+
+    new_cache = cache
+    if decode:
+        new_cache = _update_cache(cache, k, v)
+        pos = _per_row(new_cache.pos)
+        attn = flash_attention(q, new_cache.k, new_cache.v, causal=True,
+                               q_offset=pos - 1, valid_len=pos)
+    elif chunkfill:
+        if cache.seq_sharded:
+            raise ValueError(
+                "chunked prefill does not support a context-sharded cache")
+        p0 = cache.pos
+        _write_rows(cache.k, k, p0)
+        _write_rows(cache.v, v, p0)
+        new_cache = KVCache(cache.k, cache.v, p0 + T)
+        attn = flash_attention(q, cache.k, cache.v, causal=True,
+                               q_offset=_per_row(p0),
+                               valid_len=_per_row(p0 + T))
+    else:
+        attn = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
+        if cache is not None:            # prefill into a decode cache
+            zero = torch.zeros((), dtype=torch.int32, device=x.device)
+            _write_rows(cache.k, k, zero)
+            _write_rows(cache.v, v, zero)
+            new_cache = KVCache(cache.k, cache.v, torch.full(
+                _mesh().sizes, T, dtype=torch.int32, device=x.device))
+
+    attn2 = attn.reshape(*attn.shape[:-2], H_loc * hd)
+    if hp:
+        out = row_matmul(attn2, lp["wo"], ctx)
+    else:  # replicated heads: wo replicated over model
+        out = dot(attn2, gather_fsdp(lp["wo"], ctx, dim=1))
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def mlp_block(x, lp, ctx: ParallelCtx, *, act: str = "silu",
+              names=("w_gate", "w_up", "w_down")):
+    """SwiGLU/GeGLU column->row parallel MLP (GELU in jax's default tanh
+    form)."""
+    g, u, dwn = names
+    h = col_matmul(x, lp[g], ctx)
+    h = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
+    h = h * col_matmul(x, lp[u], ctx)
+    return row_matmul(h, lp[dwn], ctx)

@@ -1,0 +1,132 @@
+"""Parameter schema — one declarative table per architecture (dense family).
+
+Every parameter declares its global shape and *logical* placement axes
+once; from that declaration come the materialized init (from a
+``torch.Generator`` on a given device) and the per-dim specs that
+:func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
+against the production TP width (``MAX_TP = 16``), as in the reference.
+The MoE, MLA, SSM and hybrid layer tables are still to port (ROADMAP
+queue 1, items 9 and 12).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..interop import stack_shards
+from ..launch.mesh import RankMesh
+from .config import ModelConfig
+
+__all__ = [
+    "MAX_TP", "ParamSpec", "build_schema", "init_params", "partition_specs",
+    "head_parallel", "kv_sharded", "vocab_sharded", "torch_dtype",
+]
+
+MAX_TP = 16  # the production "model" axis width
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+           "float16": torch.float16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    dtype: str = "bfloat16"
+    init: str = "normal"          # normal | zeros | ones
+    scale: float = 0.02
+
+
+def head_parallel(cfg: ModelConfig) -> bool:
+    return cfg.num_heads > 0 and cfg.num_heads % MAX_TP == 0
+
+
+def kv_sharded(cfg: ModelConfig) -> bool:
+    return cfg.kv_heads > 0 and cfg.kv_heads % MAX_TP == 0
+
+
+def vocab_sharded(cfg: ModelConfig) -> bool:
+    return cfg.vocab_size % MAX_TP == 0
+
+
+def _dense_layer(cfg: ModelConfig, L: int, d_ff: int, prefix: str,
+                 s: Dict[str, ParamSpec]) -> None:
+    """One stacked block of standard GQA decoder layers."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    ha = "heads" if head_parallel(cfg) else None
+    ka = "kv_heads" if kv_sharded(cfg) else None
+    s[f"{prefix}/attn_norm"] = ParamSpec((L, d), (None, None), init="ones")
+    s[f"{prefix}/wq"] = ParamSpec((L, d, H * hd), (None, "embed_fsdp", ha))
+    s[f"{prefix}/wk"] = ParamSpec((L, d, KV * hd), (None, "embed_fsdp", ka))
+    s[f"{prefix}/wv"] = ParamSpec((L, d, KV * hd), (None, "embed_fsdp", ka))
+    if cfg.qkv_bias:
+        s[f"{prefix}/bq"] = ParamSpec((L, H * hd), (None, ha), init="zeros")
+        s[f"{prefix}/bk"] = ParamSpec((L, KV * hd), (None, ka), init="zeros")
+        s[f"{prefix}/bv"] = ParamSpec((L, KV * hd), (None, ka), init="zeros")
+    s[f"{prefix}/wo"] = ParamSpec((L, H * hd, d), (None, ha, "embed_fsdp"))
+    s[f"{prefix}/mlp_norm"] = ParamSpec((L, d), (None, None), init="ones")
+    s[f"{prefix}/w_gate"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
+    s[f"{prefix}/w_up"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
+    s[f"{prefix}/w_down"] = ParamSpec((L, d_ff, d), (None, "mlp", "embed_fsdp"))
+
+
+def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
+            f"queue 1, item 9")
+    s: Dict[str, ParamSpec] = {}
+    d, V = cfg.d_model, cfg.vocab_size
+    va = "vocab" if vocab_sharded(cfg) else None
+    s["embed/table"] = ParamSpec((V, d), (va, None), scale=1.0)
+    s["final_norm"] = ParamSpec((d,), (None,), init="ones")
+    _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
+    s["lm_head"] = ParamSpec((d, V), (None, va))
+    return s
+
+
+def partition_specs(cfg: ModelConfig, mesh: RankMesh,
+                    rules=None) -> Dict[str, tuple]:
+    """One spec per param, one entry per dim (``stack_shards``' currency)."""
+    from ..distributed.sharding import DEFAULT_RULES, logical_to_spec
+
+    rules = rules or DEFAULT_RULES
+    return {name: logical_to_spec(spec.axes, mesh, rules)
+            for name, spec in build_schema(cfg).items()}
+
+
+def init_params(cfg: ModelConfig, mesh: RankMesh, generator: torch.Generator,
+                *, device="cuda", rules=None) -> Dict[str, torch.Tensor]:
+    """Random parameters as stacked per-rank tensors on ``device``.
+
+    Each global parameter is drawn in its own dtype from ``generator``
+    (which must live on ``device``), in the schema's sorted order, with the
+    reference's scales (std = min(scale, 1/sqrt(fan_in))), then split over
+    the mesh by ``partition_specs``.  The reference draws from a JAX key, so
+    the two packages' random weights differ; tests carry the reference's
+    weights over with :func:`repro_torch.interop.params_from_reference`.
+    """
+    specs = partition_specs(cfg, mesh, rules)
+    out = {}
+    for name, spec in sorted(build_schema(cfg).items()):
+        dt = torch_dtype(spec.dtype)
+        if spec.init == "zeros":
+            w = torch.zeros(spec.shape, dtype=dt, device=device)
+        elif spec.init == "ones":
+            w = torch.ones(spec.shape, dtype=dt, device=device)
+        else:
+            fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+            std = min(spec.scale, 1.0 / math.sqrt(max(fan_in, 1)))
+            w = torch.empty(spec.shape, dtype=dt, device=device).normal_(
+                0.0, std, generator=generator)
+        out[name] = stack_shards(w, mesh, specs[name], device=device)
+        del w
+    return out

@@ -38,6 +38,13 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def test_rule_covers_every_subpackage():
+    covered = {p.relative_to(PORT).parts[0] for p in SOURCES
+               if p.is_relative_to(PORT)}
+    assert {"core", "kernels", "models", "serve", "configs", "distributed",
+            "launch", "apps"} <= covered
+
+
 def test_package_imports_with_jax_blocked():
     code = (
         "import sys, pkgutil, importlib\n"
@@ -59,13 +66,32 @@ def test_package_imports_with_jax_blocked():
 def test_entry_points_default_to_the_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device works")
+    from repro_torch import configs
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, init
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.engine import ServeEngine
+    mesh = make_smoke_mesh(8)
     for call in (DiompContext, init,
-                 lambda: run_minimod(grid=(16, 8, 8), nz=2, steps=1)):
+                 lambda: run_minimod(grid=(16, 8, 8), nz=2, steps=1),
+                 lambda: ServeEngine(configs.get_reduced("glm4-9b"), mesh,
+                                     ParallelCtx.from_mesh(mesh), {}),
+                 lambda: serve.main([])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert DiompContext(device="cpu").device.type == "cpu"
+
+
+def test_serve_launcher_defaults_to_the_card(capsys):
+    """``python -m repro_torch.launch.serve`` takes the card unless
+    ``--device cpu`` is passed (the raise is in the test above); on the CPU
+    it serves every request."""
+    from repro_torch.launch import serve
+    serve.main(["--device", "cpu", "--requests", "2", "--max-new", "2"])
+    out = capsys.readouterr().out
+    assert "served 2/2 requests" in out and "on cpu" in out
 
 
 def test_chip_smoke_fails_without_the_port(tmp_path):
