@@ -215,8 +215,8 @@ def check_flash(torch, k, g) -> None:
     (decode and a chunk with a padded tail), rows that see no key, a decode
     tile at GQA 16:1, a strided layer of a stacked cache with NaN past
     ``valid_len``; f32, f16 and bf16.  The plain version folds keys in the
-    kernel's key tile, so both sum in the same blocks."""
-    from repro_torch.kernels.plan import default_planner
+    kernel's key tile, so both sum in the same blocks.  Operands of mixed
+    dtypes are refused on the card."""
     tols = {torch.float32: 2e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
     cases = [
         # B, Tq, Tk, H, KH, D, Dv, causal, q_offset, prefix, valid_len
@@ -239,9 +239,8 @@ def check_flash(torch, k, g) -> None:
             qo = torch.tensor(off, dtype=torch.int32, device="cuda")
             vl = None if valid is None else torch.tensor(
                 valid, dtype=torch.int32, device="cuda")
-            block = default_planner().plan_attention_block(Tq, Tk, D, Dv, dt)
             kw = dict(causal=causal, q_offset=qo, prefix_len=pfx,
-                      valid_len=vl, block=block)
+                      valid_len=vl)
             want = k.flash_attention_plain(q, kk, v, **kw)
             kern = k.flash_attention_kernel
             got = _counted(kern, lambda: kern(q, kk, v, **kw))
@@ -262,7 +261,7 @@ def check_flash(torch, k, g) -> None:
     dirty = cache.masked_fill(dead, float("nan"))
     q = torch.randn(R, B, 1, H, D, generator=g, device="cuda").to(
         torch.bfloat16)
-    kw = dict(causal=True, q_offset=pos, valid_len=pos + 1, block=64)
+    kw = dict(causal=True, q_offset=pos, valid_len=pos + 1)
     want = k.flash_attention_plain(q, clean[0, :, 1], clean[1, :, 1], **kw)
     got = _counted(k.flash_attention_kernel, lambda: k.flash_attention_kernel(
         q, dirty[0, :, 1], dirty[1, :, 1], **kw))
@@ -270,6 +269,15 @@ def check_flash(torch, k, g) -> None:
     check(bool(torch.isfinite(got).all())
           and err <= 1.6e-2 * float(want.float().abs().max()),
           f"flash on a cache layer view: err {err}")
+    before = k.flash_attention_kernel.launches
+    try:
+        k.flash_attention_kernel(q.float(), clean[0, :, 1], clean[1, :, 1],
+                                 **kw)
+        check(False, "flash: f32 q over a bf16 cache was not refused")
+    except TypeError:
+        pass
+    check(k.flash_attention_kernel.launches == before,
+          "flash: a refused call counted a launch")
 
 
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
@@ -296,11 +304,9 @@ def _sdpa(torch, q, kk, v, visible):
 def _flash_at(torch, k, name, q, kk, v, q_off, valid):
     """The flash kernel against its plain version and SDPA at one shape of
     the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors."""
-    from repro_torch.kernels.plan import default_planner
     Tq, H, D = q.shape[-3:]
     Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
-    block = default_planner().plan_attention_block(Tq, Tk, D, Dv, q.dtype)
-    kw = dict(causal=True, q_offset=q_off, valid_len=valid, block=block)
+    kw = dict(causal=True, q_offset=q_off, valid_len=valid)
     got = k.flash_attention_kernel(q, kk, v, **kw)
     want = k.flash_attention_plain(q, kk, v, **kw)
     err = max_err(torch, got, want)
@@ -370,12 +376,13 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
 
 
 
-def _serve_bounds(cfg, schema, lengths, positions, kv_bytes_per_token):
+def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token):
     """The least device time (ms, bf16) of each serving metric, from the
     model's shapes: a request's time to first token alone on the card (its
     prompt's matmul and causal-attention flops, or its chunks' weight reads)
-    and one decode step with the slots at ``positions`` (every weight but
-    the embedding table read once, and every cached K/V row)."""
+    and each decode step whose live slots read ``steps_keys[i]`` keys (every
+    weight but the embedding table read once, and those K/V rows; a parked
+    slot's rows are not work a user asked for and are not counted)."""
     mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
     size = {n: math.prod(s.shape) for n, s in schema.items()}
     layer = sum(v for n, v in size.items() if n.split("/")[-1] in mm)
@@ -387,10 +394,10 @@ def _serve_bounds(cfg, schema, lengths, positions, kv_bytes_per_token):
         chunks = -(-int(n) // CHUNK)
         ops = 2 * layer * n + 2 * L * H * D * n * (n + 1) + 2 * head * chunks
         ttft.append(bound(chunks * w_bytes, ops, "bfloat16")[0])
-    kv = kv_bytes_per_token * int(sum(positions))
-    step = bound(w_bytes + kv, 2 * (layer + head) * len(positions),
-                 "bfloat16")[0]
-    return ttft, step
+    steps = [bound(w_bytes + kv_bytes_per_token * int(sum(keys)),
+                   2 * (layer + head) * len(keys), "bfloat16")[0]
+             for keys in steps_keys]
+    return ttft, steps
 
 
 def serve_phase(torch, k, dev, wrappers) -> dict:
@@ -433,10 +440,14 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     lengths = rng.randint(MIN_PROMPT, MAX_PROMPT + 1, size=REQUESTS)
     eng = engine(cfg, params, slots=SLOTS, max_len=MAX_LEN,
                  prefill_chunk=CHUNK)
-    step_events, finite = [], []
+    step_events, step_keys, finite = [], [], []
     fn = eng.decode_step.fn
 
     def timed_decode(*args):
+        # keys each live slot reads this step: its rows so far, plus one
+        step_keys.append([int(eng.host_pos[s]) + 1
+                          for s, r in eng.active.items()
+                          if r.fed >= len(r.prompt)])
         a, b = torch.cuda.Event(enable_timing=True), \
             torch.cuda.Event(enable_timing=True)
         a.record()
@@ -472,25 +483,29 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     stats = eng.latency_stats()
     ttft = stats["ttft_s"]
     steps_ms = [a.elapsed_time(b) for a, b in step_events]
-    steady = steps_ms[2:] or steps_ms
-    log(f"serve: time to first token p50 {ttft['p50'] * 1e3:.1f} ms, p99 "
-        f"{ttft['p99'] * 1e3:.1f} ms (mean {ttft['mean'] * 1e3:.1f}, max "
-        f"{ttft['max'] * 1e3:.1f}); decode step median "
-        f"{statistics.median(steady):.3f} ms over {len(steady)} steps (min "
-        f"{min(steady):.3f}, max {max(steady):.3f}); "
-        f"{stats['tokens']} tokens; kv {eng.kv_stats}")
-    from repro_torch.serve.slo import percentiles
-    pos = (MAX_LEN * np.array([2, 3, 4, 5]) // 8).astype(np.int32)
     kc = eng.cache["k"]
     per_token = 2 * kc.element_size() * kc.numel() // (
         kc.shape[mesh.ndim + 1] * kc.shape[mesh.ndim + 2])
-    ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), lengths, pos,
-                                   per_token)
-    tb = percentiles(ttft_b, (50, 99))
+    ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), lengths,
+                                   step_keys, per_token)
+    steady, steady_b = steps_ms[2:] or steps_ms, step_b[2:] or step_b
+    # a smoke reading, not a tail: 8 requests sent at once onto 4 slots, so
+    # most of it is queueing behind earlier prompts
+    log(f"serve: time to first token over {REQUESTS} requests sent at once "
+        f"(smoke reading, queueing included): median {ttft['p50'] * 1e3:.1f}"
+        f" ms, max {ttft['max'] * 1e3:.1f} ms; decode step median "
+        f"{statistics.median(steady):.3f} ms over {len(steady)} steps (min "
+        f"{min(steady):.3f}, max {max(steady):.3f}); "
+        f"{stats['tokens']} tokens; kv {eng.kv_stats}")
     log(f"serve: bounds (bf16 at {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s, "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s): time to first token alone on the "
-        f"card p50 {tb['p50']:.2f} ms, p99 {tb['p99']:.2f} ms; decode step "
-        f"at positions {pos.tolist()} {step_b:.3f} ms")
+        f"{PEAK_BYTES / 1e12:.2f} TB/s): time to first token of a request "
+        f"alone on the card median {statistics.median(ttft_b):.2f} ms, max "
+        f"{max(ttft_b):.2f} ms; decode step at each timed step's live "
+        f"positions median {statistics.median(steady_b):.3f} ms (min "
+        f"{min(steady_b):.3f}, max {max(steady_b):.3f}); step time over its "
+        f"bound median "
+        f"{statistics.median(t / b for t, b in zip(steady, steady_b)):.2f}")
+    pos = (MAX_LEN * np.array([2, 3, 4, 5]) // 8).astype(np.int32)
 
     # where a decode step and a chunk-prefill call spend their time: the
     # engine's own steps on its cache, at mid-length positions
@@ -562,6 +577,10 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     for chunk in (1, 32):
         e = engine(small, params, slots=SLOTS, max_len=128,
                    prefill_chunk=chunk)
+        # the engine's cache is bf16, as the reference's; this check keeps
+        # it in the weights' float32, since the flash kernel takes one dtype
+        e.cache = {n: c if n == "pos" else c.float()
+                   for n, c in e.cache.items()}
         rs = [e.submit(p, max_new=8) for p in prompts]
         e.run()
         outs[chunk] = [r.out for r in rs]

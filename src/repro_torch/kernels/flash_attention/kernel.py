@@ -27,14 +27,23 @@ def _per_row(x: Offsets, lead, device) -> torch.Tensor:
     return torch.as_tensor(x, dtype=torch.int32, device=device).expand(lead)
 
 
+def _key_tile(q, k, v, block: Optional[int]) -> int:
+    """The key tile the kernel stages: the planner's, at most ``block``."""
+    return default_planner().plan_attention_block(
+        q.shape[-3], k.shape[-3], q.shape[-1], v.shape[-1], q.dtype,
+        block=512 if block is None else block)
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True,
                           q_offset: Offsets = 0, prefix_len: int = 0,
-                          scale: Optional[float] = None, block: int = 512,
+                          scale: Optional[float] = None,
+                          block: Optional[int] = None,
                           valid_len: Optional[Offsets] = None) -> torch.Tensor:
     """The plain version over any leading dims: ``q (..., Tq, H, D)``,
     ``k (..., Tk, KH, D)``, ``v (..., Tk, KH, Dv)``; the offsets broadcast
-    to the leading dims."""
+    to the leading dims.  It folds the kernel's key tile per update."""
     lead = q.shape[:-3]
+    block = _key_tile(q, k, v, block)
     if valid_len is None:
         valid_len = k.shape[-3]
     out = flash_attention_ref(
@@ -63,7 +72,8 @@ def _rank_batch(t: torch.Tensor, what: str):
 
 def flash_attention_kernel(q, k, v, *, causal: bool = True,
                            q_offset: Offsets = 0, prefix_len: int = 0,
-                           scale: Optional[float] = None, block: int = 512,
+                           scale: Optional[float] = None,
+                           block: Optional[int] = None,
                            valid_len: Optional[Offsets] = None
                            ) -> torch.Tensor:
     """GQA flash attention: ``q (..., B, Tq, H, D)``, ``k (..., B, Tk, KH,
@@ -74,7 +84,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     ``valid_len`` are ints or int tensors that broadcast to the leading
     dims; on the card they stay there (per-slot decode positions are never
     read back).  ``valid_len`` must not exceed Tk.  The key tile is the
-    planner's ``plan_attention_block`` at most ``block``.
+    planner's ``plan_attention_block`` at most ``block``.  On the card q, k
+    and v must share one dtype.
     """
     lead = q.shape[:-3]
     Tq, H, D = q.shape[-3:]
@@ -89,19 +100,9 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
                                      q_offset=q_offset, prefix_len=prefix_len,
                                      scale=scale, block=block,
                                      valid_len=valid_len)
-    if any(t.dtype not in DTYPE_CODES for t in (q, k, v)):
-        raise TypeError(f"flash attention kernel takes f32/f16/bf16, got "
-                        f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if not k.dtype == v.dtype == q.dtype:
-        # mixed operands (f32 activations over a bf16 cache): compute in
-        # the widest type, as the plain version computes in f32 anyway
-        wide = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
-                                   v.dtype)
-        res = flash_attention_kernel(
-            q.to(wide), k.to(wide), v.to(wide), causal=causal,
-            q_offset=q_offset, prefix_len=prefix_len, scale=scale,
-            block=block, valid_len=valid_len)
-        return res.to(q.dtype)
+    if q.dtype not in DTYPE_CODES or not k.dtype == v.dtype == q.dtype:
+        raise TypeError(f"flash attention kernel takes one of f32/f16/bf16 "
+                        f"for q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
     if not (k.device == v.device == q.device):
         raise ValueError("flash attention: q, k and v on different devices")
     if len(lead) < 1:
@@ -115,8 +116,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
         valid_len = Tk
     qo = _per_row(q_offset, lead, q.device).contiguous()
     vl = _per_row(valid_len, lead, q.device).contiguous()
-    tile = default_planner().plan_attention_block(Tq, Tk, D, Dv, q.dtype,
-                                                  block=block)
+    tile = _key_tile(q, k, v, block)
     qs, ks, vs, os_ = (_rank_batch(t, n) for t, n in
                        ((q, "q"), (k, "k"), (v, "v"), (out, "out")))
     status = library("flash_attention").repro_flash_attention(

@@ -2,13 +2,14 @@
 
 Layout contract with the model stack: ``(..., B, T, H, D)`` in,
 ``(..., B, T, H, Dv)`` out; leading dims are ranks of a stacked tensor.
-``impl="cuda"`` (the default, the path the model stack runs) is the
-hand-written kernel on CUDA tensors and the plain version on CPU tensors;
-``impl="ref"`` is the plain version on any device.  Both take ``q_offset``
-and ``valid_len`` as ints or per-row tensors (decode).  ``impl="ring"``, the
-sequence-parallel path, is not ported yet (ROADMAP queue 1, item 13).
+``impl="cuda"`` (the default and the only local path) is the hand-written
+kernel on CUDA tensors and the plain version on CPU tensors; it takes
+``q_offset`` and ``valid_len`` as ints or per-row tensors (decode).
+``impl="ring"``, the sequence-parallel path, is not ported yet (ROADMAP
+queue 1, item 13).  The reference's ``"ref"`` and ``"pallas"`` are refused,
+so no caller reaches the plain version on the card.
 
-``block=None`` asks the active planner for the key tile the kernel stages
+``block=None`` lets the kernel wrapper take the planner's key tile
 (:meth:`~repro_torch.kernels.plan.OverlapPlanner.plan_attention_block`);
 the plain version folds the same number of keys per update.
 """
@@ -17,8 +18,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from ..plan import default_planner
-from .kernel import flash_attention_kernel, flash_attention_plain
+from .kernel import flash_attention_kernel
 
 __all__ = ["flash_attention"]
 
@@ -38,17 +38,13 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
         raise NotImplementedError(
             "impl='ring' (fused ring attention over the sequence-parallel "
             "group) is not ported yet: ROADMAP queue 1, item 13")
+    if impl != "cuda":
+        raise ValueError(f"unknown impl {impl!r}: the port's local flash "
+                         f"attention is impl='cuda'")
     if interpret:
         raise ValueError("the CUDA kernel has no interpret mode: pass CPU "
                          "tensors to run the plain version")
     del group, q_sharded
-    if block is None:
-        block = default_planner().plan_attention_block(
-            q.shape[-3], k.shape[-3], q.shape[-1], v.shape[-1], q.dtype)
-    kw = dict(causal=causal, q_offset=q_offset, prefix_len=prefix_len,
-              scale=scale, block=block, valid_len=valid_len)
-    if impl == "cuda":
-        return flash_attention_kernel(q, k, v, **kw)
-    if impl == "ref":
-        return flash_attention_plain(q, k, v, **kw)
-    raise ValueError(f"unknown impl {impl!r}")
+    return flash_attention_kernel(q, k, v, causal=causal, q_offset=q_offset,
+                                  prefix_len=prefix_len, scale=scale,
+                                  block=block, valid_len=valid_len)

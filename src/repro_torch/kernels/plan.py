@@ -57,8 +57,9 @@ __all__ = [
 # * flash attention stages, per block, the scaled q^T of a FLASH_BQ-row tile
 #   and, per key tile of ``block`` keys, k^T, v and the probabilities, all in
 #   f32 with one column of padding against bank conflicts
-#   (``OverlapPlanner.flash_stage_bytes``): 113 KiB at D = Dv = 128 and
-#   block = 64;
+#   (``OverlapPlanner.flash_stage_bytes``, the formula of ``launch()`` in
+#   csrc/flash_attention.cu): 113 KiB at D = Dv = 128 and block = 64,
+#   staged once (no double buffer);
 # * the fused ring's stripe slots and the fused step's landing windows live
 #   in device memory, not shared memory.
 #
@@ -70,6 +71,7 @@ MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh
 STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu
 FLASH_BQ = 64                   # query rows of a csrc/flash_attention.cu tile
 FLASH_BLOCKS = (64, 32, 16)     # the key tiles that kernel takes
+FLASH_MAX_DV = 256              # the widest value head it takes
 
 
 def _itemsize(dtype) -> int:
@@ -474,20 +476,24 @@ class OverlapPlanner:
                              *, block: int = 512) -> int:
         """Keys folded per online-softmax update: the largest of the flash
         kernel's key tiles (64, 32, 16), at most ``block``, whose shared-
-        memory stage double-buffers in the budget.
+        memory stage fits the budget.  The kernel stages once (no double
+        buffer), so one stage is what must fit.
 
         The plain version folds the same number of keys per update, so the
         two sum in the same blocks.  Raises when even the smallest tile does
-        not fit (a head too wide for the kernel).
+        not fit, or ``Dv`` exceeds the kernel's ``FLASH_MAX_DV``.
         """
         del tq, tk, dtype             # the kernel stages every dtype in f32
-        for b in FLASH_BLOCKS:
-            if b <= max(block, FLASH_BLOCKS[-1]) \
-                    and self._fits(self.flash_stage_bytes(d, dv, b)):
-                return b
+        if dv <= FLASH_MAX_DV:
+            for b in FLASH_BLOCKS:
+                if b <= max(block, FLASH_BLOCKS[-1]) \
+                        and self.flash_stage_bytes(d, dv, b) \
+                        <= self.smem_budget:
+                    return b
         raise ValueError(
-            f"flash attention with D = {d}, Dv = {dv} does not fit a "
-            f"shared-memory budget of {self.smem_budget} bytes")
+            f"flash attention with D = {d}, Dv = {dv} does not fit the "
+            f"kernel (Dv <= {FLASH_MAX_DV}) and a shared-memory budget of "
+            f"{self.smem_budget} bytes")
 
     # -- halo exchange (Minimod) ----------------------------------------------
     def plan_halo_slots(self, z_loc: int, y_loc: int, x: int, dtype,

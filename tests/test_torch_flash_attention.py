@@ -125,34 +125,48 @@ def test_wrapper_takes_plain_version_on_cpu():
     torch.testing.assert_close(
         got, flash_attention_plain(q, k, v, q_offset=4, block=16))
     torch.testing.assert_close(
-        got, flash_attention(q, k, v, q_offset=4, block=16, impl="ref"))
+        got, flash_attention(q, k, v, q_offset=4, block=16))
+    # block=None: the wrapper takes the planner's tile for both versions
+    torch.testing.assert_close(flash_attention_kernel(q, k, v, q_offset=4),
+                               flash_attention_plain(q, k, v, q_offset=4))
     assert flash_attention_kernel.launches == before
 
 
 def test_ring_and_interpret_are_refused():
+    """Only the kernel route is local: the reference's ``"ref"`` and
+    ``"pallas"`` are refused, so no caller reaches the plain version on
+    the card."""
     q = torch.zeros(1, 2, 2, 4)
     with pytest.raises(NotImplementedError, match="item 13"):
         flash_attention(q, q, q, impl="ring")
     with pytest.raises(ValueError, match="interpret"):
         flash_attention(q, q, q, interpret=True)
+    for impl in ("ref", "pallas"):
+        with pytest.raises(ValueError, match="unknown impl"):
+            flash_attention(q, q, q, impl=impl)
 
 
 def test_attention_block_fits_the_kernels_shared_memory():
-    """The key tile is the largest of 64 / 32 / 16 whose f32 stage
-    double-buffers in the H100's 227 KB of shared memory (not the
-    reference's 16 MiB of TPU VMEM), capped by ``block``."""
+    """The key tile is the largest of 64 / 32 / 16 whose f32 stage fits
+    the H100's 227 KB of shared memory once (the kernel stages once; not
+    the reference's 16 MiB of TPU VMEM), capped by ``block``."""
     p = OverlapPlanner()
     assert p.smem_budget == SMEM_BUDGET_DEFAULT == 232_448
     assert p.plan_attention_block(512, 4096, 128, 128, torch.bfloat16) == 64
     assert p.plan_attention_block(1, 4096, 80, 80, torch.bfloat16) == 64
-    assert p.plan_attention_block(8, 8, 256, 256, torch.float32) == 16
+    assert p.plan_attention_block(8, 8, 256, 256, torch.float32) == 64
+    assert p.plan_attention_block(8, 8, 512, 256, torch.float32) == 16
     assert p.plan_attention_block(8, 8, 64, 64, torch.float32, block=32) == 32
     assert p.plan_attention_block(8, 8, 64, 64, torch.float32, block=8) == 16
-    for d, dv in [(128, 128), (256, 256), (64, 16)]:
+    for d, dv in [(128, 128), (256, 256), (512, 256), (64, 16)]:
         b = p.plan_attention_block(1, 1, d, dv, torch.float32)
         stage = p.flash_stage_bytes(d, dv, b)
         assert stage == 4 * (d * (FLASH_BQ + 1) + d * (b + 1) + b * dv
                              + FLASH_BQ * (b + 1))
-        assert 2 * stage <= SMEM_BUDGET_DEFAULT
+        assert stage <= SMEM_BUDGET_DEFAULT
+        if b < 64:
+            assert p.flash_stage_bytes(d, dv, 2 * b) > SMEM_BUDGET_DEFAULT
     with pytest.raises(ValueError, match="shared-memory budget"):
-        p.plan_attention_block(1, 1, 512, 512, torch.float32)
+        p.plan_attention_block(1, 1, 1024, 64, torch.float32)
+    with pytest.raises(ValueError, match="Dv <= 256"):
+        p.plan_attention_block(1, 1, 64, 512, torch.float32)
