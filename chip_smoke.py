@@ -18,13 +18,20 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   two TP ranks stacked on the card): 8 requests of 256-3000 prompt tokens,
   32 new tokens each, 4 slots, chunked prefill of 512 — every attention of
   the model runs the flash-attention kernel;
+* the same engine and traffic on qwen3-moe-235b-a22b at full width with
+  its depth cut to 8 layers, two EP/TP ranks (64 experts each) under
+  ``dispatch_impl="fused"``: every MoE layer of every decode step and
+  prefill chunk runs the fused dispatch kernel (puts, grouped expert MLP,
+  returns), then one 512-token prefill chunk under the default ``"a2a"``,
+  whose grouped GEMMs run the expert-MLP kernel;
 
 with every kernel's launch count zeroed just before each path and read just
 after it.  Then it times each kernel at the main path's shapes beside its
 plain version and, where one exists, the one PyTorch call that computes the
 same function, times Minimod's two modes over repeated alternated runs,
-prints the serving phase's time to first token and decode step time, and
-prints one JSON line of per-kernel numbers, the card's
+prints each serving phase's time to first token and decode step time (and
+the MoE phase's plans, drop count and routed experts), and prints one JSON
+line of per-kernel numbers, the card's
 name and power limit, and a last JSON line with the device.  Any failed
 phase exits non-zero; so does a machine without CUDA and a directory that
 does not hold the port.
@@ -54,6 +61,9 @@ GRID, NZ, STEPS = 1024, 4, 10
 MINIMOD_REPS = 5                # timed runs of each Minimod mode
 # serving: glm4-9b at full width on the data 1 x model 2 smoke mesh
 SERVE_ARCH, SERVE_RANKS = "glm4-9b", 2
+# MoE serving: qwen3-moe-235b-a22b at full width, its 94 layers cut to 8
+# (42 GB of bf16 weights), on the same mesh (EP = TP = 2)
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 SLOTS, MAX_LEN, CHUNK, PAGE_TOKENS = 4, 4096, 512, 64
 REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 256, 3000, 32
 
@@ -105,9 +115,16 @@ def load_port():
     from repro_torch.kernels.stencil import fused as st_fused
     from repro_torch.kernels.stencil.kernel import leap, leap_plain
     from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.moe_dispatch import fused as moe_fused
+    from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
     return SimpleNamespace(
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
+        expert_mlp=moe_kernel.expert_mlp,
+        expert_mlp_plain=moe_kernel.expert_mlp_plain,
+        fused_moe_dispatch_kernel=moe_fused.fused_moe_dispatch_kernel,
+        fused_moe_dispatch_plain=moe_fused.fused_moe_dispatch_plain,
+        fused_moe_dispatch_interpret=moe_fused.fused_moe_dispatch_interpret,
         matmul_kernel=matmul_kernel, matmul_ref=matmul_ref,
         fused_ring_allgather_matmul_kernel=(
             ring_fused.fused_ring_allgather_matmul_kernel),
@@ -280,9 +297,138 @@ def check_flash(torch, k, g) -> None:
           "flash: a refused call counted a launch")
 
 
+def _routed_counts(torch, g, tokens, k, E_glob, E_loc, C):
+    """Live rows of a rank's ``E_loc`` experts when ``tokens`` tokens each
+    route to ``k`` of ``E_glob`` experts (top-k of random logits)."""
+    logits = torch.randn(tokens, E_glob, generator=g, device="cuda")
+    top = logits.topk(k, dim=-1).indices.reshape(-1)
+    counts = torch.bincount(top, minlength=E_glob)[:E_loc]
+    return counts.clamp(max=C).to(torch.int32)
+
+
+def _expert_case(torch, g, shape, dt, counts, lead=()):
+    """Rows below each expert's count random, the rest zero (the dispatch
+    layouts); weights scaled for outputs of order one."""
+    E, C, d, f = shape
+    x = torch.randn(*lead, E, C, d, generator=g, device="cuda")
+    live = torch.arange(C, device="cuda") < counts[..., None]
+    x = (x * live[..., None]).to(dt)
+    ws = [(torch.randn(E, d, f, generator=g, device="cuda") * d ** -0.5),
+          (torch.randn(E, d, f, generator=g, device="cuda") * d ** -0.5),
+          (torch.randn(E, f, d, generator=g, device="cuda") * f ** -0.5)]
+    return x, [w.to(dt) for w in ws], live
+
+
+def check_expert_mlp(torch, k, g) -> None:
+    """The grouped expert MLP in f32 and bf16 at a small shape and at the
+    serving path's decode (64, 2, 4096, 1536) and chunk (64, 256, 4096,
+    1536) blocks, with live rows from a real top-k routing; rows past the
+    counts must be exactly 0.  Tolerance, relative to the output's largest
+    magnitude: f32 1e-5 (sums in another order), bf16 1.6e-2 (one ulp of
+    the output and of the rounded h, plus the order).  Also: the same call
+    without counts gives the same bits (skipping zero rows is exact), and
+    rank x source blocks over a layer view of stacked weights."""
+    tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    cases = [((8, 64, 256, 128), 64, 2, 8),          # E, C, d, f; t, k, E_glob
+             ((64, 2, 4096, 1536), 2, 8, 128),
+             ((64, 256, 4096, 1536), 256, 8, 128)]
+    for shape, t, kk, E_glob in cases:
+        E, C = shape[:2]
+        counts = _routed_counts(torch, g, t, kk, E_glob, E, C)
+        for dt, tol in tols.items():
+            x, ws, live = _expert_case(torch, g, shape, dt, counts)
+            want = k.expert_mlp_plain(x, *ws, counts)
+            got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts))
+            err = max_err(torch, got, want)
+            check(err <= tol * float(want.float().abs().max()),
+                  f"expert_mlp {shape} {dt}: err {err}")
+            check(not got[~live].any(), f"expert_mlp {shape} {dt}: rows past "
+                  "the counts are not zero")
+            if shape[0] == 8:
+                check(torch.equal(k.expert_mlp(x, *ws), got),
+                      f"expert_mlp {shape} {dt}: counts changed live rows")
+            del x, ws, want, got
+    # (ranks, sources) blocks sharing each rank's weights, the weights one
+    # layer of a stacked (ranks, L, E, d, f) tensor
+    E, C, d, f = 8, 20, 128, 64
+    counts = torch.randint(0, C + 1, (2, 3, E), generator=g, device="cuda",
+                           dtype=torch.int32)
+    x, _, live = _expert_case(torch, g, (E, C, d, f), torch.float32, counts,
+                              lead=(2, 3))
+    stacked = [torch.randn(2, 3, E, a, b, generator=g, device="cuda") * a ** -0.5
+               for a, b in ((d, f), (d, f), (f, d))]
+    ws = [w[:, 1] for w in stacked]
+    want = k.expert_mlp_plain(x, *ws, counts)
+    got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts))
+    err = max_err(torch, got, want)
+    check(err <= 1e-5 * float(want.abs().max()) and not got[~live].any(),
+          f"expert_mlp over ranks x sources on a layer view: err {err}")
+
+
+def check_moe_dispatch(torch, k, g) -> None:
+    """The fused dispatch on ep = 2 and 4 virtual ranks (and two rings of 2
+    side by side) under imbalanced routing, fused and host schedules, with
+    a load-sized plan and the worst-case plan the serving path takes:
+    nothing dropped, the combined output equal bit for bit to the
+    emulation run with the expert-MLP kernel as its MLP, and within the
+    expert MLP's tolerance of the emulation with the plain MLP.  A starved
+    plan drops rows and still equals the emulation."""
+    import dataclasses
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.moe_dispatch.ref import (measure_expert_load,
+                                                      route_topk)
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.launch.mesh import RankMesh
+
+    tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    E, t_loc, d, f, kk = 16, 24, 256, 128, 2
+    for axes, sizes in ((("x",), (2,)), (("x",), (4,)),
+                        (("data", "x"), (2, 2))):
+        mesh = RankMesh(axes, sizes)
+        ep = sizes[-1]
+        group = DiompGroup(("x",), name="ep")
+        for dt, tol in tols.items():
+            toks = torch.randn(*sizes, t_loc, d, generator=g, device="cuda")
+            router = (torch.randn(d, E, generator=g, device="cuda")
+                      + 2.0 * torch.randn(1, E, generator=g, device="cuda"))
+            top_w, top_e = route_topk(toks, router, kk)
+            toks = toks.to(dt)
+            ws = [(torch.randn(*sizes, E // ep, a, b, generator=g,
+                               device="cuda") * a ** -0.5).to(dt)
+                  for a, b in ((d, f), (d, f), (f, d))]
+            loads = measure_expert_load(top_e.reshape(-1, t_loc, kk), E)
+            planner = OverlapPlanner()
+            plans = [planner.plan_alltoall(t_loc, d, kk, E, ep, dt,
+                                           loads=loads),
+                     planner.plan_alltoall(t_loc, d, kk, E, ep, dt),
+                     planner.plan_alltoall(t_loc, d, kk, E, ep, dt,
+                                           overlap=False)]
+            check(max(loads) > 2 * min(loads), f"routing not skewed: {loads}")
+            starved = dataclasses.replace(plans[0], caps=(2,) * E)
+            with use_default(DiompContext(mesh=mesh, device="cuda")):
+                for p in plans + [starved]:
+                    args = (toks, top_e, top_w, *ws, group)
+                    kern = k.fused_moe_dispatch_kernel
+                    got, dropped = _counted(kern, lambda: kern(*args, plan=p))
+                    emu, _ = k.fused_moe_dispatch_interpret(
+                        *args, plan=p, mlp=k.expert_mlp)
+                    plain, _ = k.fused_moe_dispatch_plain(*args, plan=p)
+                    err = max_err(torch, got, plain)
+                    name = (f"moe_dispatch {axes}{sizes} {dt} caps "
+                            f"{p.cap_pad} overlap {p.overlap}")
+                    check(torch.equal(got, emu), f"{name}: differs from the "
+                          "emulation through the expert-MLP kernel")
+                    check(err <= tol * float(plain.float().abs().max()),
+                          f"{name}: err {err}")
+                    check(bool((dropped > 0).any()) == (p is starved),
+                          f"{name}: dropped {dropped.tolist()}")
+
+
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "leap": check_leap, "fused_step": check_fused_step,
-                "flash": check_flash}
+                "flash": check_flash, "expert_mlp": check_expert_mlp,
+                "moe_dispatch": check_moe_dispatch}
 
 
 # -- the serving phase ---------------------------------------------------------
@@ -359,6 +505,9 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
             continue
         name = evt.key
         group = ("flash" if "flash_fwd" in name else
+                 "moe_dispatch" if "dispatch_kernel" in name else
+                 "expert_mlp" if ("gate_up_kernel" in name
+                                  or "down_kernel" in name) else
                  "gemm" if any(t in name.lower() for t in
                                ("gemm", "cutlass", "sm90", "cublas",
                                 "nvjet"))
@@ -375,53 +524,62 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
             f"top: {top}")
 
 
-
-def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token):
+def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token,
+                  steps_experts=None):
     """The least device time (ms, bf16) of each serving metric, from the
     model's shapes: a request's time to first token alone on the card (its
     prompt's matmul and causal-attention flops, or its chunks' weight reads)
-    and each decode step whose live slots read ``steps_keys[i]`` keys (every
-    weight but the embedding table read once, and those K/V rows; a parked
-    slot's rows are not work a user asked for and are not counted)."""
-    mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    and each decode step whose live slots read ``steps_keys[i]`` keys (the
+    weights read once, and those K/V rows; a parked slot's rows are not
+    work a user asked for and are not counted).  The embedding table is
+    never read whole.  MoE: a token runs k of E experts; a decode step reads
+    the weights of the experts its tokens route to, ``steps_experts[i]``
+    summed over the layers (from the step's own count tables); a prefill
+    chunk of c real tokens reads ``min(E, c·k)`` experts a layer, the most
+    it can reach (every expert, for a chunk of E/k tokens or more)."""
+    mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router")
     size = {n: math.prod(s.shape) for n, s in schema.items()}
+    nbytes = {n: size[n] * (4 if s.dtype == "float32" else 2)
+              for n, s in schema.items()}
     layer = sum(v for n, v in size.items() if n.split("/")[-1] in mm)
     head = size["lm_head"]
-    w_bytes = 2 * (sum(size.values()) - size["embed/table"])
+    experts = [n for n in schema if n.endswith("_e")]
     L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    E, k = max(cfg.num_experts, 1), cfg.experts_per_token
+    dense_bytes = sum(v for n, v in nbytes.items()
+                      if n != "embed/table" and n not in experts)
+    expert_bytes = sum(nbytes[n] for n in experts) / (L * E)  # one, one layer
+    pair_params = sum(size[n] for n in experts) / (L * E)      # 3·d·f
     ttft = []
     for n in lengths:
-        chunks = -(-int(n) // CHUNK)
-        ops = 2 * layer * n + 2 * L * H * D * n * (n + 1) + 2 * head * chunks
-        ttft.append(bound(chunks * w_bytes, ops, "bfloat16")[0])
-    steps = [bound(w_bytes + kv_bytes_per_token * int(sum(keys)),
-                   2 * (layer + head) * len(keys), "bfloat16")[0]
-             for keys in steps_keys]
+        n = int(n)
+        chunks = [min(CHUNK, n - c) for c in range(0, n, CHUNK)]
+        ops = (2 * layer * n + 2 * L * H * D * n * (n + 1)
+               + 2 * head * len(chunks) + 2 * pair_params * n * k * L)
+        reads = sum(dense_bytes + L * min(E, c * k) * expert_bytes
+                    for c in chunks) if experts else len(chunks) * dense_bytes
+        ttft.append(bound(reads, ops, "bfloat16")[0])
+    steps = []
+    for i, keys in enumerate(steps_keys):
+        routed = steps_experts[i] if experts else 0
+        steps.append(bound(
+            dense_bytes + routed * expert_bytes
+            + kv_bytes_per_token * int(sum(keys)),
+            2 * (layer + head) * len(keys)
+            + 2 * pair_params * len(keys) * k * L, "bfloat16")[0])
     return ttft, steps
 
 
-def serve_phase(torch, k, dev, wrappers) -> dict:
-    """Serve glm4-9b at full width through the port's engine; returns the
-    flash kernel's line of the ``kernels`` JSON."""
+def _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
+                  on_step=None):
+    """Serve the phase's 8 requests through the port's engine, every
+    wrapper's count zeroed just before the run and read just after; each
+    decode call is timed with CUDA events (``on_step`` runs after each, off
+    the clock).  Checks every request and the decode logits."""
     import numpy as np
-    from repro_torch import configs
+    from types import SimpleNamespace
     from repro_torch.core.context import DiompContext
-    from repro_torch.launch.mesh import make_smoke_mesh
-    from repro_torch.models import schema as sch
-    from repro_torch.models.config import ParallelCtx
     from repro_torch.serve.engine import ServeEngine
-
-    cfg = configs.get(SERVE_ARCH)
-    mesh = make_smoke_mesh(SERVE_RANKS)
-    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
-                             .manual_seed(0), device=dev)
-    torch.cuda.synchronize()
-    nbytes = sum(p.numel() * p.element_size() for p in params.values())
-    log(f"serve: {cfg.name} on {mesh.shape}, {nbytes / 1e9:.2f} GB of "
-        f"random bf16 weights in {time.perf_counter() - t0:.1f} s")
 
     def engine(c, params, **kw):
         ctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 31,
@@ -455,6 +613,8 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
         b.record()
         step_events.append((a, b))
         finite.append(torch.isfinite(logits).all())
+        if on_step is not None:
+            on_step()
         return logits, cache
 
     eng.decode_step.fn = timed_decode
@@ -467,9 +627,11 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: wr.launches for name, wr in wrappers.items()}
-    log(f"serve: {REQUESTS} requests (prompts {sorted(lengths.tolist())}), "
-        f"{eng.steps} engine steps, {eng.device_calls} device calls in "
-        f"{wall:.2f} s; launches {launches}")
+    eng.decode_step.fn = fn
+    log(f"serve {cfg.name}: {REQUESTS} requests (prompts "
+        f"{sorted(lengths.tolist())}), {eng.steps} engine steps, "
+        f"{eng.device_calls} device calls in {wall:.2f} s; launches "
+        f"{launches}")
     for r, n in zip(reqs, lengths):
         check(r.done and len(r.out) == MAX_NEW, f"request of {n} unfinished")
         check(r.prefill_steps == -(-n // CHUNK),
@@ -480,42 +642,53 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     check(flash == cfg.num_layers * eng.device_calls,
           f"flash launches {flash} != {cfg.num_layers} x "
           f"{eng.device_calls} device calls")
+    return SimpleNamespace(
+        eng=eng, reqs=reqs, lengths=lengths, launches=launches, rng=rng,
+        engine=engine, step_keys=step_keys,
+        steps_ms=[a.elapsed_time(b) for a, b in step_events])
+
+
+def _report_serving(torch, dev, cfg, mesh, params, run, steps_experts=None):
+    """Time to first token, the decode step, their bounds, and where one
+    decode call and one chunk-prefill call spend their time."""
+    import numpy as np
+    from repro_torch.core.context import use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.models import schema as sch
+
+    eng = run.eng
     stats = eng.latency_stats()
-    ttft = stats["ttft_s"]
-    steps_ms = [a.elapsed_time(b) for a, b in step_events]
+    ttft, steps_ms = stats["ttft_s"], run.steps_ms
     kc = eng.cache["k"]
     per_token = 2 * kc.element_size() * kc.numel() // (
         kc.shape[mesh.ndim + 1] * kc.shape[mesh.ndim + 2])
-    ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), lengths,
-                                   step_keys, per_token)
+    ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), run.lengths,
+                                   run.step_keys, per_token, steps_experts)
     steady, steady_b = steps_ms[2:] or steps_ms, step_b[2:] or step_b
     # a smoke reading, not a tail: 8 requests sent at once onto 4 slots, so
     # most of it is queueing behind earlier prompts
-    log(f"serve: time to first token over {REQUESTS} requests sent at once "
-        f"(smoke reading, queueing included): median {ttft['p50'] * 1e3:.1f}"
-        f" ms, max {ttft['max'] * 1e3:.1f} ms; decode step median "
-        f"{statistics.median(steady):.3f} ms over {len(steady)} steps (min "
-        f"{min(steady):.3f}, max {max(steady):.3f}); "
+    log(f"serve {cfg.name}: time to first token over {REQUESTS} requests "
+        f"sent at once (smoke reading, queueing included): median "
+        f"{ttft['p50'] * 1e3:.1f} ms, max {ttft['max'] * 1e3:.1f} ms; decode "
+        f"step median {statistics.median(steady):.3f} ms over {len(steady)} "
+        f"steps (min {min(steady):.3f}, max {max(steady):.3f}); "
         f"{stats['tokens']} tokens; kv {eng.kv_stats}")
-    log(f"serve: bounds (bf16 at {PEAK_OPS['bfloat16'] / 1e12:.0f} TFLOP/s, "
-        f"{PEAK_BYTES / 1e12:.2f} TB/s): time to first token of a request "
-        f"alone on the card median {statistics.median(ttft_b):.2f} ms, max "
-        f"{max(ttft_b):.2f} ms; decode step at each timed step's live "
-        f"positions median {statistics.median(steady_b):.3f} ms (min "
+    log(f"serve {cfg.name}: bounds (bf16 at {PEAK_OPS['bfloat16'] / 1e12:.0f}"
+        f" TFLOP/s, {PEAK_BYTES / 1e12:.2f} TB/s): time to first token of a "
+        f"request alone on the card median {statistics.median(ttft_b):.2f} "
+        f"ms, max {max(ttft_b):.2f} ms; decode step at each timed step's "
+        f"live positions median {statistics.median(steady_b):.3f} ms (min "
         f"{min(steady_b):.3f}, max {max(steady_b):.3f}); step time over its "
         f"bound median "
         f"{statistics.median(t / b for t, b in zip(steady, steady_b)):.2f}")
-    pos = (MAX_LEN * np.array([2, 3, 4, 5]) // 8).astype(np.int32)
 
     # where a decode step and a chunk-prefill call spend their time: the
     # engine's own steps on its cache, at mid-length positions
-    nd = mesh.ndim
-    from repro_torch.core.context import use_default
+    pos = (MAX_LEN * np.array([2, 3, 4, 5]) // 8).astype(np.int32)
     eng._set_pos(pos)
-    toks = eng.decode_step.token_spec
-    from repro_torch.interop import stack_shards
-    dtoks = stack_shards(rng.randint(0, cfg.vocab_size, (SLOTS, 1)), mesh,
-                         toks, device=dev, dtype=torch.int64)
+    dtoks = stack_shards(run.rng.randint(0, cfg.vocab_size, (SLOTS, 1)), mesh,
+                         eng.decode_step.token_spec, device=dev,
+                         dtype=torch.int64)
 
     def decode_once():
         eng.cache["pos"] = stack_shards(pos, mesh, eng._specs["pos"],
@@ -523,7 +696,7 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
         with use_default(eng.dctx):
             eng.decode_step(params, dtoks, eng.cache)
 
-    ctoks = stack_shards(rng.randint(0, cfg.vocab_size, (1, CHUNK)), mesh,
+    ctoks = stack_shards(run.rng.randint(0, cfg.vocab_size, (1, CHUNK)), mesh,
                          eng.chunk_step.token_spec, device=dev,
                          dtype=torch.int64)
     eng.host_pos[0] = MAX_LEN // 2
@@ -532,10 +705,35 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
         with use_default(eng.dctx):
             eng.chunk_step(params, ctoks, eng._slot_cache(0), CHUNK)
 
-    log(f"serve: decode step at positions {pos.tolist()}: "
+    log(f"serve {cfg.name}: decode step at positions {pos.tolist()}: "
         f"{_breakdown(torch, decode_once)}")
-    log(f"serve: chunk prefill of {CHUNK} at position {MAX_LEN // 2}: "
-        f"{_breakdown(torch, chunk_once)}")
+    log(f"serve {cfg.name}: chunk prefill of {CHUNK} at position "
+        f"{MAX_LEN // 2}: {_breakdown(torch, chunk_once)}")
+    return decode_once
+
+
+def serve_phase(torch, k, dev, wrappers) -> dict:
+    """Serve glm4-9b at full width through the port's engine; returns the
+    flash kernel's line of the ``kernels`` JSON."""
+    from repro_torch import configs
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+
+    cfg = configs.get(SERVE_ARCH)
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"serve: {cfg.name} on {mesh.shape}, {nbytes / 1e9:.2f} GB of "
+        f"random bf16 weights in {time.perf_counter() - t0:.1f} s")
+    run = _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers)
+    _report_serving(torch, dev, cfg, mesh, params, run)
+    eng, reqs, nd = run.eng, run.reqs, mesh.ndim
 
     # the flash kernel at the path's two shapes, on the served cache
     g = torch.Generator(device=dev).manual_seed(5)
@@ -549,7 +747,7 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     line = {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
-            "launches": flash, "shape": "decode"}
+            "launches": run.launches["flash_attention"], "shape": "decode"}
     line.update(_flash_at(torch, k, "decode", q, kc, vc, pos, pos + 1))
     q = torch.randn(*mesh.sizes, 1, CHUNK, H, hd, generator=g,
                     device=dev).to(torch.bfloat16)
@@ -558,6 +756,7 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     line["chunk"] = _flash_at(torch, k, "chunk", q, kc[..., :1, :, :, :],
                               vc[..., :1, :, :, :], p0, p0 + CHUNK)
     del eng, q, kc, vc
+    run.eng = None
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: peak device memory {peak:.1f} GB")
     del params
@@ -572,11 +771,11 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     params = sch.init_params(small, mesh, torch.Generator(device=dev)
                              .manual_seed(1), device=dev)
     params = {n: p.float() for n, p in params.items()}
-    prompts = [rng.randint(0, cfg.vocab_size, n) for n in (5, 37, 70)]
+    prompts = [run.rng.randint(0, cfg.vocab_size, n) for n in (5, 37, 70)]
     outs = {}
     for chunk in (1, 32):
-        e = engine(small, params, slots=SLOTS, max_len=128,
-                   prefill_chunk=chunk)
+        e = run.engine(small, params, slots=SLOTS, max_len=128,
+                       prefill_chunk=chunk)
         # the engine's cache is bf16, as the reference's; this check keeps
         # it in the weights' float32, since the flash kernel takes one dtype
         e.cache = {n: c if n == "pos" else c.float()
@@ -590,6 +789,229 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     del params
     torch.cuda.empty_cache()
     return line
+
+
+class _Tap:
+    """Route ``module.name`` through a recorder: ``keep(args)`` decides
+    whether a call's arguments are kept in ``calls``; the original runs
+    either way (its launch counts included)."""
+
+    def __init__(self, module, name, keep):
+        # keep(args, kw) -> bool
+        self.module, self.name, self.keep = module, name, keep
+        self.calls = []
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def tapped(*args, **kw):
+            if self.keep(args, kw):
+                self.calls.append((args, kw))
+            return self.orig(*args, **kw)
+
+        setattr(self.module, self.name, tapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _dispatch_at(torch, k, name, args, kw, plan):
+    """The fused dispatch kernel at one shape of the serving path (the
+    arguments a MoE layer gave it): equal to the emulation through the
+    expert-MLP kernel, within tolerance of the plain version, timed."""
+    from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
+    got, dropped = k.fused_moe_dispatch_kernel(*args, **kw)
+    emu, _ = k.fused_moe_dispatch_interpret(*args, **kw, mlp=k.expert_mlp)
+    plain, _ = k.fused_moe_dispatch_plain(*args, **kw)
+    check(torch.equal(got, emu), f"moe_dispatch {name}: differs from the "
+          "emulation through the expert-MLP kernel")
+    err = max_err(torch, got, plain)
+    # bf16 output: one ulp of the output and of the rounded h, plus order
+    check(bool(torch.isfinite(got).all()) and not dropped.any()
+          and err <= 1.6e-2 * float(plain.float().abs().max()),
+          f"moe_dispatch {name}: err {err}, dropped {dropped.tolist()}")
+    del emu, plain
+    toks, top_e, top_w, wg = args[:4]
+    counts = dispatch_buffers(toks, top_e, top_w, plan)[4]
+    # the work these inputs need: every kept (token, choice) pair's three
+    # products; the weights of every expert some row reaches, read once;
+    # the tokens read and the combined rows written once
+    pairs = int(counts.sum())
+    routed = int((counts.reshape(-1, plan.E).sum(0) > 0).sum())
+    d, f = wg.shape[-2:]
+    nbytes = 2 * (routed * 3 * d * f + 2 * toks.numel()) \
+        + 4 * top_w.numel() + 8 * top_e.numel()
+    ops = 2 * 3 * d * f * pairs
+    ms = cuda_ms(torch, lambda: k.fused_moe_dispatch_kernel(*args, **kw), 5)
+    plain = cuda_ms(torch, lambda: k.fused_moe_dispatch_plain(*args, **kw), 2)
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    log(f"moe_dispatch {name}: toks {tuple(toks.shape)}, {pairs} pairs on "
+        f"{routed} experts, cap_pad {plan.cap_pad}: {ms:.3f} ms, plain "
+        f"{plain:.3f}, bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def moe_phase(torch, k, dev, wrappers) -> list:
+    """Serve qwen3-moe-235b-a22b at full width (depth cut to MOE_LAYERS)
+    through the port's engine under ``dispatch_impl="fused"``, then one
+    prefill chunk under the default ``"a2a"``; returns the expert-MLP and
+    fused-dispatch kernels' lines of the ``kernels`` JSON."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.interop import local_shape, stack_shards
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import api, layers
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.step import build_chunk_prefill_step
+
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_LAYERS)
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    ep, E, kk, d = mesh.shape["model"], cfg.num_experts, \
+        cfg.experts_per_token, cfg.d_model
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True,
+                                 dispatch_impl="fused")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"moe: {cfg.name} at {cfg.num_layers} of 94 layers on {mesh.shape} "
+        f"(EP = TP = {ep}, {E // ep} experts a rank), {nbytes / 1e9:.2f} GB "
+        f"of random weights in {time.perf_counter() - t0:.1f} s, peak "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    plans = {}
+    for name, t_loc in (("decode", SLOTS // ep), ("chunk", CHUNK // ep)):
+        plans[name] = OverlapPlanner().plan_alltoall(t_loc, d, kk, E, ep,
+                                                     torch.bfloat16)
+        p = plans[name]
+        log(f"moe: {name} plan: t_loc {t_loc}, slots {p.slots}, overlap "
+            f"{p.overlap}, cap_pad {p.cap_pad}, block {p.block_bytes} B")
+        check(p.overlap, f"moe: the {name} plan fell back to no overlap")
+
+    # every decode call's dispatch arguments (small at decode) and the first
+    # chunk call's, for the bounds and the kernel timings below
+    steps_calls, chunk_call = [], []
+
+    def keep(args, kw):
+        if args[0].shape[-2] <= SLOTS // ep:
+            return True
+        if not chunk_call:
+            chunk_call.append((args, kw))
+        return False
+
+    def on_step():
+        # a decode call runs every layer's dispatch once (the warm-up
+        # engine's decode passed through the tap too)
+        steps_calls.append(tap.calls[-cfg.num_layers:])
+        tap.calls.clear()
+
+    with _Tap(moe_ops, "fused_moe_dispatch_kernel", keep) as tap:
+        run = _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
+                            on_step=on_step)
+    moe_launches = run.launches["fused_moe_dispatch"]
+    check(moe_launches == cfg.num_layers * run.eng.device_calls,
+          f"moe dispatch launches {moe_launches} != {cfg.num_layers} x "
+          f"{run.eng.device_calls} device calls")
+    # the experts each timed decode step's tokens reached, summed over its
+    # layers, from the steps' own count tables (read here, off the clock)
+    steps_experts = []
+    for calls in steps_calls:
+        n = 0
+        for args, kw in calls:
+            counts = dispatch_buffers(*args[:3], kw["plan"])[4]
+            n += int((counts.reshape(-1, E).sum(0) > 0).sum())
+        steps_experts.append(n)
+    log(f"moe: experts reached a decode step (over {cfg.num_layers} layers): "
+        f"median {statistics.median(steps_experts)}, min "
+        f"{min(steps_experts)}, max {max(steps_experts)}")
+    decode_once = _report_serving(torch, dev, cfg, mesh, params, run,
+                                  steps_experts)
+    with run.eng.dctx.dispatch_stats.collect() as ds:
+        decode_once()
+    dropped = float(ds["moe_dropped"].sum())
+    routed = float(ds["moe_routed"].sum())
+    check(dropped == 0 and routed == cfg.num_layers * SLOTS * kk,
+          f"moe: a decode call dropped {dropped} of {routed} choices")
+    log(f"moe: one decode call under a dispatch_stats frame: dropped "
+        f"{dropped:.0f} of {routed:.0f} (token, choice) pairs")
+
+    line = {"name": "fused_moe_dispatch", "route": "cuda",
+            "source": "src/repro_torch/csrc/moe_dispatch.cu",
+            "replaces": "src/repro/kernels/moe_dispatch/fused.py:284",
+            "launches": moe_launches, "shape": "decode"}
+    with use_default(DiompContext(mesh=mesh, device=dev)):
+        args, kw = steps_calls[-1][-1]
+        line.update(_dispatch_at(torch, k, "decode", args, kw, kw["plan"]))
+        args, kw = chunk_call[0]
+        line["chunk"] = _dispatch_at(torch, k, "chunk", args, kw,
+                                     kw["plan"])
+    del run, chunk_call, steps_calls, args, kw, decode_once
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"moe: peak device memory {peak:.1f} GB")
+
+    # one prefill chunk at full width under the default dispatch ("a2a"):
+    # its grouped GEMMs run the expert-MLP kernel
+    a2a = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    step = build_chunk_prefill_step(cfg, mesh, a2a, C=CHUNK, S_cache=MAX_LEN)
+    structs, specs = api.cache_structs(cfg, mesh, a2a, 1, MAX_LEN)
+    cache = {n: torch.zeros(local_shape(st.shape, mesh, specs[n]),
+                            dtype=st.dtype, device=dev)
+             for n, st in structs.items()}
+    rng = np.random.RandomState(1)
+    toks = stack_shards(rng.randint(0, cfg.vocab_size, (1, CHUNK)), mesh,
+                        step.token_spec, device=dev, dtype=torch.int64)
+    a2a_ctx = DiompContext(mesh=mesh, device=dev)
+    with _Tap(layers, "expert_mlp", lambda a, kw: True) as mlp_tap, \
+            use_default(a2a_ctx), a2a_ctx.dispatch_stats.collect() as ds:
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        logits, _ = step(params, toks, cache, CHUNK)
+        torch.cuda.synchronize()
+        launches = {name: wr.launches for name, wr in wrappers.items()}
+    log(f"moe: one a2a prefill chunk of {CHUNK}: launches {launches}; the "
+        f"capacity path dropped {float(ds['moe_dropped'].sum()):.0f} of "
+        f"{float(ds['moe_routed'].sum()):.0f} (token, choice) pairs over "
+        f"{cfg.num_layers} layers")
+    check(launches["expert_mlp"] == cfg.num_layers
+          and launches["flash_attention"] == cfg.num_layers
+          and launches["fused_moe_dispatch"] == 0,
+          f"moe a2a chunk: launches {launches}")
+    check(bool(torch.isfinite(logits).all()), "moe a2a chunk: bad logits")
+    x, wg, wu, wd, live = mlp_tap.calls[0][0]
+    got, want = k.expert_mlp(x, wg, wu, wd, live), \
+        k.expert_mlp_plain(x, wg, wu, wd, live)
+    err = max_err(torch, got, want)
+    dead = ~(torch.arange(x.shape[-2], device=dev) < live[..., None])
+    check(err <= 1.6e-2 * float(want.float().abs().max())
+          and not got[dead].any(), f"expert_mlp a2a chunk: err {err}")
+    pairs = int(live.sum())
+    reached = int((live.sum(-2) > 0).sum())      # (rank, expert) pairs
+    f = wg.shape[-1]
+    nbytes = 2 * (reached * 3 * d * f + 2 * pairs * d) + 4 * live.numel()
+    ms = cuda_ms(torch, lambda: k.expert_mlp(x, wg, wu, wd, live), 5)
+    plain = cuda_ms(torch, lambda: k.expert_mlp_plain(x, wg, wu, wd, live), 2)
+    b_ms, b_by = bound(nbytes, 2 * 3 * d * f * pairs, "bfloat16")
+    log(f"expert_mlp a2a chunk: x {tuple(x.shape)}, {pairs} live rows on "
+        f"{reached} experts: {ms:.3f} ms, plain {plain:.3f}, bound "
+        f"{b_ms:.4f} ms by {b_by}, err {err:.4g}")
+    mlp_line = {"name": "expert_mlp", "route": "cuda",
+                "source": "src/repro_torch/csrc/expert_mlp.cu",
+                "replaces": "src/repro/kernels/moe_dispatch/kernel.py:44",
+                "launches": launches["expert_mlp"], "shape": "a2a chunk",
+                "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    del mlp_tap, x, wg, wu, wd, live, got, want, cache, params
+    torch.cuda.empty_cache()
+    return [mlp_line, line]
 
 
 def main() -> int:
@@ -632,7 +1054,9 @@ def main() -> int:
                     k.fused_ring_allgather_matmul_kernel,
                 "wave_step": k.leap,
                 "fused_wave_step": k.fused_wave_step_kernel,
-                "flash_attention": k.flash_attention_kernel}
+                "flash_attention": k.flash_attention_kernel,
+                "expert_mlp": k.expert_mlp,
+                "fused_moe_dispatch": k.fused_moe_dispatch_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -688,7 +1112,8 @@ def main() -> int:
                                           DiompGroup(("z",), name="z"))
     torch.cuda.synchronize()
     launches = {name: wr.launches for name, wr in wrappers.items()
-                if name != "flash_attention"}
+                if name in ("matmul", "fused_ring_allgather_matmul",
+                            "wave_step", "fused_wave_step")}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"main path: launches {launches}; ring {ring_s:.2f} s (fused+host); "
         f"minimod fused {mm['fused'].wall_s:.3f} s, host "
@@ -841,6 +1266,10 @@ def main() -> int:
 
     # -- phase 7: serving glm4-9b at full width ---------------------------------
     kernels.append(serve_phase(torch, k, dev, wrappers))
+
+    # -- phase 8: serving qwen3-moe at full width, the dropless ring ----------
+    kernels.extend(moe_phase(torch, k, dev, wrappers))
+    check(len(kernels) == len(wrappers) == 7, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,7 +1,8 @@
 """Architecture registry: ``get(name)`` / ``get_reduced(name)``.
 
-Only the dense configs this slice serves are ported; the reference's other
-eight architectures wait for their families (ROADMAP queue 1, item 9).
+The dense configs and the GQA MoE config are ported; the reference's other
+seven architectures wait for their families (ROADMAP queue 1, item 9: MLA
+and MTP for deepseek-v3, the recurrent, hybrid, VLM and audio families).
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ("glm4_9b", "stablelm_3b")
+ARCHS = ("glm4_9b", "qwen3_moe_235b_a22b", "stablelm_3b")
 
 # CLI ids (--arch) use dashes, matching the reference
 CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}
@@ -21,7 +22,9 @@ def _module(name: str):
     if mod not in ARCHS:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: "
-            f"{', '.join(all_archs())}): ROADMAP queue 1, item 9")
+            f"{', '.join(all_archs())}): its family waits in ROADMAP queue 1, "
+            f"item 9 (MLA and MTP, the recurrent, hybrid, VLM and audio "
+            f"families)")
     return importlib.import_module(f"{__name__}.{mod}")
 
 

@@ -40,6 +40,7 @@ __all__ = [
     "Communicator",
     "CommTable",
     "DiompContext",
+    "DispatchStats",
     "resolve_device",
     "init",
     "default_context",
@@ -262,6 +263,44 @@ class CommTable:
         return {k: dict(v) for k, v in self._nbytes.items() if v}
 
 
+class DispatchStats:
+    """Auxiliary-stat collector for the MoE dispatch paths.
+
+    The call/byte logs are host-side counters; token drops depend on the
+    data (the ``slot < cap`` overflow mask), so they are device tensors.  A
+    caller that wants them opens a frame around the work::
+
+        with ctx.dispatch_stats.collect() as ds:
+            logits, cache = step(params, tokens, cache)
+        dropped, routed = ds.get("moe_dropped"), ds.get("moe_routed")
+
+    ``moe_block`` and ``moe_dispatch`` record ``moe_dropped`` (zero on the
+    dropless paths) and ``moe_routed`` (the (token, choice) pairs) into the
+    innermost frame; records made outside any frame are dropped, so a step
+    that does not ask pays nothing.  Values recorded under one key add up
+    (over layers and calls).
+    """
+
+    def __init__(self):
+        self._frames = []
+
+    def record(self, **values) -> None:
+        if not self._frames:
+            return
+        frame = self._frames[-1]
+        for key, val in values.items():
+            frame[key] = frame[key] + val if key in frame else val
+
+    @contextmanager
+    def collect(self):
+        frame: Dict[str, object] = {}
+        self._frames.append(frame)
+        try:
+            yield frame
+        finally:
+            self._frames.pop()
+
+
 class DiompContext:
     """One deployment's unified runtime state (paper Fig. 1b, host side).
 
@@ -299,6 +338,7 @@ class DiompContext:
         self.streams = StreamPool(max_active=max_active_streams)
         self.poller = HybridPoller()
         self.rma = RMATracker()
+        self.dispatch_stats = DispatchStats()
         self.comms = CommTable(mesh, self.device)
         # bootstrap: validate every group's descriptor (UniqueID handshake)
         self._descriptors = {
@@ -447,12 +487,23 @@ def scratch_context(ctx: DiompContext) -> DiompContext:
 @contextmanager
 def recorded_once(first: bool):
     """Run the block against the active context when ``first``, else
-    against its :func:`scratch_context` (the trace-time logging rule)."""
+    against its :func:`scratch_context` (the trace-time logging rule).
+
+    Only the logs are replayed silently: the scratch context lends the
+    active context's ``dispatch_stats`` for the block, since the reference
+    sums those over every layer its scan runs."""
     if first:
         yield default_context()
         return
-    with use_default(scratch_context(default_context())) as ctx:
-        yield ctx
+    parent = default_context()
+    scratch = scratch_context(parent)
+    lent = scratch.dispatch_stats
+    scratch.dispatch_stats = parent.dispatch_stats
+    try:
+        with use_default(scratch) as ctx:
+            yield ctx
+    finally:
+        scratch.dispatch_stats = lent
 
 
 def reset_default_context() -> None:

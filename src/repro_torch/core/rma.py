@@ -35,6 +35,7 @@ __all__ = [
     "ompx_fence",
     "halo_exchange",
     "halo_window_names",
+    "dispatch_window_names",
     "validate_halo",
     "RMATracker",
     "RMAError",
@@ -80,6 +81,21 @@ def ompx_fence(*arrays):
 def halo_window_names(group: DiompGroup, axis: int) -> Tuple[str, str]:
     """The (lo, hi) RMATracker window names of one halo-exchange pair."""
     return (f"halo:{group.name}:{axis}:lo", f"halo:{group.name}:{axis}:hi")
+
+
+def dispatch_window_names(group: DiompGroup, ep: int
+                          ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The (dispatch, combine) RMATracker window names of one MoE dispatch.
+
+    One window per ring offset ``s`` in each direction: ``dispatch:s`` is
+    the landing window the put of step ``s`` fills (tokens from the rank
+    ``s`` behind), ``combine:s`` the window the return put of step ``s``
+    fills (my rows' expert outputs from the rank ``s`` ahead).  The fused
+    MoE dispatch records every one-sided put against these windows with
+    the bytes the OMPCCL communicator logs.
+    """
+    return (tuple(f"moe:{group.name}:dispatch:{s}" for s in range(1, ep)),
+            tuple(f"moe:{group.name}:combine:{s}" for s in range(1, ep)))
 
 
 def validate_halo(halo: int, extent: int, axis: int) -> None:

@@ -82,8 +82,9 @@ def rules_for_ctx(ctx) -> ShardingRules:
             "the dp_only layout is not ported yet: ROADMAP queue 1, item 8")
     if getattr(ctx, "expert2d", False):
         raise NotImplementedError(
-            "expert2d placement (MoE) is not ported yet: ROADMAP queue 1, "
-            "item 12")
+            "expert2d placement (MoE experts over model x data) is not "
+            "ported yet: ROADMAP queue 1, item 12 (the default expert "
+            "placement over model is ported)")
     rules = DEFAULT_RULES
     if not getattr(ctx, "fsdp_params", True):
         # inference weight-stationary: dense weights TP-sharded only

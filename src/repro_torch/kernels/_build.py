@@ -47,6 +47,10 @@ LIBRARIES: Dict[str, tuple] = {
     "fused_wave_step": ("fused_wave_step.cu", {
         "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
                                   _I, _F, _P]}),
+    "expert_mlp": ("expert_mlp.cu", {
+        "repro_expert_mlp": [_P] * 7 + [_LL] * 3 + [_I] * 7 + [_P]}),
+    "moe_dispatch": ("moe_dispatch.cu", {
+        "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 9 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
         + [_P, _P] + [_I] * 11 + [_F, _I, _P]}),

@@ -1,0 +1,339 @@
+"""Fused dropless MoE dispatch: one schedule, two executions.
+
+Token→expert routing scatters rows into per-expert landing layouts whose
+capacities are **asymmetric** — sized per expert from measured load by
+:meth:`~repro_torch.kernels.plan.OverlapPlanner.plan_alltoall` — so the
+dispatch is dropless by construction (``caps[e] >= load[e]``).  The
+exchange is a ring of one-sided puts: step ``s`` puts the block for the
+rank ``s + 1`` ahead, runs the expert GEMMs on the block that landed from
+the rank ``s`` behind, and puts that result straight back to its source.
+Every put is recorded on the OMPCCL byte log and on the RMATracker's MoE
+dispatch/combine windows (:func:`repro_torch.core.rma.dispatch_window_names`)
+with the same bytes.
+
+Both executions run :meth:`~repro_torch.kernels.plan.AllToAllPlan.schedule`
+over stacked ranks (``toks (*mesh, t_loc, d)``, my experts' weights
+``(*mesh, E_loc, d, f)``):
+
+* :func:`fused_moe_dispatch_kernel` — the CUDA kernel
+  (``csrc/moe_dispatch.cu``, which replaces ``fused_moe_dispatch_tpu``):
+  every rank's ring in one cooperative launch;
+* :func:`fused_moe_dispatch_interpret` — each put an ``ompx_put`` (a roll
+  along the EP group's rank dim), for any ``mlp`` and the CPU.
+
+The routing scatter (:func:`dispatch_buffers`) and the gated combine stay
+outside the kernel, in torch, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Optional
+
+import torch
+import torch.nn.functional as F
+
+from ...core.backends import group_rank, payload_bytes
+from ...core.context import default_communicator, default_context
+from ...core.groups import DiompGroup
+from ...core.rma import dispatch_window_names, ompx_fence, ompx_put
+from .._build import DTYPE_CODES, check_launch, library, stream_handle
+from ..plan import AllToAllPlan
+from .kernel import expert_mlp_plain, rank_strided
+from .ref import expert_mlp_ref
+
+__all__ = [
+    "dispatch_buffers",
+    "expert_slots",
+    "fused_moe_dispatch_interpret",
+    "fused_moe_dispatch_kernel",
+    "fused_moe_dispatch_plain",
+    "kept_counts",
+    "kernel_slots",
+    "scatter_rows",
+]
+
+# phase codes of the kernel's schedule table (csrc/moe_dispatch.cu)
+PHASES = {"put": 0, "fence": 1, "gemm": 2, "ret": 3, "fence_ret": 4}
+MAX_RING = 64           # the kernel keeps its pending puts in a 64-bit mask
+
+
+# ---------------------------------------------------------------------------
+# routing -> buffer layout (both executions, and moe_block's capacity path)
+# ---------------------------------------------------------------------------
+
+
+def expert_slots(e_flat: torch.Tensor, E: int) -> torch.Tensor:
+    """Running index of each (token, choice) within its expert — a cumsum
+    over a one-hot, as ``moe_block`` assigns slots.  ``e_flat (R, n)``."""
+    onehot = F.one_hot(e_flat, E)
+    return ((onehot.cumsum(-2) - 1) * onehot).sum(-1)
+
+
+def scatter_rows(toks: torch.Tensor, k: int, keep: torch.Tensor,
+                 addr: torch.Tensor, rows: int) -> torch.Tensor:
+    """Per rank a ``(rows, d)`` buffer whose row ``addr[r, i]`` holds token
+    ``i // k`` of ``toks (R, t, d)`` where ``keep`` and zeros elsewhere.
+    Kept addresses are unique, so the copy has no order to depend on;
+    dropped rows go to one discarded row past the end."""
+    R, _, d = toks.shape
+    flat = torch.zeros(R * rows + 1, d, dtype=toks.dtype, device=toks.device)
+    base = torch.arange(R, device=toks.device)[:, None] * rows
+    dest = torch.where(keep, base + addr, R * rows)
+    flat.index_copy_(0, dest.reshape(-1),
+                     toks.repeat_interleave(k, dim=1).reshape(-1, d))
+    return flat[:R * rows].view(R, rows, d)
+
+
+def kept_counts(e_flat: torch.Tensor, keep: torch.Tensor,
+                E: int) -> torch.Tensor:
+    """``(R, E)`` int32: the kept rows each expert receives from each rank
+    (one bincount of the kept choices) — the live rows of its block."""
+    counts = torch.zeros(e_flat.shape[0], E, dtype=torch.int32,
+                         device=e_flat.device)
+    return counts.scatter_add_(1, e_flat, keep.to(torch.int32))
+
+
+def dispatch_buffers(toks, top_e, top_w, plan: AllToAllPlan):
+    """Scatter routed rows into the padded per-destination wire blocks.
+
+    Slot assignment is ``moe_block``'s running-index cumsum, checked
+    against the plan's per-expert asymmetric capacity.  Returns, with the
+    leading (rank) dims of ``toks``:
+
+    * ``buf (..., ep, E_loc, cap_pad, d)`` — destination-rank-major wire
+      blocks (rows past each expert's kept rows stay zero),
+    * ``addr (..., t_loc·k)`` — the row of each (token, choice) in the
+      ``(E·cap_pad, d)`` landing layout (the combine's unpermute),
+    * ``gates (..., t_loc·k, 1)`` — combine weights, zero for dropped rows,
+    * ``dropped (...)`` — f32 count of capacity-overflow drops,
+    * ``counts (..., ep, E_loc)`` — int32 kept rows a block of each expert.
+    """
+    lead = toks.shape[:-2]
+    t_loc, d = toks.shape[-2:]
+    k = top_e.shape[-1]
+    E, C = plan.E, plan.cap_pad
+    R = math.prod(lead)
+    e_flat = top_e.reshape(R, t_loc * k).long()
+    slot = expert_slots(e_flat, E)
+    caps = torch.tensor(plan.caps, dtype=torch.long, device=toks.device)
+    keep = slot < caps[e_flat]
+    addr = e_flat * C + slot.clamp(0, C - 1)
+    buf = scatter_rows(toks.reshape(R, t_loc, d), k, keep, addr, E * C)
+    gates = (keep[..., None] * top_w.reshape(R, -1)[..., None]).to(toks.dtype)
+    dropped = (~keep).sum(-1).float()
+    counts = kept_counts(e_flat, keep, E)
+    return (buf.view(*lead, plan.ep, plan.E_loc, C, d),
+            addr.view(*lead, t_loc * k), gates.view(*lead, t_loc * k, 1),
+            dropped.view(lead), counts.view(*lead, plan.ep, plan.E_loc))
+
+
+def _combine(full, addr, gates, t_loc: int, d: int):
+    """Unpermute the landed expert outputs back to (token, choice) order
+    and gate-combine: ``full (..., ep, E_loc, C, d)`` -> ``(..., t_loc,
+    d)``."""
+    lead = addr.shape[:-1]
+    R = math.prod(lead)
+    ret = full.reshape(R, -1, d)
+    rows = torch.arange(R, device=full.device)[:, None]
+    picked = ret[rows, addr.reshape(R, -1)] * gates.reshape(R, -1, 1)
+    return picked.reshape(*lead, t_loc, -1, d).sum(dim=-2)
+
+
+def _pick(x: torch.Tensor, idx: torch.Tensor, nd: int) -> torch.Tensor:
+    """Per rank ``x[rank, idx[rank]]``: x ``(*mesh, n, ...)``, idx
+    ``(*mesh,)`` (``lax.dynamic_slice`` by a traced rank index)."""
+    R = idx.numel()
+    flat = x.reshape(R, *x.shape[nd:])
+    got = flat[torch.arange(R, device=x.device), idx.reshape(R)]
+    return got.reshape(*x.shape[:nd], *x.shape[nd + 1:])
+
+
+# ---------------------------------------------------------------------------
+# the emulation: the same schedule over ompx_put
+# ---------------------------------------------------------------------------
+
+
+def fused_moe_dispatch_interpret(
+    toks, top_e, top_w, wg, wu, wd, group: DiompGroup, *,
+    plan: AllToAllPlan, mlp: Optional[Callable] = None,
+):
+    """Execute :meth:`AllToAllPlan.schedule` with ``ompx_put`` as the
+    remote copy: every dispatch put starts before the GEMM it overlaps,
+    every combine put after the GEMM that produced it.  ``mlp`` (default
+    :func:`~.ref.expert_mlp_ref`) runs each landed block.  Returns
+    ``(combined (..., t_loc, d), dropped (...))``.
+    """
+    mlp = mlp or expert_mlp_ref
+    ctx = default_context()
+    mesh = ctx.require_mesh()
+    nd = mesh.ndim
+    ep = plan.ep
+    t_loc, d = toks.shape[-2:]
+    me = group_rank(group, mesh, toks.device)
+
+    buf, addr, gates, dropped, _ = dispatch_buffers(toks, top_e, top_w, plan)
+    tracker = ctx.rma
+    dwin, cwin = dispatch_window_names(group, ep)
+
+    landed = {0: _pick(buf, me, nd)}
+    outs, rets = {}, {}
+    for phase, s in plan.schedule():
+        if phase == "put":
+            blk = _pick(buf, (me + s) % ep, nd)
+            tracker.ensure(dwin[s - 1])
+            tracker.on_put(dwin[s - 1], payload_bytes(blk, mesh.size))
+            landed[s] = ompx_put(blk, group, shift=s)
+        elif phase == "fence":
+            landed[s] = ompx_fence(landed[s])
+            tracker.on_fence(dwin[s - 1])
+            tracker.on_read(dwin[s - 1])
+        elif phase == "gemm":
+            outs[s] = mlp(landed[s], wg, wu, wd).to(toks.dtype)
+        elif phase == "ret":
+            tracker.ensure(cwin[s - 1])
+            tracker.on_put(cwin[s - 1], payload_bytes(outs[s], mesh.size))
+            rets[s] = ompx_put(outs[s], group, shift=-s)
+        elif phase == "fence_ret":
+            if rets:
+                order = sorted(rets)
+                fenced = ompx_fence(*[rets[o] for o in order])
+                if len(order) == 1:
+                    fenced = (fenced,)
+                rets = dict(zip(order, fenced))
+                tracker.on_fence(*cwin)
+                for w in cwin:
+                    tracker.on_read(w)
+        else:  # pragma: no cover - schedule() emits only the above
+            raise ValueError(phase)
+
+    # the returns in home-rank-major (global expert) order
+    full = torch.zeros_like(buf)
+    R = me.numel()
+    rows = torch.arange(R, device=toks.device)
+    flat = full.view(R, *full.shape[nd:])
+    flat[rows, me.reshape(R)] = outs[0].reshape(R, *outs[0].shape[nd:])
+    for s, blk in rets.items():
+        flat[rows, ((me + s) % ep).reshape(R)] = blk.reshape(
+            R, *blk.shape[nd:])
+    return _combine(full, addr, gates, t_loc, d), dropped
+
+
+def fused_moe_dispatch_plain(toks, top_e, top_w, wg, wu, wd,
+                             group: DiompGroup, *, plan: AllToAllPlan):
+    """The fused kernel's function in plain PyTorch: the emulation with the
+    expert MLP's plain version."""
+    return fused_moe_dispatch_interpret(toks, top_e, top_w, wg, wu, wd,
+                                        group, plan=plan,
+                                        mlp=expert_mlp_plain)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel
+# ---------------------------------------------------------------------------
+
+
+def kernel_slots(plan: AllToAllPlan) -> int:
+    """Landing (and return) slots the kernel allocates: the reference's
+    ``max(plan.slots, min(ep, 3))`` on the overlapped schedule; the
+    serialized one lands every block before its first GEMM, so it needs
+    one slot a remote block."""
+    slots = max(plan.slots, min(plan.ep, 3))
+    return slots if plan.overlap else max(slots, plan.ep - 1)
+
+
+def _schedule_table(plan: AllToAllPlan, device) -> torch.Tensor:
+    rows = [[PHASES[phase], s] for phase, s in plan.schedule()]
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def _record_traffic(blk, group: DiompGroup, plan: AllToAllPlan) -> None:
+    """Log the schedule's puts as the emulation logs them: the OMPCCL call
+    and byte logs and the RMATracker's windows (``blk`` is one padded wire
+    block of every rank)."""
+    ctx = default_context()
+    comm = default_communicator(group)
+    tracker = ctx.rma
+    nbytes = payload_bytes(blk, ctx.require_mesh().size)
+    dwin, cwin = dispatch_window_names(group, plan.ep)
+    for phase, s in plan.schedule():
+        if phase in ("put", "ret"):
+            win = (dwin if phase == "put" else cwin)[s - 1]
+            tracker.ensure(win)
+            tracker.on_put(win, nbytes)
+            comm.record("put", blk)
+        elif phase == "fence":
+            tracker.on_fence(dwin[s - 1])
+            tracker.on_read(dwin[s - 1])
+        elif phase == "fence_ret" and plan.ep > 1:
+            tracker.on_fence(*cwin)
+            for w in cwin:
+                tracker.on_read(w)
+
+
+def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
+                              group: DiompGroup, *, plan: AllToAllPlan):
+    """Dispatch, expert MLP and return of every rank in one launch of
+    ``csrc/moe_dispatch.cu`` (counted in ``.launches``), the routing
+    scatter and the combine around it in torch; on CPU tensors, the plain
+    version.  Returns ``(combined (..., t_loc, d), dropped (...))``."""
+    if not toks.is_cuda:
+        return fused_moe_dispatch_plain(toks, top_e, top_w, wg, wu, wd,
+                                        group, plan=plan)
+    mesh = default_context().require_mesh()
+    nd = mesh.ndim
+    ep, E_loc, C = plan.ep, plan.E_loc, plan.cap_pad
+    t_loc, d = toks.shape[-2:]
+    f = wg.shape[-1]
+    if len(group.axes) != 1 or group.axis_size(mesh) != ep:
+        raise ValueError(f"plan for a ring of {ep} on group {group.axes}")
+    if ep > MAX_RING:
+        raise ValueError(f"the dispatch kernel takes rings of up to "
+                         f"{MAX_RING} ranks, got {ep}")
+    if any(w.dtype != toks.dtype or w.device != toks.device
+           for w in (wg, wu, wd)) or toks.dtype not in DTYPE_CODES:
+        raise TypeError("fused_moe_dispatch: tokens and weights must share "
+                        "one device and a f32/f16/bf16 dtype")
+    if tuple(wg.shape[nd:]) != (E_loc, d, f) or wu.shape != wg.shape \
+            or tuple(wd.shape[nd:]) != (E_loc, f, d):
+        raise ValueError(f"expert weights {tuple(wg.shape)}, "
+                         f"{tuple(wd.shape)} for a plan of {E_loc} local "
+                         f"experts, d = {d}")
+
+    buf, addr, gates, dropped, counts = dispatch_buffers(toks, top_e, top_w,
+                                                         plan)
+    _record_traffic(buf.select(nd, 0), group, plan)
+    # kernel layout: the ring's rank dim last of the mesh dims, the others
+    # folded into G independent rings
+    ring = group.rank_dims(mesh)[0]
+    G = mesh.size // ep
+
+    def ring_last(t):
+        return t.movedim(ring, nd - 1)
+
+    kb = ring_last(buf).contiguous()
+    (wg, sg), (wu, su), (wd, sd) = (rank_strided(ring_last(w))
+                                    for w in (wg, wu, wd))
+    kc = ring_last(counts).contiguous()
+    out = torch.empty_like(kb)
+    slots = kernel_slots(plan)
+    stage = torch.empty(G, ep, slots, E_loc, C, d, dtype=toks.dtype,
+                        device=toks.device)
+    ret_stage = torch.empty_like(stage)
+    h = torch.empty(G, ep, E_loc, C, f, dtype=toks.dtype, device=toks.device)
+    sched = _schedule_table(plan, toks.device)
+    work = torch.zeros(2 * ep, dtype=torch.int64, device=toks.device)
+    status = library("moe_dispatch").repro_moe_dispatch(
+        kb.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+        kc.data_ptr(), out.data_ptr(), stage.data_ptr(), ret_stage.data_ptr(),
+        h.data_ptr(), sched.data_ptr(), work.data_ptr(), sg, su, sd,
+        sched.shape[0], G, ep,
+        slots, E_loc, C, d, f, DTYPE_CODES[toks.dtype],
+        stream_handle(toks.device))
+    fused_moe_dispatch_kernel.launches += 1
+    check_launch(status, "fused_moe_dispatch")
+    full = out.movedim(nd - 1, ring)
+    return _combine(full, addr, gates, t_loc, d), dropped
+
+
+fused_moe_dispatch_kernel.launches = 0

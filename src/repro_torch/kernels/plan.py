@@ -10,6 +10,8 @@ emulations execute:
   each step forwards.  The bidirectional ring covers the ``n - 1`` remote
   stripes in ``ceil((n - 1) / 2)`` exchange steps.
 * :class:`HaloPlan` — the phase order of the fused Minimod step.
+* :class:`AllToAllPlan` — the put ring of the dropless MoE dispatch, with
+  per-expert asymmetric landing capacities.
 * matmul tile / stencil chunk planning against what the port's own kernels
   stage (see ``SMEM_BUDGET_DEFAULT``).
 
@@ -27,6 +29,7 @@ import torch
 from ..core.streams import MAX_ACTIVE_STREAMS_DEFAULT, StreamPool
 
 __all__ = [
+    "AllToAllPlan",
     "RingStep",
     "RingPlan",
     "HaloPlan",
@@ -60,8 +63,13 @@ __all__ = [
 #   (``OverlapPlanner.flash_stage_bytes``, the formula of ``launch()`` in
 #   csrc/flash_attention.cu): 113 KiB at D = Dv = 128 and block = 64,
 #   staged once (no double buffer);
-# * the fused ring's stripe slots and the fused step's landing windows live
-#   in device memory, not shared memory.
+# * the expert MLP (and the fused MoE dispatch's GEMMs) stage one (BK, BM)
+#   tile of x and a (BK, BN) tile of each of w_gate and w_up per block, in
+#   f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB at the fixed tile of
+#   csrc/expert_mlp.cuh, nothing the planner sizes;
+# * the fused ring's stripe slots, the fused step's landing windows and the
+#   fused MoE dispatch's landing and return slots live in device memory, not
+#   shared memory.
 #
 # At 1024³ over nz = 4 the halo stage is 2.5 KiB and the overlapped schedule
 # stands.  The reference's staging formula with 227 KB as its budget would
@@ -380,6 +388,127 @@ class HaloPlan:
 
 
 # ---------------------------------------------------------------------------
+# MoE dispatch schedule (expert-parallel all-to-all)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AllToAllPlan:
+    """Concrete schedule for one dropless expert-parallel MoE dispatch.
+
+    The ragged token→expert traffic is a ring of one-sided puts: at step
+    ``s`` every rank puts the block destined for the rank ``s + 1`` ahead
+    (the exchange that feeds step ``s + 1``), runs the expert GEMMs on the
+    block that landed from the rank ``s`` behind (step 0 computes the local
+    block), and puts that result straight back to its source.  One fence
+    per landed block, one final fence for the combine windows.  The CUDA
+    kernel and the emulation both execute exactly :meth:`schedule`.
+
+    Capacities are per expert and **asymmetric** (``caps[e]`` rows per
+    source rank, sized from measured load by
+    :meth:`OverlapPlanner.plan_alltoall`): the home rank of expert ``e``
+    registers a PGAS landing region of ``ep * caps[e]`` rows while the
+    other ranks register none — the paper's asymmetric allocation.  Every
+    wire block pads to ``cap_pad = max(caps)`` rows an expert;
+    :meth:`block_rows` gives the true per-destination row counts.
+    """
+
+    ep: int                    # EP group size (ring length)
+    E: int                     # global expert count
+    t_loc: int                 # tokens per rank entering dispatch
+    k: int                     # experts per token
+    d: int                     # model dim of one token row
+    itemsize: int = 4
+    caps: Tuple[int, ...] = ()  # per-expert landing rows per source rank
+    slots: int = 2             # staging buffers granted by StreamPool
+    overlap: bool = True       # False: puts, fence, GEMMs, puts, fence
+
+    def __post_init__(self):
+        if self.ep < 1:
+            raise ValueError("EP group size must be >= 1")
+        if self.E % self.ep != 0:
+            raise ValueError(f"E={self.E} not divisible by ep={self.ep}")
+        if len(self.caps) != self.E:
+            raise ValueError(f"{len(self.caps)} caps for {self.E} experts")
+        if self.caps and min(self.caps) < 1:
+            raise ValueError("per-expert capacities must be >= 1")
+
+    @property
+    def E_loc(self) -> int:
+        return self.E // self.ep
+
+    @property
+    def cap_pad(self) -> int:
+        """Padded per-expert rows of one wire block (max over experts)."""
+        return max(self.caps)
+
+    @property
+    def block_bytes(self) -> int:
+        """Wire bytes of one padded dispatch/combine put."""
+        return self.E_loc * self.cap_pad * self.d * self.itemsize
+
+    def block_rows(self, rank: int) -> int:
+        """True rows one source sends to ``rank`` (the asymmetric sizes of
+        the PGAS regions; the wire block pads to ``E_loc * cap_pad``)."""
+        lo = rank * self.E_loc
+        return sum(self.caps[lo:lo + self.E_loc])
+
+    @property
+    def region_rows(self) -> Tuple[int, ...]:
+        """Per-expert PGAS landing-region rows on the expert's home rank
+        (``ep`` sources × ``caps[e]`` rows each)."""
+        return tuple(self.ep * c for c in self.caps)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Modeled wire bytes per rank per dispatch+combine (true rows,
+        remote destinations only; every rank is rank 0 in the model)."""
+        remote = sum(self.block_rows(r) for r in range(1, self.ep))
+        return 2 * remote * self.d * self.itemsize
+
+    @property
+    def staging_bytes(self) -> int:
+        """Device memory the pipeline pins: ``slots`` padded blocks."""
+        return self.slots * self.block_bytes
+
+    def schedule(self) -> Tuple[Tuple[str, int], ...]:
+        """Ordered ``(phase, ring_offset)`` records both executions follow.
+
+        * ``("put", s)``   — one-sided put of my block for the rank ``s``
+          ahead;
+        * ``("fence", s)`` — complete the landing of the block from the
+          rank ``s`` behind before its GEMM reads it;
+        * ``("gemm", s)``  — expert GEMMs on that block (``s == 0`` is the
+          local block);
+        * ``("ret", s)``   — one-sided put of that result back to its
+          source;
+        * ``("fence_ret", 0)`` — final fence of the combine windows.
+
+        ``overlap=False`` is the serialized ``"host"`` mode: all dispatch
+        puts, the fences, all GEMMs, all combine puts, one fence.
+        """
+        if self.ep == 1:
+            return (("gemm", 0),)
+        out = []
+        if self.overlap:
+            for s in range(self.ep):
+                if s + 1 < self.ep:
+                    out.append(("put", s + 1))
+                if s > 0:
+                    out.append(("fence", s))
+                out.append(("gemm", s))
+                if s > 0:
+                    out.append(("ret", s))
+        else:
+            out += [("put", s) for s in range(1, self.ep)]
+            out += [("fence", s) for s in range(1, self.ep)]
+            out += [("gemm", s) for s in range(self.ep)]
+            out += [("ret", s) for s in range(1, self.ep)]
+        out.append(("fence_ret", 0))
+        return tuple(out)
+
+
+# ---------------------------------------------------------------------------
 # the planner
 # ---------------------------------------------------------------------------
 
@@ -494,6 +623,54 @@ class OverlapPlanner:
             f"flash attention with D = {d}, Dv = {dv} does not fit the "
             f"kernel (Dv <= {FLASH_MAX_DV}) and a shared-memory budget of "
             f"{self.smem_budget} bytes")
+
+    # -- MoE dispatch all-to-all ----------------------------------------------
+    def plan_alltoall(self, t_loc: int, d: int, k: int, E: int, ep: int,
+                      dtype, *, loads: Optional[Sequence[int]] = None,
+                      slack: float = 1.0, overlap: bool = True
+                      ) -> AllToAllPlan:
+        """Schedule + asymmetric capacities for one dropless MoE dispatch.
+
+        ``loads`` are measured per-expert row counts — the maximum over
+        source ranks of rows routed to each expert.  The budget
+        ``ceil(sum(loads) * slack)`` is split over experts by the
+        largest-remainder rule (:func:`split_extents`) and re-clamped to
+        ``>= loads[e]``, so the plan is dropless by construction.
+        ``loads=None`` (no measurement inside a step) gives every expert
+        the worst case, ``t_loc`` rows.
+
+        The landing and return slots live in device memory.  Their budget
+        is the bytes of the all-to-all they stand in for (``ep`` blocks a
+        rank), as :meth:`plan_ring_matmul` budgets its stripes: the fused
+        ring never pins more than the collective would materialize, and it
+        keeps ``overlap`` at every size.  (The reference's 16 MiB VMEM
+        budget — or the 227 KB of shared memory in its place — would turn a
+        1 MiB decode block or a 128 MiB chunk block of qwen3-moe into the
+        serialized schedule.)
+        """
+        if E % ep != 0:
+            raise ValueError(f"E={E} not divisible by ep={ep}")
+        item = _itemsize(dtype)
+        if loads is None:
+            caps = (t_loc,) * E
+        else:
+            loads = tuple(int(l) for l in loads)
+            if len(loads) != E:
+                raise ValueError(f"{len(loads)} loads for {E} experts")
+            total = max(int(-(-sum(loads) * slack // 1)),
+                        sum(max(l, 1) for l in loads))
+            weights = tuple(max(l, 1e-6) for l in loads)
+            caps = split_extents(total, E, weights, minimum=1)
+            caps = tuple(max(c, l) for c, l in zip(caps, loads))
+        plan = AllToAllPlan(ep=ep, E=E, t_loc=t_loc, k=k, d=d,
+                            itemsize=item, caps=caps, overlap=overlap)
+        if ep == 1:
+            return dataclasses.replace(plan, slots=1)
+        block = max(plan.block_bytes, 1)
+        budget = max(ep * block, 2 * block)
+        slots = self.pool.plan_slots(block, budget)
+        slots = max(2, min(slots, max(budget // block, 2)))
+        return dataclasses.replace(plan, slots=min(slots, ep))
 
     # -- halo exchange (Minimod) ----------------------------------------------
     def plan_halo_slots(self, z_loc: int, y_loc: int, x: int, dtype,

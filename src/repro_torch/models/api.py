@@ -1,5 +1,6 @@
-"""Family-dispatch API: the surface the serving layer talks to (dense
-family; the recurrent families are still to port, ROADMAP queue 1, item 9).
+"""Family-dispatch API: the surface the serving layer talks to (dense and
+GQA MoE families; MLA and the recurrent families are still to port, ROADMAP
+queue 1, item 9).
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's
 global shape and dtype — with its per-dim spec, from which a stacked cache
@@ -64,9 +65,10 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
     group), as in the reference.
     """
     if cfg.family not in TRANSFORMER_FAMILIES or cfg.attention != "gqa" \
-            or cfg.moe:
+            or cfg.first_k_dense:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA cache is ported yet: ROADMAP "
+            f"{cfg.name}: only the GQA cache (dense and MoE families) is "
+            f"ported yet; MLA's latent cache and the other families: ROADMAP "
             f"queue 1, item 9")
     if seq_sharded:
         raise NotImplementedError(

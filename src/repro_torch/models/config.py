@@ -123,7 +123,9 @@ class ParallelCtx:
         if knobs.get("layout", "tp") != "tp" or knobs.get("expert2d"):
             raise NotImplementedError(
                 "only the default tp layout is ported (dp_only: ROADMAP "
-                "queue 1, item 8; expert2d: item 12)")
+                "queue 1, item 8; expert2d, the MoE experts sharded over "
+                "model x data: item 12, still open beside bench_moe and the "
+                "fused dispatch's backward)")
         g = standard_groups(mesh)
         shape = mesh.shape
         tp = shape.get("model", 1)

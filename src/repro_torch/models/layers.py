@@ -1,4 +1,4 @@
-"""Manual-SPMD layer library on stacked ranks (dense family).
+"""Manual-SPMD layer library on stacked ranks (dense and GQA MoE families).
 
 The reference runs every function here inside ``shard_map`` on one rank's
 shard; the port runs it once on stacked tensors whose leading dims are the
@@ -13,8 +13,9 @@ follow the reference (per rank):
 
 Not ported here: the context-parallel decode (``cp_decode_attention``) and
 its seq-sharded cache, the token-parallel and ring-attention branches, MLA,
-MoE, ``ring_fsdp_matmul`` and the int8 weight gather; each raises
-``NotImplementedError`` naming its ROADMAP item where it would be reached.
+MoE's ``expert2d`` placement, ``ring_fsdp_matmul`` and the int8 weight
+gather; each raises ``NotImplementedError`` naming its ROADMAP item where
+it would be reached.
 
 The decode and chunk-prefill branches write the new K/V rows into the
 cache in place (the reference returns an updated copy): a step's cache is
@@ -24,23 +25,28 @@ the engine's own tensor, so no second copy of it is ever held.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
 
 from ..core import ompccl
-from ..core.backends import group_rank
+from ..core.backends import XlaBackend, group_rank
 from ..core.context import default_context
 from ..kernels.flash_attention.ops import flash_attention
-from ..kernels.plan import resolve_seq_parallel
+from ..kernels.moe_dispatch.fused import expert_slots, kept_counts, scatter_rows
+from ..kernels.moe_dispatch.kernel import expert_mlp
+from ..kernels.moe_dispatch.ops import moe_dispatch
+from ..kernels.moe_dispatch.ref import route_topk
+from ..kernels.plan import resolve_dispatch_impl, resolve_seq_parallel
 from .config import ModelConfig, ParallelCtx
 from .schema import head_parallel, kv_sharded, vocab_sharded
 
 __all__ = [
     "rmsnorm", "rope", "gather_fsdp", "tp_allreduce", "col_matmul",
     "row_matmul", "embed_lookup", "KVCache", "local_kv_heads",
-    "attention_block", "mlp_block", "dot",
+    "attention_block", "mlp_block", "moe_capacity", "moe_block", "dot",
 ]
 
 
@@ -347,3 +353,158 @@ def mlp_block(x, lp, ctx: ParallelCtx, *, act: str = "silu",
     h = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     h = h * col_matmul(x, lp[u], ctx)
     return row_matmul(h, lp[dwn], ctx)
+
+
+# ---------------------------------------------------------------------------
+# MoE (expert-parallel over the "model" axis)
+# ---------------------------------------------------------------------------
+
+def moe_capacity(t_loc: int, k: int, E: int, capacity_factor: float) -> int:
+    """Per-expert slot capacity of the GShard dispatch: the true ceiling
+    ``ceil((t_loc*k/E) * capacity_factor)``, the quotient rounded at 1e-9
+    first so binary float dust cannot bump an exact product up a slot."""
+    q = (t_loc * k / E) * capacity_factor
+    return max(int(math.ceil(round(q, 9))), 1)
+
+
+def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
+    """Top-k expert-parallel FFN on ``x (*mesh, B, T, d)``: experts sharded
+    over "model" (E/tp a rank), each keeping a ZeRO-3 d-shard that is
+    all-gathered at use.
+
+    Regimes per call, as the reference picks them:
+
+    * ``"a2a"`` — tokens sliced over "model", one ``ompccl.alltoall`` out
+      and back (prefill, and decode with at least one token a rank);
+    * ``"replicated"`` — fewer tokens than ranks: the dispatch is
+      replicated across the EP group, each rank runs its experts, and a
+      partial combine is summed over the group;
+    * ``"local"`` — tp == 1 or E does not divide.
+
+    Capacity is :func:`moe_capacity` (at least 4); overflow drops, with
+    the drop count recorded into the context's ``dispatch_stats`` frame.
+    ``ctx.dispatch_impl`` = ``"fused"``/``"host"`` swaps the a2a regime's
+    collectives for the dropless one-sided ring of
+    :mod:`repro_torch.kernels.moe_dispatch`.  Every regime's grouped GEMMs
+    run the expert-MLP kernel on the card, with each block's live rows
+    counted from the ``keep`` mask.
+    """
+    if ctx.expert2d:
+        raise NotImplementedError(
+            "expert2d placement (MoE experts over model x data) is not "
+            "ported yet: ROADMAP queue 1, item 12")
+    mesh = _mesh()
+    nd = mesh.ndim
+    lead = x.shape[:nd]
+    R = mesh.size
+    B, T, d = x.shape[nd:]
+    E, k = cfg.num_experts, cfg.experts_per_token
+    tp = ep = ctx.tp
+    E_loc = E // ep if (E % ep == 0 and ep > 1) else E
+    if E % ep == 0 and ep > 1 and (B * T) % tp == 0 and B * T >= tp:
+        regime = "a2a"
+    elif E % ep == 0 and ep > 1:
+        regime = "replicated"
+    else:
+        regime = "local"
+        E_loc = E
+
+    flat = x.reshape(*lead, B * T, d)
+    toks_local = flat                     # shared-expert input (my tokens)
+    if regime == "a2a":
+        t_loc = (B * T) // tp             # tokens sliced over "model" only
+        mine = group_rank(ctx.tp_group, mesh, x.device)[..., None] * t_loc \
+            + torch.arange(t_loc, device=x.device)   # my rows, per rank
+        toks = _take_rows(flat, mine)
+    else:
+        toks, t_loc = flat, B * T
+    top_w, top_e = route_topk(toks, lp["router"], k)         # (*mesh, t_loc, k)
+
+    wg = gather_fsdp(lp["w_gate_e"], ctx, dim=1)              # (E_loc, d, ffm)
+    wu = gather_fsdp(lp["w_up_e"], ctx, dim=1)
+    wd = gather_fsdp(lp["w_down_e"], ctx, dim=2)              # (E_loc, ffm, d)
+
+    # the dropless one-sided dispatch: opt-in by the ParallelCtx knob,
+    # where the a2a regime holds on a single-axis EP group (the put ring)
+    impl = "a2a"
+    if regime == "a2a" and len(ctx.ep_group.axes) == 1:
+        impl = resolve_dispatch_impl(ctx.dispatch_impl)
+    if impl in ("fused", "host"):
+        combined = moe_dispatch(toks, top_e, top_w, wg, wu, wd,
+                                ctx.ep_group, impl=impl)
+        if "w_gate_s" in lp:  # shared experts: full rows, then my slice
+            shared = mlp_block(toks_local, lp, ctx,
+                               names=("w_gate_s", "w_up_s", "w_down_s"))
+            combined = combined + _take_rows(shared, mine)
+        out = ompccl.allgather(combined, ctx.tp_group, axis=0,
+                               invariant=ctx.inference)
+        return out.reshape(*lead, B, T, d)
+
+    cap = max(moe_capacity(t_loc, k, E, cfg.capacity_factor), 4)
+    # slot assignment: position of each (token, choice) within its expert
+    e_flat = top_e.reshape(R, t_loc * k)
+    slot = expert_slots(e_flat, E)
+    keep = slot < cap
+    addr = e_flat * cap + slot.clamp(0, cap - 1)
+    dropped = (~keep).sum(-1).float().view(lead)
+    default_context().dispatch_stats.record(
+        moe_dropped=dropped, moe_routed=torch.full_like(dropped, t_loc * k))
+    buf = scatter_rows(toks.reshape(R, t_loc, d), k, keep, addr, E * cap)
+    counts = kept_counts(e_flat, keep, E)                     # (R, E)
+    gates = (keep[..., None] * top_w.reshape(R, -1)[..., None]).to(x.dtype)
+
+    if regime == "a2a":
+        recv = ompccl.alltoall(buf.view(*lead, ep, E_loc * cap, d),
+                               ctx.ep_group, split_axis=0, concat_axis=0)
+        # each block's live rows: the sources' kept counts, laid out as the
+        # blocks landed (metadata the reference does not ship: it runs
+        # every padded row; not logged)
+        live = XlaBackend().alltoall(counts.view(*lead, ep, E_loc),
+                                     ctx.ep_group, mesh, split_axis=0,
+                                     concat_axis=0)
+        out_e = expert_mlp(recv.reshape(*lead, ep, E_loc, cap, d), wg, wu,
+                           wd, live)
+        ret = ompccl.alltoall(out_e.reshape(*lead, ep, E_loc * cap, d),
+                              ctx.ep_group, split_axis=0, concat_axis=0)
+        picked = ret.reshape(R, E * cap, d)[
+            torch.arange(R, device=x.device)[:, None], addr]
+        combined = (picked * gates).reshape(*lead, t_loc, k, d).sum(dim=-2)
+    elif regime == "replicated":
+        # the dispatch is replicated across the EP group; run my experts
+        me = group_rank(ctx.ep_group, mesh, x.device)
+        expert_in = _take_rows(buf.view(*lead, ep, E_loc, cap, d), me)
+        live = _take_rows(counts.view(*lead, ep, E_loc), me)
+        out_e = expert_mlp(expert_in, wg, wu, wd, live)
+        # partial combine: only my experts contribute; summed over the group
+        local = addr - (me.reshape(R) * E_loc * cap)[:, None]
+        mine = (local >= 0) & (local < E_loc * cap)
+        ret_me = out_e.reshape(R, E_loc * cap, d)
+        picked = ret_me[torch.arange(R, device=x.device)[:, None],
+                        local.clamp(0, E_loc * cap - 1)]
+        picked = torch.where(mine[..., None], picked,
+                             torch.zeros((), dtype=x.dtype, device=x.device))
+        combined = (picked * gates).reshape(*lead, t_loc, k, d).sum(dim=-2)
+        combined = ompccl.allreduce(combined, ctx.ep_group)
+    else:
+        out_e = expert_mlp(buf.view(*lead, E, cap, d), wg, wu, wd,
+                           counts.view(*lead, E))
+        picked = out_e.reshape(R, E * cap, d)[
+            torch.arange(R, device=x.device)[:, None], addr]
+        combined = (picked * gates).reshape(*lead, t_loc, k, d).sum(dim=-2)
+
+    if "w_gate_s" in lp:  # shared experts
+        # the TP col->row shared MLP needs the SAME rows on every "model"
+        # rank (its row-parallel sum adds feature partials of one row), so
+        # it runs on the full token set; the a2a regime then takes my slice
+        shared = mlp_block(toks_local, lp, ctx,
+                           names=("w_gate_s", "w_up_s", "w_down_s"))
+        if regime == "a2a":
+            shared = _take_rows(shared, mine)
+        combined = combined + shared
+
+    if regime == "a2a":
+        out = ompccl.allgather(combined, ctx.tp_group, axis=0,
+                               invariant=ctx.inference)   # tokens back
+    else:
+        out = combined
+    return out.reshape(*lead, B, T, d)

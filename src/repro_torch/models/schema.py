@@ -1,12 +1,13 @@
-"""Parameter schema — one declarative table per architecture (dense family).
+"""Parameter schema — one declarative table per architecture (dense and
+GQA MoE families).
 
 Every parameter declares its global shape and *logical* placement axes
 once; from that declaration come the materialized init (from a
 ``torch.Generator`` on a given device) and the per-dim specs that
 :func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
 against the production TP width (``MAX_TP = 16``), as in the reference.
-The MoE, MLA, SSM and hybrid layer tables are still to port (ROADMAP
-queue 1, items 9 and 12).
+The MLA (deepseek-v3) and MTP tables and the SSM, hybrid, VLM and audio
+families are still to port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ class ParamSpec:
     dtype: str = "bfloat16"
     init: str = "normal"          # normal | zeros | ones
     scale: float = 0.02
+    per_expert: bool = False      # for active-param accounting
 
 
 def head_parallel(cfg: ModelConfig) -> bool:
@@ -57,9 +59,9 @@ def vocab_sharded(cfg: ModelConfig) -> bool:
     return cfg.vocab_size % MAX_TP == 0
 
 
-def _dense_layer(cfg: ModelConfig, L: int, d_ff: int, prefix: str,
-                 s: Dict[str, ParamSpec]) -> None:
-    """One stacked block of standard GQA decoder layers."""
+def _attn_layer(cfg: ModelConfig, L: int, prefix: str,
+                s: Dict[str, ParamSpec]) -> None:
+    """The GQA attention of one stacked block of decoder layers."""
     d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
     ha = "heads" if head_parallel(cfg) else None
     ka = "kv_heads" if kv_sharded(cfg) else None
@@ -72,23 +74,60 @@ def _dense_layer(cfg: ModelConfig, L: int, d_ff: int, prefix: str,
         s[f"{prefix}/bk"] = ParamSpec((L, KV * hd), (None, ka), init="zeros")
         s[f"{prefix}/bv"] = ParamSpec((L, KV * hd), (None, ka), init="zeros")
     s[f"{prefix}/wo"] = ParamSpec((L, H * hd, d), (None, ha, "embed_fsdp"))
+
+
+def _dense_layer(cfg: ModelConfig, L: int, d_ff: int, prefix: str,
+                 s: Dict[str, ParamSpec]) -> None:
+    """One stacked block of standard GQA decoder layers."""
+    d = cfg.d_model
+    _attn_layer(cfg, L, prefix, s)
     s[f"{prefix}/mlp_norm"] = ParamSpec((L, d), (None, None), init="ones")
     s[f"{prefix}/w_gate"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
     s[f"{prefix}/w_up"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
     s[f"{prefix}/w_down"] = ParamSpec((L, d_ff, d), (None, "mlp", "embed_fsdp"))
 
 
+def _moe_ffn(cfg: ModelConfig, L: int, prefix: str,
+             s: Dict[str, ParamSpec]) -> None:
+    """The routed experts (sharded over "expert") and shared experts of one
+    stacked block of MoE layers."""
+    d, E, ffm = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    s[f"{prefix}/mlp_norm"] = ParamSpec((L, d), (None, None), init="ones")
+    s[f"{prefix}/router"] = ParamSpec((L, d, E), (None, None, None),
+                                      dtype="float32", scale=0.006)
+    s[f"{prefix}/w_gate_e"] = ParamSpec(
+        (L, E, d, ffm), (None, "expert", "embed_fsdp", None), per_expert=True)
+    s[f"{prefix}/w_up_e"] = ParamSpec(
+        (L, E, d, ffm), (None, "expert", "embed_fsdp", None), per_expert=True)
+    s[f"{prefix}/w_down_e"] = ParamSpec(
+        (L, E, ffm, d), (None, "expert", None, "embed_fsdp"), per_expert=True)
+    if cfg.shared_experts:
+        ffs = ffm * cfg.shared_experts
+        s[f"{prefix}/w_gate_s"] = ParamSpec((L, d, ffs), (None, "embed_fsdp", "mlp"))
+        s[f"{prefix}/w_up_s"] = ParamSpec((L, d, ffs), (None, "embed_fsdp", "mlp"))
+        s[f"{prefix}/w_down_s"] = ParamSpec((L, ffs, d), (None, "mlp", "embed_fsdp"))
+
+
 def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
             f"queue 1, item 9")
+    if cfg.family == "moe" and (cfg.attention != "gqa" or cfg.mtp
+                                or cfg.first_k_dense):
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention, its leading dense layers and the MTP "
+            f"head are not ported yet: ROADMAP queue 1, item 9")
     s: Dict[str, ParamSpec] = {}
     d, V = cfg.d_model, cfg.vocab_size
     va = "vocab" if vocab_sharded(cfg) else None
     s["embed/table"] = ParamSpec((V, d), (va, None), scale=1.0)
     s["final_norm"] = ParamSpec((d,), (None,), init="ones")
-    _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
+    if cfg.family == "dense":
+        _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
+    else:  # GQA MoE (qwen3): the FFN replaced by routed experts
+        _attn_layer(cfg, cfg.num_layers, "layers", s)
+        _moe_ffn(cfg, cfg.num_layers, "layers", s)
     s["lm_head"] = ParamSpec((d, V), (None, va))
     return s
 

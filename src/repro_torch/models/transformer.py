@@ -1,4 +1,4 @@
-"""Transformer forward passes on stacked ranks (dense family).
+"""Transformer forward passes on stacked ranks (dense and GQA MoE families).
 
 The reference scans its layer stack (``lax.scan`` over the leading L dim of
 every stacked param); the port runs a Python loop over per-layer views of
@@ -9,8 +9,10 @@ context (:func:`~repro_torch.core.context.recorded_once`).
 
 Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "v": ..., "pos": (*mesh,) or (*mesh, B)}``; the layers write K/V rows into
-them in place.  MoE, MLA, the VLM and audio frontends and the training loss
-are still to port (ROADMAP queue 1, items 9, 10 and 12).
+them in place.  MLA and MTP (deepseek-v3), the VLM and audio frontends and
+the training loss are still to port (ROADMAP queue 1, items 9 and 10).
+A MoE layer's dispatch stats add up over the layer loop in the active
+``dispatch_stats`` frame, as the reference sums them over its scan.
 """
 
 from __future__ import annotations
@@ -22,17 +24,19 @@ import torch
 from ..core.context import default_context, recorded_once
 from .config import ModelConfig, ParallelCtx
 from .layers import (KVCache, attention_block, dot_f32, embed_lookup,
-                     local_kv_heads, mlp_block, rmsnorm)
+                     local_kv_heads, mlp_block, moe_block, rmsnorm)
 
 __all__ = ["init_cache", "transformer_forward", "transformer_prefill",
            "transformer_chunk_prefill", "transformer_decode"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense" or cfg.moe or cfg.attention != "gqa":
+    if cfg.family not in ("dense", "moe") or cfg.moe != (cfg.family == "moe") \
+            or cfg.attention != "gqa" or cfg.first_k_dense or cfg.mtp:
         raise NotImplementedError(
-            f"{cfg.name}: only the dense GQA family is ported (MoE: ROADMAP "
-            f"queue 1, item 12; MLA and the other families: item 9)")
+            f"{cfg.name}: only the dense and MoE families with GQA attention "
+            f"are ported (MLA, its leading dense layers and MTP for "
+            f"deepseek-v3, and the other families: ROADMAP queue 1, item 9)")
 
 
 def _layer(params: Dict[str, torch.Tensor], prefix: str, nd: int,
@@ -52,6 +56,8 @@ def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
         cache=cache, causal=cfg.causal, chunked=chunked)
     x = x + attn
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps)
+    if cfg.moe:
+        return x + moe_block(h, lp, cfg, ctx), new_cache
     return x + mlp_block(h, lp, ctx, act="silu"), new_cache
 
 

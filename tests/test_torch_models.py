@@ -253,10 +253,10 @@ def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="item 8"):
         ParallelCtx.from_mesh(MESH, layout="dp_only")
     cfg = configs.get_reduced("glm4-9b")
-    moe = type(cfg)(**{**{f: getattr(cfg, f)
+    mla = type(cfg)(**{**{f: getattr(cfg, f)
                           for f in cfg.__dataclass_fields__},
-                       "family": "moe"})
+                       "family": "moe", "moe": True, "attention": "mla"})
     with pytest.raises(NotImplementedError, match="item 9"):
-        schema.build_schema(moe)
+        schema.build_schema(mla)
     with pytest.raises(NotImplementedError, match="item 9"):
         api.cache_structs(cfg, MESH, ctx, B, S, seq_sharded=True)

@@ -373,3 +373,89 @@ def test_resilience_replays_the_reference():
     assert resilience.call_with_retries(
         flaky, "put", resilience.RetryPolicy(sleep=False)) == "ok"
     assert len(calls) == 3
+
+
+# -- MoE: reduced qwen3-moe through the dropless fused dispatch -------------
+
+MOE = "qwen3-moe-235b-a22b"
+MOE_CFG, MOE_JCFG = configs.get_reduced(MOE), j_configs.get_reduced(MOE)
+
+
+@pytest.fixture(scope="module")
+def moe_weights():
+    jp = {k: v.astype(jnp.float32) for k, v in
+          j_sch.init_params(MOE_JCFG, jax.random.PRNGKey(0)).items()}
+    tp = params_from_reference(MOE_CFG, MESH, {k: np.array(v)
+                                               for k, v in jp.items()},
+                               dtype=torch.float32)
+    return jp, tp
+
+
+def _moe_engines(mesh8, moe_weights, **kw):
+    """Both engines on reduced qwen3-moe under dispatch_impl="fused"."""
+    jp, tp = moe_weights
+    jdc = JContext(mesh=mesh8, segment_bytes=1 << 26, allocator="buddy")
+    tdc = DiompContext(mesh=MESH, device="cpu", segment_bytes=1 << 26,
+                       allocator="buddy")
+    j = JEngine(MOE_JCFG, mesh8, JCtx.from_mesh(
+        mesh8, remat=False, inference=True, dispatch_impl="fused"), jp,
+        context=jdc, **kw)
+    t = ServeEngine(MOE_CFG, MESH, ParallelCtx.from_mesh(
+        MESH, remat=False, inference=True, dispatch_impl="fused"), tp,
+        context=tdc, **kw)
+    return j, t
+
+
+def test_moe_engine_matches_reference(mesh8, moe_weights):
+    """Continuous batching with chunked prefill over mixed lengths: every
+    MoE layer of every decode and chunk step runs the one-sided ring.  The
+    port's engine logs each built step's collectives once, the puts of the
+    ring included: one trace of each of the reference's steps."""
+    jp, _ = moe_weights
+    j, t = _moe_engines(mesh8, moe_weights, slots=2, max_len=64,
+                        prefill_chunk=8)
+    _same_requests(_serve(j, LENGTHS), _serve(t, LENGTHS))
+    assert (t.steps, t.device_calls) == (j.steps, j.device_calls)
+    assert t.kv_stats == j.kv_stats
+    jctx = JCtx.from_mesh(mesh8, remat=False, inference=True,
+                          dispatch_impl="fused")
+    traced = JContext(mesh=mesh8)
+    structs, _ = j_api.cache_structs(MOE_JCFG, mesh8, jctx, 2, 64)
+    cache = {k: jnp.zeros(s.shape, s.dtype) for k, s in structs.items()}
+    cache["pos"] = jnp.zeros((2,), jnp.int32)
+    structs1, _ = j_api.cache_structs(MOE_JCFG, mesh8, jctx, 1, 64)
+    cache1 = {k: jnp.zeros(s.shape, s.dtype) for k, s in structs1.items()}
+    with j_use_default(traced):
+        jax.eval_shape(j_step.build_decode_step(
+            MOE_JCFG, mesh8, jctx, B=2, S=64, donate=False, slot_pos=True),
+            jp, np.zeros((2, 1), np.int32), cache)
+        jax.eval_shape(j_step.build_chunk_prefill_step(
+            MOE_JCFG, mesh8, jctx, C=8, S_cache=64), jp,
+            np.zeros((1, 8), np.int32), cache1, jnp.asarray(8, jnp.int32))
+    world = t._group.descriptor()
+    mine = {k: v for k, v in t.dctx.stats().items() if k != world}
+    assert mine == traced.stats()
+    assert {k: v for k, v in t.dctx.byte_stats().items() if k != world} \
+        == traced.byte_stats()
+    ep = DiompGroup(("model",), name="ep").descriptor()
+    assert mine[ep]["put"] == 2 * 2      # (ep - 1) out and back, 2 steps
+
+
+def test_moe_slo_decision_log_matches_reference(mesh8, moe_weights):
+    pol = dict(max_queue=6, queue_high=2, queue_low=1, min_step_s=0.01,
+               degrade_sustain_steps=2, degrade_recover_steps=2,
+               degraded_max_new=2)
+    jclk, tclk = j_slo.ManualClock(), slo.ManualClock()
+    j, _ = _moe_engines(
+        mesh8, moe_weights, slots=1, max_len=64, prefill_chunk=8, clock=jclk,
+        slo=j_slo.SLOPolicy(default_tier=j_slo.TierPolicy(
+            ttft_deadline_s=0.4, total_deadline_s=1.2), **pol))
+    _, t = _moe_engines(
+        mesh8, moe_weights, slots=1, max_len=64, prefill_chunk=8, clock=tclk,
+        slo=slo.SLOPolicy(default_tier=slo.TierPolicy(
+            ttft_deadline_s=0.4, total_deadline_s=1.2), **pol))
+    j, t = _drive(j, jclk), _drive(t, tclk)
+    assert len(j.slo_log) > 0 and t.slo_log == j.slo_log
+    assert t.shed == j.shed
+    assert [r.out for r in t._all] == [r.out for r in j._all]
+    assert (t.steps, t.device_calls) == (j.steps, j.device_calls)
