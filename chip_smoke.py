@@ -24,13 +24,21 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   prefill chunk runs the fused dispatch kernel (puts, grouped expert MLP,
   returns), then one 512-token prefill chunk under the default ``"a2a"``,
   whose grouped GEMMs run the expert-MLP kernel;
+* rwkv6-7b and zamba2-1.2b at full width and depth on the same mesh,
+  through their prefill and decode steps (the serving engine takes
+  positional KV caches only, as in the reference): 4 prompts of 2000
+  tokens in one prefill call, then 32 greedy decode steps — every RWKV
+  and Mamba2 layer's recurrence runs the linear-scan kernel, zamba2's
+  shared attention the flash kernel; and prefill-then-decode against
+  token-by-token decode on an f32 cut of each;
 
 with every kernel's launch count zeroed just before each path and read just
 after it.  Then it times each kernel at the main path's shapes beside its
 plain version and, where one exists, the one PyTorch call that computes the
 same function, times Minimod's two modes over repeated alternated runs,
-prints each serving phase's time to first token and decode step time (and
-the MoE phase's plans, drop count and routed experts), and prints one JSON
+prints each serving phase's time to first token (the recurrent phases'
+prefill time) and decode step time with their bounds (and the MoE phase's
+plans, drop count and routed experts), and prints one JSON
 line of per-kernel numbers, the card's
 name and power limit, and a last JSON line with the device.  Any failed
 phase exits non-zero; so does a machine without CUDA and a directory that
@@ -66,6 +74,12 @@ SERVE_ARCH, SERVE_RANKS = "glm4-9b", 2
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 SLOTS, MAX_LEN, CHUNK, PAGE_TOKENS = 4, 4096, 512, 64
 REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 256, 3000, 32
+# the recurrent families at full width and depth on the same mesh, through
+# their prefill and decode steps: prompts of 2000 tokens (31 chunks of 64
+# and a ragged 16), 32 greedy tokens each
+REC_ARCHS = ("rwkv6-7b", "zamba2-1-2b")
+REC_REQUESTS, REC_PROMPT, REC_NEW = 4, 2000, 32
+REC_PREFILL_REPS = 4            # timed prefill calls after the served one
 
 
 def log(msg: str) -> None:
@@ -117,7 +131,10 @@ def load_port():
     from repro_torch.kernels.flash_attention import kernel as fa
     from repro_torch.kernels.moe_dispatch import fused as moe_fused
     from repro_torch.kernels.moe_dispatch import kernel as moe_kernel
+    from repro_torch.kernels.linear_scan import kernel as ls
     return SimpleNamespace(
+        linear_scan_kernel=ls.linear_scan_kernel,
+        linear_scan_plain=ls.linear_scan_plain,
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
         expert_mlp=moe_kernel.expert_mlp,
@@ -425,10 +442,66 @@ def check_moe_dispatch(torch, k, g) -> None:
                           f"{name}: dropped {dropped.tolist()}")
 
 
+def _scan_inputs(torch, g, BH, T, M, N, decay):
+    """Scan operands of order one; ``decay`` is a fixed a or None (a drawn
+    from [0.7, 0.999], the reference sweep's range)."""
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * 0.5
+    a = (torch.full((BH, T, N), decay, device="cuda") if decay is not None
+         else 0.7 + 0.299 * torch.rand(BH, T, N, generator=g, device="cuda"))
+    return rnd(BH, T, M), rnd(BH, T, N), a, rnd(BH, T, N)
+
+
+def _scan_err(torch, got, want):
+    """Each output's max |err| over its largest magnitude."""
+    return max(max_err(torch, gt, w) / max(float(w.abs().max()), 1e-30)
+               for gt, w in zip(got, want))
+
+
+def check_linear_scan(torch, k, g) -> None:
+    """The scan kernel against the sequential scan: both readouts, T = 1
+    (decode), ragged and whole chunks, zero and carried states, decays from
+    the reference sweep's [0.7, 0.999] and fixed at e^-1 and e^-8 (where
+    the reference's clamped Pallas kernel fails), M = N = 64 and a narrow
+    ragged shape, chunks of 64 and 16.  Tolerance 2e-4 of each output's
+    largest magnitude, the reference's bound for the chunked form against
+    the sequential scan (tests/test_kernels.py:99-103).  Operands that are
+    not contiguous float32 are refused without a launch."""
+    for (BH, M, N, chunk) in ((3, 64, 64, 64), (2, 16, 40, 16)):
+        for T in (1, 37, 64, 130):
+            for decay in (None, math.exp(-1.0), math.exp(-8.0)):
+                p, q, a, r = _scan_inputs(torch, g, BH, T, M, N, decay)
+                for s0 in (None, torch.randn(BH, M, N, generator=g,
+                                             device="cuda")):
+                    for pre in (True, False):
+                        want = k.linear_scan_plain(p, q, a, r, s0,
+                                                   readout_pre=pre)
+                        kern = k.linear_scan_kernel
+                        got = _counted(kern, lambda: kern(
+                            p, q, a, r, s0, readout_pre=pre, chunk=chunk))
+                        err = _scan_err(torch, got, want)
+                        check(all(bool(torch.isfinite(t).all()) for t in got)
+                              and err <= 2e-4,
+                              f"linear_scan BH{BH} T{T} M{M} N{N} chunk "
+                              f"{chunk} decay {decay} s0 {s0 is not None} "
+                              f"pre {pre}: relative err {err:.3g}")
+    before = k.linear_scan_kernel.launches
+    for bad in (p.to(torch.bfloat16), p.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        try:
+            k.linear_scan_kernel(bad, q, a, r)
+            check(False, "linear_scan: a bf16 or strided p was not refused")
+        except TypeError:
+            pass
+    check(k.linear_scan_kernel.launches == before,
+          "linear_scan: a refused call counted a launch")
+
+
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "leap": check_leap, "fused_step": check_fused_step,
                 "flash": check_flash, "expert_mlp": check_expert_mlp,
-                "moe_dispatch": check_moe_dispatch}
+                "moe_dispatch": check_moe_dispatch,
+                "linear_scan": check_linear_scan}
 
 
 # -- the serving phase ---------------------------------------------------------
@@ -483,6 +556,23 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid):
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
 
 
+def _flash_call(torch, k, name, args, kw):
+    """:func:`_flash_at` on the arguments a layer gave the flash kernel,
+    its offsets made per-row tensors as the kernel's wrapper makes them."""
+    q, kk, v = args
+    check(kw.get("causal", True) and not kw.get("prefix_len"),
+          f"flash {name}: called with {kw}")
+    lead = q.shape[:-3]
+
+    def per_row(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=q.device) \
+            .expand(lead).contiguous()
+
+    vl = kw.get("valid_len")
+    return _flash_at(torch, k, name, q, kk, v, per_row(kw.get("q_offset", 0)),
+                     per_row(kk.shape[-3] if vl is None else vl))
+
+
 def _breakdown(torch, fn, reps: int = 3) -> str:
     """Device time of ``fn`` by kernel group from ``torch.profiler`` (ms a
     call), and the device's busy share of the wall time of those calls."""
@@ -505,6 +595,7 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
             continue
         name = evt.key
         group = ("flash" if "flash_fwd" in name else
+                 "linear_scan" if "linear_scan_kernel" in name else
                  "moe_dispatch" if "dispatch_kernel" in name else
                  "expert_mlp" if ("gate_up_kernel" in name
                                   or "down_kernel" in name) else
@@ -1014,6 +1105,351 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     return [mlp_line, line]
 
 
+# -- the recurrent families: rwkv6-7b and zamba2-1.2b -------------------------
+
+
+def _scan_work(BH, T, M, N, chunk, with_s0):
+    """(bytes, f32 operations) of one linear-scan call: p, q, a, r (and s0)
+    read once, y and the final state written once; the chunked form's
+    products, counting only the (t, s) pairs inside the causal mask: per
+    chunk of c rows, A (2N a pair), A·p (2M a pair), the readout of the
+    carried state and the state update (2MN a row each)."""
+    nbytes = 4 * BH * (T * (M + 3 * N) + T * M + M * N * (2 if with_s0 else 1))
+    ops = 0
+    for c0 in range(0, T, chunk):
+        c = min(chunk, T - c0)
+        pairs = c * (c + 1) // 2
+        ops += pairs * 2 * (M + N) + 4 * c * M * N
+    return nbytes, BH * ops
+
+
+def _scan_at(torch, k, name, args, kw):
+    """The scan kernel at one shape of the serving path (the arguments a
+    layer gave it): within 2e-4 of the plain version's largest magnitude,
+    timed beside it."""
+    p, q, a, r, s0 = args
+    got = k.linear_scan_kernel(*args, **kw)
+    want = k.linear_scan_plain(*args, **kw)
+    err = max(max_err(torch, g_, w_) for g_, w_ in zip(got, want))
+    rel = _scan_err(torch, got, want)
+    check(all(bool(torch.isfinite(t).all()) for t in got) and rel <= 2e-4,
+          f"linear_scan {name}: relative err {rel:.3g}")
+    del got, want
+    BH, T, M = p.shape
+    N = q.shape[-1]
+    nbytes, ops = _scan_work(BH, T, M, N, min(64, T), s0 is not None)
+    ms = cuda_ms(torch, lambda: k.linear_scan_kernel(*args, **kw),
+                 5 if T > 1 else 50)
+    plain = cuda_ms(torch, lambda: k.linear_scan_plain(*args, **kw),
+                    1 if T > 1 else 10)
+    b_ms, b_by = bound(nbytes, ops, "float32")
+    log(f"linear_scan {name}: BH {BH}, T {T}, M {M}, N {N}, s0 "
+        f"{s0 is not None}: {ms:.4f} ms, plain {plain:.3f}, bound "
+        f"{b_ms:.4f} ms by {b_by}, err {err:.4g} (relative {rel:.3g})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+
+def _recurrent_bounds(cfg, schema, B, T, decode_pos):
+    """The least device time (ms) of the prefill call and of one decode
+    step, from the model's shapes: every weight but the embedding table
+    read once in bf16; two operations a weight a token in bf16 (the shared
+    block's weights once an application), the LM head at the last position
+    only at prefill; causal attention over the prompt and over
+    ``decode_pos`` keys at decode; the scan's f32 operations
+    (:func:`_scan_work`); the f32 states read and written.  The bound is
+    the largest of the bytes' time and the two types' operation times."""
+    L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    hybrid = cfg.family == "hybrid"
+    n_app = L // max(cfg.attn_every, 1) if hybrid else 0
+    per_tok = weights = 0
+    for name, sp in schema.items():
+        if name in ("embed/table", "lm_head"):
+            continue
+        n = math.prod(sp.shape)
+        weights += n * (4 if sp.dtype == "float32" else 2)
+        shape = sp.shape[1:] if name.startswith("layers/") else sp.shape
+        if len(shape) == 2 and min(shape) >= 16:   # a matrix
+            per_tok += n * (n_app if name.startswith("shared/") else 1)
+    weights += 2 * d * V
+    if hybrid:
+        H, M, N, D = 2 * d // 64, 64, cfg.ssm_state, cfg.head_dim
+        attn_heads = cfg.num_heads
+    else:
+        H = d // cfg.rwkv_head_dim
+        M = N = cfg.rwkv_head_dim
+        attn_heads = D = 0
+    state = 4 * L * B * H * M * N
+    pre_scan = _scan_work(B * H, T, M, N, min(64, T), False)[1]
+    dec_scan = _scan_work(B * H, 1, M, N, 1, True)[1]
+    pre_ops = (2 * per_tok * B * T + 2 * d * V * B
+               + n_app * 2 * B * attn_heads * D * T * (T + 1))
+    dec_ops = (2 * per_tok * B + 2 * d * V * B
+               + n_app * 4 * B * attn_heads * D * decode_pos)
+    kv_read = n_app * B * decode_pos * 2 * cfg.kv_heads * D * 2
+    out = []
+    for nbytes, bf16_ops, f32_ops in (
+            (weights + state, pre_ops, L * pre_scan),
+            (weights + 2 * state + kv_read, dec_ops, L * dec_scan)):
+        cands = [(nbytes / PEAK_BYTES * 1e3, "bytes"),
+                 (bf16_ops / PEAK_OPS["bfloat16"] * 1e3, "operations"),
+                 (f32_ops / PEAK_OPS["float32"] * 1e3, "operations")]
+        out.append(max(cands))
+    return out
+
+
+def _zero_cache(torch, cfg, mesh, pctx, B, S_cache, dtype, dev):
+    """A zeroed stacked decode cache laid out from ``cache_structs``."""
+    from repro_torch.interop import local_shape
+    from repro_torch.models import api
+
+    def zeros(structs, specs):
+        if isinstance(structs, dict):
+            return {n: zeros(st, specs[n]) for n, st in structs.items()}
+        return torch.zeros(local_shape(structs.shape, mesh, specs),
+                           dtype=structs.dtype, device=dev)
+
+    return zeros(*api.cache_structs(cfg, mesh, pctx, B, S_cache, dtype=dtype))
+
+
+def _greedy(torch, logits, step, mesh, dev):
+    """Next tokens from vocab-sharded logits: global argmax on the host."""
+    from repro_torch.interop import stack_shards, unstack_shards
+    full = unstack_shards(logits, mesh, step.logits_spec)      # (B, 1, V)
+    nxt = full.argmax(-1).astype("int64")
+    return nxt, stack_shards(nxt, mesh, step.token_spec, device=dev,
+                             dtype=torch.int64)
+
+
+def _serve_recurrent(torch, dev, cfg, mesh, pctx, params, B, prompt, steps,
+                     S_cache, dctx):
+    """One prefill call over ``prompt (B, T)`` from a zero state, then
+    ``steps`` greedy decode steps.  Returns (tokens, every step's logits
+    finite, prefill ms, decode ms per step, the built steps and cache)."""
+    import numpy as np
+    from repro_torch.core.context import use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+    pre = build_prefill_step(cfg, mesh, pctx, B=B, S_cache=S_cache)
+    dec = build_decode_step(cfg, mesh, pctx, B=B, S=S_cache)
+    cache = _zero_cache(torch, cfg, mesh, pctx, B, S_cache,
+                        params["embed/table"].dtype, dev)
+    toks = stack_shards(prompt, mesh, pre.token_spec, device=dev,
+                        dtype=torch.int64)
+    a, b = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    with use_default(dctx):
+        a.record()
+        logits, cache = pre(params, toks, cache)
+        b.record()
+        finite = [torch.isfinite(logits).all()]
+        out, events = [], []
+        nxt, toks = _greedy(torch, logits, pre, mesh, dev)
+        out.append(nxt[:, 0])
+        for _ in range(steps):
+            e0, e1 = torch.cuda.Event(enable_timing=True), \
+                torch.cuda.Event(enable_timing=True)
+            e0.record()
+            logits, cache = dec(params, toks, cache)
+            e1.record()
+            events.append((e0, e1))
+            finite.append(torch.isfinite(logits).all())
+            nxt, toks = _greedy(torch, logits, dec, mesh, dev)
+            out.append(nxt[:, 0])
+    torch.cuda.synchronize()
+    return (np.stack(out, 1), bool(torch.stack(finite).all()),
+            a.elapsed_time(b), [x.elapsed_time(y) for x, y in events],
+            pre, dec, cache)
+
+
+def _token_by_token(torch, dev, cfg, mesh, pctx, params, prompt, steps,
+                    dctx):
+    """Greedy tokens from decoding ``prompt`` one token at a time from a
+    zero state (no prefill call), then ``steps`` more."""
+    import numpy as np
+    from repro_torch.core.context import use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.serve.step import build_decode_step
+    B, T = prompt.shape
+    S_cache = T + steps
+    dec = build_decode_step(cfg, mesh, pctx, B=B, S=S_cache)
+    cache = _zero_cache(torch, cfg, mesh, pctx, B, S_cache,
+                        params["embed/table"].dtype, dev)
+    out, finite = [], []
+    with use_default(dctx):
+        for t in range(T + steps):
+            tok = prompt[:, t:t + 1] if t < T else nxt[:, None]
+            logits, cache = dec(params, stack_shards(
+                tok, mesh, dec.token_spec, device=dev, dtype=torch.int64),
+                cache)
+            finite.append(torch.isfinite(logits).all())
+            nxt, _ = _greedy(torch, logits, dec, mesh, dev)
+            nxt = nxt[:, 0]
+            if t >= T - 1:
+                out.append(nxt)
+    return np.stack(out, 1), bool(torch.stack(finite).all())
+
+
+def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
+    """Serve ``arch`` (rwkv6-7b or zamba2-1.2b) at full width and depth on
+    the data 1 x model 2 smoke mesh through the port's prefill and decode
+    steps: REC_REQUESTS prompts of REC_PROMPT tokens in one prefill call,
+    then REC_NEW greedy decode steps, every wrapper's count zeroed just
+    before and read just after; then the scan kernel (and zamba2's flash
+    kernel) at the phase's own shapes, and prefill-then-decode against
+    token-by-token decode on an f32 cut of the model.  Returns the scan
+    kernel's numbers at this phase's prefill and decode shapes, its
+    launches, and the flash kernel's numbers under ``"flash"``."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import layers, rwkv, ssm
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+
+    cfg = configs.get(arch)
+    tag = cfg.name.split("-")[0]
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    B, T, S_cache = REC_REQUESTS, REC_PROMPT, REC_PROMPT + REC_NEW + 1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"{tag}: {cfg.name} at full width and depth ({cfg.num_layers} "
+        f"layers, {cfg.param_count() / 1e9:.3f} B parameters) on "
+        f"{mesh.shape}, {nbytes / 1e9:.2f} GB of random bf16 weights in "
+        f"{time.perf_counter() - t0:.1f} s")
+    dctx = DiompContext(mesh=mesh, device=dev)
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, T))
+    # warm-up at the phase's own shapes (library handles, allocator pools),
+    # off the record
+    _serve_recurrent(torch, dev, cfg, mesh, pctx, params, B, prompt, 2,
+                     S_cache, dctx)
+    module = rwkv if cfg.family == "ssm" else ssm
+    scans, flashes = {}, {}
+
+    def keep_scan(args, kw):
+        scans.setdefault("prefill" if args[0].shape[1] > 1 else "decode",
+                         (args, kw))
+        return False
+
+    def keep_flash(args, kw):
+        flashes.setdefault("prefill" if args[0].shape[-3] > 1 else "decode",
+                           (args, kw))
+        return False
+
+    with _Tap(module, "linear_scan", keep_scan), \
+            _Tap(layers, "flash_attention", keep_flash):
+        for wrapper in wrappers.values():
+            wrapper.launches = 0
+        t0 = time.perf_counter()
+        toks, finite, pre_ms, steps_ms, pre, dec, cache = _serve_recurrent(
+            torch, dev, cfg, mesh, pctx, params, B, prompt, REC_NEW,
+            S_cache, dctx)
+        wall = time.perf_counter() - t0
+        launches = {name: wr.launches for name, wr in wrappers.items()}
+    log(f"{tag}: {B} prompts of {T} tokens, one prefill call and {REC_NEW} "
+        f"greedy decode steps in {wall:.2f} s; launches {launches}")
+    L = cfg.num_layers
+    n_app = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    check(finite and toks.shape == (B, REC_NEW + 1)
+          and ((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          f"{tag}: bad logits or tokens")
+    check(launches["linear_scan"] == L * (1 + REC_NEW),
+          f"{tag}: linear_scan launches {launches['linear_scan']} != {L} x "
+          f"{1 + REC_NEW} calls")
+    check(launches["flash_attention"] == n_app * (1 + REC_NEW),
+          f"{tag}: flash launches {launches['flash_attention']} != "
+          f"{n_app} x {1 + REC_NEW} calls")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("linear_scan", "flash_attention")),
+          f"{tag}: unexpected launches {launches}")
+    if n_app:
+        log(f"{tag}: the shared attention block ran the flash kernel "
+            f"{launches['flash_attention']} times ({n_app} applications x "
+            f"{1 + REC_NEW} calls)")
+    # the served prefill call and REC_PREFILL_REPS more at its shapes, each
+    # from a zeroed cache, timed with CUDA events
+    ptoks = stack_shards(prompt, mesh, pre.token_spec, device=dev,
+                         dtype=torch.int64)
+    dtoks = stack_shards(toks[:, -1:], mesh, dec.token_spec, device=dev,
+                         dtype=torch.int64)
+    fresh = _zero_cache(torch, cfg, mesh, pctx, B, S_cache, torch.bfloat16,
+                        dev)
+    pre_times = [pre_ms]
+    with use_default(dctx):
+
+        def prefill_once():
+            pre(params, ptoks, fresh)
+
+        def decode_once():
+            dec(params, dtoks, cache)
+
+        for _ in range(REC_PREFILL_REPS):
+            pre_times.append(cuda_ms(torch, prefill_once, 1, warmup=0))
+        steady = steps_ms[2:]
+        pre_b, dec_b = _recurrent_bounds(cfg, sch.build_schema(cfg), B, T,
+                                         T + REC_NEW // 2)
+        log(f"{tag}: prefill of {B} x {T} tokens: median "
+            f"{statistics.median(pre_times):.2f} ms over {len(pre_times)} "
+            f"calls (min {min(pre_times):.2f}, max {max(pre_times):.2f}; "
+            f"{', '.join(f'{t:.2f}' for t in pre_times)}; bound "
+            f"{pre_b[0]:.2f} ms by {pre_b[1]}); decode step median "
+            f"{statistics.median(steady):.3f} ms over {len(steady)} steps "
+            f"(min {min(steady):.3f}, max {max(steady):.3f}; bound "
+            f"{dec_b[0]:.3f} ms by {dec_b[1]}); step over bound "
+            f"{statistics.median(steady) / dec_b[0]:.2f}")
+        # where a prefill call and a decode step spend their time
+        log(f"{tag}: prefill call: {_breakdown(torch, prefill_once, 1)}")
+        log(f"{tag}: decode step: {_breakdown(torch, decode_once)}")
+    del fresh
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{tag}: peak device memory {peak:.1f} GB")
+
+    # the scan kernel at this phase's own shapes (one layer's call each),
+    # and zamba2's flash kernel at its shared block's (32 heads on 32 kv
+    # heads, head_dim 64): the first prefill and the first decode call
+    res = {"launches": launches["linear_scan"], "flash": {}}
+    for name in ("prefill", "decode"):
+        args, kw = scans[name]
+        res[name] = _scan_at(torch, k, f"{tag} {name}", args, kw)
+    for name, (args, kw) in sorted(flashes.items()):
+        res["flash"][f"{tag}_{name}"] = _flash_call(
+            torch, k, f"{tag} {name}", args, kw)
+    check(bool(res["flash"]) == bool(n_app),
+          f"{tag}: flash calls kept {sorted(flashes)}")
+    del scans, flashes, args, kw, cache, params
+    torch.cuda.empty_cache()
+
+    # prefill then decode == token by token (greedy), on a float32 cut of
+    # the model at full width: 2 layers (zamba2: 6, one application of the
+    # shared block), prompts of 100 tokens (a whole chunk and a ragged 36)
+    small = dataclasses.replace(cfg, num_layers=6 if n_app else 2)
+    params = sch.init_params(small, mesh, torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+    params = {n: p.float() for n, p in params.items()}
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, 100))
+    steps = 8
+    got, fin1, *_ = _serve_recurrent(torch, dev, small, mesh, pctx, params,
+                                     B, prompt, steps, 100 + steps + 1, dctx)
+    want, fin2 = _token_by_token(torch, dev, small, mesh, pctx, params,
+                                 prompt, steps, dctx)
+    check(fin1 and fin2, f"{tag} f32 cut: non-finite logits")
+    check((got == want).all(), f"{tag} f32 cut: prefill-then-decode tokens "
+          f"{got.tolist()} != token-by-token {want.tolist()}")
+    log(f"{tag}: prefill then decode == token by token on a {small.num_layers}"
+        f"-layer f32 cut: {got.size} greedy tokens over {B} prompts of 100")
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -1056,7 +1492,8 @@ def main() -> int:
                 "fused_wave_step": k.fused_wave_step_kernel,
                 "flash_attention": k.flash_attention_kernel,
                 "expert_mlp": k.expert_mlp,
-                "fused_moe_dispatch": k.fused_moe_dispatch_kernel}
+                "fused_moe_dispatch": k.fused_moe_dispatch_kernel,
+                "linear_scan": k.linear_scan_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -1265,11 +1702,31 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 7: serving glm4-9b at full width ---------------------------------
-    kernels.append(serve_phase(torch, k, dev, wrappers))
+    flash = serve_phase(torch, k, dev, wrappers)
+    kernels.append(flash)
 
     # -- phase 8: serving qwen3-moe at full width, the dropless ring ----------
     kernels.extend(moe_phase(torch, k, dev, wrappers))
-    check(len(kernels) == len(wrappers) == 7, "kernels line incomplete")
+
+    # -- phases 9-10: rwkv6-7b and zamba2-1.2b, the recurrent scan ----------
+    rec = {arch: recurrent_phase(torch, k, dev, wrappers, arch)
+           for arch in REC_ARCHS}
+    scan = {"name": "linear_scan", "route": "cuda",
+            "source": "src/repro_torch/csrc/linear_scan.cu",
+            "replaces": "src/repro/kernels/linear_scan/kernel.py:104",
+            "launches": sum(r["launches"] for r in rec.values()),
+            "shape": "rwkv6 prefill"}
+    scan.update(rec["rwkv6-7b"]["prefill"])
+    scan["rwkv6_decode"] = rec["rwkv6-7b"]["decode"]
+    scan["zamba2_prefill"] = rec["zamba2-1-2b"]["prefill"]
+    scan["zamba2_decode"] = rec["zamba2-1-2b"]["decode"]
+    scan["launches_by_phase"] = {a: r["launches"] for a, r in rec.items()}
+    for r in rec.values():
+        flash.update(r["flash"])
+    check(all(r["launches"] > 0 for r in rec.values()),
+          "linear_scan: a recurrent phase launched no scan")
+    kernels.append(scan)
+    check(len(kernels) == len(wrappers) == 8, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

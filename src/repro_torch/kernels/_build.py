@@ -51,6 +51,8 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_expert_mlp": [_P] * 7 + [_LL] * 3 + [_I] * 7 + [_P]}),
     "moe_dispatch": ("moe_dispatch.cu", {
         "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 9 + [_P]}),
+    "linear_scan": ("linear_scan.cu", {
+        "repro_linear_scan": [_P] * 7 + [_I] * 6 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
         + [_P, _P] + [_I] * 11 + [_F, _I, _P]}),

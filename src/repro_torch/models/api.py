@@ -1,6 +1,6 @@
-"""Family-dispatch API: the surface the serving layer talks to (dense and
-GQA MoE families; MLA and the recurrent families are still to port, ROADMAP
-queue 1, item 9).
+"""Family-dispatch API: the surface the serving layer talks to (dense, GQA
+MoE, RWKV6 and Zamba2 families; MLA, the VLM and audio families are still
+to port, ROADMAP queue 1, item 9, and the training losses, item 10).
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's
 global shape and dtype — with its per-dim spec, from which a stacked cache
@@ -17,10 +17,12 @@ from ..launch.mesh import RankMesh
 from . import schema as sch
 from .config import ModelConfig, ParallelCtx
 from .layers import local_kv_heads
+from .rwkv import rwkv_decode
+from .ssm import MAMBA_HEAD_DIM, zamba_decode
 from .transformer import transformer_decode
 
 __all__ = ["TRANSFORMER_FAMILIES", "TensorStruct", "decode_fn", "has_decode",
-           "cache_structs"]
+           "supports_long_context", "cache_structs"]
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -37,6 +39,12 @@ def decode_fn(cfg: ModelConfig) -> Callable:
     if cfg.family in TRANSFORMER_FAMILIES:
         return lambda p, t, cfg, ctx, cache, seq_sharded=False: (
             transformer_decode(p, t, cfg, ctx, cache, seq_sharded=seq_sharded))
+    if cfg.family == "ssm":
+        return lambda p, t, cfg, ctx, cache, seq_sharded=False: (
+            rwkv_decode(p, t, cfg, ctx, cache))
+    if cfg.family == "hybrid":
+        return lambda p, t, cfg, ctx, cache, seq_sharded=False: (
+            zamba_decode(p, t, cfg, ctx, cache, seq_sharded=seq_sharded))
     raise NotImplementedError(
         f"the {cfg.family!r} family's decode is not ported yet: ROADMAP "
         f"queue 1, item 9")
@@ -44,6 +52,11 @@ def decode_fn(cfg: ModelConfig) -> Callable:
 
 def has_decode(cfg: ModelConfig) -> bool:
     return cfg.family != "audio"  # encoder-only archs have no decode step
+
+
+def supports_long_context(cfg: ModelConfig) -> bool:
+    """long_500k runs only for sub-quadratic decode-state archs."""
+    return cfg.family in ("ssm", "hybrid")
 
 
 def _batch_axes(mesh: RankMesh, B: int,
@@ -58,24 +71,51 @@ def _batch_axes(mesh: RankMesh, B: int,
 def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
                   S: int, *, seq_sharded: bool = False,
                   dtype=torch.bfloat16):
-    """Global-view decode cache: ``({leaf: TensorStruct}, {leaf: spec})``.
+    """Global-view decode cache: ``({leaf: TensorStruct}, {leaf: spec})``
+    (the hybrid's Mamba states nest under ``"mamba"``).
 
     For head-parallel archs with replicated KV weights the cache's global
     KV dim is ``local_kv_heads · tp`` (each rank holds its q-block's kv
-    group), as in the reference.
+    group), as in the reference.  The recurrent families' layouts are the
+    reference's: RWKV's token-shift carries and f32 WKV state, Zamba's conv
+    and f32 SSM states, one KV cache per shared-block application and one
+    scalar position.
     """
-    if cfg.family not in TRANSFORMER_FAMILIES or cfg.attention != "gqa" \
-            or cfg.first_k_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: only the GQA cache (dense and MoE families) is "
-            f"ported yet; MLA's latent cache and the other families: ROADMAP "
-            f"queue 1, item 9")
     if seq_sharded:
         raise NotImplementedError(
             "the context(seq)-sharded cache is not ported yet: ROADMAP "
             "queue 1, item 9")
     ba = _batch_axes(mesh, B)
     bspec = ba if ba else None
+    if cfg.family == "ssm":
+        d, hd, L = cfg.d_model, cfg.rwkv_head_dim, cfg.num_layers
+        carry = TensorStruct((L, B, d), dtype)
+        return ({"x_tm": carry, "x_cm": carry,
+                 "S": TensorStruct((L, B, d // hd, hd, hd), torch.float32)},
+                {"x_tm": (None, bspec, None), "x_cm": (None, bspec, None),
+                 "S": (None, bspec, "model", None, None)})
+    if cfg.family == "hybrid":
+        din, L = 2 * cfg.d_model, cfg.num_layers
+        n_app = L // max(cfg.attn_every, 1)
+        kv = TensorStruct((n_app, B, S, cfg.kv_heads, cfg.head_dim), dtype)
+        kspec = (None, bspec, None, "model" if sch.kv_sharded(cfg) else None,
+                 None)
+        return ({"mamba": {
+                    "conv": TensorStruct((L, B, cfg.conv_width - 1, din),
+                                         dtype),
+                    "S": TensorStruct((L, B, din // MAMBA_HEAD_DIM,
+                                       MAMBA_HEAD_DIM, cfg.ssm_state),
+                                      torch.float32)},
+                 "k": kv, "v": kv, "pos": TensorStruct((), torch.int32)},
+                {"mamba": {"conv": (None, bspec, None, "model"),
+                           "S": (None, bspec, "model", None, None)},
+                 "k": kspec, "v": kspec, "pos": ()})
+    if cfg.family not in TRANSFORMER_FAMILIES or cfg.attention != "gqa" \
+            or cfg.first_k_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: only the GQA cache (dense and MoE families) is "
+            f"ported yet; MLA's latent cache and the other families: ROADMAP "
+            f"queue 1, item 9")
     KH_loc = local_kv_heads(cfg, ctx)
     kv_model = sch.kv_sharded(cfg) or (sch.head_parallel(cfg) and ctx.tp > 1)
     KH_glob = KH_loc * ctx.tp if kv_model else cfg.kv_heads

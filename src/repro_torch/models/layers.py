@@ -1,4 +1,5 @@
-"""Manual-SPMD layer library on stacked ranks (dense and GQA MoE families).
+"""Manual-SPMD layer library on stacked ranks (dense, GQA MoE, RWKV6 and
+Zamba2 families).
 
 The reference runs every function here inside ``shard_map`` on one rank's
 shard; the port runs it once on stacked tensors whose leading dims are the
@@ -44,9 +45,10 @@ from .config import ModelConfig, ParallelCtx
 from .schema import head_parallel, kv_sharded, vocab_sharded
 
 __all__ = [
-    "rmsnorm", "rope", "gather_fsdp", "tp_allreduce", "col_matmul",
-    "row_matmul", "embed_lookup", "KVCache", "local_kv_heads",
+    "rmsnorm", "layernorm", "rope", "gather_fsdp", "tp_allreduce",
+    "col_matmul", "row_matmul", "embed_lookup", "KVCache", "local_kv_heads",
     "attention_block", "mlp_block", "moe_capacity", "moe_block", "dot",
+    "flat_heads",
 ]
 
 
@@ -68,6 +70,13 @@ def _rank_index(group, ndim: int, device) -> torch.Tensor:
     mesh = _mesh()
     r = group_rank(group, mesh, device)
     return r.reshape(*mesh.sizes, *([1] * (ndim - mesh.ndim)))
+
+
+def flat_heads(t: torch.Tensor) -> torch.Tensor:
+    """``(*mesh, B, T, H, k)`` -> ``(ranks·B·H, T, k)``, contiguous: the
+    batch of sequences a linear scan takes."""
+    T, k = t.shape[-3], t.shape[-1]
+    return t.transpose(-3, -2).reshape(-1, T, k).contiguous()
 
 
 def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -97,6 +106,17 @@ def rmsnorm(x, scale, eps: float = 1e-5, plus_one: bool = False):
     if plus_one:
         s = 1.0 + s
     return (xf * inv * s).to(x.dtype)
+
+
+def layernorm(x, scale_bias, eps: float = 1e-5):
+    """scale_bias ``(*mesh, 2, d)``: row 0 scale, row 1 bias."""
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    scale = _lift(scale_bias.select(-2, 0), x).float()
+    bias = _lift(scale_bias.select(-2, 1), x).float()
+    return (y * scale + bias).to(x.dtype)
 
 
 def rope(x, positions, *, theta: float = 10_000.0, fraction: float = 1.0):

@@ -1,13 +1,13 @@
-"""Parameter schema — one declarative table per architecture (dense and
-GQA MoE families).
+"""Parameter schema — one declarative table per architecture (dense, GQA
+MoE, RWKV6 and Zamba2 families).
 
 Every parameter declares its global shape and *logical* placement axes
 once; from that declaration come the materialized init (from a
 ``torch.Generator`` on a given device) and the per-dim specs that
 :func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
 against the production TP width (``MAX_TP = 16``), as in the reference.
-The MLA (deepseek-v3) and MTP tables and the SSM, hybrid, VLM and audio
-families are still to port (ROADMAP queue 1, item 9).
+The MLA (deepseek-v3) and MTP tables and the VLM and audio families are
+still to port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -108,8 +108,73 @@ def _moe_ffn(cfg: ModelConfig, L: int, prefix: str,
         s[f"{prefix}/w_down_s"] = ParamSpec((L, ffs, d), (None, "mlp", "embed_fsdp"))
 
 
+def _rwkv_layer(cfg: ModelConfig, L: int, s: Dict[str, ParamSpec]) -> None:
+    """RWKV6: time mix (token-shift mixes, decay LoRA, bonus, head norm)
+    and channel mix, heads sharded over "model"."""
+    d, ff, lora = cfg.d_model, cfg.d_ff, 64
+    s["layers/ln1"] = ParamSpec((L, 2, d), (None, None, None), init="ones")
+    s["layers/ln2"] = ParamSpec((L, 2, d), (None, None, None), init="ones")
+    # time-mix: token-shift mixing coefficients for (r, k, v, w, g)
+    s["layers/tm_mu"] = ParamSpec((L, 5, d), (None, None, None), init="ones",
+                                  scale=0.5)
+    s["layers/tm_w0"] = ParamSpec((L, d), (None, "heads"), init="zeros")
+    s["layers/tm_wA"] = ParamSpec((L, d, lora), (None, None, None), scale=0.01)
+    s["layers/tm_wB"] = ParamSpec((L, lora, d), (None, None, "heads"),
+                                  scale=0.01)
+    s["layers/tm_u"] = ParamSpec((L, d), (None, "heads"), init="zeros")
+    for nm in ("wr", "wk", "wv", "wg"):
+        s[f"layers/tm_{nm}"] = ParamSpec((L, d, d),
+                                         (None, "embed_fsdp", "heads"))
+    s["layers/tm_lnx"] = ParamSpec((L, d), (None, "heads"), init="ones")
+    s["layers/tm_wo"] = ParamSpec((L, d, d), (None, "heads", "embed_fsdp"))
+    # channel-mix
+    s["layers/cm_mu"] = ParamSpec((L, 2, d), (None, None, None), init="ones",
+                                  scale=0.5)
+    s["layers/cm_wk"] = ParamSpec((L, d, ff), (None, "embed_fsdp", "mlp"))
+    s["layers/cm_wv"] = ParamSpec((L, ff, d), (None, "mlp", "embed_fsdp"))
+    s["layers/cm_wr"] = ParamSpec((L, d, d), (None, "embed_fsdp", "heads"))
+
+
+def _mamba_layer(cfg: ModelConfig, L: int, s: Dict[str, ParamSpec]) -> None:
+    """Mamba2: inner dim 2·d in heads of 64 sharded over "model"; the B/C
+    projection replicated."""
+    d = cfg.d_model
+    din = 2 * d
+    nh = din // 64
+    st, cw = cfg.ssm_state, cfg.conv_width
+    s["layers/norm"] = ParamSpec((L, d), (None, None), init="ones")
+    s["layers/w_x"] = ParamSpec((L, d, din), (None, "embed_fsdp", "heads"))
+    s["layers/w_z"] = ParamSpec((L, d, din), (None, "embed_fsdp", "heads"))
+    s["layers/w_bc"] = ParamSpec((L, d, 2 * st), (None, "embed_fsdp", None))
+    s["layers/w_dt"] = ParamSpec((L, d, nh), (None, "embed_fsdp", "heads"))
+    s["layers/dt_bias"] = ParamSpec((L, nh), (None, "heads"), init="zeros")
+    s["layers/conv_w"] = ParamSpec((L, cw, din), (None, None, "heads"),
+                                   scale=0.1)
+    s["layers/conv_b"] = ParamSpec((L, din), (None, "heads"), init="zeros")
+    s["layers/A_log"] = ParamSpec((L, nh), (None, "heads"), init="zeros")
+    s["layers/D"] = ParamSpec((L, nh), (None, "heads"), init="ones")
+    s["layers/out_norm"] = ParamSpec((L, din), (None, "heads"), init="ones")
+    s["layers/w_out"] = ParamSpec((L, din, d), (None, "heads", "embed_fsdp"))
+
+
+def _shared_block(cfg: ModelConfig, s: Dict[str, ParamSpec]) -> None:
+    """Zamba2's SHARED attention+MLP block: one parameter set, reused."""
+    d, H, KV, hd = cfg.d_model, cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    ha = "heads" if head_parallel(cfg) else None
+    ka = "kv_heads" if kv_sharded(cfg) else None
+    s["shared/attn_norm"] = ParamSpec((d,), (None,), init="ones")
+    s["shared/wq"] = ParamSpec((d, H * hd), ("embed_fsdp", ha))
+    s["shared/wk"] = ParamSpec((d, KV * hd), ("embed_fsdp", ka))
+    s["shared/wv"] = ParamSpec((d, KV * hd), ("embed_fsdp", ka))
+    s["shared/wo"] = ParamSpec((H * hd, d), (ha, "embed_fsdp"))
+    s["shared/mlp_norm"] = ParamSpec((d,), (None,), init="ones")
+    s["shared/w_gate"] = ParamSpec((d, cfg.d_ff), ("embed_fsdp", "mlp"))
+    s["shared/w_up"] = ParamSpec((d, cfg.d_ff), ("embed_fsdp", "mlp"))
+    s["shared/w_down"] = ParamSpec((cfg.d_ff, d), ("mlp", "embed_fsdp"))
+
+
 def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family not in ("dense", "moe"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
             f"queue 1, item 9")
@@ -125,9 +190,15 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     s["final_norm"] = ParamSpec((d,), (None,), init="ones")
     if cfg.family == "dense":
         _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
-    else:  # GQA MoE (qwen3): the FFN replaced by routed experts
+    elif cfg.family == "moe":  # GQA MoE (qwen3): the FFN replaced by experts
         _attn_layer(cfg, cfg.num_layers, "layers", s)
         _moe_ffn(cfg, cfg.num_layers, "layers", s)
+    elif cfg.family == "ssm":  # rwkv6
+        s["embed_norm"] = ParamSpec((2, d), (None, None), init="ones")
+        _rwkv_layer(cfg, cfg.num_layers, s)
+    else:  # hybrid (zamba2): mamba layers and the shared block
+        _mamba_layer(cfg, cfg.num_layers, s)
+        _shared_block(cfg, s)
     s["lm_head"] = ParamSpec((d, V), (None, va))
     return s
 

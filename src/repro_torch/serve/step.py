@@ -1,5 +1,6 @@
-"""Serve-step builders: prefill, chunk-prefill and decode steps (dense
-family).
+"""Serve-step builders: prefill, chunk-prefill and decode steps (dense and
+MoE families; prefill and decode for the recurrent RWKV6 and hybrid
+Zamba2 families, which the serving engine refuses, as in the reference).
 
 The reference wraps each step in ``shard_map`` plus ``jit``; here a built
 step is a plain callable over stacked tensors, carrying the per-dim specs
@@ -24,6 +25,9 @@ from ..launch.mesh import RankMesh
 from ..models import api as model_api
 from ..models import schema as sch
 from ..models.config import ModelConfig, ParallelCtx
+from ..models.layers import dot_f32
+from ..models.rwkv import rwkv_forward
+from ..models.ssm import zamba_forward
 from ..models.transformer import (transformer_chunk_prefill,
                                   transformer_prefill)
 
@@ -126,20 +130,33 @@ def build_chunk_prefill_step(cfg: ModelConfig, mesh: RankMesh,
 def build_prefill_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, *,
                        B: int, S_cache: int,
                        seq_sharded: bool = False) -> ServeStep:
-    """(params, tokens (*mesh, B_loc, Sp), cache) -> (last logits, cache')
-    (transformer families)."""
-    if cfg.family not in model_api.TRANSFORMER_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's prefill is not ported yet: ROADMAP "
-            f"queue 1, item 9")
+    """(params, tokens (*mesh, B_loc, Sp), cache) -> (last logits, cache').
+
+    Transformer families fill a KV cache; the recurrent families run their
+    stack over the prompt from the cache's state (zeros for a fresh one)
+    and return the last position's logits with the new state."""
     ctx = _serve_ctx(ctx)
     _, cspecs = model_api.cache_structs(cfg, mesh, ctx, B, S_cache,
                                         seq_sharded=seq_sharded)
     bpart = model_api._batch_axes(mesh, B) or None
 
-    def step(params, tokens, cache):
-        return transformer_prefill(params, tokens, cfg, ctx, cache,
-                                   seq_sharded=seq_sharded)
+    if cfg.family in model_api.TRANSFORMER_FAMILIES:
+        def step(params, tokens, cache):
+            return transformer_prefill(params, tokens, cfg, ctx, cache,
+                                       seq_sharded=seq_sharded)
+    elif cfg.family == "ssm":
+        def step(params, tokens, cache):
+            h, cache = rwkv_forward(params, tokens, cfg, ctx, cache)
+            return dot_f32(h[..., -1:, :], params["lm_head"]), cache
+    elif cfg.family == "hybrid":
+        def step(params, tokens, cache):
+            h, cache = zamba_forward(params, tokens, cfg, ctx, cache,
+                                     seq_sharded=seq_sharded)
+            return dot_f32(h[..., -1:, :], params["lm_head"]), cache
+    else:
+        raise NotImplementedError(
+            f"the {cfg.family!r} family's prefill is not ported yet: ROADMAP "
+            f"queue 1, item 9")
 
     return ServeStep(step, (bpart, None), cspecs,
                      (bpart, None, _vocab_spec(cfg)))

@@ -71,14 +71,29 @@ def test_entry_points_default_to_the_card():
     from repro_torch.core.context import DiompContext, init
     from repro_torch.launch import serve
     from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import rwkv, ssm
     from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve import step
     from repro_torch.serve.engine import ServeEngine
     mesh = make_smoke_mesh(8)
+    ctx = ParallelCtx.from_mesh(mesh)
+    rw = configs.get_reduced("rwkv6-7b")
+    zb = configs.get_reduced("zamba2-1-2b")
+    # the recurrent families' serving units: their state and a built
+    # prefill or decode step take the active context's device, which is
+    # the card unless the caller opens a CPU context
+    steps = [build(cfg, mesh, ctx, B=4, **{size: 16})
+             for cfg in (rw, zb)
+             for build, size in ((step.build_prefill_step, "S_cache"),
+                                 (step.build_decode_step, "S"))]
     for call in (DiompContext, init,
                  lambda: run_minimod(grid=(16, 8, 8), nz=2, steps=1),
                  lambda: ServeEngine(configs.get_reduced("glm4-9b"), mesh,
                                      ParallelCtx.from_mesh(mesh), {}),
-                 lambda: serve.main([])):
+                 lambda: serve.main([]),
+                 lambda: rwkv.rwkv_init_state(rw, ctx, 1),
+                 lambda: ssm.zamba_init_state(zb, ctx, 1, 16),
+                 *[lambda s=s: s({}, None, {}) for s in steps]):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert DiompContext(device="cpu").device.type == "cpu"
