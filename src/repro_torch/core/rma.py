@@ -36,6 +36,7 @@ __all__ = [
     "halo_exchange",
     "halo_window_names",
     "dispatch_window_names",
+    "attention_window_names",
     "validate_halo",
     "RMATracker",
     "RMAError",
@@ -96,6 +97,31 @@ def dispatch_window_names(group: DiompGroup, ep: int
     """
     return (tuple(f"moe:{group.name}:dispatch:{s}" for s in range(1, ep)),
             tuple(f"moe:{group.name}:combine:{s}" for s in range(1, ep)))
+
+
+def attention_window_names(group: DiompGroup, n: int,
+                           direction: str = "bidi"
+                           ) -> Tuple[Tuple[str, ...], Tuple[str, ...]]:
+    """The (cw, ccw) RMATracker window names of one ring-attention pass.
+
+    Window ``dir:s`` is the landing window feeding step ``s``: the K/V
+    stripe put at step ``s - 1`` lands there.  The clockwise stream serves
+    the ring's left half (``n // 2`` windows on the bidirectional ring),
+    the counter-clockwise stream the right half (``(n - 1) // 2``), as
+    :meth:`~repro_torch.kernels.plan.RingPlan.schedule` sends.  The fused
+    ring attention records every put (K and V separately) against these
+    windows with the bytes the OMPCCL communicator logs.
+    """
+    if direction == "bidi":
+        s_cw, s_ccw = n // 2, (n - 1) // 2
+    elif direction == "cw":
+        s_cw, s_ccw = n - 1, 0
+    elif direction == "ccw":
+        s_cw, s_ccw = 0, n - 1
+    else:
+        raise ValueError(f"unknown ring direction {direction!r}")
+    return (tuple(f"attn:{group.name}:cw:{s}" for s in range(1, s_cw + 1)),
+            tuple(f"attn:{group.name}:ccw:{s}" for s in range(1, s_ccw + 1)))
 
 
 def validate_halo(halo: int, extent: int, axis: int) -> None:

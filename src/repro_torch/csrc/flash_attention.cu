@@ -26,18 +26,11 @@
 // as zeros and never read, so the rows of a cache past valid_len may hold
 // anything, even NaN.
 //
-// Tiling: one block per (64-row query tile, kv head, r * B + b).  The rows
-// of a tile are (t, g) pairs, g over the G = H / KH query heads that share
-// the kv head, so a decode step (Tq = 1) fills G rows of the tile and reads
-// each K/V tile once for the whole group.  The block walks the keys in
-// tiles of BK (16, 32 or 64, from OverlapPlanner.plan_attention_block),
-// staged through shared memory: q^T (D x 64) once, then per key tile
-// k^T (D x BK), v (BK x Dv) and p (64 x BK).  256 threads as 16 x 16:
-// thread (ty, tx) owns rows ty + 16a (a < 4), score columns tx + 16j and
-// output columns tx + 16c; a row's max and sum reduce over the 16 lanes of
-// its half-warp with shuffles.  Key tiles past the last key any row of the
-// tile can see (valid_len, the causal frontier, the prefix window) are not
-// read at all.
+// Tiling: one block per (64-row query tile, kv head, r * B + b), running
+// attention.cuh's tile routine over the keys in tiles of BK (16, 32 or 64,
+// from OverlapPlanner.plan_attention_block).  Key tiles past the last key
+// any row of the tile can see (valid_len, the causal frontier, the prefix
+// window) are not read at all.
 //
 // Bound on this card: at decode (Tq = 1) bytes, the K/V rows read once
 // (valid_len x KH x (D + Dv) x 2 B a batch row); for a prefill chunk,
@@ -45,11 +38,7 @@
 // version runs its products on the CUDA cores in f32 (no wgmma / TMA) and
 // splits no key range across blocks, so a decode step launches only
 // R * B * KH blocks; both are later work (PERF.md).
-#include "common.cuh"
-
-#define BQ 64
-#define NT 256
-#define NEG_INF (-1e30f)
+#include "attention.cuh"
 
 struct FlashParams {
   const void* q;
@@ -64,20 +53,15 @@ struct FlashParams {
 };
 
 template <typename T, int DVT>
-__global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
+__global__ void __launch_bounds__(ATT_NT) flash_fwd_kernel(FlashParams p) {
   extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv, BK = p.BK, G = p.G;
-  float* qt = smem;                      // [D][BQ + 1]   q^T, scaled
-  float* kt = qt + D * (BQ + 1);         // [D][BK + 1]   k^T
-  float* vs = kt + D * (BK + 1);         // [BK][Dv]
-  float* ps = vs + BK * Dv;              // [BQ][BK + 1]  probabilities
-
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int G = p.G;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int kh = blockIdx.y;
   const int nb = blockIdx.z;             // r * B + b
   const int r = nb / p.B, b = nb % p.B;
   const int rows = p.Tq * G;
-  const int i0 = blockIdx.x * BQ;
+  const int i0 = blockIdx.x * ATT_BQ;
   const int qoff = p.q_offset[nb];
   const int vlen = min(p.valid_len[nb], p.Tk);
 
@@ -88,128 +72,22 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
                kh * p.vs[3];
   T* o = static_cast<T*>(p.o) + r * p.os[0] + b * p.os[1];
 
-  // the last key any row of this tile may see
-  const int t_first = i0 / G;
-  const int t_last = (min(i0 + BQ, rows) - 1) / G;
-  int kend = vlen;
-  if (p.causal) {
-    int frontier = qoff + t_last + 1;
-    if (qoff + t_first < p.prefix_len) frontier = max(frontier, p.prefix_len);
-    kend = min(kend, frontier);
-  }
-
-  // stage q^T (scaled in f32); rows past the end are zero
-  for (int e = tid; e < BQ * D; e += NT) {
-    const int i = e / D, d = e % D;
-    const int row = i0 + i;
-    float val = 0.f;
-    if (row < rows) {
-      const int t = row / G, h = kh * G + row % G;
-      val = to_f32(q[t * p.qs[2] + h * p.qs[3] + d]) * p.scale;
-    }
-    qt[d * (BQ + 1) + i] = val;
-  }
-
+  const int kend =
+      att_key_end(i0, rows, G, qoff, vlen, p.causal, p.prefix_len);
+  att_stage_q(smem, q, p.qs[2], p.qs[3], i0, rows, G, kh, p.D, p.scale);
   int qpos[4];
   bool rvalid[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int row = i0 + ty + 16 * a;
-    rvalid[a] = row < rows;
-    qpos[a] = qoff + (rvalid[a] ? row / G : 0);
-  }
+  att_rows(i0, rows, G, qoff, qpos, rvalid);
   float m[4], l[4], acc[4][DVT];
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
-    m[a] = NEG_INF;
+    m[a] = ATT_NEG_INF;
     l[a] = 0.f;
 #pragma unroll
     for (int c = 0; c < DVT; ++c) acc[a][c] = 0.f;
   }
-  const int ncol = BK / 16;              // score columns per thread
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();                     // previous tile fully consumed
-    for (int e = tid; e < BK * D; e += NT) {
-      const int j = e / D, d = e % D;
-      const int kp = k0 + j;
-      kt[d * (BK + 1) + j] = kp < kend ? to_f32(k[kp * p.ks[2] + d]) : 0.f;
-    }
-    for (int e = tid; e < BK * Dv; e += NT) {
-      const int j = e / Dv, c = e % Dv;
-      const int kp = k0 + j;
-      vs[j * Dv + c] = kp < kend ? to_f32(v[kp * p.vs[2] + c]) : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[a][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float qa[4], kb[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) qa[a] = qt[d * (BQ + 1) + ty + 16 * a];
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kb[j] = j < ncol ? kt[d * (BK + 1) + tx + 16 * j] : 0.f;
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[a][j] = fmaf(qa[a], kb[j], s[a][j]);
-    }
-
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      bool vis[4];
-      float mx = NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kp = k0 + tx + 16 * j;
-        bool ok = j < ncol && rvalid[a] && kp < vlen;
-        if (p.causal)
-          ok = ok && (kp <= qpos[a] ||
-                      (kp < p.prefix_len && qpos[a] < p.prefix_len));
-        vis[j] = ok;
-        if (!ok) s[a][j] = NEG_INF;
-        mx = fmaxf(mx, s[a][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[a], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float pj = vis[j] ? expf(s[a][j] - m_new) : 0.f;
-        sum += pj;
-        if (j < ncol) ps[(ty + 16 * a) * (BK + 1) + tx + 16 * j] = pj;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float alpha = expf(m[a] - m_new);
-      l[a] = l[a] * alpha + sum;
-      m[a] = m_new;
-#pragma unroll
-      for (int c = 0; c < DVT; ++c) acc[a][c] *= alpha;
-    }
-    __syncthreads();
-
-    for (int j = 0; j < BK; ++j) {
-      float pa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = ps[(ty + 16 * a) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < DVT; ++c) {
-        const int col = tx + 16 * c;
-        const float vv = col < Dv ? vs[j * Dv + col] : 0.f;
-#pragma unroll
-        for (int a = 0; a < 4; ++a) acc[a][c] = fmaf(pa[a], vv, acc[a][c]);
-      }
-    }
-  }
+  att_fold<T, DVT>(smem, k, p.ks[2], v, p.vs[2], p.D, p.Dv, p.BK, kend, 0,
+                   vlen, p.causal, p.prefix_len, qpos, rvalid, m, l, acc);
 
 #pragma unroll
   for (int a = 0; a < 4; ++a) {
@@ -220,22 +98,21 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(FlashParams p) {
 #pragma unroll
     for (int c = 0; c < DVT; ++c) {
       const int col = tx + 16 * c;
-      if (col < Dv) o[t * p.os[2] + h * p.os[3] + col] = from_f32<T>(acc[a][c] * inv);
+      if (col < p.Dv)
+        o[t * p.os[2] + h * p.os[3] + col] = from_f32<T>(acc[a][c] * inv);
     }
   }
 }
 
 template <typename T, int DVT>
 static int launch(const FlashParams& p, int R, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)p.D * (BQ + 1) + (size_t)p.D * (p.BK + 1) +
-                       (size_t)p.BK * p.Dv + (size_t)BQ * (p.BK + 1));
+  const size_t smem = sizeof(float) * att_smem_floats(p.D, p.Dv, p.BK);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<T, DVT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((p.Tq * p.G + BQ - 1) / BQ, p.KH, R * p.B);
-  flash_fwd_kernel<T, DVT><<<grid, NT, smem, stream>>>(p);
+  dim3 grid((p.Tq * p.G + ATT_BQ - 1) / ATT_BQ, p.KH, R * p.B);
+  flash_fwd_kernel<T, DVT><<<grid, ATT_NT, smem, stream>>>(p);
   REPRO_RETURN_LAUNCH_STATUS();
 }
 

@@ -1,0 +1,293 @@
+// fused_ring_attention: the whole bidirectional ring attention of every
+// virtual rank in ONE cooperative launch.
+//
+// Replaces fused_ring_attention_tpu (src/repro/kernels/ring_attention/
+// fused.py:346, pallas_call at :362; body _fused_attention_kernel at :238).
+// Each rank holds its queries and one K/V stripe of tk keys; the stripes
+// rotate around the ring in both directions, and each rank folds every
+// stripe that reaches it into an online-softmax carry (m, l, acc) in f32,
+// in the schedule's order, then normalizes.  On the TPU each device ran
+// its own copy of the kernel and a put was a remote DMA into the
+// neighbour's VMEM slot.  Here all n ranks live on one card:
+//
+// * a put is a store of the rank's current stripe into the neighbour's next
+//   slot of a device-memory slot buffer (ring, rank, direction, slot, B, tk,
+//   KH, D) — direction 0 (clockwise) goes to rank + 1, direction 1 to
+//   rank - 1 — and the fence is a grid-wide barrier (cooperative launch,
+//   grid sized from occupancy so every block is co-resident), as in
+//   ring_matmul.cu;
+// * each step's work is a list of (ring, rank, b, kv head, 64-row query
+//   tile) items dealt to the blocks; an item loads its carry from device
+//   memory (f32, one row per (t, g) pair), folds the stripe of each live
+//   direction with attention.cuh's tile routine (clockwise before
+//   counter-clockwise, the merge order of AttentionRingPlan.fold_steps()),
+//   and stores the carry, or on the last step writes the normalized output;
+// * q_offset and valid_len come per (ring, rank, b) from int32 device
+//   tensors (the query start already includes the rank's own rows when the
+//   queries are sharded), so a serving chunk's offsets never reach the
+//   host.  An item skips the keys of a stripe that no row of its tile can
+//   see (past valid_len or in the causal future): a fully masked stripe is
+//   the identity of the merge, so the skip changes no result.
+//
+// The schedule (RingPlan.schedule(): per step its compute/send flags) comes
+// from the host as an int32 table, so kernel and emulation run the same
+// records.  Bound on this card: operations, 2 pairs (D + Dv) flops over the
+// visible (query, key) pairs; at the served chunk (512 queries, 8 heads on
+// 1 kv head, D = 256, a 4096-row cache over 2 ranks) a few hundred
+// microseconds at the bf16 tensor-core rate.  This first version runs its
+// products on the CUDA cores in f32 (no wgmma / TMA), keeps the carry in
+// device memory between steps, and copies each stripe at memory speed per
+// step; per-slot release/acquire flags in place of the grid barrier are
+// later work.
+//
+// Layout: q (rings, n, B, tq, H, D), k (rings, n, B, tk, KH, D), v (rings, n,
+// B, tk, KH, Dv) and out (rings, n, B, tq, H, Dv), contiguous; bufk / bufv
+// (rings, n, 2, slots, B, tk, KH, D / Dv); cm, cl (items' rows) and cacc
+// (rows x Dv) f32, rows indexed ((((g n + r) B + b) KH + kh) tq G + row).
+#include <cooperative_groups.h>
+
+#include "attention.cuh"
+
+namespace cg = cooperative_groups;
+
+// columns of one schedule row (repro_torch/kernels/ring_attention/fused.py)
+enum { kStepIndex = 0, kComputeCw, kComputeCcw, kSendCw, kSendCcw, kStepCols };
+
+struct RingAttnParams {
+  const void* q;
+  const void* k;
+  const void* v;
+  void* o;
+  void* bufk;
+  void* bufv;
+  float* cm;
+  float* cl;
+  float* cacc;
+  const int* sched;
+  const int* q0;
+  const int* vlen;
+  int nsteps, rings, n, slots, B, tq, tk, H, KH, D, Dv, G, BK, causal;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ void copy_stripes(const RingAttnParams& p,
+                                             const T* k, const T* v,
+                                             int slot_from, int slot_to,
+                                             bool seed, bool send_cw,
+                                             bool send_ccw) {
+  // seed: my stripe -> both of my directions' slot 0;
+  // else: my direction-d slot -> the neighbour's next slot
+  const long long sk = (long long)p.B * p.tk * p.KH * p.D;
+  const long long sv = (long long)p.B * p.tk * p.KH * p.Dv;
+  const long long per = sk + sv;
+  const long long total = (long long)p.rings * p.n * per;
+  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long gstride = (long long)gridDim.x * blockDim.x;
+  T* bk = static_cast<T*>(p.bufk);
+  T* bv = static_cast<T*>(p.bufv);
+  auto slot_k = [&](long long gr, int dir, int s) {
+    return bk + ((gr * 2 + dir) * p.slots + s) * sk;
+  };
+  auto slot_v = [&](long long gr, int dir, int s) {
+    return bv + ((gr * 2 + dir) * p.slots + s) * sv;
+  };
+  for (long long e = gtid; e < total; e += gstride) {
+    const long long gr = e / per;          // ring * n + rank
+    const long long i = e % per;
+    const int g = (int)(gr / p.n), r = (int)(gr % p.n);
+    const long long right = (long long)g * p.n + (r + 1) % p.n;
+    const long long left = (long long)g * p.n + (r + p.n - 1) % p.n;
+    if (i < sk) {
+      if (seed) {
+        const T x = k[gr * sk + i];
+        slot_k(gr, 0, 0)[i] = x;
+        slot_k(gr, 1, 0)[i] = x;
+      } else {
+        if (send_cw) slot_k(right, 0, slot_to)[i] = slot_k(gr, 0, slot_from)[i];
+        if (send_ccw) slot_k(left, 1, slot_to)[i] = slot_k(gr, 1, slot_from)[i];
+      }
+    } else {
+      const long long j = i - sk;
+      if (seed) {
+        const T x = v[gr * sv + j];
+        slot_v(gr, 0, 0)[j] = x;
+        slot_v(gr, 1, 0)[j] = x;
+      } else {
+        if (send_cw) slot_v(right, 0, slot_to)[j] = slot_v(gr, 0, slot_from)[j];
+        if (send_ccw) slot_v(left, 1, slot_to)[j] = slot_v(gr, 1, slot_from)[j];
+      }
+    }
+  }
+}
+
+template <typename T, int DVT>
+__global__ void __launch_bounds__(ATT_NT)
+ring_attention_kernel(RingAttnParams p) {
+  extern __shared__ float smem[];
+  cg::grid_group grid = cg::this_grid();
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int G = p.G, rows = p.tq * G;
+  const int tiles = (rows + ATT_BQ - 1) / ATT_BQ;
+  const long long items = (long long)p.rings * p.n * p.B * p.KH * tiles;
+  const long long sk = (long long)p.B * p.tk * p.KH * p.D;
+  const long long sv = (long long)p.B * p.tk * p.KH * p.Dv;
+  const T* bk = static_cast<const T*>(p.bufk);
+  const T* bv = static_cast<const T*>(p.bufv);
+
+  copy_stripes<T>(p, static_cast<const T*>(p.k), static_cast<const T*>(p.v),
+                  0, 0, true, false, false);
+  grid.sync();
+
+  for (int st = 0; st < p.nsteps; ++st) {
+    const int* row = p.sched + st * kStepCols;
+    const int s = row[kStepIndex];
+    const int slot = s % p.slots, nxt = (s + 1) % p.slots;
+    const bool first = st == 0, last = st == p.nsteps - 1;
+    // puts: the next step's stripes, into slots no block reads this step
+    if (row[kSendCw] || row[kSendCcw])
+      copy_stripes<T>(p, nullptr, nullptr, slot, nxt, false, row[kSendCw],
+                      row[kSendCcw]);
+
+    for (long long wi = blockIdx.x; wi < items; wi += gridDim.x) {
+      const int tile = (int)(wi % tiles);
+      const long long seq = wi / tiles;      // ((g n + r) B + b) KH + kh
+      const int kh = (int)(seq % p.KH);
+      const long long nb = seq / p.KH;       // (g n + r) B + b
+      const int b = (int)(nb % p.B);
+      const long long gr = nb / p.B;         // g n + r
+      const int r = (int)(gr % p.n);
+      const int i0 = tile * ATT_BQ;
+      const int qoff = p.q0[nb];
+      const int vlen = min(p.vlen[nb], p.n * p.tk);
+      const int kend = att_key_end(i0, rows, G, qoff, vlen, p.causal, 0);
+
+      const T* q = static_cast<const T*>(p.q) +
+                   nb * (long long)p.tq * p.H * p.D;
+      att_stage_q(smem, q, (long long)p.H * p.D, (long long)p.D, i0, rows, G,
+                  kh, p.D, p.scale);
+      int qpos[4];
+      bool rvalid[4];
+      att_rows(i0, rows, G, qoff, qpos, rvalid);
+      const long long crow = seq * rows + i0 + ty;   // carry row of a = 0
+      float m[4], l[4], acc[4][DVT];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        const long long cr = crow + 16 * a;
+        const bool live = !first && rvalid[a];
+        m[a] = live ? p.cm[cr] : ATT_NEG_INF;
+        l[a] = live ? p.cl[cr] : 0.f;
+#pragma unroll
+        for (int c = 0; c < DVT; ++c) {
+          const int col = tx + 16 * c;
+          acc[a][c] = live && col < p.Dv ? p.cacc[cr * p.Dv + col] : 0.f;
+        }
+      }
+
+      for (int dir = 0; dir < 2; ++dir) {
+        if (!row[dir == 0 ? kComputeCw : kComputeCcw]) continue;
+        const int src = dir == 0 ? ((r - s) % p.n + p.n) % p.n : (r + s) % p.n;
+        const int kpos0 = src * p.tk;
+        const int nkeys = min(p.tk, kend - kpos0);
+        if (nkeys <= 0) continue;           // fully masked: the identity
+        const long long base = (gr * 2 + dir) * p.slots + slot;
+        const T* k = bk + base * sk + (long long)b * p.tk * p.KH * p.D +
+                     (long long)kh * p.D;
+        const T* v = bv + base * sv + (long long)b * p.tk * p.KH * p.Dv +
+                     (long long)kh * p.Dv;
+        att_fold<T, DVT>(smem, k, (long long)p.KH * p.D, v,
+                         (long long)p.KH * p.Dv, p.D, p.Dv, p.BK, nkeys,
+                         kpos0, vlen, p.causal, 0, qpos, rvalid, m, l, acc);
+      }
+
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (!rvalid[a]) continue;
+        const long long cr = crow + 16 * a;
+        if (last) {
+          const int rw = i0 + ty + 16 * a;
+          const int t = rw / G, h = kh * G + rw % G;
+          T* o = static_cast<T*>(p.o) +
+                 (nb * p.tq + t) * (long long)p.H * p.Dv + (long long)h * p.Dv;
+          const float inv = 1.f / fmaxf(l[a], 1e-30f);
+#pragma unroll
+          for (int c = 0; c < DVT; ++c) {
+            const int col = tx + 16 * c;
+            if (col < p.Dv) o[col] = from_f32<T>(acc[a][c] * inv);
+          }
+        } else {
+          if (tx == 0) {
+            p.cm[cr] = m[a];
+            p.cl[cr] = l[a];
+          }
+#pragma unroll
+          for (int c = 0; c < DVT; ++c) {
+            const int col = tx + 16 * c;
+            if (col < p.Dv) p.cacc[cr * p.Dv + col] = acc[a][c];
+          }
+        }
+      }
+    }
+    grid.sync();  // fence: the next step's stripes have landed
+  }
+}
+
+template <typename T, int DVT>
+static int launch(const RingAttnParams& p, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * att_smem_floats(p.D, p.Dv, p.BK);
+  auto kern = ring_attention_kernel<T, DVT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int device = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, ATT_NT,
+                                                      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  RingAttnParams args = p;
+  void* argv[] = {&args};
+  err = cudaLaunchCooperativeKernel((const void*)kern, dim3(per_sm * sms),
+                                    dim3(ATT_NT), argv, smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  REPRO_RETURN_LAUNCH_STATUS();
+}
+
+template <typename T>
+static int dispatch_dv(const RingAttnParams& p, cudaStream_t stream) {
+  if (p.Dv <= 16) return launch<T, 1>(p, stream);
+  if (p.Dv <= 32) return launch<T, 2>(p, stream);
+  if (p.Dv <= 64) return launch<T, 4>(p, stream);
+  if (p.Dv <= 128) return launch<T, 8>(p, stream);
+  return launch<T, 16>(p, stream);
+}
+
+extern "C" int repro_ring_attention(
+    const void* q, const void* k, const void* v, void* o, void* bufk,
+    void* bufv, void* cm, void* cl, void* cacc, const void* sched, int nsteps,
+    const void* q0, const void* vlen, int rings, int n, int slots, int B,
+    int tq, int tk, int H, int KH, int D, int Dv, int BK, int causal,
+    float scale, int dtype, void* stream) {
+  if (Dv > 256 || BK % 16 != 0 || BK < 16 || BK > 64 || H % KH != 0 ||
+      n < 1 || slots < (n > 1 ? 2 : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  RingAttnParams p;
+  p.q = q; p.k = k; p.v = v; p.o = o; p.bufk = bufk; p.bufv = bufv;
+  p.cm = static_cast<float*>(cm);
+  p.cl = static_cast<float*>(cl);
+  p.cacc = static_cast<float*>(cacc);
+  p.sched = static_cast<const int*>(sched);
+  p.q0 = static_cast<const int*>(q0);
+  p.vlen = static_cast<const int*>(vlen);
+  p.nsteps = nsteps; p.rings = rings; p.n = n; p.slots = slots; p.B = B;
+  p.tq = tq; p.tk = tk; p.H = H; p.KH = KH; p.D = D; p.Dv = Dv;
+  p.G = H / KH; p.BK = BK; p.causal = causal; p.scale = scale;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32: return dispatch_dv<float>(p, s);
+    case kF16: return dispatch_dv<__half>(p, s);
+    case kBF16: return dispatch_dv<__nv_bfloat16>(p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -56,6 +56,9 @@ LIBRARIES: Dict[str, tuple] = {
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
         + [_P, _P] + [_I] * 11 + [_F, _I, _P]}),
+    "ring_attention": ("ring_attention.cu", {
+        "repro_ring_attention": [_P] * 10 + [_I, _P, _P] + [_I] * 12
+        + [_F, _I, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

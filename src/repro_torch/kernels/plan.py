@@ -9,6 +9,8 @@ emulations execute:
   slots per ring direction, which stripe each step computes, which buffers
   each step forwards.  The bidirectional ring covers the ``n - 1`` remote
   stripes in ``ceil((n - 1) / 2)`` exchange steps.
+* :class:`AttentionRingPlan` — the same ring rotating K/V stripes for
+  sequence-parallel attention, with causal step skipping and the put books.
 * :class:`HaloPlan` — the phase order of the fused Minimod step.
 * :class:`AllToAllPlan` — the put ring of the dropless MoE dispatch, with
   per-expert asymmetric landing capacities.
@@ -30,6 +32,7 @@ from ..core.streams import MAX_ACTIVE_STREAMS_DEFAULT, StreamPool
 
 __all__ = [
     "AllToAllPlan",
+    "AttentionRingPlan",
     "RingStep",
     "RingPlan",
     "HaloPlan",
@@ -67,9 +70,10 @@ __all__ = [
 #   tile of x and a (BK, BN) tile of each of w_gate and w_up per block, in
 #   f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB at the fixed tile of
 #   csrc/expert_mlp.cuh, nothing the planner sizes;
-# * the fused ring's stripe slots, the fused step's landing windows and the
-#   fused MoE dispatch's landing and return slots live in device memory, not
-#   shared memory.
+# * the fused ring's stripe slots, the fused step's landing windows, the
+#   fused MoE dispatch's landing and return slots and the ring attention's
+#   K/V stripe slots and (m, l, acc) carry live in device memory, not shared
+#   memory.
 #
 # At 1024³ over nz = 4 the halo stage is 2.5 KiB and the overlapped schedule
 # stands.  The reference's staging formula with 227 KB as its budget would
@@ -288,6 +292,138 @@ class RingPlan:
             if st.compute_ccw:
                 out.append(("ccw", st.index))
         return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# ring attention schedule (sequence parallelism)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionRingPlan:
+    """Concrete schedule for one sequence-parallel ring attention pass.
+
+    The K/V stripes rotate through the same bidirectional ring as the
+    collective matmul (the step records ARE :meth:`RingPlan.schedule`); the
+    compute is a flash block per stripe whose partial-softmax states fold
+    with the :mod:`~repro_torch.kernels.ring_attention.kernel` merge.  On
+    top of the ring this plan adds:
+
+    * **causal step skipping** — :meth:`computes` says whether ``rank``
+      spends FLOPs on stripe ``src``.  A stripe whose keys all lie in the
+      rank's future (or past ``valid_len``) is fully masked, its state is
+      the merge identity, and skipping it leaves the carry bit for bit.
+      Sends are never skipped, so skipping changes FLOPs, not wire bytes.
+      ``q_offset=None`` means the query positions come from tensors
+      (chunked prefill): nothing is skipped statically.
+    * **wire-byte accounting** — K and V are separate one-sided puts: a
+      pass makes ``2·(n-1)`` puts a rank, ``(n-1)·stripe_bytes`` of wire,
+      the figure the RMATracker windows and the OMPCCL byte log report.
+    * ``q_sharded=True`` is the training layout (rank ``r`` holds queries
+      ``q_offset + r·tq_loc ..``); ``False`` the chunked-prefill layout
+      (every rank holds the same ``tq_loc`` queries at ``q_offset``).
+
+    ``block`` is the CUDA kernel's key tile; ``staging_bytes`` the device
+    memory a rank's stripe slots and f32 carry pin.
+    """
+
+    n: int
+    tq_loc: int
+    tk_loc: int
+    h: int                      # query heads
+    kh: int                     # kv heads (stripe width on the wire)
+    d: int
+    dv: int
+    b: int = 1
+    itemsize: int = 4
+    causal: bool = True
+    q_sharded: bool = True
+    q_offset: Optional[int] = 0     # None: offsets from tensors, no skip
+    valid_len: Optional[int] = None  # None: all n*tk_loc key rows are real
+    direction: str = "bidi"
+    slots: int = 2
+    block: int = 64
+    overlap: bool = True            # False: serialized "host" listing
+    staging_bytes: int = 0
+
+    def __post_init__(self):
+        if self.n < 1:
+            raise ValueError("group size must be >= 1")
+        if self.tq_loc < 1 or self.tk_loc < 1:
+            raise ValueError("per-rank extents must be >= 1")
+        if self.h % self.kh:
+            raise ValueError(f"H={self.h} not divisible by KH={self.kh}")
+        if self.direction not in ("bidi", "cw", "ccw"):
+            raise ValueError(f"unknown ring direction {self.direction!r}")
+
+    @property
+    def ring(self) -> RingPlan:
+        """The underlying exchange schedule (shared with the matmul ring)."""
+        return RingPlan(n=self.n, direction=self.direction, slots=self.slots,
+                        stripe_bytes=self.stripe_bytes)
+
+    @property
+    def exchange_steps(self) -> int:
+        return self.ring.exchange_steps
+
+    def schedule(self) -> Tuple[RingStep, ...]:
+        return self.ring.schedule()
+
+    def sources(self, rank: int = 0) -> Tuple[int, ...]:
+        """Stripe owners delivered to ``rank``, in schedule (= merge) order."""
+        return self.ring.sources(rank)
+
+    def fold_steps(self) -> Tuple[Tuple[str, int], ...]:
+        """Per-fold ``(direction, step)`` records (:meth:`RingPlan.
+        fold_steps`)."""
+        return self.ring.fold_steps()
+
+    def q_lo(self, rank: int) -> int:
+        """First global query position of ``rank`` (static plans only)."""
+        if self.q_offset is None:
+            raise ValueError("dynamic q_offset has no static query range")
+        return self.q_offset + (rank * self.tq_loc if self.q_sharded else 0)
+
+    def computes(self, rank: int, src: int) -> bool:
+        """Does ``rank`` spend FLOPs on stripe ``src``?  False only when
+        every (query, key) pair of the stripe is masked."""
+        k_lo = src * self.tk_loc
+        if self.valid_len is not None and k_lo >= self.valid_len:
+            return False
+        if not self.causal or self.q_offset is None:
+            return True
+        return k_lo <= self.q_lo(rank) + self.tq_loc - 1
+
+    def computed_sources(self, rank: int = 0) -> Tuple[int, ...]:
+        return tuple(s for s in self.sources(rank) if self.computes(rank, s))
+
+    @property
+    def stripe_bytes(self) -> int:
+        """Wire bytes of one K/V stripe (K put + V put)."""
+        return self.b * self.tk_loc * self.kh * (self.d + self.dv) \
+            * self.itemsize
+
+    @property
+    def puts_per_rank(self) -> int:
+        """One-sided puts per rank per pass (K and V put separately)."""
+        return 2 * (self.n - 1)
+
+    @property
+    def wire_bytes(self) -> int:
+        """Per-rank put bytes of the pass: every remote stripe crosses each
+        link once whatever the causal skip."""
+        return (self.n - 1) * self.stripe_bytes
+
+    @property
+    def stripe_flops(self) -> int:
+        """FLOPs of one stripe's block: QK^T and PV over all local queries
+        and the ``h`` query heads."""
+        return 2 * self.b * self.tq_loc * self.tk_loc * self.h \
+            * (self.d + self.dv)
+
+    def flops(self, rank: int) -> int:
+        """FLOPs ``rank`` spends after causal step skipping."""
+        return len(self.computed_sources(rank)) * self.stripe_flops
 
 
 # ---------------------------------------------------------------------------
@@ -623,6 +759,40 @@ class OverlapPlanner:
             f"flash attention with D = {d}, Dv = {dv} does not fit the "
             f"kernel (Dv <= {FLASH_MAX_DV}) and a shared-memory budget of "
             f"{self.smem_budget} bytes")
+
+    # -- ring attention -------------------------------------------------------
+    def plan_ring_attention(self, b: int, tq_loc: int, tk_loc: int,
+                            h: int, kh: int, d: int, dv: int, dtype, n: int,
+                            *, causal: bool = True, q_sharded: bool = True,
+                            q_offset: Optional[int] = 0,
+                            valid_len: Optional[int] = None,
+                            direction: str = "bidi",
+                            overlap: bool = True) -> AttentionRingPlan:
+        """Slot/block plan for the fused sequence-parallel attention ring.
+
+        The stripe slots live in device memory.  Each direction's budget is
+        the bytes of the all-gathered K/V they stand in for (``n`` stripes),
+        as :meth:`plan_ring_matmul` and :meth:`plan_alltoall` budget theirs
+        (the reference budgets 16 MiB of VMEM net of the resident queries
+        and carry).  The key tile is :meth:`plan_attention_block`'s on the
+        per-rank extents.  ``q_offset=None`` marks offsets that come from
+        tensors (chunked prefill): the plan then skips nothing.
+        """
+        item = _itemsize(dtype)
+        block = self.plan_attention_block(tq_loc, tk_loc, d, dv, dtype)
+        stripe = max(b * tk_loc * kh * (d + dv) * item, 1)
+        slots = self.pool.plan_slots(stripe, n * stripe)
+        slots = min(slots, max(n, 2))
+        carry = b * tq_loc * h * (2 + dv) * 4      # f32 (m, l, acc)
+        plan = AttentionRingPlan(
+            n=n, tq_loc=tq_loc, tk_loc=tk_loc, h=h, kh=kh, d=d, dv=dv, b=b,
+            itemsize=item, causal=causal, q_sharded=q_sharded,
+            q_offset=q_offset, valid_len=valid_len, direction=direction,
+            slots=1 if n == 1 else max(2, min(slots, n)), block=block,
+            overlap=overlap)
+        ndir = 2 if direction == "bidi" else 1
+        return dataclasses.replace(
+            plan, staging_bytes=ndir * plan.slots * stripe + carry)
 
     # -- MoE dispatch all-to-all ----------------------------------------------
     def plan_alltoall(self, t_loc: int, d: int, k: int, E: int, ep: int,

@@ -1,2 +1,3 @@
-"""The model stack, dense family (the other families are still to port:
-ROADMAP queue 1, item 9)."""
+"""The model stack: dense, GQA MoE, VLM, RWKV6 and Zamba2 families (MLA,
+the audio family and training are still to port: ROADMAP queue 1, items 9
+and 10)."""

@@ -1,6 +1,7 @@
 """Family-dispatch API: the surface the serving layer talks to (dense, GQA
-MoE, RWKV6 and Zamba2 families; MLA, the VLM and audio families are still
-to port, ROADMAP queue 1, item 9, and the training losses, item 10).
+MoE, VLM, RWKV6 and Zamba2 families; MLA and the audio family are still to
+port, ROADMAP queue 1, item 9, and the training losses and batches, item
+10).
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's
 global shape and dtype — with its per-dim spec, from which a stacked cache
@@ -113,8 +114,8 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
     if cfg.family not in TRANSFORMER_FAMILIES or cfg.attention != "gqa" \
             or cfg.first_k_dense:
         raise NotImplementedError(
-            f"{cfg.name}: only the GQA cache (dense and MoE families) is "
-            f"ported yet; MLA's latent cache and the other families: ROADMAP "
+            f"{cfg.name}: only the GQA cache (dense, MoE and VLM families) "
+            f"is ported yet; MLA's latent cache and the audio family: ROADMAP "
             f"queue 1, item 9")
     KH_loc = local_kv_heads(cfg, ctx)
     kv_model = sch.kv_sharded(cfg) or (sch.head_parallel(cfg) and ctx.tp > 1)

@@ -1,5 +1,5 @@
-"""Manual-SPMD layer library on stacked ranks (dense, GQA MoE, RWKV6 and
-Zamba2 families).
+"""Manual-SPMD layer library on stacked ranks (dense, GQA MoE, VLM, RWKV6
+and Zamba2 families).
 
 The reference runs every function here inside ``shard_map`` on one rank's
 shard; the port runs it once on stacked tensors whose leading dims are the
@@ -9,14 +9,14 @@ follow the reference (per rank):
 
 * activations ``(B_loc, T, d)``; weights TP-sharded over "model" (column /
   row Megatron style), ZeRO-3-sharded over "data" and gathered at use;
-* attention head-parallel when the heads divide ``MAX_TP``; decode caches
+* attention head-parallel when the heads divide ``MAX_TP``, else
+  token-parallel (all-gathered K/V or the fused ring); decode caches
   head-sharded or replicated per the same rules.
 
 Not ported here: the context-parallel decode (``cp_decode_attention``) and
-its seq-sharded cache, the token-parallel and ring-attention branches, MLA,
-MoE's ``expert2d`` placement, ``ring_fsdp_matmul`` and the int8 weight
-gather; each raises ``NotImplementedError`` naming its ROADMAP item where
-it would be reached.
+its seq-sharded cache, MLA, MoE's ``expert2d`` placement,
+``ring_fsdp_matmul`` and the int8 weight gather; each raises
+``NotImplementedError`` naming its ROADMAP item where it would be reached.
 
 The decode and chunk-prefill branches write the new K/V rows into the
 cache in place (the reference returns an updated copy): a step's cache is
@@ -281,16 +281,40 @@ def _slice_kv(kv, cfg: ModelConfig, ctx: ParallelCtx):
                                            kv.shape[-1]))
 
 
+def _my_chunk(x: torch.Tensor, group, dim: int, size: int) -> torch.Tensor:
+    """Per rank, the ``size`` rows of per-rank dim ``dim`` that start at
+    its group rank times ``size`` (``lax.dynamic_slice_in_dim`` at
+    ``axis_index · size``); a copy of those rows only."""
+    mesh = _mesh()
+    nd = mesh.ndim
+    d = nd + dim
+    lead = torch.meshgrid(*[torch.arange(n, device=x.device)
+                            for n in mesh.sizes], indexing="ij")
+    me = group_rank(group, mesh, x.device)
+    chunks = x.unflatten(d, (x.shape[d] // size, size)).movedim(d, nd)
+    return chunks[(*lead, me)]
+
+
 def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
                     ctx: ParallelCtx, *, positions=None, prefix_len: int = 0,
                     cache: Optional[KVCache] = None,
                     causal: Optional[bool] = None, chunked: bool = False):
     """GQA attention on the residual input x ``(*mesh, B, T, d)``; returns
-    ``(out, cache')``.  Head-parallel prefill, decode (T == 1 with a cache)
-    and chunked prefill (``chunked=True`` with a cache: the chunk's K/V go
-    in at the running position and its queries attend over the whole valid
-    prefix; any padded tail sits after every real query, so the causal mask
-    hides it)."""
+    ``(out, cache')``.  The reference's strategies:
+
+    * head-parallel — q heads divide ``MAX_TP``: heads sharded over "model";
+    * token-parallel — otherwise (paligemma's 8 heads): weights replicated
+      over "model", the T axis sliced; K/V all-gathered over the group, or
+      under ``seq_parallel="ring"`` (no cache, no prefix) rotated through
+      the fused ring attention;
+    * decode — T == 1 with a cache (head-sharded or replicated);
+    * chunked prefill — ``chunked=True`` with a cache: the chunk's K/V go
+      in at the running position and its queries attend over the whole
+      valid prefix (any padded tail sits after every real query, so the
+      causal mask hides it).  Under ``seq_parallel="ring"`` with replicated
+      heads each rank takes its S-stripe of the replicated cache and the
+      chunk's shared queries ride the ring.
+    """
     nd = _mesh().ndim
     T = x.shape[nd + 1]
     hp = head_parallel(cfg)
@@ -304,27 +328,32 @@ def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
 
     decode = cache is not None and T == 1
     chunkfill = chunked and cache is not None and not decode
-    if (not hp) and (not decode) and (not chunkfill) and T % ctx.tp == 0 \
-            and ctx.tp > 1:
-        raise NotImplementedError(
-            "token-parallel attention (heads that do not divide MAX_TP) is "
-            "not ported yet: ROADMAP queue 1, item 9")
-    if ctx.tp > 1 and not hp and not kvs \
-            and resolve_seq_parallel(ctx.seq_parallel) == "ring":
-        raise NotImplementedError(
-            "seq_parallel='ring' (fused ring attention) is not ported yet: "
-            "ROADMAP queue 1, item 13")
+    token_parallel = ((not hp) and (not decode) and (not chunkfill)
+                      and T % ctx.tp == 0 and ctx.tp > 1)
+    # the sequence-parallel strategy: "ring" rotates K/V stripes as
+    # one-sided puts folded with the online-softmax merge
+    ring_attn = ctx.tp > 1 and not hp and not kvs \
+        and resolve_seq_parallel(ctx.seq_parallel) == "ring"
 
-    lead = x.shape[:-1]
-    q = col_matmul(x, lp["wq"], ctx, lp.get("bq")).reshape(*lead, H_loc, hd)
-    k = col_matmul(x, lp["wk"], ctx, lp.get("bk")).reshape(*lead, KV_loc, hd)
-    v = col_matmul(x, lp["wv"], ctx, lp.get("bv")).reshape(*lead, KV_loc, hd)
+    if token_parallel:
+        t_loc = T // ctx.tp
+        t0 = _rank_index(ctx.tp_group, nd + 1, x.device) * t_loc  # (*mesh, 1)
+        x_me = _my_chunk(x, ctx.tp_group, 1, t_loc)
+        pos_me = _my_chunk(positions.reshape(-1).expand(*_mesh().sizes, T),
+                           ctx.tp_group, 0, t_loc).unsqueeze(-2)
+    else:
+        x_me, pos_me = x, positions
+
+    lead = x_me.shape[:-1]
+    q = col_matmul(x_me, lp["wq"], ctx, lp.get("bq")).reshape(*lead, H_loc, hd)
+    k = col_matmul(x_me, lp["wk"], ctx, lp.get("bk")).reshape(*lead, KV_loc, hd)
+    v = col_matmul(x_me, lp["wv"], ctx, lp.get("bv")).reshape(*lead, KV_loc, hd)
     if hp and not kvs and ctx.tp > 1:
         k = _slice_kv(k, cfg, ctx)
         v = _slice_kv(v, cfg, ctx)
     if cfg.rope_fraction > 0:
-        q = rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
-        k = rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        q = rope(q, pos_me, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+        k = rope(k, pos_me, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
 
     new_cache = cache
     if decode:
@@ -340,24 +369,59 @@ def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
         _write_rows(cache.k, k, p0)
         _write_rows(cache.v, v, p0)
         new_cache = KVCache(cache.k, cache.v, p0 + T)
-        attn = flash_attention(q, cache.k, cache.v, causal=True,
-                               q_offset=_per_row(p0),
-                               valid_len=_per_row(p0 + T))
+        s_all = cache.k.shape[nd + 1]
+        if ring_attn and s_all % ctx.tp == 0:
+            # the cache is replicated over "model": each rank folds its
+            # S-stripe and the chunk's (shared) queries ride the ring
+            s_loc = s_all // ctx.tp
+            attn = flash_attention(
+                q, _my_chunk(cache.k, ctx.tp_group, 1, s_loc),
+                _my_chunk(cache.v, ctx.tp_group, 1, s_loc), causal=True,
+                impl="ring", group=ctx.tp_group, q_offset=_per_row(p0),
+                valid_len=_per_row(p0 + T), q_sharded=False)
+        else:
+            attn = flash_attention(q, cache.k, cache.v, causal=True,
+                                   q_offset=_per_row(p0),
+                                   valid_len=_per_row(p0 + T))
+    elif token_parallel and ring_attn and cache is None and prefix_len == 0:
+        # fused ring attention (token-parallel, no cache): the K/V shards
+        # never gather; stripes rotate while the softmax state accumulates
+        attn = flash_attention(q, k, v, causal=causal, impl="ring",
+                               group=ctx.tp_group, q_sharded=True)
+    elif token_parallel:
+        # the keys must cover the whole sequence: gather over the TP group
+        k_full = ompccl.allgather(k, ctx.tp_group, axis=1,
+                                  invariant=ctx.inference)
+        v_full = ompccl.allgather(v, ctx.tp_group, axis=1,
+                                  invariant=ctx.inference)
+        attn = flash_attention(q, k_full, v_full, causal=causal, q_offset=t0,
+                               prefix_len=prefix_len)
+        if cache is not None:            # prefill: persist the gathered K/V
+            new_cache = _prefill_cache(cache, k_full, v_full, T)
     else:
         attn = flash_attention(q, k, v, causal=causal, prefix_len=prefix_len)
         if cache is not None:            # prefill into a decode cache
-            zero = torch.zeros((), dtype=torch.int32, device=x.device)
-            _write_rows(cache.k, k, zero)
-            _write_rows(cache.v, v, zero)
-            new_cache = KVCache(cache.k, cache.v, torch.full(
-                _mesh().sizes, T, dtype=torch.int32, device=x.device))
+            new_cache = _prefill_cache(cache, k, v, T)
 
     attn2 = attn.reshape(*attn.shape[:-2], H_loc * hd)
-    if hp:
+    if token_parallel:
+        out_me = dot(attn2, gather_fsdp(lp["wo"], ctx, dim=1))
+        out = ompccl.allgather(out_me, ctx.tp_group, axis=1,
+                               invariant=ctx.inference)   # tokens back
+    elif hp:
         out = row_matmul(attn2, lp["wo"], ctx)
     else:  # replicated heads: wo replicated over model
         out = dot(attn2, gather_fsdp(lp["wo"], ctx, dim=1))
     return out, new_cache
+
+
+def _prefill_cache(cache: KVCache, k, v, T: int) -> KVCache:
+    """Write a prompt's K/V at row 0 of the cache; its position is T."""
+    zero = torch.zeros((), dtype=torch.int32, device=k.device)
+    _write_rows(cache.k, k, zero)
+    _write_rows(cache.v, v, zero)
+    return KVCache(cache.k, cache.v, torch.full(
+        _mesh().sizes, T, dtype=torch.int32, device=k.device))
 
 
 # ---------------------------------------------------------------------------

@@ -1,13 +1,13 @@
 """Parameter schema — one declarative table per architecture (dense, GQA
-MoE, RWKV6 and Zamba2 families).
+MoE, VLM, RWKV6 and Zamba2 families).
 
 Every parameter declares its global shape and *logical* placement axes
 once; from that declaration come the materialized init (from a
 ``torch.Generator`` on a given device) and the per-dim specs that
 :func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
 against the production TP width (``MAX_TP = 16``), as in the reference.
-The MLA (deepseek-v3) and MTP tables and the VLM and audio families are
-still to port (ROADMAP queue 1, item 9).
+The MLA (deepseek-v3) and MTP tables and the audio family are still to
+port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -174,7 +174,7 @@ def _shared_block(cfg: ModelConfig, s: Dict[str, ParamSpec]) -> None:
 
 
 def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
         raise NotImplementedError(
             f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
             f"queue 1, item 9")
@@ -188,7 +188,7 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     va = "vocab" if vocab_sharded(cfg) else None
     s["embed/table"] = ParamSpec((V, d), (va, None), scale=1.0)
     s["final_norm"] = ParamSpec((d,), (None,), init="ones")
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "vlm"):
         _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
     elif cfg.family == "moe":  # GQA MoE (qwen3): the FFN replaced by experts
         _attn_layer(cfg, cfg.num_layers, "layers", s)
@@ -199,7 +199,8 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     else:  # hybrid (zamba2): mamba layers and the shared block
         _mamba_layer(cfg, cfg.num_layers, s)
         _shared_block(cfg, s)
-    s["lm_head"] = ParamSpec((d, V), (None, va))
+    if cfg.family != "vlm":          # the VLM's logits reuse embed/table
+        s["lm_head"] = ParamSpec((d, V), (None, va))
     return s
 
 

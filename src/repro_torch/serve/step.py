@@ -1,5 +1,5 @@
-"""Serve-step builders: prefill, chunk-prefill and decode steps (dense and
-MoE families; prefill and decode for the recurrent RWKV6 and hybrid
+"""Serve-step factories: prefill, chunk-prefill and decode steps (dense, MoE
+and VLM families; prefill and decode for the recurrent RWKV6 and hybrid
 Zamba2 families, which the serving engine refuses, as in the reference).
 
 The reference wraps each step in ``shard_map`` plus ``jit``; here a built

@@ -135,9 +135,10 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_ring_and_interpret_are_refused():
     """Only the kernel route is local: the reference's ``"ref"`` and
     ``"pallas"`` are refused, so no caller reaches the plain version on
-    the card."""
+    the card; ``"ring"`` (the sequence-parallel path) is refused without
+    the group its stripes rotate over."""
     q = torch.zeros(1, 2, 2, 4)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    with pytest.raises(ValueError, match="DiompGroup"):
         flash_attention(q, q, q, impl="ring")
     with pytest.raises(ValueError, match="interpret"):
         flash_attention(q, q, q, interpret=True)
