@@ -10,7 +10,8 @@ sm_90a), holds every kernel against its plain PyTorch version on small
 ragged shapes, then drives the port's main path at the paper's sizes:
 
 * the ring (Cannon) all-gather matmul at N = 30240 in bf16 over 4 virtual
-  ranks, fused and host-ring;
+  ranks, fused and host-ring, each timed with CUDA events, every GEMM of
+  both on the tensor-core route (TMA + wgmma; checked per route);
 * Minimod at 1024³ over nz = 4, 10 steps from random fields, fused
   (carried halos) and host, each held against a single-grid oracle;
 * one fused wave step at (256, 1024, 1024) per rank over nz = 4;
@@ -39,19 +40,20 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   one full-width chunk call under ``"ring"`` against the same call under
   ``"allgather"``, and chunked prefill against token-by-token on an f32 cut;
 
-with every kernel's launch count zeroed just before each path and read just
-after it.  Then it times each kernel at the main path's shapes beside its
-plain version and, where one exists, the one PyTorch call that computes the
-same function, times Minimod's two modes over repeated alternated runs,
-prints each serving phase's time to first token (the recurrent phases'
-prefill time) and decode step time with their bounds (and the MoE phase's
-plans, drop count and routed experts), times the ring kernel at the served
-chunk and at a sequence-parallel shape (4 virtual ranks of 4096 tokens),
-and prints one JSON
-line of per-kernel numbers, the card's
-name and power limit, and a last JSON line with the device.  Any failed
-phase exits non-zero; so does a machine without CUDA and a directory that
-does not hold the port.
+with every kernel's launch count (and the two GEMM kernels' per-route
+counts) zeroed just before each path and read just after it.  The build's
+registers and spills are logged per kernel instance.  Then it times each
+kernel at the main path's shapes beside its plain version and, where one
+exists, the one PyTorch call that computes the same function (sampling
+the card's SM clock and power draw over the fused ring's timing),
+times Minimod's two modes over repeated alternated runs, prints each
+serving phase's time to first token (the recurrent phases' prefill time)
+and decode step time with their bounds (and the MoE phase's plans, drop
+count and routed experts), times the ring kernel at the served chunk and
+at a sequence-parallel shape (4 virtual ranks of 4096 tokens), and prints
+one JSON line of per-kernel numbers, the card's name and power limit, and
+a last JSON line with the device.  Any failed phase exits non-zero; so
+does a machine without CUDA and a directory that does not hold the port.
 """
 
 from __future__ import annotations
@@ -124,6 +126,65 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def ptxas_summary(text: str):
+    """(kernel instance, registers, spill line) of each entry function in
+    an ``nvcc -Xptxas -v`` log."""
+    import re
+    func, spills = None, ""
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)'?", line)
+        if m:
+            func = m.group(1)
+        elif "spill" in line:
+            spills = line.strip()
+        m = re.search(r"Used (\d+) registers", line)
+        if m and func:
+            yield func, int(m.group(1)), spills
+            func, spills = None, ""
+
+
+class CardSampler:
+    """The card's SM clock (MHz) and power draw (W) while the ``with``
+    block runs, streamed by one ``nvidia-smi -lms 50`` process."""
+
+    def __init__(self):
+        import threading
+        self.samples = []
+        self._proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "50"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+
+    def _read(self):
+        for line in self._proc.stdout:
+            try:
+                clock, power = line.split(",")
+                self.samples.append((float(clock), float(power)))
+            except ValueError:
+                pass
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._proc.terminate()
+        self._proc.wait(timeout=30)
+        self._thread.join(timeout=30)
+
+    def summary(self) -> str:
+        if not self.samples:
+            return "no samples"
+        clocks = [c for c, _ in self.samples]
+        power = [p for _, p in self.samples]
+        return (f"{len(self.samples)} samples: SM clock min {min(clocks):.0f}"
+                f", median {statistics.median(clocks):.0f}, max "
+                f"{max(clocks):.0f} MHz; power median "
+                f"{statistics.median(power):.1f}, max {max(power):.1f} W")
+
+
 def max_err(torch, got, want) -> float:
     return float((got.float() - want.float()).abs().max())
 
@@ -179,46 +240,72 @@ def load_port():
 # launch count per call.  tests/test_torch_cuda.py runs the same checks.
 
 
-def _counted(wrapper, fn):
-    """``fn()``, checking that ``wrapper`` counted exactly one launch."""
+def _counted(wrapper, fn, route=None):
+    """``fn()``, checking that ``wrapper`` counted exactly one launch (on
+    ``route``, where one is given)."""
     before = wrapper.launches
+    routes = dict(getattr(wrapper, "route_launches", {}))
     got = fn()
     check(wrapper.launches == before + 1,
           f"{wrapper.__name__}: {wrapper.launches - before} launches counted")
+    if route is not None:
+        taken = [r for r, c in wrapper.route_launches.items()
+                 if c != routes[r]]
+        check(taken == [route] and wrapper.route_launches[route]
+              == routes[route] + 1,
+              f"{wrapper.__name__}: took {taken}, not the {route} route")
     return got
 
 
 def check_matmul(torch, k, g) -> None:
-    """Ragged edges, every dtype."""
-    for (M, K, N, dt, tol) in [(33, 65, 17, torch.float32, 1e-5),
-                               (100, 130, 70, torch.float16, 2e-3),
-                               (64, 96, 48, torch.bfloat16, 1.6e-2),
-                               (256, 512, 256, torch.float32, 1e-5)]:
+    """Ragged edges, every dtype, both routes: the 16-bit cases whose K
+    and N are multiples of 8 run on the tensor cores (with ragged M and N
+    edges and a K that is not a multiple of the tile's), the rest on the
+    CUDA cores."""
+    s, tc = "simt", "wgmma"
+    for (M, K, N, dt, tol, route) in [
+            (33, 65, 17, torch.float32, 1e-5, s),
+            (100, 130, 70, torch.float16, 2e-3, s),
+            (64, 96, 48, torch.bfloat16, 1.6e-2, tc),
+            (256, 512, 256, torch.float32, 1e-5, s),
+            (200, 264, 136, torch.bfloat16, 1.6e-2, tc),
+            (200, 264, 136, torch.float16, 2e-3, tc),
+            (300, 1000, 392, torch.bfloat16, 1.6e-2, tc),
+            (130, 72, 264, torch.float16, 2e-3, tc)]:
         x = torch.randn(M, K, generator=g, device="cuda").to(dt)
         w = torch.randn(K, N, generator=g, device="cuda").to(dt)
         want = k.matmul_ref(x, w)
         err = max_err(torch, _counted(k.matmul_kernel,
-                                      lambda: k.matmul_kernel(x, w)), want)
+                                      lambda: k.matmul_kernel(x, w), route),
+                      want)
         check(err <= tol * float(want.float().abs().max()),
               f"matmul {M}x{K}x{N} {dt}: err {err}")
 
 
 def check_ring(torch, k, g) -> None:
-    """n = 1..5 ranks, f32 and bf16, both directions and bidi."""
+    """n = 1..5 ranks, both directions and bidi: f32 and bf16 at a ragged
+    shape on the CUDA cores, and bf16 at an aligned one (K and n_loc
+    multiples of 8, t_loc and n_loc ragged against the tile) on the tensor
+    cores."""
     from repro_torch.kernels.plan import RingPlan
+    kern = k.fused_ring_allgather_matmul_kernel
+    cases = ((torch.float32, 1e-5, (5, 33, 7), "simt"),
+             (torch.bfloat16, 1.6e-2, (5, 33, 7), "simt"),
+             (torch.bfloat16, 1.6e-2, (200, 264, 136), "wgmma"))
     for n in range(1, 6):
-        for dt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1.6e-2)):
+        for dt, tol, (t_loc, K, n_loc), route in cases:
             for direction in ("bidi", "cw", "ccw"):
-                x = torch.randn(n, 5, 33, generator=g, device="cuda").to(dt)
-                w = torch.randn(n, 33, 7, generator=g, device="cuda").to(dt)
+                x = torch.randn(n, t_loc, K, generator=g,
+                                device="cuda").to(dt)
+                w = torch.randn(n, K, n_loc, generator=g,
+                                device="cuda").to(dt)
                 plan = RingPlan(n=n, direction=direction,
                                 slots=1 if n == 1 else 2)
                 want = k.ring_allgather_matmul_plain(x, w)
-                kern = k.fused_ring_allgather_matmul_kernel
-                got = _counted(kern, lambda: kern(x, w, plan=plan))
+                got = _counted(kern, lambda: kern(x, w, plan=plan), route)
                 err = max_err(torch, got, want)
                 check(err <= tol * float(want.float().abs().max()),
-                      f"ring n={n} {dt} {direction}: err {err}")
+                      f"ring n={n} {dt} {direction} {route}: err {err}")
 
 
 def check_leap(torch, k, g) -> None:
@@ -1806,9 +1893,8 @@ def main() -> int:
     log(f"built {sorted(logs) or 'nothing (up to date)'} in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, text in sorted(logs.items()):
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        for func, regs, spills in ptxas_summary(text):
+            log(f"  {name}: {func}: {regs} registers, {spills}")
 
     k = load_port()
     wrappers = {"matmul": k.matmul_kernel,
@@ -1852,15 +1938,25 @@ def main() -> int:
 
     for wrapper in wrappers.values():
         wrapper.launches = 0
+        for route in getattr(wrapper, "route_launches", {}):
+            wrapper.route_launches[route] = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ring_ctx = DiompContext(mesh=RankMesh(("ring",), (n,)), device=dev)
     ring = DiompGroup(("ring",), name="ring")
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     with use_default(ring_ctx):
+        marks[0].record()
         y_fused = ring_allgather_matmul(x, w, ring, impl="fused")
+        marks[1].record()
         y_host = ring_allgather_matmul(x, w, ring, impl="host")
+        marks[2].record()
     torch.cuda.synchronize()
     ring_s = time.perf_counter() - t0
+    # Fig. 7's fused-versus-host comparison on the card (CUDA events; the
+    # first calls, so each includes its ring's one-time costs)
+    log(f"ring at N = {N}: fused {marks[0].elapsed_time(marks[1]):.2f} ms, "
+        f"host {marks[1].elapsed_time(marks[2]):.2f} ms (CUDA events)")
     # Minimod's initial fields: random, so every rank boundary, both
     # Dirichlet edges and the ring's zeroed wrap carry data from step one
     u0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
@@ -1884,6 +1980,14 @@ def main() -> int:
         f"{mm['host'].wall_s:.3f} s; peak {peak_gb:.1f} GB")
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
+    # every GEMM of the ring at N = 30240 (bf16, K and n_loc multiples of
+    # 8) takes the tensor-core route
+    routes = {name: dict(wrappers[name].route_launches)
+              for name in ("matmul", "fused_ring_allgather_matmul")}
+    log(f"main path: GEMM routes {routes}")
+    for name, taken in routes.items():
+        check(taken["simt"] == 0 and taken["wgmma"] == launches[name],
+              f"{name}: a main-path launch left the tensor cores: {taken}")
 
     # -- the main path's outputs, by the repo's own means ----------------------
     want = k.ring_allgather_matmul_plain(x, w)
@@ -1943,10 +2047,15 @@ def main() -> int:
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms})
+        if name in routes:
+            kernels[-1]["route_launches"] = routes[name]
         log(f"{name}: {ms:.3f} ms (plain {plain_ms:.3f}, library "
             f"{library_ms}, bound {b_ms:.3f} ms by {b_by}), err {err:.4g}")
 
     # local GEMM of one rank: (t_loc x N) @ (N x n_loc)
+    from repro_torch.kernels.plan import OverlapPlanner
+    plan = OverlapPlanner().plan_ring_matmul(t_loc, N, n_loc, torch.bfloat16,
+                                             n)
     a, b = x[0].contiguous(), w[0].contiguous()
     got, want = k.matmul_kernel(a, b), k.matmul_ref(a, b)
     err = max_err(torch, got, want)
@@ -1960,18 +2069,18 @@ def main() -> int:
           "bfloat16", cuda_ms(torch, lambda: torch.matmul(a, b), 3))
     del a, b
 
-    from repro_torch.kernels.plan import OverlapPlanner
-    plan = OverlapPlanner().plan_ring_matmul(t_loc, N, n_loc, torch.bfloat16,
-                                             n)
     got = k.fused_ring_allgather_matmul_kernel(x, w, plan=plan)
     want = k.ring_allgather_matmul_plain(x, w)
     err = max_err(torch, got, want)
     del got, want
     xf = x.reshape(n * t_loc, N)
+    # the card's clock and power over the fused ring's timing (~0.5 s)
+    with CardSampler() as sampled:
+        ring_ms = cuda_ms(torch, lambda: k.fused_ring_allgather_matmul_kernel(
+            x, w, plan=plan), 3)
+    log(f"card under the fused ring's timing: {sampled.summary()}")
     entry("fused_ring_allgather_matmul", "src/repro_torch/csrc/ring_matmul.cu",
-          "src/repro/kernels/ring_matmul/fused.py:155", err,
-          cuda_ms(torch, lambda: k.fused_ring_allgather_matmul_kernel(
-              x, w, plan=plan), 1, warmup=0),
+          "src/repro/kernels/ring_matmul/fused.py:155", err, ring_ms,
           cuda_ms(torch, lambda: k.ring_allgather_matmul_plain(x, w), 2),
           2 * 3 * N * N, 2 * N * N * N, "bfloat16",
           cuda_ms(torch, lambda: torch.matmul(xf, w), 2))

@@ -21,8 +21,8 @@ from typing import Dict, Iterable
 
 import torch
 
-__all__ = ["BUILD_DIR", "CSRC", "DTYPE_CODES", "build_all", "check_launch",
-           "library", "stream_handle"]
+__all__ = ["BUILD_DIR", "CSRC", "DTYPE_CODES", "ROUTE_CODES", "build_all",
+           "check_launch", "library", "stream_handle"]
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -30,16 +30,18 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+# GEMM route codes of csrc/matmul.cuh (plan.gemm_route picks the route)
+ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 # library -> (source, {function: argtypes})
 LIBRARIES: Dict[str, tuple] = {
     "matmul": ("matmul.cu", {
-        "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _P]}),
+        "repro_matmul": [_P, _P, _P, _I, _I, _I, _I, _I, _P]}),
     "ring_matmul": ("ring_matmul.cu", {
         "repro_ring_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                              _I, _P]}),
+                              _I, _I, _P]}),
     "wave_step": ("wave_step.cu", {
         "repro_leap": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _LL,
                        _LL, _F, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,

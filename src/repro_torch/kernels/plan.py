@@ -38,12 +38,15 @@ __all__ = [
     "HaloPlan",
     "OverlapPlanner",
     "default_planner",
+    "gemm_route",
     "resolve_ring_impl",
     "resolve_dispatch_impl",
     "resolve_seq_parallel",
     "split_extents",
     "SMEM_BUDGET_DEFAULT",
     "MM_TILE",
+    "TC_TILE",
+    "TC_STAGES",
     "STENCIL_TILE",
     "FLASH_BQ",
 ]
@@ -53,9 +56,12 @@ __all__ = [
 # stage against what the port's CUDA kernels put there, not the reference's
 # 16 MiB TPU VMEM budget:
 #
-# * matmul and the fused ring's GEMMs stage one (BK, BM) tile of X and one
-#   (BK, BN) tile of W per block, in f32 — ``MM_TILE``, (16·64 + 16·64)·4 B
-#   = 8 KiB;
+# * matmul and the fused ring's GEMMs take one of two routes
+#   (:func:`gemm_route`).  On the tensor cores they keep ``TC_STAGES``
+#   stages of one (BM, BK) tile of X and one (BK, BN) tile of W per block,
+#   in the operands' 16-bit type — ``TC_TILE``, 4·(128·64 + 64·256)·2 B =
+#   192 KiB; on the CUDA cores one stage of the same pair in f32 —
+#   ``MM_TILE``, (16·64 + 16·64)·4 B = 8 KiB;
 # * the wave step (``leap``) stages one (TY + 2R, TX + 2R) f32 plane tile per
 #   block — ``STENCIL_TILE``, (8 + 8)·(32 + 8)·4 B = 2.5 KiB at R = 4 — and
 #   carries the Z neighbours in registers, so its stage does not grow with
@@ -79,7 +85,9 @@ __all__ = [
 # stands.  The reference's staging formula with 227 KB as its budget would
 # stage (1+8)(8+8)(1032)·4 B ≈ 594 KB and fall back to the serialized one.
 SMEM_BUDGET_DEFAULT = 232_448
-MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh
+MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh mm_tile
+TC_TILE = (128, 64, 256)        # (BM, BK, BN) of its tensor-core route
+TC_STAGES = 4                   # that route's shared-memory stages
 STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu
 FLASH_BQ = 64                   # query rows of a csrc/flash_attention.cu tile
 FLASH_BLOCKS = (64, 32, 16)     # the key tiles that kernel takes
@@ -88,6 +96,19 @@ FLASH_MAX_DV = 256              # the widest value head it takes
 
 def _itemsize(dtype) -> int:
     return torch.empty((), dtype=dtype).element_size()
+
+
+def gemm_route(dtype, k: int, n: int, *ptrs: int) -> str:
+    """The route a GEMM launch of ``(.., K) @ (K, N)`` takes in
+    ``csrc/matmul.cu`` and ``csrc/ring_matmul.cu``: ``"wgmma"`` (TMA and
+    the tensor cores) for 16-bit operands whose row pitches K and N are
+    multiples of 8 elements and whose base pointers (``ptrs``) are 16-byte
+    aligned, TMA's rule; ``"simt"`` (the CUDA cores) otherwise.  f32 stays
+    on the CUDA cores: TF32 would change its results."""
+    if dtype in (torch.float16, torch.bfloat16) and k % 8 == 0 \
+            and n % 8 == 0 and all(p % 16 == 0 for p in ptrs):
+        return "wgmma"
+    return "simt"
 
 
 def resolve_ring_impl(impl: Optional[str]) -> str:
@@ -692,18 +713,26 @@ class OverlapPlanner:
     # -- blocked matmul tiles -----------------------------------------------
     def plan_matmul_tiles(self, m: int, k: int, n: int, dtype
                           ) -> Tuple[int, int, int]:
-        """The matmul kernel's (BM, BK, BN) tile, clipped to the problem.
+        """The (BM, BK, BN) tile of the route a dtype and shape take
+        (:func:`gemm_route`), clipped to the problem.
 
-        The tile is fixed at compile time (``MM_TILE``); the kernel masks
-        ragged edges itself, so the planner only checks that its f32 stage
-        double-buffers in the budget.
+        Both tiles are fixed at compile time and the kernels handle ragged
+        edges themselves, so the planner only checks the stages against the
+        budget: the tensor-core route's ``TC_STAGES`` 16-bit stages as they
+        are, the CUDA-core route's f32 stage double-buffered.
         """
-        del dtype                      # the kernel stages every dtype in f32
-        bm, bk, bn = MM_TILE
-        if not self._fits((bm * bk + bk * bn) * 4):
+        if gemm_route(dtype, k, n) == "wgmma":
+            tile = TC_TILE
+            fits = TC_STAGES * (tile[0] * tile[1] + tile[1] * tile[2]) * 2 \
+                <= self.smem_budget
+        else:
+            tile = MM_TILE
+            fits = self._fits((tile[0] * tile[1] + tile[1] * tile[2]) * 4)
+        if not fits:
             raise ValueError(
-                f"matmul tile {MM_TILE} does not fit a shared-memory budget "
+                f"matmul tile {tile} does not fit a shared-memory budget "
                 f"of {self.smem_budget} bytes")
+        bm, bk, bn = tile
         return min(bm, m), min(bk, k), min(bn, n)
 
     # -- stencil ---------------------------------------------------------------

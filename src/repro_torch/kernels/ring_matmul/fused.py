@@ -8,7 +8,9 @@ stacked ranks (``x (n, t_loc, K)``, ``w (n, K, n_loc)`` ->
   (``csrc/ring_matmul.cu``, which replaces
   ``fused_ring_allgather_matmul_tpu``): every rank's ring in one
   cooperative launch, puts as stores into a device-memory slot buffer,
-  the fence a grid barrier;
+  the fence a grid barrier, the GEMM tiles on the route
+  :func:`..plan.gemm_route` picks (counted per route in
+  ``route_launches``);
 * :func:`fused_ring_allgather_matmul_emulated` — each put an ``ompx_put``
   (a roll along the ring's rank dim) started before the step's GEMMs, for
   any mesh, any ``dot``, and the CPU.
@@ -23,8 +25,9 @@ import torch
 from ...core.context import default_communicator, default_context
 from ...core.groups import DiompGroup
 from ...core.rma import ompx_put
-from .._build import DTYPE_CODES, check_launch, library, stream_handle
-from ..plan import RingPlan, default_planner
+from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
+                      stream_handle)
+from ..plan import RingPlan, default_planner, gemm_route
 from .kernel import matmul_kernel
 from .ref import ring_allgather_matmul_plain
 
@@ -76,16 +79,21 @@ def fused_ring_allgather_matmul_kernel(x: torch.Tensor, w: torch.Tensor, *,
     bufs = torch.empty(n, 2, slots, t_loc, k, dtype=x.dtype, device=x.device)
     sched = _schedule_table(plan, x.device)
     out = torch.empty(n, n * t_loc, n_loc, dtype=x.dtype, device=x.device)
+    route = gemm_route(x.dtype, k, n_loc, x.data_ptr(), w.data_ptr(),
+                       bufs.data_ptr())
     status = library("ring_matmul").repro_ring_matmul(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), bufs.data_ptr(),
         sched.data_ptr(), sched.shape[0], n, slots, t_loc, k, n_loc,
-        DTYPE_CODES[x.dtype], stream_handle(x.device))
+        DTYPE_CODES[x.dtype], ROUTE_CODES[route], stream_handle(x.device))
     fused_ring_allgather_matmul_kernel.launches += 1
+    fused_ring_allgather_matmul_kernel.route_launches[route] += 1
     check_launch(status, "fused_ring_allgather_matmul")
     return out
 
 
 fused_ring_allgather_matmul_kernel.launches = 0
+fused_ring_allgather_matmul_kernel.route_launches = dict.fromkeys(ROUTE_CODES,
+                                                                  0)
 
 
 def fused_ring_allgather_matmul_emulated(

@@ -2,15 +2,20 @@
 
 Replaces ``matmul_pallas`` (``repro/kernels/ring_matmul/kernel.py:39``,
 ``pallas_call`` at :54).  What bounds it on the H100 and what its design
-does about that is noted in ``csrc/matmul.cuh``.  On a CPU tensor the
-wrapper computes the plain version, :func:`.ref.matmul_ref`.
+does about that is noted in ``csrc/matmul.cuh``.  Each launch takes the
+route :func:`..plan.gemm_route` picks (the tensor cores for aligned 16-bit
+operands, the CUDA cores otherwise) and counts it in
+``matmul_kernel.route_launches``.  On a CPU tensor the wrapper computes the
+plain version, :func:`.ref.matmul_ref`.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .._build import DTYPE_CODES, check_launch, library, stream_handle
+from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
+                      stream_handle)
+from ..plan import gemm_route
 from .ref import matmul_ref
 
 __all__ = ["matmul_kernel"]
@@ -39,11 +44,15 @@ def matmul_kernel(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     stream = stream_handle(x.device)
     for xb, wb, ob in zip(x.reshape(-1, M, K), w.reshape(-1, K, N),
                           out.view(-1, M, N)):
+        route = gemm_route(x.dtype, K, N, xb.data_ptr(), wb.data_ptr())
         status = lib.repro_matmul(xb.data_ptr(), wb.data_ptr(), ob.data_ptr(),
-                                  M, N, K, DTYPE_CODES[x.dtype], stream)
+                                  M, N, K, DTYPE_CODES[x.dtype],
+                                  ROUTE_CODES[route], stream)
         matmul_kernel.launches += 1
+        matmul_kernel.route_launches[route] += 1
         check_launch(status, "matmul")
     return out
 
 
 matmul_kernel.launches = 0
+matmul_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)

@@ -162,13 +162,68 @@ def test_ring_plan_at_paper_size():
 
 
 def test_matmul_tiles_are_the_kernels():
+    """Each route's tile: aligned bf16 takes the tensor-core tile, f32 and
+    unaligned 16-bit the CUDA-core one; both clip to the problem and
+    refuse a budget their stages do not fit."""
     planner = tplan.OverlapPlanner()
     assert planner.plan_matmul_tiles(4096, 4096, 4096, torch.bfloat16) == \
+        tplan.TC_TILE
+    assert planner.plan_matmul_tiles(4096, 4096, 4096, torch.float32) == \
+        tplan.MM_TILE
+    assert planner.plan_matmul_tiles(4096, 4100, 4096, torch.float16) == \
         tplan.MM_TILE
     assert planner.plan_matmul_tiles(33, 8, 17, torch.float32) == (33, 8, 17)
+    assert planner.plan_matmul_tiles(100, 48, 16, torch.bfloat16) == \
+        (100, 48, 16)
     with pytest.raises(ValueError):
         tplan.OverlapPlanner(smem_budget=1024).plan_matmul_tiles(
             64, 64, 64, torch.float32)
+    bm, bk, bn = tplan.TC_TILE
+    stages = tplan.TC_STAGES * (bm * bk + bk * bn) * 2
+    assert stages <= tplan.SMEM_BUDGET_DEFAULT
+    assert tplan.OverlapPlanner(smem_budget=stages).plan_matmul_tiles(
+        256, 256, 256, torch.bfloat16) == tplan.TC_TILE
+    with pytest.raises(ValueError):
+        tplan.OverlapPlanner(smem_budget=stages - 1).plan_matmul_tiles(
+            256, 256, 256, torch.bfloat16)
+
+
+def test_ring_plan_carries_the_route_tile():
+    plan = tplan.OverlapPlanner().plan_ring_matmul(
+        7560, 30240, 7560, torch.bfloat16, 4)
+    assert plan.tile == tplan.TC_TILE
+    plan = tplan.OverlapPlanner().plan_ring_matmul(
+        5, 33, 7, torch.bfloat16, 4)
+    assert plan.tile == (5, 16, 7)
+
+
+@pytest.mark.parametrize("dtype,k,n,ptrs,route", [
+    (torch.float32, 30240, 7560, (0, 256), "simt"),
+    (torch.float32, 64, 64, (), "simt"),
+    (torch.bfloat16, 30240, 7560, (0, 256, 1 << 20), "wgmma"),   # main path
+    (torch.float16, 264, 136, (16, 32), "wgmma"),
+    (torch.bfloat16, 8, 8, (), "wgmma"),
+    (torch.bfloat16, 130, 136, (0, 0), "simt"),     # K off the rule
+    (torch.float16, 264, 70, (0, 0), "simt"),       # N off the rule
+    (torch.bfloat16, 264, 136, (0, 8), "simt"),     # a pointer off 16 B
+    (torch.bfloat16, 33, 7, (), "simt"),
+])
+def test_gemm_route_rule(dtype, k, n, ptrs, route):
+    assert tplan.gemm_route(dtype, k, n, *ptrs) == route
+
+
+def test_both_wrappers_share_the_route_rule():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ring_matmul import fused, kernel
+    assert kernel.gemm_route is fused.gemm_route is tplan.gemm_route
+    for wrapper in (kernel.matmul_kernel,
+                    fused.fused_ring_allgather_matmul_kernel):
+        assert set(wrapper.route_launches) == set(_build.ROUTE_CODES) \
+            == {"simt", "wgmma"}
+    before = dict(kernel.matmul_kernel.route_launches)
+    kernel.matmul_kernel(torch.randn(8, 16, dtype=torch.bfloat16),
+                         torch.randn(16, 8, dtype=torch.bfloat16))
+    assert kernel.matmul_kernel.route_launches == before   # the CPU counts none
 
 
 def _defines(name):
@@ -179,6 +234,8 @@ def _defines(name):
 def test_planner_tiles_match_the_cuda_sources():
     mm = _defines("matmul.cuh")
     assert (mm["MM_BM"], mm["MM_BK"], mm["MM_BN"]) == tplan.MM_TILE
+    assert (mm["TC_BM"], mm["TC_BK"], mm["TC_BN"]) == tplan.TC_TILE
+    assert mm["TC_STAGES"] == tplan.TC_STAGES
     st = _defines("wave_step.cu")
     assert (st["TY"], st["TX"]) == tplan.STENCIL_TILE
     assert st["R"] == 4
