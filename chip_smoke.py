@@ -40,12 +40,18 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   one full-width chunk call under ``"ring"`` against the same call under
   ``"allgather"``, and chunked prefill against token-by-token on an f32 cut;
 
-with every kernel's launch count (and the two GEMM kernels' per-route
-counts) zeroed just before each path and read just after it.  The build's
+with every kernel's launch count (and the per-route counts of the two GEMM
+and the two attention kernels, and flash's split-combine count) zeroed
+just before each path and read just after it; every flash and
+ring-attention launch of a served model must take the tensor cores, and
+flash at glm4-9b's and paligemma-3b's decodes must split its keys over
+at least 132 blocks.  The build's
 registers and spills are logged per kernel instance.  Then it times each
 kernel at the main path's shapes beside its plain version and, where one
 exists, the one PyTorch call that computes the same function (sampling
-the card's SM clock and power draw over the fused ring's timing),
+the card's SM clock and power draw over the fused ring's, flash's chunk
+and the 4 x 4096 ring attention's timings; the attention kernels also
+by their device time from the profiler, warm and with L2 flushed),
 times Minimod's two modes over repeated alternated runs, prints each
 serving phase's time to first token (the recurrent phases' prefill time)
 and decode step time with their bounds (and the MoE phase's plans, drop
@@ -99,6 +105,10 @@ RING_ARCH, RING_CHUNK_AT = "paligemma-3b", 2048
 SEQ_RANKS, SEQ_T_LOC = 4, 4096
 
 
+# the flash kernel's device functions, both routes and the split combine
+FLASH_KERNELS = ("flash_fwd_kernel", "flash_tc_kernel", "flash_combine_kernel")
+
+
 def log(msg: str) -> None:
     print(f"[chip_smoke {time.strftime('%H:%M:%S')}] {msg}", file=sys.stderr,
           flush=True)
@@ -124,6 +134,43 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(torch, fn, reps: int, names, cold_l2: bool = False) -> float:
+    """Device time (ms a call) of the kernels whose names contain one of
+    ``names``, from ``torch.profiler`` over ``reps`` calls of ``fn``: what
+    the card spends in them, without the host's time between launches.
+    ``cold_l2`` overwrites a 128 MB buffer before each call, so the call
+    finds its operands in device memory, not in the 50 MB L2."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda") \
+        if cold_l2 else None
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            if flush is not None:
+                flush.fill_(1)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages()
+             if any(n in e.key for n in names)
+             and "CUDA" in str(getattr(e, "device_type", "CUDA")))
+    return us / 1e3 / reps
+
+
+def sampled_ms(torch, fn, ms_each: float, what: str) -> float:
+    """CUDA-event time (ms a call) of ``fn`` over about one second of
+    back-to-back calls, the card's SM clock and power sampled meanwhile."""
+    reps = max(10, int(1000.0 / max(ms_each, 1e-3)))
+    with CardSampler() as sampled:
+        ms = cuda_ms(torch, fn, reps)
+    log(f"card under {what} ({reps} calls, {ms:.4f} ms each): "
+        f"{sampled.summary()}")
+    return ms
 
 
 def ptxas_summary(text: str):
@@ -218,6 +265,8 @@ def load_port():
         linear_scan_plain=ls.linear_scan_plain,
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
+        flash_combine_kernel=fa.flash_combine_kernel,
+        flash_combine_plain=fa.flash_combine_plain,
         expert_mlp=moe_kernel.expert_mlp,
         expert_mlp_plain=moe_kernel.expert_mlp_plain,
         fused_moe_dispatch_kernel=moe_fused.fused_moe_dispatch_kernel,
@@ -255,6 +304,31 @@ def _counted(wrapper, fn, route=None):
               == routes[route] + 1,
               f"{wrapper.__name__}: took {taken}, not the {route} route")
     return got
+
+
+def _zero_counts(wrappers) -> None:
+    """Every wrapper's launch count, per-route counts and the flash
+    combine's count to 0, just before a path is driven."""
+    for wrapper in wrappers.values():
+        wrapper.launches = 0
+        for route in getattr(wrapper, "route_launches", {}):
+            wrapper.route_launches[route] = 0
+        if hasattr(wrapper, "combine_launches"):
+            wrapper.combine_launches = 0
+
+
+def _attention_routes(wrappers, tag: str) -> dict:
+    """The attention kernels' per-route counts of the path just driven;
+    fails unless every one of their launches took the tensor cores."""
+    routes = {name: dict(wrappers[name].route_launches)
+              for name in ("flash_attention", "fused_ring_attention")}
+    for name, taken in routes.items():
+        check(taken["simt"] == 0
+              and taken["wgmma"] == wrappers[name].launches,
+              f"{tag}: a {name} launch left the tensor cores: {taken}")
+    log(f"{tag}: attention routes {routes}, flash combine launches "
+        f"{wrappers['flash_attention'].combine_launches}")
+    return routes
 
 
 def check_matmul(torch, k, g) -> None:
@@ -351,29 +425,59 @@ def check_fused_step(torch, k, g) -> None:
                   f"fused step nz={nz} Z={Z}: err {err}")
 
 
+def _attention_route(torch, dt, D, Dv, G) -> str:
+    """The route a sweep case's aligned, contiguous operands must take:
+    the tensor cores for f16/bf16 with D and Dv each 64, 128 or 256 and G
+    dividing 64, the CUDA cores otherwise (plan.attention_route's rule,
+    restated here so the sweep checks it)."""
+    return ("wgmma" if dt in (torch.float16, torch.bfloat16)
+            and D in (64, 128, 256) and Dv in (64, 128, 256) and 64 % G == 0
+            else "simt")
+
+
 def check_flash(torch, k, g) -> None:
     """The reference's sweep (tests/test_kernels.py:39), per-row offsets
     (decode and a chunk with a padded tail), rows that see no key, decode
-    tiles at GQA 16:1 (head_dim 128) and 8:1 (head_dim 256), a strided layer of a stacked cache with NaN past
-    ``valid_len``; f32, f16 and bf16.  The plain version folds keys in the
-    kernel's key tile, so both sum in the same blocks.  Operands of mixed
-    dtypes are refused on the card."""
+    tiles at GQA 16:1 (head_dim 128) and 8:1 (head_dim 256), a G = 16
+    decode whose slots see 1 key to many key splits, a prefix window across
+    key tiles, several query tiles (an odd count) with and without key
+    splits, a ragged Tk with NaN past ``valid_len`` and a strided layer of a stacked
+    cache with NaN past ``valid_len``; f32, f16 and bf16, each
+    case on the route the rule gives it.  The plain version folds keys in
+    the kernel's key tile, so both sum in the same blocks.  Then the split
+    combine against its plain version (``merge_states``).  Operands of
+    mixed dtypes are refused on the card."""
     tols = {torch.float32: 2e-5, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
+    kern = k.flash_attention_kernel
     cases = [
-        # B, Tq, Tk, H, KH, D, Dv, causal, q_offset, prefix, valid_len
-        (2, 16, 16, 4, 2, 64, 64, True, 0, 0, None),
-        (1, 8, 24, 4, 1, 32, 32, True, 16, 0, None),
-        (2, 12, 12, 6, 6, 64, 64, False, 0, 0, None),
-        (1, 20, 20, 8, 2, 64, 64, True, 0, 5, None),
-        (1, 1, 33, 4, 2, 64, 64, True, 32, 0, None),
-        (1, 16, 16, 4, 2, 32, 16, True, 0, 0, None),
-        (3, 1, 200, 16, 1, 128, 128, True, [5, 99, 199], 0, [6, 100, 200]),
-        (2, 1, 300, 8, 1, 256, 256, True, [100, 299], 0, [101, 300]),
-        (2, 70, 300, 8, 2, 80, 80, True, [0, 130], 0, [70, 200]),
-        (2, 5, 40, 4, 2, 64, 64, True, 0, 0, [0, 3]),
-        (1, 33, 90, 6, 3, 48, 24, True, 10, 30, [60]),
+        # B, Tq, Tk, H, KH, D, Dv, causal, q_offset, prefix, valid_len, nan
+        (2, 16, 16, 4, 2, 64, 64, True, 0, 0, None, False),
+        (1, 8, 24, 4, 1, 32, 32, True, 16, 0, None, False),
+        (2, 12, 12, 6, 6, 64, 64, False, 0, 0, None, False),
+        (1, 20, 20, 8, 2, 64, 64, True, 0, 5, None, False),
+        (1, 1, 33, 4, 2, 64, 64, True, 32, 0, None, False),
+        (1, 16, 16, 4, 2, 32, 16, True, 0, 0, None, False),
+        (3, 1, 200, 16, 1, 128, 128, True, [5, 99, 199], 0, [6, 100, 200],
+         False),
+        (2, 1, 300, 8, 1, 256, 256, True, [100, 299], 0, [101, 300], False),
+        (2, 70, 300, 8, 2, 80, 80, True, [0, 130], 0, [70, 200], False),
+        (2, 5, 40, 4, 2, 64, 64, True, 0, 0, [0, 3], False),
+        (1, 33, 90, 6, 3, 48, 24, True, 10, 30, [60], False),
+        # a G = 16 decode: one slot sees 1 key, others span many splits
+        (3, 1, 1000, 16, 1, 128, 128, True, [0, 500, 999], 0,
+         [1, 501, 1000], False),
+        # a prefix window across key tiles, Dv != D
+        (2, 100, 150, 8, 2, 128, 64, True, 0, 70, None, False),
+        # several query tiles (an odd count), with key splits
+        (1, 200, 260, 4, 4, 64, 64, True, 60, 0, None, False),
+        (1, 130, 1000, 1, 1, 64, 64, True, 870, 0, [1000], False),
+        # ragged Tk (not a multiple of 64), NaN past valid_len
+        (2, 3, 150, 8, 2, 128, 128, True, [40, 97], 0, [43, 100], True),
+        (2, 20, 150, 16, 2, 128, 128, True, [100, 40], 0, [120, 60], True),
+        (4, 1, 150, 8, 1, 256, 256, True, [0, 63, 64, 149], 0,
+         [1, 64, 65, 150], True),
     ]
-    for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx, valid) in cases:
+    for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx, valid, nan) in cases:
         for dt in tols:
             q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
             kk = torch.randn(B, Tk, KH, D, generator=g, device="cuda").to(dt)
@@ -384,13 +488,22 @@ def check_flash(torch, k, g) -> None:
             kw = dict(causal=causal, q_offset=qo, prefix_len=pfx,
                       valid_len=vl)
             want = k.flash_attention_plain(q, kk, v, **kw)
-            kern = k.flash_attention_kernel
-            got = _counted(kern, lambda: kern(q, kk, v, **kw))
+            if nan:   # rows past valid_len hold NaN on the card only
+                dead = (torch.arange(Tk, device="cuda")[None]
+                        >= vl[:, None])[..., None, None]
+                kk, v = kk.masked_fill(dead, float("nan")), \
+                    v.masked_fill(dead, float("nan"))
+            route = _attention_route(torch, dt, D, Dv, H // KH)
+            got = _counted(kern, lambda: kern(q, kk, v, **kw), route)
             err = max_err(torch, got, want)
             check(bool(torch.isfinite(got).all())
                   and err <= tols[dt] * max(float(want.float().abs().max()),
                                             1e-6),
-                  f"flash {B}x{Tq}x{Tk} H{H}/{KH} D{D}/{Dv} {dt}: err {err}")
+                  f"flash {B}x{Tq}x{Tk} H{H}/{KH} D{D}/{Dv} {dt} {route}: "
+                  f"err {err}")
+            grid = kern.last_grid
+            if route == "wgmma" and Tk >= 1000:
+                check(grid["splits"] > 1, f"flash: no key split ({grid})")
     # one layer of a stacked (ranks, L, B, S, KH, D) cache, per-slot
     # positions per rank, rows past valid_len holding NaN
     R, L, B, S, H, D = 2, 3, 2, 64, 16, 128
@@ -405,21 +518,71 @@ def check_flash(torch, k, g) -> None:
         torch.bfloat16)
     kw = dict(causal=True, q_offset=pos, valid_len=pos + 1)
     want = k.flash_attention_plain(q, clean[0, :, 1], clean[1, :, 1], **kw)
-    got = _counted(k.flash_attention_kernel, lambda: k.flash_attention_kernel(
-        q, dirty[0, :, 1], dirty[1, :, 1], **kw))
+    got = _counted(kern, lambda: kern(q, dirty[0, :, 1], dirty[1, :, 1],
+                                      **kw), "wgmma")
     err = max_err(torch, got, want)
     check(bool(torch.isfinite(got).all())
           and err <= 1.6e-2 * float(want.float().abs().max()),
           f"flash on a cache layer view: err {err}")
-    before = k.flash_attention_kernel.launches
+    before = kern.launches
     try:
-        k.flash_attention_kernel(q.float(), clean[0, :, 1], clean[1, :, 1],
-                                 **kw)
+        kern(q.float(), clean[0, :, 1], clean[1, :, 1], **kw)
         check(False, "flash: f32 q over a bf16 cache was not refused")
     except TypeError:
         pass
-    check(k.flash_attention_kernel.launches == before,
-          "flash: a refused call counted a launch")
+    check(kern.launches == before, "flash: a refused call counted a launch")
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    _refused_off_rule(fa_mod, kern, lambda: kern(
+        q.float(), clean[0, :, 1].float(), clean[1, :, 1].float(), **kw),
+        "flash")
+    check_flash_combine(torch, k, g)
+
+
+def _refused_off_rule(module, wrapper, call, what) -> None:
+    """An f32 launch forced onto the tensor-core route (the module's rule
+    patched to say "wgmma") is refused by the C entry point, not run; the
+    wrapper's counts are restored after."""
+    rule, counts = module.attention_route, (wrapper.launches,
+                                            dict(wrapper.route_launches))
+    module.attention_route = lambda *args: "wgmma"
+    try:
+        call()
+        check(False, f"{what}: an f32 launch on the tensor-core route was "
+              f"not refused")
+    except RuntimeError:
+        pass
+    finally:
+        module.attention_route = rule
+        wrapper.launches, wrapper.route_launches = counts
+
+
+def check_flash_combine(torch, k, g) -> None:
+    """The split combine kernel against its plain version (``merge_states``
+    folded in split order, then ``finalize_state``) on random partial
+    states: some splits saw no key (m = -1e30, l = 0, acc = 0, as the
+    kernel writes them), and one row saw none in any split.  Tolerance 2e-5
+    of the output's scale in f32 (f32 exponentials against the plain
+    version's float64 ones), one ulp plus that in bf16."""
+    N, S, Tq, H, Dv = 6, 5, 3, 8, 128
+    m = torch.randn(N, S, Tq, H, generator=g, device="cuda") * 4
+    l = torch.rand(N, S, Tq, H, generator=g, device="cuda") * 9 + 0.5
+    acc = torch.randn(N, S, Tq, H, Dv, generator=g, device="cuda") * 3
+    empty = torch.rand(N, S, Tq, H, generator=g, device="cuda") < 0.3
+    empty[0, :, 0, 0] = True
+    m = m.masked_fill(empty, -1e30)
+    l = l.masked_fill(empty, 0.0)
+    acc = acc.masked_fill(empty[..., None], 0.0)
+    before = k.flash_attention_kernel.combine_launches
+    for dt, tol in ((torch.float32, 2e-5), (torch.bfloat16, 1.6e-2)):
+        got = k.flash_combine_kernel(m, l, acc, dt)
+        want = k.flash_combine_plain(m, l, acc, dt)
+        err = max_err(torch, got, want)
+        check(bool(torch.isfinite(got).all()) and bool((got[0, 0, 0] == 0)
+                                                        .all())
+              and err <= tol * float(want.float().abs().max()),
+              f"flash combine {dt}: err {err}")
+    check(k.flash_attention_kernel.combine_launches == before + 2,
+          "flash combine: launches not counted")
 
 
 def _routed_counts(torch, g, tokens, k, E_glob, E_loc, C):
@@ -618,9 +781,9 @@ def check_ring_attention(torch, k, g) -> None:
     rings of 1-4 virtual ranks, both query layouts (sharded, and shared
     queries over striped keys as in chunked prefill), causal and not, int
     and per-row offsets, a valid length below the padded one, G = 1 and 8,
-    head_dim 64 and 256, Dv != D; f32 and bf16.  Every rank's output is
-    held to the plain version (rank 0's fold order); operands of mixed
-    dtypes are refused."""
+    head_dim 64 and 256, Dv != D; f32 and bf16, each case on the route the
+    rule gives it.  Every rank's output is held to the plain version (rank
+    0's fold order); operands of mixed dtypes are refused."""
     from repro_torch.core.context import DiompContext, use_default
     from repro_torch.core.groups import DiompGroup
     from repro_torch.kernels.plan import OverlapPlanner
@@ -637,6 +800,9 @@ def check_ring_attention(torch, k, g) -> None:
         (2, 2, 24, 40, 8, 1, 64, 48, False, True, [50, 20], [74, 44]),
         (4, 2, 7, 13, 4, 4, 256, 256, True, True, [0, 9], [52, 40]),
         (3, 1, 70, 70, 8, 1, 64, 64, False, False, 100, 150),
+        # stripes of several key tiles, ragged, past the valid length
+        (2, 1, 130, 150, 8, 1, 128, 128, True, True, 0, 290),
+        (2, 2, 40, 100, 16, 1, 128, 128, False, True, [60, 10], [100, 170]),
     ]
     for (n, B, tq, tk, H, KH, D, Dv, sharded, causal, off, valid) in cases:
         ctx = DiompContext(mesh=RankMesh(("x",), (n,)), device="cuda")
@@ -658,16 +824,19 @@ def check_ring_attention(torch, k, g) -> None:
                 q_sharded=sharded, q_offset=None)
             args = (_ring_layout(q, n, sharded), _ring_layout(kk, n, True),
                     _ring_layout(v, n, True))
+            route = _attention_route(torch, dt, D, Dv, H // KH)
             with use_default(ctx):
                 got = _counted(kern, lambda: kern(*args, group, plan=plan,
-                                                  q_offset=qo, valid_len=vl))
+                                                  q_offset=qo, valid_len=vl),
+                               route)
             if sharded:
                 got = got.movedim(0, 1).flatten(1, 2)[None]
             err = max(max_err(torch, r, want) for r in got)
             check(bool(torch.isfinite(got).all())
                   and err <= tol * max(float(want.float().abs().max()), 1e-6),
                   f"ring attention n={n} B{B} tq{tq} tk{tk} H{H}/{KH} D{D}/"
-                  f"{Dv} sharded={sharded} causal={causal} {dt}: err {err}")
+                  f"{Dv} sharded={sharded} causal={causal} {dt} {route}: "
+                  f"err {err}")
     before = kern.launches
     try:
         with use_default(ctx):
@@ -677,6 +846,11 @@ def check_ring_attention(torch, k, g) -> None:
         pass
     check(kern.launches == before, "ring attention: a refused call counted "
           "a launch")
+    from repro_torch.kernels.ring_attention import fused as ra_mod
+    with use_default(ctx):
+        _refused_off_rule(ra_mod, kern, lambda: kern(
+            args[0].float(), args[1].float(), args[2].float(), group,
+            plan=plan), "ring attention")
 
 
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
@@ -703,13 +877,22 @@ def _sdpa(torch, q, kk, v, visible):
                                                   enable_gqa=True)
 
 
-def _flash_at(torch, k, name, q, kk, v, q_off, valid):
+def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
+              sample=False):
     """The flash kernel against its plain version and SDPA at one shape of
-    the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors."""
+    the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors.  The
+    launch must take the tensor cores and, where ``min_blocks`` is given
+    (a decode), launch at least that many blocks through the key split;
+    ``sample`` samples the card's clock and power over the kernel's
+    timing."""
     Tq, H, D = q.shape[-3:]
     Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
     kw = dict(causal=True, q_offset=q_off, valid_len=valid)
-    got = k.flash_attention_kernel(q, kk, v, **kw)
+    got = _counted(k.flash_attention_kernel,
+                   lambda: k.flash_attention_kernel(q, kk, v, **kw), "wgmma")
+    grid = dict(k.flash_attention_kernel.last_grid)
+    check(grid["blocks"] >= min_blocks,
+          f"flash {name}: {grid} launches fewer than {min_blocks} blocks")
     want = k.flash_attention_plain(q, kk, v, **kw)
     err = max_err(torch, got, want)
     # bf16 output: one ulp of the output (2^-7 relative) plus the
@@ -728,15 +911,32 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid):
     nbytes = 2 * (q.numel() + rows_read * KH * (D + Dv)
                   + q.numel() // D * Dv)
     ops = 2 * pairs * (D + Dv)
-    ms = cuda_ms(torch, lambda: k.flash_attention_kernel(q, kk, v, **kw), 10)
+    def call():
+        return k.flash_attention_kernel(q, kk, v, **kw)
+
+    ms = cuda_ms(torch, call, 10)
+    if sample:
+        sampled_ms(torch, call, ms, f"flash {name}")
+    # the card's own time in the kernels (the event time above also holds
+    # the host's time between launches where that is longer), with the
+    # operands warm in L2 and cold
+    dev = device_ms(torch, call, 10, FLASH_KERNELS)
+    cold = device_ms(torch, call, 10, FLASH_KERNELS, cold_l2=True)
     plain = cuda_ms(torch, lambda: k.flash_attention_plain(q, kk, v, **kw), 3)
-    library = cuda_ms(torch, _sdpa(torch, q, kk, v, visible), 10)
+    sdpa = _sdpa(torch, q, kk, v, visible)
+    library = cuda_ms(torch, sdpa, 10)
+    library_dev = device_ms(torch, sdpa, 10, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"flash {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-        f"(keys seen {pairs // H}): {ms:.3f} ms, plain {plain:.3f}, sdpa "
-        f"{library:.3f}, bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
+        f"(keys seen {pairs // H}; {grid}): {ms:.4f} ms (device {dev:.4f}, "
+        f"L2 cold {cold:.4f}), plain {plain:.3f}, sdpa {library:.4f} "
+        f"(device {library_dev:.4f}), bound {b_ms:.4f} ms by {b_by}, "
+        f"err {err:.4g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+            "device_ms": dev, "device_ms_cold_l2": cold,
+            "library_device_ms": library_dev,
+            "splits": grid["splits"], "blocks": grid["blocks"]}
 
 
 def _flash_call(torch, k, name, args, kw):
@@ -777,8 +977,8 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
                 "CUDA" not in str(evt.device_type):
             continue
         name = evt.key
-        group = ("flash" if "flash_fwd" in name else
-                 "ring_attention" if "ring_attention_kernel" in name else
+        group = ("flash" if any(t in name for t in FLASH_KERNELS) else
+                 "ring_attention" if "ring_attention" in name else
                  "linear_scan" if "linear_scan_kernel" in name else
                  "moe_dispatch" if "dispatch_kernel" in name else
                  "expert_mlp" if ("gate_up_kernel" in name
@@ -900,13 +1100,14 @@ def _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
     eng.decode_step.fn = timed_decode
     reqs = [eng.submit(rng.randint(0, cfg.vocab_size, n), max_new=MAX_NEW)
             for n in lengths]
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
+    _zero_counts(wrappers)
     t0 = time.perf_counter()
     eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {name: wr.launches for name, wr in wrappers.items()}
+    routes = _attention_routes(wrappers, f"serve {cfg.name}")
+    combine = wrappers["flash_attention"].combine_launches
     eng.decode_step.fn = fn
     log(f"serve {cfg.name}: {REQUESTS} requests (prompts "
         f"{sorted(lengths.tolist())}), {eng.steps} engine steps, "
@@ -930,6 +1131,7 @@ def _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
           f"flash launches {flash} != {cfg.num_layers} x {calls} calls")
     return SimpleNamespace(
         eng=eng, reqs=reqs, lengths=lengths, launches=launches, rng=rng,
+        routes=routes, combine=combine,
         engine=engine, step_keys=step_keys,
         steps_ms=[a.elapsed_time(b) for a, b in step_events])
 
@@ -1034,14 +1236,18 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     line = {"name": "flash_attention", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention/kernel.py:125",
-            "launches": run.launches["flash_attention"], "shape": "decode"}
-    line.update(_flash_at(torch, k, "decode", q, kc, vc, pos, pos + 1))
+            "launches": run.launches["flash_attention"], "shape": "decode",
+            "route_launches": run.routes["flash_attention"],
+            "combine_launches": run.combine}
+    line.update(_flash_at(torch, k, "decode", q, kc, vc, pos, pos + 1,
+                          min_blocks=132))
     q = torch.randn(*mesh.sizes, 1, CHUNK, H, hd, generator=g,
                     device=dev).to(torch.bfloat16)
     p0 = torch.full((*mesh.sizes, 1), MAX_LEN - CHUNK, dtype=torch.int32,
                     device=dev)
     line["chunk"] = _flash_at(torch, k, "chunk", q, kc[..., :1, :, :, :],
-                              vc[..., :1, :, :, :], p0, p0 + CHUNK)
+                              vc[..., :1, :, :, :], p0, p0 + CHUNK,
+                              sample=True)
     del eng, q, kc, vc
     run.eng = None
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -1259,11 +1465,11 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     a2a_ctx = DiompContext(mesh=mesh, device=dev)
     with _Tap(layers, "expert_mlp", lambda a, kw: True) as mlp_tap, \
             use_default(a2a_ctx), a2a_ctx.dispatch_stats.collect() as ds:
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        _zero_counts(wrappers)
         logits, _ = step(params, toks, cache, CHUNK)
         torch.cuda.synchronize()
         launches = {name: wr.launches for name, wr in wrappers.items()}
+        _attention_routes(wrappers, "moe a2a chunk")
     log(f"moe: one a2a prefill chunk of {CHUNK}: launches {launches}; the "
         f"capacity path dropped {float(ds['moe_dropped'].sum()):.0f} of "
         f"{float(ds['moe_routed'].sum()):.0f} (token, choice) pairs over "
@@ -1542,14 +1748,14 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
 
     with _Tap(module, "linear_scan", keep_scan), \
             _Tap(layers, "flash_attention", keep_flash):
-        for wrapper in wrappers.values():
-            wrapper.launches = 0
+        _zero_counts(wrappers)
         t0 = time.perf_counter()
         toks, finite, pre_ms, steps_ms, pre, dec, cache = _serve_recurrent(
             torch, dev, cfg, mesh, pctx, params, B, prompt, REC_NEW,
             S_cache, dctx)
         wall = time.perf_counter() - t0
         launches = {name: wr.launches for name, wr in wrappers.items()}
+        _attention_routes(wrappers, tag)
     log(f"{tag}: {B} prompts of {T} tokens, one prefill call and {REC_NEW} "
         f"greedy decode steps in {wall:.2f} s; launches {launches}")
     L = cfg.num_layers
@@ -1646,13 +1852,15 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
     return res
 
 
-def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len):
+def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len,
+             sample=False):
     """The ring kernel at one shape: against its plain version (the
     ``ompx_put`` emulation) on the same inputs, timed beside it and beside
     ``scaled_dot_product_attention`` over the full K/V under the same mask.
     ``q (n, B, tq, H, D)``, ``kk/v (n, B, tk, KH, D)`` on a one-axis ring;
     the offsets are ``(n, B)`` int32 (``q_offset`` each rank's first query
-    position)."""
+    position).  The launch must take the tensor cores; ``sample`` samples
+    the card's clock and power over the kernel's timing."""
     from repro_torch.core.context import DiompContext, use_default
     from repro_torch.core.groups import DiompGroup
     group = DiompGroup(("x",), name="x")
@@ -1661,7 +1869,9 @@ def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len):
     kw = dict(plan=plan, q_offset=q_offset, valid_len=valid_len)
     ctx = DiompContext(mesh=mesh, device=q.device)
     with use_default(ctx):
-        got = k.fused_ring_attention_kernel(q, kk, v, group, **kw)
+        got = _counted(k.fused_ring_attention_kernel,
+                       lambda: k.fused_ring_attention_kernel(q, kk, v, group,
+                                                             **kw), "wgmma")
         want = k.fused_ring_attention_plain(q, kk, v, group, **kw)
         err = max_err(torch, got, want)
         # bf16 output: one ulp of the output (2^-7 relative) plus the
@@ -1671,8 +1881,13 @@ def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len):
               f"ring attention {name}: err {err}")
         del got, want
         reps = 10 if n * tq * tk <= 1 << 22 else 3
-        ms = cuda_ms(torch, lambda: k.fused_ring_attention_kernel(
-            q, kk, v, group, **kw), reps)
+        def call():
+            return k.fused_ring_attention_kernel(q, kk, v, group, **kw)
+
+        ms = cuda_ms(torch, call, reps)
+        if sample:
+            sampled_ms(torch, call, ms, f"ring attention {name}")
+        dev = device_ms(torch, call, reps, ("ring_attention",))
         plain = cuda_ms(torch, lambda: k.fused_ring_attention_plain(
             q, kk, v, group, **kw), 2)
     # every rank's queries over the whole K/V (the stripes in rank order)
@@ -1691,15 +1906,17 @@ def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len):
     ops = 2 * pairs * (D + Dv)
     fk = full_k.expand(n, *full_k.shape).reshape(n * B, n * tk, KH, D)
     fv = full_v.expand(n, *full_v.shape).reshape(n * B, n * tk, KH, Dv)
-    library = cuda_ms(torch, _sdpa(torch, q.reshape(n * B, tq, H, D), fk, fv,
-                                   visible), reps)
+    sdpa = _sdpa(torch, q.reshape(n * B, tq, H, D), fk, fv, visible)
+    library = cuda_ms(torch, sdpa, reps)
+    library_dev = device_ms(torch, sdpa, reps, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"ring attention {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-        f"({pairs // H} visible pairs a head over {n} ranks): {ms:.3f} ms, "
-        f"plain {plain:.3f}, sdpa {library:.3f}, bound {b_ms:.4f} ms by "
-        f"{b_by}, err {err:.4g}")
+        f"({pairs // H} visible pairs a head over {n} ranks): {ms:.4f} ms "
+        f"(device {dev:.4f}), plain {plain:.3f}, sdpa {library:.4f} (device "
+        f"{library_dev:.4f}), bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library}
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+            "device_ms": dev, "library_device_ms": library_dev}
 
 
 def ring_phase(torch, k, dev, wrappers) -> dict:
@@ -1792,7 +2009,8 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
                     device=dev).to(torch.bfloat16)
     kc, vc = eng.cache["k"].select(nd, 0), eng.cache["v"].select(nd, 0)
     flash = {"paligemma_decode": _flash_at(torch, k, "paligemma decode", q,
-                                           kc, vc, pos, pos + 1)}
+                                           kc, vc, pos, pos + 1,
+                                           min_blocks=132)}
     n = mesh.shape["model"]
     s_loc = MAX_LEN // n
     ring_mesh = RankMesh(("x",), (n,))
@@ -1810,7 +2028,8 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
             "source": "src/repro_torch/csrc/ring_attention.cu",
             "replaces": "src/repro/kernels/ring_attention/fused.py:362",
             "launches": run.launches["fused_ring_attention"],
-            "shape": "served chunk"}
+            "shape": "served chunk",
+            "route_launches": run.routes["fused_ring_attention"]}
     line.update(_ring_at(torch, k, "served chunk", ring_mesh, q, kk, vv,
                          plan, q0, q0 + CHUNK))
     del eng, q, kc, vc, kk, vv
@@ -1833,7 +2052,7 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
         1, t_loc, t_loc, H, cfg.kv_heads, hd, hd, torch.bfloat16, n)
     line["seq_parallel"] = _ring_at(torch, k, "sequence-parallel",
                                     RankMesh(("x",), (n,)), q, kk, vv, plan,
-                                    q0, vl)
+                                    q0, vl, sample=True)
     del q, kk, vv
     torch.cuda.empty_cache()
 
@@ -1936,10 +2155,7 @@ def main() -> int:
     R = RADIUS
     zl = GRID // NZ
 
-    for wrapper in wrappers.values():
-        wrapper.launches = 0
-        for route in getattr(wrapper, "route_launches", {}):
-            wrapper.route_launches[route] = 0
+    _zero_counts(wrappers)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     ring_ctx = DiompContext(mesh=RankMesh(("ring",), (n,)), device=dev)

@@ -40,12 +40,10 @@
 //   planner), ragged edges masked on load and store.
 #pragma once
 
-#include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
-
 #include <cstdint>
 #include <initializer_list>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 #define MM_BM 64
 #define MM_BK 16
@@ -139,90 +137,6 @@ static_assert(TC_BN % TC_BOX == 0 && TC_BK == TC_BOX, "tile vs swizzle box");
 static_assert(TC_BM == 2 * 64, "one 64-row wgmma slab per consumer warpgroup");
 static_assert(TC_BN == 256, "TC_WGMMA is m64n256k16");
 
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// arrive on the barrier at offset bar of CTA cta of this cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t cta) {
-  asm volatile(
-      "{\n.reg .b32 remote;\n"
-      "mapa.shared::cluster.u32 remote, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(bar),
-      "r"(cta) : "memory");
-}
-
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
-  return r;
-}
-
-// every thread of every CTA of the cluster
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive;\nbarrier.cluster.wait;" ::: "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar), "r"(bytes) : "memory");
-}
-
-// box (c0 innermost, c1, c2) of a 3-D tensor map -> shared memory at dst
-__device__ __forceinline__ void tma_load_3d(uint32_t dst,
-                                            const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1,
-                                            int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2) : "memory");
-}
-
-// the same box into shared memory at dst of every CTA in mask, each
-// completing on its own barrier at offset bar
-__device__ __forceinline__ void tma_load_3d_multicast(uint32_t dst,
-                                                      const CUtensorMap* map,
-                                                      uint32_t bar, int c0,
-                                                      int c1, int c2,
-                                                      uint16_t mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes.multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;" ::"r"(
-          dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "h"(mask) : "memory");
-}
-
-// Orders this thread's generic stores to global memory before later reads
-// of the same bytes through the async proxy (TMA).
-__device__ __forceinline__ void fence_proxy_async_global() {
-  asm volatile("fence.proxy.async.global;" ::: "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout B128.
-__device__ __forceinline__ uint64_t tc_desc(uint32_t addr, uint32_t lbo,
-                                            uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4)
-         | (static_cast<uint64_t>(lbo >> 4) << 16)
-         | (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
 #define TC_WGMMA(TY)                                                          \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"                           \
@@ -290,13 +204,6 @@ __device__ __forceinline__ void tc_fence_acc(float (&d)[TC_ACC]) {
   for (int i = 0; i < TC_ACC; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-__device__ __forceinline__ void store2(__half* p, float a, float b) {
-  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
-}
-
 // The ring of stages in dynamic shared memory, and where each role is in it.
 // Producer and consumers walk the same sequence of (tile, K step) loads, so
 // their (stage, phase) stay in step across tiles and, in the ring kernel,
@@ -311,16 +218,7 @@ struct TcSmem {
   __device__ uint32_t empty(int s) const { return full(TC_STAGES + s); }
 };
 
-struct TcPipe {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ void advance() {
-    if (++stage == TC_STAGES) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
+using TcPipe = StagePipe<TC_STAGES>;
 
 // Every thread of the cluster calls it once (it syncs the cluster): full[s]
 // waits on its producer's arrival and the stage's bytes, empty[s] on the 8
@@ -334,7 +232,7 @@ __device__ inline TcSmem tc_smem_init(unsigned char* raw) {
       mbar_init(sm.full(s), 1);
       mbar_init(sm.empty(s), TC_CLUSTER * TC_CONSUMERS / 32);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    fence_mbar_init();
   }
   cluster_sync();
   return sm;
@@ -439,54 +337,16 @@ __device__ inline void tc_mma_tile(const TcSmem& sm, TcPipe& pipe, int nk,
 
 // -- host side of the tensor-core route --------------------------------------
 
-typedef CUresult (*TcEncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                  cuuint32_t, void*, const cuuint64_t*,
-                                  const cuuint64_t*, const cuuint32_t*,
-                                  const cuuint32_t*, CUtensorMapInterleave,
-                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                  CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up in the CUDA library the runtime loaded
-static TcEncodeTiled tc_encoder() {
-  static TcEncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                     cudaEnableDefault, &found);
-#else
-    cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                            &found);
-#endif
-    if (found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<TcEncodeTiled>(p);
-  }
-  return fn;
-}
-
 // The row-major 16-bit tensor (depth, rows, cols) at base as a TMA map whose
 // box is (one deep, box_rows, TC_BOX columns), 128-byte swizzled; elements
 // past any edge read as zero, so a box never reaches into the next depth.
 static int tc_map(CUtensorMap* map, const void* base, int dtype,
                   long long depth, long long rows, long long cols,
                   int box_rows) {
-  TcEncodeTiled encode = tc_encoder();
-  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  cuuint64_t dims[3] = {static_cast<cuuint64_t>(cols),
-                        static_cast<cuuint64_t>(rows),
-                        static_cast<cuuint64_t>(depth)};
-  cuuint64_t strides[2] = {static_cast<cuuint64_t>(cols * 2),
-                           static_cast<cuuint64_t>(rows * cols * 2)};
-  cuuint32_t box[3] = {TC_BOX, static_cast<cuuint32_t>(box_rows), 1};
-  cuuint32_t unit[3] = {1, 1, 1};
-  CUresult r = encode(
-      map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      3, const_cast<void*>(base), dims, strides, box, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+  const long long dims[3] = {cols, rows, depth};
+  const long long strides[2] = {cols * 2, rows * cols * 2};
+  const int box[3] = {TC_BOX, box_rows, 1};
+  return tc_map_nd(map, base, dtype, 3, dims, strides, box);
 }
 
 // The route rule, checked again at launch: 16-bit operands, pitches K and N
@@ -537,6 +397,3 @@ struct TcLaunch {
     return 0;
   }
 };
-
-// route codes passed from Python (repro_torch/kernels/plan.py GEMM_ROUTES)
-enum ReproGemmRoute { kRouteSimt = 0, kRouteWgmma = 1 };

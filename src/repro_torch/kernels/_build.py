@@ -30,7 +30,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# GEMM route codes of csrc/matmul.cuh (plan.gemm_route picks the route)
+# route codes of csrc/hopper.cuh (plan.gemm_route and plan.attention_route
+# pick the route)
 ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -57,10 +58,11 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_linear_scan": [_P] * 7 + [_I] * 6 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
-        + [_P, _P] + [_I] * 11 + [_F, _I, _P]}),
+        + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 4,
+        "repro_flash_combine": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P]}),
     "ring_attention": ("ring_attention.cu", {
         "repro_ring_attention": [_P] * 10 + [_I, _P, _P] + [_I] * 12
-        + [_F, _I, _P]}),
+        + [_F, _I, _I, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -39,6 +39,9 @@ __all__ = [
     "OverlapPlanner",
     "default_planner",
     "gemm_route",
+    "attention_route",
+    "plan_key_splits",
+    "key_split_tiles",
     "resolve_ring_impl",
     "resolve_dispatch_impl",
     "resolve_seq_parallel",
@@ -49,6 +52,10 @@ __all__ = [
     "TC_STAGES",
     "STENCIL_TILE",
     "FLASH_BQ",
+    "ATT_TC_BK",
+    "ATT_TC_STAGES",
+    "ATT_TC_THREADS",
+    "SMS_DEFAULT",
 ]
 
 # Shared memory one block may use on an H100: 232,448 bytes (227 KB) of the
@@ -66,12 +73,17 @@ __all__ = [
 #   block — ``STENCIL_TILE``, (8 + 8)·(32 + 8)·4 B = 2.5 KiB at R = 4 — and
 #   carries the Z neighbours in registers, so its stage does not grow with
 #   the Z chunk a block walks;
-# * flash attention stages, per block, the scaled q^T of a FLASH_BQ-row tile
-#   and, per key tile of ``block`` keys, k^T, v and the probabilities, all in
-#   f32 with one column of padding against bank conflicts
-#   (``OverlapPlanner.flash_stage_bytes``, the formula of ``launch()`` in
-#   csrc/flash_attention.cu): 113 KiB at D = Dv = 128 and block = 64,
-#   staged once (no double buffer);
+# * flash and ring attention take one of two routes
+#   (:func:`attention_route`).  On the tensor cores a block keeps the
+#   FLASH_BQ-row q tile and ``ATT_TC_STAGES`` stages of a 64-key k and v
+#   tile in the operands' 16-bit type (``attention_tc_stage_bytes``, the
+#   formula of csrc/attention.cuh's ``att_tc_smem_bytes``): 161 KiB at D =
+#   Dv = 256.  On the CUDA cores it stages, per block, the scaled q^T of a
+#   FLASH_BQ-row tile and, per key tile of ``block`` keys, k^T, v and the
+#   probabilities, all in f32 with one column of padding against bank
+#   conflicts (``OverlapPlanner.flash_stage_bytes``, the formula of
+#   ``launch()`` in csrc/flash_attention.cu): 113 KiB at D = Dv = 128 and
+#   block = 64, staged once (no double buffer);
 # * the expert MLP (and the fused MoE dispatch's GEMMs) stage one (BK, BM)
 #   tile of x and a (BK, BN) tile of each of w_gate and w_up per block, in
 #   f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB at the fixed tile of
@@ -92,6 +104,10 @@ STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu
 FLASH_BQ = 64                   # query rows of a csrc/flash_attention.cu tile
 FLASH_BLOCKS = (64, 32, 16)     # the key tiles that kernel takes
 FLASH_MAX_DV = 256              # the widest value head it takes
+ATT_TC_BK = 64                  # keys a tile on attention's tensor-core route
+ATT_TC_STAGES = 2               # that route's k / v stages
+ATT_TC_THREADS = 160            # a consumer warpgroup and a producer warp
+SMS_DEFAULT = 132               # streaming multiprocessors of an H100 SXM
 
 
 def _itemsize(dtype) -> int:
@@ -109,6 +125,53 @@ def gemm_route(dtype, k: int, n: int, *ptrs: int) -> str:
             and n % 8 == 0 and all(p % 16 == 0 for p in ptrs):
         return "wgmma"
     return "simt"
+
+
+def attention_route(dtype, d: int, dv: int, g: int, *ptrs_and_strides: int
+                    ) -> str:
+    """The route a flash- or ring-attention launch takes in
+    ``csrc/attention.cuh``: ``"wgmma"`` (TMA and the tensor cores) for
+    16-bit operands whose head dims D and Dv are each 64, 128 or 256 (the
+    kernel's instances; every served shape), whose G = H / KH query heads
+    a kv head divides the 64-row tile, and
+    whose base pointers and byte strides (``ptrs_and_strides``: those TMA
+    reads, the strides of dims longer than 1) are 16-byte aligned;
+    ``"simt"`` (the CUDA cores) otherwise.  f32 stays on the CUDA cores:
+    TF32 would change its results."""
+    if dtype in (torch.float16, torch.bfloat16) \
+            and d in (64, 128, 256) and dv in (64, 128, 256) \
+            and g >= 1 and 64 % g == 0 \
+            and all(x % 16 == 0 for x in ptrs_and_strides):
+        return "wgmma"
+    return "simt"
+
+
+def plan_key_splits(blocks: int, keys: int, *, sms: int = SMS_DEFAULT
+                    ) -> int:
+    """Blocks that share one flash tile's keys on the tensor-core route.
+
+    A grid of ``blocks`` (query tiles x kv heads x batch rows) that leaves
+    the card mostly empty — a decode step: 8 blocks at glm4-9b's or
+    paligemma-3b's decode on 2 ranks x 4 slots — splits each tile's keys
+    into enough runs of whole ``ATT_TC_BK``-key tiles for the grid to cover
+    the ``sms`` SMs about twice, at most one run per key tile of the
+    ``keys`` a row may see.  A grid of ``sms`` blocks or more (prefill and
+    chunk shapes) keeps one split.  The kernel balances the runs over the
+    keys each tile really sees (:func:`key_split_tiles`)."""
+    if blocks >= sms:
+        return 1
+    tiles = max(-(-keys // ATT_TC_BK), 1)
+    return max(1, min(-(-2 * sms // max(blocks, 1)), tiles))
+
+
+def key_split_tiles(tiles: int, splits: int) -> Tuple[Tuple[int, int], ...]:
+    """The key tiles ``[lo, hi)`` each of ``splits`` runs takes of a query
+    tile that sees ``tiles`` key tiles: split ``sp`` takes
+    ``[sp tiles // splits, (sp + 1) tiles // splits)``, the rule of
+    ``csrc/flash_attention.cu``'s ``flash_tc_kernel``.  Every tile falls
+    in exactly one run; with fewer tiles than splits some runs are empty."""
+    return tuple((sp * tiles // splits, (sp + 1) * tiles // splits)
+                 for sp in range(splits))
 
 
 def resolve_ring_impl(impl: Optional[str]) -> str:
@@ -766,18 +829,34 @@ class OverlapPlanner:
         return 4 * (d * (FLASH_BQ + 1) + d * (block + 1) + block * dv
                     + FLASH_BQ * (block + 1))
 
+    @staticmethod
+    def attention_tc_stage_bytes(d: int, dv: int) -> int:
+        """Dynamic shared memory of an attention block on the tensor-core
+        route (16-bit): the alignment slack, the q tile, ``ATT_TC_STAGES``
+        stages of a 64-key k and v tile, and the stages' and q's full and
+        empty mbarriers."""
+        return 1024 + FLASH_BQ * 2 * d \
+            + ATT_TC_STAGES * ATT_TC_BK * 2 * (d + dv) \
+            + 8 * (2 * ATT_TC_STAGES + 2)
+
     def plan_attention_block(self, tq: int, tk: int, d: int, dv: int, dtype,
                              *, block: int = 512) -> int:
-        """Keys folded per online-softmax update: the largest of the flash
-        kernel's key tiles (64, 32, 16), at most ``block``, whose shared-
-        memory stage fits the budget.  The kernel stages once (no double
-        buffer), so one stage is what must fit.
+        """Keys folded per online-softmax update.  On the tensor-core route
+        (:func:`attention_route` of the dtype and head dims) the tile is
+        fixed: ``ATT_TC_BK`` = 64, whatever ``block`` asks, once its stages
+        fit the budget.  Otherwise the largest of the CUDA-core kernel's
+        key tiles (64, 32, 16), at most ``block``, whose f32 shared-memory
+        stage fits the budget; that kernel stages once (no double buffer),
+        so one stage is what must fit.
 
         The plain version folds the same number of keys per update, so the
         two sum in the same blocks.  Raises when even the smallest tile does
         not fit, or ``Dv`` exceeds the kernel's ``FLASH_MAX_DV``.
         """
-        del tq, tk, dtype             # the kernel stages every dtype in f32
+        del tq, tk
+        if attention_route(dtype, d, dv, 1) == "wgmma" \
+                and self.attention_tc_stage_bytes(d, dv) <= self.smem_budget:
+            return ATT_TC_BK
         if dv <= FLASH_MAX_DV:
             for b in FLASH_BLOCKS:
                 if b <= max(block, FLASH_BLOCKS[-1]) \

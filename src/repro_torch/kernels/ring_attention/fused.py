@@ -11,7 +11,9 @@ ring being ``group``'s rank dim):
   (``csrc/ring_attention.cu``, which replaces ``fused_ring_attention_tpu``):
   every rank's ring in one cooperative launch, puts as stores into a
   device-memory slot buffer, the fence a grid barrier, offsets read from
-  int32 device tensors;
+  int32 device tensors, each stripe folded on the route
+  :func:`..plan.attention_route` picks (counted per route in
+  ``route_launches``);
 * :func:`fused_ring_attention_interpret` — each put an ``ompx_put`` (a roll
   along the ring's rank dim) and each landing an ``ompx_fence``; the plain
   version of the kernel.
@@ -31,8 +33,9 @@ from ...core.backends import group_rank, payload_bytes
 from ...core.context import default_communicator, default_context
 from ...core.groups import DiompGroup
 from ...core.rma import attention_window_names, ompx_fence, ompx_put
-from .._build import DTYPE_CODES, check_launch, library, stream_handle
-from ..plan import AttentionRingPlan, default_planner
+from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
+                      stream_handle)
+from ..plan import AttentionRingPlan, attention_route, default_planner
 from .kernel import (empty_state, finalize_state, merge_states,
                      scaled_queries, stripe_mask, stripe_state)
 
@@ -239,16 +242,24 @@ def fused_ring_attention_kernel(q, k, v, group: DiompGroup, *,
     cacc = torch.empty(rows, Dv, dtype=torch.float32, device=q.device)
     sched = _schedule_table(plan, q.device)
     out = torch.empty(*kq.shape[:-1], Dv, dtype=q.dtype, device=q.device)
+    # TMA reads the queries and the slots (contiguous; their other byte
+    # strides are multiples of these)
+    item = q.element_size()
+    route = attention_route(q.dtype, D, Dv, H // KH, kq.data_ptr(),
+                            bufk.data_ptr(), bufv.data_ptr(), H * D * item,
+                            KH * D * item, KH * Dv * item)
     status = library("ring_attention").repro_ring_attention(
         kq.data_ptr(), kk.data_ptr(), kv.data_ptr(), out.data_ptr(),
         bufk.data_ptr(), bufv.data_ptr(), cm.data_ptr(), cl.data_ptr(),
         cacc.data_ptr(), sched.data_ptr(), sched.shape[0], q0.data_ptr(),
         vl.data_ptr(), rings, n, slots, B, tq, tk, H, KH, D, Dv, tile,
         int(plan.causal), float(D ** -0.5 if scale is None else scale),
-        DTYPE_CODES[q.dtype], stream_handle(q.device))
+        DTYPE_CODES[q.dtype], ROUTE_CODES[route], stream_handle(q.device))
     fused_ring_attention_kernel.launches += 1
+    fused_ring_attention_kernel.route_launches[route] += 1
     check_launch(status, "fused_ring_attention")
     return out.movedim(nd - 1, ring)
 
 
 fused_ring_attention_kernel.launches = 0
+fused_ring_attention_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)

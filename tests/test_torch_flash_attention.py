@@ -18,7 +18,8 @@ from repro.kernels.flash_attention.ops import flash_attention as j_flash
 
 from repro_torch.core.context import DiompContext, use_default
 from repro_torch.kernels.flash_attention.kernel import (
-    flash_attention_kernel, flash_attention_plain)
+    flash_attention_kernel, flash_attention_plain, flash_attention_split_plain,
+    flash_combine_kernel, flash_combine_plain)
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.plan import (FLASH_BQ, SMEM_BUDGET_DEFAULT,
                                       OverlapPlanner)
@@ -171,3 +172,58 @@ def test_attention_block_fits_the_kernels_shared_memory():
         p.plan_attention_block(1, 1, 1024, 64, torch.float32)
     with pytest.raises(ValueError, match="Dv <= 256"):
         p.plan_attention_block(1, 1, 64, 512, torch.float32)
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 33])
+@pytest.mark.parametrize("Tq,causal,pfx", [(1, True, 0), (6, True, 0),
+                                           (6, False, 0), (6, True, 70)])
+def test_key_split_and_merge_match_reference(splits, Tq, causal, pfx):
+    """The decode split of the tensor-core route in plain torch — each
+    row's keys cut into runs of whole 64-key tiles, one partial state a
+    run, merged in split order with ``merge_states`` — against the
+    reference's oracle: ragged valid lengths, a slot that sees one key (and
+    one that sees none), G = 16, f32 (tolerance 2e-5, as the sweep's)."""
+    rng = np.random.RandomState(17)
+    B, Tk, H, KH, D, Dv = 4, 300, 16, 1, 32, 24
+    q = rng.randn(B, Tq, H, D).astype(np.float32)
+    k = rng.randn(B, Tk, KH, D).astype(np.float32)
+    v = rng.randn(B, Tk, KH, Dv).astype(np.float32)
+    valid = np.array([1, 130, 300, 0], np.int32)
+    pos = np.maximum(valid - Tq, 0).astype(np.int32)
+    kw = dict(causal=causal, q_offset=pos, valid_len=valid, prefix_len=pfx)
+    want = np.asarray(j_flash(q, k, v, impl="ref", block=64, **kw),
+                      np.float64)
+    got = flash_attention_split_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), splits,
+        **{**kw, "q_offset": torch.from_numpy(pos),
+           "valid_len": torch.from_numpy(valid)}).double().numpy()
+    assert np.isfinite(got).all() and np.all(got[3] == 0.0)
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_combine_wrapper_takes_plain_version_on_cpu():
+    """The split combine on CPU tensors is its plain version (no launch
+    counted); merging a run with the identity (m = -1e30, l = 0, acc = 0,
+    as the kernel writes a run that saw no key) changes nothing, and a row
+    that saw no key in any run comes out as 0."""
+    g = torch.Generator().manual_seed(3)
+    m = torch.randn(2, 4, 3, 5, generator=g)
+    l = torch.rand(2, 4, 3, 5, generator=g) + 0.5
+    acc = torch.randn(2, 4, 3, 5, 8, generator=g)
+    m[:, 2], l[:, 2], acc[:, 2] = -1e30, 0.0, 0.0
+    m[0, :, 1, 1], l[0, :, 1, 1], acc[0, :, 1, 1] = -1e30, 0.0, 0.0
+    before = flash_attention_kernel.combine_launches
+    got = flash_combine_kernel(m, l, acc, torch.float32)
+    assert flash_attention_kernel.combine_launches == before
+    torch.testing.assert_close(got, flash_combine_plain(m, l, acc,
+                                                        torch.float32))
+    keep = [0, 1, 3]
+    torch.testing.assert_close(
+        got, flash_combine_plain(m[:, keep], l[:, keep], acc[:, keep],
+                                 torch.float32), rtol=1e-6, atol=1e-6)
+    assert torch.all(got[0, 1, 1] == 0)
+    # one run alone: the normalized state itself
+    torch.testing.assert_close(
+        flash_combine_plain(m[:, :1], l[:, :1], acc[:, :1], torch.float32),
+        acc[:, 0] / l[:, 0, ..., None].clamp(min=1e-30))
+

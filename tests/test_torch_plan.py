@@ -241,6 +241,130 @@ def test_planner_tiles_match_the_cuda_sources():
     assert st["R"] == 4
 
 
+@pytest.mark.parametrize("dtype,d,dv,g,aligned,route", [
+    (torch.bfloat16, 128, 128, 16, (0, 256, 4096), "wgmma"),  # glm4 decode
+    (torch.bfloat16, 256, 256, 8, (16, 512), "wgmma"),        # paligemma
+    (torch.bfloat16, 64, 64, 1, (), "wgmma"),                 # zamba2
+    (torch.float16, 128, 64, 64, (32,), "wgmma"),             # Dv != D
+    (torch.float16, 256, 128, 4, (), "wgmma"),
+    (torch.float32, 128, 128, 16, (0, 256), "simt"),          # no TF32
+    (torch.float32, 64, 64, 1, (), "simt"),
+    (torch.bfloat16, 32, 32, 4, (), "simt"),                  # D off 64
+    (torch.bfloat16, 48, 24, 2, (), "simt"),
+    (torch.float16, 80, 80, 4, (), "simt"),
+    (torch.bfloat16, 128, 96, 2, (), "simt"),                 # Dv off 64
+    (torch.bfloat16, 192, 128, 2, (), "simt"),                # no instance
+    (torch.bfloat16, 320, 64, 1, (), "simt"),                 # D past 256
+    (torch.bfloat16, 128, 512, 1, (), "simt"),                # Dv past 256
+    (torch.bfloat16, 128, 128, 3, (), "simt"),                # G off 64
+    (torch.bfloat16, 128, 128, 128, (), "simt"),
+    (torch.bfloat16, 128, 128, 16, (0, 8), "simt"),           # a pointer
+    (torch.float16, 64, 64, 2, (256, 24), "simt"),            # a stride
+])
+def test_attention_route_rule(dtype, d, dv, g, aligned, route):
+    assert tplan.attention_route(dtype, d, dv, g, *aligned) == route
+
+
+def test_attention_route_over_the_sweep():
+    """dtype x D x Dv x G x alignment against the rule as stated."""
+    for dt, d, dv, g, off in itertools.product(
+            (torch.float32, torch.float16, torch.bfloat16),
+            (32, 64, 80, 128, 192, 256, 512), (24, 64, 128, 192, 256, 320),
+            (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
+        want = ("wgmma" if dt != torch.float32 and d in (64, 128, 256)
+                and dv in (64, 128, 256) and g in (1, 2, 8, 16, 64)
+                and off % 16 == 0 else "simt")
+        assert tplan.attention_route(dt, d, dv, g, 1 << 20, off) == want
+
+
+def test_both_attention_wrappers_share_the_route_rule():
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa
+    from repro_torch.kernels.ring_attention import fused as ra
+    assert fa.attention_route is ra.attention_route is tplan.attention_route
+    for wrapper in (fa.flash_attention_kernel, ra.fused_ring_attention_kernel):
+        assert set(wrapper.route_launches) == set(_build.ROUTE_CODES) \
+            == {"simt", "wgmma"}
+    before = dict(fa.flash_attention_kernel.route_launches)
+    combines = fa.flash_attention_kernel.combine_launches
+    q = torch.randn(1, 1, 16, 128, dtype=torch.bfloat16)
+    kv = torch.randn(1, 300, 1, 128, dtype=torch.bfloat16)
+    with use_default(DiompContext(device="cpu")):
+        fa.flash_attention_kernel(q, kv, kv)
+    assert fa.flash_attention_kernel.route_launches == before  # CPU: none
+    assert fa.flash_attention_kernel.combine_launches == combines
+
+
+def test_attention_tiles_match_the_cuda_sources():
+    at = _defines("attention.cuh")
+    assert at["ATT_BQ"] == tplan.FLASH_BQ == 64
+    assert at["ATT_TC_BK"] == tplan.ATT_TC_BK == 64
+    assert at["ATT_TC_STAGES"] == tplan.ATT_TC_STAGES
+    assert at["ATT_TC_THREADS"] == tplan.ATT_TC_THREADS == 128 + 32
+    # the launch's dynamic shared memory, att_tc_smem_bytes, evaluated
+    text = (CSRC / "attention.cuh").read_text()
+    expr = re.search(r"att_tc_smem_bytes\(int D, int Dv\) \{\s*return "
+                     r"([^;]+);", text).group(1)
+    for d, dv in itertools.product((64, 128, 256), repeat=2):
+        got = eval(" ".join(expr.split()), {
+            "D": d, "Dv": dv, "ATT_TC_STAGES": at["ATT_TC_STAGES"]})
+        assert got == tplan.OverlapPlanner.attention_tc_stage_bytes(d, dv)
+        assert got <= tplan.SMEM_BUDGET_DEFAULT
+    # D = Dv = 256: q 32 KiB + 2 x (32 + 32) KiB, the alignment slack and
+    # six barriers; one block an SM fits
+    big = tplan.OverlapPlanner.attention_tc_stage_bytes(256, 256)
+    assert big == 160 * 1024 + 1024 + 6 * 8 <= tplan.SMEM_BUDGET_DEFAULT
+    # the head dims the rule sends to the tensor cores are the instances
+    # both kernels have
+    for src in ("flash_attention.cu", "ring_attention.cu"):
+        inst = set(re.findall(r"launch_tc<T, (\d+)>",
+                              (CSRC / src).read_text()))
+        assert inst == {"64", "128", "256"}, src
+
+
+@pytest.mark.parametrize("blocks,keys,splits", [
+    (8, 4096, 33),      # glm4-9b / paligemma-3b decode: 2 ranks x 4 slots
+    (16, 4096, 17),     # qwen3-moe decode: 2 kv heads a rank
+    (128, 4096, 3),     # zamba2 decode: 16 kv heads a rank
+    (8, 100, 2),        # no more runs than key tiles
+    (3, 1000, 16),
+    (1, 64, 1),
+    (132, 4096, 1),     # the grid already fills the card
+    (256, 4096, 1),     # glm4-9b chunk: 128 tiles x 2 ranks
+    (4096, 2000, 1),    # a prefill
+])
+def test_key_splits_rule(blocks, keys, splits):
+    got = tplan.plan_key_splits(blocks, keys)
+    assert got == splits
+    if splits > 1:      # a decode grid covers the card, about twice at most
+        assert blocks * got >= tplan.SMS_DEFAULT or got == -(-keys // 64)
+        assert blocks * got < 2 * tplan.SMS_DEFAULT + blocks
+    assert tplan.plan_key_splits(blocks, keys, sms=blocks) == 1
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 33])
+def test_key_split_tiles_cover_every_tile_once(splits):
+    for tiles in range(0, 70):
+        runs = tplan.key_split_tiles(tiles, splits)
+        assert len(runs) == splits
+        covered = [t for lo, hi in runs for t in range(lo, hi)]
+        assert covered == list(range(tiles))            # once, in order
+        assert all(lo <= hi for lo, hi in runs)
+        sizes = [hi - lo for lo, hi in runs]
+        assert max(sizes) - min(sizes) <= 1             # balanced
+
+
+def test_attention_block_is_fixed_on_the_tensor_core_route():
+    p = tplan.OverlapPlanner()
+    for dt in (torch.bfloat16, torch.float16):
+        assert p.plan_attention_block(8, 8, 64, 64, dt, block=16) == 64
+        assert p.plan_attention_block(1, 4096, 256, 256, dt) == 64
+    assert p.plan_attention_block(8, 8, 64, 64, torch.float32, block=16) == 16
+    assert p.plan_attention_block(8, 8, 80, 80, torch.bfloat16,
+                                  block=16) == 16
+
+
 def test_resolve_ring_impl_equal():
     for impl in (None, "auto", "host", "fused"):
         assert tplan.resolve_ring_impl(impl) == jplan.resolve_ring_impl(impl)
