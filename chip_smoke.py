@@ -24,7 +24,8 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   ``dispatch_impl="fused"``: every MoE layer of every decode step and
   prefill chunk runs the fused dispatch kernel (puts, grouped expert MLP,
   returns), then one 512-token prefill chunk under the default ``"a2a"``,
-  whose grouped GEMMs run the expert-MLP kernel;
+  whose grouped GEMMs run the expert-MLP kernel — every launch of both on
+  the tensor-core route;
 * rwkv6-7b and zamba2-1.2b at full width and depth on the same mesh,
   through their prefill and decode steps (the serving engine takes
   positional KV caches only, as in the reference): 4 prompts of 2000
@@ -51,7 +52,8 @@ kernel at the main path's shapes beside its plain version and, where one
 exists, the one PyTorch call that computes the same function (sampling
 the card's SM clock and power draw over the fused ring's, flash's chunk
 and the 4 x 4096 ring attention's timings; the attention kernels also
-by their device time from the profiler, warm and with L2 flushed),
+and the two MoE kernels by their device time from the profiler, warm
+and with L2 flushed),
 times Minimod's two modes over repeated alternated runs, prints each
 serving phase's time to first token (the recurrent phases' prefill time)
 and decode step time with their bounds (and the MoE phase's plans, drop
@@ -107,6 +109,10 @@ SEQ_RANKS, SEQ_T_LOC = 4, 4096
 
 # the flash kernel's device functions, both routes and the split combine
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_tc_kernel", "flash_combine_kernel")
+# the fused MoE dispatch's and the expert MLP's, both routes
+MOE_KERNELS = ("dispatch_kernel", "dispatch_tc_kernel")
+EXPERT_KERNELS = ("gate_up_kernel", "down_kernel", "gate_up_tc_kernel",
+                  "down_tc_kernel", "ex_list_kernel")
 
 
 def log(msg: str) -> None:
@@ -538,21 +544,23 @@ def check_flash(torch, k, g) -> None:
     check_flash_combine(torch, k, g)
 
 
-def _refused_off_rule(module, wrapper, call, what) -> None:
-    """An f32 launch forced onto the tensor-core route (the module's rule
-    patched to say "wgmma") is refused by the C entry point, not run; the
-    wrapper's counts are restored after."""
-    rule, counts = module.attention_route, (wrapper.launches,
-                                            dict(wrapper.route_launches))
-    module.attention_route = lambda *args: "wgmma"
+def _refused_off_rule(module, wrapper, call, what,
+                      rule_name="attention_route") -> None:
+    """A launch off the rule (f32, or a shape the rule sends to the CUDA
+    cores) forced onto the tensor-core route (the module's rule patched to
+    say "wgmma") is refused by the C entry point, not run; the wrapper's
+    counts are restored after."""
+    rule, counts = getattr(module, rule_name), (wrapper.launches,
+                                                dict(wrapper.route_launches))
+    setattr(module, rule_name, lambda *args: "wgmma")
     try:
         call()
-        check(False, f"{what}: an f32 launch on the tensor-core route was "
-              f"not refused")
+        check(False, f"{what}: a launch off the rule on the tensor-core "
+              f"route was not refused")
     except RuntimeError:
         pass
     finally:
-        module.attention_route = rule
+        setattr(module, rule_name, rule)
         wrapper.launches, wrapper.route_launches = counts
 
 
@@ -607,15 +615,28 @@ def _expert_case(torch, g, shape, dt, counts, lead=()):
     return x, [w.to(dt) for w in ws], live
 
 
+def _expert_route(torch, dt, d, f) -> str:
+    """The route an expert-MLP case's aligned, contiguous operands must
+    take: the tensor cores for f16/bf16 with d and f multiples of 64, the
+    CUDA cores otherwise (plan.expert_route's rule, restated here so the
+    checks hold it)."""
+    return ("wgmma" if dt in (torch.float16, torch.bfloat16)
+            and d % 64 == 0 and f % 64 == 0 else "simt")
+
+
 def check_expert_mlp(torch, k, g) -> None:
     """The grouped expert MLP in f32 and bf16 at a small shape and at the
     serving path's decode (64, 2, 4096, 1536) and chunk (64, 256, 4096,
-    1536) blocks, with live rows from a real top-k routing; rows past the
-    counts must be exactly 0.  Tolerance, relative to the output's largest
-    magnitude: f32 1e-5 (sums in another order), bf16 1.6e-2 (one ulp of
-    the output and of the rounded h, plus the order).  Also: the same call
-    without counts gives the same bits (skipping zero rows is exact), and
-    rank x source blocks over a layer view of stacked weights."""
+    1536) blocks, with live rows from a real top-k routing; bf16 blocks of
+    C = 2, 20 and 256 rows whose experts hold 0, 1, C and (at C = 256) 129
+    live rows; bf16 at a d and at an f off the tensor-core rule.  Each case
+    on the route the rule gives it; rows past the counts must be exactly 0.
+    Tolerance, relative to the output's largest magnitude: f32 1e-5 (sums
+    in another order), bf16 1.6e-2 (one ulp of the output and of the
+    rounded h, plus the order).  Also: the same call without counts gives
+    the same bits (skipping zero rows is exact), rank x source blocks over
+    a layer view of stacked weights, and a launch off the rule forced onto
+    the tensor cores is refused."""
     tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
     cases = [((8, 64, 256, 128), 64, 2, 8),          # E, C, d, f; t, k, E_glob
              ((64, 2, 4096, 1536), 2, 8, 128),
@@ -625,32 +646,63 @@ def check_expert_mlp(torch, k, g) -> None:
         counts = _routed_counts(torch, g, t, kk, E_glob, E, C)
         for dt, tol in tols.items():
             x, ws, live = _expert_case(torch, g, shape, dt, counts)
+            route = _expert_route(torch, dt, *shape[2:])
             want = k.expert_mlp_plain(x, *ws, counts)
-            got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts))
+            got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts),
+                           route)
             err = max_err(torch, got, want)
             check(err <= tol * float(want.float().abs().max()),
-                  f"expert_mlp {shape} {dt}: err {err}")
+                  f"expert_mlp {shape} {dt} {route}: err {err}")
             check(not got[~live].any(), f"expert_mlp {shape} {dt}: rows past "
                   "the counts are not zero")
             if shape[0] == 8:
                 check(torch.equal(k.expert_mlp(x, *ws), got),
                       f"expert_mlp {shape} {dt}: counts changed live rows")
             del x, ws, want, got
+    # live counts of 0, 1 and C (and 129: a second row tile of one row) on
+    # the tensor cores, and d or f off the rule on the CUDA cores
+    for shape in ((6, 2, 256, 128), (6, 20, 192, 320), (8, 256, 256, 128),
+                  (6, 20, 200, 128), (6, 20, 256, 96)):
+        E, C = shape[:2]
+        lives = [0, 1, C, 1, C, 0, 129, C][:E]
+        counts = torch.tensor([min(n, C) for n in lives], dtype=torch.int32,
+                              device="cuda")
+        x, ws, live = _expert_case(torch, g, shape, torch.bfloat16, counts)
+        route = _expert_route(torch, torch.bfloat16, *shape[2:])
+        want = k.expert_mlp_plain(x, *ws, counts)
+        got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts),
+                       route)
+        err = max_err(torch, got, want)
+        check(err <= 1.6e-2 * float(want.float().abs().max())
+              and not got[~live].any(),
+              f"expert_mlp {shape} counts {counts.tolist()} {route}: "
+              f"err {err}")
     # (ranks, sources) blocks sharing each rank's weights, the weights one
-    # layer of a stacked (ranks, L, E, d, f) tensor
+    # layer of a stacked (ranks, L, E, d, f) tensor; f32, then bf16
     E, C, d, f = 8, 20, 128, 64
     counts = torch.randint(0, C + 1, (2, 3, E), generator=g, device="cuda",
                            dtype=torch.int32)
-    x, _, live = _expert_case(torch, g, (E, C, d, f), torch.float32, counts,
-                              lead=(2, 3))
-    stacked = [torch.randn(2, 3, E, a, b, generator=g, device="cuda") * a ** -0.5
-               for a, b in ((d, f), (d, f), (f, d))]
-    ws = [w[:, 1] for w in stacked]
-    want = k.expert_mlp_plain(x, *ws, counts)
-    got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts))
-    err = max_err(torch, got, want)
-    check(err <= 1e-5 * float(want.abs().max()) and not got[~live].any(),
-          f"expert_mlp over ranks x sources on a layer view: err {err}")
+    for dt, tol in tols.items():
+        x, _, live = _expert_case(torch, g, (E, C, d, f), dt, counts,
+                                  lead=(2, 3))
+        stacked = [(torch.randn(2, 3, E, a, b, generator=g, device="cuda")
+                    * a ** -0.5).to(dt) for a, b in ((d, f), (d, f), (f, d))]
+        ws = [w[:, 1] for w in stacked]
+        want = k.expert_mlp_plain(x, *ws, counts)
+        got = _counted(k.expert_mlp, lambda: k.expert_mlp(x, *ws, counts),
+                       _expert_route(torch, dt, d, f))
+        err = max_err(torch, got, want)
+        check(err <= tol * float(want.float().abs().max())
+              and not got[~live].any(),
+              f"expert_mlp over ranks x sources on a layer view {dt}: "
+              f"err {err}")
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    for dt, shape in ((torch.float32, (8, 20, 128, 64)),
+                      (torch.bfloat16, (6, 20, 256, 96))):
+        x, ws, _ = _expert_case(torch, g, shape, dt, counts[0, 0, :shape[0]])
+        _refused_off_rule(mlp_mod, k.expert_mlp,
+                          lambda: k.expert_mlp(x, *ws),
+                          f"expert_mlp {shape} {dt}", "expert_route")
 
 
 def check_moe_dispatch(torch, k, g) -> None:
@@ -660,7 +712,10 @@ def check_moe_dispatch(torch, k, g) -> None:
     nothing dropped, the combined output equal bit for bit to the
     emulation run with the expert-MLP kernel as its MLP, and within the
     expert MLP's tolerance of the emulation with the plain MLP.  A starved
-    plan drops rows and still equals the emulation."""
+    plan drops rows and still equals the emulation.  f32 runs on the CUDA
+    cores, bf16 (d = 256, f = 128) on the tensor cores, each launch checked
+    on its route; a launch off the rule forced onto the tensor cores is
+    refused."""
     import dataclasses
     from repro_torch.core.context import DiompContext, use_default
     from repro_torch.core.groups import DiompGroup
@@ -698,7 +753,8 @@ def check_moe_dispatch(torch, k, g) -> None:
                 for p in plans + [starved]:
                     args = (toks, top_e, top_w, *ws, group)
                     kern = k.fused_moe_dispatch_kernel
-                    got, dropped = _counted(kern, lambda: kern(*args, plan=p))
+                    got, dropped = _counted(kern, lambda: kern(*args, plan=p),
+                                            _expert_route(torch, dt, d, f))
                     emu, _ = k.fused_moe_dispatch_interpret(
                         *args, plan=p, mlp=k.expert_mlp)
                     plain, _ = k.fused_moe_dispatch_plain(*args, plan=p)
@@ -711,6 +767,32 @@ def check_moe_dispatch(torch, k, g) -> None:
                           f"{name}: err {err}")
                     check(bool((dropped > 0).any()) == (p is starved),
                           f"{name}: dropped {dropped.tolist()}")
+                if dt == torch.float32 and len(sizes) == 1:
+                    from repro_torch.kernels.moe_dispatch import fused
+                    _refused_off_rule(
+                        fused, kern, lambda: kern(*args, plan=plans[0]),
+                        f"moe_dispatch {sizes} {dt}", "expert_route")
+        # bf16 with f off the rule: the CUDA cores, and refused on the
+        # tensor cores
+        with use_default(DiompContext(mesh=mesh, device="cuda")):
+            toks = torch.randn(*sizes, t_loc, d, generator=g,
+                               device="cuda").to(torch.bfloat16)
+            top_w, top_e = route_topk(toks, router, kk)
+            ws = [(torch.randn(*sizes, E // ep, a, b, generator=g,
+                               device="cuda") * a ** -0.5).to(torch.bfloat16)
+                  for a, b in ((d, 96), (d, 96), (96, d))]
+            p = OverlapPlanner().plan_alltoall(t_loc, d, kk, E, ep,
+                                               torch.bfloat16)
+            args = (toks, top_e, top_w, *ws, group)
+            kern = k.fused_moe_dispatch_kernel
+            got, _ = _counted(kern, lambda: kern(*args, plan=p), "simt")
+            emu, _ = k.fused_moe_dispatch_interpret(*args, plan=p,
+                                                    mlp=k.expert_mlp)
+            check(torch.equal(got, emu), f"moe_dispatch {sizes} f = 96: "
+                  "differs from the emulation through the expert-MLP kernel")
+            from repro_torch.kernels.moe_dispatch import fused
+            _refused_off_rule(fused, kern, lambda: kern(*args, plan=p),
+                              f"moe_dispatch {sizes} f = 96", "expert_route")
 
 
 def _scan_inputs(torch, g, BH, T, M, N, decay):
@@ -980,9 +1062,9 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
         group = ("flash" if any(t in name for t in FLASH_KERNELS) else
                  "ring_attention" if "ring_attention" in name else
                  "linear_scan" if "linear_scan_kernel" in name else
-                 "moe_dispatch" if "dispatch_kernel" in name else
-                 "expert_mlp" if ("gate_up_kernel" in name
-                                  or "down_kernel" in name) else
+                 "moe_dispatch" if any(t in name for t in MOE_KERNELS)
+                 else
+                 "expert_mlp" if any(t in name for t in EXPERT_KERNELS) else
                  "gemm" if any(t in name.lower() for t in
                                ("gemm", "cutlass", "sm90", "cublas",
                                 "nvjet"))
@@ -1312,7 +1394,12 @@ class _Tap:
 def _dispatch_at(torch, k, name, args, kw, plan):
     """The fused dispatch kernel at one shape of the serving path (the
     arguments a MoE layer gave it): equal to the emulation through the
-    expert-MLP kernel, within tolerance of the plain version, timed."""
+    expert-MLP kernel, within tolerance of the plain version, timed (CUDA
+    events of back-to-back calls, and the kernel's device time from the
+    profiler, warm and with L2 flushed).  Then the expert-MLP kernel on the
+    same landed blocks (every rank's blocks from every source in one call,
+    the a2a layout), held against its plain version and timed the same
+    way.  Returns the dispatch's numbers and the expert MLP's."""
     from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
     got, dropped = k.fused_moe_dispatch_kernel(*args, **kw)
     emu, _ = k.fused_moe_dispatch_interpret(*args, **kw, mlp=k.expert_mlp)
@@ -1325,8 +1412,8 @@ def _dispatch_at(torch, k, name, args, kw, plan):
           and err <= 1.6e-2 * float(plain.float().abs().max()),
           f"moe_dispatch {name}: err {err}, dropped {dropped.tolist()}")
     del emu, plain
-    toks, top_e, top_w, wg = args[:4]
-    counts = dispatch_buffers(toks, top_e, top_w, plan)[4]
+    toks, top_e, top_w, wg, wu, wd = args[:6]
+    buf, _, _, _, counts = dispatch_buffers(toks, top_e, top_w, plan)
     # the work these inputs need: every kept (token, choice) pair's three
     # products; the weights of every expert some row reaches, read once;
     # the tokens read and the combined rows written once
@@ -1336,14 +1423,48 @@ def _dispatch_at(torch, k, name, args, kw, plan):
     nbytes = 2 * (routed * 3 * d * f + 2 * toks.numel()) \
         + 4 * top_w.numel() + 8 * top_e.numel()
     ops = 2 * 3 * d * f * pairs
-    ms = cuda_ms(torch, lambda: k.fused_moe_dispatch_kernel(*args, **kw), 5)
+    call = lambda: k.fused_moe_dispatch_kernel(*args, **kw)  # noqa: E731
+    ms = cuda_ms(torch, call, 5)
+    dev_ms = device_ms(torch, call, 5, MOE_KERNELS)
+    cold_ms = device_ms(torch, call, 5, MOE_KERNELS, cold_l2=True)
     plain = cuda_ms(torch, lambda: k.fused_moe_dispatch_plain(*args, **kw), 2)
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"moe_dispatch {name}: toks {tuple(toks.shape)}, {pairs} pairs on "
-        f"{routed} experts, cap_pad {plan.cap_pad}: {ms:.3f} ms, plain "
-        f"{plain:.3f}, bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+        f"{routed} experts, cap_pad {plan.cap_pad}: {ms:.3f} ms, device "
+        f"{dev_ms:.4f} warm / {cold_ms:.4f} L2 flushed, plain {plain:.3f}, "
+        f"bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
+    disp = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    # the expert MLP on the landed blocks: x (dst, src, E_loc, C, d), each
+    # rank's weights shared by its sources (one ring: the mesh is the EP
+    # group)
+    ep = plan.ep
+    check(toks.shape[:-2].numel() == ep, f"{name}: more than one ring")
+    x = buf.reshape(ep, *buf.shape[-4:]).transpose(0, 1).contiguous()
+    live = counts.reshape(ep, ep, -1).transpose(0, 1).contiguous()
+    wg, wu, wd = (w.reshape(ep, *w.shape[-3:]) for w in (wg, wu, wd))
+    mlp = lambda: k.expert_mlp(x, wg, wu, wd, live)  # noqa: E731
+    got = _counted(k.expert_mlp, mlp, "wgmma")
+    want = k.expert_mlp_plain(x, wg, wu, wd, live)
+    mlp_err = max_err(torch, got, want)
+    dead = ~(torch.arange(x.shape[-2], device=x.device) < live[..., None])
+    check(mlp_err <= 1.6e-2 * float(want.float().abs().max())
+          and not got[dead].any(), f"expert_mlp {name}: err {mlp_err}")
+    reached = int((live.sum(-2) > 0).sum())      # (rank, expert) pairs
+    mlp_bytes = 2 * (reached * 3 * d * f + 2 * pairs * d) + 4 * live.numel()
+    mb_ms, mb_by = bound(mlp_bytes, ops, "bfloat16")
+    mlp_ms = cuda_ms(torch, mlp, 5)
+    mlp_dev = device_ms(torch, mlp, 5, EXPERT_KERNELS)
+    mlp_cold = device_ms(torch, mlp, 5, EXPERT_KERNELS, cold_l2=True)
+    log(f"expert_mlp {name} blocks: x {tuple(x.shape)}, {pairs} live rows on "
+        f"{reached} experts: {mlp_ms:.3f} ms, device {mlp_dev:.4f} warm / "
+        f"{mlp_cold:.4f} L2 flushed, bound {mb_ms:.4f} ms by {mb_by}, err "
+        f"{mlp_err:.4g}")
+    del x, live, got, want
+    return disp, {"max_abs_err": mlp_err, "ms": mlp_ms, "device_ms": mlp_dev,
+                  "device_ms_l2_flushed": mlp_cold, "bound_ms": mb_ms,
+                  "bound_by": mb_by}
 
 
 def moe_phase(torch, k, dev, wrappers) -> list:
@@ -1410,10 +1531,14 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     with _Tap(moe_ops, "fused_moe_dispatch_kernel", keep) as tap:
         run = _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
                             on_step=on_step)
+        moe_routes = dict(wrappers["fused_moe_dispatch"].route_launches)
     moe_launches = run.launches["fused_moe_dispatch"]
     check(moe_launches == cfg.num_layers * run.eng.device_calls,
           f"moe dispatch launches {moe_launches} != {cfg.num_layers} x "
           f"{run.eng.device_calls} device calls")
+    log(f"moe: dispatch routes {moe_routes}")
+    check(moe_routes["simt"] == 0 and moe_routes["wgmma"] == moe_launches,
+          f"moe: a served dispatch launch left the tensor cores: {moe_routes}")
     # the experts each timed decode step's tokens reached, summed over its
     # layers, from the steps' own count tables (read here, off the clock)
     steps_experts = []
@@ -1440,13 +1565,16 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     line = {"name": "fused_moe_dispatch", "route": "cuda",
             "source": "src/repro_torch/csrc/moe_dispatch.cu",
             "replaces": "src/repro/kernels/moe_dispatch/fused.py:284",
-            "launches": moe_launches, "shape": "decode"}
+            "launches": moe_launches, "route_launches": moe_routes,
+            "shape": "decode"}
     with use_default(DiompContext(mesh=mesh, device=dev)):
         args, kw = steps_calls[-1][-1]
-        line.update(_dispatch_at(torch, k, "decode", args, kw, kw["plan"]))
+        disp, mlp_decode = _dispatch_at(torch, k, "decode", args, kw,
+                                        kw["plan"])
+        line.update(disp)
         args, kw = chunk_call[0]
-        line["chunk"] = _dispatch_at(torch, k, "chunk", args, kw,
-                                     kw["plan"])
+        line["chunk"], mlp_chunk = _dispatch_at(torch, k, "chunk", args, kw,
+                                                kw["plan"])
     del run, chunk_call, steps_calls, args, kw, decode_once
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"moe: peak device memory {peak:.1f} GB")
@@ -1469,7 +1597,13 @@ def moe_phase(torch, k, dev, wrappers) -> list:
         logits, _ = step(params, toks, cache, CHUNK)
         torch.cuda.synchronize()
         launches = {name: wr.launches for name, wr in wrappers.items()}
+        mlp_routes = dict(wrappers["expert_mlp"].route_launches)
         _attention_routes(wrappers, "moe a2a chunk")
+    log(f"moe: expert-MLP routes {mlp_routes}")
+    check(mlp_routes["simt"] == 0
+          and mlp_routes["wgmma"] == launches["expert_mlp"],
+          f"moe a2a chunk: an expert-MLP launch left the tensor cores: "
+          f"{mlp_routes}")
     log(f"moe: one a2a prefill chunk of {CHUNK}: launches {launches}; the "
         f"capacity path dropped {float(ds['moe_dropped'].sum()):.0f} of "
         f"{float(ds['moe_routed'].sum()):.0f} (token, choice) pairs over "
@@ -1490,18 +1624,26 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     reached = int((live.sum(-2) > 0).sum())      # (rank, expert) pairs
     f = wg.shape[-1]
     nbytes = 2 * (reached * 3 * d * f + 2 * pairs * d) + 4 * live.numel()
-    ms = cuda_ms(torch, lambda: k.expert_mlp(x, wg, wu, wd, live), 5)
+    mlp = lambda: k.expert_mlp(x, wg, wu, wd, live)  # noqa: E731
+    ms = cuda_ms(torch, mlp, 5)
+    dev_ms = device_ms(torch, mlp, 5, EXPERT_KERNELS)
+    cold_ms = device_ms(torch, mlp, 5, EXPERT_KERNELS, cold_l2=True)
     plain = cuda_ms(torch, lambda: k.expert_mlp_plain(x, wg, wu, wd, live), 2)
     b_ms, b_by = bound(nbytes, 2 * 3 * d * f * pairs, "bfloat16")
     log(f"expert_mlp a2a chunk: x {tuple(x.shape)}, {pairs} live rows on "
-        f"{reached} experts: {ms:.3f} ms, plain {plain:.3f}, bound "
-        f"{b_ms:.4f} ms by {b_by}, err {err:.4g}")
+        f"{reached} experts: {ms:.3f} ms, device {dev_ms:.4f} warm / "
+        f"{cold_ms:.4f} L2 flushed, plain {plain:.3f}, bound {b_ms:.4f} ms "
+        f"by {b_by}, err {err:.4g}")
     mlp_line = {"name": "expert_mlp", "route": "cuda",
                 "source": "src/repro_torch/csrc/expert_mlp.cu",
                 "replaces": "src/repro/kernels/moe_dispatch/kernel.py:44",
-                "launches": launches["expert_mlp"], "shape": "a2a chunk",
-                "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "launches": launches["expert_mlp"],
+                "route_launches": mlp_routes, "shape": "a2a chunk",
+                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+                "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                "dispatch_decode_blocks": mlp_decode,
+                "dispatch_chunk_blocks": mlp_chunk}
     del mlp_tap, x, wg, wu, wd, live, got, want, cache, params
     torch.cuda.empty_cache()
     return [mlp_line, line]

@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery, shared by the tensor-core routes of
-// matmul.cuh (matmul.cu, ring_matmul.cu) and attention.cuh
-// (flash_attention.cu, ring_attention.cu): mbarriers, TMA loads and their
-// tensor maps, proxy fences, and the wgmma shared-memory descriptor.
+// matmul.cuh (matmul.cu, ring_matmul.cu), attention.cuh
+// (flash_attention.cu, ring_attention.cu) and expert_mlp.cuh
+// (expert_mlp.cu, moe_dispatch.cu): mbarriers, TMA loads and their tensor
+// maps, proxy fences, and the wgmma shared-memory descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
@@ -199,5 +200,5 @@ static int tc_map_nd(CUtensorMap* map, const void* base, int dtype, int rank,
 }
 
 // route codes passed from Python (repro_torch/kernels/_build.py ROUTE_CODES,
-// picked by plan.gemm_route and plan.attention_route)
+// picked by plan.gemm_route, plan.attention_route and plan.expert_route)
 enum ReproRoute { kRouteSimt = 0, kRouteWgmma = 1 };

@@ -30,8 +30,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# route codes of csrc/hopper.cuh (plan.gemm_route and plan.attention_route
-# pick the route)
+# route codes of csrc/hopper.cuh (plan.gemm_route, plan.attention_route and
+# plan.expert_route pick the route)
 ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -51,9 +51,9 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
                                   _I, _F, _P]}),
     "expert_mlp": ("expert_mlp.cu", {
-        "repro_expert_mlp": [_P] * 7 + [_LL] * 3 + [_I] * 7 + [_P]}),
+        "repro_expert_mlp": [_P] * 8 + [_LL] * 3 + [_I] * 8 + [_P]}),
     "moe_dispatch": ("moe_dispatch.cu", {
-        "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 9 + [_P]}),
+        "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 10 + [_P]}),
     "linear_scan": ("linear_scan.cu", {
         "repro_linear_scan": [_P] * 7 + [_I] * 6 + [_P]}),
     "flash_attention": ("flash_attention.cu", {

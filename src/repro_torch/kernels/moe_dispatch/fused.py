@@ -37,8 +37,9 @@ from ...core.backends import group_rank, payload_bytes
 from ...core.context import default_communicator, default_context
 from ...core.groups import DiompGroup
 from ...core.rma import dispatch_window_names, ompx_fence, ompx_put
-from .._build import DTYPE_CODES, check_launch, library, stream_handle
-from ..plan import AllToAllPlan
+from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
+                      stream_handle)
+from ..plan import AllToAllPlan, expert_list_len, expert_route
 from .kernel import expert_mlp_plain, rank_strided
 from .ref import expert_mlp_ref
 
@@ -274,9 +275,11 @@ def _record_traffic(blk, group: DiompGroup, plan: AllToAllPlan) -> None:
 def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
                               group: DiompGroup, *, plan: AllToAllPlan):
     """Dispatch, expert MLP and return of every rank in one launch of
-    ``csrc/moe_dispatch.cu`` (counted in ``.launches``), the routing
-    scatter and the combine around it in torch; on CPU tensors, the plain
-    version.  Returns ``(combined (..., t_loc, d), dropped (...))``."""
+    ``csrc/moe_dispatch.cu`` (counted in ``.launches``, and by route in
+    ``.route_launches``: :func:`..plan.expert_route`'s, the expert-MLP
+    kernel's rule), the routing scatter and the combine around it in torch;
+    on CPU tensors, the plain version.  Returns ``(combined (..., t_loc,
+    d), dropped (...))``."""
     if not toks.is_cuda:
         return fused_moe_dispatch_plain(toks, top_e, top_w, wg, wu, wd,
                                         group, plan=plan)
@@ -322,18 +325,30 @@ def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
     ret_stage = torch.empty_like(stage)
     h = torch.empty(G, ep, E_loc, C, f, dtype=toks.dtype, device=toks.device)
     sched = _schedule_table(plan, toks.device)
-    work = torch.zeros(2 * ep, dtype=torch.int64, device=toks.device)
+    isz = toks.element_size()
+    # TMA reads the local blocks, the landing slots, the weights (their rank
+    # strides in bytes) and h
+    route = expert_route(toks.dtype, d, f, kb.data_ptr(), stage.data_ptr(),
+                         wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+                         h.data_ptr(), sg * isz, su * isz, sd * isz)
+    if route == "wgmma":    # a work list a GEMM phase, built on the card
+        work = torch.empty(ep * expert_list_len(G * ep * E_loc, C),
+                           dtype=torch.int32, device=toks.device)
+    else:                   # two tile counters a GEMM phase
+        work = torch.zeros(2 * ep, dtype=torch.int64, device=toks.device)
     status = library("moe_dispatch").repro_moe_dispatch(
         kb.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         kc.data_ptr(), out.data_ptr(), stage.data_ptr(), ret_stage.data_ptr(),
         h.data_ptr(), sched.data_ptr(), work.data_ptr(), sg, su, sd,
         sched.shape[0], G, ep,
-        slots, E_loc, C, d, f, DTYPE_CODES[toks.dtype],
+        slots, E_loc, C, d, f, DTYPE_CODES[toks.dtype], ROUTE_CODES[route],
         stream_handle(toks.device))
     fused_moe_dispatch_kernel.launches += 1
+    fused_moe_dispatch_kernel.route_launches[route] += 1
     check_launch(status, "fused_moe_dispatch")
     full = out.movedim(nd - 1, ring)
     return _combine(full, addr, gates, t_loc, d), dropped
 
 
 fused_moe_dispatch_kernel.launches = 0
+fused_moe_dispatch_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)

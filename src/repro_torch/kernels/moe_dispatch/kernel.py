@@ -13,6 +13,10 @@ weights.  ``counts (*W, *S, E)`` int32, optional, is each expert's live
 rows: rows at or past it come out as zeros and no product is computed for
 them.  That is exact where those input rows are zero, as the dispatch
 layouts leave them: for a zero row ``silu(0)·0 @ wd = 0``.
+
+On the card the launch takes the route :func:`..plan.expert_route` picks
+(counted in ``expert_mlp.route_launches``): the tensor cores for aligned
+f16/bf16 with d and f multiples of 64, the CUDA cores otherwise.
 """
 
 from __future__ import annotations
@@ -23,7 +27,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .._build import DTYPE_CODES, check_launch, library, stream_handle
+from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
+                      stream_handle)
+from ..plan import expert_list_len, expert_route
 
 __all__ = ["expert_mlp", "expert_mlp_plain", "live_rows", "rank_strided"]
 
@@ -105,13 +111,23 @@ def expert_mlp(x, wg, wu, wd, counts: Optional[torch.Tensor] = None):
         return out
     (wg, sg), (wu, su), (wd, sd) = (rank_strided(w) for w in (wg, wu, wd))
     h = torch.empty(G * S * E * C * f, dtype=x.dtype, device=x.device)
+    isz = x.element_size()
+    # TMA reads x, the weights (their rank strides in bytes) and h
+    route = expert_route(x.dtype, d, f, x.data_ptr(), wg.data_ptr(),
+                         wu.data_ptr(), wd.data_ptr(), h.data_ptr(),
+                         sg * isz, su * isz, sd * isz)
+    work = torch.empty(expert_list_len(G * S * E, C) if route == "wgmma"
+                       else 0, dtype=torch.int32, device=x.device)
     status = library("expert_mlp").repro_expert_mlp(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), cptr,
-        out.data_ptr(), h.data_ptr(), sg, su, sd, G, S, E, C, d, f,
-        DTYPE_CODES[x.dtype], stream_handle(x.device))
+        out.data_ptr(), h.data_ptr(), work.data_ptr(), sg, su, sd, G, S, E,
+        C, d, f, DTYPE_CODES[x.dtype], ROUTE_CODES[route],
+        stream_handle(x.device))
     expert_mlp.launches += 1
+    expert_mlp.route_launches[route] += 1
     check_launch(status, "expert_mlp")
     return out
 
 
 expert_mlp.launches = 0
+expert_mlp.route_launches = dict.fromkeys(ROUTE_CODES, 0)

@@ -40,6 +40,11 @@ __all__ = [
     "default_planner",
     "gemm_route",
     "attention_route",
+    "expert_route",
+    "expert_tile_n",
+    "expert_live_tiles",
+    "expert_list_len",
+    "expert_items",
     "plan_key_splits",
     "key_split_tiles",
     "resolve_ring_impl",
@@ -55,6 +60,11 @@ __all__ = [
     "ATT_TC_BK",
     "ATT_TC_STAGES",
     "ATT_TC_THREADS",
+    "EX_TC_TILE",
+    "EX_TC_BR",
+    "EX_TC_NS",
+    "EX_TC_STAGES",
+    "EX_TC_THREADS",
     "SMS_DEFAULT",
 ]
 
@@ -84,10 +94,16 @@ __all__ = [
 #   conflicts (``OverlapPlanner.flash_stage_bytes``, the formula of
 #   ``launch()`` in csrc/flash_attention.cu): 113 KiB at D = Dv = 128 and
 #   block = 64, staged once (no double buffer);
-# * the expert MLP (and the fused MoE dispatch's GEMMs) stage one (BK, BM)
-#   tile of x and a (BK, BN) tile of each of w_gate and w_up per block, in
-#   f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB at the fixed tile of
-#   csrc/expert_mlp.cuh, nothing the planner sizes;
+# * the expert MLP and the fused MoE dispatch's GEMMs take one of two
+#   routes (:func:`expert_route`).  On the tensor cores a block keeps
+#   ``EX_TC_STAGES`` stages of one (64 K, 64 columns) tile of each weight a
+#   pass reads (w_gate and w_up, or w_down) and a row tile of up to
+#   ``EX_TC_BR`` rows of 64 K columns, in the operands' 16-bit type
+#   (``expert_tc_smem_bytes``, the formula of csrc/expert_mlp.cuh's
+#   ``ex_tc_smem_bytes``): 193 KiB for the gate/up pass's stages.  On the
+#   CUDA cores it stages one (BK, BM) tile of x and a (BK, BN) tile of each
+#   of w_gate and w_up per block, in f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB
+#   at the fixed tile of csrc/expert_mlp.cuh, nothing the planner sizes;
 # * the fused ring's stripe slots, the fused step's landing windows, the
 #   fused MoE dispatch's landing and return slots and the ring attention's
 #   K/V stripe slots and (m, l, acc) carry live in device memory, not shared
@@ -107,6 +123,11 @@ FLASH_MAX_DV = 256              # the widest value head it takes
 ATT_TC_BK = 64                  # keys a tile on attention's tensor-core route
 ATT_TC_STAGES = 2               # that route's k / v stages
 ATT_TC_THREADS = 160            # a consumer warpgroup and a producer warp
+EX_TC_TILE = (64, 64)           # (weight columns, K) of an expert-MLP item
+EX_TC_BR = 128                  # rows of its row tile, at most
+EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
+EX_TC_STAGES = 6                # that route's shared-memory stages
+EX_TC_THREADS = 160             # a consumer warpgroup and a producer warp
 SMS_DEFAULT = 132               # streaming multiprocessors of an H100 SXM
 
 
@@ -144,6 +165,65 @@ def attention_route(dtype, d: int, dv: int, g: int, *ptrs_and_strides: int
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
     return "simt"
+
+
+def expert_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:
+    """The route a grouped expert-MLP launch takes in
+    ``csrc/expert_mlp.cu`` and ``csrc/moe_dispatch.cu`` (both run the tile
+    routines of ``csrc/expert_mlp.cuh``): ``"wgmma"`` (TMA and the tensor
+    cores) for 16-bit operands whose model width d and expert width f are
+    multiples of 64 and whose base pointers and byte strides
+    (``ptrs_and_strides``: those TMA reads) are 16-byte aligned; ``"simt"``
+    (the CUDA cores) otherwise.  f32 stays on the CUDA cores: TF32 would
+    change its results."""
+    if dtype in (torch.float16, torch.bfloat16) and d >= 64 and f >= 64 \
+            and d % 64 == 0 and f % 64 == 0 \
+            and all(x % 16 == 0 for x in ptrs_and_strides):
+        return "wgmma"
+    return "simt"
+
+
+def expert_tile_n(rows: int) -> int:
+    """The instance (wgmma's N) of a tensor-core expert-MLP row tile that
+    holds ``rows`` live rows: the smallest of ``EX_TC_NS`` that holds them
+    (``ex_tc_n`` in ``csrc/expert_mlp.cuh``)."""
+    return next(n for n in EX_TC_NS if rows <= n or n == EX_TC_NS[-1])
+
+
+def expert_live_tiles(live: Sequence[int], C: int) -> Tuple[int, ...]:
+    """The work list the tensor-core expert-MLP route builds on the card
+    from a pass's live-row counts (``ex_tc_build_list``): problem by
+    problem, ``p * MT + t`` for each of the ``ceil(live / EX_TC_BR)`` row
+    tiles of problem ``p`` (counts clamped to ``[0, C]``, ``MT = ceil(C /
+    EX_TC_BR)``).  A problem with no live row gives no entry."""
+    mt = -(-C // EX_TC_BR)
+    return tuple(p * mt + t for p, n in enumerate(live)
+                 for t in range(-(-min(max(int(n), 0), C) // EX_TC_BR)))
+
+
+def expert_list_len(problems: int, C: int) -> int:
+    """int32 entries the wrappers allocate for one pass's work list over
+    ``problems`` problems of ``C`` rows: the count and at most every row
+    tile (``ex_tc_list_len`` in ``csrc/expert_mlp.cuh``)."""
+    return 1 + problems * -(-C // EX_TC_BR)
+
+
+def expert_items(live: Sequence[int], C: int, cols: int
+                 ) -> Tuple[Tuple[int, int, int, int], ...]:
+    """The items of one pass over ``cols`` output columns (f for the
+    gate/up pass, d for the down pass), in the order blocks take them (block
+    ``b`` takes items ``b, b + grid, ...``): the 64-column tile fastest,
+    then the list entry.  Each item is ``(problem, first row, rows, column
+    tile)``; it runs the ``expert_tile_n(rows)`` instance."""
+    tiles = expert_live_tiles(live, C)
+    mt = -(-C // EX_TC_BR)
+    items = []
+    for e in tiles:
+        for col in range(cols // EX_TC_TILE[0]):
+            p, row0 = e // mt, (e % mt) * EX_TC_BR
+            rows = min(min(max(int(live[p]), 0), C) - row0, EX_TC_BR)
+            items.append((p, row0, rows, col))
+    return tuple(items)
 
 
 def plan_key_splits(blocks: int, keys: int, *, sms: int = SMS_DEFAULT
@@ -838,6 +918,18 @@ class OverlapPlanner:
         return 1024 + FLASH_BQ * 2 * d \
             + ATT_TC_STAGES * ATT_TC_BK * 2 * (d + dv) \
             + 8 * (2 * ATT_TC_STAGES + 2)
+
+    @staticmethod
+    def expert_tc_smem_bytes(mats: int) -> int:
+        """Dynamic shared memory of an expert-MLP block on the tensor-core
+        route (16-bit): the alignment slack, ``EX_TC_STAGES`` stages of
+        ``mats`` (64 K x 64 columns) weight tiles (2 for the gate/up pass, 1
+        for the down pass; the fused dispatch sizes for 2) and an
+        ``EX_TC_BR``-row tile of 64 K columns, and each stage's full and
+        empty mbarriers."""
+        cols, k = EX_TC_TILE
+        return 1024 + EX_TC_STAGES * (mats * cols * k * 2 + EX_TC_BR * k * 2) \
+            + 16 * EX_TC_STAGES
 
     def plan_attention_block(self, tq: int, tk: int, d: int, dv: int, dtype,
                              *, block: int = 512) -> int:

@@ -346,6 +346,28 @@ def test_kernel_wrapper_on_cpu_is_the_plain_emulation():
     assert not dropped.any()
 
 
+@pytest.mark.parametrize("lib", ["expert_mlp", "moe_dispatch"])
+def test_moe_bindings_match_the_c_entries(lib):
+    """The ctypes argument list of each MoE entry point (route code
+    included) matches its C signature, parameter by parameter: pointers,
+    64-bit strides and ints (no card needed)."""
+    import re
+    from repro_torch.kernels import _build
+    source, fns = _build.LIBRARIES[lib]
+    text = (_build.CSRC / source).read_text()
+    for fn, argtypes in fns.items():
+        params = re.search(r'extern "C" int %s\(([^)]*)\)' % fn,
+                           text).group(1)
+        kinds = []
+        for par in params.split(","):
+            par = " ".join(par.split())
+            kinds.append(_build._P if "*" in par else
+                         _build._LL if par.startswith("long long") else
+                         _build._I if par.startswith("int") else None)
+        assert kinds == argtypes, fn
+        assert params.split(",")[-2].split()[-1] == "route"
+
+
 def test_undersized_plan_records_reference_drops():
     c = _dispatch_case(4, E=8, t_loc=8, d=16, f=16)
     want, d_ref = _run_ref(c, "fused",

@@ -323,6 +323,123 @@ def test_attention_tiles_match_the_cuda_sources():
         assert inst == {"64", "128", "256"}, src
 
 
+@pytest.mark.parametrize("dtype,d,f,aligned,route", [
+    (torch.bfloat16, 4096, 1536, (0, 256, 1 << 20), "wgmma"),  # qwen3-moe
+    (torch.float16, 4096, 1536, (16, 32), "wgmma"),
+    (torch.bfloat16, 256, 128, (), "wgmma"),                   # the checks
+    (torch.bfloat16, 64, 64, (), "wgmma"),
+    (torch.float32, 4096, 1536, (0, 256), "simt"),             # no TF32
+    (torch.float32, 256, 128, (), "simt"),
+    (torch.bfloat16, 4096, 1500, (), "simt"),                  # f off 64
+    (torch.float16, 200, 128, (), "simt"),                     # d off 64
+    (torch.bfloat16, 32, 64, (), "simt"),                      # d under 64
+    (torch.bfloat16, 4096, 1536, (0, 8), "simt"),              # a pointer
+    (torch.bfloat16, 4096, 1536, (256, 24), "simt"),           # a stride
+])
+def test_expert_route_rule(dtype, d, f, aligned, route):
+    assert tplan.expert_route(dtype, d, f, *aligned) == route
+
+
+def test_expert_route_over_the_sweep():
+    """dtype x d x f x alignment against the rule as stated."""
+    for dt, d, f, off in itertools.product(
+            (torch.float32, torch.float16, torch.bfloat16),
+            (32, 64, 96, 128, 200, 4096), (48, 64, 96, 1536, 1600),
+            (0, 2, 8, 16)):
+        want = ("wgmma" if dt != torch.float32 and d % 64 == 0
+                and f % 64 == 0 and off % 16 == 0 else "simt")
+        assert tplan.expert_route(dt, d, f, 1 << 20, off) == want
+
+
+def test_both_expert_wrappers_share_the_route_rule():
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.moe_dispatch import fused, kernel
+    assert kernel.expert_route is fused.expert_route is tplan.expert_route
+    for wrapper in (kernel.expert_mlp, fused.fused_moe_dispatch_kernel):
+        assert set(wrapper.route_launches) == set(_build.ROUTE_CODES) \
+            == {"simt", "wgmma"}
+    before = dict(kernel.expert_mlp.route_launches)
+    x = torch.randn(2, 4, 64, dtype=torch.bfloat16)
+    w = torch.randn(2, 64, 64, dtype=torch.bfloat16)
+    kernel.expert_mlp(x, w, w, w, torch.tensor([0, 3], dtype=torch.int32))
+    assert kernel.expert_mlp.route_launches == before   # the CPU counts none
+
+
+def test_expert_tiles_match_the_cuda_sources():
+    ex = _defines("expert_mlp.cuh")
+    assert (ex["EX_TC_BM"], ex["EX_TC_BK"]) == tplan.EX_TC_TILE == (64, 64)
+    assert ex["EX_TC_BR"] == tplan.EX_TC_BR == max(tplan.EX_TC_NS)
+    assert ex["EX_TC_STAGES"] == tplan.EX_TC_STAGES >= 3
+    assert ex["EX_TC_THREADS"] == tplan.EX_TC_THREADS == 128 + 32
+    text = (CSRC / "expert_mlp.cuh").read_text()
+    # the launch's dynamic shared memory, ex_tc_smem_bytes, evaluated for
+    # the gate/up pass (two weight tiles a stage) and the down pass (one)
+    expr = re.search(r"ex_tc_smem_bytes\(int mats\) \{\s*return "
+                     r"([^;]+);", text).group(1)
+    for mats in (1, 2):
+        got = eval(" ".join(expr.split()), {
+            "mats": mats, "EX_TC_STAGES": ex["EX_TC_STAGES"],
+            "EX_TC_BR": ex["EX_TC_BR"]})
+        assert got == tplan.OverlapPlanner.expert_tc_smem_bytes(mats)
+        assert got <= tplan.SMEM_BUDGET_DEFAULT
+    # six stages of two 8 KiB weight tiles and a 16 KiB row tile, the
+    # alignment slack and twelve barriers: one block an SM fits
+    big = tplan.OverlapPlanner.expert_tc_smem_bytes(2)
+    assert big == 6 * 32 * 1024 + 1024 + 12 * 8 <= tplan.SMEM_BUDGET_DEFAULT
+    # the instances the tile switch and the wgmma wrappers have, and the
+    # rule that picks one (ex_tc_n) against the planner's
+    tiles = set(re.findall(r"ex_tc_tile<T, (\d+), MATS>", text))
+    specs = set(re.findall(r"EX_MMA_SPEC\((\d+)\)\n", text))
+    shapes = set(re.findall(r'"m64n(\d+)k16"', text))
+    want = {str(n) for n in tplan.EX_TC_NS}
+    assert tiles == specs == shapes == want
+    rule = re.search(r"ex_tc_n\(int rows\) \{\s*return ([^;]+);",
+                     text).group(1)
+    steps = [int(a) for a, b in re.findall(r"rows <= (\d+) \? (\d+)", rule)]
+    assert steps == list(tplan.EX_TC_NS[:-1])
+    for rows in range(0, tplan.EX_TC_BR + 1):
+        n = next((s for s in steps if rows <= s), tplan.EX_TC_NS[-1])
+        assert n == tplan.expert_tile_n(rows) >= rows
+
+
+@pytest.mark.parametrize("C", [2, 20, 256])
+@pytest.mark.parametrize("pattern", ["none", "one", "full", "mixed"])
+def test_expert_live_tiles_cover_every_live_item_once(C, pattern):
+    """The mirror of the card's work list: at the decode (C = 2) and chunk
+    (C = 256) shapes, and C = 20, with zero, one and C live rows, every
+    live (problem, row) falls in exactly one item of each column tile, no
+    item covers a row past its count, and no problem without live rows has
+    an item."""
+    problems, cols = 12, 1536
+    live = {"none": [0] * problems, "one": [1] * problems,
+            "full": [C] * problems,
+            "mixed": [0, 1, C, C + 5, -3, min(C, 129), 0, 7, C, 1, 0,
+                      C // 2]}[pattern]
+    clamp = [min(max(n, 0), C) for n in live]
+    tiles = tplan.expert_live_tiles(live, C)
+    mt = -(-C // tplan.EX_TC_BR)
+    assert list(tiles) == sorted(tiles)                    # problem order
+    assert len(tiles) == sum(-(-n // tplan.EX_TC_BR) for n in clamp)
+    items = tplan.expert_items(live, C, cols)
+    assert len(items) == len(tiles) * (cols // 64)
+    # the column tile fastest: blocks side by side share the weight rows
+    assert [it[3] for it in items] == list(range(cols // 64)) * len(tiles)
+    covered = []
+    for p, row0, rows, col in items:
+        assert 1 <= rows <= tplan.EX_TC_BR and row0 % tplan.EX_TC_BR == 0
+        assert tplan.expert_tile_n(rows) >= rows
+        assert (p * mt + row0 // tplan.EX_TC_BR) in tiles
+        covered += [(p, r, col) for r in range(row0, row0 + rows)]
+    want = [(p, r, col) for col in range(cols // 64)
+            for p in range(problems) for r in range(clamp[p])]
+    assert sorted(covered) == sorted(want)
+    assert len(covered) == len(set(covered))               # once each
+    # the list's length bound, as the wrappers allocate it
+    assert 1 + len(tiles) <= tplan.expert_list_len(problems, C)
+    ex = (CSRC / "expert_mlp.cuh").read_text()
+    assert "return 1 + problems * ((C + EX_TC_BR - 1) / EX_TC_BR);" in ex
+
+
 @pytest.mark.parametrize("blocks,keys,splits", [
     (8, 4096, 33),      # glm4-9b / paligemma-3b decode: 2 ranks x 4 slots
     (16, 4096, 17),     # qwen3-moe decode: 2 kv heads a rank
