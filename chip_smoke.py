@@ -13,7 +13,8 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   ranks, fused and host-ring, each timed with CUDA events, every GEMM of
   both on the tensor-core route (TMA + wgmma; checked per route);
 * Minimod at 1024³ over nz = 4, 10 steps from random fields, fused
-  (carried halos) and host, each held against a single-grid oracle;
+  (carried halos) and host, each held against a single-grid oracle, every
+  wave-step launch of both on the TMA plane ring (checked per route);
 * one fused wave step at (256, 1024, 1024) per rank over nz = 4;
 * the serving engine on glm4-9b at full width (random weights from a seed,
   two TP ranks stacked on the card): 8 requests of 256-3000 prompt tokens,
@@ -30,9 +31,10 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   through their prefill and decode steps (the serving engine takes
   positional KV caches only, as in the reference): 4 prompts of 2000
   tokens in one prefill call, then 32 greedy decode steps — every RWKV
-  and Mamba2 layer's recurrence runs the linear-scan kernel, zamba2's
-  shared attention the flash kernel; and prefill-then-decode against
-  token-by-token decode on an f32 cut of each;
+  and Mamba2 layer's recurrence runs the linear-scan kernel (the prefill
+  call's on its prefill route, every decode step's on its decode route;
+  checked per route), zamba2's shared attention the flash kernel; and
+  prefill-then-decode against token-by-token decode on an f32 cut of each;
 * paligemma-3b at full width and depth on the same mesh under
   ``seq_parallel="ring"``, through the same engine and traffic as glm4-9b:
   every chunked-prefill attention runs the fused ring-attention kernel (the
@@ -42,7 +44,8 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   ``"allgather"``, and chunked prefill against token-by-token on an f32 cut;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
-and the two attention kernels, and flash's split-combine count) zeroed
+and the two attention kernels, the wave step and the scan, and flash's
+split-combine count) zeroed
 just before each path and read just after it; every flash and
 ring-attention launch of a served model must take the tensor cores, and
 flash at glm4-9b's and paligemma-3b's decodes must split its keys over
@@ -53,7 +56,8 @@ exists, the one PyTorch call that computes the same function (sampling
 the card's SM clock and power draw over the fused ring's, flash's chunk
 and the 4 x 4096 ring attention's timings; the attention kernels also
 and the two MoE kernels by their device time from the profiler, warm
-and with L2 flushed),
+and with L2 flushed; the wave step and the scan by their warm device
+time too, the wave step also at Minimod host mode's batched shape),
 times Minimod's two modes over repeated alternated runs, prints each
 serving phase's time to first token (the recurrent phases' prefill time)
 and decode step time with their bounds (and the MoE phase's plans, drop
@@ -113,6 +117,9 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_tc_kernel", "flash_combine_kernel")
 MOE_KERNELS = ("dispatch_kernel", "dispatch_tc_kernel")
 EXPERT_KERNELS = ("gate_up_kernel", "down_kernel", "gate_up_tc_kernel",
                   "down_tc_kernel", "ex_list_kernel")
+# the wave step's, both routes; the linear scan's, both routes
+LEAP_KERNELS = ("leap_tma_kernel", "leap_kernel")
+SCAN_KERNELS = ("scan_prefill_kernel", "scan_decode_kernel")
 
 
 def log(msg: str) -> None:
@@ -142,30 +149,47 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(torch, fn, reps: int, names, cold_l2: bool = False) -> float:
+def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
     """Device time (ms a call) of the kernels whose names contain one of
     ``names``, from ``torch.profiler`` over ``reps`` calls of ``fn``: what
     the card spends in them, without the host's time between launches.
     ``cold_l2`` overwrites a 128 MB buffer before each call, so the call
-    finds its operands in device memory, not in the 50 MB L2."""
+    finds its operands in device memory, not in the 50 MB L2.  The trace
+    has been seen to hold one launch fewer than were made (and, once, none
+    of a long kernel's), so each kernel's time is its mean over the
+    launches the trace holds, times its launches a call; a trace that
+    holds none is taken again, up to three times, and None if it never
+    does."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda") \
         if cold_l2 else None
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if flush is not None:
-                flush.fill_(1)
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages()
-             if any(n in e.key for n in names)
-             and "CUDA" in str(getattr(e, "device_type", "CUDA")))
-    return us / 1e3 / reps
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                if flush is not None:
+                    flush.fill_(1)
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages()
+                if any(n in e.key for n in names) and e.count > 0
+                and "CUDA" in str(getattr(e, "device_type", "CUDA"))]
+        if hits:
+            us = sum(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0))
+                     / e.count * max(1, round(e.count / reps))
+                     for e in hits)
+            return us / 1e3
+        log(f"device_ms: no launch of {names} in the trace; taken again")
+    return None
+
+
+def _ms(x, digits: int) -> str:
+    """A device time for the log: ``digits`` decimals, or "not measured"
+    where the profiler's traces held no launch of the kernel."""
+    return "not measured" if x is None else f"{x:.{digits}f}"
 
 
 def sampled_ms(torch, fn, ms_each: float, what: str) -> float:
@@ -388,29 +412,60 @@ def check_ring(torch, k, g) -> None:
                       f"ring n={n} {dt} {direction} {route}: err {err}")
 
 
+def _leap_route(X, *tensors) -> str:
+    """The route a leap case must take: the TMA ring for X a multiple of 4
+    and every operand's pointer and batch / z / y strides 16-byte aligned
+    (f32), the CUDA-core tile otherwise (plan.stencil_route's rule,
+    restated here so the checks hold it)."""
+    ok = X % 4 == 0 and all(
+        t.data_ptr() % 16 == 0 and all(4 * s % 16 == 0
+                                       for s in t.stride()[-4:-1])
+        for t in tensors)
+    return "tma" if ok else "simt"
+
+
 def check_leap(torch, k, g) -> None:
-    """Ragged tile edges, scalar and per-point c2, sliced operands."""
+    """Both routes: aligned shapes on the TMA ring (ragged tiles in X, Y
+    and Z, several tiles each way, slices of larger tensors), X off the
+    rule (70) and a pointer off 16 bytes on the CUDA cores; scalar and
+    per-point c2; a launch forced onto the TMA route off its rule is
+    refused."""
+    from repro_torch.kernels.stencil import kernel as st_mod
     R = 4
 
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda")
 
-    for (Z, Y, X) in [(17, 12, 20), (9, 33, 70), (40, 8, 8)]:
+    for (Z, Y, X) in [(17, 12, 20), (9, 33, 70), (40, 8, 8), (20, 70, 136),
+                      (70, 32, 64)]:
         uext, prev = rnd(2, Z + 2 * R, Y + 2 * R, X + 2 * R), rnd(2, Z, Y, X)
         c2 = torch.rand(2, Z, Y, X, generator=g, device="cuda") * 0.2
         for c in (0.1, c2):
+            ops = (uext, prev) + ((c,) if isinstance(c, torch.Tensor) else ())
             want = k.leap_plain(uext, prev, c, dx=1.5)
-            got = _counted(k.leap, lambda: k.leap(uext, prev, c, dx=1.5))
+            got = _counted(k.leap, lambda: k.leap(uext, prev, c, dx=1.5),
+                           _leap_route(X, *ops))
             err = max_err(torch, got, want)
             check(err <= 2e-5 * float(want.abs().max()),
                   f"leap {Z}x{Y}x{X}: err {err}")
         big = rnd(2, Z + 4 * R, Y + 2 * R, X + 2 * R)   # a slice view
         out = torch.zeros(2, Z + 2 * R, Y, X, device="cuda")
-        _counted(k.leap, lambda: k.leap(big[:, R:Z + 3 * R], prev, 0.1,
-                                        out=out[:, R:Z + R]))
-        want = k.leap_plain(big[:, R:Z + 3 * R], prev, 0.1)
+        view = big[:, R:Z + 3 * R]
+        _counted(k.leap, lambda: k.leap(view, prev, 0.1, out=out[:, R:Z + R]),
+                 _leap_route(X, view, prev, out[:, R:Z + R]))
+        want = k.leap_plain(view, prev, 0.1)
         check(max_err(torch, out[:, R:Z + R], want)
               <= 2e-5 * float(want.abs().max()), "leap on views")
+    # prev one element off its allocation: the CUDA cores
+    Z, Y, X = 12, 40, 64
+    uext = rnd(1, Z + 2 * R, Y + 2 * R, X + 2 * R)
+    prev = rnd(Z * Y * X + 1)[1:].view(1, Z, Y, X)
+    want = k.leap_plain(uext, prev, 0.1)
+    got = _counted(k.leap, lambda: k.leap(uext, prev, 0.1), "simt")
+    check(max_err(torch, got, want) <= 2e-5 * float(want.abs().max()),
+          "leap off 16 bytes")
+    _refused_off_rule(st_mod, k.leap, lambda: k.leap(uext, prev, 0.1),
+                      "leap", rule_name="stencil_route", route="tma")
 
 
 def check_fused_step(torch, k, g) -> None:
@@ -545,17 +600,17 @@ def check_flash(torch, k, g) -> None:
 
 
 def _refused_off_rule(module, wrapper, call, what,
-                      rule_name="attention_route") -> None:
-    """A launch off the rule (f32, or a shape the rule sends to the CUDA
-    cores) forced onto the tensor-core route (the module's rule patched to
-    say "wgmma") is refused by the C entry point, not run; the wrapper's
-    counts are restored after."""
+                      rule_name="attention_route", route="wgmma") -> None:
+    """A launch off the rule (f32, or a shape the rule sends elsewhere)
+    forced onto ``route`` (the module's rule patched to say so) is refused
+    by the C entry point, not run; the wrapper's counts are restored
+    after."""
     rule, counts = getattr(module, rule_name), (wrapper.launches,
                                                 dict(wrapper.route_launches))
-    setattr(module, rule_name, lambda *args: "wgmma")
+    setattr(module, rule_name, lambda *args: route)
     try:
         call()
-        check(False, f"{what}: a launch off the rule on the tensor-core "
+        check(False, f"{what}: a launch off the rule on the {route} "
               f"route was not refused")
     except RuntimeError:
         pass
@@ -812,16 +867,21 @@ def _scan_err(torch, got, want):
 
 
 def check_linear_scan(torch, k, g) -> None:
-    """The scan kernel against the sequential scan: both readouts, T = 1
-    (decode), ragged and whole chunks, zero and carried states, decays from
-    the reference sweep's [0.7, 0.999] and fixed at e^-1 and e^-8 (where
-    the reference's clamped Pallas kernel fails), M = N = 64 and a narrow
-    ragged shape, chunks of 64 and 16.  Tolerance 2e-4 of each output's
-    largest magnitude, the reference's bound for the chunked form against
-    the sequential scan (tests/test_kernels.py:99-103).  Operands that are
-    not contiguous float32 are refused without a launch."""
-    for (BH, M, N, chunk) in ((3, 64, 64, 64), (2, 16, 40, 16)):
-        for T in (1, 37, 64, 130):
+    """The scan kernel against the sequential scan on both routes (decode
+    at T = 1, prefill otherwise): both readouts, ragged and whole chunks
+    and sub-chunks (T = 15, 16, 17, 37, 64, 65, 130), zero and carried
+    states, decays from the reference sweep's [0.7, 0.999] and fixed at
+    e^-1 and e^-8 (where the reference's clamped Pallas kernel fails), M =
+    N = 64 at chunks of 64 and 32, a narrow ragged shape at chunk 16 and
+    widths off 4 (scalar copies).  Tolerance 2e-4 of each output's largest
+    magnitude, the reference's bound for the chunked form against the
+    sequential scan (tests/test_kernels.py:99-103); every output finite.
+    Operands that are not contiguous float32 are refused without a launch,
+    and so is a T > 1 call forced onto the decode route."""
+    from repro_torch.kernels.linear_scan import kernel as ls_mod
+    for (BH, M, N, chunk) in ((3, 64, 64, 64), (2, 64, 64, 32),
+                              (2, 16, 40, 16), (2, 18, 37, 64)):
+        for T in (1, 15, 16, 17, 37, 64, 65, 130):
             for decay in (None, math.exp(-1.0), math.exp(-8.0)):
                 p, q, a, r = _scan_inputs(torch, g, BH, T, M, N, decay)
                 for s0 in (None, torch.randn(BH, M, N, generator=g,
@@ -831,7 +891,8 @@ def check_linear_scan(torch, k, g) -> None:
                                                    readout_pre=pre)
                         kern = k.linear_scan_kernel
                         got = _counted(kern, lambda: kern(
-                            p, q, a, r, s0, readout_pre=pre, chunk=chunk))
+                            p, q, a, r, s0, readout_pre=pre, chunk=chunk),
+                            "decode" if T == 1 else "prefill")
                         err = _scan_err(torch, got, want)
                         check(all(bool(torch.isfinite(t).all()) for t in got)
                               and err <= 2e-4,
@@ -848,6 +909,9 @@ def check_linear_scan(torch, k, g) -> None:
             pass
     check(k.linear_scan_kernel.launches == before,
           "linear_scan: a refused call counted a launch")
+    _refused_off_rule(ls_mod, k.linear_scan_kernel,
+                      lambda: k.linear_scan_kernel(p, q, a, r), "linear_scan",
+                      rule_name="scan_route", route="decode")
 
 
 def _ring_layout(t, n, sharded):
@@ -1010,9 +1074,10 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
     library_dev = device_ms(torch, sdpa, 10, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"flash {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-        f"(keys seen {pairs // H}; {grid}): {ms:.4f} ms (device {dev:.4f}, "
-        f"L2 cold {cold:.4f}), plain {plain:.3f}, sdpa {library:.4f} "
-        f"(device {library_dev:.4f}), bound {b_ms:.4f} ms by {b_by}, "
+        f"(keys seen {pairs // H}; {grid}): {ms:.4f} ms (device "
+        f"{_ms(dev, 4)}, L2 cold {_ms(cold, 4)}), plain {plain:.3f}, sdpa "
+        f"{library:.4f} "
+        f"(device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms by {b_by}, "
         f"err {err:.4g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
@@ -1061,7 +1126,7 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
         name = evt.key
         group = ("flash" if any(t in name for t in FLASH_KERNELS) else
                  "ring_attention" if "ring_attention" in name else
-                 "linear_scan" if "linear_scan_kernel" in name else
+                 "linear_scan" if any(t in name for t in SCAN_KERNELS) else
                  "moe_dispatch" if any(t in name for t in MOE_KERNELS)
                  else
                  "expert_mlp" if any(t in name for t in EXPERT_KERNELS) else
@@ -1431,7 +1496,8 @@ def _dispatch_at(torch, k, name, args, kw, plan):
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"moe_dispatch {name}: toks {tuple(toks.shape)}, {pairs} pairs on "
         f"{routed} experts, cap_pad {plan.cap_pad}: {ms:.3f} ms, device "
-        f"{dev_ms:.4f} warm / {cold_ms:.4f} L2 flushed, plain {plain:.3f}, "
+        f"{_ms(dev_ms, 4)} warm / {_ms(cold_ms, 4)} L2 flushed, plain "
+        f"{plain:.3f}, "
         f"bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
     disp = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
@@ -1458,8 +1524,8 @@ def _dispatch_at(torch, k, name, args, kw, plan):
     mlp_dev = device_ms(torch, mlp, 5, EXPERT_KERNELS)
     mlp_cold = device_ms(torch, mlp, 5, EXPERT_KERNELS, cold_l2=True)
     log(f"expert_mlp {name} blocks: x {tuple(x.shape)}, {pairs} live rows on "
-        f"{reached} experts: {mlp_ms:.3f} ms, device {mlp_dev:.4f} warm / "
-        f"{mlp_cold:.4f} L2 flushed, bound {mb_ms:.4f} ms by {mb_by}, err "
+        f"{reached} experts: {mlp_ms:.3f} ms, device {_ms(mlp_dev, 4)} warm / "
+        f"{_ms(mlp_cold, 4)} L2 flushed, bound {mb_ms:.4f} ms by {mb_by}, err "
         f"{mlp_err:.4g}")
     del x, live, got, want
     return disp, {"max_abs_err": mlp_err, "ms": mlp_ms, "device_ms": mlp_dev,
@@ -1631,8 +1697,9 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     plain = cuda_ms(torch, lambda: k.expert_mlp_plain(x, wg, wu, wd, live), 2)
     b_ms, b_by = bound(nbytes, 2 * 3 * d * f * pairs, "bfloat16")
     log(f"expert_mlp a2a chunk: x {tuple(x.shape)}, {pairs} live rows on "
-        f"{reached} experts: {ms:.3f} ms, device {dev_ms:.4f} warm / "
-        f"{cold_ms:.4f} L2 flushed, plain {plain:.3f}, bound {b_ms:.4f} ms "
+        f"{reached} experts: {ms:.3f} ms, device {_ms(dev_ms, 4)} warm / "
+        f"{_ms(cold_ms, 4)} L2 flushed, plain {plain:.3f}, bound "
+        f"{b_ms:.4f} ms "
         f"by {b_by}, err {err:.4g}")
     mlp_line = {"name": "expert_mlp", "route": "cuda",
                 "source": "src/repro_torch/csrc/expert_mlp.cu",
@@ -1671,6 +1738,7 @@ def _scan_at(torch, k, name, args, kw):
     """The scan kernel at one shape of the serving path (the arguments a
     layer gave it): within 2e-4 of the plain version's largest magnitude,
     timed beside it."""
+    from repro_torch.kernels.plan import SCAN_CHUNK
     p, q, a, r, s0 = args
     got = k.linear_scan_kernel(*args, **kw)
     want = k.linear_scan_plain(*args, **kw)
@@ -1681,17 +1749,21 @@ def _scan_at(torch, k, name, args, kw):
     del got, want
     BH, T, M = p.shape
     N = q.shape[-1]
-    nbytes, ops = _scan_work(BH, T, M, N, min(64, T), s0 is not None)
+    nbytes, ops = _scan_work(BH, T, M, N, min(SCAN_CHUNK, T), s0 is not None)
     ms = cuda_ms(torch, lambda: k.linear_scan_kernel(*args, **kw),
                  5 if T > 1 else 50)
+    dev = device_ms(torch, lambda: k.linear_scan_kernel(*args, **kw),
+                    5 if T > 1 else 50, SCAN_KERNELS)
     plain = cuda_ms(torch, lambda: k.linear_scan_plain(*args, **kw),
                     1 if T > 1 else 10)
     b_ms, b_by = bound(nbytes, ops, "float32")
     log(f"linear_scan {name}: BH {BH}, T {T}, M {M}, N {N}, s0 "
-        f"{s0 is not None}: {ms:.4f} ms, plain {plain:.3f}, bound "
-        f"{b_ms:.4f} ms by {b_by}, err {err:.4g} (relative {rel:.3g})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+        f"{s0 is not None}: {ms:.4f} ms (device {_ms(dev, 4)}), plain "
+        f"{plain:.3f}, bound {b_ms:.4f} ms by {b_by}, err {err:.4g} "
+        f"(relative {rel:.3g})")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None}
 
 
 def _recurrent_bounds(cfg, schema, B, T, decode_pos):
@@ -1703,6 +1775,7 @@ def _recurrent_bounds(cfg, schema, B, T, decode_pos):
     ``decode_pos`` keys at decode; the scan's f32 operations
     (:func:`_scan_work`); the f32 states read and written.  The bound is
     the largest of the bytes' time and the two types' operation times."""
+    from repro_torch.kernels.plan import SCAN_CHUNK
     L, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
     hybrid = cfg.family == "hybrid"
     n_app = L // max(cfg.attn_every, 1) if hybrid else 0
@@ -1724,7 +1797,7 @@ def _recurrent_bounds(cfg, schema, B, T, decode_pos):
         M = N = cfg.rwkv_head_dim
         attn_heads = D = 0
     state = 4 * L * B * H * M * N
-    pre_scan = _scan_work(B * H, T, M, N, min(64, T), False)[1]
+    pre_scan = _scan_work(B * H, T, M, N, min(SCAN_CHUNK, T), False)[1]
     dec_scan = _scan_work(B * H, 1, M, N, 1, True)[1]
     pre_ops = (2 * per_tok * B * T + 2 * d * V * B
                + n_app * 2 * B * attn_heads * D * T * (T + 1))
@@ -1897,6 +1970,7 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
             S_cache, dctx)
         wall = time.perf_counter() - t0
         launches = {name: wr.launches for name, wr in wrappers.items()}
+        scan_routes = dict(wrappers["linear_scan"].route_launches)
         _attention_routes(wrappers, tag)
     log(f"{tag}: {B} prompts of {T} tokens, one prefill call and {REC_NEW} "
         f"greedy decode steps in {wall:.2f} s; launches {launches}")
@@ -1908,6 +1982,12 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
     check(launches["linear_scan"] == L * (1 + REC_NEW),
           f"{tag}: linear_scan launches {launches['linear_scan']} != {L} x "
           f"{1 + REC_NEW} calls")
+    # the prefill call's scans on the prefill route, every decode step's on
+    # the decode route
+    check(scan_routes == {"prefill": L, "decode": L * REC_NEW},
+          f"{tag}: linear_scan routes {scan_routes} != {L} prefill + "
+          f"{L * REC_NEW} decode")
+    log(f"{tag}: linear_scan routes {scan_routes}")
     check(launches["flash_attention"] == n_app * (1 + REC_NEW),
           f"{tag}: flash launches {launches['flash_attention']} != "
           f"{n_app} x {1 + REC_NEW} calls")
@@ -1959,7 +2039,8 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
     # the scan kernel at this phase's own shapes (one layer's call each),
     # and zamba2's flash kernel at its shared block's (32 heads on 32 kv
     # heads, head_dim 64): the first prefill and the first decode call
-    res = {"launches": launches["linear_scan"], "flash": {}}
+    res = {"launches": launches["linear_scan"], "routes": scan_routes,
+           "flash": {}}
     for name in ("prefill", "decode"):
         args, kw = scans[name]
         res[name] = _scan_at(torch, k, f"{tag} {name}", args, kw)
@@ -2054,8 +2135,9 @@ def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len,
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"ring attention {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
         f"({pairs // H} visible pairs a head over {n} ranks): {ms:.4f} ms "
-        f"(device {dev:.4f}), plain {plain:.3f}, sdpa {library:.4f} (device "
-        f"{library_dev:.4f}), bound {b_ms:.4f} ms by {b_by}, err {err:.4g}")
+        f"(device {_ms(dev, 4)}), plain {plain:.3f}, sdpa {library:.4f} "
+        f"(device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms by {b_by}, "
+        f"err {err:.4g}")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
             "device_ms": dev, "library_device_ms": library_dev}
@@ -2339,13 +2421,20 @@ def main() -> int:
     for name, count in launches.items():
         check(count > 0, f"kernel {name} was not launched on the main path")
     # every GEMM of the ring at N = 30240 (bf16, K and n_loc multiples of
-    # 8) takes the tensor-core route
+    # 8) takes the tensor-core route, and every leap of Minimod (f32,
+    # 4128-byte rows) the TMA ring
     routes = {name: dict(wrappers[name].route_launches)
-              for name in ("matmul", "fused_ring_allgather_matmul")}
-    log(f"main path: GEMM routes {routes}")
-    for name, taken in routes.items():
+              for name in ("matmul", "fused_ring_allgather_matmul",
+                           "wave_step")}
+    log(f"main path: GEMM and stencil routes {routes}")
+    for name in ("matmul", "fused_ring_allgather_matmul"):
+        taken = routes[name]
         check(taken["simt"] == 0 and taken["wgmma"] == launches[name],
               f"{name}: a main-path launch left the tensor cores: {taken}")
+    check(routes["wave_step"]["simt"] == 0
+          and routes["wave_step"]["tma"] == launches["wave_step"],
+          f"wave_step: a Minimod launch left the TMA route: "
+          f"{routes['wave_step']}")
 
     # -- the main path's outputs, by the repo's own means ----------------------
     want = k.ring_allgather_matmul_plain(x, w)
@@ -2462,7 +2551,35 @@ def main() -> int:
           cuda_ms(torch, lambda: k.leap_plain(uext, prev, 0.1), 2),
           4 * (uext.numel() + 2 * pts), STENCIL_OPS_PER_POINT * pts,
           "float32", None)
+    # the card's own time in the kernel (warm), beside the event time
+    kernels[-1]["device_ms"] = device_ms(
+        torch, lambda: k.leap(uext, prev, 0.1), 5, LEAP_KERNELS)
     del uext, prev
+    torch.cuda.empty_cache()
+    # Minimod host mode's step: the (4, 1, 256, 1024, 1024) stacked field
+    # padded, the neighbours' halo slabs written in (paper Listing 1), one
+    # batched launch
+    uext = torch.nn.functional.pad(u1, (R,) * 6)
+    uext[1:, :, 0:R, R:-R, R:-R] = u1[:-1, :, zl - R:]
+    uext[:-1, :, -R:, R:-R, R:-R] = u1[1:, :, :R]
+    got = k.leap(uext, up1, 0.1)
+    want = k.leap_plain(uext, up1, 0.1)
+    h_err = max_err(torch, got, want)
+    check(h_err <= 2e-5 * float(want.abs().max()), "leap at host mode's shape")
+    del got, want
+    torch.cuda.empty_cache()
+    h_ms = cuda_ms(torch, lambda: k.leap(uext, up1, 0.1), 5)
+    h_dev = device_ms(torch, lambda: k.leap(uext, up1, 0.1), 5, LEAP_KERNELS)
+    h_bound, h_by = bound(4 * (uext.numel() + 2 * pts),
+                          STENCIL_OPS_PER_POINT * pts, "float32")
+    kernels[-1]["minimod_host_shape"] = {
+        "shape": [NZ, 1, zl, GRID, GRID], "max_abs_err": h_err, "ms": h_ms,
+        "device_ms": h_dev, "bound_ms": h_bound, "bound_by": h_by}
+    log(f"wave_step at Minimod host mode's {NZ} x {zl} x {GRID}^2: "
+        f"{h_ms:.3f} ms (device {_ms(h_dev, 3)}), bound {h_bound:.3f} ms by "
+        f"{h_by}, err {h_err:.4g}; at 1024^3 device "
+        f"{_ms(kernels[-1]['device_ms'], 3)} ms")
+    del uext
     torch.cuda.empty_cache()
 
     splan = OverlapPlanner().plan_halo_slots(zl, GRID, GRID, torch.float32, NZ)
@@ -2515,6 +2632,9 @@ def main() -> int:
     scan["zamba2_prefill"] = rec["zamba2-1-2b"]["prefill"]
     scan["zamba2_decode"] = rec["zamba2-1-2b"]["decode"]
     scan["launches_by_phase"] = {a: r["launches"] for a, r in rec.items()}
+    scan["route_launches"] = {route: sum(r["routes"][route]
+                                         for r in rec.values())
+                              for route in ("prefill", "decode")}
     for r in rec.values():
         flash.update(r["flash"])
     check(all(r["launches"] > 0 for r in rec.values()),

@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Where the linear scan's prefill spends its time on the card, and how the
+wave step and the scan compare with another version of their sources.
+
+Run from the root of a checkout on a machine with an NVIDIA H100::
+
+    python3 chip_split.py [--against DIR]
+
+It builds a copy of ``src/repro_torch/csrc/linear_scan.cu`` whose prefill
+kernel adds clock64 accumulators at its pass boundaries (thread 0 of every
+block) into ``build/chip_split/``, and prints the share of each pass (the
+landing wait, L, R~/Q~ and the tables, A, the in-place scaling, y, S) at
+the served shape (BH 256, T 2000, M = N = 64; e^-1 reading the state
+before the update, 0.5 after it) for chunks of 16, 32 and 64.  It then
+times ``leap``'s TMA route at 1024³ with Z chunks of 16, 24 and 32.
+
+With ``--against DIR`` (a ``csrc`` directory of another version, e.g. the
+parent commit's from ``git archive``) it also builds that version's
+``wave_step.cu`` and ``linear_scan.cu`` as they are and times both
+versions in turns (other, this, this, other) with CUDA events and the
+profiler's device time: ``leap`` at 1024³ and at Minimod host mode's
+(4, 256, 1024, 1024), the scan's prefill at the served shape and its
+decode step; where the other kernels are the earlier one-tile leap and
+one-block-a-sequence scan (their pass markers found), their splits too.
+Every output is held against the plain version.  Exits non-zero without a
+card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import math
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "chip_split"
+
+HEAD = r'''
+__device__ unsigned long long g_acc[16];
+extern "C" int split_read(void* h) {
+  cudaMemcpyFromSymbol(h, g_acc, sizeof(g_acc));
+  return (int)cudaGetLastError();
+}
+extern "C" int split_reset() {
+  unsigned long long z[16] = {0};
+  cudaMemcpyToSymbol(g_acc, z, sizeof(z));
+  return (int)cudaGetLastError();
+}
+#define T0() long long t_ = clock64()
+#define ACC(i) do { long long n_ = clock64(); \
+  if (threadIdx.x == 0 && threadIdx.y == 0) \
+  atomicAdd(&g_acc[i], (unsigned long long)(n_ - t_)); t_ = n_; } while (0)
+'''
+
+# (anchor, text put before it) of each pass boundary, this version's scan
+SPLIT_NOW = (("wait", "L", "prep", "A", "scale", "y", "S"), [
+    ("  load_rows(0, 0, 0, CI);\n", None),
+    ("    load_part(it, c0, 0);", "ACC(0);"),
+    ("    // -- R~, Q~ and the tables", "ACC(1);"),
+    ("    load_part(it, c0, 2);", "ACC(2);"),
+    ("    // -- R~ exp(L_b) and Q~", "ACC(3);"),
+    ("    // -- y = A p + ", "ACC(4);"),
+    ("    // -- S <- S exp(L_end)", "ACC(5);"),
+    ("    if (owns_s)\n#pragma unroll\n    for (int i = 0; i < 4; ++i)\n"
+     "      st4(St + (4 * ty + i) * M4 + 4 * tx,\n"
+     "          make_float4(S[i][0], S[i][1], S[i][2], S[i][3]));\n  }",
+     "AFTER:ACC(6);"),
+])
+# the earlier leap (one plane tile staged by the threads a plane): staging
+# (the loads into the tile and the sync) against the star and the store
+SPLIT_EARLIER_LEAP = (("staging", "compute"), [
+    ("  for (int k = k0; k < k1; ++k) {\n", "T0();"),
+    ("    __syncthreads();\n    if (inside) {", "MID:ACC(0);"),
+    ("    __syncthreads();\n#pragma unroll\n    for (int i = 0; i < 2 * R; "
+     "++i) q[i] = q[i + 1];", "MID:ACC(1);"),
+])
+# the same for the earlier scan (one block a sequence, no sub-chunks)
+SPLIT_EARLIER = (("stage", "prefix", "A", "transform", "y", "S"), [
+    ("  for (int c0 = 0; c0 < T; c0 += C) {\n", "T0();"),
+    ("    // -- L: inclusive", "ACC(0);"),
+    ("    // -- A[t, s]: every", "ACC(1);"),
+    ("    // -- r * exp(Lr) and", "ACC(2);"),
+    ("    // -- y = A p + ", "ACC(3);"),
+    ("    // -- S <- S exp(", "ACC(4);"),
+    ("    __syncthreads();\n  }\n\n  for (int i = tid; i < M * N; i += NT) {",
+     "MID:ACC(5);"),
+])
+
+
+def stamped(text: str, marks) -> str:
+    """``text`` with the split's header and its accumulators at the marks
+    (each anchor must occur once)."""
+    text = text.replace('#include "common.cuh"\n',
+                        '#include "common.cuh"\n' + HEAD, 1)
+    for anchor, put in marks:
+        if text.count(anchor) != 1:
+            raise ValueError(f"pass marker not found once: {anchor!r}")
+        if put is None:
+            text = text.replace(anchor, anchor + "  T0();\n")
+        elif put.startswith("AFTER:"):
+            text = text.replace(anchor, anchor[:-3] + put[6:] + "\n  }")
+        elif put.startswith("MID:"):
+            rest = anchor[len("    __syncthreads();"):]
+            text = text.replace(anchor, "    __syncthreads();\n    "
+                                + put[4:] + rest)
+        elif put == "T0();":
+            indent = anchor[:len(anchor) - len(anchor.lstrip())]
+            text = text.replace(anchor, indent + "T0();\n" + anchor)
+        else:
+            text = text.replace(anchor, "    " + put + "\n" + anchor)
+    return text
+
+
+def build(torch, cs, build_mod, name: str, text: str, src_dir: Path,
+          tag: str):
+    """``text`` as ``name``.cu (beside ``src_dir``'s headers) into a
+    ctypes library under build/chip_split/<tag>/."""
+    out = OUT / tag
+    if out.exists():
+        shutil.rmtree(out)
+    shutil.copytree(src_dir, out)
+    (out / f"{name}.cu").write_text(text)
+    so = out / f"lib{name}.so"
+    res = subprocess.run([build_mod._nvcc(), *build_mod.NVCC_FLAGS, "-o",
+                          str(so), str(out / f"{name}.cu")],
+                         capture_output=True, text=True)
+    if res.returncode:
+        raise RuntimeError(f"nvcc failed for {tag}/{name}.cu:\n"
+                           + res.stdout + res.stderr)
+    for func, regs, spills in cs.ptxas_summary(res.stdout + res.stderr):
+        print(f"  {tag}/{name}: {func}: {regs} registers, {spills}")
+    lib = ctypes.CDLL(str(so))
+    fn = "repro_leap" if name == "wave_step" else "repro_linear_scan"
+    argt = list(build_mod.LIBRARIES[name][1][fn])
+    if "int route" not in text:      # an entry that takes no route code
+        del argt[-2]
+    getattr(lib, fn).argtypes = argt
+    getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+def scan_inputs(torch, g, BH, T, decay, with_s0):
+    dev = "cuda"
+    p, q, r = (torch.randn(BH, T, 64, generator=g, device=dev) * 0.5
+               for _ in range(3))
+    a = torch.full((BH, T, 64), decay, device=dev)
+    s0 = torch.randn(BH, 64, 64, generator=g, device=dev) if with_s0 \
+        else None
+    return p, q, a, r, s0
+
+
+def scan_call(torch, lib, ops, pre, chunk, route):
+    """A closure launching ``lib``'s scan on ``ops`` into fresh outputs
+    (``route`` None: an entry without route codes)."""
+    p, q, a, r, s0 = ops
+    BH, T, M = p.shape
+    y = torch.empty(BH, T, M, device="cuda")
+    sf = torch.empty(BH, M, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    tail = (() if route is None else (route,)) + (stream,)
+
+    def call():
+        st = lib.repro_linear_scan(
+            p.data_ptr(), q.data_ptr(), a.data_ptr(), r.data_ptr(),
+            None if s0 is None else s0.data_ptr(), y.data_ptr(),
+            sf.data_ptr(), BH, T, M, 64, min(chunk, T), int(pre), *tail)
+        if st != 0:
+            raise RuntimeError(f"scan launch failed: {st}")
+        return y, sf
+    return call
+
+
+def split(torch, cs, lib, call, names) -> str:
+    acc = (ctypes.c_ulonglong * 16)()
+    call()
+    torch.cuda.synchronize()
+    lib.split_reset()
+    ms = cs.cuda_ms(torch, call, 5, warmup=0)
+    lib.split_read(acc)
+    total = sum(acc[i] for i in range(len(names)))
+    return f"{ms:.4f} ms; " + ", ".join(
+        f"{n} {100 * acc[i] / total:.1f} %" for i, n in enumerate(names))
+
+
+def main() -> int:
+    import torch
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--against", type=Path, default=None,
+                        help="a csrc directory of another version")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_split: no CUDA device; this script runs on the GPU only",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plan import SCAN_CHUNK, SCAN_ROUTES
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(f"card: {card}; torch {torch.__version__}")
+    k = cs.load_port()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    csrc = _build.CSRC
+    now = build(torch, cs, _build, "linear_scan",
+                stamped((csrc / "linear_scan.cu").read_text(), SPLIT_NOW[1]),
+                csrc, "split")
+    shapes = ((math.exp(-1.0), True), (0.5, False))
+    for decay, pre in shapes:
+        ops = scan_inputs(torch, g, 256, 2000, decay, False)
+        want = k.linear_scan_plain(*ops, readout_pre=pre)
+        for chunk in (16, 32, 64):
+            call = scan_call(torch, now, ops, pre, chunk,
+                             SCAN_ROUTES.index("prefill"))
+            err = cs._scan_err(torch, call(), want)
+            print(f"scan prefill, decay {decay:.3g}, pre {pre}, chunk "
+                  f"{chunk} (relative err {err:.3g}): "
+                  f"{split(torch, cs, now, call, SPLIT_NOW[0])}")
+        del ops, want
+    stream = torch.cuda.current_stream().cuda_stream
+    uext = torch.randn((1032,) * 3, generator=g, device="cuda")
+    prev = torch.randn((1024,) * 3, generator=g, device="cuda")
+    out = torch.empty_like(prev)
+    for bz in (16, 24, 32):
+        def leap_bz(bz=bz):
+            st = _build.library("wave_step").repro_leap(
+                uext.data_ptr(), 0, *uext.stride()[:2], prev.data_ptr(), 0,
+                *prev.stride()[:2], None, 0, 0, 0, 0.1, out.data_ptr(), 0,
+                *out.stride()[:2], 1, 1024, 1024, 1024, bz, 1.0, 1, stream)
+            if st != 0:
+                raise RuntimeError(f"leap launch failed: {st}")
+        print(f"leap tma at 1024^3, bz {bz}: "
+              f"{cs.cuda_ms(torch, leap_bz, 5):.4f} ms, device "
+              f"{cs._ms(cs.device_ms(torch, leap_bz, 5, cs.LEAP_KERNELS), 4)}")
+    del uext, prev, out
+    torch.cuda.empty_cache()
+    if args.against is None:
+        return 0
+
+    other_dir = args.against.resolve()
+    texts = {n: (other_dir / f"{n}.cu").read_text()
+             for n in ("wave_step", "linear_scan")}
+    other = {n: build(torch, cs, _build, n, t, other_dir, f"other_{n}")
+             for n, t in texts.items()}
+
+    def turns(label, new, old, reps):
+        t = [cs.cuda_ms(torch, old, reps), cs.cuda_ms(torch, new, reps),
+             cs.cuda_ms(torch, new, reps), cs.cuda_ms(torch, old, reps)]
+        dn = cs.device_ms(torch, new, reps, cs.LEAP_KERNELS + cs.SCAN_KERNELS)
+        do = cs.device_ms(torch, old, reps, ("leap_kernel",
+                                             "linear_scan_kernel")
+                          + cs.SCAN_KERNELS)
+        print(f"{label}: this {t[1]:.4f} / {t[2]:.4f} ms (device "
+              f"{cs._ms(dn, 4)}), other {t[0]:.4f} / {t[3]:.4f} ms (device "
+              f"{cs._ms(do, 4)})")
+
+    for lead, zl in ((1, 1024), (4, 256)):
+        u = torch.randn(lead, zl, 1024, 1024, generator=g, device="cuda")
+        uext = torch.nn.functional.pad(u, (4,) * 6)
+        del u
+        prev = torch.randn(lead, zl, 1024, 1024, generator=g, device="cuda")
+        want = k.leap_plain(uext, prev, 0.1)
+        lim = 2e-5 * float(want.abs().max())
+        out = torch.empty_like(prev)
+        o_args = [uext.data_ptr(), *uext.stride()[:3], prev.data_ptr(),
+                  *prev.stride()[:3], None, 0, 0, 0, 0.1, out.data_ptr(),
+                  *out.stride()[:3], lead, zl, 1024, 1024, 32, 1.0]
+        routed = "int route" in texts["wave_step"]
+
+        def old_leap():
+            st = other["wave_step"].repro_leap(
+                *o_args, *((1,) if routed else ()), stream)
+            if st != 0:
+                raise RuntimeError(f"other leap launch failed: {st}")
+
+        old_leap()
+        cs.check(cs.max_err(torch, out, want) <= lim, "other leap")
+        if not routed:
+            try:
+                lib = build(torch, cs, _build, "wave_step",
+                            stamped(texts["wave_step"], SPLIT_EARLIER_LEAP[1]),
+                            other_dir, "other_leap_split")
+
+                def split_leap():
+                    st = lib.repro_leap(*o_args, stream)
+                    if st != 0:
+                        raise RuntimeError(f"leap launch failed: {st}")
+                shares = split(torch, cs, lib, split_leap,
+                               SPLIT_EARLIER_LEAP[0])
+                print(f"  other leap's split: {shares}")
+            except ValueError as e:
+                print(f"  other leap's split: not taken ({e})")
+        cs.check(cs.max_err(torch, k.leap(uext, prev, 0.1), want) <= lim,
+                 "leap")
+        del want
+        turns(f"leap ({lead}, {zl}, 1024, 1024) through a padded grid",
+              lambda: k.leap(uext, prev, 0.1), old_leap, 5)
+        del uext, prev, out
+        torch.cuda.empty_cache()
+
+    routed = "int route" in texts["linear_scan"]
+    for (decay, pre), T in ((shapes[0], 2000), (shapes[1], 2000),
+                            (shapes[0], 1)):
+        ops = scan_inputs(torch, g, 256, T, decay, T == 1)
+        want = k.linear_scan_plain(*ops, readout_pre=pre)
+        old = scan_call(torch, other["linear_scan"], ops, pre, 64,
+                        (SCAN_ROUTES.index("decode" if T == 1 else "prefill")
+                         if routed else None))
+        err_old = cs._scan_err(torch, old(), want)
+        new = lambda: k.linear_scan_kernel(*ops, readout_pre=pre)  # noqa
+        err_new = cs._scan_err(torch, new(), want)
+        cs.check(max(err_old, err_new) <= 2e-4, "scan against plain")
+        turns(f"scan T {T}, decay {decay:.3g}, pre {pre} (this: chunk "
+              f"{SCAN_CHUNK}, other: chunk 64; relative err {err_new:.3g} "
+              f"/ {err_old:.3g})", new, old, 5 if T > 1 else 50)
+        if T > 1 and not routed:
+            try:
+                lib = build(torch, cs, _build, "linear_scan",
+                            stamped(texts["linear_scan"], SPLIT_EARLIER[1]),
+                            other_dir, "other_split")
+                call = scan_call(torch, lib, ops, pre, 64, None)
+                print(f"  other scan's split: "
+                      f"{split(torch, cs, lib, call, SPLIT_EARLIER[0])}")
+            except ValueError as e:
+                print(f"  other scan's split: not taken ({e})")
+        del ops, want
+        torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
 // Hopper's asynchronous machinery, shared by the tensor-core routes of
 // matmul.cuh (matmul.cu, ring_matmul.cu), attention.cuh
 // (flash_attention.cu, ring_attention.cu) and expert_mlp.cuh
-// (expert_mlp.cu, moe_dispatch.cu): mbarriers, TMA loads and their tensor
-// maps, proxy fences, and the wgmma shared-memory descriptor.
+// (expert_mlp.cu, moe_dispatch.cu), and by the plane ring of wave_step.cu:
+// mbarriers, TMA loads and their tensor maps, proxy fences, and the wgmma
+// shared-memory descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
@@ -74,6 +75,18 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2) : "memory");
+}
+
+// box (c0 innermost, ..., c3) of a 4-D tensor map -> shared memory at dst
+__device__ __forceinline__ void tma_load_4d(uint32_t dst,
+                                            const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
 }
 
 // box (c0 innermost, ..., c4) of a 5-D tensor map -> shared memory at dst
@@ -174,12 +187,10 @@ static TcEncodeTiled tc_encoder() {
   return fn;
 }
 
-// A 16-bit tensor of `rank` dims (dims[0] innermost, unit stride; strides
-// in bytes for dims 1..rank-1) as a TMA map with box `box`, 128-byte
-// swizzled; elements past any edge read as zero.
-static int tc_map_nd(CUtensorMap* map, const void* base, int dtype, int rank,
-                     const long long* dims, const long long* strides,
-                     const int* box) {
+static int map_nd(CUtensorMap* map, const void* base,
+                  CUtensorMapDataType type, CUtensorMapSwizzle swizzle,
+                  int rank, const long long* dims, const long long* strides,
+                  const int* box) {
   TcEncodeTiled encode = tc_encoder();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
   cuuint64_t d[5], s[4];
@@ -190,13 +201,32 @@ static int tc_map_nd(CUtensorMap* map, const void* base, int dtype, int rank,
     unit[i] = 1;
     if (i > 0) s[i - 1] = static_cast<cuuint64_t>(strides[i - 1]);
   }
-  CUresult r = encode(
-      map, dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                          : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
-      rank, const_cast<void*>(base), d, s, b, unit,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  CUresult r = encode(map, type, rank, const_cast<void*>(base), d, s, b, unit,
+                      CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                      CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A 16-bit tensor of `rank` dims (dims[0] innermost, unit stride; strides
+// in bytes for dims 1..rank-1) as a TMA map with box `box`, 128-byte
+// swizzled; elements past any edge read as zero.
+static int tc_map_nd(CUtensorMap* map, const void* base, int dtype, int rank,
+                     const long long* dims, const long long* strides,
+                     const int* box) {
+  return map_nd(map, base,
+                dtype == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                               : CU_TENSOR_MAP_DATA_TYPE_FLOAT16,
+                CU_TENSOR_MAP_SWIZZLE_128B, rank, dims, strides, box);
+}
+
+// The same for a float32 tensor, unswizzled: a box lands in shared memory
+// row after row, densely.
+static int f32_map_nd(CUtensorMap* map, const void* base, int rank,
+                      const long long* dims, const long long* strides,
+                      const int* box) {
+  return map_nd(map, base, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                CU_TENSOR_MAP_SWIZZLE_NONE, rank, dims, strides, box);
 }
 
 // route codes passed from Python (repro_torch/kernels/_build.py ROUTE_CODES,

@@ -46,7 +46,7 @@ LIBRARIES: Dict[str, tuple] = {
     "wave_step": ("wave_step.cu", {
         "repro_leap": [_P, _LL, _LL, _LL, _P, _LL, _LL, _LL, _P, _LL, _LL,
                        _LL, _F, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
-                       _P]}),
+                       _I, _P]}),
     "fused_wave_step": ("fused_wave_step.cu", {
         "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
                                   _I, _F, _P]}),
@@ -55,7 +55,7 @@ LIBRARIES: Dict[str, tuple] = {
     "moe_dispatch": ("moe_dispatch.cu", {
         "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 10 + [_P]}),
     "linear_scan": ("linear_scan.cu", {
-        "repro_linear_scan": [_P] * 7 + [_I] * 6 + [_P]}),
+        "repro_linear_scan": [_P] * 7 + [_I] * 7 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
         + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 4,

@@ -9,13 +9,14 @@ version on the card.
 
 from __future__ import annotations
 
-from .kernel import MAX_CHUNK, linear_scan_kernel
+from ..plan import SCAN_CHUNK
+from .kernel import linear_scan_kernel
 
 __all__ = ["linear_scan"]
 
 
 def linear_scan(p, q, a, r, s0=None, *, readout_pre: bool = True,
-                chunk: int = MAX_CHUNK):
+                chunk: int = SCAN_CHUNK):
     """p: (BH, T, M); q, a, r: (BH, T, N); s0: (BH, M, N) or None (zeros).
 
     Returns (y: (BH, T, M) in p.dtype, s_final: (BH, M, N) f32).

@@ -41,6 +41,10 @@ __all__ = [
     "gemm_route",
     "attention_route",
     "expert_route",
+    "stencil_route",
+    "scan_route",
+    "scan_instance",
+    "scan_smem_bytes",
     "expert_tile_n",
     "expert_live_tiles",
     "expert_list_len",
@@ -56,6 +60,13 @@ __all__ = [
     "TC_TILE",
     "TC_STAGES",
     "STENCIL_TILE",
+    "STENCIL_TMA_TILE",
+    "STENCIL_STAGES",
+    "STENCIL_ROUTES",
+    "SCAN_SUB",
+    "SCAN_CHUNK",
+    "SCAN_THREADS",
+    "SCAN_ROUTES",
     "FLASH_BQ",
     "ATT_TC_BK",
     "ATT_TC_STAGES",
@@ -79,10 +90,20 @@ __all__ = [
 #   in the operands' 16-bit type — ``TC_TILE``, 4·(128·64 + 64·256)·2 B =
 #   192 KiB; on the CUDA cores one stage of the same pair in f32 —
 #   ``MM_TILE``, (16·64 + 16·64)·4 B = 8 KiB;
-# * the wave step (``leap``) stages one (TY + 2R, TX + 2R) f32 plane tile per
-#   block — ``STENCIL_TILE``, (8 + 8)·(32 + 8)·4 B = 2.5 KiB at R = 4 — and
-#   carries the Z neighbours in registers, so its stage does not grow with
-#   the Z chunk a block walks;
+# * the wave step (``leap``) takes one of two routes (:func:`stencil_route`).
+#   On the TMA route a block keeps a ring of ``STENCIL_STAGES`` f32 plane
+#   tiles of (LEAP_TY + 2R, LEAP_TX + 2R) and their mbarriers —
+#   ``STENCIL_TMA_TILE``, 8·(32 + 8)·(64 + 8)·4 B = 90 KiB at R = 4, plus
+#   alignment slack and barriers (``stencil_stage_bytes``, the formula of
+#   csrc/wave_step.cu's ``leap_tma_smem_bytes``), so two blocks an SM fit;
+#   on the CUDA cores it stages one (TY + 2R, TX + 2R) plane tile —
+#   ``STENCIL_TILE``, (8 + 8)·(32 + 8)·4 B = 2.5 KiB.  Both carry the Z
+#   neighbours in registers, so the stage does not grow with the Z chunk a
+#   block walks;
+# * the linear scan's prefill route stages a chunk of p, q, a and r and
+#   keeps the chunk's weights and the state in shared memory
+#   (``scan_smem_bytes``, the formula of csrc/linear_scan.cu's
+#   ``scan_smem_bytes``); its decode route stages nothing;
 # * flash and ring attention take one of two routes
 #   (:func:`attention_route`).  On the tensor cores a block keeps the
 #   FLASH_BQ-row q tile and ``ATT_TC_STAGES`` stages of a 64-key k and v
@@ -109,14 +130,22 @@ __all__ = [
 #   K/V stripe slots and (m, l, acc) carry live in device memory, not shared
 #   memory.
 #
-# At 1024³ over nz = 4 the halo stage is 2.5 KiB and the overlapped schedule
-# stands.  The reference's staging formula with 227 KB as its budget would
-# stage (1+8)(8+8)(1032)·4 B ≈ 594 KB and fall back to the serialized one.
+# At 1024³ over nz = 4 the halo stage is the TMA route's 90 KiB ring, two of
+# which fit the budget, and the overlapped schedule stands.  The reference's
+# staging formula with 227 KB as its budget would stage (1+8)(8+8)(1032)·4 B
+# ≈ 594 KB and fall back to the serialized one.
 SMEM_BUDGET_DEFAULT = 232_448
 MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh mm_tile
 TC_TILE = (128, 64, 256)        # (BM, BK, BN) of its tensor-core route
 TC_STAGES = 4                   # that route's shared-memory stages
-STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu
+STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu, CUDA cores
+STENCIL_TMA_TILE = (32, 64)     # (LEAP_TY, LEAP_TX) of its TMA route
+STENCIL_STAGES = 8              # that route's ring of plane tiles
+STENCIL_ROUTES = ("simt", "tma")  # route codes of csrc/wave_step.cu
+SCAN_SUB = 16                   # rows of a sub-chunk in csrc/linear_scan.cu
+SCAN_CHUNK = 32                 # rows of a chunk on the served path
+SCAN_THREADS = 256              # threads of its prefill block
+SCAN_ROUTES = ("prefill", "decode")  # route codes of csrc/linear_scan.cu
 FLASH_BQ = 64                   # query rows of a csrc/flash_attention.cu tile
 FLASH_BLOCKS = (64, 32, 16)     # the key tiles that kernel takes
 FLASH_MAX_DV = 256              # the widest value head it takes
@@ -181,6 +210,49 @@ def expert_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
     return "simt"
+
+
+def stencil_route(dtype, x: int, *ptrs_and_strides: int) -> str:
+    """The route a wave-step launch takes in ``csrc/wave_step.cu``:
+    ``"tma"`` (a ring of plane tiles fed by TMA, 16-byte vectors for prev,
+    c2 and out) for f32 operands with X a multiple of 4 whose base pointers
+    and byte strides (``ptrs_and_strides``: uext's, prev's, out's and a
+    tensor c2's, batch, z and y) are multiples of 16; ``"simt"`` (one
+    plane tile staged by the threads) otherwise.  Minimod's launches are
+    all on the TMA route: (1024 + 8) x 4 = 4128-byte rows."""
+    if dtype == torch.float32 and x % 4 == 0 \
+            and all(v % 16 == 0 for v in ptrs_and_strides):
+        return "tma"
+    return "simt"
+
+
+def scan_route(t: int) -> str:
+    """The route a linear-scan launch of ``t`` rows takes in
+    ``csrc/linear_scan.cu``: ``"decode"`` (one row: the state streamed
+    through, one block per 16 of its rows) at ``t == 1``, ``"prefill"``
+    (the chunked, sub-chunked scan) otherwise.  Both take any M, N <= 64;
+    operands that are not contiguous f32 are refused before either."""
+    return "decode" if t == 1 else "prefill"
+
+
+def scan_instance(chunk: int) -> int:
+    """Rows of the prefill-route block that takes chunks of ``chunk`` rows:
+    the smallest of csrc/linear_scan.cu's instances (16, 32, 64) that
+    holds them."""
+    return 16 if chunk <= 16 else 32 if chunk <= 32 else 64
+
+
+def scan_smem_bytes(ci: int, m: int, n: int) -> int:
+    """Dynamic shared memory of a prefill-route scan block of ``ci`` rows
+    (csrc/linear_scan.cu's ``scan_smem_bytes`` with M and N rounded up to
+    4): two staged chunks of p, q, a and r, the weights A, the sub-chunk
+    factors R~ and Q~, the state transposed, and the tables, in f32 with
+    q, a and r rows padded by 4."""
+    m4, n4 = -(-m // 4) * 4, -(-n // 4) * 4
+    nsub = ci // SCAN_SUB
+    return 4 * (2 * ci * (m4 + 3 * (n4 + 4)) + ci * (ci + 1)
+                + 2 * ci * (n4 + 4) + n4 * m4
+                + (nsub * (nsub + 3) // 2 + 1) * n4)
 
 
 def expert_tile_n(rows: int) -> int:
@@ -879,25 +951,35 @@ class OverlapPlanner:
         return min(bm, m), min(bk, k), min(bn, n)
 
     # -- stencil ---------------------------------------------------------------
-    def stencil_stage_bytes(self, y: int, x: int, dtype,
-                            *, radius: int = 4) -> int:
-        """Shared memory one wave-step block stages: a plane tile with its
-        radius-wide rim (f32 math; the kernel takes f32 only)."""
+    def stencil_stage_bytes(self, y: int, x: int, dtype, *,
+                            radius: int = 4, route: str = "tma") -> int:
+        """Shared memory one wave-step block stages.  On the TMA route
+        (Minimod's; what the halo plan sizes) the ring of
+        ``STENCIL_STAGES`` f32 plane tiles with their rims, the alignment
+        slack and the barriers, whatever the grid (the tile is fixed); on
+        the CUDA cores one plane tile with its radius-wide rim, clipped to
+        the grid.  The kernel computes in f32."""
+        if route == "tma":
+            ty, tx = STENCIL_TMA_TILE
+            return 128 + STENCIL_STAGES * (ty + 2 * radius) \
+                * (tx + 2 * radius) * 4 + 16 * STENCIL_STAGES
         ty, tx = STENCIL_TILE
         return (min(ty, y) + 2 * radius) * (min(tx, x) + 2 * radius) \
             * _itemsize(dtype)
 
-    def plan_stencil_bz(self, z: int, y: int, x: int, dtype,
-                        *, radius: int = 4, bz: int = 32) -> int:
-        """Z chunk one wave-step block walks.
+    def plan_stencil_bz(self, z: int, y: int, x: int, dtype, *,
+                        radius: int = 4, bz: int = 32,
+                        route: str = "tma") -> int:
+        """Z chunk one wave-step block walks on ``route``.
 
         ``bz`` exceeding the Z extent clamps to it, a tiny grid still yields
         a positive chunk, and a budget that cannot double-buffer even the
-        plane stage bottoms out at ``bz == 1``.
+        route's plane stage bottoms out at ``bz == 1``.
         """
         bz = max(min(bz, z), 1)
         if not self._fits(self.stencil_stage_bytes(y, x, dtype,
-                                                   radius=radius)):
+                                                   radius=radius,
+                                                   route=route)):
             return 1
         return bz
 

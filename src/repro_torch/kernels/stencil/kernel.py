@@ -6,7 +6,11 @@ fused step's ``_leap`` (``repro/kernels/stencil/fused.py:101``): one
 leapfrog update of the core of already halo-extended slabs.
 ``wave_step_kernel = leap(pad(u))``, and the fused emulation calls
 :func:`leap` for its interior and boundary passes, so the Minimod time loop
-runs this kernel on the card.  What bounds it and how its design answers is
+runs this kernel on the card.  A launch takes the route
+:func:`..plan.stencil_route` picks (counted in ``leap.route_launches``):
+the ring of plane tiles fed by TMA for f32 operands with X a multiple of 4
+and 16-byte-aligned pointers and strides (Minimod's every launch), the
+CUDA-core tile otherwise.  What bounds it and how its design answers is
 noted in ``csrc/wave_step.cu``.  On CPU tensors both wrappers compute the
 plain version, :func:`leap_plain`.
 """
@@ -20,7 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from .._build import check_launch, library, stream_handle
-from ..plan import default_planner
+from ..plan import STENCIL_ROUTES, default_planner, stencil_route
 from .ref import COEFFS, RADIUS
 
 __all__ = ["leap", "leap_plain", "wave_step_kernel"]
@@ -72,7 +76,8 @@ def leap(uext: torch.Tensor, prev: torch.Tensor, c2: C2, *, dx: float = 1.0,
     of them may be a slice of a larger tensor (unit X stride).  The result
     is written into ``out`` when given (the port's in-place path: the fused
     step writes each pass straight into its output's slice).  The Z chunk a
-    block walks is the active planner's ``plan_stencil_bz`` for this pass.
+    block walks is the active planner's ``plan_stencil_bz`` for this pass
+    and route.
     """
     R = RADIUS
     Z, Y, X = prev.shape[-3:]
@@ -99,23 +104,32 @@ def leap(uext: torch.Tensor, prev: torch.Tensor, c2: C2, *, dx: float = 1.0,
     u4, p4, o4 = _batched(uext, "uext"), _batched(prev, "prev"), \
         _batched(out, "out")
     B = u4.shape[0]
+    operands = [u4, p4, o4]
     if isinstance(c2, torch.Tensor):
         c4 = _batched(c2, "c2")
         cptr, cs, c2s = c4.data_ptr(), c4.stride()[:3], 0.0
+        operands.append(c4)
     else:
         cptr, cs, c2s = None, (0, 0, 0), float(c2)
-    bz = default_planner().plan_stencil_bz(Z, Y, X, torch.float32, radius=R)
+    route = stencil_route(torch.float32, X, *(
+        v for t in operands
+        for v in (t.data_ptr(), *(4 * s for s in t.stride()[:3]))))
+    bz = default_planner().plan_stencil_bz(Z, Y, X, torch.float32, radius=R,
+                                           route=route)
     bz = max(bz, math.ceil(B * Z / _MAX_GRID_Z))   # keep the grid legal
     status = library("wave_step").repro_leap(
         u4.data_ptr(), *u4.stride()[:3], p4.data_ptr(), *p4.stride()[:3],
         cptr, *cs, c2s, o4.data_ptr(), *o4.stride()[:3],
-        B, Z, Y, X, bz, float(dx * dx), stream_handle(uext.device))
+        B, Z, Y, X, bz, float(dx * dx), STENCIL_ROUTES.index(route),
+        stream_handle(uext.device))
     leap.launches += 1
+    leap.route_launches[route] += 1
     check_launch(status, "leap")
     return out
 
 
 leap.launches = 0
+leap.route_launches = dict.fromkeys(STENCIL_ROUTES, 0)
 
 
 def wave_step_kernel(u: torch.Tensor, u_prev: torch.Tensor, c2dt2: C2, *,

@@ -10,7 +10,11 @@ served models' decays the Pallas kernel's clamp of exp(-L) at e^30 breaks
 it; one test records that caveat, and the port's kernel (which never
 clamps) is held to the sequential scan at those decays on the card
 (``chip_smoke.SMALL_CHECKS["linear_scan"]``, run by
-``tests/test_torch_cuda.py``).
+``tests/test_torch_cuda.py``).  The kernel's own factoring, its decode
+route at T = 1 and its prefill route's chunks, sub-chunks and exponent
+differences, is repeated in plain torch by ``linear_scan_emulated``, held
+here against the reference's oracle at every decay and against its
+Pallas kernel where that kernel's clamp holds.
 """
 
 import math
@@ -20,6 +24,7 @@ import pytest
 import torch
 
 from repro.kernels.linear_scan.ops import linear_scan as j_linear_scan
+from repro.kernels.linear_scan.ref import linear_scan_ref as j_scan_ref
 
 from repro_torch.kernels.linear_scan import kernel as ls_kernel
 from repro_torch.kernels.linear_scan.ops import linear_scan
@@ -151,3 +156,83 @@ def test_op_routes_and_refuses():
         linear_scan(*t, interpret=True)
     with pytest.raises(ValueError, match="shapes"):
         linear_scan(t[0], t[1][:, :4], t[2], t[3])
+
+
+# -- the kernel's factoring in plain torch (linear_scan_emulated) --------------
+
+def _emulated(p, q, a, r, s0, pre, chunk=64):
+    y, s = ls_kernel.linear_scan_emulated(
+        *(torch.from_numpy(x) for x in (p, q, a, r)),
+        None if s0 is None else torch.from_numpy(s0), readout_pre=pre,
+        chunk=chunk)
+    return y.numpy(), s.numpy()
+
+
+DECAYS = {"range": None, "e-1": math.exp(-1.0), "e-8": math.exp(-8.0)}
+
+
+def _rel0(got, want):
+    """|err| over the largest |want|; a zero want (y at T = 1 from a zero
+    state, read before the update) must be matched exactly."""
+    return np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+
+
+@pytest.mark.parametrize("s0", [False, True], ids=["zero", "carried"])
+@pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 64, 130])
+@pytest.mark.parametrize("decay", list(DECAYS), ids=list(DECAYS))
+def test_emulation_matches_reference_oracle(decay, T, pre, s0):
+    """The decode route (T = 1) and the prefill route's sub-chunked
+    factoring (chunks of 64, sub-chunks of 16: T = 15, 16, 17 at a
+    sub-chunk's edges, 130 over three chunks) against the reference's
+    sequential oracle (``repro.kernels.linear_scan.ref.linear_scan_ref``)
+    within 2e-4 of each output's largest magnitude; every output finite,
+    e^-8 included (no exponent is positive, nothing is clamped)."""
+    p, q, a, r, s = _inputs(5, 2, T, 16, 24, DECAYS[decay], s0)
+    y, sf = _emulated(p, q, a, r, s, pre)
+    s_ref = s if s0 else np.zeros((2, 16, 24), np.float32)
+    wy, ws = (np.asarray(x) for x in j_scan_ref(p, q, a, r, s_ref,
+                                                readout_pre=pre))
+    assert np.isfinite(y).all() and np.isfinite(sf).all()
+    assert y.shape == wy.shape and sf.shape == ws.shape
+    assert _rel0(y, wy) <= 2e-4 and _rel0(sf, ws) <= 2e-4
+
+
+@pytest.mark.parametrize("chunk", [16, 32, 37])
+@pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
+def test_emulation_other_chunks_match_reference_oracle(chunk, pre):
+    """Chunks of 16 (one sub-chunk), 32 (the served chunk, two sub-chunks)
+    and a ragged 37 (a block of 64 rows with 27 padded) at e^-1 with a
+    carried state."""
+    p, q, a, r, s = _inputs(6, 2, 100, 64, 64, math.exp(-1.0), True)
+    y, sf = _emulated(p, q, a, r, s, pre, chunk)
+    wy, ws = (np.asarray(x) for x in j_scan_ref(p, q, a, r, s,
+                                                readout_pre=pre))
+    assert _rel(y, wy) <= 2e-4 and _rel(sf, ws) <= 2e-4
+
+
+@pytest.mark.parametrize("T,chunk", [(64, 64), (128, 64), (64, 32),
+                                     (48, 16)])
+@pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
+def test_emulation_matches_reference_pallas_interpret(T, chunk, pre):
+    """Where T is a multiple of the chunk and the decays, drawn from the
+    reference sweep's [0.7, 0.999], keep the cumulative log-decay of a
+    chunk above the Pallas kernel's clamp (-30), the emulation and the
+    Pallas kernel in interpret mode agree within 2e-4."""
+    p, q, a, r, _ = _inputs(7, 2, T, 32, 32)
+    y, sf = _emulated(p, q, a, r, None, pre, chunk)
+    wy, ws = (np.asarray(x) for x in j_linear_scan(
+        p, q, a, r, readout_pre=pre, impl="pallas", chunk=chunk,
+        interpret=True))
+    assert _rel(y, wy) <= 2e-4 and _rel(sf, ws) <= 2e-4
+
+
+def test_emulation_state_carry():
+    """The emulation's state after a first prefill fed to a decode step
+    (T = 1) equals one prefill over both."""
+    p, q, a, r, _ = _inputs(8, 2, 66, 16, 24, math.exp(-1.0))
+    y, sf = _emulated(p, q, a, r, None, True)
+    y1, s1 = _emulated(p[:, :65], q[:, :65], a[:, :65], r[:, :65], None, True)
+    y2, s2 = _emulated(p[:, 65:], q[:, 65:], a[:, 65:], r[:, 65:], s1, True)
+    assert _rel(np.concatenate([y1, y2], 1), y) <= 1e-5
+    assert _rel(s2, sf) <= 1e-5

@@ -81,7 +81,7 @@ def test_halo_schedules_equal():
 @pytest.mark.parametrize("z,y,x,nz,ny", [
     (16, 16, 16, 4, 1), (8, 16, 16, 4, 1), (32, 16, 16, 1, 1),
     (32, 8, 16, 2, 2), (16, 12, 10, 4, 1), (16, 16, 64, 4, 2),
-    (12, 48, 48, 4, 1), (128, 1024, 1024, 8, 1)])
+    (12, 48, 48, 4, 1), (128, 1024, 1024, 8, 1), (256, 1024, 1024, 4, 1)])
 def test_halo_overlap_decision_matches_reference(z, y, x, nz, ny):
     t = tplan.OverlapPlanner().plan_halo_slots(z, y, x, torch.float32, nz,
                                                ny=ny)
@@ -98,8 +98,9 @@ def test_paper_cell_keeps_overlap_on_hopper():
     """1024³ over nz = 4.  The reference's staging formula with Hopper's
     227 KB of shared memory plugged in as its budget stages
     (1+8)(8+8)(1032)·4 B ≈ 594 KB and falls back to the serialized
-    schedule; the port's kernels stage a 2.5 KiB plane tile, so the
-    overlapped schedule stands."""
+    schedule; the port's wave step stages a ring of eight (32+8)(64+8)
+    f32 plane tiles on its TMA route, 90 KiB a block (two fit the
+    budget), so the overlapped schedule stands."""
     j = jplan.OverlapPlanner(vmem_budget=tplan.SMEM_BUDGET_DEFAULT
                              ).plan_halo_slots(256, 1024, 1024, jnp.float32, 4)
     t = tplan.OverlapPlanner().plan_halo_slots(256, 1024, 1024,
@@ -239,6 +240,124 @@ def test_planner_tiles_match_the_cuda_sources():
     st = _defines("wave_step.cu")
     assert (st["TY"], st["TX"]) == tplan.STENCIL_TILE
     assert st["R"] == 4
+
+
+def test_stencil_tiles_match_the_cuda_source():
+    """wave_step.cu's TMA route: tile, ring, threads (2 x 4 outputs a
+    thread), route codes, and the launch's dynamic shared memory
+    (``leap_tma_smem_bytes``) against the planner's stage, two of which
+    fit the budget."""
+    st = _defines("wave_step.cu")
+    assert (st["LEAP_TY"], st["LEAP_TX"]) == tplan.STENCIL_TMA_TILE
+    assert st["LEAP_STAGES"] == tplan.STENCIL_STAGES >= st["R"] + 3
+    assert st["LEAP_THREADS"] == st["LEAP_TY"] // 2 * st["LEAP_TX"] // 4
+    text = (CSRC / "wave_step.cu").read_text()
+    codes = re.search(r"enum LeapRoute \{ kLeapSimt = (\d), kLeapTma = "
+                      r"(\d) \}", text).groups()
+    assert tuple(int(c) for c in codes) == (
+        tplan.STENCIL_ROUTES.index("simt"), tplan.STENCIL_ROUTES.index("tma"))
+    expr = re.search(r"leap_tma_smem_bytes\(\) \{\s*return ([^;]+);",
+                     text).group(1)
+    got = eval(" ".join(expr.split()), {k: st[k] for k in (
+        "LEAP_STAGES", "LEAP_TY", "LEAP_TX", "R")})
+    planner = tplan.OverlapPlanner()
+    for y, x in ((1024, 1024), (8, 8), (33, 70)):
+        assert got == planner.stencil_stage_bytes(y, x, torch.float32)
+    assert got == 128 + 8 * 40 * 72 * 4 + 16 * 8
+    assert 2 * got <= tplan.SMEM_BUDGET_DEFAULT
+    assert planner.stencil_stage_bytes(1024, 1024, torch.float32,
+                                       route="simt") == 16 * 40 * 4
+
+
+def test_scan_constants_match_the_cuda_source():
+    """linear_scan.cu's sub-chunk, threads, limits, route codes, prefill
+    instances and the launch's dynamic shared memory (``scan_smem_bytes``)
+    against the planner: one block an SM at chunks of 64, two at 32."""
+    from repro_torch.kernels.linear_scan import kernel as ls
+    sc = _defines("linear_scan.cu")
+    assert sc["SCAN_SUB"] == tplan.SCAN_SUB == 16
+    assert sc["SCAN_THREADS"] == tplan.SCAN_THREADS == 256
+    assert sc["CMAX"] == ls.MAX_CHUNK and sc["DMAX"] == ls.MAX_DIM
+    assert sc["DEC_ROWS"] == 16
+    text = (CSRC / "linear_scan.cu").read_text()
+    codes = re.search(r"enum ScanRoute \{ kScanPrefill = (\d), kScanDecode "
+                      r"= (\d) \}", text).groups()
+    assert tuple(int(c) for c in codes) == (
+        tplan.SCAN_ROUTES.index("prefill"), tplan.SCAN_ROUTES.index("decode"))
+    inst = sorted(int(c) for c in re.findall(r"launch_prefill<(\d+)>\(prm",
+                                             text))
+    assert inst == [16, 32, 64]
+    for chunk in range(1, 65):
+        ci = tplan.scan_instance(chunk)
+        assert ci in inst and chunk <= ci and (ci == 16 or chunk > ci // 2)
+    expr = re.search(r"scan_smem_bytes\(int CI, int M4, int N4\) \{\s*"
+                     r"return ([^;]+);", text).group(1)
+    expr = " ".join(expr.split()).replace("/", "//")
+    for ci, m, n in itertools.product((16, 32, 64), (8, 16, 18, 64),
+                                      (8, 37, 40, 64)):
+        m4, n4 = -(-m // 4) * 4, -(-n // 4) * 4
+        got = eval(expr, {"CI": ci, "M4": m4, "N4": n4})
+        assert got == tplan.scan_smem_bytes(ci, m, n)
+    assert tplan.scan_smem_bytes(64, 64, 64) <= tplan.SMEM_BUDGET_DEFAULT
+    # two blocks an SM at chunks of 32: 228 KiB an SM, 1 KiB reserved each
+    assert 2 * (tplan.scan_smem_bytes(32, 64, 64) + 1024) <= 228 * 1024
+
+
+@pytest.mark.parametrize("dtype,x,aligned,route", [
+    (torch.float32, 1024, (0, 4128, 4128 * 1032, 4096, 1 << 22), "tma"),
+    (torch.float32, 20, (0, 112, 2240, 80), "tma"),
+    (torch.float32, 8, (), "tma"),
+    (torch.float32, 70, (0, 312), "simt"),                 # X off 4
+    (torch.float32, 9, (), "simt"),
+    (torch.float32, 1024, (0, 4128, 4), "simt"),           # a pointer off 16
+    (torch.float32, 64, (0, 264), "simt"),                 # a stride off 16
+    (torch.bfloat16, 1024, (0, 2064), "simt"),              # f32 only
+    (torch.float16, 64, (), "simt"),
+])
+def test_stencil_route_rule(dtype, x, aligned, route):
+    assert tplan.stencil_route(dtype, x, *aligned) == route
+
+
+@pytest.mark.parametrize("t,route", [
+    (1, "decode"), (2, "prefill"), (15, "prefill"), (17, "prefill"),
+    (2000, "prefill")])
+def test_scan_route_rule(t, route):
+    assert tplan.scan_route(t) == route
+
+
+def test_stencil_and_scan_wrappers_count_per_route():
+    """Both wrappers use the planner's rule and count per route; CPU
+    tensors take the plain versions and count nothing."""
+    from repro_torch.kernels.linear_scan import kernel as ls
+    from repro_torch.kernels.stencil import kernel as st
+    assert st.stencil_route is tplan.stencil_route
+    assert ls.scan_route is tplan.scan_route
+    assert set(st.leap.route_launches) == set(tplan.STENCIL_ROUTES) \
+        == {"simt", "tma"}
+    assert set(ls.linear_scan_kernel.route_launches) \
+        == set(tplan.SCAN_ROUTES) == {"prefill", "decode"}
+    before = (dict(st.leap.route_launches),
+              dict(ls.linear_scan_kernel.route_launches))
+    st.leap(torch.randn(1, 9, 12, 16), torch.randn(1, 1, 4, 8), 0.1)
+    x = torch.randn(2, 1, 8)
+    ls.linear_scan_kernel(x, x, torch.rand(2, 1, 8), x)
+    assert (st.leap.route_launches,
+            ls.linear_scan_kernel.route_launches) == before
+
+
+def test_stencil_bz_by_route():
+    """The chunk is 32 planes on both routes; a budget that holds the CUDA
+    cores' 2.5 KiB tile twice but not the TMA ring's 90 KiB bottoms out
+    only on the TMA route."""
+    planner = tplan.OverlapPlanner()
+    for route in tplan.STENCIL_ROUTES:
+        assert planner.plan_stencil_bz(1024, 1024, 1024, torch.float32,
+                                       route=route) == 32
+    assert planner.plan_stencil_bz(4, 1024, 1024, torch.float32) == 4
+    small = tplan.OverlapPlanner(smem_budget=64 * 1024)
+    assert small.plan_stencil_bz(1024, 1024, 1024, torch.float32,
+                                 route="simt") == 32
+    assert small.plan_stencil_bz(1024, 1024, 1024, torch.float32) == 1
 
 
 @pytest.mark.parametrize("dtype,d,dv,g,aligned,route", [
