@@ -13,9 +13,13 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   ranks, fused and host-ring, each timed with CUDA events, every GEMM of
   both on the tensor-core route (TMA + wgmma; checked per route);
 * Minimod at 1024³ over nz = 4, 10 steps from random fields, fused
-  (carried halos) and host, each held against a single-grid oracle, every
-  wave-step launch of both on the TMA plane ring (checked per route);
-* one fused wave step at (256, 1024, 1024) per rank over nz = 4;
+  (carried halos) and host, each held against a single-grid oracle: every
+  fused step one launch of the fused wave-step kernel's carried schedule
+  and no leap, every host step one leap, all on the TMA plane ring
+  (checked per mode and route), and the fused run's counters equal to the
+  emulation's;
+* one fused wave step (the single-step schedule) at (256, 1024, 1024) per
+  rank over nz = 4;
 * the serving engine on glm4-9b at full width (random weights from a seed,
   two TP ranks stacked on the card): 8 requests of 256-3000 prompt tokens,
   32 new tokens each, 4 slots, chunked prefill of 512 — every attention of
@@ -57,7 +61,9 @@ the card's SM clock and power draw over the fused ring's, flash's chunk
 and the 4 x 4096 ring attention's timings; the attention kernels also
 and the two MoE kernels by their device time from the profiler, warm
 and with L2 flushed; the wave step and the scan by their warm device
-time too, the wave step also at Minimod host mode's batched shape),
+time too, the wave step also at Minimod host mode's batched shape, the
+fused step on both schedules, both with the host's share of their event
+time),
 times Minimod's two modes over repeated alternated runs, prints each
 serving phase's time to first token (the recurrent phases' prefill time)
 and decode step time with their bounds (and the MoE phase's plans, drop
@@ -85,6 +91,7 @@ SRC = ROOT / "src"
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 STENCIL_OPS_PER_POINT = 41      # 1 + 12·3 (star) + 4 (leapfrog) flops
+WARM_S = 0.1                    # least warm-up (s) of an event timing
 
 # the main path's sizes
 RING_N, RING_RANKS = 30240, 4
@@ -119,6 +126,8 @@ EXPERT_KERNELS = ("gate_up_kernel", "down_kernel", "gate_up_tc_kernel",
                   "down_tc_kernel", "ex_list_kernel")
 # the wave step's, both routes; the linear scan's, both routes
 LEAP_KERNELS = ("leap_tma_kernel", "leap_kernel")
+FUSED_KERNELS = ("fused_tma_kernel", "fused_step_kernel",
+                 "fused_carried_kernel")
 SCAN_KERNELS = ("scan_prefill_kernel", "scan_decode_kernel")
 
 
@@ -136,9 +145,17 @@ def bound(nbytes: float, ops: float, dtype: str):
 
 
 def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
-    """Device time of ``fn`` in ms, from CUDA events over ``reps`` calls."""
-    for _ in range(warmup):
+    """Device time of ``fn`` in ms, from CUDA events over ``reps`` calls,
+    after ``warmup`` calls and, if any, at least ``WARM_S`` seconds of
+    calls: after ``torch.cuda.empty_cache()`` hands memory back to CUDA,
+    the next calls that allocate it again run up to a fifth slower for a
+    few calls (longer after tens of GB)."""
+    t0 = time.perf_counter()
+    n = 0
+    while n < warmup or (warmup and time.perf_counter() - t0 < WARM_S):
         fn()
+        torch.cuda.synchronize()
+        n += 1
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -184,6 +201,20 @@ def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
             return us / 1e3
         log(f"device_ms: no launch of {names} in the trace; taken again")
     return None
+
+
+def host_and_events(torch, fn, reps: int) -> dict:
+    """The host's share of a wrapper's CUDA-event time (ms a call): its time
+    to enqueue one call (no synchronisation between calls), beside the
+    event time over ``reps`` calls."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return {"host_ms": host, "event_ms": cuda_ms(torch, fn, reps)}
 
 
 def _ms(x, digits: int) -> str:
@@ -308,7 +339,9 @@ def load_port():
         ring_allgather_matmul_plain=ring_allgather_matmul_plain,
         leap=leap, leap_plain=leap_plain,
         fused_wave_step_kernel=st_fused.fused_wave_step_kernel,
-        fused_step_plain=st_fused.fused_wave_step_plain)
+        fused_step_plain=st_fused.fused_wave_step_plain,
+        fused_step_carried_plain=st_fused.fused_wave_step_carried_plain,
+        Halos=st_fused.Halos)
 
 
 # -- every kernel against its plain version on small, ragged shapes ----------
@@ -469,21 +502,123 @@ def check_leap(torch, k, g) -> None:
 
 
 def check_fused_step(torch, k, g) -> None:
-    """Overlap, no interior (Z = 2R), one rank, odd ranks, per-point c2."""
+    """Both schedules on both routes: the single step with overlap, without
+    an interior (Z = 2R) and on one rank; the carried step from random
+    halos (edge ranks' included) and chained once more from the halos it
+    returned; X a multiple of 4 (several tiles and Z chunks, ragged in
+    each) on the TMA ring, X off the rule on the CUDA cores; scalar and
+    per-point c2.  A launch forced onto the TMA route off its rule is
+    refused on both schedules, and a carried launch at Z = 2R on both
+    routes."""
     from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.kernels.stencil import fused as st_mod
+    kern, R = k.fused_wave_step_kernel, 4
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda")
+
+    def held(got, want, what):
+        err = max_err(torch, got, want)
+        check(err <= 2e-5 * float(want.abs().max()), f"{what}: err {err}")
+
     for (nz, Z, Y, X) in [(4, 12, 10, 9), (4, 8, 10, 9), (1, 12, 6, 40),
-                          (3, 20, 33, 35)]:
+                          (3, 20, 33, 35), (4, 12, 10, 12), (4, 8, 10, 12),
+                          (3, 40, 70, 136), (2, 70, 33, 64),
+                          (4, 100, 40, 64)]:
         plan = OverlapPlanner().plan_halo_slots(Z, Y, X, torch.float32, nz)
-        u = torch.randn(nz, 1, Z, Y, X, generator=g, device="cuda")
-        up = torch.randn(nz, 1, Z, Y, X, generator=g, device="cuda")
+        u, up = rnd(nz, 1, Z, Y, X), rnd(nz, 1, Z, Y, X)
         c2 = torch.rand(nz, 1, Z, Y, X, generator=g, device="cuda") * 0.2
+        route = _leap_route(X, u)
         for c in (0.1, c2):
-            want = k.fused_step_plain(u, up, c, dx=1.0)
-            kern = k.fused_wave_step_kernel
-            got = _counted(kern, lambda: kern(u, up, c, plan=plan))
-            err = max_err(torch, got, want)
-            check(err <= 2e-5 * float(want.abs().max()),
-                  f"fused step nz={nz} Z={Z}: err {err}")
+            tag = f"fused step nz={nz} {Z}x{Y}x{X} {route}"
+            held(_counted(kern, lambda: kern(u, up, c, plan=plan), route),
+                 k.fused_step_plain(u, up, c, dx=1.0), tag)
+            if not (plan.overlap and nz > 1):
+                continue
+            h = k.Halos(rnd(nz, 1, R, Y, X), rnd(nz, 1, R, Y, X))
+            a, b = u, up
+            for step in (1, 2):       # chained: the halos it returned
+                got, got_h = _counted(kern, lambda: kern(
+                    a, b, c, plan=plan, halos=h, return_halos=True), route)
+                want, want_h = k.fused_step_carried_plain(a, b, c, h, dx=1.0)
+                for x, y, part in ((got, want, "out"),
+                                   (got_h.z_lo, want_h.z_lo, "z_lo"),
+                                   (got_h.z_hi, want_h.z_hi, "z_hi")):
+                    held(x, y, f"{tag} carried step {step} {part}")
+                a, b, h = got, a, got_h
+    nz, Z, Y, X = 4, 12, 10, 9
+    plan = OverlapPlanner().plan_halo_slots(Z, Y, X, torch.float32, nz)
+    u, up = rnd(nz, 1, Z, Y, X), rnd(nz, 1, Z, Y, X)
+    h = k.Halos(rnd(nz, 1, R, Y, X), rnd(nz, 1, R, Y, X))
+    _refused_off_rule(st_mod, kern, lambda: kern(u, up, 0.1, plan=plan),
+                      "fused step", rule_name="stencil_route", route="tma")
+    _refused_off_rule(st_mod, kern, lambda: kern(u, up, 0.1, plan=plan,
+                                                 halos=h),
+                      "carried fused step", rule_name="stencil_route",
+                      route="tma")
+    # the carried entry refuses a shard with no interior (Z = 2R), which a
+    # plan made for another Z could hand it, on both routes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plan import STENCIL_ROUTES
+    u, up, out = (rnd(nz, 1, 2 * R, Y, 12) for _ in range(3))
+    lo, hi, new_lo, new_hi = (rnd(nz, 1, R, Y, 12) for _ in range(4))
+    for code, route in enumerate(STENCIL_ROUTES):
+        st = _build.library("fused_wave_step").repro_fused_wave_step_carried(
+            u.data_ptr(), up.data_ptr(), None, 0.1, out.data_ptr(),
+            lo.data_ptr(), hi.data_ptr(), new_lo.data_ptr(),
+            new_hi.data_ptr(), nz, 2 * R, Y, 12, 32, 1.0, code,
+            torch.cuda.current_stream().cuda_stream)
+        check(st != 0, f"carried fused step at Z = 2R on {route}: a launch "
+              f"with no interior was not refused")
+
+
+MINIMOD_COUNTERS = ("puts", "put_bytes", "tracker_puts", "tracker_put_bytes",
+                    "fences", "window_bytes", "region_sizes", "alloc_counts",
+                    "z_extents", "grid", "steps", "nz", "ny", "mode")
+
+
+def _stencil_counts(k) -> dict:
+    """The two stencil wrappers' launch and per-route counts, now."""
+    return {name: (wr.launches, dict(wr.route_launches))
+            for name, wr in (("wave_step", k.leap),
+                             ("fused_wave_step", k.fused_wave_step_kernel))}
+
+
+def _stencil_delta(before: dict, after: dict) -> dict:
+    return {name: (after[name][0] - before[name][0],
+                   {r: c - before[name][1][r]
+                    for r, c in after[name][1].items()})
+            for name in after}
+
+
+def check_minimod(torch, k, g) -> None:
+    """Fused-mode Minimod on the card, 4 steps over nz = 4 from random
+    fields, equals a ``device="cpu"`` run: the field within 1e-5 of its
+    largest magnitude (f32 in another order over four steps) and every
+    counter of ``MinimodResult``; every step one carried launch of the
+    fused kernel on its route (64³: the TMA ring; X = 62: the CUDA cores)
+    and no leap."""
+    from repro_torch.apps.minimod import run_minimod
+    steps = 4
+    for grid, route in (((64, 64, 64), "tma"), ((64, 64, 62), "simt")):
+        u0 = torch.randn(grid, generator=g, device="cuda") * 0.1
+        up0 = torch.randn(grid, generator=g, device="cuda") * 0.1
+        kw = dict(grid=grid, nz=4, steps=steps, mode="fused")
+        cpu = run_minimod(u0=u0.cpu(), u_prev0=up0.cpu(), device="cpu", **kw)
+        before = _stencil_counts(k)
+        card = run_minimod(u0=u0, u_prev0=up0, device="cuda", **kw)
+        d = _stencil_delta(before, _stencil_counts(k))
+        check(d["fused_wave_step"][0] == steps
+              and d["fused_wave_step"][1][route] == steps
+              and d["wave_step"][0] == 0,
+              f"minimod {grid}: launches {d}, not {steps} fused on {route}")
+        err = max_err(torch, card.field.cpu(), cpu.field)
+        check(err <= 1e-5 * float(cpu.field.abs().max()),
+              f"minimod {grid}: card vs cpu err {err}")
+        for attr in MINIMOD_COUNTERS:
+            check(getattr(card, attr) == getattr(cpu, attr),
+                  f"minimod {grid}: {attr} {getattr(card, attr)} vs "
+                  f"{getattr(cpu, attr)}")
 
 
 def _attention_route(torch, dt, D, Dv, G) -> str:
@@ -1004,7 +1139,8 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "flash": check_flash, "expert_mlp": check_expert_mlp,
                 "moe_dispatch": check_moe_dispatch,
                 "linear_scan": check_linear_scan,
-                "ring_attention": check_ring_attention}
+                "ring_attention": check_ring_attention,
+                "minimod": check_minimod}
 
 
 # -- the serving phase ---------------------------------------------------------
@@ -2403,9 +2539,13 @@ def main() -> int:
     up0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
     # the fused step's stacked (nz, 1, Z, Y, X) fields: views of the same grid
     u1, up1 = (a.view(NZ, 1, zl, GRID, GRID) for a in (u0, up0))
-    mm = {mode: run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode=mode,
-                            u0=u0, u_prev0=up0, device=dev)
-          for mode in ("fused", "host")}
+    # each mode's stencil launches, read around its run
+    mm, mm_launches = {}, {}
+    for mode in ("fused", "host"):
+        before = _stencil_counts(k)
+        mm[mode] = run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS,
+                               mode=mode, u0=u0, u_prev0=up0, device=dev)
+        mm_launches[mode] = _stencil_delta(before, _stencil_counts(k))
     step_ctx = DiompContext(mesh=RankMesh(("z", "y"), (NZ, 1)), device=dev)
     with use_default(step_ctx):
         y_step = st_fused.fused_wave_step(u1, up1, 0.1,
@@ -2425,7 +2565,7 @@ def main() -> int:
     # 4128-byte rows) the TMA ring
     routes = {name: dict(wrappers[name].route_launches)
               for name in ("matmul", "fused_ring_allgather_matmul",
-                           "wave_step")}
+                           "wave_step", "fused_wave_step")}
     log(f"main path: GEMM and stencil routes {routes}")
     for name in ("matmul", "fused_ring_allgather_matmul"):
         taken = routes[name]
@@ -2435,6 +2575,21 @@ def main() -> int:
           and routes["wave_step"]["tma"] == launches["wave_step"],
           f"wave_step: a Minimod launch left the TMA route: "
           f"{routes['wave_step']}")
+    # fused mode: every step one carried launch of the fused kernel on the
+    # TMA ring, no leap; host mode: every step one leap, no fused kernel
+    log(f"main path: Minimod stencil launches by mode {mm_launches}")
+    fused_d, host_d = mm_launches["fused"], mm_launches["host"]
+    check(fused_d["fused_wave_step"] == (STEPS, {"simt": 0, "tma": STEPS})
+          and fused_d["wave_step"][0] == 0,
+          f"fused Minimod: not {STEPS} fused launches on tma and no leap: "
+          f"{fused_d}")
+    check(host_d["wave_step"][0] == STEPS
+          and host_d["fused_wave_step"][0] == 0,
+          f"host Minimod: not one leap a step: {host_d}")
+    check(launches["fused_wave_step"] == STEPS + 1
+          and routes["fused_wave_step"]["tma"] == STEPS + 1,
+          f"fused_wave_step: {launches['fused_wave_step']} launches, "
+          f"routes {routes['fused_wave_step']}")
 
     # -- the main path's outputs, by the repo's own means ----------------------
     want = k.ring_allgather_matmul_plain(x, w)
@@ -2471,6 +2626,15 @@ def main() -> int:
             check(float(r.field[z].abs().max()) > 0.1 * oracle_max,
                   f"minimod {mode}: plane {z} carries no data")
     check(mm["fused"].plan.overlap, "fused Minimod fell back to no overlap")
+    # the counters against the emulation's on shape-only (meta) tensors:
+    # the CPU path's records, without its arithmetic
+    emu = run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode="fused",
+                      device="meta")
+    for attr in MINIMOD_COUNTERS:
+        check(getattr(mm["fused"], attr) == getattr(emu, attr),
+              f"fused Minimod: {attr} {getattr(mm['fused'], attr)} vs the "
+              f"emulation's {getattr(emu, attr)}")
+    del emu
     check(mm["fused"].put_bytes == mm["fused"].tracker_put_bytes > 0,
           "fused Minimod: OMPCCL put bytes != tracker bytes")
     check(mm["host"].tracker_puts == 2 and mm["host"].fences == 1,
@@ -2551,9 +2715,14 @@ def main() -> int:
           cuda_ms(torch, lambda: k.leap_plain(uext, prev, 0.1), 2),
           4 * (uext.numel() + 2 * pts), STENCIL_OPS_PER_POINT * pts,
           "float32", None)
-    # the card's own time in the kernel (warm), beside the event time
+    # the card's own time in the kernel (warm), beside the event time, and
+    # where the difference goes
     kernels[-1]["device_ms"] = device_ms(
         torch, lambda: k.leap(uext, prev, 0.1), 5, LEAP_KERNELS)
+    gap = host_and_events(torch, lambda: k.leap(uext, prev, 0.1), 5)
+    kernels[-1]["event_gap"] = gap
+    log(f"wave_step at 1024^3: host {gap['host_ms']:.4f} ms a call, events "
+        f"{gap['event_ms']:.4f}, device {_ms(kernels[-1]['device_ms'], 4)}")
     del uext, prev
     torch.cuda.empty_cache()
     # Minimod host mode's step: the (4, 1, 256, 1024, 1024) stacked field
@@ -2570,11 +2739,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     h_ms = cuda_ms(torch, lambda: k.leap(uext, up1, 0.1), 5)
     h_dev = device_ms(torch, lambda: k.leap(uext, up1, 0.1), 5, LEAP_KERNELS)
+    h_gap = host_and_events(torch, lambda: k.leap(uext, up1, 0.1), 5)
     h_bound, h_by = bound(4 * (uext.numel() + 2 * pts),
                           STENCIL_OPS_PER_POINT * pts, "float32")
     kernels[-1]["minimod_host_shape"] = {
         "shape": [NZ, 1, zl, GRID, GRID], "max_abs_err": h_err, "ms": h_ms,
-        "device_ms": h_dev, "bound_ms": h_bound, "bound_by": h_by}
+        "device_ms": h_dev, "bound_ms": h_bound, "bound_by": h_by,
+        "event_gap": h_gap}
     log(f"wave_step at Minimod host mode's {NZ} x {zl} x {GRID}^2: "
         f"{h_ms:.3f} ms (device {_ms(h_dev, 3)}), bound {h_bound:.3f} ms by "
         f"{h_by}, err {h_err:.4g}; at 1024^3 device "
@@ -2582,19 +2753,57 @@ def main() -> int:
     del uext
     torch.cuda.empty_cache()
 
+    # the fused step at Minimod's (4, 1, 256, 1024, 1024): the single step
+    # ("ms") and the time loop's carried step ("carried"), each against its
+    # plain version; bytes: u and prev read, out written, and 2 x 2R planes
+    # a rank into and out of the windows or halos
     splan = OverlapPlanner().plan_halo_slots(zl, GRID, GRID, torch.float32, NZ)
-    got = k.fused_wave_step_kernel(u1, up1, 0.1, plan=splan)
-    want = k.fused_step_plain(u1, up1, 0.1, dx=1.0)
-    err = max_err(torch, got, want)
+    kern = k.fused_wave_step_kernel
+
+    def single():
+        return kern(u1, up1, 0.1, plan=splan)
+
+    err = max_err(torch, single(), k.fused_step_plain(u1, up1, 0.1, dx=1.0))
+    with use_default(step_ctx):
+        h1 = st_fused.exchange_halos(u1, DiompGroup(("z",), name="z"))
+
+    def carried():
+        return kern(u1, up1, 0.1, plan=splan, halos=h1, return_halos=True)
+
+    def carried_plain():
+        return k.fused_step_carried_plain(u1, up1, 0.1, h1, dx=1.0)
+
+    got, want = carried(), carried_plain()
+    c_err = max(max_err(torch, got[0], want[0]),
+                max_err(torch, got[1].z_lo, want[1].z_lo),
+                max_err(torch, got[1].z_hi, want[1].z_hi))
+    c_scale = float(want[0].abs().max())
+    check(c_err <= 2e-5 * c_scale, f"carried fused step: err {c_err}")
     del got, want
     torch.cuda.empty_cache()
+    f_bytes = 4 * 3 * pts + 4 * 2 * 2 * R * NZ * GRID * GRID
     entry("fused_wave_step", "src/repro_torch/csrc/fused_wave_step.cu",
           "src/repro/kernels/stencil/fused.py:461", err,
-          cuda_ms(torch, lambda: k.fused_wave_step_kernel(
-              u1, up1, 0.1, plan=splan), 3),
+          cuda_ms(torch, single, 5),
           cuda_ms(torch, lambda: k.fused_step_plain(
               u1, up1, 0.1, dx=1.0), 2),
-          4 * 3 * pts, STENCIL_OPS_PER_POINT * pts, "float32", None)
+          f_bytes, STENCIL_OPS_PER_POINT * pts, "float32", None)
+    row = kernels[-1]
+    row["device_ms"] = device_ms(torch, single, 5, FUSED_KERNELS)
+    row["event_gap"] = host_and_events(torch, single, 5)
+    row["carried"] = {
+        "max_abs_err": c_err, "ms": cuda_ms(torch, carried, 5),
+        "device_ms": device_ms(torch, carried, 5, FUSED_KERNELS),
+        "plain_ms": cuda_ms(torch, carried_plain, 2),
+        "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+        "event_gap": host_and_events(torch, carried, 5)}
+    log(f"fused_wave_step: single {row['ms']:.4f} ms (device "
+        f"{_ms(row['device_ms'], 4)}), carried {row['carried']['ms']:.4f} "
+        f"(device {_ms(row['carried']['device_ms'], 4)}, plain "
+        f"{row['carried']['plain_ms']:.3f}, err {c_err:.4g}); event gaps "
+        f"{row['event_gap']} / {row['carried']['event_gap']}")
+    del h1
+    torch.cuda.empty_cache()
 
     # Minimod's time per step: the modes alternated over repeated runs on
     # the same inputs, each run's time loop timed with CUDA events

@@ -12,16 +12,21 @@ block) into ``build/chip_split/``, and prints the share of each pass (the
 landing wait, L, R~/Q~ and the tables, A, the in-place scaling, y, S) at
 the served shape (BH 256, T 2000, M = N = 64; e^-1 reading the state
 before the update, 0.5 after it) for chunks of 16, 32 and 64.  It then
-times ``leap``'s TMA route at 1024³ with Z chunks of 16, 24 and 32.
+times ``leap``'s TMA route at 1024³ with Z chunks of 16, 24 and 32, and
+each of eight calls right after the plain version's frees, with and
+without ``torch.cuda.empty_cache()``.
 
 With ``--against DIR`` (a ``csrc`` directory of another version, e.g. the
 parent commit's from ``git archive``) it also builds that version's
-``wave_step.cu`` and ``linear_scan.cu`` as they are and times both
-versions in turns (other, this, this, other) with CUDA events and the
-profiler's device time: ``leap`` at 1024³ and at Minimod host mode's
-(4, 256, 1024, 1024), the scan's prefill at the served shape and its
-decode step; where the other kernels are the earlier one-tile leap and
-one-block-a-sequence scan (their pass markers found), their splits too.
+``wave_step.cu``, ``fused_wave_step.cu`` and ``linear_scan.cu`` as they
+are and times both versions in turns (other, this, this, other) with CUDA
+events and the profiler's device time: ``leap`` at 1024³ and at Minimod
+host mode's (4, 256, 1024, 1024), the fused step's single step at
+Minimod's (4, 1, 256, 1024, 1024) (and this version's carried step, which
+an entry without it cannot run), the scan's prefill at the served shape
+and its decode step; where the other kernels are the earlier one-tile
+leap and one-block-a-sequence scan (their pass markers found), their
+splits too.
 Every output is held against the plain version.  Exits non-zero without a
 card.
 """
@@ -134,12 +139,19 @@ def build(torch, cs, build_mod, name: str, text: str, src_dir: Path,
     for func, regs, spills in cs.ptxas_summary(res.stdout + res.stderr):
         print(f"  {tag}/{name}: {func}: {regs} registers, {spills}")
     lib = ctypes.CDLL(str(so))
-    fn = "repro_leap" if name == "wave_step" else "repro_linear_scan"
-    argt = list(build_mod.LIBRARIES[name][1][fn])
-    if "int route" not in text:      # an entry that takes no route code
-        del argt[-2]
-    getattr(lib, fn).argtypes = argt
-    getattr(lib, fn).restype = ctypes.c_int
+    fns = build_mod.LIBRARIES[name][1]
+    if name == "fused_wave_step" and "repro_fused_wave_step_carried" \
+            not in text:
+        # the earlier entry: no Z chunk, no route code, no carried entry
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fns = {"repro_fused_wave_step": [P, P, P, F, P, P] + [I] * 5
+               + [F, P]}
+    for fn, argt in fns.items():
+        argt = list(argt)
+        if name != "fused_wave_step" and "int route" not in text:
+            del argt[-2]             # an entry that takes no route code
+        getattr(lib, fn).argtypes = argt
+        getattr(lib, fn).restype = ctypes.c_int
     return lib
 
 
@@ -184,6 +196,65 @@ def split(torch, cs, lib, call, names) -> str:
     total = sum(acc[i] for i in range(len(names)))
     return f"{ms:.4f} ms; " + ", ".join(
         f"{n} {100 * acc[i] / total:.1f} %" for i, n in enumerate(names))
+
+
+def fused_step(torch, cs, k, g, lib, carried_abi: bool, turns) -> None:
+    """The fused step at Minimod's (4, 1, 256, 1024, 1024), scalar c2:
+    another version's single step (its entry as it is) against this one's
+    in turns, then this version's carried step alone; each output held
+    against the plain version."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.kernels.stencil import fused as st_fused
+    from repro_torch.launch.mesh import RankMesh
+    nz, zl, n, R = 4, 256, 1024, 4
+    u = torch.randn(nz, 1, zl, n, n, generator=g, device="cuda") * 0.1
+    up = torch.randn(nz, 1, zl, n, n, generator=g, device="cuda") * 0.1
+    plan = OverlapPlanner().plan_halo_slots(zl, n, n, torch.float32, nz)
+    want = k.fused_step_plain(u, up, 0.1, dx=1.0)
+    lim = 2e-5 * float(want.abs().max())
+    out = torch.empty_like(u)
+    win = torch.empty(nz, 2, R, n, n, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    # this version's entry takes the put items' counts (zeroed each call),
+    # a Z chunk and a route; the earlier one none of them
+    sync = torch.zeros(nz + 1, dtype=torch.int32, device="cuda")
+    mid, tail = ((sync.data_ptr(),), (32, 1.0, 1)) if carried_abi \
+        else ((), (1.0,))
+
+    def old():
+        sync.zero_()
+        st = lib.repro_fused_wave_step(
+            u.data_ptr(), up.data_ptr(), None, 0.1, out.data_ptr(),
+            win.data_ptr(), *mid, nz, zl, n, n, int(plan.overlap), *tail,
+            stream)
+        if st != 0:
+            raise RuntimeError(f"other fused step launch failed: {st}")
+
+    def new():
+        return k.fused_wave_step_kernel(u, up, 0.1, plan=plan)
+
+    old()
+    cs.check(cs.max_err(torch, out, want) <= lim, "other fused step")
+    cs.check(cs.max_err(torch, new(), want) <= lim, "fused step")
+    del want
+    turns("fused step single (4, 1, 256, 1024, 1024)", new, old, 5)
+    with use_default(DiompContext(mesh=RankMesh(("z", "y"), (nz, 1)),
+                                  device="cuda")):
+        h = st_fused.exchange_halos(u, DiompGroup(("z",), name="z"))
+
+    def carried():
+        return k.fused_wave_step_kernel(u, up, 0.1, plan=plan, halos=h,
+                                        return_halos=True)
+
+    got, want = carried(), k.fused_step_carried_plain(u, up, 0.1, h, dx=1.0)
+    cs.check(cs.max_err(torch, got[0], want[0]) <= lim, "carried fused step")
+    del got, want
+    print(f"fused step carried: this {cs.cuda_ms(torch, carried, 5):.4f} ms "
+          f"(device {cs._ms(cs.device_ms(torch, carried, 5, cs.FUSED_KERNELS), 4)})")
+    del u, up, out, win, h
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -239,6 +310,26 @@ def main() -> int:
         print(f"leap tma at 1024^3, bz {bz}: "
               f"{cs.cuda_ms(torch, leap_bz, 5):.4f} ms, device "
               f"{cs._ms(cs.device_ms(torch, leap_bz, 5, cs.LEAP_KERNELS), 4)}")
+    # event times a call of leap right after its plain version's frees,
+    # with empty_cache() (as chip_smoke.py before each timing) and without
+    def per_call(fn, n=8):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+        ev[0].record()
+        for i in range(n):
+            fn()
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        return " ".join(f"{ev[i].elapsed_time(ev[i + 1]):.3f}"
+                        for i in range(n))
+
+    for freed in (True, False, True):
+        k.leap_plain(uext, prev, 0.1)
+        torch.cuda.synchronize()
+        if freed:
+            torch.cuda.empty_cache()
+        print(f"leap at 1024^3 after its plain version"
+              f"{' and empty_cache()' if freed else ''}, ms a call: "
+              f"{per_call(lambda: k.leap(uext, prev, 0.1))}")
     del uext, prev, out
     torch.cuda.empty_cache()
     if args.against is None:
@@ -246,17 +337,18 @@ def main() -> int:
 
     other_dir = args.against.resolve()
     texts = {n: (other_dir / f"{n}.cu").read_text()
-             for n in ("wave_step", "linear_scan")}
+             for n in ("wave_step", "fused_wave_step", "linear_scan")}
     other = {n: build(torch, cs, _build, n, t, other_dir, f"other_{n}")
              for n, t in texts.items()}
+    names = cs.LEAP_KERNELS + cs.SCAN_KERNELS + cs.FUSED_KERNELS
 
     def turns(label, new, old, reps):
         t = [cs.cuda_ms(torch, old, reps), cs.cuda_ms(torch, new, reps),
              cs.cuda_ms(torch, new, reps), cs.cuda_ms(torch, old, reps)]
-        dn = cs.device_ms(torch, new, reps, cs.LEAP_KERNELS + cs.SCAN_KERNELS)
+        dn = cs.device_ms(torch, new, reps, names)
         do = cs.device_ms(torch, old, reps, ("leap_kernel",
                                              "linear_scan_kernel")
-                          + cs.SCAN_KERNELS)
+                          + names)
         print(f"{label}: this {t[1]:.4f} / {t[2]:.4f} ms (device "
               f"{cs._ms(dn, 4)}), other {t[0]:.4f} / {t[3]:.4f} ms (device "
               f"{cs._ms(do, 4)})")
@@ -304,6 +396,10 @@ def main() -> int:
               lambda: k.leap(uext, prev, 0.1), old_leap, 5)
         del uext, prev, out
         torch.cuda.empty_cache()
+
+    fused_step(torch, cs, k, g, other["fused_wave_step"],
+               "repro_fused_wave_step_carried" in texts["fused_wave_step"],
+               turns)
 
     routed = "int route" in texts["linear_scan"]
     for (decay, pre), T in ((shapes[0], 2000), (shapes[1], 2000),

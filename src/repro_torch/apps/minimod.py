@@ -17,8 +17,9 @@
   communicator byte log and on the RMATracker's halo windows.
 
 Fields are stacked ``(nz, ny, zmax, Y/ny, X)`` on the run's device (the card
-unless ``device="cpu"``); every pass of every mode is a wave-step kernel
-launch there.
+unless ``device="cpu"``).  There a 1-D symmetric f32 fused run launches
+the fused wave-step kernel's carried schedule once a step; every pass of
+the other modes and decompositions is a wave-step kernel launch.
 
 Logs are per call site, as in the reference, which records its time loop's
 body once (it is traced once under ``lax.scan``): the first pass through

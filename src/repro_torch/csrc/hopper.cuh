@@ -1,7 +1,8 @@
 // Hopper's asynchronous machinery, shared by the tensor-core routes of
 // matmul.cuh (matmul.cu, ring_matmul.cu), attention.cuh
 // (flash_attention.cu, ring_attention.cu) and expert_mlp.cuh
-// (expert_mlp.cu, moe_dispatch.cu), and by the plane ring of wave_step.cu:
+// (expert_mlp.cu, moe_dispatch.cu), and by the stencils' plane ring
+// (stencil_ring.cuh):
 // mbarriers, TMA loads and their tensor maps, proxy fences, and the wgmma
 // shared-memory descriptor.
 #pragma once

@@ -48,8 +48,10 @@ LIBRARIES: Dict[str, tuple] = {
                        _LL, _F, _P, _LL, _LL, _LL, _I, _I, _I, _I, _I, _F,
                        _I, _P]}),
     "fused_wave_step": ("fused_wave_step.cu", {
-        "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _I, _I, _I, _I,
-                                  _I, _F, _P]}),
+        "repro_fused_wave_step": [_P, _P, _P, _F, _P, _P, _P] + [_I] * 6
+        + [_F, _I, _P],
+        "repro_fused_wave_step_carried": [_P, _P, _P, _F] + [_P] * 5
+        + [_I] * 5 + [_F, _I, _P]}),
     "expert_mlp": ("expert_mlp.cu", {
         "repro_expert_mlp": [_P] * 8 + [_LL] * 3 + [_I] * 8 + [_P]}),
     "moe_dispatch": ("moe_dispatch.cu", {

@@ -7,12 +7,14 @@ stacked fields ``(nz, ny, Z, Y, X)`` (mesh axes ``z``, ``y``):
 
 * :func:`fused_wave_step_kernel` — the CUDA kernel (``csrc/
   fused_wave_step.cu``, which replaces ``fused_wave_step_tpu``): every
-  rank's single step (put, interior, fence, boundary) in one cooperative
-  launch, for a 1-D symmetric Z ring;
+  rank's step in one launch for a 1-D symmetric f32 Z ring, on either
+  schedule: the single step (put, interior, fence, boundary) or the time
+  loop's carried step (boundary, put, interior, fence), which also writes
+  the next field's halos;
 * :func:`fused_wave_step_emulated` — each remote copy an ``ompx_put``,
   every pass a :func:`~.kernel.leap` (the wave-step kernel on the card);
   covers what the fused kernel does not: 2-D (Z×Y) decomposition,
-  asymmetric per-rank Z extents and the carried halos of the time loop.
+  asymmetric per-rank Z extents and 16-bit fields.
 
 Carried halos (``return_halos=True``): the halos of the current field landed
 during the previous step, so each step computes the R-thick boundary output
@@ -41,7 +43,7 @@ from ...core.context import default_context
 from ...core.groups import DiompGroup
 from ...core.rma import RMAError, halo_window_names, ompx_fence, ompx_put
 from .._build import check_launch, library, stream_handle
-from ..plan import HaloPlan, default_planner
+from ..plan import STENCIL_ROUTES, HaloPlan, default_planner, stencil_route
 from .kernel import C2, leap
 from .ref import RADIUS, wave_step_ref
 
@@ -50,6 +52,8 @@ __all__ = [
     "exchange_halos",
     "fused_wave_step",
     "fused_wave_step_emulated",
+    "fused_step_route",
+    "fused_wave_step_carried_plain",
     "fused_wave_step_kernel",
     "fused_wave_step_plain",
 ]
@@ -330,13 +334,14 @@ def fused_wave_step_emulated(
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel: one cooperative launch for every rank's single step
+# the CUDA kernel: one launch for every rank's step, single or carried
 # ---------------------------------------------------------------------------
 
 
 def fused_wave_step_plain(u, u_prev, c2dt2: C2, *, dx: float):
-    """Plain version of the fused kernel: the ranks' shards are consecutive
-    Z slabs of one grid, so the step is the single-grid oracle on it."""
+    """Plain version of the fused kernel's single step: the ranks' shards
+    are consecutive Z slabs of one grid, so the step is the single-grid
+    oracle on it."""
     nz, ny, Z, Y, X = u.shape
     whole = (nz * Z, Y, X)
     c2 = c2dt2.reshape(whole) if isinstance(c2dt2, torch.Tensor) else c2dt2
@@ -344,51 +349,133 @@ def fused_wave_step_plain(u, u_prev, c2dt2: C2, *, dx: float):
                          dx=dx).reshape(u.shape)
 
 
+def fused_wave_step_carried_plain(u, u_prev, c2dt2: C2, halos: Halos, *,
+                                  dx: float):
+    """Plain version of the fused kernel's carried step on stacked
+    ``(nz, 1, Z, Y, X)`` fields: each rank's slab is assembled with the
+    given halos (``z_lo``/``z_hi``, ``(nz, 1, R, Y, X)``), the single-grid
+    oracle runs on it, and the next field's halos are the neighbours'
+    boundary output rows, zero where the ring wraps.  Returns ``(out,
+    Halos(z_lo, z_hi, None, None))``."""
+    R = RADIUS
+    Z = u.shape[-3]
+    rows = (0, 0, 0, 0, R, R)                   # R zero rows above and below
+    slab = torch.cat([halos.z_lo, u, halos.z_hi], dim=-3)
+    c2 = F.pad(c2dt2, rows) if isinstance(c2dt2, torch.Tensor) else c2dt2
+    out = wave_step_ref(slab, F.pad(u_prev, rows), c2,
+                        dx=dx)[..., R:R + Z, :, :].contiguous()
+    z_lo = torch.roll(out[..., Z - R:Z, :, :], 1, dims=0)
+    z_hi = torch.roll(out[..., 0:R, :, :], -1, dims=0)
+    z_lo[0] = 0
+    z_hi[-1] = 0
+    return out, Halos(z_lo, z_hi, None, None)
+
+
+def operand_route(X: int, tensors) -> str:
+    """The route of a fused-step launch over contiguous f32 ``tensors``
+    (every field, halo and window it reads or writes):
+    :func:`..plan.stencil_route` of their pointers and byte strides."""
+    return stencil_route(torch.float32, X, *(
+        v for t in tensors for v in (t.data_ptr(),
+                                     *(4 * s for s in t.stride()[:-1]))))
+
+
 def fused_wave_step_kernel(u: torch.Tensor, u_prev: torch.Tensor,
-                           c2dt2: C2, *, plan: HaloPlan,
-                           dx: float = 1.0) -> torch.Tensor:
+                           c2dt2: C2, *, plan: HaloPlan, dx: float = 1.0,
+                           halos: Optional[Halos] = None,
+                           return_halos: bool = False):
     """One step of every rank of a 1-D symmetric Z ring in one launch of
-    ``csrc/fused_wave_step.cu``; on CPU tensors, the plain version.
-    Fields are stacked ``(nz, 1, Z, Y, X)``."""
+    ``csrc/fused_wave_step.cu``; on CPU tensors, the plain versions.
+    Fields are stacked ``(nz, 1, Z, Y, X)``.
+
+    Without ``halos`` the launch runs the single-step schedule (put,
+    interior, fence, boundary).  With ``halos`` (the current field's
+    landed ``z_lo``/``z_hi``, each ``(nz, 1, R, Y, X)``) it runs the
+    carried schedule (boundary, put, interior, fence) and also writes the
+    next field's halos into new tensors.  ``return_halos=True`` returns
+    ``(out, Halos(z_lo, z_hi, None, None))`` (``(out, None)`` on the single
+    step).  A launch takes the route :func:`..plan.stencil_route` picks,
+    counted in ``route_launches``.
+    """
     R = RADIUS
     if u.dim() != 5 or u.shape[1] != 1 or u_prev.shape != u.shape:
         raise ValueError(f"fused step takes (nz, 1, Z, Y, X) fields, got "
                          f"{tuple(u.shape)} / {tuple(u_prev.shape)}")
+    nz, _, Z, Y, X = u.shape
     if isinstance(c2dt2, torch.Tensor) and c2dt2.shape != u.shape:
         raise ValueError(f"c2 {tuple(c2dt2.shape)} vs field {tuple(u.shape)}")
-    if not u.is_cuda:
-        return fused_wave_step_plain(u, u_prev, c2dt2, dx=dx)
-    nz, _, Z, Y, X = u.shape
-    if (plan.nz, plan.ny, plan.halo) != (nz, 1, R):
+    carried = halos is not None
+    if carried and any(h is None or h.shape != (nz, 1, R, Y, X)
+                       for h in (halos.z_lo, halos.z_hi)):
+        raise ValueError(f"carried halos must be (nz, 1, R, Y, X) = "
+                         f"{(nz, 1, R, Y, X)}")
+    if (plan.nz, plan.ny, plan.halo, plan.z_loc) != (nz, 1, R, Z):
         raise ValueError(f"plan (nz={plan.nz}, ny={plan.ny}, halo="
-                         f"{plan.halo}) vs fields of {nz} Z ranks")
+                         f"{plan.halo}, z_loc={plan.z_loc}) vs fields of "
+                         f"{nz} Z ranks of {Z} rows")
+    if carried and not (plan.overlap and plan.exchange_axes):
+        raise ValueError("carried halos need an overlapping plan over an "
+                         "exchanging Z ring")
+    if not u.is_cuda:
+        if carried:
+            out, new = fused_wave_step_carried_plain(u, u_prev, c2dt2, halos,
+                                                     dx=dx)
+        else:
+            out, new = fused_wave_step_plain(u, u_prev, c2dt2, dx=dx), None
+        return (out, new) if return_halos else out
     tensors = [u, u_prev] + ([c2dt2] if isinstance(c2dt2, torch.Tensor)
-                             else [])
+                             else []) \
+        + ([halos.z_lo, halos.z_hi] if carried else [])
     if any(t.dtype != torch.float32 or t.device != u.device
            or not t.is_contiguous() for t in tensors):
         raise TypeError("fused step takes contiguous float32 tensors on one "
                         "device")
     if Z < R:
         raise RMAError(f"halo {R} exceeds the local Z extent {Z}")
-    win = torch.empty(nz, 2, R, Y, X, dtype=u.dtype, device=u.device)
     out = torch.empty_like(u)
+    if carried:
+        new = Halos(torch.empty_like(halos.z_lo),
+                    torch.empty_like(halos.z_hi), None, None)
+        tensors += [out, new.z_lo, new.z_hi]
+    else:
+        win = torch.empty(nz, 2, R, Y, X, dtype=u.dtype, device=u.device)
+        # each rank's count of landed put items, and the item ticket
+        sync = torch.zeros(nz + 1, dtype=torch.int32, device=u.device)
+        tensors += [out, win]
+    route = operand_route(X, tensors)
+    bz = default_planner().plan_stencil_bz(Z, Y, X, torch.float32, radius=R,
+                                           route=route)
     cptr, c2s = (c2dt2.data_ptr(), 0.0) if isinstance(c2dt2, torch.Tensor) \
         else (None, float(c2dt2))
-    status = library("fused_wave_step").repro_fused_wave_step(
-        u.data_ptr(), u_prev.data_ptr(), cptr, c2s, out.data_ptr(),
-        win.data_ptr(), nz, Z, Y, X, int(plan.overlap), float(dx * dx),
-        stream_handle(u.device))
+    lib = library("fused_wave_step")
+    code, stream = STENCIL_ROUTES.index(route), stream_handle(u.device)
+    if carried:
+        status = lib.repro_fused_wave_step_carried(
+            u.data_ptr(), u_prev.data_ptr(), cptr, c2s, out.data_ptr(),
+            halos.z_lo.data_ptr(), halos.z_hi.data_ptr(),
+            new.z_lo.data_ptr(), new.z_hi.data_ptr(), nz, Z, Y, X, bz,
+            float(dx * dx), code, stream)
+    else:
+        new = None
+        status = lib.repro_fused_wave_step(
+            u.data_ptr(), u_prev.data_ptr(), cptr, c2s, out.data_ptr(),
+            win.data_ptr(), sync.data_ptr(), nz, Z, Y, X, int(plan.overlap),
+            bz, float(dx * dx), code, stream)
     fused_wave_step_kernel.launches += 1
+    fused_wave_step_kernel.route_launches[route] += 1
     check_launch(status, "fused_wave_step")
-    return out
+    return (out, new) if return_halos else out
 
 
 fused_wave_step_kernel.launches = 0
+fused_wave_step_kernel.route_launches = dict.fromkeys(STENCIL_ROUTES, 0)
 
 
 def _record_single_step(u, zgroup: DiompGroup) -> None:
-    """The single-step exchange's audit trail (two slab puts, one fence,
-    two reads), exactly as the emulation records it."""
+    """The fused step's exchange audit trail (two slab puts, one fence,
+    two reads), exactly as the emulation records it for the single step
+    and for the carried one, whose boundary output slabs are R rows of
+    the field's shape too."""
     R = RADIUS
     lo_w, hi_w = halo_window_names(zgroup, 0)
     ctx = default_context()
@@ -408,6 +495,30 @@ def _record_single_step(u, zgroup: DiompGroup) -> None:
 # ---------------------------------------------------------------------------
 
 
+def fused_step_route(*, on_card: bool, dtype, dim: int, ny: int,
+                     z_extents: Optional[Tuple[int, ...]], plan: HaloPlan,
+                     halos: Optional[Halos], return_halos: bool) -> str:
+    """Where :func:`fused_wave_step` sends a step: ``"carried"`` or
+    ``"single"`` (the fused kernel's two schedules) or ``"emulation"``.
+
+    The kernel takes 1-D (``ny == 1``), symmetric, f32, stacked 5-D steps
+    on the card.  Among those, an overlapping plan over an exchanging ring
+    with carried halos (given, or asked for with ``return_halos``) runs
+    the carried schedule; given halos on the non-overlapping fallback are
+    the emulation's (it computes from them without an exchange); every
+    other step is the single step (a one-rank ring ignores halos).
+    """
+    if not on_card or ny > 1 or z_extents is not None \
+            or dtype != torch.float32 or dim != 5:
+        return "emulation"
+    overlapped = plan.overlap and bool(plan.exchange_axes)
+    if overlapped and (halos is not None or return_halos):
+        return "carried"
+    if halos is not None and plan.exchange_axes:
+        return "emulation"
+    return "single"
+
+
 def fused_wave_step(
     u, u_prev, c2dt2: C2, zgroup: DiompGroup,
     ygroup: Optional[DiompGroup] = None, *,
@@ -420,10 +531,11 @@ def fused_wave_step(
     """The fused halo-overlapped wave step entry point on stacked fields.
 
     ``u``/``u_prev``: ``(nz, ny, Z, Y, X)``.  ``plan`` defaults to the
-    process planner's ``plan_halo_slots``.  On the card a 1-D symmetric
-    single step runs the fused kernel; 2-D, asymmetric and carried-halo
-    steps (and the CPU) run the emulation, whose passes are wave-step
-    kernel launches on the card.
+    process planner's ``plan_halo_slots``.  :func:`fused_step_route`
+    decides: on the card a 1-D symmetric f32 step runs the fused kernel,
+    single or carried (``halos``/``return_halos`` on an overlapping plan:
+    the time loop); 2-D, asymmetric and 16-bit steps (and the CPU) run the
+    emulation, whose passes are wave-step kernel launches on the card.
     """
     nz, ny = _sizes(zgroup, ygroup)
     Z, Y, X = u.shape[-3:]
@@ -453,14 +565,25 @@ def fused_wave_step(
     if plan.halo != RADIUS:
         raise ValueError(f"plan.halo={plan.halo} != stencil radius {RADIUS}")
 
-    needs_emulation = (ny > 1 or z_extents is not None
-                       or halos is not None or return_halos
-                       or u.dtype != torch.float32 or u.dim() != 5)
-    if u.is_cuda and not needs_emulation:
+    route = fused_step_route(
+        on_card=u.is_cuda, dtype=u.dtype, dim=u.dim(), ny=ny,
+        z_extents=z_extents, plan=plan, halos=halos,
+        return_halos=return_halos)
+    if route == "emulation":
+        return fused_wave_step_emulated(
+            u, u_prev, c2dt2, zgroup, ygroup, plan=plan, dx=dx,
+            halos=halos, z_extents=z_extents, return_halos=return_halos)
+    u, u_prev = u.contiguous(), u_prev.contiguous()
+    if route == "single":
         if nz > 1:
             _record_single_step(u, zgroup)
-        return fused_wave_step_kernel(u.contiguous(), u_prev.contiguous(),
-                                      c2dt2, plan=plan, dx=dx)
-    return fused_wave_step_emulated(
-        u, u_prev, c2dt2, zgroup, ygroup, plan=plan, dx=dx,
-        halos=halos, z_extents=z_extents, return_halos=return_halos)
+        out = fused_wave_step_kernel(u, u_prev, c2dt2, plan=plan, dx=dx)
+        return (out, None) if return_halos else out
+    if halos is None:
+        # entering the carried loop: prologue exchange of the current field
+        halos = exchange_halos(u, zgroup)
+    _record_single_step(u, zgroup)      # the carried trail is the same
+    out, new = fused_wave_step_kernel(
+        u, u_prev, c2dt2, plan=plan, dx=dx, return_halos=True,
+        halos=Halos(halos.z_lo.contiguous(), halos.z_hi.contiguous()))
+    return (out, new) if return_halos else out

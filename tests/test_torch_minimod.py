@@ -100,3 +100,15 @@ def test_run_minimod_rejects_bad_arguments():
         run_minimod(grid=(16, 15, 16), nz=2, ny=2, device="cpu")
     with pytest.raises(ValueError):
         run_minimod(grid=(16, 16, 16), nz=2, steps=0, device="cpu")
+
+
+@pytest.mark.parametrize("shape", ["minimod_smoke", "minimod_hetero"])
+def test_shape_only_run_counts_as_cpu_run(shape):
+    """A fused run on shape-only (meta) tensors, the emulation's records
+    without its arithmetic, has a CPU run's counters: chip_smoke holds the
+    card's full-size fused run against it."""
+    meta = run_minimod(shape=shape, steps=3, mode="fused", device="meta")
+    cpu = run_minimod(shape=shape, steps=3, mode="fused", device="cpu")
+    for attr in COUNTERS:
+        assert getattr(meta, attr) == getattr(cpu, attr), attr
+    assert meta.field.device.type == "meta"

@@ -9,6 +9,7 @@ schedule that the TPU budget gives up.
 """
 
 import itertools
+import math
 import re
 from pathlib import Path
 
@@ -239,23 +240,28 @@ def test_planner_tiles_match_the_cuda_sources():
     assert mm["TC_STAGES"] == tplan.TC_STAGES
     st = _defines("wave_step.cu")
     assert (st["TY"], st["TX"]) == tplan.STENCIL_TILE
-    assert st["R"] == 4
+    assert _defines("stencil_ring.cuh")["R"] == 4
 
 
 def test_stencil_tiles_match_the_cuda_source():
-    """wave_step.cu's TMA route: tile, ring, threads (2 x 4 outputs a
-    thread), route codes, and the launch's dynamic shared memory
-    (``leap_tma_smem_bytes``) against the planner's stage, two of which
-    fit the budget."""
-    st = _defines("wave_step.cu")
+    """The plane ring both wave-step kernels walk (stencil_ring.cuh): tile,
+    ring, threads (2 x 4 outputs a thread), both kernels' route codes, and
+    the launch's dynamic shared memory (``leap_tma_smem_bytes``) against
+    the planner's stage, two of which fit the budget."""
+    st = _defines("stencil_ring.cuh")
     assert (st["LEAP_TY"], st["LEAP_TX"]) == tplan.STENCIL_TMA_TILE
     assert st["LEAP_STAGES"] == tplan.STENCIL_STAGES >= st["R"] + 3
     assert st["LEAP_THREADS"] == st["LEAP_TY"] // 2 * st["LEAP_TX"] // 4
-    text = (CSRC / "wave_step.cu").read_text()
-    codes = re.search(r"enum LeapRoute \{ kLeapSimt = (\d), kLeapTma = "
-                      r"(\d) \}", text).groups()
-    assert tuple(int(c) for c in codes) == (
-        tplan.STENCIL_ROUTES.index("simt"), tplan.STENCIL_ROUTES.index("tma"))
+    for src, enum in (("wave_step.cu", r"enum LeapRoute \{ kLeapSimt = "
+                       r"(\d), kLeapTma = (\d) \}"),
+                      ("fused_wave_step.cu", r"enum FusedRoute \{ kFusedSimt"
+                       r" = (\d), kFusedTma = (\d) \}")):
+        codes = re.search(enum, (CSRC / src).read_text()).groups()
+        assert tuple(int(c) for c in codes) == (
+            tplan.STENCIL_ROUTES.index("simt"),
+            tplan.STENCIL_ROUTES.index("tma"))
+        assert '#include "stencil_ring.cuh"' in (CSRC / src).read_text()
+    text = (CSRC / "stencil_ring.cuh").read_text()
     expr = re.search(r"leap_tma_smem_bytes\(\) \{\s*return ([^;]+);",
                      text).group(1)
     got = eval(" ".join(expr.split()), {k: st[k] for k in (
@@ -612,3 +618,84 @@ def test_plan_slots_matches_reference_pool():
     for ws in (1, 4096, 1 << 20, 1 << 30):
         assert StreamPool(8).plan_slots(ws, 16 << 20) == \
             JStreamPool(8).plan_slots(ws, 16 << 20)
+
+
+# ---------------------------------------------------------------------------
+# the fused step's dispatch: which steps the kernel takes, on which route
+# ---------------------------------------------------------------------------
+
+
+def _route(plan, *, on_card=True, dtype=torch.float32, dim=5, ny=1,
+           z_extents=None, halos=None, return_halos=False):
+    from repro_torch.kernels.stencil.fused import fused_step_route
+    return fused_step_route(on_card=on_card, dtype=dtype, dim=dim, ny=ny,
+                            z_extents=z_extents, plan=plan, halos=halos,
+                            return_halos=return_halos)
+
+
+def test_fused_step_route_sends_minimod_to_the_kernel():
+    """Minimod's fused fields at 1024³ over nz = 4 (f32, 1-D, symmetric):
+    every carried step of its time loop goes to the kernel's carried
+    schedule, entering the loop too; a lone step to the single one; the
+    CPU to the emulation."""
+    from repro_torch.kernels.stencil.fused import Halos
+    plan = tplan.OverlapPlanner().plan_halo_slots(256, 1024, 1024,
+                                                  torch.float32, 4)
+    h = Halos(object(), object())
+    assert plan.overlap
+    assert _route(plan, halos=h, return_halos=True) == "carried"
+    assert _route(plan, return_halos=True) == "carried"
+    assert _route(plan, halos=h) == "carried"
+    assert _route(plan) == "single"
+    assert _route(plan, on_card=False, halos=h, return_halos=True) \
+        == "emulation"
+
+
+@pytest.mark.parametrize("what", ["2-D", "asymmetric", "bf16", "4-D"])
+def test_fused_step_route_keeps_the_rest_on_the_emulation(what):
+    from repro_torch.kernels.stencil.fused import Halos
+    plan = tplan.OverlapPlanner().plan_halo_slots(64, 32, 32,
+                                                  torch.float32, 4)
+    kw = {"2-D": dict(ny=2), "asymmetric": dict(z_extents=(64, 60, 60, 60)),
+          "bf16": dict(dtype=torch.bfloat16), "4-D": dict(dim=4)}[what]
+    for carried in (False, True):
+        h = Halos(object(), object()) if carried else None
+        assert _route(plan, halos=h, return_halos=carried, **kw) \
+            == "emulation"
+
+
+def test_fused_step_route_on_plans_without_overlap():
+    """The fallback plan (no interior): given halos are the emulation's,
+    a step without them the kernel's single step (``(out, None)`` with
+    ``return_halos``); a one-rank ring ignores halos."""
+    from repro_torch.kernels.stencil.fused import Halos
+    h = Halos(object(), object())
+    fallback = tplan.OverlapPlanner().plan_halo_slots(8, 16, 16,
+                                                      torch.float32, 4)
+    assert not fallback.overlap
+    assert _route(fallback, halos=h) == "emulation"
+    assert _route(fallback, return_halos=True) == "single"
+    one = tplan.OverlapPlanner().plan_halo_slots(64, 16, 16, torch.float32, 1)
+    assert _route(one, halos=h, return_halos=True) == "single"
+
+
+@pytest.mark.parametrize("shape,offset,route", [
+    ((4, 1, 256, 1024, 1024), 0, "tma"),     # Minimod at 1024³
+    ((4, 1, 12, 10, 12), 0, "tma"),
+    ((4, 1, 12, 10, 9), 0, "simt"),          # X off the rule
+    ((4, 1, 12, 10, 12), 1, "simt"),         # a pointer off 16 bytes
+])
+def test_fused_operand_route_is_the_stencil_rule(shape, offset, route):
+    """The fused wrapper's route is plan.stencil_route of its operands'
+    pointers and byte strides (meta tensors stand in for the card's)."""
+    from repro_torch.kernels.stencil import fused
+    assert fused.stencil_route is tplan.stencil_route
+    n = math.prod(shape)
+    dev = "meta" if n > 1 << 20 else "cpu"
+    u = torch.empty(n + offset, device=dev)[offset:].view(shape)
+    halo = torch.empty(*shape[:2], 4, *shape[3:], device=dev)
+    got = fused.operand_route(shape[-1], [u, u.clone(), halo])
+    assert got == route
+    assert got == tplan.stencil_route(torch.float32, shape[-1], *(
+        v for t in (u, halo)
+        for v in (t.data_ptr(), *(4 * s for s in t.stride()[:-1]))))

@@ -217,3 +217,186 @@ def test_fused_step_rejects_bad_inputs():
         bad = OverlapPlanner().plan_halo_slots(8, 8, 8, torch.float32, 2)
         with pytest.raises(ValueError):
             t_fused.fused_wave_step(u, u, 0.1, zg, plan=bad)
+
+
+# ---------------------------------------------------------------------------
+# the fused kernel's carried schedule: its plain version, its audit trail and
+# the dispatcher's kernel route, against JAX and the emulation
+# ---------------------------------------------------------------------------
+
+
+def _carried_inputs(nz, per_point, Zl=12, Y=10, X=9):
+    u = (RNG.randn(nz * Zl, Y, X) * 0.1).astype(np.float32)
+    up = (RNG.randn(nz * Zl, Y, X) * 0.1).astype(np.float32)
+    c2 = RNG.uniform(0.05, 0.2, (nz * Zl, Y, X)).astype(np.float32) \
+        if per_point else 0.1
+    return u, up, c2
+
+
+def _jax_carried(u, up, c2, nz, steps):
+    """The reference's carried time loop under shard_map: the field and the
+    halos it returns, as global (nz·Z, Y, X) and (nz·R, Y, X) arrays."""
+    mesh = make_mesh((nz, 1), ("z", "y"), axis_types="auto")
+    zg = JGroup(("z",), "z")
+    per_point = not np.isscalar(c2)
+
+    def run(a, b, *c):
+        h = j_exchange_halos(a, zg)
+        for _ in range(steps):
+            na, h = j_fused_wave_step(a, b, c[0] if per_point else c2, zg,
+                                      halos=h, return_halos=True)
+            a, b = na, a
+        return a, h.z_lo, h.z_hi
+
+    args = (u, up) + ((c2,) if per_point else ())
+    with j_use_default(JContext(mesh=mesh, segment_bytes=1 << 20)):
+        f = jax.jit(shard_map(run, mesh=mesh,
+                              in_specs=(P("z", "y"),) * len(args),
+                              out_specs=(P("z", "y"),) * 3))
+        return [np.asarray(o, np.float64)
+                for o in f(*(jnp.asarray(a) for a in args))]
+
+
+@pytest.mark.parametrize("nz", [2, 3, 4])
+@pytest.mark.parametrize("per_point", [False, True])
+@pytest.mark.parametrize("steps", [1, 2])
+def test_carried_plain_matches_jax(nz, per_point, steps):
+    """fused_wave_step_carried_plain, chained from the prologue exchange,
+    against the reference's carried step: the field and both returned
+    halos."""
+    u, up, c2 = _carried_inputs(nz, per_point)
+    want = _jax_carried(u, up, c2, nz, steps)
+    mesh = RankMesh(("z", "y"), (nz, 1))
+    a, b = (stack_shards(x, mesh, SPEC) for x in (u, up))
+    c = stack_shards(c2, mesh, SPEC) if per_point else c2
+    with use_default(DiompContext(mesh=mesh, device="cpu")):
+        h = t_fused.exchange_halos(a, DiompGroup(("z",), "z"))
+    for _ in range(steps):
+        na, h = t_fused.fused_wave_step_carried_plain(a, b, c, h, dx=1.0)
+        a, b = na, a
+    got = [unstack_shards(x, mesh, SPEC) for x in (a, h.z_lo, h.z_hi)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g, w, atol=3e-6)
+
+
+def _forced_kernel_route(monkeypatch):
+    """Route CPU steps as the card would: to the fused kernel's wrapper,
+    whose CPU path is the plain versions."""
+    route = t_fused.fused_step_route
+    monkeypatch.setattr(t_fused, "fused_step_route",
+                        lambda **kw: route(**{**kw, "on_card": True}))
+
+
+def test_carried_recorder_matches_emulation_logs():
+    """The kernel route's recorder writes exactly the emulation's
+    carried-step audit trail (its puts, fence and reads)."""
+    nz = 4
+    mesh = RankMesh(("z", "y"), (nz, 1))
+    zg = DiompGroup(("z",), "z")
+    u, up = torch.randn(nz, 1, 12, 10, 8), torch.randn(nz, 1, 12, 10, 8)
+    with use_default(DiompContext(mesh=mesh, device="cpu")):
+        h = t_fused.exchange_halos(u, zg)
+    emu = DiompContext(mesh=mesh, device="cpu")
+    with use_default(emu):
+        t_fused.fused_wave_step(u, up, 0.1, zg, halos=h, return_halos=True)
+    rec = DiompContext(mesh=mesh, device="cpu")
+    with use_default(rec):
+        t_fused._record_single_step(u, zg)
+    assert _logs(rec) == _logs(emu)
+    assert rec.rma.puts == 2 and rec.rma.fences == 1
+
+
+@pytest.mark.parametrize("per_point", [False, True])
+def test_kernel_route_matches_emulation(monkeypatch, per_point):
+    """The dispatcher's kernel route (forced on the CPU), entering the
+    carried loop with no halos and chaining two steps, equals the
+    emulation in field, halos and every log; a single step too."""
+    nz, Zl, Y, X = 4, 12, 10, 8
+    mesh = RankMesh(("z", "y"), (nz, 1))
+    zg = DiompGroup(("z",), "z")
+    u, up = torch.randn(nz, 1, Zl, Y, X), torch.randn(nz, 1, Zl, Y, X)
+    c2 = torch.rand(nz, 1, Zl, Y, X) * 0.2 if per_point else 0.1
+
+    def run():
+        ctx = DiompContext(mesh=mesh, device="cpu")
+        a, b, h = u, up, None
+        with use_default(ctx):
+            for _ in range(2):
+                na, h = t_fused.fused_wave_step(a, b, c2, zg, halos=h,
+                                                return_halos=True)
+                a, b = na, a
+            single = t_fused.fused_wave_step(a, b, c2, zg)
+        return a, h, single, _logs(ctx)
+
+    want = run()
+    _forced_kernel_route(monkeypatch)
+    got = run()
+    for g, w in ((got[0], want[0]), (got[1].z_lo, want[1].z_lo),
+                 (got[1].z_hi, want[1].z_hi), (got[2], want[2])):
+        torch.testing.assert_close(g, w, atol=3e-6, rtol=0)
+    assert got[1].y_lo is None and got[1].y_hi is None
+    assert got[3] == want[3]
+
+
+def test_minimod_fused_kernel_route_matches_emulation(monkeypatch):
+    """Minimod's fused loop through the kernel route (forced on the CPU)
+    equals its emulation run in field and in every counter."""
+    from repro_torch.apps.minimod import run_minimod
+    kw = dict(grid=(48, 12, 8), steps=3, nz=4, mode="fused", device="cpu")
+    want = run_minimod(**kw)
+    _forced_kernel_route(monkeypatch)
+    before = t_fused.fused_wave_step_kernel.launches
+    got = run_minimod(**kw)
+    assert t_fused.fused_wave_step_kernel.launches == before  # CPU: plain
+    torch.testing.assert_close(got.field, want.field, atol=3e-6, rtol=0)
+    for attr in ("puts", "put_bytes", "tracker_puts", "tracker_put_bytes",
+                 "fences", "window_bytes", "region_sizes", "alloc_counts"):
+        assert getattr(got, attr) == getattr(want, attr), attr
+
+
+def test_fused_kernel_wrapper_carried_plain_and_checks():
+    """On CPU tensors the wrapper's carried step is its plain version;
+    halos of the wrong shape are refused."""
+    nz, Z, Y, X = 3, 12, 10, 9
+    plan = OverlapPlanner().plan_halo_slots(Z, Y, X, torch.float32, nz)
+    u, up = torch.randn(nz, 1, Z, Y, X), torch.randn(nz, 1, Z, Y, X)
+    h = t_fused.Halos(torch.randn(nz, 1, R, Y, X), torch.randn(nz, 1, R, Y, X))
+    out, new = t_fused.fused_wave_step_kernel(u, up, 0.1, plan=plan,
+                                              halos=h, return_halos=True)
+    want = t_fused.fused_wave_step_carried_plain(u, up, 0.1, h, dx=1.0)
+    torch.testing.assert_close(out, want[0])
+    torch.testing.assert_close(new.z_lo, want[1].z_lo)
+    torch.testing.assert_close(new.z_hi, want[1].z_hi)
+    assert float(new.z_lo[0].abs().max()) == 0.0
+    assert float(new.z_hi[-1].abs().max()) == 0.0
+    torch.testing.assert_close(new.z_lo[1:], out[:-1, :, Z - R:])
+    torch.testing.assert_close(new.z_hi[:-1], out[1:, :, :R])
+    assert t_fused.fused_wave_step_kernel(u, up, 0.1, plan=plan,
+                                          halos=h).shape == u.shape
+    single, none = t_fused.fused_wave_step_kernel(u, up, 0.1, plan=plan,
+                                                  return_halos=True)
+    assert none is None and single.shape == u.shape
+    with pytest.raises(ValueError):
+        t_fused.fused_wave_step_kernel(
+            u, up, 0.1, plan=plan, halos=t_fused.Halos(h.z_lo[:, :, :2],
+                                                       h.z_hi))
+
+
+def test_fused_kernel_wrapper_refuses_a_plan_of_another_shard():
+    """A plan made for another Z extent is refused on either schedule,
+    and carried halos on a shard with no interior (Z = 2R, where the plan
+    does not overlap) are refused: the carried kernel would leave rows of
+    the new z_lo unwritten."""
+    nz, Y, X = 3, 10, 8
+    big = OverlapPlanner().plan_halo_slots(12, Y, X, torch.float32, nz)
+    flat = OverlapPlanner().plan_halo_slots(2 * R, Y, X, torch.float32, nz)
+    assert big.overlap and not flat.overlap
+    u, up = torch.randn(nz, 1, 2 * R, Y, X), torch.randn(nz, 1, 2 * R, Y, X)
+    h = t_fused.Halos(torch.randn(nz, 1, R, Y, X), torch.randn(nz, 1, R, Y, X))
+    for plan, halos in ((big, h), (big, None), (flat, h)):
+        with pytest.raises(ValueError):
+            t_fused.fused_wave_step_kernel(u, up, 0.1, plan=plan,
+                                           halos=halos)
+    torch.testing.assert_close(
+        t_fused.fused_wave_step_kernel(u, up, 0.1, plan=flat),
+        t_fused.fused_wave_step_plain(u, up, 0.1, dx=1.0))
