@@ -116,8 +116,34 @@ REC_PREFILL_REPS = 4            # timed prefill calls after the served one
 # 4096 tokens (q_sharded, causal)
 RING_ARCH, RING_CHUNK_AT = "paligemma-3b", 2048
 SEQ_RANKS, SEQ_T_LOC = 4, 4096
+# the unified runtime: glm4-9b's full parameter tree registered on the
+# 8-rank smoke mesh (pod 2 x data 2 x model 2), a gradient of its embedding
+# table's shape all-reduced over DP = (pod, data) through the flat and the
+# hierarchical backend, and the host time of one all-reduce call of a
+# 4 KiB payload (LinkModel.dispatch_s), the median of DISPATCH_TIMINGS
+# timings of DISPATCH_REPS calls; the median must lie within DISPATCH_BAND
+# (relative) of LinkModel.dispatch_s: on a shared host the runs' medians
+# have ranged from 50.90 to 80.89 us, and the band holds both
+RT_ARCH, RT_RANKS, DISPATCH_BYTES = "glm4-9b", 8, 4096
+DISPATCH_REPS, DISPATCH_TIMINGS, DISPATCH_BAND = 200, 9, 0.5
+# bf16's unit roundoff: the flat sum rounds once, the hierarchical one's
+# phases round three times, so the two agree within 4u of the largest value
+BF16_U = 2.0 ** -8
+# the paper's examples: Cannon at Fig. 7's N (f32, 8 ranks: stripes of
+# 3780), Minimod at Fig. 8's 1024^3 over nz = 4, 10 steps, in four runs
+# (run_minimod's arguments), each also run on random fields against the
+# single-grid oracle, and at a 64^3 grid on the card and on the CPU
+CANNON_N, CANNON_RANKS = 30240, 8
+MINIMOD_RUNS = (("none", {"mode": "none"}),
+                ("fused", {"mode": "fused"}),
+                ("fused asymmetric", {"mode": "fused",
+                                      "weights": (3, 2, 2, 1)}),
+                ("fused 2-D", {"mode": "fused", "nz": 2, "ny": 2}))
+PARITY_GRID = 64
 
 
+# the matmul kernel's device functions, both routes
+MATMUL_KERNELS = ("matmul_kernel", "matmul_tc_kernel")
 # the flash kernel's device functions, both routes and the split combine
 FLASH_KERNELS = ("flash_fwd_kernel", "flash_tc_kernel", "flash_combine_kernel")
 # the fused MoE dispatch's and the expert MLP's, both routes
@@ -175,20 +201,23 @@ def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
     has been seen to hold one launch fewer than were made (and, once, none
     of a long kernel's), so each kernel's time is its mean over the
     launches the trace holds, times its launches a call; a trace that
-    holds none is taken again, up to three times, and None if it never
-    does."""
+    holds none is taken again, up to five times, and None if it never
+    does.  A small kernel of PyTorch's own trails the calls inside each
+    trace, so that none of ``fn``'s launches is the trace's last."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda") \
         if cold_l2 else None
+    trail = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 if flush is not None:
                     flush.fill_(1)
                 fn()
+            trail.add_(1)
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if any(n in e.key for n in names) and e.count > 0
@@ -1261,6 +1290,8 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
             continue
         name = evt.key
         group = ("flash" if any(t in name for t in FLASH_KERNELS) else
+                 "stencil" if any(t in name for t in LEAP_KERNELS
+                                  + FUSED_KERNELS) else
                  "ring_attention" if "ring_attention" in name else
                  "linear_scan" if any(t in name for t in SCAN_KERNELS) else
                  "moe_dispatch" if any(t in name for t in MOE_KERNELS)
@@ -2442,6 +2473,399 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
     return line
 
 
+# -- the unified runtime (Fig. 1(b)) and the hierarchical backend -------------
+
+
+def runtime_phase(torch, dev) -> dict:
+    """glm4-9b's full-width, full-depth parameter tree registered through
+    ``DiompRuntime`` on the 8-rank smoke mesh (every row's bytes a rank
+    equal to ``param_bytes_per_device``, the arena's bytes in use to their
+    sum); its embedding table placed on the card and read back; a gradient
+    of the table's shape on every rank all-reduced over DP = (pod, data)
+    through a flat and a hierarchical handle (equal within bf16's rounding,
+    call and byte logs as the CPU tests pin them, each timed with CUDA
+    events); the host time of one ``ompccl.allreduce`` call of a 4 KiB
+    payload, which is ``LinkModel.dispatch_s``.  On one card every rank's
+    "wire" is device memory: the times are copies and sums in HBM, not
+    NVLink or network transfers."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core import ompccl
+    from repro_torch.core.backends import (LinkModel,
+                                           hierarchical_allreduce_time,
+                                           ring_allreduce_time)
+    from repro_torch.core.context import default_context, \
+        reset_default_context
+    from repro_torch.core.runtime import DiompRuntime, dtype_bytes
+    from repro_torch.distributed.hierarchical import inter_pod_traffic_bytes
+    from repro_torch.distributed.sharding import param_bytes_per_device
+    from repro_torch.interop import local_shape, unstack_shards
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models.schema import build_schema
+
+    mesh = make_smoke_mesh(RT_RANKS)
+    cfg = configs.get(RT_ARCH)
+    schema = build_schema(cfg)
+    rt = DiompRuntime(mesh, device=dev)
+    check(default_context() is rt.ctx, "runtime: its context is not the "
+          "process default")
+    t0 = time.perf_counter()
+    rows = rt.register_pytree("params", {
+        n: (p.shape, p.dtype, p.axes) for n, p in sorted(schema.items())})
+    reg_ms = (time.perf_counter() - t0) * 1e3
+    total = 0
+    for n, row in rows.items():
+        p = schema[n]
+        want = param_bytes_per_device(p.shape, dtype_bytes(p.dtype), p.axes,
+                                      mesh)
+        check(row.region.sizes == (want,) * mesh.size,
+              f"runtime: {n} holds {row.region.sizes} bytes a rank, not "
+              f"{want}")
+        total += want
+    # every row is a multiple of the arena's 256-byte alignment here, so
+    # the bytes in use are exactly the rows' sum
+    for r in range(mesh.size):
+        check(rt.bytes_in_use(r) == total, f"runtime: rank {r} uses "
+              f"{rt.bytes_in_use(r)} bytes, the rows sum to {total}")
+    whole = sum(math.prod(p.shape) * dtype_bytes(p.dtype)
+                for p in schema.values())
+    log(f"runtime: {cfg.name} at full width and depth (d_model "
+        f"{cfg.d_model}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{cfg.num_layers} layers; {whole / 1e9:.3f} GB) registered on "
+        f"{mesh.shape}: {len(rows)} rows, {total} bytes a rank "
+        f"({total / 1e9:.3f} GB), in {reg_ms:.2f} ms")
+
+    # placement: the embedding table from the host onto the card
+    name = "params/embed/table"
+    V, D = rt.lookup(name).shape
+    g = torch.Generator(device=dev).manual_seed(2)
+    host = torch.randn(V, D, generator=g, device=dev,
+                       dtype=torch.bfloat16).cpu()
+    t0 = time.perf_counter()
+    placed = rt.place(name, host)
+    torch.cuda.synchronize()
+    place_s = time.perf_counter() - t0
+    spec = rt.sharding_for(name).spec
+    check(placed.device.type == dev.type and tuple(placed.shape)
+          == local_shape((V, D), mesh, spec),
+          f"runtime: placed {tuple(placed.shape)} on {placed.device}")
+    check(np.array_equal(unstack_shards(placed, mesh, spec),
+                         host.float().numpy()),
+          "runtime: unstack_shards of the placed table is not the host value")
+    log(f"runtime: placed {name} ({V} x {D} bf16, spec {spec}) as "
+        f"{tuple(placed.shape)} on the card in {place_s:.3f} s; "
+        f"unstack_shards gives back the host value")
+    del placed, host
+
+    # flat against hierarchical over DP = (pod, data)
+    dp = rt.group("dp")
+    grad = torch.randn(*mesh.sizes, V, D, generator=g, device=dev,
+                       dtype=torch.bfloat16)
+    payload = V * D * grad.element_size()
+    handles = {"flat": rt.communicator(dp),
+               "hierarchical": rt.communicator(dp, backend="hierarchical")}
+    outs = {}
+    for tag, comm in handles.items():
+        rt.ctx.reset_stats()
+        outs[tag] = comm.allreduce(grad)
+        logs = (rt.ctx.stats(), rt.ctx.byte_stats())
+        check(logs == ({dp.descriptor(): {"allreduce": 1}},
+                       {dp.descriptor(): {"allreduce": payload}}),
+              f"runtime: {tag} all-reduce logged {logs}")
+    torch.cuda.synchronize()
+    err = scale = 0.0
+    for a, b in zip(outs["flat"].view(mesh.size, -1),
+                    outs["hierarchical"].view(mesh.size, -1)):
+        err = max(err, float((a.float() - b.float()).abs().max()))
+        scale = max(scale, float(a.float().abs().max()))
+    check(err <= 4 * BF16_U * scale, f"runtime: flat vs hierarchical err "
+          f"{err} (max |sum| {scale})")
+    # the flat sum within one rounding of the f32 sum (first 4096 rows)
+    want = grad[..., :4096, :].float().sum((0, 1))
+    got = outs["flat"][0, 0, :, :4096].float()
+    ref_err = float((got - want).abs().max())
+    check(ref_err <= BF16_U * float(want.abs().max()),
+          f"runtime: flat all-reduce vs f32 sum err {ref_err}")
+    del outs, want, got
+    torch.cuda.empty_cache()
+    ms = {tag: cuda_ms(torch, lambda c=comm: c.allreduce(grad), 3)
+          for tag, comm in handles.items()}
+    fast, slow = mesh.shape["data"], mesh.shape["pod"]
+    wire = {"flat": {"inter_pod": inter_pod_traffic_bytes(
+                payload, fast, slow, hierarchical=False),
+                     "intra_pod": 2 * payload * (fast * slow - 1)
+                     / (fast * slow)},
+            "hierarchical": {"inter_pod": inter_pod_traffic_bytes(
+                payload, fast, slow),
+                "intra_pod": 2 * payload * (fast - 1) / fast}}
+    link = LinkModel()
+    modeled = {"flat": ring_allreduce_time(payload, fast * slow, link),
+               "hierarchical": hierarchical_allreduce_time(payload, fast,
+                                                           slow, link)}
+    for tag in handles:
+        log(f"runtime: {tag} all-reduce of {tuple(grad.shape)} bf16 "
+            f"({payload / 1e9:.3f} GB a rank, {grad.numel() * 2 / 1e9:.2f} "
+            f"GB stacked) over dp: {ms[tag]:.3f} ms (CUDA events; device "
+            f"memory, not NVLink); bytes a rank sends by the reference's "
+            f"formulas: inter-pod {wire[tag]['inter_pod']:.0f}, intra-pod "
+            f"{wire[tag]['intra_pod']:.0f}; modeled on NVLink / "
+            f"ConnectX-7: {modeled[tag] * 1e3:.3f} ms")
+    log(f"runtime: flat vs hierarchical max |err| {err:.4g} (max |sum| "
+        f"{scale:.4g}, bound {4 * BF16_U * scale:.4g}); flat vs the f32 sum "
+        f"{ref_err:.4g}")
+    del grad
+    torch.cuda.empty_cache()
+
+    # the host's time to issue one all-reduce (the free function, through
+    # the runtime's default context)
+    x = torch.zeros(*mesh.sizes, DISPATCH_BYTES // 4, device=dev)
+    gaps = [host_and_events(torch, lambda: ompccl.allreduce(x, dp),
+                            DISPATCH_REPS) for _ in range(DISPATCH_TIMINGS)]
+    host_us = sorted(g_["host_ms"] * 1e3 for g_ in gaps)
+    event_us = sorted(g_["event_ms"] * 1e3 for g_ in gaps)
+    gap = {"host_ms": statistics.median(host_us) / 1e3,
+           "event_ms": statistics.median(event_us) / 1e3}
+    log(f"runtime: one ompccl.allreduce of {DISPATCH_BYTES} B a rank over "
+        f"dp: host {gap['host_ms'] * 1e3:.2f} us a call (median of "
+        f"{DISPATCH_TIMINGS} x {DISPATCH_REPS} calls; "
+        f"{', '.join(f'{u:.2f}' for u in host_us)}), events "
+        f"{gap['event_ms'] * 1e3:.2f} us (LinkModel.dispatch_s "
+        f"{link.dispatch_s * 1e6:.2f} us)")
+    check(abs(gap["host_ms"] / 1e3 / link.dispatch_s - 1) <= DISPATCH_BAND,
+          f"runtime: the dispatch time {gap['host_ms'] * 1e3:.2f} us lies "
+          f"outside {DISPATCH_BAND:.0%} of LinkModel.dispatch_s "
+          f"({link.dispatch_s * 1e6:.2f} us)")
+    rt.close()
+    reset_default_context()
+    return {"rows": len(rows), "bytes_per_rank": total,
+            "register_ms": reg_ms, "place_s": place_s,
+            "allreduce_ms": ms, "allreduce_err": err,
+            "allreduce_scale": scale, "payload_bytes": payload,
+            "wire_bytes": wire, "modeled_s": modeled,
+            "dispatch_host_ms": gap["host_ms"],
+            "dispatch_event_ms": gap["event_ms"]}
+
+
+# -- the paper's examples -------------------------------------------------------
+
+
+def _run_example(main, argv):
+    """An example's ``main(argv)`` with what it prints sent to the log;
+    returns its result and its printed lines."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = main(argv)
+    lines = buf.getvalue().strip().splitlines()
+    for line in lines:
+        log(f"  | {line}")
+    return out, lines
+
+
+def _minimod_launches(torch, st_fused, r) -> dict:
+    """The stencil launches (count, per route) that a Minimod run like
+    ``r`` makes on the card, by ``fused_step_route``: a step the fused
+    kernel takes is one launch of it; a step the emulation takes is one
+    ``leap`` a pass of the plan's schedule.  Every launch is on the TMA
+    ring: f32, rows of 4096 (and 4128) bytes, every slice 16-byte aligned."""
+    carried = r.mode != "host"   # fused carries halos; none passes its own
+    route = st_fused.fused_step_route(
+        on_card=True, dtype=torch.float32, dim=5, ny=r.ny,
+        z_extents=None if len(set(r.z_extents)) == 1 else r.z_extents,
+        plan=r.plan, halos=st_fused.Halos() if carried else None,
+        return_halos=r.mode == "fused")
+    if route != "emulation":
+        fused, leaps = r.steps, 0
+    else:
+        sched = r.plan.schedule(carried=carried)
+        fused = 0
+        leaps = r.steps * (1 if "all" in sched
+                           else 1 + 2 * (r.nz > 1) + 2 * (r.ny > 1))
+    return {"wave_step": (leaps, {"simt": 0, "tma": leaps}),
+            "fused_wave_step": (fused, {"simt": 0, "tma": fused})}
+
+
+def _minimod_argv(grid: int, kw: dict) -> list:
+    """The Minimod example's flags for ``run_minimod(**kw)`` at ``grid``."""
+    argv = ["--grid", str(grid), "--steps", str(STEPS), "--mode", kw["mode"],
+            "--nz", str(kw.get("nz", NZ)), "--ny", str(kw.get("ny", 1))]
+    if "weights" in kw:
+        argv += ["--weights", ",".join(str(w) for w in kw["weights"])]
+    return argv
+
+
+def examples_phase(torch, k, dev, wrappers, kernels) -> dict:
+    """The paper's examples on the card, through their own ``main``:
+    quickstart; Cannon at N = 30240 (f32, 8 ranks: 64 launches of the
+    matmul kernel on its CUDA-core route, relative error < 1e-4), with the
+    kernel's device time at that block shape; Minimod at 1024³, nz = 4, 10
+    steps in four runs (none, fused, fused asymmetric, fused 2-D), each
+    with its asserts, its launches by kernel and route as
+    ``fused_step_route`` predicts them, the same run on random fields
+    against the single-grid oracle (so every pass of the emulation's
+    ``leap`` is held at 1024³, on tiles that all carry data), and a 64³ run
+    of the same mode and decomposition equal to a ``device="cpu"`` run;
+    ``halo_loc``.  Adds
+    the examples' launches to ``kernels``' lines (``launches_by_path``)."""
+    from repro_torch.apps.minimod import halo_loc, run_minimod
+    from repro_torch.core.context import reset_default_context
+    from repro_torch.examples import cannon_matmul, minimod, quickstart
+    from repro_torch.kernels.stencil import fused as st_fused
+    from repro_torch.kernels.stencil.ref import wave_step_ref
+    lines_of = {e["name"]: e for e in kernels}
+    result = {}
+
+    on = ["--device", dev.type]
+    _, lines = _run_example(quickstart.main, on)
+    check(lines[-1] == "quickstart OK", f"quickstart: {lines[-1:]}")
+    reset_default_context()
+
+    # Cannon at Fig. 7's N
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    out, lines = _run_example(cannon_matmul.main, [str(CANNON_N)] + on)
+    wall = time.perf_counter() - t0
+    launches = {name: wr.launches for name, wr in wrappers.items()}
+    routes = dict(wrappers["matmul"].route_launches)
+    del out["C"]
+    torch.cuda.empty_cache()
+    n2 = CANNON_RANKS * CANNON_RANKS
+    check(lines[-1] == "cannon_matmul OK" and out["err"] < 1e-4,
+          f"cannon: err {out['err']}")
+    check(launches["matmul"] == n2 and routes == {"simt": n2, "wgmma": 0}
+          and sum(launches.values()) == n2,
+          f"cannon: launches {launches}, matmul routes {routes}")
+    ns = CANNON_N // CANNON_RANKS
+    g = torch.Generator(device=dev).manual_seed(3)
+    a = torch.randn(ns, ns, generator=g, device=dev)
+    b = torch.randn(ns, CANNON_N, generator=g, device=dev)
+    got, want = k.matmul_kernel(a, b), k.matmul_ref(a, b)
+    err = max_err(torch, got, want)
+    check(err <= 1e-5 * float(want.abs().max()), f"cannon block GEMM: {err}")
+    del got, want
+    mm_ms = cuda_ms(torch, lambda: k.matmul_kernel(a, b), 3)
+    mm_dev = device_ms(torch, lambda: k.matmul_kernel(a, b), 3,
+                       MATMUL_KERNELS)
+    b_ms, b_by = bound(4 * (ns * ns + 2 * ns * CANNON_N),
+                       2 * ns * ns * CANNON_N, "float32")
+    block = {"shape": [ns, ns, CANNON_N], "dtype": "float32",
+             "max_abs_err": err, "ms": mm_ms, "device_ms": mm_dev,
+             "plain_ms": cuda_ms(torch, lambda: k.matmul_ref(a, b), 3),
+             "library_ms": cuda_ms(torch, lambda: torch.matmul(a, b), 3),
+             "bound_ms": b_ms, "bound_by": b_by}
+    del a, b
+    torch.cuda.empty_cache()
+    log(f"cannon N = {CANNON_N} on {CANNON_RANKS} ranks: {out['ms']:.1f} ms "
+        f"(CUDA events; {wall:.1f} s with the data, the f32 check and the "
+        f"host), rel err {out['err']:.3g}; {n2} matmul launches {routes}; "
+        f"one block GEMM ({ns} x {ns}) @ ({ns} x {CANNON_N}) f32: "
+        f"{mm_ms:.3f} ms, device {_ms(mm_dev, 3)}, plain "
+        f"{block['plain_ms']:.3f}, torch.matmul {block['library_ms']:.3f}, "
+        f"bound {b_ms:.3f} ms by {b_by}")
+    row = lines_of["matmul"]
+    row["launches_by_path"] = {"ring": row["launches"], "cannon": n2}
+    row["launches"] += n2
+    for r_, c in routes.items():
+        row["route_launches"][r_] += c
+    row["cannon"] = {"ms": out["ms"], "rel_err": out["err"], "block": block}
+    result["cannon"] = row["cannon"]
+
+    # Minimod at Fig. 8's size, four runs; random fields and their
+    # single-grid oracle for the runs' field checks (tolerance as the main
+    # path's: 1e-5 of the largest value)
+    g = torch.Generator(device=dev).manual_seed(4)
+    u0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
+    up0 = torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1
+    oracle, up = u0, up0
+    for _ in range(STEPS):
+        oracle, up = wave_step_ref(oracle, up, 0.1), oracle
+    del up
+    oracle_max = float(oracle.abs().max())
+    runs = {}
+    for tag, kw in MINIMOD_RUNS:
+        argv = _minimod_argv(GRID, kw)
+        _zero_counts(wrappers)
+        r, lines = _run_example(minimod.main, argv + on)
+        d = _stencil_counts(k)
+        want = _minimod_launches(torch, st_fused, r)
+        check(lines[-1] == "minimod OK", f"minimod {tag}: {lines[-1:]}")
+        check(r.mode != "fused" or r.put_bytes == r.tracker_put_bytes > 0,
+              f"minimod {tag}: put bytes {r.put_bytes} vs tracker "
+              f"{r.tracker_put_bytes}")
+        check(d == want, f"minimod {tag}: launches {d}, predicted {want}")
+        step_ms = r.wall_s / r.steps * 1e3
+        del r
+        # the same run again, warm
+        again, _ = _run_example(minimod.main, argv + on)
+        runs[tag] = {"ms_per_step": step_ms,
+                     "ms_per_step_again": again.wall_s / again.steps * 1e3,
+                     "launches": d, "z_extents": list(again.z_extents),
+                     "nz": again.nz, "ny": again.ny}
+        del again
+        if d["wave_step"][0]:
+            # where the emulation's step spends the card's time (one more
+            # run after a warm one)
+            run = lambda: _run_example(  # noqa: E731
+                minimod.main, argv + on)
+            runs[tag]["breakdown"] = _breakdown(torch, run, 1)
+            log(f"minimod {tag} at {GRID}^3, one run: "
+                f"{runs[tag]['breakdown']}")
+        # the same decomposition on random fields, through the same
+        # launches, against the single-grid oracle
+        before = _stencil_counts(k)
+        rnd = run_minimod(grid=(GRID,) * 3, steps=STEPS, u0=u0, u_prev0=up0,
+                          device=dev, **{"nz": NZ, **kw})
+        rnd_d = _stencil_delta(before, _stencil_counts(k))
+        check(rnd_d == want, f"minimod {tag} on random fields: launches "
+              f"{rnd_d}, predicted {want}")
+        e = max_err(torch, rnd.field, oracle)
+        check(rnd.field.shape == oracle.shape
+              and bool(torch.isfinite(rnd.field).all())
+              and e <= 1e-5 * oracle_max,
+              f"minimod {tag} at {GRID}^3 on random fields: err {e} vs the "
+              f"single-grid oracle (max |u| {oracle_max})")
+        runs[tag]["oracle_err"] = e
+        runs[tag]["ms_per_step_random"] = rnd.wall_s / rnd.steps * 1e3
+        del rnd
+        small = _minimod_argv(PARITY_GRID, kw)
+        card, _ = _run_example(minimod.main, small + on)
+        cpu, _ = _run_example(minimod.main, small + ["--device", "cpu"])
+        e = max_err(torch, card.field.cpu(), cpu.field)
+        check(e <= 1e-5 * float(cpu.field.abs().max()),
+              f"minimod {tag} at {PARITY_GRID}^3: card vs cpu err {e}")
+        for attr in MINIMOD_COUNTERS:
+            check(getattr(card, attr) == getattr(cpu, attr),
+                  f"minimod {tag} at {PARITY_GRID}^3: {attr} "
+                  f"{getattr(card, attr)} vs {getattr(cpu, attr)}")
+        runs[tag]["parity_err"] = e
+        log(f"minimod {tag} at {GRID}^3: {step_ms:.3f} ms a step (again: "
+            f"{runs[tag]['ms_per_step_again']:.3f}; on random fields: "
+            f"{runs[tag]['ms_per_step_random']:.3f}); launches {d}; on "
+            f"random fields max |err| {runs[tag]['oracle_err']:.4g} vs the "
+            f"single-grid oracle (max |u| {oracle_max:.4g}); at "
+            f"{PARITY_GRID}^3 card == cpu (err {e:.3g}, counters equal)")
+    for name, path in (("wave_step", "wave_step"),
+                       ("fused_wave_step", "fused_wave_step")):
+        row = lines_of[name]
+        row["launches_by_path"] = {"main": row["launches"]}
+        for tag, run in runs.items():
+            n, rts = run["launches"][path]
+            row["launches_by_path"][f"minimod example {tag}"] = n
+            row["launches"] += n
+            for r_, c in rts.items():
+                row["route_launches"][r_] += c
+    del u0, up0, oracle
+    torch.cuda.empty_cache()
+    result["minimod"] = runs
+    loc = halo_loc()
+    log(f"halo_loc: one-sided (Listing 1) {loc['diomp']} lines, two-sided "
+        f"(Listing 2) {loc['two_sided']}")
+    check(loc["diomp"] < loc["two_sided"], f"halo_loc: {loc}")
+    result["halo_loc"] = loc
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2678,6 +3102,10 @@ def main() -> int:
           cuda_ms(torch, lambda: k.matmul_ref(a, b), 3),
           2 * (t_loc * N + N * n_loc + t_loc * n_loc), 2 * t_loc * N * n_loc,
           "bfloat16", cuda_ms(torch, lambda: torch.matmul(a, b), 3))
+    kernels[-1]["device_ms"] = device_ms(
+        torch, lambda: k.matmul_kernel(a, b), 3, MATMUL_KERNELS)
+    log(f"matmul at the ring's ({t_loc} x {N}) @ ({N} x {n_loc}) bf16: "
+        f"device {_ms(kernels[-1]['device_ms'], 4)} ms")
     del a, b
 
     got = k.fused_ring_allgather_matmul_kernel(x, w, plan=plan)
@@ -2856,6 +3284,14 @@ def main() -> int:
     check(ring["launches"] > 0, "ring attention: the phase launched no ring")
     kernels.append(ring)
     check(len(kernels) == len(wrappers) == 9, "kernels line incomplete")
+
+    # -- phase 12: the unified runtime and the hierarchical backend -----------
+    rt = runtime_phase(torch, dev)
+    log("runtime: " + json.dumps(rt))
+
+    # -- phase 13: the paper's examples (quickstart, Cannon, Minimod) ---------
+    ex = examples_phase(torch, k, dev, wrappers, kernels)
+    log("examples: " + json.dumps(ex))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

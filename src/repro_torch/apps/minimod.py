@@ -30,6 +30,7 @@ against a scratch context whose logs are dropped.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 import time
 from typing import Dict, Optional, Sequence, Tuple, Union
 
@@ -51,6 +52,7 @@ from ..launch.shapes import STENCIL_SHAPES, StencilShape
 __all__ = [
     "MODES",
     "MinimodResult",
+    "halo_loc",
     "pad_shards",
     "run_minimod",
     "split_extents",
@@ -131,6 +133,14 @@ def _two_sided_halos(u, zgroup, *, ext):
     right[n - 1] = 0
     ompccl.barrier_value(zgroup)        # MPI_Waitall
     return Halos(left, right, None, None)
+
+
+def halo_loc() -> Dict[str, int]:
+    """Lines of code of the two halo styles (the paper's Fig. 8 claim:
+    the one-sided listing is the shorter)."""
+    one = len(inspect.getsource(_host_step_listing1).strip().splitlines())
+    two = len(inspect.getsource(_two_sided_halos).strip().splitlines())
+    return {"diomp": one, "two_sided": two}
 
 
 # ---------------------------------------------------------------------------

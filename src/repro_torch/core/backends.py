@@ -8,10 +8,17 @@ mesh axes are its leading dimensions, :mod:`repro_torch.launch.mesh`) and
 returns the stacked result, i.e. what every rank holds afterwards.
 
 * :class:`XlaBackend` — the flat path; the registry keeps the reference's
-  name ``"xla"`` so logs and ``default_backend`` compare equal.  Its verbs
-  are torch ops over the group's rank dimensions.
+  name ``"xla"`` (alias ``"flat"``) so logs and ``default_backend`` compare
+  equal.  Its verbs are torch ops over the group's rank dimensions.
+* :class:`HierarchicalBackend` — pod-aware two-level algorithms from
+  :mod:`repro_torch.distributed.hierarchical` (reduce-scatter over the fast
+  axes -> all-reduce over the slow one -> all-gather over the fast ones).
 * :class:`AnalyticBackend` — the flat path plus a per-call cost estimate on
   an H100 NVLink :class:`LinkModel`.
+
+The analytic link-cost models (ring and hierarchical time bounds, the
+gradient-reduction schedules) also live here; :mod:`.ompccl` re-exports
+them.
 
 A backend instance never records call counts — that is the communicator
 handle's job (:mod:`repro_torch.core.context`).
@@ -32,6 +39,7 @@ from .groups import DiompGroup
 __all__ = [
     "CclBackend",
     "XlaBackend",
+    "HierarchicalBackend",
     "AnalyticBackend",
     "register_backend",
     "get_backend",
@@ -41,9 +49,18 @@ __all__ = [
     "group_size",
     "payload_bytes",
     "fence",
+    "check_stacked",
+    "psum_axis",
+    "psum_scatter_axis",
+    "all_gather_axis",
     "LinkModel",
+    "INTER_NODE_LINK",
     "ring_allreduce_time",
     "ring_allgather_time",
+    "hierarchical_allreduce_time",
+    "per_param_reduce_time",
+    "bucketed_reduce_time",
+    "overlapped_reduce_time",
 ]
 
 
@@ -78,16 +95,22 @@ def _local_dim(x: torch.Tensor, mesh: RankMesh, axis: int) -> int:
     return mesh.ndim + axis % nloc
 
 
-def _group_major(x: torch.Tensor, group: DiompGroup, mesh: RankMesh):
-    """View ``x`` with the group's rank dims first, flattened to one dim of
-    the group's row-major rank; returns ``(y, back)`` where ``back`` undoes
-    the permutation on a tensor of the same rank layout (local dims may
-    have changed size)."""
+def check_stacked(x: torch.Tensor, group: DiompGroup, mesh: RankMesh) -> None:
+    """Refuse the self group and a tensor that does not lead with the mesh
+    dims."""
     _check_group(group)
     if tuple(x.shape[:mesh.ndim]) != mesh.sizes:
         raise ValueError(
             f"stacked tensor of shape {tuple(x.shape)} does not lead with "
             f"the mesh dims {mesh.sizes}")
+
+
+def _group_major(x: torch.Tensor, group: DiompGroup, mesh: RankMesh):
+    """View ``x`` with the group's rank dims first, flattened to one dim of
+    the group's row-major rank; returns ``(y, back)`` where ``back`` undoes
+    the permutation on a tensor of the same rank layout (local dims may
+    have changed size)."""
+    check_stacked(x, group, mesh)
     dims = group.rank_dims(mesh)
     rest = [d for d in range(x.dim()) if d not in dims]
     perm = list(dims) + rest
@@ -100,6 +123,38 @@ def _group_major(x: torch.Tensor, group: DiompGroup, mesh: RankMesh):
         return z.permute(inv + list(range(mesh.ndim, z.dim()))).contiguous()
 
     return y, back
+
+
+# -- one mesh axis's collective on a stacked tensor: the lax primitives the
+#    reference's algorithms are written in.  ``dim`` indexes the stacked
+#    tensor, so a local dim's index is past the leading mesh dims.
+
+def psum_axis(x: torch.Tensor, mesh: RankMesh, axis: str) -> torch.Tensor:
+    """``lax.psum`` over one mesh axis: every rank of the axis holds the
+    sum (an expanded view)."""
+    return x.sum(mesh.dim(axis), keepdim=True).expand_as(x)
+
+
+def psum_scatter_axis(x: torch.Tensor, mesh: RankMesh, axis: str,
+                      dim: int) -> torch.Tensor:
+    """``lax.psum_scatter(tiled=True)`` over one mesh axis along tensor dim
+    ``dim``: the sum over the axis, its chunk ``i`` to the axis' rank ``i``."""
+    d, n = mesh.dim(axis), mesh.shape[axis]
+    s = x.sum(d)
+    if s.shape[dim - 1] % n:
+        raise ValueError(f"axis extent {s.shape[dim - 1]} not divisible by "
+                         f"{n} ranks of {axis!r}")
+    return s.unflatten(dim - 1, (n, -1)).movedim(dim - 1, d)
+
+
+def all_gather_axis(x: torch.Tensor, mesh: RankMesh, axis: str,
+                    dim: int) -> torch.Tensor:
+    """``lax.all_gather(tiled=True)`` over one mesh axis along tensor dim
+    ``dim``: the axis' shards concatenated in rank order, on every rank of
+    the axis (an expanded view)."""
+    d, n = mesh.dim(axis), mesh.shape[axis]
+    g = torch.cat(x.unbind(d), dim=dim - 1)
+    return g.unsqueeze(d).expand(*g.shape[:d], n, *g.shape[d:])
 
 
 def group_size(group: DiompGroup, mesh: RankMesh) -> int:
@@ -303,6 +358,62 @@ class XlaBackend(CclBackend):
     name = "xla"
 
 
+class HierarchicalBackend(CclBackend):
+    """Pod-aware two-level algorithms (NCCL's topology-trees analogue).
+
+    The group's first axis is the slow (inter-pod) one, the rest are fast.
+    Every verb this class does not override is the flat one."""
+
+    name = "hierarchical"
+
+    def allreduce(self, x, group: DiompGroup, mesh: RankMesh, *,
+                  op: str = "sum"):
+        from ..distributed.hierarchical import hierarchical_allreduce
+
+        return hierarchical_allreduce(x, group, mesh, op=op)
+
+    def reducescatter(self, x, group: DiompGroup, mesh: RankMesh, *,
+                      axis: int = 0):
+        """Fast-axes-first reduce-scatter: the payload is cut to 1/F
+        intra-pod before anything crosses the slow link.
+
+        Shard order is therefore fast-major — the exact inverse of this
+        backend's ``allgather(invariant=True)``, so an RS -> invariant-AG
+        pair through one hierarchical handle reconstructs the flat result.
+        It is NOT the row-major shard order of the flat backend, and the
+        handle's non-invariant allgather keeps the row-major concat order:
+        pairing RS with ``invariant=False`` returns element-permuted data.
+        """
+        if len(group.axes) < 2:
+            return super().reducescatter(x, group, mesh, axis=axis)
+        check_stacked(x, group, mesh)
+        dim = _local_dim(x, mesh, axis)
+        slow, fast = group.axes[0], group.axes[1:]
+        out = x
+        for ax in (*fast, slow):
+            out = psum_scatter_axis(out, mesh, ax, dim)
+        return out.contiguous()
+
+    def allgather(self, x, group: DiompGroup, mesh: RankMesh, *,
+                  axis: int = 0, tiled: bool = True, invariant: bool = False):
+        if len(group.axes) < 2 or not tiled:
+            return super().allgather(x, group, mesh, axis=axis, tiled=tiled,
+                                     invariant=invariant)
+        if not invariant:
+            from ..distributed.hierarchical import hierarchical_allgather
+
+            return hierarchical_allgather(x, group, mesh, axis=axis)
+        # slow link first, while the payload is smallest; inverts this
+        # backend's reducescatter step for step
+        check_stacked(x, group, mesh)
+        dim = _local_dim(x, mesh, axis)
+        slow, fast = group.axes[0], group.axes[1:]
+        out = x
+        for ax in (slow, *reversed(fast)):
+            out = all_gather_axis(out, mesh, ax, dim)
+        return out.contiguous()
+
+
 class AnalyticBackend(CclBackend):
     """Flat path + a host-side analytic cost log per call.
 
@@ -350,7 +461,8 @@ class AnalyticBackend(CclBackend):
 
     def put(self, x, group, mesh, *, shift: int = 1):
         self._note("put", x, group, mesh,
-                   lambda b, n: b / self.link.bandwidth_Bps)
+                   lambda b, n: b / self.link.bandwidth_Bps
+                   + self.link.latency_s)
         return super().put(x, group, mesh, shift=shift)
 
 
@@ -390,6 +502,7 @@ def available_backends() -> Tuple[str, ...]:
 
 
 register_backend(XlaBackend, aliases=("flat",))
+register_backend(HierarchicalBackend)
 register_backend(AnalyticBackend)
 
 
@@ -403,25 +516,117 @@ class LinkModel:
     """H100 NVLink link model: one direction of one card's NVLink.
 
     ``bandwidth_Bps``: 900 GB/s to the other cards of the host, all to all,
-    i.e. 450 GB/s each way (NVIDIA's H100 SXM data sheet, as tabled in the
-    hopper-kernels guide).  The model is bandwidth only: that table gives no
-    per-hop latency or launch overhead, so none is added until a run on the
-    card measures them.
+    i.e. 450 GB/s each way (NVIDIA's H100 SXM data sheet).
+
+    ``latency_s``: the per-hop latency of a ring step.  It stays 0.0: with
+    every rank on one card no collective crosses an NVLink hop, so no run
+    of the port can measure it, and the data sheet gives none.
+
+    ``dispatch_s``: the host's time to issue one collective: the host time
+    of one ``ompccl.allreduce`` call of a 4 KiB payload a rank over the
+    (pod, data) group of the 8-rank smoke mesh, measured by
+    ``chip_smoke.py``'s runtime phase on an NVIDIA H100 80GB HBM3 at a
+    700 W power limit: 59.75 µs, the median of nineteen timings of 200
+    calls each, taken in three runs (46.99 to 91.26 µs).  The runs
+    disagree: one's timings fell into two groups, 49.13 to 50.90 and 81.06
+    to 88.84 µs, another's lay from 73.92 to 91.26, a third's from 46.99
+    to 70.60; the host's cores are shared.  ``chip_smoke.py`` fails if a
+    run's median lies outside half to one and a half times this value.
     """
 
     bandwidth_Bps: float = 450e9
+    latency_s: float = 0.0
+    dispatch_s: float = 59.75e-6
+
+    def collective_time(self, nbytes: int, ndev: int) -> float:
+        """One ring all-reduce including the per-call dispatch overhead —
+        the unit cost both gradient-reduction schedules are built from."""
+        return self.dispatch_s + ring_allreduce_time(nbytes, ndev, self)
+
+
+#: One H100's network port between hosts: a ConnectX-7 adapter at 400 Gb/s,
+#: i.e. 50 GB/s each way (NVIDIA's ConnectX-7 data sheet; one adapter a card
+#: in the DGX H100).  Its latency is not measured here either.
+INTER_NODE_LINK = LinkModel(bandwidth_Bps=50e9)
 
 
 def ring_allreduce_time(bytes_: int, ndev: int,
                         link: LinkModel = LinkModel()) -> float:
-    """2(n-1)/n · B / bw — the classic ring bound, bandwidth term only."""
+    """2(n-1)/n · B / bw + 2(n-1) · lat — the classic ring bound."""
     if ndev <= 1:
         return 0.0
-    return 2 * (ndev - 1) / ndev * bytes_ / link.bandwidth_Bps
+    steps = 2 * (ndev - 1)
+    return steps * link.latency_s + (steps / ndev) * bytes_ \
+        / link.bandwidth_Bps
 
 
 def ring_allgather_time(bytes_out: int, ndev: int,
                         link: LinkModel = LinkModel()) -> float:
     if ndev <= 1:
         return 0.0
-    return (ndev - 1) / ndev * bytes_out / link.bandwidth_Bps
+    steps = ndev - 1
+    return steps * link.latency_s + (steps / ndev) * bytes_out \
+        / link.bandwidth_Bps
+
+
+def hierarchical_allreduce_time(
+    bytes_: int,
+    intra: int,
+    inter: int,
+    intra_link: LinkModel = LinkModel(),
+    inter_link: LinkModel = INTER_NODE_LINK,
+) -> float:
+    """RS(intra) + AR(inter, on 1/intra of the data) + AG(intra)."""
+    t_rs = ring_allgather_time(bytes_, intra, intra_link)  # RS cost == AG cost
+    t_ar = ring_allreduce_time(bytes_ // max(intra, 1), inter, inter_link)
+    t_ag = ring_allgather_time(bytes_, intra, intra_link)
+    return t_rs + t_ar + t_ag
+
+
+def per_param_reduce_time(sizes_bytes: Sequence[int], ndev: int,
+                          link: LinkModel = LinkModel(),
+                          *, compute_s: float = 0.0) -> float:
+    """The per-param issue schedule: the whole backward finishes, then one
+    collective per parameter runs back-to-back — nothing overlaps."""
+    return compute_s + sum(link.collective_time(b, ndev) for b in sizes_bytes)
+
+
+def bucketed_reduce_time(bucket_bytes: Sequence[int], ndev: int,
+                         link: LinkModel = LinkModel(),
+                         *, compute_s: float = 0.0) -> float:
+    """The non-overlapped bucketed schedule: the whole backward finishes,
+    then every bucket's all-reduce runs back-to-back.  Its cost model is
+    per-param issue's, over the bucket payloads."""
+    return per_param_reduce_time(bucket_bytes, ndev, link,
+                                 compute_s=compute_s)
+
+
+def overlapped_reduce_time(bucket_bytes: Sequence[int], ndev: int,
+                           link: LinkModel = LinkModel(),
+                           *, compute_s: float = 0.0,
+                           microbatches: int = 1) -> float:
+    """The backward-overlap schedule: every microbatch's buckets
+    reduce-scatter under the next microbatch's backward, and one all-gather
+    per bucket trails.  Wire volume is ``(k + 1)·B·(n-1)/n`` per bucket
+    against the single all-reduce's ``2B(n-1)/n``."""
+    buckets = list(bucket_bytes)
+    k = max(microbatches, 1)
+    if not buckets:
+        return compute_s
+
+    def phase(b):  # one RS or AG pass: half an allreduce + its dispatch
+        if ndev <= 1:
+            return link.dispatch_s
+        return link.dispatch_s + (ndev - 1) * (
+            link.latency_s + b / (ndev * link.bandwidth_Bps))
+
+    per_slot_compute = compute_s / (k * len(buckets))
+    done = 0.0
+    slot = 0
+    for _ in range(k):
+        for b in buckets:
+            slot += 1
+            done = max(done, slot * per_slot_compute) + phase(b)
+    for b in buckets:            # trailing all-gathers: nothing hides them
+        done += phase(b)
+    return done

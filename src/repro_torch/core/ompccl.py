@@ -11,10 +11,14 @@ listing-style and handle-style code record the same call stream.
 
 from __future__ import annotations
 
-from .backends import (  # noqa: F401  (re-exports)
+from .backends import (  # noqa: F401  (re-exports: the cost model)
     LinkModel,
+    bucketed_reduce_time,
     group_rank,
     group_size,
+    hierarchical_allreduce_time,
+    overlapped_reduce_time,
+    per_param_reduce_time,
     ring_allgather_time,
     ring_allreduce_time,
 )
@@ -36,6 +40,10 @@ __all__ = [
     "LinkModel",
     "ring_allreduce_time",
     "ring_allgather_time",
+    "hierarchical_allreduce_time",
+    "per_param_reduce_time",
+    "bucketed_reduce_time",
+    "overlapped_reduce_time",
 ]
 
 

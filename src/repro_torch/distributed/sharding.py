@@ -8,19 +8,22 @@ is not already taken by another dim wins; ``None`` means replicated.
 
 A spec here is a tuple with one entry per dim — a mesh axis, a tuple of
 them, or None — which is what :func:`repro_torch.interop.stack_shards`
-takes.  ``NamedSharding`` has no counterpart: a stacked tensor already
-holds every rank.
+takes.  In place of ``NamedSharding``, :class:`RankSharding` carries the
+mesh and that spec: a stacked tensor already holds every rank, so nothing
+more is needed to place one.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import List, Optional, Sequence, Tuple
 
 from ..launch.mesh import RankMesh
 
 __all__ = ["ShardingRules", "DEFAULT_RULES", "rules_for_ctx",
-           "logical_to_spec"]
+           "logical_to_spec", "RankSharding", "named_sharding",
+           "param_bytes_per_device"]
 
 POD, DATA, MODEL = "pod", "data", "model"
 
@@ -97,3 +100,33 @@ def logical_to_spec(logical_axes: Sequence[Optional[str]], mesh: RankMesh,
     """Logical axis names -> a spec with one entry per dim."""
     taken: set = set()
     return tuple(rules.lookup(ax, mesh, taken) for ax in logical_axes)
+
+
+@dataclasses.dataclass(frozen=True)
+class RankSharding:
+    """The placement of one stacked tensor: the mesh and a spec with one
+    entry per dim (the counterpart of ``NamedSharding``)."""
+
+    mesh: RankMesh
+    spec: tuple
+
+
+def named_sharding(logical_axes: Sequence[Optional[str]], mesh: RankMesh,
+                   rules: ShardingRules = DEFAULT_RULES) -> RankSharding:
+    return RankSharding(mesh, logical_to_spec(logical_axes, mesh, rules))
+
+
+def param_bytes_per_device(shape: Sequence[int], dtype_bytes: int,
+                           logical_axes: Sequence[Optional[str]],
+                           mesh: RankMesh,
+                           rules: ShardingRules = DEFAULT_RULES) -> int:
+    """Local shard size in bytes — what GlobalMemory charges the arena;
+    a dim its axes do not divide is padded (ceil-division)."""
+    spec = logical_to_spec(logical_axes, mesh, rules)
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    n = 1
+    for dim, part in zip(shape, parts):
+        axes = () if part is None else \
+            (part if isinstance(part, tuple) else (part,))
+        n *= -(-dim // math.prod(mesh.shape[ax] for ax in axes))
+    return n * dtype_bytes

@@ -42,7 +42,7 @@ def test_rule_covers_every_subpackage():
     covered = {p.relative_to(PORT).parts[0] for p in SOURCES
                if p.is_relative_to(PORT)}
     assert {"core", "kernels", "models", "serve", "configs", "distributed",
-            "launch", "apps"} <= covered
+            "launch", "apps", "examples"} <= covered
 
 
 def test_package_imports_with_jax_blocked():
