@@ -46,6 +46,17 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   cache), every decode attention the flash kernel at head_dim 256, G = 8;
   one full-width chunk call under ``"ring"`` against the same call under
   ``"allgather"``, and chunked prefill against token-by-token on an f32 cut;
+* after the runtime and examples phases, training: stablelm-3b at full
+  width and depth (random bf16 weights, data 2 x model 2) for 4 steps of
+  8 x 1024 tokens in microbatches of 2 through the port's launcher, every
+  attention's forward and recomputed forward on the flash kernel and
+  every backward on its gradient kernel (counted), each step's time and
+  tokens/s beside its bound, the peak memory, one more step profiled by
+  kernel group; then at depth 2 on pod 2 x data 2 x model 2 a step on the
+  kernels against the same step on their plain versions, the flat
+  backend against the hierarchical one, the int8 codec against flat, and
+  a checkpoint saved at step 2 and restored, step 3 bit for bit the
+  uninterrupted run's;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the wave step and the scan, and flash's
@@ -76,6 +87,7 @@ does a machine without CUDA and a directory that does not hold the port.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -355,6 +367,8 @@ def load_port():
         linear_scan_plain=ls.linear_scan_plain,
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
+        flash_attention_bwd_kernel=fa.flash_attention_bwd_kernel,
+        flash_attention_bwd_plain=fa.flash_attention_bwd_plain,
         flash_combine_kernel=fa.flash_combine_kernel,
         flash_combine_plain=fa.flash_combine_plain,
         expert_mlp=moe_kernel.expert_mlp,
@@ -763,6 +777,70 @@ def check_flash(torch, k, g) -> None:
     check_flash_combine(torch, k, g)
 
 
+def check_flash_bwd(torch, k, g) -> None:
+    """Flash attention's gradient kernel against its plain version
+    (``flash_attention_bwd_plain``, the same formulas in plain torch) on
+    ragged shapes: Tq and Tk off the 64-row tile and the key tile, D 64,
+    80, 128 and 256 with Dv != D, G 1, 4 and 8, causal, prefix-LM (a
+    window across key tiles), non-causal and a query offset; f32, f16 and
+    bf16.  Both take the plain forward's output and log-sum-exp; the
+    forward kernel's lse (written on the route the rule gives the case) is
+    held against the plain version's first.  Tolerances, relative to each
+    gradient's largest magnitude: f32 1e-4 (sums of up to 300 terms a
+    row, in another order), f16 2e-3 and bf16 1.6e-2 (one ulp of the
+    output type, 2^-10 / 2^-7, plus that order); lse within 1e-4 (f32
+    scores summed in another order).  Two launches on the same inputs are
+    equal bit for bit, and the gradient's refusals hold."""
+    tols = {torch.float32: 1e-4, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
+    fwd, bwd = k.flash_attention_kernel, k.flash_attention_bwd_kernel
+    cases = [
+        # B, Tq, Tk, H, KH, D, Dv, causal, q_offset, prefix
+        (2, 37, 37, 4, 4, 64, 64, True, 0, 0),
+        (1, 70, 70, 8, 2, 80, 80, True, 0, 0),
+        (2, 45, 45, 4, 1, 128, 64, True, 0, 20),
+        (1, 33, 97, 8, 1, 256, 256, True, 64, 0),
+        (1, 100, 100, 8, 8, 80, 48, True, 0, 70),
+        (2, 29, 53, 4, 1, 64, 128, False, 0, 0),
+        (1, 130, 130, 4, 1, 128, 128, True, 0, 0),
+    ]
+    for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx) in cases:
+        for dt in tols:
+            q = torch.randn(B, Tq, H, D, generator=g, device="cuda").to(dt)
+            kk = torch.randn(B, Tk, KH, D, generator=g, device="cuda").to(dt)
+            v = torch.randn(B, Tk, KH, Dv, generator=g, device="cuda").to(dt)
+            do = torch.randn(B, Tq, H, Dv, generator=g, device="cuda").to(dt)
+            kw = dict(causal=causal, q_offset=off, prefix_len=pfx)
+            o, lse = k.flash_attention_plain(q, kk, v, return_lse=True, **kw)
+            route = _attention_route(torch, dt, D, Dv, H // KH)
+            o_k, lse_k = _counted(fwd, lambda: fwd(q, kk, v, return_lse=True,
+                                                   **kw), route)
+            tag = f"flash bwd {B}x{Tq}x{Tk} H{H}/{KH} D{D}/{Dv} {dt}"
+            l_err = max_err(torch, lse_k, lse)
+            check(bool(torch.isfinite(lse_k).all()) and l_err <= 1e-4,
+                  f"{tag}: forward lse on {route}: err {l_err}")
+            check(fwd.last_grid["splits"] == 1,
+                  f"{tag}: the forward split its keys with an lse")
+            want = k.flash_attention_bwd_plain(q, kk, v, o, do, lse, **kw)
+            got = _counted(bwd, lambda: bwd(q, kk, v, o, do, lse, **kw))
+            again = bwd(q, kk, v, o, do, lse, **kw)
+            for name, x, w, y in zip(("dq", "dk", "dv"), got, want, again):
+                err = max_err(torch, x, w)
+                scale = max(float(w.float().abs().max()), 1e-6)
+                check(bool(torch.isfinite(x).all())
+                      and err <= tols[dt] * scale,
+                      f"{tag} {name}: err {err} (scale {scale})")
+                check(torch.equal(x, y), f"{tag} {name}: two launches differ")
+    q = torch.randn(2, 8, 4, 64, generator=g, device="cuda").requires_grad_()
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    for bad in (dict(valid_len=4),
+                dict(q_offset=torch.tensor([0, 3], device="cuda"))):
+        try:
+            fa_mod.flash_attention_grad(q, q, q, **bad)
+            check(False, f"flash with a gradient took {sorted(bad)}")
+        except ValueError:
+            pass
+
+
 def _refused_off_rule(module, wrapper, call, what,
                       rule_name="attention_route", route="wgmma") -> None:
     """A launch off the rule (f32, or a shape the rule sends elsewhere)
@@ -1165,7 +1243,8 @@ def check_ring_attention(torch, k, g) -> None:
 
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "leap": check_leap, "fused_step": check_fused_step,
-                "flash": check_flash, "expert_mlp": check_expert_mlp,
+                "flash": check_flash, "flash_bwd": check_flash_bwd,
+                "expert_mlp": check_expert_mlp,
                 "moe_dispatch": check_moe_dispatch,
                 "linear_scan": check_linear_scan,
                 "ring_attention": check_ring_attention,
@@ -1290,6 +1369,8 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
             continue
         name = evt.key
         group = ("flash" if any(t in name for t in FLASH_KERNELS) else
+                 "flash_bwd" if any(t in name for t in FLASH_BWD_KERNELS)
+                 else
                  "stencil" if any(t in name for t in LEAP_KERNELS
                                   + FUSED_KERNELS) else
                  "ring_attention" if "ring_attention" in name else
@@ -2652,7 +2733,6 @@ def runtime_phase(torch, dev) -> dict:
 def _run_example(main, argv):
     """An example's ``main(argv)`` with what it prints sent to the log;
     returns its result and its printed lines."""
-    import contextlib
     import io
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -2866,6 +2946,427 @@ def examples_phase(torch, k, dev, wrappers, kernels) -> dict:
     return result
 
 
+# -- the training phase ----------------------------------------------------------
+
+TRAIN_ARCH = "stablelm-3b"
+TRAIN_MESH = "data=2,model=2"   # FSDP over data, TP over model, one card
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 1024, 2, 4
+TRAIN_CUT_LAYERS = 2            # the checks' depth cut, full width
+TRAIN_CHECK_MESH = "pod=2,data=2,model=2"
+TRAIN_LR = 1e-4                 # the checks' constant learning rate
+TRAIN_B1 = 0.9                  # the checks' AdamW first-moment decay
+FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+
+
+def _train_flops(cfg, tokens: int) -> float:
+    """Operations of one training step under remat: 8 a token for each
+    weight of the layers' matrices (forward, recomputed forward, backward
+    twice the forward), 6 for each weight of the LM head (never
+    recomputed), none for the embedding lookup and the norms; plus the
+    attention's causal score products (forward twice, backward 2.5 times
+    the forward)."""
+    from repro_torch.models import schema
+
+    spec = schema.build_schema(cfg)
+    head = "lm_head" if "lm_head" in spec else "embed/table"
+    per_token = 6 * math.prod(spec[head].shape) + 8 * sum(
+        math.prod(s.shape) for n, s in spec.items()
+        if n.startswith("layers/") and len(s.shape) == 3)
+    attn = 2 * 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim \
+        * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 * (tokens / TRAIN_SEQ)
+    return per_token * tokens + (2 + 2.5) * attn
+
+
+def _bwd_at(torch, k, q, kk, v, do):
+    """The backward kernel at the training path's shape against its plain
+    version and SDPA's backward, with its bound (operations at the bf16
+    tensor-core rate: S again, dP, dv, dq and dk over the visible (row,
+    key) pairs; bytes: q, k, v, o, dO and lse read, dq, dk, dv written)."""
+    import torch.nn.functional as F
+    Tq, H, D = q.shape[-3:]
+    Dv = v.shape[-1]
+    o, lse = k.flash_attention_kernel(q, kk, v, return_lse=True)
+    args = (q, kk, v, o, do, lse)
+    got = k.flash_attention_bwd_kernel(*args)
+    want = k.flash_attention_bwd_plain(*args)
+    errs = {n: (max_err(torch, x, w), float(w.float().abs().max()),
+                int((x != w).sum()), x.numel())
+            for n, x, w in zip(("dq", "dk", "dv"), got, want)}
+    err = max(e / max(s, 1e-6) for e, s, _, _ in errs.values())
+    log(f"flash bwd at the training shape: (max |err|, max |plain|, "
+        f"elements that differ, elements) {errs}")
+    check(err <= 1.6e-2, f"flash bwd at the training shape: rel err {err}")
+    del got, want
+    n = q.numel() // (Tq * H * D)
+    pairs = n * H * Tq * (Tq + 1) // 2
+    ops = 2 * pairs * (3 * D + 2 * Dv)
+    nbytes = 2 * (2 * q.numel() + 2 * kk.numel() + 2 * v.numel()
+                  + 2 * o.numel()) + 4 * lse.numel()
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    ms = cuda_ms(torch, lambda: k.flash_attention_bwd_kernel(*args), 5)
+    dev = device_ms(torch, lambda: k.flash_attention_bwd_kernel(*args), 3,
+                    FLASH_BWD_KERNELS)
+    plain = cuda_ms(torch, lambda: k.flash_attention_bwd_plain(*args), 2)
+    # the library's yardstick: SDPA's backward alone, on its own forward
+    q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (q, kk, v))
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
+    library = cuda_ms(torch, lambda: torch.autograd.grad(
+        o4, (q4, k4, v4), do4, retain_graph=True), 5)
+    del q4, k4, v4, o4, do4
+    fwd_ms = cuda_ms(torch, lambda: k.flash_attention_kernel(
+        q, kk, v, return_lse=True), 5)
+    log(f"flash bwd at q {tuple(q.shape)}: {ms:.3f} ms (device "
+        f"{_ms(dev, 3)}), plain {plain:.3f}, sdpa backward {library:.3f}, "
+        f"bound {b_ms:.4f} ms by {b_by}; forward with lse {fwd_ms:.3f} ms; "
+        f"rel err {err:.3g}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": library, "forward_ms": fwd_ms,
+            "shape": list(q.shape)}
+
+
+def _cut(cfg, layers: int):
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=layers)
+
+
+def _train_setup(torch, dev, cfg, mesh, **knobs):
+    """A step on ``mesh`` with the checks' constant learning rate, AdamW,
+    and the first SyntheticLM batch laid out on the card."""
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.interop import stack_shards
+    from repro_torch.models import api
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    ctx = ParallelCtx.from_mesh(mesh, remat=True, microbatch=TRAIN_MICRO,
+                                **knobs)
+    opt = adamw(lambda step: torch.tensor(TRAIN_LR), b1=TRAIN_B1)
+    step = build_train_step(cfg, mesh, ctx, opt, donate=False)
+    _, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                  dp_axes=ctx.dp_axes)
+    src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=17)
+
+    def batch(i):
+        return {n: stack_shards(a, mesh, bspecs[n], device=dev)
+                for n, a in src.batch_at(i).items()}
+    return ctx, opt, step, batch
+
+
+def _step_grads(torch, state, metrics, nd):
+    """The reduced gradients a first AdamW step from zero moments applied,
+    read back from its first moment: m = (1 - b1) * scale * g, with the
+    step's clip scale min(1, 1 / grad_norm)."""
+    scale = torch.clamp(1.0 / torch.clamp(metrics["grad_norm"], min=1e-9),
+                        max=1.0)
+    return {n: m / ((1 - TRAIN_B1)
+                    * scale.reshape(*scale.shape, *([1] * (m.dim() - nd))))
+            for n, m in state["m"].items()}
+
+
+def _grads_close(torch, got, want, tol, what, scale=None):
+    """Worst error of ``got`` against ``want``, leaf by leaf, relative to
+    each leaf's largest |want|, or to ``scale`` (one number, or one a
+    leaf) where given; fails above ``tol``."""
+    worst = 0.0
+    for n in want:
+        ref = scale.get(n) if isinstance(scale, dict) else scale
+        ref = ref or max(float(want[n].abs().max()), 1e-30)
+        rel = max_err(torch, got[n], want[n]) / ref
+        worst = max(worst, rel)
+        check(rel <= tol, f"{what}: {n} differs by {rel} (bound {tol})")
+    return worst
+
+
+@contextlib.contextmanager
+def _counting(cls, verbs):
+    """Counts the calls of ``cls``'s own ``verbs`` while the block runs."""
+    counts = dict.fromkeys(verbs, 0)
+    saved = {v: cls.__dict__[v] for v in verbs}
+
+    def counted(verb, f):
+        def call(self, *args, **kwargs):
+            counts[verb] += 1
+            return f(self, *args, **kwargs)
+        return call
+    for v in verbs:
+        setattr(cls, v, counted(v, saved[v]))
+    try:
+        yield counts
+    finally:
+        for v, f in saved.items():
+            setattr(cls, v, f)
+
+
+def train_checks(torch, k, dev) -> dict:
+    """At full width, depth cut to TRAIN_CUT_LAYERS, on pod 2 x data 2 x
+    model 2: one step on the kernels against the same step on the plain
+    versions, the flat backend against the hierarchical one and the int8
+    codec against flat (each held by the gradients the step applied, read
+    back from its AdamW first moment), and a checkpoint save / restore
+    against the uninterrupted run, bit for bit."""
+    import os
+    import shutil
+    from repro_torch import configs
+    from repro_torch.core.backends import HierarchicalBackend
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.distributed.buckets import plan_for_config
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    from repro_torch.launch.train import from_global, parse_mesh, to_global
+    from repro_torch.models import schema as sch
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.step import (opt_state_specs, per_rank_grads,
+                                        reduce_gradients)
+
+    cfg = _cut(configs.get(TRAIN_ARCH), TRAIN_CUT_LAYERS)
+    mesh = parse_mesh(TRAIN_CHECK_MESH)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+    out = {}
+    with use_default(dctx):
+        ctx, opt, step, batch = _train_setup(torch, dev, cfg, mesh,
+                                             dp_backend="flat")
+        b0 = batch(0)
+        st0 = opt.init(params)
+        nd = mesh.ndim
+        verbs = ("allreduce", "reducescatter", "allgather")
+        # each step from (params, st0) returns new parameters and state
+        # (donate=False); all but the applied gradients is dropped at once,
+        # since the replicated embedding and head make a state of about
+        # 12 GB
+        with _counting(HierarchicalBackend, verbs) as hier_flat:
+            p, st, met_k = step(params, st0, b0, 0)
+        del p
+        r_k = _step_grads(torch, st, met_k, nd)
+        del st
+        # 1. the same step on the plain versions, on the card
+        saved = fa_mod.flash_attention_kernel, fa_mod.flash_attention_bwd_kernel
+        fa_mod.flash_attention_kernel = fa_mod.flash_attention_plain
+        fa_mod.flash_attention_bwd_kernel = fa_mod.flash_attention_bwd_plain
+        try:
+            p, st, met_p = step(params, st0, b0, 0)
+            del p
+            r_p = _step_grads(torch, st, met_p, nd)
+            del st
+            l_p, g_p = per_rank_grads(params, b0, cfg, ctx, mesh)
+        finally:
+            fa_mod.flash_attention_kernel, fa_mod.flash_attention_bwd_kernel \
+                = saved
+        l_k, g_k = per_rank_grads(params, b0, cfg, ctx, mesh)
+        loss_err = max_err(torch, l_k, l_p) / float(l_p.abs().max())
+        g_scale = {n: max(float(g_p[n].float().abs().max()), 1e-30)
+                   for n in g_p}
+        g_err = max(max_err(torch, g_k[n], g_p[n]) / g_scale[n] for n in g_p)
+        # bf16 activations and weights: 2e-2 of each leaf's largest
+        # per-rank gradient, the reference's own bf16 bound for the model
+        # stack; the step's reduced gradients are means of those
+        check(loss_err <= 1e-3 and g_err <= 2e-2,
+              f"train: kernels vs plain loss {loss_err}, grads {g_err}")
+        out["kernels_vs_plain"] = {
+            "loss_rel": loss_err, "grad_rel": g_err,
+            "step_grad_rel": _grads_close(torch, r_k, r_p, 2e-2,
+                                          "train: kernels vs plain step",
+                                          scale=g_scale)}
+        del r_p, g_p
+        # 2. flat vs hierarchical (the (pod, data) buckets), int8 vs flat
+        ctx_h, _, step_h, _ = _train_setup(torch, dev, cfg, mesh,
+                                           dp_backend="hierarchical")
+        with _counting(HierarchicalBackend, verbs) as hier:
+            p, st, met_h = step_h(params, st0, b0, 0)
+        del p
+        r_h = _step_grads(torch, st, met_h, nd)
+        del st
+        # the overlapped path: each (pod, data) bucket reduce-scatters a
+        # microbatch and all-gathers once, through the hierarchical
+        # algorithm; the flat step never reaches it
+        n_pd = sum(b.axes == ("pod", "data")
+                   for b in plan_for_config(cfg, mesh, ctx_h).buckets)
+        want = {"allreduce": 0, "reducescatter": TRAIN_MICRO * n_pd,
+                "allgather": n_pd}
+        check(n_pd > 0 and hier == want
+              and hier_flat == dict.fromkeys(verbs, 0),
+              f"train: hierarchical calls {hier} (want {want}), "
+              f"{hier_flat} in the flat step")
+        check(torch.equal(met_h["loss"], met_k["loss"]),
+              "train: the loss moved with the backend")
+        out["flat_vs_hierarchical"] = {
+            "hierarchical_calls": hier,
+            "grad_norm_rel": float((met_h["grad_norm"] - met_k["grad_norm"])
+                                   .abs().max() / met_k["grad_norm"].max()),
+            "step_grad_rel": _grads_close(torch, r_h, r_k, 2 ** -8,
+                                          "train: hierarchical vs flat")}
+        del r_h
+        ctx_q, _, _, _ = _train_setup(torch, dev, cfg, mesh,
+                                      grad_codec="int8")
+        r_f, _ = reduce_gradients(g_k, cfg, ctx, mesh=mesh)
+        r_q, _ = reduce_gradients(g_k, cfg, ctx_q, mesh=mesh)
+        # each reduced entry carries two int8 roundings of at most half a
+        # quantization step, amax / 127 of its block: within 2/127 of the
+        # largest per-rank gradient of any bucket
+        g_max = max(float(g_k[n].float().abs().max()) for n in r_f)
+        q_err = max(max_err(torch, r_q[n], r_f[n]) for n in r_f) / g_max
+        check(q_err <= 2 / 127, f"train: int8 vs flat reduce {q_err}")
+        del r_f, r_q
+        _, _, step_q, _ = _train_setup(torch, dev, cfg, mesh,
+                                       grad_codec="int8")
+        p, st, met_q = step_q(params, st0, b0, 0)
+        del p
+        r_q = _step_grads(torch, st, met_q, nd)
+        del st
+        out["int8_vs_flat"] = {
+            "reduce_rel": q_err,
+            "step_grad_rel": _grads_close(torch, r_q, r_k, 2 / 127,
+                                          "train: int8 vs flat step",
+                                          scale=g_max)}
+        del r_q, r_k, g_k
+        # 3. save at step 2, restore, step 3 == the uninterrupted run
+        ckdir = ROOT / "build" / "chip_smoke_ckpt"
+        shutil.rmtree(ckdir, ignore_errors=True)
+        mgr = CheckpointManager(str(ckdir))
+        pspecs = sch.partition_specs(cfg, mesh)
+        ospecs = opt_state_specs(cfg, mesh, "adamw")
+        p, st = params, st0
+        del params, st0
+        for i in range(2):
+            p, st, _ = step(p, st, batch(i), i)
+        saved = (to_global(p, pspecs, mesh), to_global(st, ospecs, mesh))
+        mgr.save(2, *saved, blocking=True)
+        check(mgr.verify_step(2) and mgr.latest() == 2,
+              "train: checkpoint 2 not verified")
+        p_a, st_a, _ = step(p, st, batch(2), 2)
+        s, gp, gs, _ = mgr.restore()
+        p_r = from_global(gp, pspecs, mesh, dev)
+        check(s == 2 and all(torch.equal(p_r[n], p[n]) for n in p)
+              and all(torch.equal(gs[m][n], saved[1][m][n])
+                      for m in gs for n in gs[m]),
+              "train: the restored state differs from the saved one")
+        del p, st, gp, saved
+        st_r = from_global(gs, ospecs, mesh, dev)
+        del gs
+        p_b, st_b, _ = step(p_r, st_r, batch(2), 2)
+        same = all(torch.equal(p_a[n], p_b[n]) for n in p_a) and all(
+            torch.equal(st_a[m][n], st_b[m][n]) for m in st_a for n in p_a)
+        check(same, "train: step 3 after restore differs from the run")
+        out["checkpoint_restore_bitwise"] = same
+        shutil.rmtree(ckdir, ignore_errors=True)
+        os.makedirs(ckdir.parent, exist_ok=True)
+    log("train checks: " + json.dumps(out))
+    return out
+
+
+def _train_breakdown(torch, dev, cfg, run) -> str:
+    """One more step on the launcher's final state, under the profiler:
+    the device time by kernel group and the busy share (the state is
+    donated to the step, as the launcher's loop does)."""
+    from repro_torch.core.context import use_default
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.interop import stack_shards
+    from repro_torch.models import api
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.train.optim import adamw
+    from repro_torch.train.step import build_train_step
+
+    mesh = run["mesh"]
+    ctx = ParallelCtx.from_mesh(mesh, remat=True, microbatch=TRAIN_MICRO)
+    with use_default(run["context"]):
+        step = build_train_step(cfg, mesh, ctx,
+                                adamw(lambda s: torch.tensor(TRAIN_LR)))
+    _, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                  dp_axes=ctx.dp_axes)
+    batch = {n: stack_shards(a, mesh, bspecs[n], device=dev) for n, a in
+             SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=17)
+             .batch_at(TRAIN_STEPS).items()}
+    state = [run["params"], run["opt_state"]]
+
+    def one():
+        state[0], state[1], _ = step(state[0], state[1], batch, TRAIN_STEPS)
+
+    with use_default(run["context"]):
+        text = _breakdown(torch, one, reps=1)
+    log(f"train: one step profiled: {text}")
+    return text
+
+
+def train_phase(torch, k, dev, wrappers) -> dict:
+    """stablelm-3b at full width and depth trained TRAIN_STEPS steps
+    through the port's launcher on data 2 x model 2, every attention's
+    forward and backward counted; then the depth-cut checks and the
+    backward kernel's timings.  Returns the backward kernel's line of the
+    ``kernels`` JSON (and the flash forward's training counts)."""
+    from repro_torch import configs
+    from repro_torch.launch import train as launcher
+
+    cfg = configs.get(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--batch",
+            str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatch",
+            str(TRAIN_MICRO), "--mesh", TRAIN_MESH, "--device",
+            str(torch.device(dev).type)]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    run = launcher.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fwd, bwd = wrappers["flash_attention"], wrappers["flash_attention_bwd"]
+    counts = {"forward": fwd.launches, "forward_routes": dict(
+        fwd.route_launches), "backward": bwd.launches}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    per_pass = cfg.num_layers * TRAIN_MICRO * TRAIN_STEPS
+    log(f"train: {cfg.name} ({cfg.param_count()} parameters) on "
+        f"{TRAIN_MESH}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens (microbatch {TRAIN_MICRO}) in {wall:.1f} s; losses "
+        f"{run['losses']}, grad norms {run['grad_norms']}; flash launches "
+        f"{counts}; peak {peak:.2f} GB")
+    check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
+          and len(run["losses"]) == TRAIN_STEPS, "train: a non-finite step")
+    # every layer's attention: a forward and a remat forward, one backward,
+    # a microbatch a step; stablelm's head_dim 80 takes the CUDA cores
+    check(counts["forward"] == 2 * per_pass
+          and counts["forward_routes"]["simt"] == 2 * per_pass
+          and counts["backward"] == per_pass,
+          f"train: flash launches {counts}, not {2 * per_pass} forward "
+          f"(simt) and {per_pass} backward")
+    b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
+    steps = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
+             for s in run["step_s"]]
+    log(f"train: step times (ms, the first with its kernel builds) "
+        f"{[round(s['ms'], 2) for s in steps]}, tokens/s "
+        f"{[round(s['tokens_per_s'], 1) for s in steps]}; bound "
+        f"{b_ms:.2f} ms a step ({_train_flops(cfg, tokens):.4g} operations "
+        f"at the bf16 tensor-core rate)")
+    breakdown = _train_breakdown(torch, dev, cfg, run)
+    del run
+    torch.cuda.empty_cache()
+    checks = train_checks(torch, k, dev)
+    torch.cuda.empty_cache()
+    # the backward kernel at one layer's attention of the training path:
+    # (ranks 2 x 2, a microbatch of 2, 1024 tokens, 16 heads of 80) bf16
+    g = torch.Generator(device=dev).manual_seed(3)
+    H_loc = cfg.num_heads // 2
+    shape = (2, 2, TRAIN_BATCH // 2 // TRAIN_MICRO, TRAIN_SEQ, H_loc,
+             cfg.head_dim)
+    q, kk, v, do = (torch.randn(*shape, generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(4))
+    row = {"name": "flash_attention_bwd", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+           "replaces": "src/repro/kernels/flash_attention/kernel.py:125 "
+                       "(the gradient of its forward)",
+           "launches": counts["backward"]}
+    row.update(_bwd_at(torch, k, q, kk, v, do))
+    row["train"] = {"step_ms": steps, "bound_ms": b_ms,
+                    "peak_memory_gb": peak, "flash_forward": counts,
+                    "breakdown": breakdown, "checks": checks}
+    del q, kk, v, do
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
 
@@ -2909,7 +3410,8 @@ def main() -> int:
                 "expert_mlp": k.expert_mlp,
                 "fused_moe_dispatch": k.fused_moe_dispatch_kernel,
                 "linear_scan": k.linear_scan_kernel,
-                "fused_ring_attention": k.fused_ring_attention_kernel}
+                "fused_ring_attention": k.fused_ring_attention_kernel,
+                "flash_attention_bwd": k.flash_attention_bwd_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -3283,7 +3785,6 @@ def main() -> int:
     flash.update(ring.pop("flash"))
     check(ring["launches"] > 0, "ring attention: the phase launched no ring")
     kernels.append(ring)
-    check(len(kernels) == len(wrappers) == 9, "kernels line incomplete")
 
     # -- phase 12: the unified runtime and the hierarchical backend -----------
     rt = runtime_phase(torch, dev)
@@ -3292,6 +3793,13 @@ def main() -> int:
     # -- phase 13: the paper's examples (quickstart, Cannon, Minimod) ---------
     ex = examples_phase(torch, k, dev, wrappers, kernels)
     log("examples: " + json.dumps(ex))
+
+    # -- phase 14: training stablelm-3b, flash attention's gradient -----------
+    bwd = train_phase(torch, k, dev, wrappers)
+    flash.setdefault("launches_by_path", {})["train"] = \
+        bwd["train"]["flash_forward"]["forward"]
+    kernels.append(bwd)
+    check(len(kernels) == len(wrappers) == 10, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -13,6 +13,8 @@ returns the stacked result, i.e. what every rank holds afterwards.
 * :class:`HierarchicalBackend` — pod-aware two-level algorithms from
   :mod:`repro_torch.distributed.hierarchical` (reduce-scatter over the fast
   axes -> all-reduce over the slow one -> all-gather over the fast ones).
+* :class:`CompressedBackend` — int8 quantization + error feedback around
+  the wire collective (:mod:`repro_torch.distributed.compression`);
 * :class:`AnalyticBackend` — the flat path plus a per-call cost estimate on
   an H100 NVLink :class:`LinkModel`.
 
@@ -40,6 +42,7 @@ __all__ = [
     "CclBackend",
     "XlaBackend",
     "HierarchicalBackend",
+    "CompressedBackend",
     "AnalyticBackend",
     "register_backend",
     "get_backend",
@@ -414,6 +417,32 @@ class HierarchicalBackend(CclBackend):
         return out.contiguous()
 
 
+class CompressedBackend(CclBackend):
+    """int8 + error-feedback wire compression around the reduce.
+
+    ``allreduce`` honors the CclBackend contract (returns the reduced
+    tensor); the quantization residual is dropped.  Error-feedback
+    training loops need the residual as a carry from step to step, so they
+    call :func:`repro_torch.distributed.compression.compressed_allreduce`
+    directly: a backend instance cannot thread a per-step carry."""
+
+    name = "compressed"
+
+    def allreduce(self, x, group: DiompGroup, mesh: RankMesh, *,
+                  op: str = "sum", error=None):
+        from ..distributed.compression import compressed_allreduce
+
+        if op != "sum":
+            raise ValueError(
+                f"compressed backend reduces op='sum' only, got {op!r} "
+                "(min/max do not decompose through quantized chunks)")
+        check_stacked(x, group, mesh)
+        # compressed_allreduce returns the group MEAN; scale back to the
+        # sum the CclBackend contract promises
+        out, _residual = compressed_allreduce(x, group, mesh, error=error)
+        return out * group_size(group, mesh)
+
+
 class AnalyticBackend(CclBackend):
     """Flat path + a host-side analytic cost log per call.
 
@@ -503,6 +532,7 @@ def available_backends() -> Tuple[str, ...]:
 
 register_backend(XlaBackend, aliases=("flat",))
 register_backend(HierarchicalBackend)
+register_backend(CompressedBackend)
 register_backend(AnalyticBackend)
 
 

@@ -485,17 +485,26 @@ def scratch_context(ctx: DiompContext) -> DiompContext:
 
 
 @contextmanager
-def recorded_once(first: bool):
+def recorded_once(first: bool, parent: Optional[DiompContext] = None):
     """Run the block against the active context when ``first``, else
     against its :func:`scratch_context` (the trace-time logging rule).
+
+    ``parent`` names the context to log against in place of the active one,
+    which it becomes for the block: a layer's recompute under
+    ``torch.utils.checkpoint`` runs in the autograd engine's thread on the
+    card, where the caller's ``use_default`` scope is not seen.
 
     Only the logs are replayed silently: the scratch context lends the
     active context's ``dispatch_stats`` for the block, since the reference
     sums those over every layer its scan runs."""
     if first:
-        yield default_context()
+        if parent is None:
+            yield default_context()
+        else:
+            with use_default(parent) as ctx:
+                yield ctx
         return
-    parent = default_context()
+    parent = default_context() if parent is None else parent
     scratch = scratch_context(parent)
     lent = scratch.dispatch_stats
     scratch.dispatch_stats = parent.dispatch_stats

@@ -15,7 +15,9 @@
 // the tensor-core route scales S in f32 and rounds P to the operand type
 // before P v, attention.cuh); masked scores count as
 // -1e30 and contribute p = 0, so a row that sees no key gives 0 (the
-// denominator is clamped at 1e-30); Dv may differ from D.
+// denominator is clamped at 1e-30); Dv may differ from D.  Asked for, both
+// routes also write each row's log-sum-exp (lse below), for the gradient of
+// flash_attention_bwd.cu; a launch that writes it takes no key split.
 //
 // Layout: q (R, B, Tq, H, D), k (R, B, Tk, KH, D), v (R, B, Tk, KH, Dv) and
 // out (R, B, Tq, H, Dv), each with its own (r, b, t, h) element strides and
@@ -73,7 +75,16 @@ struct FlashParams {
   float* pm;
   float* pl;
   float* pacc;
+  // with splits == 1, where not null: each (r b, t, h) row's log-sum-exp
+  // lse = m + log l of the scaled scores, (R * B, Tq, H) f32, +inf for a row
+  // that sees no key; the backward (flash_attention_bwd.cu) recomputes P
+  // from it
+  float* lse;
 };
+
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
 
 template <typename T, int DVT>
 __global__ void __launch_bounds__(ATT_NT) flash_fwd_kernel(FlashParams p) {
@@ -118,6 +129,8 @@ __global__ void __launch_bounds__(ATT_NT) flash_fwd_kernel(FlashParams p) {
     const int row = i0 + ty + 16 * a;
     const int t = row / G, h = kh * G + row % G;
     const float inv = 1.f / fmaxf(l[a], 1e-30f);
+    if (p.lse && tx == 0)
+      p.lse[((long long)nb * p.Tq + t) * p.H + h] = row_lse(m[a], l[a]);
 #pragma unroll
     for (int c = 0; c < DVT; ++c) {
       const int col = tx + 16 * c;
@@ -200,6 +213,8 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
       if (S == 1) {
         T* dst = out + t * p.os[2] + head * p.os[3];
         const float inv = 1.f / fmaxf(l[h], 1e-30f);
+        if (p.lse && (lane & 3) == 0)
+          p.lse[((long long)nb * p.Tq + t) * p.H + head] = row_lse(m[h], l[h]);
 #pragma unroll
         for (int j = 0; j < DV / 8; ++j)
           store2(dst + 8 * j + 2 * (lane & 3), o[4 * j + 2 * h] * inv,
@@ -341,8 +356,9 @@ extern "C" int repro_flash_attention(
     const void* q_offset, const void* valid_len, int R, int B, int Tq, int Tk,
     int H, int KH, int D, int Dv, int BK, int causal, int prefix_len,
     float scale, int dtype, int route, int splits, void* pm, void* pl,
-    void* pacc, void* stream) {
-  if (Dv > 256 || BK % 16 != 0 || BK < 16 || BK > 64 || H % KH != 0)
+    void* pacc, void* lse, void* stream) {
+  if (Dv > 256 || BK % 16 != 0 || BK < 16 || BK > 64 || H % KH != 0 ||
+      (lse && splits != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   FlashParams p;
   p.q = q; p.k = k; p.v = v; p.o = o;
@@ -360,6 +376,7 @@ extern "C" int repro_flash_attention(
   p.pm = static_cast<float*>(pm);
   p.pl = static_cast<float*>(pl);
   p.pacc = static_cast<float*>(pacc);
+  p.lse = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma) {
     switch (dtype) {

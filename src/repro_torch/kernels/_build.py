@@ -60,8 +60,10 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_linear_scan": [_P] * 7 + [_I] * 7 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
-        + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 4,
+        + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 5,
         "repro_flash_combine": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P]}),
+    "flash_attention_bwd": ("flash_attention_bwd.cu", {
+        "repro_flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_F, _I, _P]}),
     "ring_attention": ("ring_attention.cu", {
         "repro_ring_attention": [_P] * 10 + [_I, _P, _P] + [_I] * 12
         + [_F, _I, _I, _P]}),

@@ -12,6 +12,12 @@ splits each tile's keys over :func:`..plan.plan_key_splits` blocks; their
 f32 partial states are merged by the combine kernel of the same source
 (counted in ``flash_attention_kernel.combine_launches``), whose plain
 version is the ring attention's merge monoid (:func:`flash_combine_plain`).
+
+Training goes through :class:`FlashAttention`: its forward launches the
+kernel with the rows' log-sum-exp, its backward the gradient kernel of
+``csrc/flash_attention_bwd.cu`` (counted in
+``flash_attention_bwd_kernel.launches``; plain version
+:func:`flash_attention_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -28,11 +34,13 @@ from ..plan import (FLASH_BQ, attention_route, default_planner,
                     key_split_tiles, plan_key_splits)
 from ..ring_attention.kernel import (empty_state, finalize_state,
                                      merge_states, stripe_mask, stripe_state)
-from .ref import flash_attention_ref
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 __all__ = ["flash_attention_kernel", "flash_attention_plain",
            "flash_attention_split_plain", "flash_combine_kernel",
-           "flash_combine_plain"]
+           "flash_combine_plain", "flash_attention_bwd_kernel",
+           "flash_attention_bwd_plain", "FlashAttention",
+           "flash_attention_grad"]
 
 Offsets = Union[int, torch.Tensor]
 
@@ -53,10 +61,12 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
                           q_offset: Offsets = 0, prefix_len: int = 0,
                           scale: Optional[float] = None,
                           block: Optional[int] = None,
-                          valid_len: Optional[Offsets] = None) -> torch.Tensor:
+                          valid_len: Optional[Offsets] = None,
+                          return_lse: bool = False):
     """The plain version over any leading dims: ``q (..., Tq, H, D)``,
     ``k (..., Tk, KH, D)``, ``v (..., Tk, KH, Dv)``; the offsets broadcast
-    to the leading dims.  It folds the kernel's key tile per update."""
+    to the leading dims.  It folds the kernel's key tile per update.  With
+    ``return_lse`` also the rows' log-sum-exp ``(..., Tq, H)`` f32."""
     lead = q.shape[:-3]
     block = _key_tile(q, k, v, block)
     if valid_len is None:
@@ -66,8 +76,35 @@ def flash_attention_plain(q, k, v, *, causal: bool = True,
         v.reshape(-1, *v.shape[-3:]), causal=causal,
         q_offset=_per_row(q_offset, lead, q.device).reshape(-1),
         prefix_len=prefix_len, scale=scale, block=block,
+        valid_len=_per_row(valid_len, lead, q.device).reshape(-1),
+        return_lse=return_lse)
+    if not return_lse:
+        return out.reshape(*lead, *out.shape[-3:])
+    out, lse = out
+    return (out.reshape(*lead, *out.shape[-3:]),
+            lse.reshape(*lead, *lse.shape[-2:]))
+
+
+def flash_attention_bwd_plain(q, k, v, o, do, lse, *, causal: bool = True,
+                              q_offset: Offsets = 0, prefix_len: int = 0,
+                              scale: Optional[float] = None,
+                              valid_len: Optional[Offsets] = None):
+    """The backward's plain version over any leading dims (the forward's
+    layout; ``lse (..., Tq, H)``): :func:`.ref.flash_attention_bwd_ref`."""
+    lead = q.shape[:-3]
+    if valid_len is None:
+        valid_len = k.shape[-3]
+
+    def flat(t):
+        return t.reshape(-1, *t.shape[len(lead):])
+
+    dq, dk, dv = flash_attention_bwd_ref(
+        flat(q), flat(k), flat(v), flat(o), flat(do), flat(lse),
+        causal=causal,
+        q_offset=_per_row(q_offset, lead, q.device).reshape(-1),
+        prefix_len=prefix_len, scale=scale,
         valid_len=_per_row(valid_len, lead, q.device).reshape(-1))
-    return out.reshape(*lead, *out.shape[-3:])
+    return (dq.reshape(q.shape), dk.reshape(k.shape), dv.reshape(v.shape))
 
 
 def flash_attention_split_plain(q, k, v, splits: int, *, causal: bool = True,
@@ -181,8 +218,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
                            q_offset: Offsets = 0, prefix_len: int = 0,
                            scale: Optional[float] = None,
                            block: Optional[int] = None,
-                           valid_len: Optional[Offsets] = None
-                           ) -> torch.Tensor:
+                           valid_len: Optional[Offsets] = None,
+                           return_lse: bool = False):
     """GQA flash attention: ``q (..., B, Tq, H, D)``, ``k (..., B, Tk, KH,
     D)``, ``v (..., B, Tk, KH, Dv)`` -> ``(..., B, Tq, H, Dv)``.
 
@@ -195,6 +232,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     tensor-core route).  On the card q, k and v must share one dtype; the
     route is :func:`..plan.attention_route`'s, and the tensor-core route
     splits a tile's keys over :func:`..plan.plan_key_splits` blocks.
+    With ``return_lse`` it returns ``(out, lse)``, the rows' log-sum-exp
+    ``(..., B, Tq, H)`` f32 written by either route, and takes no key split.
     """
     lead = q.shape[:-3]
     Tq, H, D = q.shape[-3:]
@@ -208,7 +247,8 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, prefix_len=prefix_len,
                                      scale=scale, block=block,
-                                     valid_len=valid_len)
+                                     valid_len=valid_len,
+                                     return_lse=return_lse)
     if q.dtype not in DTYPE_CODES or not k.dtype == v.dtype == q.dtype:
         raise TypeError(f"flash attention kernel takes one of f32/f16/bf16 "
                         f"for q, k and v, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -217,8 +257,11 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     if len(lead) < 1:
         raise ValueError("flash attention needs a batch dim")
     out = torch.empty(*lead, Tq, H, Dv, dtype=q.dtype, device=q.device)
+    lse = torch.empty(*lead, Tq, H, dtype=torch.float32, device=q.device) \
+        if return_lse else None
     if min(Tq, Tk, H) == 0:
-        return out.zero_()
+        out.zero_()
+        return (out, lse.fill_(float("inf"))) if return_lse else out
     B = lead[-1]
     R = math.prod(lead) // B
     if valid_len is None:
@@ -238,7 +281,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     route = attention_route(q.dtype, D, Dv, G, *tma)
     splits = 1
     tiles = -(-Tq * G // FLASH_BQ)                # query tiles of a kv head
-    if route == "wgmma":
+    if route == "wgmma" and not return_lse:
         splits = plan_key_splits(tiles * KH * R * B, Tk,
                                  sms=_sms(q.device.index or 0))
     scratch = (None, None, None)
@@ -255,7 +298,7 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
         float(D ** -0.5 if scale is None else scale), DTYPE_CODES[q.dtype],
         ROUTE_CODES[route], splits,
         *(0 if t is None else t.data_ptr() for t in scratch),
-        stream_handle(q.device))
+        0 if lse is None else lse.data_ptr(), stream_handle(q.device))
     flash_attention_kernel.launches += 1
     flash_attention_kernel.route_launches[route] += 1
     flash_attention_kernel.last_grid = {
@@ -264,10 +307,110 @@ def flash_attention_kernel(q, k, v, *, causal: bool = True,
     check_launch(status, "flash attention")
     if splits > 1:
         _combine(*scratch, out, R, B, os_, q.dtype)
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_kernel.launches = 0
 flash_attention_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)
 flash_attention_kernel.combine_launches = 0
 flash_attention_kernel.last_grid = None
+
+
+def flash_attention_bwd_kernel(q, k, v, o, do, lse, *, causal: bool = True,
+                               q_offset: Offsets = 0, prefix_len: int = 0,
+                               scale: Optional[float] = None,
+                               valid_len: Optional[Offsets] = None):
+    """The gradient of :func:`flash_attention_kernel`: ``(dq, dk, dv)`` of
+    its output from ``do``, given the forward's ``o`` and ``lse``, in the
+    forward's layout (leading dims ranks, then the batch).  On the card it
+    launches ``csrc/flash_attention_bwd.cu`` (its delta, dk/dv and dq
+    passes, one count in ``flash_attention_bwd_kernel.launches``) on
+    contiguous copies of the operands; on CPU tensors it is
+    :func:`flash_attention_bwd_plain`."""
+    lead = q.shape[:-3]
+    Tq, H, D = q.shape[-3:]
+    Tk, KH, _ = k.shape[-3:]
+    Dv = v.shape[-1]
+    if not q.is_cuda:
+        return flash_attention_bwd_plain(
+            q, k, v, o, do, lse, causal=causal, q_offset=q_offset,
+            prefix_len=prefix_len, scale=scale, valid_len=valid_len)
+    if q.dtype not in DTYPE_CODES or not (
+            k.dtype == v.dtype == o.dtype == do.dtype == q.dtype) \
+            or lse.dtype != torch.float32:
+        raise TypeError("flash attention backward takes q, k, v, o and do "
+                        "of one of f32/f16/bf16 and an f32 lse")
+    if len(lead) < 1 or k.shape[:-3] != lead or H % KH \
+            or o.shape != (*lead, Tq, H, Dv) or do.shape != o.shape \
+            or lse.shape != (*lead, Tq, H):
+        raise ValueError(f"flash attention backward shapes q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}, v "
+                         f"{tuple(v.shape)}, o {tuple(o.shape)}")
+    N = math.prod(lead)
+    if valid_len is None:
+        valid_len = Tk
+    qo = _per_row(q_offset, lead, q.device).contiguous()
+    vl = _per_row(valid_len, lead, q.device).contiguous()
+    q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty(N, Tq, H, dtype=torch.float32, device=q.device)
+    status = library("flash_attention_bwd").repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), qo.data_ptr(), vl.data_ptr(), N, Tq,
+        Tk, H, KH, D, Dv, int(causal), int(prefix_len),
+        float(D ** -0.5 if scale is None else scale), DTYPE_CODES[q.dtype],
+        stream_handle(q.device))
+    flash_attention_bwd_kernel.launches += 1
+    check_launch(status, "flash attention backward")
+    return dq, dk, dv
+
+
+flash_attention_bwd_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with a gradient: the forward kernel (which also
+    writes the rows' log-sum-exp, saved for the backward) and the backward
+    kernel; on CPU tensors the plain versions of both."""
+
+    @staticmethod
+    def forward(fctx, q, k, v, causal, q_offset, prefix_len, scale, block):
+        out, lse = flash_attention_kernel(
+            q, k, v, causal=causal, q_offset=q_offset,
+            prefix_len=prefix_len, scale=scale, block=block,
+            return_lse=True)
+        fctx.save_for_backward(q, k, v, out, lse)
+        fctx.args = (causal, q_offset, prefix_len, scale)
+        return out
+
+    @staticmethod
+    def backward(fctx, do):
+        q, k, v, out, lse = fctx.saved_tensors
+        causal, q_offset, prefix_len, scale = fctx.args
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, do, lse, causal=causal, q_offset=q_offset,
+            prefix_len=prefix_len, scale=scale)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention_grad(q, k, v, *, causal: bool = True,
+                         q_offset: Offsets = 0, prefix_len: int = 0,
+                         scale: Optional[float] = None,
+                         block: Optional[int] = None,
+                         valid_len: Optional[Offsets] = None) -> torch.Tensor:
+    """:class:`FlashAttention`, refusing what the model stack never trains
+    through: a ``valid_len``, and a ``q_offset`` that differs from row to
+    row of the batch (an int, or a tensor with one offset a rank and a
+    batch dim of 1 as token-parallel attention gives it, is taken)."""
+    if valid_len is not None:
+        raise ValueError("flash attention with a gradient takes no "
+                         "valid_len: the model stack trains on whole "
+                         "sequences")
+    if isinstance(q_offset, torch.Tensor) and q_offset.dim() >= 1 \
+            and q_offset.shape[-1] != 1:
+        raise ValueError("flash attention with a gradient takes one "
+                         "q_offset a rank (a batch dim of 1), not one a "
+                         "row")
+    return FlashAttention.apply(q, k, v, causal, q_offset, prefix_len,
+                                scale, block)

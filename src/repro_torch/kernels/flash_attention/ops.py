@@ -4,7 +4,11 @@ Layout contract with the model stack: ``(..., B, T, H, D)`` in,
 ``(..., B, T, H, Dv)`` out; leading dims are ranks of a stacked tensor.
 ``impl="cuda"`` (the default and the only local path) is the hand-written
 kernel on CUDA tensors and the plain version on CPU tensors; it takes
-``q_offset`` and ``valid_len`` as ints or per-row tensors (decode).
+``q_offset`` and ``valid_len`` as ints or per-row tensors (decode).  Where
+a gradient is wanted (grad mode on and an operand that requires it) it
+goes through :class:`~.kernel.FlashAttention`, whose backward is the
+gradient kernel; ``impl="ring"`` has no gradient yet (ROADMAP queue 1,
+item 20).
 ``impl="ring"`` is the sequence-parallel path: per-rank K/V shards rotate
 through :func:`~repro_torch.kernels.ring_attention.ring_attention` over
 ``group`` (``q_sharded`` picks the training or the chunked-prefill query
@@ -20,8 +24,10 @@ from __future__ import annotations
 
 from typing import Optional
 
+import torch
+
 from ..ring_attention.ops import ring_attention
-from .kernel import flash_attention_kernel
+from .kernel import flash_attention_grad, flash_attention_kernel
 
 __all__ = ["flash_attention"]
 
@@ -45,6 +51,12 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
             raise ValueError(
                 "impl='ring' is the sequence-parallel path: pass the "
                 "DiompGroup whose axis the K/V stripes rotate over")
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            raise NotImplementedError(
+                "ring attention's gradient (chain_grads) is not ported yet: "
+                "ROADMAP queue 1, item 20; train under "
+                "seq_parallel='allgather'")
         if prefix_len:
             raise ValueError(
                 "impl='ring' does not take prefix_len: bidirectional "
@@ -56,6 +68,11 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
     if impl != "cuda":
         raise ValueError(f"unknown impl {impl!r}: the port's local flash "
                          f"attention is impl='cuda'")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return flash_attention_grad(q, k, v, causal=causal,
+                                    q_offset=q_offset, prefix_len=prefix_len,
+                                    scale=scale, block=block,
+                                    valid_len=valid_len)
     return flash_attention_kernel(q, k, v, causal=causal, q_offset=q_offset,
                                   prefix_len=prefix_len, scale=scale,
                                   block=block, valid_len=valid_len)

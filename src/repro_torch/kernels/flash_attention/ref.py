@@ -7,7 +7,8 @@ exists.  Supports GQA, causal masking with a query position offset and a
 bidirectional prefix window, a valid KV length, and ``Dv != D``.
 ``q_offset`` and ``valid_len`` may be ints or (B,) tensors (per-slot decode
 positions).  The CPU path of the model stack and the tests use it; the card
-runs the kernel (:mod:`.kernel`).
+runs the kernel (:mod:`.kernel`).  :func:`flash_attention_bwd_ref` is the
+gradient's plain version, by the backward kernel's formulas.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["flash_attention_ref"]
+__all__ = ["flash_attention_ref", "flash_attention_bwd_ref", "visible_keys"]
 
 
 def _block_update(carry, k_blk, v_blk, q, *, causal, q_offset, prefix_len,
@@ -53,8 +54,12 @@ def _block_update(carry, k_blk, v_blk, q, *, causal, q_offset, prefix_len,
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset=0,
                         prefix_len: int = 0, scale: Optional[float] = None,
-                        block: int = 512, valid_len=None) -> torch.Tensor:
-    """q (B, Tq, H, D), k (B, Tk, KH, D), v (B, Tk, KH, Dv) -> (B, Tq, H, Dv)."""
+                        block: int = 512, valid_len=None,
+                        return_lse: bool = False):
+    """q (B, Tq, H, D), k (B, Tk, KH, D), v (B, Tk, KH, Dv) -> (B, Tq, H, Dv);
+    with ``return_lse`` also each row's log-sum-exp of the scaled scores
+    ``(B, Tq, H)`` f32 (+inf for a row that sees no key), which the
+    backward recomputes the probabilities from."""
     B, Tq, H, D = q.shape
     Tk, KH = k.shape[1], k.shape[2]
     Dv = v.shape[-1]
@@ -82,5 +87,62 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset=0,
         m, l, acc = _block_update(
             (m, l, acc), k_blk, v_blk, qg, causal=causal, q_offset=q_offset,
             prefix_len=prefix_len, start=start, valid_len=valid_len)
-    l = torch.clamp(l, min=1e-30)
-    return (acc / l[..., None]).reshape(B, Tq, H, Dv).to(q.dtype)
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).reshape(
+        B, Tq, H, Dv).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l > 0, m + torch.log(l), float("inf"))
+    return out, lse.reshape(B, Tq, H)
+
+
+def visible_keys(Tq: int, Tk: int, *, causal: bool, q_offset, prefix_len: int,
+                 valid_len, device) -> torch.Tensor:
+    """The forward's mask ``(B|1, Tq, Tk)``: key k visible to query row t
+    (position ``q_offset + t``)."""
+    q_offset = torch.as_tensor(q_offset, device=device).reshape(-1, 1, 1)
+    valid_len = torch.as_tensor(valid_len, device=device).reshape(-1, 1, 1)
+    q_pos = q_offset + torch.arange(Tq, device=device).reshape(1, -1, 1)
+    kp = torch.arange(Tk, device=device).reshape(1, 1, -1)
+    vis = kp < valid_len
+    if causal:
+        vis = vis & ((kp <= q_pos)
+                     | ((kp < prefix_len) & (q_pos < prefix_len)))
+    return vis
+
+
+def flash_attention_bwd_ref(q, k, v, o, do, lse, *, causal: bool = True,
+                            q_offset=0, prefix_len: int = 0,
+                            scale: Optional[float] = None, valid_len=None):
+    """The gradient of :func:`flash_attention_ref` in plain torch, by the
+    formulas the backward kernel (``csrc/flash_attention_bwd.cu``) runs, in
+    f32: ``P = exp(scale q k^T - lse)`` (0 where masked), ``dv = P^T dO``,
+    ``dP = dO v^T``, ``dS = P (dP - rowsum(dO O))``, ``dq = scale dS k``,
+    ``dk = scale dS^T q``.  q (B, Tq, H, D), k (B, Tk, KH, D), v (B, Tk, KH,
+    Dv), o and do (B, Tq, H, Dv), lse (B, Tq, H); returns (dq, dk, dv) in
+    the inputs' dtypes.  The whole (Tq, Tk) score matrix is formed: a test
+    and card-check oracle, not a path of the model stack on the card."""
+    B, Tq, H, D = q.shape
+    Tk, KH = k.shape[1], k.shape[2]
+    Dv = v.shape[-1]
+    G = H // KH
+    if scale is None:
+        scale = D ** -0.5
+    if valid_len is None:
+        valid_len = Tk
+    vis = visible_keys(Tq, Tk, causal=causal, q_offset=q_offset,
+                       prefix_len=prefix_len, valid_len=valid_len,
+                       device=q.device)[:, :, None, None, :]
+    qs = (q.float() * scale).reshape(B, Tq, KH, G, D)
+    kf, vf = k.float(), v.float()
+    dof = do.float().reshape(B, Tq, KH, G, Dv)
+    s = torch.einsum("bqhgd,bkhd->bqhgk", qs, kf)
+    p = torch.where(vis, torch.exp(s - lse.float().reshape(
+        B, Tq, KH, G)[..., None]), 0.0)
+    dv = torch.einsum("bqhgk,bqhgd->bkhd", p, dof)
+    dp = torch.einsum("bqhgd,bkhd->bqhgk", dof, vf)
+    delta = (dof * o.float().reshape(B, Tq, KH, G, Dv)).sum(-1)
+    ds = torch.where(vis, p * (dp - delta[..., None]), 0.0)
+    dq = torch.einsum("bqhgk,bkhd->bqhgd", ds, kf) * scale
+    dk = torch.einsum("bqhgk,bqhgd->bkhd", ds, qs)
+    return (dq.reshape(B, Tq, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

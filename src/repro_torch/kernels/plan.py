@@ -1124,6 +1124,16 @@ class OverlapPlanner:
         slots = max(2, min(slots, max(budget // block, 2)))
         return dataclasses.replace(plan, slots=min(slots, ep))
 
+    # -- gradient buckets -----------------------------------------------------
+    def plan_grad_buckets(self, cfg, mesh, ctx):
+        """The DP gradient-reduction schedule
+        (:mod:`repro_torch.distributed.buckets`), resolved through the one
+        planner surface like every other plan: static-shape data, shared
+        per (config, mesh, ctx) through ``plan_for_config``'s cache."""
+        from ..distributed.buckets import plan_for_config
+
+        return plan_for_config(cfg, mesh, ctx)
+
     # -- halo exchange (Minimod) ----------------------------------------------
     def plan_halo_slots(self, z_loc: int, y_loc: int, x: int, dtype,
                         nz: int, *, ny: int = 1, halo: int = 4) -> HaloPlan:

@@ -1,7 +1,8 @@
-"""Family-dispatch API: the surface the serving layer talks to (dense, GQA
-MoE, VLM, RWKV6 and Zamba2 families; MLA and the audio family are still to
-port, ROADMAP queue 1, item 9, and the training losses and batches, item
-10).
+"""Family-dispatch API: the surface the serving and training layers talk
+to (dense, GQA MoE, VLM, RWKV6 and Zamba2 families; MLA and the audio
+family are still to port, ROADMAP queue 1, item 9).  The training losses
+of the dense and VLM families are ported; the MoE loss waits for item 12,
+the RWKV and Zamba2 losses for item 19.
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's
 global shape and dtype — with its per-dim spec, from which a stacked cache
@@ -18,12 +19,13 @@ from ..launch.mesh import RankMesh
 from . import schema as sch
 from .config import ModelConfig, ParallelCtx
 from .layers import local_kv_heads
-from .rwkv import rwkv_decode
-from .ssm import MAMBA_HEAD_DIM, zamba_decode
-from .transformer import transformer_decode
+from .rwkv import rwkv_decode, rwkv_loss
+from .ssm import MAMBA_HEAD_DIM, zamba_decode, zamba_loss
+from .transformer import transformer_decode, transformer_loss
 
-__all__ = ["TRANSFORMER_FAMILIES", "TensorStruct", "decode_fn", "has_decode",
-           "supports_long_context", "cache_structs"]
+__all__ = ["TRANSFORMER_FAMILIES", "TensorStruct", "loss_fn", "decode_fn",
+           "has_decode", "supports_long_context", "batch_structs",
+           "cache_structs"]
 
 TRANSFORMER_FAMILIES = ("dense", "moe", "vlm", "audio")
 
@@ -33,6 +35,17 @@ class TensorStruct(NamedTuple):
 
     shape: Tuple[int, ...]
     dtype: torch.dtype
+
+
+def loss_fn(cfg: ModelConfig) -> Callable:
+    """(params, batch, cfg, ctx) -> each rank's loss ``(*mesh,)``."""
+    if cfg.family in TRANSFORMER_FAMILIES:
+        return transformer_loss
+    if cfg.family == "ssm":
+        return rwkv_loss
+    if cfg.family == "hybrid":
+        return zamba_loss
+    raise ValueError(cfg.family)
 
 
 def decode_fn(cfg: ModelConfig) -> Callable:
@@ -67,6 +80,35 @@ def _batch_axes(mesh: RankMesh, B: int,
     for a in axes:
         n *= mesh.shape[a]
     return axes if (axes and B % n == 0) else ()
+
+
+def batch_structs(cfg: ModelConfig, mesh: RankMesh, B: int, S: int,
+                  dtype=torch.bfloat16, dp_axes=("pod", "data")):
+    """One train batch's global view: ``({leaf: TensorStruct}, {leaf:
+    spec})``, the batch dim split over the DP axes where they divide it
+    (replicated otherwise), as the reference lays it out."""
+    ba = _batch_axes(mesh, B, dp_axes)
+    bspec = ba if ba else None
+    if cfg.family == "audio":
+        structs = {
+            "embeds": TensorStruct((B, S, cfg.d_model), dtype),
+            "targets": TensorStruct((B, S), torch.int32),
+            "mask": TensorStruct((B, S), torch.float32),
+        }
+        specs = {"embeds": (bspec, None, None), "targets": (bspec, None),
+                 "mask": (bspec, None)}
+    elif cfg.family == "vlm":
+        P = cfg.prefix_tokens
+        structs = {
+            "tokens": TensorStruct((B, S - P), torch.int32),
+            "prefix_embeds": TensorStruct((B, P, cfg.d_model), dtype),
+        }
+        specs = {"tokens": (bspec, None),
+                 "prefix_embeds": (bspec, None, None)}
+    else:
+        structs = {"tokens": TensorStruct((B, S), torch.int32)}
+        specs = {"tokens": (bspec, None)}
+    return structs, specs
 
 
 def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,

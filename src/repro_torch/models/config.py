@@ -6,13 +6,10 @@ import dataclasses
 from typing import Optional, Tuple
 
 from ..core.groups import DiompGroup, standard_groups
+from ..distributed.buckets import DEFAULT_BUCKET_BYTES
 from ..launch.mesh import RankMesh
 
 __all__ = ["ModelConfig", "ParallelCtx", "DEFAULT_BUCKET_BYTES"]
-
-# the reference's DP gradient bucket size (repro/distributed/buckets.py);
-# buckets themselves are still to port (ROADMAP queue 1, item 8)
-DEFAULT_BUCKET_BYTES = 4 * 2**20
 
 
 @dataclasses.dataclass(frozen=True)

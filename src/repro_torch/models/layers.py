@@ -14,9 +14,9 @@ follow the reference (per rank):
   head-sharded or replicated per the same rules.
 
 Not ported here: the context-parallel decode (``cp_decode_attention``) and
-its seq-sharded cache, MLA, MoE's ``expert2d`` placement,
-``ring_fsdp_matmul`` and the int8 weight gather; each raises
-``NotImplementedError`` naming its ROADMAP item where it would be reached.
+its seq-sharded cache, MLA, MoE's ``expert2d`` placement and
+``ring_fsdp_matmul``; each raises ``NotImplementedError`` naming its
+ROADMAP item where it would be reached.
 
 The decode and chunk-prefill branches write the new K/V rows into the
 cache in place (the reference returns an updated copy): a step's cache is
@@ -34,7 +34,7 @@ import torch.nn.functional as F
 
 from ..core import ompccl
 from ..core.backends import XlaBackend, group_rank
-from ..core.context import default_context
+from ..core.context import default_context, use_default
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.moe_dispatch.fused import expert_slots, kept_counts, scatter_rows
 from ..kernels.moe_dispatch.kernel import expert_mlp
@@ -46,7 +46,8 @@ from .schema import head_parallel, kv_sharded, vocab_sharded
 
 __all__ = [
     "rmsnorm", "layernorm", "rope", "gather_fsdp", "tp_allreduce",
-    "col_matmul", "row_matmul", "embed_lookup", "KVCache", "local_kv_heads",
+    "col_matmul", "row_matmul", "embed_lookup", "ce_loss", "Q8Gather",
+    "KVCache", "local_kv_heads",
     "attention_block", "mlp_block", "moe_capacity", "moe_block", "dot",
     "flat_heads",
 ]
@@ -148,11 +149,55 @@ def gather_fsdp(w, ctx: ParallelCtx, dim: int = 0):
     if ctx.fsdp <= 1 or not ctx.fsdp_params:
         return w
     if ctx.gather_codec == "int8":
-        raise NotImplementedError(
-            "the int8 weight gather is not ported yet: ROADMAP queue 1, "
-            "item 8")
+        return Q8Gather.apply(w, ctx, dim)
     return ompccl.allgather(w, ctx.fsdp_group, axis=dim,
                             invariant=ctx.inference)
+
+
+class Q8Gather(torch.autograd.Function):
+    """The int8-wire ZeRO-3 gather (ZeRO++ qwZ-style; the reference's
+    ``_q8_gather`` custom VJP).
+
+    Forward: each rank quantizes its shard with one per-tensor scale, the
+    int8 codes and the scales are all-gathered, dequantized to the
+    weight's dtype, and each rank's own shard is spliced back at full
+    precision.  Backward: the exact reduce-scatter of the cotangent over
+    the same group (a straight-through estimator: the gradient wire stays
+    uncompressed), logged against the context the forward ran in, as the
+    reference's backward is logged once for its trace."""
+
+    @staticmethod
+    def forward(fctx, w, ctx: ParallelCtx, dim: int):
+        from ..distributed.compression import quantize_int8
+
+        dctx = default_context()
+        mesh = dctx.require_mesh()
+        nd = mesh.ndim
+        fctx.pctx, fctx.dim, fctx.dctx = ctx, dim, dctx
+        q, s = quantize_int8(w, lead=nd)
+        qq = ompccl.allgather(q, ctx.fsdp_group, axis=dim,
+                              invariant=ctx.inference)
+        ss = ompccl.allgather(s.reshape(*mesh.sizes, 1), ctx.fsdp_group,
+                              axis=0, invariant=ctx.inference)   # (*mesh, n)
+        n = ss.shape[-1]
+        d = nd + dim
+        shard = qq.shape[d] // n
+        full = qq.unflatten(d, (n, shard)).float()
+        scales = ss.reshape(*mesh.sizes, *([1] * dim), n,
+                            *([1] * (full.dim() - d - 1)))
+        full = (full * scales).to(w.dtype)
+        # my own shard back at full precision
+        idx = torch.arange(n, device=w.device).reshape(
+            [n if i == d else 1 for i in range(full.dim())])
+        mine = idx == _rank_index(ctx.fsdp_group, full.dim(), w.device)
+        full = torch.where(mine, w.unsqueeze(d), full)
+        return full.flatten(d, d + 1)
+
+    @staticmethod
+    def backward(fctx, g):
+        with use_default(fctx.dctx):
+            gw = ompccl.reducescatter(g, fctx.pctx.fsdp_group, axis=fctx.dim)
+        return gw.to(g.dtype), None, None
 
 
 def tp_allreduce(x, ctx: ParallelCtx):
@@ -192,17 +237,70 @@ def _take_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return t[rows, i].reshape(*idx.shape, *t.shape[2:])
 
 
+def _embed_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """:func:`_take_rows` through ``F.embedding`` over the ranks' tables
+    laid end to end: the same rows, and on the card a backward that sums a
+    repeated token's rows in a fixed order (an indexed gather's backward
+    adds them with atomics, in an order that changes from run to run)."""
+    mesh = _mesh()
+    R, V = mesh.size, table.shape[-2]
+    t = table.reshape(R * V, table.shape[-1])
+    off = torch.arange(R, device=idx.device)[:, None] * V
+    rows = F.embedding(idx.reshape(R, -1).long() + off, t)
+    return rows.reshape(*idx.shape, t.shape[-1])
+
+
 def embed_lookup(tokens, table_local, cfg: ModelConfig, ctx: ParallelCtx):
     """tokens ``(*mesh, B, T)`` int; table_local ``(*mesh, V/tp, d)``."""
     if not vocab_sharded(cfg) or ctx.tp <= 1:
-        return _take_rows(table_local, tokens)
+        return _embed_rows(table_local, tokens)
     vloc = table_local.shape[-2]
     off = _rank_index(ctx.tp_group, tokens.dim(), tokens.device) * vloc
     local = tokens - off
     hit = (local >= 0) & (local < vloc)
-    e = _take_rows(table_local, local.clamp(0, vloc - 1))
+    e = _embed_rows(table_local, local.clamp(0, vloc - 1))
     e = torch.where(hit[..., None], e, torch.zeros_like(e))
     return tp_allreduce(e, ctx)
+
+
+def ce_loss(h, head_local, targets, cfg: ModelConfig, ctx: ParallelCtx,
+            weights=None):
+    """Cross-entropy with vocab-sharded logits: each rank's mean loss, f32,
+    shaped ``(*mesh,)``.
+
+    h ``(*mesh, B, T, d)``; head_local ``(*mesh, d, V/tp)`` (or the whole
+    vocabulary); targets ``(*mesh, B, T)``.  The softmax statistics reduce
+    over the TP group through OMPCCL max and sum all-reduces; the max shift
+    carries no gradient (the CE gradient is exact whatever the shift).  The
+    loss comes out replicated over the TP group, so a backward seeded with
+    every replica's loss scales the gradients by ``tp``: the train step
+    seeds the mean of the replicas."""
+    nd = _mesh().ndim
+    logits = dot_f32(h, head_local)                   # (*mesh, B, T, V/tp)
+    sharded = vocab_sharded(cfg) and ctx.tp > 1
+    m = logits.detach().amax(dim=-1)
+    if sharded:
+        m = ompccl.allreduce(m, ctx.tp_group, op="max")
+    m = m.detach()
+    z = torch.exp(logits - m[..., None]).sum(dim=-1)
+    if sharded:
+        z = ompccl.allreduce(z, ctx.tp_group)
+        vloc = head_local.shape[-1]
+        off = _rank_index(ctx.tp_group, targets.dim(), targets.device) * vloc
+        local = targets.long() - off
+        hit = (local >= 0) & (local < vloc)
+        tgt = torch.gather(logits, -1, local.clamp(0, vloc - 1)[..., None]
+                           )[..., 0]
+        tgt = torch.where(hit, tgt, torch.zeros_like(tgt))
+        tgt = ompccl.allreduce(tgt, ctx.tp_group)
+    else:
+        tgt = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    nll = torch.log(z) + m - tgt
+    dims = tuple(range(nd, nll.dim()))
+    if weights is not None:
+        w = weights.float()
+        return (nll * w).sum(dims) / torch.clamp(w.sum(dims), min=1.0)
+    return nll.mean(dims)
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,7 @@ context and later layers against its scratch context
 what one reference trace does.  Decode state per layer: the token-shift
 carries ``x_tm``/``x_cm`` ``(*mesh, B, d)`` and the WKV state ``S``
 ``(*mesh, B, H_loc, hd, hd)`` in f32, stacked over the layers.  The
-training loss is still to port (ROADMAP queue 1, item 10).
+training loss is still to port (ROADMAP queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -159,8 +159,8 @@ def rwkv_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
 
 def rwkv_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
     raise NotImplementedError(
-        "the RWKV training loss (ce_loss) is not ported yet: ROADMAP queue 1, "
-        "item 10")
+        "the RWKV training loss (the linear scan's backward) is not ported "
+        "yet: ROADMAP queue 1, item 19")
 
 
 def rwkv_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, *,

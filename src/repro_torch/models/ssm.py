@@ -20,7 +20,7 @@ TP: the inner dim (2·d) is sharded over "model" via the head dim; the B/C
 projection is small and replicated; the gated output norm reduces its
 statistics across TP with an OMPCCL all-reduce.  Still to port: the
 context(seq)-sharded cache (``seq_sharded=True``, ``cp_decode_attention``,
-ROADMAP queue 1, item 9) and the training loss (item 10).
+ROADMAP queue 1, item 9) and the training loss (item 19).
 """
 
 from __future__ import annotations
@@ -186,8 +186,8 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
 
 def zamba_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
     raise NotImplementedError(
-        "the Zamba2 training loss (ce_loss) is not ported yet: ROADMAP queue "
-        "1, item 10")
+        "the Zamba2 training loss (the linear scan's backward) is not ported "
+        "yet: ROADMAP queue 1, item 19")
 
 
 def zamba_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int,

@@ -15,8 +15,9 @@ go in front of the tokens under a bidirectional prefix window.
 
 Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "v": ..., "pos": (*mesh,) or (*mesh, B)}``; the layers write K/V rows into
-them in place.  MLA and MTP (deepseek-v3), the audio family and the
-training loss are still to port (ROADMAP queue 1, items 9 and 10).
+them in place.  MLA (deepseek-v3) and the audio family are still to port
+(ROADMAP queue 1, item 9), and so are the MTP and MoE losses (items 21 and
+12).  Training checkpoints each layer (``ctx.remat``).
 A MoE layer's dispatch stats add up over the layer loop in the active
 ``dispatch_stats`` frame, as the reference sums them over its scan.
 """
@@ -26,14 +27,17 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.context import default_context, recorded_once
 from .config import ModelConfig, ParallelCtx
-from .layers import (KVCache, attention_block, dot_f32, embed_lookup,
-                     local_kv_heads, mlp_block, moe_block, rmsnorm)
+from .layers import (KVCache, attention_block, ce_loss, dot_f32,
+                     embed_lookup, local_kv_heads, mlp_block, moe_block,
+                     rmsnorm)
 
-__all__ = ["init_cache", "transformer_forward", "transformer_prefill",
-           "transformer_chunk_prefill", "transformer_decode"]
+__all__ = ["init_cache", "transformer_forward", "transformer_loss",
+           "transformer_prefill", "transformer_chunk_prefill",
+           "transformer_decode"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -68,6 +72,28 @@ def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
         return x + moe_block(h, lp, cfg, ctx), new_cache
     return x + mlp_block(h, lp, ctx, act="gelu" if vlm else "silu"), \
         new_cache
+
+
+def _remat_layer(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions,
+                 prefix_len: int, first: bool):
+    """One training layer under ``torch.utils.checkpoint``: its
+    activations are dropped after the forward and recomputed in the
+    backward (the reference's ``jax.checkpoint`` on the scan body).  The
+    reference traces the body once, so only the first run of the first
+    layer logs against the active context: the recompute runs the Python
+    again, and logs against the scratch context.  The recompute runs in
+    the backward (on the card, in the autograd engine's thread), so both
+    runs name the context of the forward's caller."""
+    runs = []
+    parent = default_context()
+
+    def body(h):
+        with recorded_once(first and not runs, parent):
+            runs.append(1)
+            return _layer_body(h, lp, cfg, ctx, positions=positions,
+                               prefix_len=prefix_len)[0]
+
+    return checkpoint(body, x, use_reentrant=False)
 
 
 def _lm_head(params: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -125,12 +151,16 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
     if positions is None:
         positions = torch.arange(x.shape[nd + 1], device=x.device)
     pos = cache["pos"] if cache is not None else None
+    remat = ctx.remat and cache is None and torch.is_grad_enabled()
     for l in range(cfg.num_layers):
+        lp = _layer(params, "layers", nd, l)
+        if remat:
+            x = _remat_layer(x, lp, cfg, ctx, positions, prefix_len, l == 0)
+            continue
         layer_cache = None if cache is None else KVCache(
             cache["k"].select(nd, l), cache["v"].select(nd, l), pos)
         with recorded_once(l == 0):
-            x, new = _layer_body(x, _layer(params, "layers", nd, l), cfg,
-                                 ctx, positions=positions,
+            x, new = _layer_body(x, lp, cfg, ctx, positions=positions,
                                  prefix_len=prefix_len, cache=layer_cache,
                                  chunked=chunked)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps,
@@ -138,6 +168,36 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
     if cache is None:
         return x, None
     return x, {"k": cache["k"], "v": cache["v"], "pos": new.pos}
+
+
+def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
+    """Next-token cross-entropy of the dense and VLM families: each rank's
+    mean loss over its batch shard, f32 ``(*mesh,)`` (replicated over the
+    TP group).  ``batch["tokens"] (*mesh, B, T)``; the VLM's
+    ``batch["prefix_embeds"] (*mesh, B, P, d)`` go in front, and only the
+    token positions are scored.  With ``ctx.remat`` and gradients on, each
+    layer is checkpointed."""
+    if cfg.family == "audio":
+        raise NotImplementedError(
+            "the audio family's masked-frame loss is not ported yet: ROADMAP "
+            "queue 1, item 9")
+    if cfg.moe:
+        raise NotImplementedError(
+            "the MoE loss (the backward of the expert MLP and of the fused "
+            "dispatch) is not ported yet: ROADMAP queue 1, item 12")
+    if cfg.mtp:
+        raise NotImplementedError(
+            "the multi-token-prediction loss is not ported yet: ROADMAP "
+            "queue 1, item 21")
+    nd = default_context().require_mesh().ndim
+    prefix = batch.get("prefix_embeds")
+    h, _ = transformer_forward(params, batch["tokens"], cfg, ctx,
+                               prefix_embeds=prefix)
+    if prefix is not None:
+        h = h[..., prefix.shape[nd + 1]:, :]
+    tokens = batch["tokens"]
+    return ce_loss(h[..., :-1, :], _lm_head(params, cfg), tokens[..., 1:],
+                   cfg, ctx)
 
 
 def transformer_prefill(params, tokens, cfg, ctx, cache, *,

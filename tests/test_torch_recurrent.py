@@ -293,9 +293,9 @@ def test_unported_recurrent_branches_raise():
     ctx = ParallelCtx.from_mesh(MESH, inference=True)
     rw = configs.get_reduced("rwkv6-7b")
     zb = configs.get_reduced("zamba2-1-2b")
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         rwkv.rwkv_loss({}, {}, rw, ctx)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(NotImplementedError, match="item 19"):
         ssm.zamba_loss({}, {}, zb, ctx)
     with pytest.raises(NotImplementedError, match="item 9"):
         ssm.zamba_forward({}, None, zb, ctx, seq_sharded=True)
