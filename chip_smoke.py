@@ -50,7 +50,8 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   width and depth (random bf16 weights, data 2 x model 2) for 4 steps of
   8 x 1024 tokens in microbatches of 2 through the port's launcher, every
   attention's forward and recomputed forward on the flash kernel and
-  every backward on its gradient kernel (counted), each step's time and
+  every backward on its gradient kernel's tensor-core route (counted per
+  route), each step's time and
   tokens/s beside its bound, the peak memory, one more step profiled by
   kernel group; then at depth 2 on pod 2 x data 2 x model 2 a step on the
   kernels against the same step on their plain versions, the flat
@@ -59,8 +60,8 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   uninterrupted run's;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
-and the two attention kernels, the wave step and the scan, and flash's
-split-combine count) zeroed
+and the two attention kernels, the attention gradient, the wave step and
+the scan, and flash's split-combine count) zeroed
 just before each path and read just after it; every flash and
 ring-attention launch of a served model must take the tensor cores, and
 flash at glm4-9b's and paligemma-3b's decodes must split its keys over
@@ -135,7 +136,7 @@ SEQ_RANKS, SEQ_T_LOC = 4, 4096
 # 4 KiB payload (LinkModel.dispatch_s), the median of DISPATCH_TIMINGS
 # timings of DISPATCH_REPS calls; the median must lie within DISPATCH_BAND
 # (relative) of LinkModel.dispatch_s: on a shared host the runs' medians
-# have ranged from 50.90 to 80.89 us, and the band holds both
+# have ranged from 50.90 to 91.03 us, and the band holds both
 RT_ARCH, RT_RANKS, DISPATCH_BYTES = "glm4-9b", 8, 4096
 DISPATCH_REPS, DISPATCH_TIMINGS, DISPATCH_BAND = 200, 9, 0.5
 # bf16's unit roundoff: the flat sum rounds once, the hierarchical one's
@@ -674,6 +675,17 @@ def _attention_route(torch, dt, D, Dv, G) -> str:
             else "simt")
 
 
+def _attention_bwd_route(torch, dt, D, Dv, G) -> str:
+    """The route a gradient case's aligned, contiguous operands must take:
+    the tensor cores for f16/bf16 with D and Dv each a multiple of 16 in
+    [16, 128] and G dividing 64, the CUDA cores otherwise
+    (plan.attention_bwd_route's rule, restated here so the cases check
+    it)."""
+    return ("wgmma" if dt in (torch.float16, torch.bfloat16)
+            and all(16 <= x <= 128 and x % 16 == 0 for x in (D, Dv))
+            and 64 % G == 0 else "simt")
+
+
 def check_flash(torch, k, g) -> None:
     """The reference's sweep (tests/test_kernels.py:39), per-row offsets
     (decode and a chunk with a padded tail), rows that see no key, decode
@@ -782,15 +794,22 @@ def check_flash_bwd(torch, k, g) -> None:
     (``flash_attention_bwd_plain``, the same formulas in plain torch) on
     ragged shapes: Tq and Tk off the 64-row tile and the key tile, D 64,
     80, 128 and 256 with Dv != D, G 1, 4 and 8, causal, prefix-LM (a
-    window across key tiles), non-causal and a query offset; f32, f16 and
-    bf16.  Both take the plain forward's output and log-sum-exp; the
-    forward kernel's lse (written on the route the rule gives the case) is
-    held against the plain version's first.  Tolerances, relative to each
-    gradient's largest magnitude: f32 1e-4 (sums of up to 300 terms a
-    row, in another order), f16 2e-3 and bf16 1.6e-2 (one ulp of the
-    output type, 2^-10 / 2^-7, plus that order); lse within 1e-4 (f32
-    scores summed in another order).  Two launches on the same inputs are
-    equal bit for bit, and the gradient's refusals hold."""
+    window across key tiles), non-causal and a query offset, G = 1 at
+    D = Dv = 80 across three causal 64-key tiles, and one case for each
+    other instance width of the tensor-core route (W = max(D, Dv) 16, 32,
+    48, 96 and 112); f32, f16 and bf16, each
+    case on the route ``attention_bwd_route``'s rule gives it (the 16-bit
+    cases with D and Dv up to 128 on the tensor cores, D 256 and f32 on
+    the CUDA cores).  Both take the plain forward's output and
+    log-sum-exp; the forward kernel's lse (written on the route the rule
+    gives the case) is held against the plain version's first.
+    Tolerances, relative to each gradient's largest magnitude: f32 1e-4
+    (sums of up to 300 terms a row, in another order), f16 2e-3 and bf16
+    1.6e-2 (one ulp of the output type, 2^-10 / 2^-7, plus that order;
+    the tensor cores also round P and dS to the operand type); lse within
+    1e-4 (f32 scores summed in another order).  Two launches on the same
+    inputs are equal bit for bit; an f32 launch forced onto the tensor
+    cores is refused by the C entry, and the gradient's refusals hold."""
     tols = {torch.float32: 1e-4, torch.float16: 2e-3, torch.bfloat16: 1.6e-2}
     fwd, bwd = k.flash_attention_kernel, k.flash_attention_bwd_kernel
     cases = [
@@ -802,6 +821,12 @@ def check_flash_bwd(torch, k, g) -> None:
         (1, 100, 100, 8, 8, 80, 48, True, 0, 70),
         (2, 29, 53, 4, 1, 64, 128, False, 0, 0),
         (1, 130, 130, 4, 1, 128, 128, True, 0, 0),
+        (2, 130, 130, 4, 4, 80, 80, True, 0, 0),
+        # the tensor-core route's other instance widths W = max(D, Dv)
+        (1, 40, 40, 2, 1, 32, 16, True, 0, 0),
+        (1, 50, 70, 4, 2, 48, 48, False, 0, 0),
+        (1, 33, 33, 2, 2, 16, 96, True, 0, 0),
+        (1, 64, 64, 2, 1, 112, 96, True, 0, 10),
     ]
     for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx) in cases:
         for dt in tols:
@@ -821,14 +846,17 @@ def check_flash_bwd(torch, k, g) -> None:
             check(fwd.last_grid["splits"] == 1,
                   f"{tag}: the forward split its keys with an lse")
             want = k.flash_attention_bwd_plain(q, kk, v, o, do, lse, **kw)
-            got = _counted(bwd, lambda: bwd(q, kk, v, o, do, lse, **kw))
+            b_route = _attention_bwd_route(torch, dt, D, Dv, H // KH)
+            got = _counted(bwd, lambda: bwd(q, kk, v, o, do, lse, **kw),
+                           b_route)
             again = bwd(q, kk, v, o, do, lse, **kw)
             for name, x, w, y in zip(("dq", "dk", "dv"), got, want, again):
                 err = max_err(torch, x, w)
                 scale = max(float(w.float().abs().max()), 1e-6)
                 check(bool(torch.isfinite(x).all())
                       and err <= tols[dt] * scale,
-                      f"{tag} {name}: err {err} (scale {scale})")
+                      f"{tag} {name} on {b_route}: err {err} (scale "
+                      f"{scale})")
                 check(torch.equal(x, y), f"{tag} {name}: two launches differ")
     q = torch.randn(2, 8, 4, 64, generator=g, device="cuda").requires_grad_()
     from repro_torch.kernels.flash_attention import kernel as fa_mod
@@ -839,6 +867,10 @@ def check_flash_bwd(torch, k, g) -> None:
             check(False, f"flash with a gradient took {sorted(bad)}")
         except ValueError:
             pass
+    x = torch.randn(1, 70, 4, 80, generator=g, device="cuda")
+    lse = torch.zeros(1, 70, 4, device="cuda")
+    _refused_off_rule(fa_mod, bwd, lambda: bwd(x, x, x, x, x, lse),
+                      "flash bwd", rule_name="attention_bwd_route")
 
 
 def _refused_off_rule(module, wrapper, call, what,
@@ -2955,7 +2987,8 @@ TRAIN_CUT_LAYERS = 2            # the checks' depth cut, full width
 TRAIN_CHECK_MESH = "pod=2,data=2,model=2"
 TRAIN_LR = 1e-4                 # the checks' constant learning rate
 TRAIN_B1 = 0.9                  # the checks' AdamW first-moment decay
-FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel")
+FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel",
+                     "bwd_rows_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
 
 
 def _train_flops(cfg, tokens: int) -> float:
@@ -2980,21 +3013,27 @@ def _train_flops(cfg, tokens: int) -> float:
 def _bwd_at(torch, k, q, kk, v, do):
     """The backward kernel at the training path's shape against its plain
     version and SDPA's backward, with its bound (operations at the bf16
-    tensor-core rate: S again, dP, dv, dq and dk over the visible (row,
-    key) pairs; bytes: q, k, v, o, dO and lse read, dq, dk, dv written)."""
+    tensor-core rate: S, dP, dv, dq and dk over the visible (row, key)
+    pairs; bytes: q, k, v, o, dO and lse read, dq, dk, dv written) and the
+    device time of each of its passes; the launch must take the tensor
+    cores.  Then the forward with the lse at the same shape (row 5's
+    training entry): its time, device time and bound (two products over
+    the visible pairs), beside SDPA's forward under the same mask."""
     import torch.nn.functional as F
     Tq, H, D = q.shape[-3:]
-    Dv = v.shape[-1]
+    Tk, Dv = kk.shape[-3], v.shape[-1]
     o, lse = k.flash_attention_kernel(q, kk, v, return_lse=True)
     args = (q, kk, v, o, do, lse)
-    got = k.flash_attention_bwd_kernel(*args)
+    bwd = k.flash_attention_bwd_kernel
+    got = _counted(bwd, lambda: bwd(*args), "wgmma")
+    grid = dict(bwd.last_grid)
     want = k.flash_attention_bwd_plain(*args)
     errs = {n: (max_err(torch, x, w), float(w.float().abs().max()),
                 int((x != w).sum()), x.numel())
             for n, x, w in zip(("dq", "dk", "dv"), got, want)}
     err = max(e / max(s, 1e-6) for e, s, _, _ in errs.values())
-    log(f"flash bwd at the training shape: (max |err|, max |plain|, "
-        f"elements that differ, elements) {errs}")
+    log(f"flash bwd at the training shape ({grid}): (max |err|, max "
+        f"|plain|, elements that differ, elements) {errs}")
     check(err <= 1.6e-2, f"flash bwd at the training shape: rel err {err}")
     del got, want
     n = q.numel() // (Tq * H * D)
@@ -3003,28 +3042,63 @@ def _bwd_at(torch, k, q, kk, v, do):
     nbytes = 2 * (2 * q.numel() + 2 * kk.numel() + 2 * v.numel()
                   + 2 * o.numel()) + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
-    ms = cuda_ms(torch, lambda: k.flash_attention_bwd_kernel(*args), 5)
-    dev = device_ms(torch, lambda: k.flash_attention_bwd_kernel(*args), 3,
-                    FLASH_BWD_KERNELS)
+    ms = cuda_ms(torch, lambda: bwd(*args), 5)
+    # the device time by pass, each from its own traces, and their sum (one
+    # trace of all three has been seen to hold only some of them)
+    passes = {name: device_ms(torch, lambda: bwd(*args), 3, (name,))
+              for name in ("bwd_rows_kernel", "dkdv_tc_kernel",
+                           "dq_tc_kernel")}
+    dev = None if None in passes.values() else sum(passes.values())
     plain = cuda_ms(torch, lambda: k.flash_attention_bwd_plain(*args), 2)
     # the library's yardstick: SDPA's backward alone, on its own forward
     q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (q, kk, v))
     o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
-    library = cuda_ms(torch, lambda: torch.autograd.grad(
-        o4, (q4, k4, v4), do4, retain_graph=True), 5)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+
+    library = cuda_ms(torch, sdpa_bwd, 5)
+    library_dev = device_ms(torch, sdpa_bwd, 3, ("",))
     del q4, k4, v4, o4, do4
-    fwd_ms = cuda_ms(torch, lambda: k.flash_attention_kernel(
-        q, kk, v, return_lse=True), 5)
-    log(f"flash bwd at q {tuple(q.shape)}: {ms:.3f} ms (device "
-        f"{_ms(dev, 3)}), plain {plain:.3f}, sdpa backward {library:.3f}, "
-        f"bound {b_ms:.4f} ms by {b_by}; forward with lse {fwd_ms:.3f} ms; "
-        f"rel err {err:.3g}")
+    log(f"flash bwd at q {tuple(q.shape)}: {ms:.4f} ms (device "
+        f"{_ms(dev, 4)}; passes {passes}), plain {plain:.3f}, sdpa backward "
+        f"{library:.4f} (device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms "
+        f"by {b_by}; rel err {err:.3g}")
+    # the forward with the lse at the same shape (the CUDA-core tile: D = 80
+    # is off attention_route's rule)
+    def fwd():
+        return k.flash_attention_kernel(q, kk, v, return_lse=True)
+
+    f_route = _attention_route(torch, q.dtype, D, Dv, H // kk.shape[-2])
+    _counted(k.flash_attention_kernel, fwd, f_route)
+    f_ms = cuda_ms(torch, fwd, 5)
+    f_dev = device_ms(torch, fwd, 3, FLASH_KERNELS)
+    f_plain = cuda_ms(torch, lambda: k.flash_attention_plain(
+        q, kk, v, return_lse=True), 2)
+    f_b_ms, f_b_by = bound(
+        2 * (q.numel() + kk.numel() + v.numel() + o.numel())
+        + 4 * lse.numel(), 2 * pairs * (D + Dv), "bfloat16")
+    t_ = torch.arange(Tq, device=q.device)
+    visible = (t_[None, :] <= t_[:, None]).expand(n, Tq, Tk)
+    sdpa = _sdpa(torch, q, kk, v, visible)
+    f_lib = cuda_ms(torch, sdpa, 5)
+    f_lib_dev = device_ms(torch, sdpa, 3, ("",))
+    del visible, sdpa
+    log(f"flash forward with the lse at q {tuple(q.shape)} ({f_route}): "
+        f"{f_ms:.4f} ms (device {_ms(f_dev, 4)}), bound {f_b_ms:.4f} ms by "
+        f"{f_b_by}, plain {f_plain:.3f}, sdpa forward (boolean mask) "
+        f"{f_lib:.4f} (device {_ms(f_lib_dev, 4)})")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": library, "forward_ms": fwd_ms,
-            "shape": list(q.shape)}
+            "pass_device_ms": passes, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library,
+            "library_device_ms": library_dev, "grid": grid,
+            "shape": list(q.shape),
+            "forward": {"route": f_route, "ms": f_ms, "device_ms": f_dev,
+                        "plain_ms": f_plain, "bound_ms": f_b_ms,
+                        "bound_by": f_b_by,
+                        "library_ms": f_lib, "library_device_ms": f_lib_dev}}
 
 
 def _cut(cfg, layers: int):
@@ -3315,7 +3389,8 @@ def train_phase(torch, k, dev, wrappers) -> dict:
     wall = time.perf_counter() - t0
     fwd, bwd = wrappers["flash_attention"], wrappers["flash_attention_bwd"]
     counts = {"forward": fwd.launches, "forward_routes": dict(
-        fwd.route_launches), "backward": bwd.launches}
+        fwd.route_launches), "backward": bwd.launches,
+        "backward_routes": dict(bwd.route_launches)}
     peak = torch.cuda.max_memory_allocated() / 1e9
     per_pass = cfg.num_layers * TRAIN_MICRO * TRAIN_STEPS
     log(f"train: {cfg.name} ({cfg.param_count()} parameters) on "
@@ -3326,12 +3401,15 @@ def train_phase(torch, k, dev, wrappers) -> dict:
     check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
           and len(run["losses"]) == TRAIN_STEPS, "train: a non-finite step")
     # every layer's attention: a forward and a remat forward, one backward,
-    # a microbatch a step; stablelm's head_dim 80 takes the CUDA cores
+    # a microbatch a step; stablelm's head_dim 80 is off the forward's
+    # tensor-core rule (D 64, 128 or 256) and takes its CUDA cores, and on
+    # the backward's (D a multiple of 16 up to 128) takes the tensor cores
     check(counts["forward"] == 2 * per_pass
           and counts["forward_routes"]["simt"] == 2 * per_pass
-          and counts["backward"] == per_pass,
+          and counts["backward"] == per_pass
+          and counts["backward_routes"] == {"simt": 0, "wgmma": per_pass},
           f"train: flash launches {counts}, not {2 * per_pass} forward "
-          f"(simt) and {per_pass} backward")
+          f"(simt) and {per_pass} backward (wgmma)")
     b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
     steps = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
              for s in run["step_s"]]
@@ -3357,7 +3435,8 @@ def train_phase(torch, k, dev, wrappers) -> dict:
            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
            "replaces": "src/repro/kernels/flash_attention/kernel.py:125 "
                        "(the gradient of its forward)",
-           "launches": counts["backward"]}
+           "launches": counts["backward"],
+           "route_launches": counts["backward_routes"]}
     row.update(_bwd_at(torch, k, q, kk, v, do))
     row["train"] = {"step_ms": steps, "bound_ms": b_ms,
                     "peak_memory_gb": peak, "flash_forward": counts,

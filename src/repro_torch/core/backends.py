@@ -556,17 +556,19 @@ class LinkModel:
     of one ``ompccl.allreduce`` call of a 4 KiB payload a rank over the
     (pod, data) group of the 8-rank smoke mesh, measured by
     ``chip_smoke.py``'s runtime phase on an NVIDIA H100 80GB HBM3 at a
-    700 W power limit: 59.75 µs, the median of nineteen timings of 200
-    calls each, taken in three runs (46.99 to 91.26 µs).  The runs
-    disagree: one's timings fell into two groups, 49.13 to 50.90 and 81.06
-    to 88.84 µs, another's lay from 73.92 to 91.26, a third's from 46.99
-    to 70.60; the host's cores are shared.  ``chip_smoke.py`` fails if a
-    run's median lies outside half to one and a half times this value.
+    700 W power limit: 74.75 µs, the middle of the medians of the eight
+    runs recorded so far (50.90, 56.14, 56.82, 69.12, 80.38, 80.76, 80.89
+    and 91.03 µs; single timings of 200 calls from 46.99 to 96.32 µs).
+    The runs disagree: one's timings fell into two groups, 49.13 to 50.90
+    and 81.06 to 88.84 µs, another's lay from 46.99 to 70.60, another's
+    from 81.51 to 96.32; the host's cores are shared.  ``chip_smoke.py``
+    fails if a run's median lies outside half to one and a half times
+    this value.
     """
 
     bandwidth_Bps: float = 450e9
     latency_s: float = 0.0
-    dispatch_s: float = 59.75e-6
+    dispatch_s: float = 74.75e-6
 
     def collective_time(self, nbytes: int, ndev: int) -> float:
         """One ring all-reduce including the per-call dispatch overhead —

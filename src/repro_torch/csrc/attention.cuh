@@ -1,5 +1,7 @@
 // The online-softmax tile routines shared by flash_attention.cu and
-// ring_attention.cu, on two routes chosen before launch by one rule
+// ring_attention.cu (whose tensor-core products, maps and key ends
+// flash_attention_bwd.cu uses too), on two routes chosen before launch by
+// one rule
 // (repro_torch/kernels/plan.py attention_route): the tensor cores (TMA +
 // wgmma, below) for aligned f16/bf16 tiles, the CUDA cores (att_fold) for
 // f32 and every shape off the rule.
@@ -385,6 +387,43 @@ __device__ __forceinline__ uint32_t att_pack<__half>(float a, float b) {
         "+f"(d[31])                                                           \
       : "l"(da), "l"(db), "r"(scale_d))
 
+#define ATT_WGMMA_RS16(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7 "                                       \
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"                          \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])                                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define ATT_WGMMA_RS32(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15 "                                                                  \
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15])                                                           \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define ATT_WGMMA_RS48(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23 "                          \
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])                    \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
 #define ATT_WGMMA_RS64(TY)                                                    \
   asm volatile(                                                               \
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                            \
@@ -393,14 +432,76 @@ __device__ __forceinline__ uint32_t att_pack<__half>(float a, float b) {
       "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
       "%28, %29, %30, %31 "                                                   \
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                        \
-      : "+f"(d[0]),                                                           \
-        "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-        "+f"(d[31])                                                           \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31])                                              \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define ATT_WGMMA_RS80(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39 "           \
+      "}, {%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])       \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define ATT_WGMMA_RS96(TY)                                                    \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %53, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+      "%41, %42, %43, %44, %45, %46, %47 "                                    \
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47])                                 \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+#define ATT_WGMMA_RS112(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n112k16.f32." #TY "." #TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+      "%54, %55 "                                                             \
+      "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"                        \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+        "+f"(d[55])                                                           \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 #define ATT_WGMMA_RS128(TY)                                                   \
@@ -413,20 +514,19 @@ __device__ __forceinline__ uint32_t att_pack<__half>(float a, float b) {
       "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
       "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "                     \
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                        \
-      : "+f"(d[0]),                                                           \
-        "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),           \
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),          \
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),      \
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),      \
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),      \
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),      \
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),      \
-        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),      \
-        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),      \
-        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),      \
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                                 \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
 
 #define ATT_WGMMA_RS256(TY)                                                   \
@@ -486,28 +586,28 @@ __device__ __forceinline__ void att_wgmma_s(float (&d)[32], uint64_t da,
   }
 }
 
-// d (64 x DV, f32) += P (64 x 16, registers) v (16 x DV, N-major)
-template <typename T, int DV>
-__device__ __forceinline__ void att_wgmma_o(float (&d)[DV / 2],
+// d (64 x N, f32) += A (64 x 16, registers) B (16 x N, N-major in shared
+// memory, read through the transpose bit): P v here, and the gradient's
+// dv, dk and dq (flash_attention_bwd.cu); N a multiple of 16 up to 128, or
+// 256
+#define ATT_RS_CASE(W)                                                        \
+  if constexpr (N == W) {                                                     \
+    if constexpr (std::is_same<T, __nv_bfloat16>::value) {                    \
+      ATT_WGMMA_RS##W(bf16);                                                  \
+    } else {                                                                  \
+      ATT_WGMMA_RS##W(f16);                                                   \
+    }                                                                         \
+  }
+
+template <typename T, int N>
+__device__ __forceinline__ void att_wgmma_o(float (&d)[N / 2],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if constexpr (DV == 64) {
-      ATT_WGMMA_RS64(bf16);
-    } else if constexpr (DV == 128) {
-      ATT_WGMMA_RS128(bf16);
-    } else {
-      ATT_WGMMA_RS256(bf16);
-    }
-  } else {
-    if constexpr (DV == 64) {
-      ATT_WGMMA_RS64(f16);
-    } else if constexpr (DV == 128) {
-      ATT_WGMMA_RS128(f16);
-    } else {
-      ATT_WGMMA_RS256(f16);
-    }
-  }
+  static_assert((N % 16 == 0 && N >= 16 && N <= 128) || N == 256,
+                "an instance width");
+  ATT_RS_CASE(16) ATT_RS_CASE(32) ATT_RS_CASE(48) ATT_RS_CASE(64)
+  ATT_RS_CASE(80) ATT_RS_CASE(96) ATT_RS_CASE(112) ATT_RS_CASE(128)
+  ATT_RS_CASE(256)
 }
 
 // Consumer warpgroup: fold ntiles key tiles, whose first key has local

@@ -1,10 +1,9 @@
 // Hopper's asynchronous machinery, shared by the tensor-core routes of
 // matmul.cuh (matmul.cu, ring_matmul.cu), attention.cuh
-// (flash_attention.cu, ring_attention.cu) and expert_mlp.cuh
-// (expert_mlp.cu, moe_dispatch.cu), and by the stencils' plane ring
-// (stencil_ring.cuh):
-// mbarriers, TMA loads and their tensor maps, proxy fences, and the wgmma
-// shared-memory descriptor.
+// (flash_attention.cu, ring_attention.cu, flash_attention_bwd.cu) and
+// expert_mlp.cuh (expert_mlp.cu, moe_dispatch.cu), and by the stencils'
+// plane ring (stencil_ring.cuh): mbarriers, TMA loads and their tensor
+// maps, proxy fences, and the wgmma shared-memory descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
@@ -231,5 +230,6 @@ static int f32_map_nd(CUtensorMap* map, const void* base, int rank,
 }
 
 // route codes passed from Python (repro_torch/kernels/_build.py ROUTE_CODES,
-// picked by plan.gemm_route, plan.attention_route and plan.expert_route)
+// picked by plan.gemm_route, plan.attention_route, plan.attention_bwd_route
+// and plan.expert_route)
 enum ReproRoute { kRouteSimt = 0, kRouteWgmma = 1 };

@@ -30,8 +30,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# route codes of csrc/hopper.cuh (plan.gemm_route, plan.attention_route and
-# plan.expert_route pick the route)
+# route codes of csrc/hopper.cuh (plan.gemm_route, plan.attention_route,
+# plan.attention_bwd_route and plan.expert_route pick the route)
 ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -63,7 +63,8 @@ LIBRARIES: Dict[str, tuple] = {
         + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 5,
         "repro_flash_combine": [_P] * 4 + [_LL] * 4 + [_I] * 7 + [_P]}),
     "flash_attention_bwd": ("flash_attention_bwd.cu", {
-        "repro_flash_attention_bwd": [_P] * 12 + [_I] * 9 + [_F, _I, _P]}),
+        "repro_flash_attention_bwd": [_P] * 12 + [_I] * 9
+        + [_F, _I, _I, _P]}),
     "ring_attention": ("ring_attention.cu", {
         "repro_ring_attention": [_P] * 10 + [_I, _P, _P] + [_I] * 12
         + [_F, _I, _I, _P]}),

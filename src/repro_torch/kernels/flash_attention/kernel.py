@@ -15,9 +15,10 @@ version is the ring attention's merge monoid (:func:`flash_combine_plain`).
 
 Training goes through :class:`FlashAttention`: its forward launches the
 kernel with the rows' log-sum-exp, its backward the gradient kernel of
-``csrc/flash_attention_bwd.cu`` (counted in
-``flash_attention_bwd_kernel.launches``; plain version
-:func:`flash_attention_bwd_plain`).
+``csrc/flash_attention_bwd.cu`` on the route
+:func:`..plan.attention_bwd_route` picks (counted in
+``flash_attention_bwd_kernel.launches`` and ``.route_launches``; plain
+version :func:`flash_attention_bwd_plain`).
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ import torch
 
 from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
                       stream_handle)
-from ..plan import (FLASH_BQ, attention_route, default_planner,
-                    key_split_tiles, plan_key_splits)
+from ..plan import (FLASH_BQ, attention_bwd_route, attention_route,
+                    default_planner, key_split_tiles, plan_key_splits)
 from ..ring_attention.kernel import (empty_state, finalize_state,
                                      merge_states, stripe_mask, stripe_state)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
@@ -323,10 +324,12 @@ def flash_attention_bwd_kernel(q, k, v, o, do, lse, *, causal: bool = True,
     """The gradient of :func:`flash_attention_kernel`: ``(dq, dk, dv)`` of
     its output from ``do``, given the forward's ``o`` and ``lse``, in the
     forward's layout (leading dims ranks, then the batch).  On the card it
-    launches ``csrc/flash_attention_bwd.cu`` (its delta, dk/dv and dq
-    passes, one count in ``flash_attention_bwd_kernel.launches``) on
-    contiguous copies of the operands; on CPU tensors it is
-    :func:`flash_attention_bwd_plain`."""
+    launches ``csrc/flash_attention_bwd.cu`` on contiguous copies of the
+    operands, on the route :func:`..plan.attention_bwd_route` picks (its
+    rows, dk/dv and dq passes on the tensor cores, or its delta, dk/dv and
+    dq passes on the CUDA cores; one count in
+    ``flash_attention_bwd_kernel.launches`` and one in ``.route_launches``
+    of the route); on CPU tensors it is :func:`flash_attention_bwd_plain`."""
     lead = q.shape[:-3]
     Tq, H, D = q.shape[-3:]
     Tk, KH, _ = k.shape[-3:]
@@ -353,20 +356,43 @@ def flash_attention_bwd_kernel(q, k, v, o, do, lse, *, causal: bool = True,
     vl = _per_row(valid_len, lead, q.device).contiguous()
     q, k, v, o, do, lse = (t.contiguous() for t in (q, k, v, o, do, lse))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-    delta = torch.empty(N, Tq, H, dtype=torch.float32, device=q.device)
+    G = H // KH
+    # TMA reads q, k, v and do (each as (C, heads, T, N) with the byte
+    # strides of its dims longer than 1), the rows pass o and do in 16-byte
+    # vectors; the rows' stats come by bulk copy
+    size = q.element_size()
+    tma = [t.data_ptr() for t in (q, k, v, o, do)] + [
+        st * size for t in (q, k, v, do)
+        for st, n in zip(t.stride()[-2::-1], (t.shape[-2], t.shape[-3], N))
+        if n > 1]
+    route = attention_bwd_route(q.dtype, D, Dv, G, *tma)
+    tiles = -(-Tq * G // FLASH_BQ)            # query tiles of a kv head
+    if route == "wgmma":
+        # the rows pass's lse log2(e), delta and key end, rows padded to
+        # the tile
+        delta = torch.empty(3, N, KH, tiles * FLASH_BQ, dtype=torch.float32,
+                            device=q.device)
+    else:
+        delta = torch.empty(N, Tq, H, dtype=torch.float32, device=q.device)
     status = library("flash_attention_bwd").repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), qo.data_ptr(), vl.data_ptr(), N, Tq,
         Tk, H, KH, D, Dv, int(causal), int(prefix_len),
         float(D ** -0.5 if scale is None else scale), DTYPE_CODES[q.dtype],
-        stream_handle(q.device))
+        ROUTE_CODES[route], stream_handle(q.device))
     flash_attention_bwd_kernel.launches += 1
+    flash_attention_bwd_kernel.route_launches[route] += 1
+    flash_attention_bwd_kernel.last_grid = {
+        "route": route, "key_blocks": -(-Tk // FLASH_BQ) * KH * N,
+        "query_blocks": tiles * KH * N}
     check_launch(status, "flash attention backward")
     return dq, dk, dv
 
 
 flash_attention_bwd_kernel.launches = 0
+flash_attention_bwd_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)
+flash_attention_bwd_kernel.last_grid = None
 
 
 class FlashAttention(torch.autograd.Function):

@@ -40,6 +40,7 @@ __all__ = [
     "default_planner",
     "gemm_route",
     "attention_route",
+    "attention_bwd_route",
     "expert_route",
     "stencil_route",
     "scan_route",
@@ -152,6 +153,8 @@ FLASH_MAX_DV = 256              # the widest value head it takes
 ATT_TC_BK = 64                  # keys a tile on attention's tensor-core route
 ATT_TC_STAGES = 2               # that route's k / v stages
 ATT_TC_THREADS = 160            # a consumer warpgroup and a producer warp
+BWD_TC_STAGES = 2               # the gradient's tensor-core ring of stages
+BWD_TC_THREADS = 160            # a consumer warpgroup and a producer warp
 EX_TC_TILE = (64, 64)           # (weight columns, K) of an expert-MLP item
 EX_TC_BR = 128                  # rows of its row tile, at most
 EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
@@ -190,6 +193,25 @@ def attention_route(dtype, d: int, dv: int, g: int, *ptrs_and_strides: int
     TF32 would change its results."""
     if dtype in (torch.float16, torch.bfloat16) \
             and d in (64, 128, 256) and dv in (64, 128, 256) \
+            and g >= 1 and 64 % g == 0 \
+            and all(x % 16 == 0 for x in ptrs_and_strides):
+        return "wgmma"
+    return "simt"
+
+
+def attention_bwd_route(dtype, d: int, dv: int, g: int,
+                        *ptrs_and_strides: int) -> str:
+    """The route a flash-attention gradient launch takes in
+    ``csrc/flash_attention_bwd.cu``: ``"wgmma"`` (TMA and the tensor cores)
+    for 16-bit operands whose head dims D and Dv are each a multiple of 16
+    in [16, 128], whose G = H / KH query heads a kv head divides the
+    64-row tile, and whose base pointers and byte strides
+    (``ptrs_and_strides``: those TMA and the bulk copies read) are 16-byte
+    aligned; ``"simt"`` (the CUDA cores) otherwise.  f32 stays on the CUDA
+    cores (TF32 would change its results); so does D or Dv of 256, whose
+    64-key dk and dv accumulators do not fit a warpgroup's registers."""
+    if dtype in (torch.float16, torch.bfloat16) \
+            and all(16 <= x <= 128 and x % 16 == 0 for x in (d, dv)) \
             and g >= 1 and 64 % g == 0 \
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"

@@ -166,6 +166,35 @@ def test_stacked_ranks_and_per_rank_offset():
             _close(a.grad[r].numpy(), b.grad.numpy(), 2e-5, f"rank {r}")
 
 
+@pytest.mark.parametrize("case", [SWEEP[7], SWEEP[8]], ids=["80", "80-48"])
+def test_backward_wrapper_on_cpu_is_the_plain_version(case):
+    """The gradient's wrapper on CPU tensors at the training path's head_dim
+    80: the plain version's gradients (no launch counted on any route),
+    against ``jax.vjp`` of the reference's oracle."""
+    q, k, v, do = _inputs(case, 5)
+    causal, off, pfx, dt = case[7], case[8], case[9], case[10]
+    t = [torch.from_numpy(x) for x in (q, k, v, do)]
+    o, lse = fa.flash_attention_plain(*t[:3], causal=causal, q_offset=off,
+                                      prefix_len=pfx, return_lse=True)
+    bwd = fa.flash_attention_bwd_kernel
+    before = (bwd.launches, dict(bwd.route_launches))
+    got = bwd(*t[:3], o, t[3], lse, causal=causal, q_offset=off,
+              prefix_len=pfx)
+    assert (bwd.launches, bwd.route_launches) == before
+    plain = fa.flash_attention_bwd_plain(*t[:3], o, t[3], lse, causal=causal,
+                                         q_offset=off, prefix_len=pfx)
+    for g, p in zip(got, plain):
+        assert torch.equal(g, p)
+
+    def f(q, k, v):
+        return j_ref(q, k, v, causal=causal, q_offset=off, prefix_len=pfx,
+                     block=8)
+
+    _, vjp = jax.vjp(f, *(jnp.asarray(x) for x in (q, k, v)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, vjp(jnp.asarray(do))):
+        _close(g.numpy(), np.asarray(w), TOL[dt], name)
+
+
 def test_gradient_refusals():
     q = torch.zeros(2, 8, 4, 16, requires_grad=True)
     with pytest.raises(ValueError, match="valid_len"):

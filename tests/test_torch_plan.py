@@ -421,6 +421,86 @@ def test_both_attention_wrappers_share_the_route_rule():
     assert fa.flash_attention_kernel.combine_launches == combines
 
 
+@pytest.mark.parametrize("dtype,d,dv,g,aligned,route", [
+    (torch.bfloat16, 80, 80, 1, (0, 160, 2560), "wgmma"),     # stablelm-3b
+    (torch.float16, 64, 128, 4, (16, 512), "wgmma"),          # Dv != D
+    (torch.bfloat16, 16, 16, 64, (), "wgmma"),
+    (torch.float16, 80, 48, 1, (), "wgmma"),
+    (torch.bfloat16, 128, 128, 8, (), "wgmma"),
+    (torch.float32, 80, 80, 1, (0, 160), "simt"),             # no TF32
+    (torch.float32, 64, 64, 4, (), "simt"),
+    (torch.bfloat16, 72, 72, 1, (), "simt"),                  # D off 16
+    (torch.float16, 64, 40, 1, (), "simt"),                   # Dv off 16
+    (torch.bfloat16, 256, 256, 8, (), "simt"),                # paligemma
+    (torch.bfloat16, 144, 128, 1, (), "simt"),                # D past 128
+    (torch.bfloat16, 128, 256, 1, (), "simt"),                # Dv past 128
+    (torch.bfloat16, 80, 80, 3, (), "simt"),                  # G off 64
+    (torch.float16, 64, 64, 128, (), "simt"),
+    (torch.bfloat16, 80, 80, 1, (0, 8), "simt"),              # a pointer
+    (torch.float16, 80, 80, 1, (256, 24), "simt"),            # a stride
+])
+def test_attention_bwd_route_rule(dtype, d, dv, g, aligned, route):
+    assert tplan.attention_bwd_route(dtype, d, dv, g, *aligned) == route
+
+
+def test_attention_bwd_route_over_the_sweep():
+    """dtype x D x Dv x G x alignment against the rule as stated."""
+    for dt, d, dv, g, off in itertools.product(
+            (torch.float32, torch.float16, torch.bfloat16),
+            (8, 16, 48, 64, 72, 80, 128, 144, 256),
+            (16, 24, 48, 80, 96, 128, 160, 256),
+            (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
+        want = ("wgmma" if dt != torch.float32 and 16 <= d <= 128
+                and d % 16 == 0 and 16 <= dv <= 128 and dv % 16 == 0
+                and g in (1, 2, 8, 16, 64) and off % 16 == 0 else "simt")
+        assert tplan.attention_bwd_route(dt, d, dv, g, 1 << 20, off) == want
+
+
+def test_backward_wrapper_counts_per_route():
+    """The gradient's wrapper uses the planner's rule and counts one launch
+    a call on its route, keyed by the C side's route codes; on CPU tensors
+    it takes the plain version and counts nothing."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import kernel as fa
+    bwd = fa.flash_attention_bwd_kernel
+    assert fa.attention_bwd_route is tplan.attention_bwd_route
+    assert set(bwd.route_launches) == set(_build.ROUTE_CODES) \
+        == {"simt", "wgmma"}
+    before = (bwd.launches, dict(bwd.route_launches))
+    q = torch.randn(1, 8, 2, 80, dtype=torch.bfloat16)
+    with use_default(DiompContext(device="cpu")):
+        o, lse = fa.flash_attention_plain(q, q, q, return_lse=True)
+        bwd(q, q, q, o, o, lse)
+    assert (bwd.launches, bwd.route_launches) == before
+
+
+def test_backward_tiles_match_the_cuda_source():
+    from repro_torch.kernels import _build
+    bw = _defines("flash_attention_bwd.cu")
+    assert bw["BWD_BQ"] == tplan.FLASH_BQ == 64
+    assert bw["BWD_TC_STAGES"] == tplan.BWD_TC_STAGES
+    assert bw["BWD_TC_THREADS"] == tplan.BWD_TC_THREADS == 128 + 32
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    # one instance a width the rule admits: W = max(D, Dv), 16 to 128
+    inst = {int(w) for w in re.findall(r"launch_bwd_tc<T, (\d+)>", text)}
+    assert inst == set(range(16, 129, 16))
+    # the ABI's route argument sits between the dtype and the stream
+    argtypes = _build.LIBRARIES["flash_attention_bwd"][1][
+        "repro_flash_attention_bwd"]
+    sig = re.search(r"repro_flash_attention_bwd\(([^)]*)\)", text).group(1)
+    assert len(argtypes) == sig.count(",") + 1
+    assert sig.replace(" ", "").replace("\n", "").endswith(
+        "intdtype,introute,void*stream")
+    # two blocks of the widest instance fit an SM's shared memory
+    expr = re.search(r"bwd_tc_smem_bytes\(int nbox\) \{\s*return "
+                     r"([^;]+);", text).group(1)
+    got = eval(" ".join(expr.split()), {
+        "nbox": 2, "BWD_TC_STAGES": bw["BWD_TC_STAGES"],
+        "BWD_BOX": 64 * 128, "BWD_ROW_STATS": 3 * 64 * 4})
+    assert 2 * (got + 1024) <= 233_472
+
+
 def test_attention_tiles_match_the_cuda_sources():
     at = _defines("attention.cuh")
     assert at["ATT_BQ"] == tplan.FLASH_BQ == 64
