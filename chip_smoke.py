@@ -215,12 +215,13 @@ def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
     of a long kernel's), so each kernel's time is its mean over the
     launches the trace holds, times its launches a call; a trace that
     holds none is taken again, up to five times, and None if it never
-    does.  A small kernel of PyTorch's own trails the calls inside each
-    trace, so that none of ``fn``'s launches is the trace's last."""
+    does.  A small kernel of PyTorch's own (``torch.cuda._sleep``'s
+    ``spin_kernel``, never counted, even where ``names`` is ``("",)``)
+    trails the calls inside each trace, so that none of ``fn``'s launches
+    is the trace's last."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda") \
         if cold_l2 else None
-    trail = torch.zeros(1, device="cuda")
     fn()
     torch.cuda.synchronize()
     for _ in range(5):
@@ -230,10 +231,11 @@ def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
                 if flush is not None:
                     flush.fill_(1)
                 fn()
-            trail.add_(1)
+            torch.cuda._sleep(1000)
             torch.cuda.synchronize()
         hits = [e for e in prof.key_averages()
                 if any(n in e.key for n in names) and e.count > 0
+                and "spin_kernel" not in e.key
                 and "CUDA" in str(getattr(e, "device_type", "CUDA"))]
         if hits:
             us = sum(getattr(e, "self_device_time_total",
@@ -442,10 +444,15 @@ def check_matmul(torch, k, g) -> None:
     """Ragged edges, every dtype, both routes: the 16-bit cases whose K
     and N are multiples of 8 run on the tensor cores (with ragged M and N
     edges and a K that is not a multiple of the tile's), the rest on the
-    CUDA cores."""
+    CUDA cores (M, N and K off the 128 x 128 x 16 tile, K under one step,
+    several tiles and steps, 16-bit operands off the tensor cores' rule)."""
     s, tc = "simt", "wgmma"
     for (M, K, N, dt, tol, route) in [
             (33, 65, 17, torch.float32, 1e-5, s),
+            (130, 7, 260, torch.float32, 1e-5, s),
+            (257, 1000, 129, torch.float32, 1e-5, s),
+            (1, 300, 5, torch.float32, 1e-5, s),
+            (131, 13, 77, torch.bfloat16, 1.6e-2, s),
             (100, 130, 70, torch.float16, 2e-3, s),
             (64, 96, 48, torch.bfloat16, 1.6e-2, tc),
             (256, 512, 256, torch.float32, 1e-5, s),
@@ -465,12 +472,13 @@ def check_matmul(torch, k, g) -> None:
 
 def check_ring(torch, k, g) -> None:
     """n = 1..5 ranks, both directions and bidi: f32 and bf16 at a ragged
-    shape on the CUDA cores, and bf16 at an aligned one (K and n_loc
-    multiples of 8, t_loc and n_loc ragged against the tile) on the tensor
-    cores."""
+    shape on the CUDA cores (f32 also over several tiles), and bf16 at an
+    aligned one (K and n_loc multiples of 8, t_loc and n_loc ragged against
+    the tile) on the tensor cores."""
     from repro_torch.kernels.plan import RingPlan
     kern = k.fused_ring_allgather_matmul_kernel
     cases = ((torch.float32, 1e-5, (5, 33, 7), "simt"),
+             (torch.float32, 1e-5, (130, 40, 200), "simt"),
              (torch.bfloat16, 1.6e-2, (5, 33, 7), "simt"),
              (torch.bfloat16, 1.6e-2, (200, 264, 136), "wgmma"))
     for n in range(1, 6):
@@ -667,12 +675,13 @@ def check_minimod(torch, k, g) -> None:
 
 def _attention_route(torch, dt, D, Dv, G) -> str:
     """The route a sweep case's aligned, contiguous operands must take:
-    the tensor cores for f16/bf16 with D and Dv each 64, 128 or 256 and G
-    dividing 64, the CUDA cores otherwise (plan.attention_route's rule,
-    restated here so the sweep checks it)."""
+    the tensor cores for f16/bf16 with D and Dv each a multiple of 16 in
+    [16, 128], or 256, and G dividing 64, the CUDA cores otherwise
+    (plan.attention_route's rule, restated here so the sweep checks it)."""
     return ("wgmma" if dt in (torch.float16, torch.bfloat16)
-            and D in (64, 128, 256) and Dv in (64, 128, 256) and 64 % G == 0
-            else "simt")
+            and all((16 <= x <= 128 and x % 16 == 0) or x == 256
+                    for x in (D, Dv))
+            and 64 % G == 0 else "simt")
 
 
 def _attention_bwd_route(torch, dt, D, Dv, G) -> str:
@@ -693,8 +702,11 @@ def check_flash(torch, k, g) -> None:
     decode whose slots see 1 key to many key splits, a prefix window across
     key tiles, several query tiles (an odd count) with and without key
     splits, a ragged Tk with NaN past ``valid_len`` and a strided layer of a stacked
-    cache with NaN past ``valid_len``; f32, f16 and bf16, each
-    case on the route the rule gives it.  The plain version folds keys in
+    cache with NaN past ``valid_len``; head_dim 80 (stablelm-3b's, two
+    64-column boxes, the second partly filled) causal, prefix-LM, at G = 8,
+    with NaN past ``valid_len`` and in a split decode, and widths off 64
+    with Dv != D; f32, f16 and bf16, each case on the route the rule gives
+    it.  The plain version folds keys in
     the kernel's key tile, so both sum in the same blocks.  Then the split
     combine against its plain version (``merge_states``).  Operands of
     mixed dtypes are refused on the card."""
@@ -727,6 +739,16 @@ def check_flash(torch, k, g) -> None:
         (2, 20, 150, 16, 2, 128, 128, True, [100, 40], 0, [120, 60], True),
         (4, 1, 150, 8, 1, 256, 256, True, [0, 63, 64, 149], 0,
          [1, 64, 65, 150], True),
+        # head_dim 80: query tiles at G = 1 (the training shape's), a
+        # prefix window at G = 8, NaN past valid_len, a split decode
+        (1, 130, 130, 2, 2, 80, 80, True, 0, 0, None, False),
+        (1, 100, 150, 8, 1, 80, 80, True, 0, 70, None, False),
+        (2, 20, 150, 8, 1, 80, 80, True, [100, 40], 0, [120, 60], True),
+        (3, 1, 1000, 8, 1, 80, 80, True, [0, 500, 999], 0, [1, 501, 1000],
+         False),
+        # widths off 64 with Dv != D: a prefix window, and G = 8 with NaN
+        (1, 100, 100, 8, 8, 80, 48, True, 0, 70, None, False),
+        (2, 33, 90, 16, 2, 112, 32, True, [10, 50], 0, [60, 90], True),
     ]
     for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx, valid, nan) in cases:
         for dt in tols:
@@ -1201,8 +1223,8 @@ def check_ring_attention(torch, k, g) -> None:
     rings of 1-4 virtual ranks, both query layouts (sharded, and shared
     queries over striped keys as in chunked prefill), causal and not, int
     and per-row offsets, a valid length below the padded one, G = 1 and 8,
-    head_dim 64 and 256, Dv != D; f32 and bf16, each case on the route the
-    rule gives it.  Every rank's output is held to the plain version (rank
+    head_dim 64, 80 and 256, Dv != D; f32 and bf16, each case on the route
+    the rule gives it.  Every rank's output is held to the plain version (rank
     0's fold order); operands of mixed dtypes are refused."""
     from repro_torch.core.context import DiompContext, use_default
     from repro_torch.core.groups import DiompGroup
@@ -1223,6 +1245,8 @@ def check_ring_attention(torch, k, g) -> None:
         # stripes of several key tiles, ragged, past the valid length
         (2, 1, 130, 150, 8, 1, 128, 128, True, True, 0, 290),
         (2, 2, 40, 100, 16, 1, 128, 128, False, True, [60, 10], [100, 170]),
+        # head_dim 80 (two 64-column boxes, the second partly filled)
+        (2, 2, 40, 100, 8, 2, 80, 80, False, True, [60, 10], [100, 170]),
     ]
     for (n, B, tq, tk, H, KH, D, Dv, sharded, causal, off, valid) in cases:
         ctx = DiompContext(mesh=RankMesh(("x",), (n,)), device="cuda")
@@ -1288,15 +1312,18 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
 
 def _sdpa(torch, q, kk, v, visible):
     """``scaled_dot_product_attention`` on the flash kernel's operands
-    (``(..., B, T, H, D)``, GQA) under a boolean ``(N, Tq, Tk)`` mask: the
-    library yardstick, never called by the port."""
+    (``(..., B, T, H, D)``, GQA) under a boolean ``(N, Tq, Tk)`` mask or,
+    with ``visible`` None, under ``is_causal=True`` (the causal mask from
+    position 0, Tq = Tk): the library yardstick, never called by the
+    port."""
     import torch.nn.functional as F
     q4 = q.reshape(-1, *q.shape[-3:]).transpose(1, 2)
     k4 = kk.reshape(-1, *kk.shape[-3:]).transpose(1, 2).contiguous()
     v4 = v.reshape(-1, *v.shape[-3:]).transpose(1, 2).contiguous()
-    mask = visible[:, None]
-    return lambda: F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask,
-                                                  enable_gqa=True)
+    kw = dict(is_causal=True) if visible is None else dict(
+        attn_mask=visible[:, None])
+    return lambda: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
+                                                  **kw)
 
 
 def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
@@ -3017,8 +3044,11 @@ def _bwd_at(torch, k, q, kk, v, do):
     pairs; bytes: q, k, v, o, dO and lse read, dq, dk, dv written) and the
     device time of each of its passes; the launch must take the tensor
     cores.  Then the forward with the lse at the same shape (row 5's
-    training entry): its time, device time and bound (two products over
-    the visible pairs), beside SDPA's forward under the same mask."""
+    training entry, on the tensor cores): its time, device time and bound
+    (two products over the visible pairs), beside SDPA's forward under
+    ``is_causal=True`` (the same function at this shape: no offset, every
+    key valid; row 5's library time) and under the same mask as a boolean
+    tensor."""
     import torch.nn.functional as F
     Tq, H, D = q.shape[-3:]
     Tk, Dv = kk.shape[-3], v.shape[-1]
@@ -3066,39 +3096,56 @@ def _bwd_at(torch, k, q, kk, v, do):
         f"{_ms(dev, 4)}; passes {passes}), plain {plain:.3f}, sdpa backward "
         f"{library:.4f} (device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms "
         f"by {b_by}; rel err {err:.3g}")
-    # the forward with the lse at the same shape (the CUDA-core tile: D = 80
-    # is off attention_route's rule)
+    # the forward with the lse at the same shape (D = 80: the tensor cores)
     def fwd():
         return k.flash_attention_kernel(q, kk, v, return_lse=True)
 
     f_route = _attention_route(torch, q.dtype, D, Dv, H // kk.shape[-2])
-    _counted(k.flash_attention_kernel, fwd, f_route)
+    check(f_route == "wgmma", f"flash forward at the training shape: "
+          f"the rule gives {f_route}")
+    f_got, f_lse = _counted(k.flash_attention_kernel, fwd, f_route)
+    f_want, f_lse_want = k.flash_attention_plain(q, kk, v, return_lse=True)
+    f_err = max_err(torch, f_got, f_want) / max(
+        float(f_want.float().abs().max()), 1e-6)
+    l_err = max_err(torch, f_lse, f_lse_want)
+    check(f_err <= 1.6e-2 and l_err <= 1e-4,
+          f"flash forward at the training shape: rel err {f_err}, lse err "
+          f"{l_err}")
+    del f_got, f_lse, f_want, f_lse_want
     f_ms = cuda_ms(torch, fwd, 5)
-    f_dev = device_ms(torch, fwd, 3, FLASH_KERNELS)
+    # ten calls a trace: traces of the forwards' shorter windows (three
+    # calls, under a millisecond) have come back empty late in the script
+    f_dev = device_ms(torch, fwd, 10, FLASH_KERNELS)
     f_plain = cuda_ms(torch, lambda: k.flash_attention_plain(
         q, kk, v, return_lse=True), 2)
     f_b_ms, f_b_by = bound(
         2 * (q.numel() + kk.numel() + v.numel() + o.numel())
         + 4 * lse.numel(), 2 * pairs * (D + Dv), "bfloat16")
+    sdpa = _sdpa(torch, q, kk, v, None)
+    f_lib = cuda_ms(torch, sdpa, 5)
+    f_lib_dev = device_ms(torch, sdpa, 10, ("",))
     t_ = torch.arange(Tq, device=q.device)
     visible = (t_[None, :] <= t_[:, None]).expand(n, Tq, Tk)
     sdpa = _sdpa(torch, q, kk, v, visible)
-    f_lib = cuda_ms(torch, sdpa, 5)
-    f_lib_dev = device_ms(torch, sdpa, 3, ("",))
+    f_mask = cuda_ms(torch, sdpa, 5)
+    f_mask_dev = device_ms(torch, sdpa, 10, ("",))
     del visible, sdpa
     log(f"flash forward with the lse at q {tuple(q.shape)} ({f_route}): "
         f"{f_ms:.4f} ms (device {_ms(f_dev, 4)}), bound {f_b_ms:.4f} ms by "
-        f"{f_b_by}, plain {f_plain:.3f}, sdpa forward (boolean mask) "
-        f"{f_lib:.4f} (device {_ms(f_lib_dev, 4)})")
+        f"{f_b_by}, plain {f_plain:.3f}, rel err {f_err:.3g}; sdpa forward "
+        f"is_causal {f_lib:.4f} (device {_ms(f_lib_dev, 4)}), boolean mask "
+        f"{f_mask:.4f} (device {_ms(f_mask_dev, 4)})")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev,
             "pass_device_ms": passes, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library,
             "library_device_ms": library_dev, "grid": grid,
             "shape": list(q.shape),
-            "forward": {"route": f_route, "ms": f_ms, "device_ms": f_dev,
-                        "plain_ms": f_plain, "bound_ms": f_b_ms,
-                        "bound_by": f_b_by,
-                        "library_ms": f_lib, "library_device_ms": f_lib_dev}}
+            "forward": {"route": f_route, "max_abs_err": f_err, "ms": f_ms,
+                        "device_ms": f_dev, "plain_ms": f_plain,
+                        "bound_ms": f_b_ms, "bound_by": f_b_by,
+                        "library_ms": f_lib, "library_device_ms": f_lib_dev,
+                        "library_mask_ms": f_mask,
+                        "library_mask_device_ms": f_mask_dev}}
 
 
 def _cut(cfg, layers: int):
@@ -3401,15 +3448,14 @@ def train_phase(torch, k, dev, wrappers) -> dict:
     check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
           and len(run["losses"]) == TRAIN_STEPS, "train: a non-finite step")
     # every layer's attention: a forward and a remat forward, one backward,
-    # a microbatch a step; stablelm's head_dim 80 is off the forward's
-    # tensor-core rule (D 64, 128 or 256) and takes its CUDA cores, and on
-    # the backward's (D a multiple of 16 up to 128) takes the tensor cores
+    # a microbatch a step; stablelm's head_dim 80 is on both rules (D a
+    # multiple of 16 up to 128), so every launch takes the tensor cores
     check(counts["forward"] == 2 * per_pass
-          and counts["forward_routes"]["simt"] == 2 * per_pass
+          and counts["forward_routes"] == {"simt": 0, "wgmma": 2 * per_pass}
           and counts["backward"] == per_pass
           and counts["backward_routes"] == {"simt": 0, "wgmma": per_pass},
-          f"train: flash launches {counts}, not {2 * per_pass} forward "
-          f"(simt) and {per_pass} backward (wgmma)")
+          f"train: flash launches {counts}, not {2 * per_pass} forward and "
+          f"{per_pass} backward, all on wgmma")
     b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
     steps = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
              for s in run["step_s"]]
@@ -3877,6 +3923,7 @@ def main() -> int:
     bwd = train_phase(torch, k, dev, wrappers)
     flash.setdefault("launches_by_path", {})["train"] = \
         bwd["train"]["flash_forward"]["forward"]
+    flash["train"] = bwd.pop("forward")     # row 5's training entry
     kernels.append(bwd)
     check(len(kernels) == len(wrappers) == 10, "kernels line incomplete")
 

@@ -190,19 +190,26 @@ __device__ __forceinline__ void att_rows(int i0, int rows, int G, int qoff,
 //
 // Taken, by one rule decided before launch (repro_torch/kernels/plan.py
 // attention_route, checked again by each C entry point), for f16/bf16
-// operands with D and Dv each 64, 128 or 256, G dividing 64, and
-// 16-byte-aligned base pointers and row strides (TMA's rule).  f32 keeps the
-// CUDA-core routine above: TF32 would change its results.
+// operands with D and Dv each a multiple of 16 in [16, 128], or 256 (the
+// widths att_wgmma_o instantiates), G dividing 64, and 16-byte-aligned base
+// pointers and row strides (TMA's rule).  f32 keeps the CUDA-core routine
+// above: TF32 would change its results; so does D = 192.
 //
 // A block is ATT_TC_THREADS threads: one consumer warpgroup that owns the
 // 64 query rows of a tile (row = t * G + g, as above), and one producer warp
 // one of whose threads keeps TMA loads in flight.  The tile of q is loaded
-// once, as D / 64 boxes (64 columns, G heads, 64 / G positions) of a 5-D
-// map over (D, H, Tq, B, depth), so the rows land in the tile's row order;
-// K and V come in tiles of ATT_TC_BK = 64 keys, D / 64 and Dv / 64 boxes
-// (64 columns, 64 keys) of maps over (D, KH, Tk, B, depth), into a ring of
-// ATT_TC_STAGES stages with full / empty mbarriers.  Every box is 128-byte
-// swizzled; positions past Tq or Tk read as zero.
+// once, as att_nbox(D) = ceil(D / 64) boxes (64 columns, G heads, 64 / G
+// positions) of a 5-D map over (D, H, Tq, B, depth), so the rows land in
+// the tile's row order; K and V come in tiles of ATT_TC_BK = 64 keys,
+// att_nbox(D) and att_nbox(Dv) boxes (64 columns, 64 keys) of maps over (D,
+// KH, Tk, B, depth), into a ring of ATT_TC_STAGES stages with full / empty
+// mbarriers.  Every box is 128-byte swizzled; positions past Tq or Tk and
+// columns past D or Dv read as zero (TMA's fill, counted in the box's
+// bytes), so a width off 64 (stablelm-3b's D = 80: two boxes, the second 16
+// columns deep) needs nothing more: S stops after D / 16 k-steps, and P v
+// runs wgmma's n = Dv across the partly filled last box.  Registers
+// (ptxas, sm_90a): flash's instances 95 (Dv = 16) to 167 (128) and 225
+// (256), 127 at Dv = 80; ring attention's 167 to 255; none spills.
 //
 // Per key tile the warpgroup runs
 //   S = q k^T    wgmma m64n64k16, both operands in shared memory; k is
@@ -237,24 +244,31 @@ constexpr int ATT_TC_BOX_BYTES = 64 * 128;   // one box: 64 rows of 128 bytes
 static_assert(ATT_TC_THREADS == ATT_TC_CONSUMERS + 32, "one producer warp");
 static_assert(ATT_BQ == 64 && ATT_TC_BK == 64, "wgmma m64 / n64 tiles");
 
+// The 64-column boxes a width of x columns takes
+__host__ __device__ constexpr int att_nbox(int x) { return (x + 63) / 64; }
+
 // Dynamic shared memory of the route: 1024 bytes of slack for the
 // swizzle's alignment, the q tile, the stages (k then v), and the full /
-// empty barriers of each stage and of the q tile.
+// empty barriers of each stage and of the q tile; every operand a whole
+// number of 8192-byte boxes ((x + 63) >> 6 is att_nbox(x), written out so
+// that the planner's test can evaluate the expression).
 __host__ __device__ inline int att_tc_smem_bytes(int D, int Dv) {
-  return 1024 + 128 * D + ATT_TC_STAGES * 128 * (D + Dv)
+  return 1024 + ((D + 63) >> 6) * 8192
+         + ATT_TC_STAGES * (((D + 63) >> 6) + ((Dv + 63) >> 6)) * 8192
          + 8 * (2 * ATT_TC_STAGES + 2);
 }
 
 struct AttTcSmem {
   uint32_t base;  // shared-window address of the q tile, 1024-byte aligned
-  int D, Dv;
+  int D;
+  int kb, vb;     // boxes of a q or k tile (att_nbox(D)) and of v's
   __device__ uint32_t q() const { return base; }
   __device__ uint32_t k(int s) const {
-    return base + 128 * D + s * 128 * (D + Dv);
+    return base + (kb + s * (kb + vb)) * ATT_TC_BOX_BYTES;
   }
-  __device__ uint32_t v(int s) const { return k(s) + 128 * D; }
+  __device__ uint32_t v(int s) const { return k(s) + kb * ATT_TC_BOX_BYTES; }
   __device__ uint32_t bar(int i) const {
-    return base + 128 * D + ATT_TC_STAGES * 128 * (D + Dv) + 8 * i;
+    return base + (kb + ATT_TC_STAGES * (kb + vb)) * ATT_TC_BOX_BYTES + 8 * i;
   }
   __device__ uint32_t full(int s) const { return bar(s); }
   __device__ uint32_t empty(int s) const { return bar(ATT_TC_STAGES + s); }
@@ -273,7 +287,8 @@ __device__ inline AttTcSmem att_tc_smem_init(unsigned char* raw, int D,
   sm.base = (static_cast<uint32_t>(__cvta_generic_to_shared(raw)) + 1023)
             & ~1023u;
   sm.D = D;
-  sm.Dv = Dv;
+  sm.kb = att_nbox(D);
+  sm.vb = att_nbox(Dv);
   if (threadIdx.x == 0) {
     for (int s = 0; s <= ATT_TC_STAGES; ++s) {  // the stages, then q's
       const bool q = s == ATT_TC_STAGES;
@@ -292,8 +307,8 @@ __device__ inline void att_tc_load_q(const AttTcSmem& sm, uint32_t& qphase,
                                      const CUtensorMap* qmap, int h0, int t0,
                                      int b, int depth) {
   mbar_wait(sm.qempty(), qphase ^ 1);
-  mbar_expect_tx(sm.qfull(), 128 * sm.D);
-  for (int c = 0; c < sm.D / 64; ++c)
+  mbar_expect_tx(sm.qfull(), sm.kb * ATT_TC_BOX_BYTES);
+  for (int c = 0; c < sm.kb; ++c)
     tma_load_5d(sm.q() + c * ATT_TC_BOX_BYTES, qmap, sm.qfull(), c * 64, h0,
                 t0, b, depth);
   qphase ^= 1;
@@ -308,12 +323,12 @@ __device__ inline void att_tc_load_kv(const AttTcSmem& sm, AttPipe& pipe,
   for (int i = 0; i < ntiles; ++i) {
     mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1);
     const uint32_t full = sm.full(pipe.stage);
-    mbar_expect_tx(full, 128 * (sm.D + sm.Dv));
+    mbar_expect_tx(full, (sm.kb + sm.vb) * ATT_TC_BOX_BYTES);
     const int key = k0 + i * ATT_TC_BK;
-    for (int c = 0; c < sm.D / 64; ++c)
+    for (int c = 0; c < sm.kb; ++c)
       tma_load_5d(sm.k(pipe.stage) + c * ATT_TC_BOX_BYTES, kmap, full,
                   c * 64, kh, key, b, depth);
-    for (int c = 0; c < sm.Dv / 64; ++c)
+    for (int c = 0; c < sm.vb; ++c)
       tma_load_5d(sm.v(pipe.stage) + c * ATT_TC_BOX_BYTES, vmap, full,
                   c * 64, kh, key, b, depth);
     pipe.advance();
@@ -648,7 +663,7 @@ __device__ inline void att_tc_fold(const AttTcSmem& sm, AttPipe& pipe, int k0,
       // back) to zero; whole 128-byte rows, so the swizzle does not matter
       const int j0 = max(nkeys - kl0, 0);
       const int per_box = (ATT_TC_BK - j0) * 8;   // 16-byte chunks
-      const int chunks = (sm.D + DV) / 64 * per_box;
+      const int chunks = (sm.kb + sm.vb) * per_box;
       for (int e = threadIdx.x; e < chunks; e += ATT_TC_CONSUMERS) {
         const uint32_t addr = sm.k(stage) + (e / per_box) * ATT_TC_BOX_BYTES
                               + (j0 + (e % per_box) / 8) * 128
@@ -748,12 +763,15 @@ __device__ inline void att_tc_fold(const AttTcSmem& sm, AttPipe& pipe, int k0,
 // -- host side of the tensor-core route ----------------------------------------
 
 // The route rule, checked again at launch: 16-bit operands, D and Dv each
-// 64, 128 or 256, G dividing 64, the key tile 64, and 16-byte-
-// aligned base pointers (att_tc_map refuses byte strides off 16).
+// a multiple of 16 in [16, 128], or 256, G dividing 64, the key tile 64,
+// and 16-byte-aligned base pointers (att_tc_map refuses byte strides off
+// 16).
 static bool att_tc_route_ok(int dtype, int D, int Dv, int G, int BK,
                             std::initializer_list<const void*> ptrs) {
   if (dtype != kBF16 && dtype != kF16) return false;
-  auto head_ok = [](int x) { return x == 64 || x == 128 || x == 256; };
+  auto head_ok = [](int x) {
+    return (x >= 16 && x <= 128 && x % 16 == 0) || x == 256;
+  };
   if (!head_ok(D) || !head_ok(Dv)) return false;
   if (G < 1 || 64 % G != 0 || BK != ATT_TC_BK) return false;
   for (const void* p : ptrs)

@@ -34,9 +34,14 @@
 // Two routes, by attention.cuh's rule (plan.attention_route), decided
 // before launch; the entry point refuses a tensor-core launch off the rule:
 //
-// * tensor cores (flash_tc_kernel): one block per (64-row query tile, key
-//   split, kv head, r * B + b), running attention.cuh's TMA + wgmma tile
-//   over its split of the tile's visible keys [0, kend), in 64-key tiles.
+// * tensor cores (flash_tc_kernel): f16/bf16 with D and Dv each a multiple
+//   of 16 in [16, 128], or 256, G dividing 64, 16-byte-aligned operands;
+//   one instance a Dv the rule admits, D a runtime value (a width off 64,
+//   such as stablelm-3b's D = Dv = 80, is whole 64-column boxes whose
+//   columns past the width TMA fills with zeros).  One block per (64-row
+//   query tile, key split, kv head, r * B + b), running attention.cuh's
+//   TMA + wgmma tile over its split of the tile's visible keys [0, kend),
+//   in 64-key tiles.
 //   A decode step has few tiles (8 blocks at glm4-9b's or paligemma-3b's
 //   decode on 2 ranks x 4 slots), so the wrapper splits the keys
 //   (plan.plan_key_splits: enough blocks to cover the SMs about twice, 1
@@ -47,7 +52,8 @@
 //   rows into scratch the wrapper allocates, and flash_combine_kernel
 //   merges the S partials in split order (the merge monoid of
 //   ring_attention/kernel.py, merge_states) and normalizes;
-// * CUDA cores (flash_fwd_kernel): f32 and shapes off the rule; one block
+// * CUDA cores (flash_fwd_kernel): f32 and shapes off the rule (D = 192,
+//   widths off 16, G not dividing 64, unaligned operands); one block
 //   per (64-row query tile, kv head, r * B + b), running att_fold over the
 //   keys in tiles of BK (16, 32 or 64, from plan_attention_block).
 //
@@ -267,9 +273,18 @@ static int launch_tc(const FlashParams& p, int R, int dtype,
 template <typename T>
 static int dispatch_tc(const FlashParams& p, int R, int dtype,
                        cudaStream_t stream) {
-  if (p.Dv == 64) return launch_tc<T, 64>(p, R, dtype, stream);
-  if (p.Dv == 128) return launch_tc<T, 128>(p, R, dtype, stream);
-  if (p.Dv == 256) return launch_tc<T, 256>(p, R, dtype, stream);
+  // one instance a width the rule admits (D stays a runtime value)
+  switch (p.Dv) {
+    case 16: return launch_tc<T, 16>(p, R, dtype, stream);
+    case 32: return launch_tc<T, 32>(p, R, dtype, stream);
+    case 48: return launch_tc<T, 48>(p, R, dtype, stream);
+    case 64: return launch_tc<T, 64>(p, R, dtype, stream);
+    case 80: return launch_tc<T, 80>(p, R, dtype, stream);
+    case 96: return launch_tc<T, 96>(p, R, dtype, stream);
+    case 112: return launch_tc<T, 112>(p, R, dtype, stream);
+    case 128: return launch_tc<T, 128>(p, R, dtype, stream);
+    case 256: return launch_tc<T, 256>(p, R, dtype, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

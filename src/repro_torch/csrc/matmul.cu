@@ -9,12 +9,12 @@
 #include "matmul.cuh"
 
 template <typename T>
-__global__ void __launch_bounds__(MM_THREADS)
+__global__ void __launch_bounds__(MM_THREADS, 2)
 matmul_kernel(const T* __restrict__ x, const T* __restrict__ w,
               T* __restrict__ out, int M, int N, int K) {
-  __shared__ __align__(16) MmSmem sm;
+  extern __shared__ __align__(16) float mm_smem[];
   mm_tile<T>(x, K, w, N, out, N, M, N, K, blockIdx.y * MM_BM,
-             blockIdx.x * MM_BN, sm);
+             blockIdx.x * MM_BN, mm_smem);
 }
 
 template <typename T>
@@ -48,8 +48,12 @@ matmul_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 template <typename T>
 static int launch_simt(const void* x, const void* w, void* out, int M, int N,
                        int K, cudaStream_t stream) {
+  const int smem = mm_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      matmul_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((N + MM_BN - 1) / MM_BN, (M + MM_BM - 1) / MM_BM);
-  matmul_kernel<T><<<grid, MM_THREADS, 0, stream>>>(
+  matmul_kernel<T><<<grid, MM_THREADS, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<T*>(out), M, N, K);
   REPRO_RETURN_LAUNCH_STATUS();

@@ -34,21 +34,44 @@
 //   planner mirrors the tile and stage count (TC_TILE, TC_STAGES) and
 //   checks the stages against its budget.
 // * CUDA cores (mm_tile): f32, and 16-bit shapes that break the rule.  TF32
-//   would change f32 results and wgmma takes tf32 B only K-major.  One
-//   (MM_BM x MM_BN) tile per block, 256 threads each with a 4 x 4
-//   accumulator, K walked in MM_BK steps staged in f32 (MM_TILE in the
-//   planner), ragged edges masked on load and store.
+//   would change f32 results and wgmma takes tf32 B only K-major.  Bound by
+//   the FFMA rate (67 TFLOP/s in f32), so the tile is laid out to keep the
+//   FMA pipes fed: one (MM_BM x MM_BN) = 128 x 128 tile per block, 256
+//   threads each owning 8 x 8 outputs in registers, so that every k reads
+//   four 16-byte fragments from shared memory for 64 FFMAs (a 4 x 4 tile a
+//   thread reads two for 16).  K is walked in MM_BK = 16 steps through a ring
+//   of MM_STAGES = 3 f32 stages (mm_smem_bytes(), 48.75 KiB, two blocks an
+//   SM): f32 lands by 4-byte cp.async, A transposed to k-major on the way
+//   (so each k reads a row of it), zero-filled past M, N and K, with the
+//   next two steps' copies in flight while the FFMA loop runs; unaligned
+//   16-bit operands, which cp.async cannot copy an element at a time, are
+//   loaded into registers before the products and stored converted after
+//   them.  Ragged M, N and K are handled in the kernel: zero fill and
+//   masked stores, never padding on the host.  The planner mirrors the
+//   tile, stages and padding (MM_TILE, MM_STAGES, MM_APAD, mm_smem_bytes).
+//   Registers (ptxas, sm_90a): 127 for f32 and 128 for the 16-bit
+//   instances, no spill, under __launch_bounds__(256, 2).
+//   ring_matmul.cu's CUDA-core route runs the same tile inside its
+//   cooperative grid, whose size the launch takes from the occupancy of
+//   the tile's 256 threads and dynamic shared memory, so it still fits and
+//   one tile serves both entry points.  The ring kernel carries its puts'
+//   and its jobs' state beside the tile: held to 128 registers for two
+//   blocks an SM it spilled 76 to 192 bytes, so it takes no minimum and
+//   runs one block an SM.
 #pragma once
 
 #include <cstdint>
 #include <initializer_list>
+#include <type_traits>
 
 #include "hopper.cuh"
 
-#define MM_BM 64
+#define MM_BM 128
 #define MM_BK 16
-#define MM_BN 64
+#define MM_BN 128
 #define MM_THREADS 256
+#define MM_STAGES 3
+#define MM_APAD 4
 
 #define TC_BM 128
 #define TC_BK 64
@@ -56,63 +79,164 @@
 #define TC_STAGES 4
 #define TC_CLUSTER 2
 
-struct MmSmem {
-  float a[MM_BK][MM_BM];  // A tile, transposed: a[k][m]
-  float b[MM_BK][MM_BN];
-};
+// -- the CUDA-core route -----------------------------------------------------
+
+// A stage: A's (BK, BM) tile k-major (a[k][m]), each k row followed by
+// MM_APAD floats of padding, then B's (BK, BN) tile as it lies in memory
+// (b[k][n]); f32 whatever T is.
+constexpr int MM_A_FLOATS = MM_BK * (MM_BM + MM_APAD);
+constexpr int MM_STAGE_FLOATS = MM_A_FLOATS + MM_BK * MM_BN;
+static_assert(MM_THREADS == 256 && MM_BM == 128 && MM_BN == 128
+              && MM_BK == 16, "the thread layout below");
+
+// Dynamic shared memory of a CUDA-core GEMM block: MM_STAGES stages
+__host__ __device__ inline int mm_smem_bytes() {
+  return MM_STAGES * (MM_BK * (MM_BM + MM_APAD) + MM_BK * MM_BN) * 4;
+}
+
+// Stage K step kt of the tile into stage `st`.  Thread t copies A's
+// elements (m, k) = (t / 8 + 32 i, t % 8 + 8 j), i < 4, j < 2 (a warp reads
+// 4 rows x 32 bytes and its shared-memory stores, at k (BM + 4) + m, hit 32
+// different banks), and B's (k, n) = (t / 128 + 2 i, t % 128), i < 8 (a warp
+// reads 128 contiguous bytes).  f32 goes by 4-byte cp.async, zero-filled
+// past M, N and K; 16-bit operands (unaligned, else they would take the
+// tensor cores) cannot be copied 2 bytes at a time, so their loads land in
+// registers (`hold`) and mm_land converts and stores them after the
+// products of the current stage.
+template <typename T>
+__device__ __forceinline__ void mm_fetch(const T* __restrict__ A,
+                                         long long lda,
+                                         const T* __restrict__ B,
+                                         long long ldb, int M, int N, int K,
+                                         int m0, int n0, int kt, float* st,
+                                         T (&hold)[16]) {
+  const int t = threadIdx.x, k0 = kt * MM_BK;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int m = t / 8 + 32 * (i & 3), k = t % 8 + 8 * (i >> 2);
+    const bool ok = m0 + m < M && k0 + k < K;
+    const T* src = ok ? A + (long long)(m0 + m) * lda + k0 + k : A;
+    if constexpr (std::is_same<T, float>::value)
+      cp_async4(st + k * (MM_BM + MM_APAD) + m, src, ok);
+    else
+      hold[i] = ok ? *src : from_f32<T>(0.f);
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int k = t / 128 + 2 * i, n = t % 128;
+    const bool ok = k0 + k < K && n0 + n < N;
+    const T* src = ok ? B + (long long)(k0 + k) * ldb + n0 + n : B;
+    if constexpr (std::is_same<T, float>::value)
+      cp_async4(st + MM_A_FLOATS + k * MM_BN + n, src, ok);
+    else
+      hold[8 + i] = ok ? *src : from_f32<T>(0.f);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void mm_land(float* st, const T (&hold)[16]) {
+  if constexpr (!std::is_same<T, float>::value) {
+    const int t = threadIdx.x;
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      st[(t % 8 + 8 * (i >> 2)) * (MM_BM + MM_APAD) + t / 8 + 32 * (i & 3)] =
+          to_f32(hold[i]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+      st[MM_A_FLOATS + (t / 128 + 2 * i) * MM_BN + t % 128] =
+          to_f32(hold[8 + i]);
+  }
+}
 
 // C[m0:m0+BM, n0:n0+BN] = A[m0:, :K] @ B[:K, n0:] for row-major A (lda),
-// B (ldb), C (ldc).  Every thread of the block must call it (it syncs).
+// B (ldb), C (ldc), with `smem` the block's mm_smem_bytes() of dynamic
+// shared memory.  Every thread of the block must call it (it syncs).
+//
+// Thread t of warp w owns rows ty * 4 + {0..3} and 64 + ty * 4 + {0..3} and
+// columns tx * 4 + {0..3} and 64 + tx * 4 + {0..3}, with tx = t % 8 + 8 (w
+// % 2) and ty = t % 32 / 8 + 4 (w / 2): 8 x 8 f32 accumulators.  Per k it
+// reads its 8 values of A and 8 of B as four 16-byte loads (a warp's A
+// loads touch 4 float4, its B loads 8: no bank conflict) and runs 64 FFMAs.
+// The K loop keeps MM_STAGES - 1 steps in flight: at step kt it waits for
+// stage kt, syncs once, issues step kt + MM_STAGES - 1 into the stage step
+// kt - 1 used, and multiplies stage kt.
 template <typename T>
 __device__ void mm_tile(const T* __restrict__ A, long long lda,
                         const T* __restrict__ B, long long ldb,
                         T* __restrict__ C, long long ldc,
-                        int M, int N, int K, int m0, int n0, MmSmem& sm) {
-  const int t = threadIdx.x;
-  const int tx = t % 16, ty = t / 16;  // 16 x 16 threads, 4 x 4 outputs each
-  float acc[4][4];
+                        int M, int N, int K, int m0, int n0, float* smem) {
+  const int t = threadIdx.x, w = t / 32;
+  const int tx = t % 8 + 8 * (w % 2), ty = t % 32 / 8 + 4 * (w / 2);
+  const int nk = (K + MM_BK - 1) / MM_BK;
+  float acc[8][8];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  T hold[16];
 
-  for (int k0 = 0; k0 < K; k0 += MM_BK) {
 #pragma unroll
-    for (int i = 0; i < (MM_BM * MM_BK) / MM_THREADS; ++i) {
-      int e = t + i * MM_THREADS;
-      int m = e / MM_BK, k = e % MM_BK;  // k fastest: coalesced rows of A
-      int gm = m0 + m, gk = k0 + k;
-      sm.a[k][m] = (gm < M && gk < K) ? to_f32(A[gm * lda + gk]) : 0.f;
+  for (int s = 0; s < MM_STAGES - 1; ++s) {
+    if (s < nk) {
+      mm_fetch<T>(A, lda, B, ldb, M, N, K, m0, n0, s,
+                  smem + s * MM_STAGE_FLOATS, hold);
+      mm_land<T>(smem + s * MM_STAGE_FLOATS, hold);
     }
-#pragma unroll
-    for (int i = 0; i < (MM_BK * MM_BN) / MM_THREADS; ++i) {
-      int e = t + i * MM_THREADS;
-      int k = e / MM_BN, n = e % MM_BN;  // n fastest: coalesced rows of B
-      int gk = k0 + k, gn = n0 + n;
-      sm.b[k][n] = (gk < K && gn < N) ? to_f32(B[gk * ldb + gn]) : 0.f;
-    }
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<MM_STAGES - 2>();
     __syncthreads();
+    const int next = kt + MM_STAGES - 1;
+    float* nst = smem + next % MM_STAGES * MM_STAGE_FLOATS;
+    if (next < nk)
+      mm_fetch<T>(A, lda, B, ldb, M, N, K, m0, n0, next, nst, hold);
+    cp_async_commit();
+    const float* as = smem + kt % MM_STAGES * MM_STAGE_FLOATS;
+    const float* bs = as + MM_A_FLOATS;
 #pragma unroll
     for (int k = 0; k < MM_BK; ++k) {
-      float4 a = *reinterpret_cast<const float4*>(&sm.a[k][ty * 4]);
-      float4 b = *reinterpret_cast<const float4*>(&sm.b[k][tx * 4]);
-      float av[4] = {a.x, a.y, a.z, a.w};
-      float bv[4] = {b.x, b.y, b.z, b.w};
+      const float* ar = as + k * (MM_BM + MM_APAD) + ty * 4;
+      const float* br = bs + k * MM_BN + tx * 4;
+      const float4 a0 = *reinterpret_cast<const float4*>(ar);
+      const float4 a1 = *reinterpret_cast<const float4*>(ar + 64);
+      const float4 b0 = *reinterpret_cast<const float4*>(br);
+      const float4 b1 = *reinterpret_cast<const float4*>(br + 64);
+      const float av[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
     }
-    __syncthreads();
+    if (next < nk) mm_land<T>(nst, hold);
   }
+  cp_async_wait<0>();
+  __syncthreads();  // every stage read before the block's next tile refills it
+
+  // four contiguous columns at a time: one 16-byte store for f32 where C's
+  // rows and base allow it
+  const bool vec = std::is_same<T, float>::value && ldc % 4 == 0
+                   && reinterpret_cast<uintptr_t>(C) % 16 == 0;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int gm = m0 + ty * 4 + i;
+  for (int i = 0; i < 8; ++i) {
+    const int gm = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
     if (gm >= M) continue;
+    T* row = C + (long long)gm * ldc;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      int gn = n0 + tx * 4 + j;
-      if (gn < N) C[gm * ldc + gn] = from_f32<T>(acc[i][j]);
+    for (int h = 0; h < 2; ++h) {
+      const int gn = n0 + 64 * h + tx * 4;
+      if constexpr (std::is_same<T, float>::value) {
+        if (vec && gn + 3 < N) {
+          *reinterpret_cast<float4*>(row + gn) =
+              make_float4(acc[i][4 * h], acc[i][4 * h + 1],
+                          acc[i][4 * h + 2], acc[i][4 * h + 3]);
+          continue;
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (gn + j < N) row[gn + j] = from_f32<T>(acc[i][4 * h + j]);
     }
   }
 }

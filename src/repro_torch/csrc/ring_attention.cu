@@ -38,8 +38,10 @@
 // with one of attention.cuh's two routes, by its rule (plan.attention_
 // route), decided before launch:
 //
-// * tensor cores (ring_attention_tc_kernel): the TMA + wgmma tile.  The
-//   queries and the slot buffers are 5-D tensor maps built once a launch;
+// * tensor cores (ring_attention_tc_kernel): the TMA + wgmma tile (the
+//   rule's widths: D and Dv each a multiple of 16 in [16, 128], or 256; one
+//   instance a Dv).  The queries and the slot buffers are 5-D tensor maps
+//   built once a launch;
 //   a box is one stripe deep, so a tile's keys past tk read zeros, never
 //   the next stripe.  Stripes land in the slots by generic stores (the
 //   seed and the puts) and the next step reads them through TMA, so every
@@ -488,9 +490,18 @@ static int launch_tc(const RingAttnParams& p, int dtype,
 template <typename T>
 static int dispatch_tc(const RingAttnParams& p, int dtype,
                        cudaStream_t stream) {
-  if (p.Dv == 64) return launch_tc<T, 64>(p, dtype, stream);
-  if (p.Dv == 128) return launch_tc<T, 128>(p, dtype, stream);
-  if (p.Dv == 256) return launch_tc<T, 256>(p, dtype, stream);
+  // one instance a width the rule admits (D stays a runtime value)
+  switch (p.Dv) {
+    case 16: return launch_tc<T, 16>(p, dtype, stream);
+    case 32: return launch_tc<T, 32>(p, dtype, stream);
+    case 48: return launch_tc<T, 48>(p, dtype, stream);
+    case 64: return launch_tc<T, 64>(p, dtype, stream);
+    case 80: return launch_tc<T, 80>(p, dtype, stream);
+    case 96: return launch_tc<T, 96>(p, dtype, stream);
+    case 112: return launch_tc<T, 112>(p, dtype, stream);
+    case 128: return launch_tc<T, 128>(p, dtype, stream);
+    case 256: return launch_tc<T, 256>(p, dtype, stream);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -36,7 +36,8 @@
 //   slots through TMA, so every thread fences the async proxy after its
 //   puts and before the grid barrier, and again after it.  The pipeline's
 //   stage and phase carry from one step to the next;
-// * CUDA cores: f32 and 16-bit shapes off the rule, mm_tile per tile.
+// * CUDA cores: f32 and 16-bit shapes off the rule, matmul.cuh's mm_tile
+//   per tile (its cp.async ring in the block's dynamic shared memory).
 //
 // The puts move up to 2 n t_loc K elements per step, before the step's
 // GEMMs; they overlap them only across blocks.  Per-peer
@@ -136,7 +137,7 @@ ring_kernel(const T* __restrict__ x, const T* __restrict__ w,
             T* __restrict__ out, T* __restrict__ bufs,
             const int* __restrict__ sched, int nsteps, int n, int slots,
             int t_loc, int K, int n_loc) {
-  __shared__ __align__(16) MmSmem sm;
+  extern __shared__ __align__(16) float mm_smem[];
   cg::grid_group grid = cg::this_grid();
   const Ring<T> ring{x, bufs, n, slots, (long long)t_loc * K};
   const int tiles_n = (n_loc + MM_BN - 1) / MM_BN;
@@ -154,7 +155,7 @@ ring_kernel(const T* __restrict__ x, const T* __restrict__ w,
                  w + (long long)j.r * K * n_loc, n_loc,
                  out + ((long long)j.r * n + j.src) * t_loc * n_loc, n_loc,
                  t_loc, n_loc, K, (tile / tiles_n) * MM_BM,
-                 (tile % tiles_n) * MM_BN, sm);
+                 (tile % tiles_n) * MM_BN, mm_smem);
     }
     grid.sync();  // fence: the next step's stripes have landed
   }
@@ -221,8 +222,12 @@ static int launch_simt(const void* x, const void* w, void* out, void* bufs,
   int device = 0, sms = 0, per_sm = 0;
   cudaGetDevice(&device);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, ring_kernel<T>, MM_THREADS, 0);
+  const int smem = mm_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      ring_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, ring_kernel<T>,
+                                                    MM_THREADS, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   const T* xp = static_cast<const T*>(x);
@@ -233,7 +238,7 @@ static int launch_simt(const void* x, const void* w, void* out, void* bufs,
                   &K, &n_loc};
   e = cudaLaunchCooperativeKernel((const void*)ring_kernel<T>,
                                   dim3(per_sm * sms), dim3(MM_THREADS), args,
-                                  0, stream);
+                                  smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   REPRO_RETURN_LAUNCH_STATUS();
 }

@@ -89,8 +89,10 @@ __all__ = [
 #   (:func:`gemm_route`).  On the tensor cores they keep ``TC_STAGES``
 #   stages of one (BM, BK) tile of X and one (BK, BN) tile of W per block,
 #   in the operands' 16-bit type — ``TC_TILE``, 4·(128·64 + 64·256)·2 B =
-#   192 KiB; on the CUDA cores one stage of the same pair in f32 —
-#   ``MM_TILE``, (16·64 + 16·64)·4 B = 8 KiB;
+#   192 KiB; on the CUDA cores ``MM_STAGES`` cp.async stages of the same
+#   pair in f32, A's k-major with ``MM_APAD`` floats of padding a k row —
+#   ``MM_TILE``, 3·(16·132 + 16·128)·4 B = 48.75 KiB (``mm_smem_bytes``,
+#   the formula of csrc/matmul.cuh's ``mm_smem_bytes``), two blocks an SM;
 # * the wave step (``leap``) takes one of two routes (:func:`stencil_route`).
 #   On the TMA route a block keeps a ring of ``STENCIL_STAGES`` f32 plane
 #   tiles of (LEAP_TY + 2R, LEAP_TX + 2R) and their mbarriers —
@@ -109,8 +111,9 @@ __all__ = [
 #   (:func:`attention_route`).  On the tensor cores a block keeps the
 #   FLASH_BQ-row q tile and ``ATT_TC_STAGES`` stages of a 64-key k and v
 #   tile in the operands' 16-bit type (``attention_tc_stage_bytes``, the
-#   formula of csrc/attention.cuh's ``att_tc_smem_bytes``): 161 KiB at D =
-#   Dv = 256.  On the CUDA cores it stages, per block, the scaled q^T of a
+#   formula of csrc/attention.cuh's ``att_tc_smem_bytes``, whole
+#   64-column boxes: D = 80 stages two): 161 KiB at D = Dv = 256.  On the
+#   CUDA cores it stages, per block, the scaled q^T of a
 #   FLASH_BQ-row tile and, per key tile of ``block`` keys, k^T, v and the
 #   probabilities, all in f32 with one column of padding against bank
 #   conflicts (``OverlapPlanner.flash_stage_bytes``, the formula of
@@ -136,7 +139,9 @@ __all__ = [
 # staging formula with 227 KB as its budget would stage (1+8)(8+8)(1032)·4 B
 # ≈ 594 KB and fall back to the serialized one.
 SMEM_BUDGET_DEFAULT = 232_448
-MM_TILE = (64, 16, 64)          # (BM, BK, BN) of csrc/matmul.cuh mm_tile
+MM_TILE = (128, 16, 128)        # (BM, BK, BN) of csrc/matmul.cuh mm_tile
+MM_STAGES = 3                   # that tile's cp.async ring of f32 stages
+MM_APAD = 4                     # f32 of padding after each k row of A's stage
 TC_TILE = (128, 64, 256)        # (BM, BK, BN) of its tensor-core route
 TC_STAGES = 4                   # that route's shared-memory stages
 STENCIL_TILE = (8, 32)          # (TY, TX) of csrc/wave_step.cu, CUDA cores
@@ -184,15 +189,18 @@ def attention_route(dtype, d: int, dv: int, g: int, *ptrs_and_strides: int
                     ) -> str:
     """The route a flash- or ring-attention launch takes in
     ``csrc/attention.cuh``: ``"wgmma"`` (TMA and the tensor cores) for
-    16-bit operands whose head dims D and Dv are each 64, 128 or 256 (the
-    kernel's instances; every served shape), whose G = H / KH query heads
-    a kv head divides the 64-row tile, and
+    16-bit operands whose head dims D and Dv are each a multiple of 16 in
+    [16, 128], or 256 (the widths of the kernels' instances; every served
+    and trained shape, stablelm-3b's 80 included), whose G = H / KH query
+    heads a kv head divides the 64-row tile, and
     whose base pointers and byte strides (``ptrs_and_strides``: those TMA
     reads, the strides of dims longer than 1) are 16-byte aligned;
     ``"simt"`` (the CUDA cores) otherwise.  f32 stays on the CUDA cores:
-    TF32 would change its results."""
+    TF32 would change its results; so does D = 192, which has no
+    instance."""
     if dtype in (torch.float16, torch.bfloat16) \
-            and d in (64, 128, 256) and dv in (64, 128, 256) \
+            and all((16 <= x <= 128 and x % 16 == 0) or x == 256
+                    for x in (d, dv)) \
             and g >= 1 and 64 % g == 0 \
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
@@ -955,8 +963,8 @@ class OverlapPlanner:
 
         Both tiles are fixed at compile time and the kernels handle ragged
         edges themselves, so the planner only checks the stages against the
-        budget: the tensor-core route's ``TC_STAGES`` 16-bit stages as they
-        are, the CUDA-core route's f32 stage double-buffered.
+        budget: the tensor-core route's ``TC_STAGES`` 16-bit stages, the
+        CUDA-core route's ``MM_STAGES`` f32 stages (:meth:`mm_smem_bytes`).
         """
         if gemm_route(dtype, k, n) == "wgmma":
             tile = TC_TILE
@@ -964,13 +972,22 @@ class OverlapPlanner:
                 <= self.smem_budget
         else:
             tile = MM_TILE
-            fits = self._fits((tile[0] * tile[1] + tile[1] * tile[2]) * 4)
+            fits = self.mm_smem_bytes() <= self.smem_budget
         if not fits:
             raise ValueError(
                 f"matmul tile {tile} does not fit a shared-memory budget "
                 f"of {self.smem_budget} bytes")
         bm, bk, bn = tile
         return min(bm, m), min(bk, k), min(bn, n)
+
+    @staticmethod
+    def mm_smem_bytes() -> int:
+        """Dynamic shared memory of a CUDA-core GEMM block (csrc/matmul.cuh
+        ``mm_smem_bytes``): ``MM_STAGES`` f32 stages of A's (BK, BM) tile,
+        k-major with ``MM_APAD`` floats after each k row, and B's (BK, BN)
+        tile."""
+        bm, bk, bn = MM_TILE
+        return MM_STAGES * (bk * (bm + MM_APAD) + bk * bn) * 4
 
     # -- stencil ---------------------------------------------------------------
     def stencil_stage_bytes(self, y: int, x: int, dtype, *,
@@ -1018,9 +1035,13 @@ class OverlapPlanner:
         """Dynamic shared memory of an attention block on the tensor-core
         route (16-bit): the alignment slack, the q tile, ``ATT_TC_STAGES``
         stages of a 64-key k and v tile, and the stages' and q's full and
-        empty mbarriers."""
-        return 1024 + FLASH_BQ * 2 * d \
-            + ATT_TC_STAGES * ATT_TC_BK * 2 * (d + dv) \
+        empty mbarriers.  Every operand is whole 64-column boxes, so a width
+        off 64 (D = 80) takes the box it partly fills whole, as
+        ``att_tc_smem_bytes`` does."""
+        def box(x):         # the bytes of x columns' 64-column boxes
+            return -(-x // 64) * 64 * FLASH_BQ * 2
+
+        return 1024 + box(d) + ATT_TC_STAGES * (box(d) + box(dv)) \
             + 8 * (2 * ATT_TC_STAGES + 2)
 
     @staticmethod

@@ -35,6 +35,9 @@ SWEEP = [
     (1, 1, 33, 4, 2, 64, 64, True, 32, 0, np.float32),
     (1, 16, 16, 4, 2, 32, 16, True, 0, 0, np.float32),   # MLA: Dv != D
     (2, 16, 16, 4, 4, 64, 64, True, 0, 0, np.float16),
+    # head_dim 80 (stablelm-3b's), and 80 with Dv = 48 under a prefix window
+    (1, 37, 37, 8, 8, 80, 80, True, 0, 0, np.float32),
+    (2, 29, 40, 4, 2, 80, 48, True, 3, 17, np.float32),
 ]
 
 
@@ -84,6 +87,45 @@ def test_per_row_offsets_match_reference(Tq, H, KH, D, Dv):
     got = _port(q, k, v, **{**kw, "q_offset": torch.from_numpy(pos),
                             "valid_len": torch.from_numpy(pos + Tq)})
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("impl", ["ref", "pallas"])
+@pytest.mark.parametrize("Tq,Tk,H,KH,Dv,causal,pfx", [
+    (37, 37, 4, 4, 80, True, 0),       # G = 1, causal
+    (29, 45, 4, 2, 80, True, 11),      # G = 2, prefix-LM
+    (21, 40, 2, 2, 48, True, 0),       # Dv != D
+    (17, 33, 4, 2, 48, True, 9),
+])
+def test_head_dim_80_with_lse_matches_reference(Tq, Tk, H, KH, Dv, causal,
+                                                pfx, impl):
+    """The plain forward with ``return_lse`` at D = 80 (the widths the
+    tensor-core route takes since they became whole 64-column boxes),
+    valid_len below Tk: its output against the reference's oracle and
+    Pallas kernel (interpret mode), f32 to 2e-5 as the sweep; its lse
+    against the log-sum-exp of the scores in f64, to 1e-4 (f32 sums in
+    another order)."""
+    B, D = 2, 80
+    rng = np.random.RandomState(Tq + Dv)
+    q = rng.randn(B, Tq, H, D).astype(np.float32)
+    k = rng.randn(B, Tk, KH, D).astype(np.float32)
+    v = rng.randn(B, Tk, KH, Dv).astype(np.float32)
+    kw = dict(causal=causal, prefix_len=pfx, block=16, valid_len=Tk - 5)
+    want = np.asarray(j_flash(q, k, v, impl=impl, interpret=True, **kw),
+                      np.float64)
+    got, lse = flash_attention_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), return_lse=True, **kw)
+    np.testing.assert_allclose(got.double().numpy(), want, atol=2e-5,
+                               rtol=2e-5)
+    G = H // KH
+    s = np.einsum("bqhd,bkhd->bqhk", q.astype(np.float64),
+                  np.repeat(k, G, axis=2).astype(np.float64)) * D ** -0.5
+    qp, kp = np.arange(Tq)[:, None], np.arange(Tk)[None, :]
+    vis = (kp <= qp) | ((kp < pfx) & (qp < pfx)) if causal else \
+        np.ones((Tq, Tk), bool)
+    vis = vis & (kp < Tk - 5)
+    s = np.where(vis[None, :, None, :], s, -np.inf)
+    np.testing.assert_allclose(lse.numpy(), np.log(np.exp(s).sum(-1)),
+                               atol=1e-4, rtol=1e-5)
 
 
 def test_rows_that_see_no_key_are_zero():

@@ -180,6 +180,12 @@ def test_matmul_tiles_are_the_kernels():
     with pytest.raises(ValueError):
         tplan.OverlapPlanner(smem_budget=1024).plan_matmul_tiles(
             64, 64, 64, torch.float32)
+    mm = tplan.OverlapPlanner.mm_smem_bytes()
+    assert tplan.OverlapPlanner(smem_budget=mm).plan_matmul_tiles(
+        256, 256, 256, torch.float32) == tplan.MM_TILE
+    with pytest.raises(ValueError):
+        tplan.OverlapPlanner(smem_budget=mm - 1).plan_matmul_tiles(
+            256, 256, 256, torch.float32)
     bm, bk, bn = tplan.TC_TILE
     stages = tplan.TC_STAGES * (bm * bk + bk * bn) * 2
     assert stages <= tplan.SMEM_BUDGET_DEFAULT
@@ -236,6 +242,16 @@ def _defines(name):
 def test_planner_tiles_match_the_cuda_sources():
     mm = _defines("matmul.cuh")
     assert (mm["MM_BM"], mm["MM_BK"], mm["MM_BN"]) == tplan.MM_TILE
+    assert (mm["MM_STAGES"], mm["MM_APAD"]) == (tplan.MM_STAGES,
+                                                tplan.MM_APAD)
+    # the CUDA-core tile's dynamic shared memory, mm_smem_bytes, evaluated:
+    # two blocks of it fit an SM
+    expr = re.search(r"mm_smem_bytes\(\) \{\s*return ([^;]+);",
+                     (CSRC / "matmul.cuh").read_text()).group(1)
+    got = eval(" ".join(expr.split()), dict(mm))
+    assert got == tplan.OverlapPlanner.mm_smem_bytes() == 3 * (
+        16 * 132 + 16 * 128) * 4
+    assert 2 * (got + 1024) <= 233_472
     assert (mm["TC_BM"], mm["TC_BK"], mm["TC_BN"]) == tplan.TC_TILE
     assert mm["TC_STAGES"] == tplan.TC_STAGES
     st = _defines("wave_step.cu")
@@ -374,11 +390,18 @@ def test_stencil_bz_by_route():
     (torch.float16, 256, 128, 4, (), "wgmma"),
     (torch.float32, 128, 128, 16, (0, 256), "simt"),          # no TF32
     (torch.float32, 64, 64, 1, (), "simt"),
-    (torch.bfloat16, 32, 32, 4, (), "simt"),                  # D off 64
-    (torch.bfloat16, 48, 24, 2, (), "simt"),
-    (torch.float16, 80, 80, 4, (), "simt"),
-    (torch.bfloat16, 128, 96, 2, (), "simt"),                 # Dv off 64
+    (torch.float32, 80, 80, 1, (0, 160), "simt"),
+    (torch.bfloat16, 80, 80, 1, (0, 160, 2560), "wgmma"),     # stablelm-3b
+    (torch.bfloat16, 32, 32, 4, (), "wgmma"),                 # D off 64
+    (torch.float16, 80, 48, 2, (), "wgmma"),
+    (torch.bfloat16, 16, 112, 64, (), "wgmma"),
+    (torch.bfloat16, 48, 24, 2, (), "simt"),                  # Dv off 16
+    (torch.bfloat16, 72, 64, 1, (), "simt"),                  # D off 16
+    (torch.float16, 80, 80, 4, (), "wgmma"),
+    (torch.bfloat16, 128, 96, 2, (), "wgmma"),                # Dv off 64
     (torch.bfloat16, 192, 128, 2, (), "simt"),                # no instance
+    (torch.bfloat16, 144, 144, 1, (), "simt"),                # past 128
+    (torch.bfloat16, 80, 256, 8, (), "wgmma"),
     (torch.bfloat16, 320, 64, 1, (), "simt"),                 # D past 256
     (torch.bfloat16, 128, 512, 1, (), "simt"),                # Dv past 256
     (torch.bfloat16, 128, 128, 3, (), "simt"),                # G off 64
@@ -392,12 +415,16 @@ def test_attention_route_rule(dtype, d, dv, g, aligned, route):
 
 def test_attention_route_over_the_sweep():
     """dtype x D x Dv x G x alignment against the rule as stated."""
+    def width_ok(x):
+        return (16 <= x <= 128 and x % 16 == 0) or x == 256
+
     for dt, d, dv, g, off in itertools.product(
             (torch.float32, torch.float16, torch.bfloat16),
-            (32, 64, 80, 128, 192, 256, 512), (24, 64, 128, 192, 256, 320),
+            (8, 16, 32, 48, 64, 72, 80, 128, 144, 192, 256, 512),
+            (16, 24, 48, 64, 80, 112, 128, 160, 192, 256, 320),
             (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
-        want = ("wgmma" if dt != torch.float32 and d in (64, 128, 256)
-                and dv in (64, 128, 256) and g in (1, 2, 8, 16, 64)
+        want = ("wgmma" if dt != torch.float32 and width_ok(d)
+                and width_ok(dv) and g in (1, 2, 8, 16, 64)
                 and off % 16 == 0 else "simt")
         assert tplan.attention_route(dt, d, dv, g, 1 << 20, off) == want
 
@@ -507,15 +534,24 @@ def test_attention_tiles_match_the_cuda_sources():
     assert at["ATT_TC_BK"] == tplan.ATT_TC_BK == 64
     assert at["ATT_TC_STAGES"] == tplan.ATT_TC_STAGES
     assert at["ATT_TC_THREADS"] == tplan.ATT_TC_THREADS == 128 + 32
-    # the launch's dynamic shared memory, att_tc_smem_bytes, evaluated
+    # the launch's dynamic shared memory, att_tc_smem_bytes, evaluated at
+    # every pair of widths the rule admits (whole 64-column boxes: 80 and
+    # 48 take two and one)
     text = (CSRC / "attention.cuh").read_text()
     expr = re.search(r"att_tc_smem_bytes\(int D, int Dv\) \{\s*return "
                      r"([^;]+);", text).group(1)
-    for d, dv in itertools.product((64, 128, 256), repeat=2):
+    widths = [*range(16, 129, 16), 256]
+    for d, dv in itertools.product(widths, repeat=2):
+        assert tplan.attention_route(torch.bfloat16, d, dv, 1) == "wgmma"
         got = eval(" ".join(expr.split()), {
             "D": d, "Dv": dv, "ATT_TC_STAGES": at["ATT_TC_STAGES"]})
         assert got == tplan.OverlapPlanner.attention_tc_stage_bytes(d, dv)
         assert got <= tplan.SMEM_BUDGET_DEFAULT
+    # D = Dv = 80: q two boxes, each stage two of k and two of v
+    assert tplan.OverlapPlanner.attention_tc_stage_bytes(80, 80) == \
+        1024 + 2 * 8192 + 2 * (2 + 2) * 8192 + 6 * 8
+    assert tplan.OverlapPlanner.attention_tc_stage_bytes(80, 48) == \
+        1024 + 2 * 8192 + 2 * (2 + 1) * 8192 + 6 * 8
     # D = Dv = 256: q 32 KiB + 2 x (32 + 32) KiB, the alignment slack and
     # six barriers; one block an SM fits
     big = tplan.OverlapPlanner.attention_tc_stage_bytes(256, 256)
@@ -523,9 +559,9 @@ def test_attention_tiles_match_the_cuda_sources():
     # the head dims the rule sends to the tensor cores are the instances
     # both kernels have
     for src in ("flash_attention.cu", "ring_attention.cu"):
-        inst = set(re.findall(r"launch_tc<T, (\d+)>",
-                              (CSRC / src).read_text()))
-        assert inst == {"64", "128", "256"}, src
+        inst = {int(w) for w in re.findall(r"launch_tc<T, (\d+)>",
+                                           (CSRC / src).read_text())}
+        assert inst == set(widths), src
 
 
 @pytest.mark.parametrize("dtype,d,f,aligned,route", [
@@ -682,8 +718,12 @@ def test_attention_block_is_fixed_on_the_tensor_core_route():
     for dt in (torch.bfloat16, torch.float16):
         assert p.plan_attention_block(8, 8, 64, 64, dt, block=16) == 64
         assert p.plan_attention_block(1, 4096, 256, 256, dt) == 64
+        assert p.plan_attention_block(8, 8, 80, 80, dt, block=16) == 64
+        assert p.plan_attention_block(8, 8, 80, 48, dt, block=16) == 64
     assert p.plan_attention_block(8, 8, 64, 64, torch.float32, block=16) == 16
-    assert p.plan_attention_block(8, 8, 80, 80, torch.bfloat16,
+    assert p.plan_attention_block(8, 8, 80, 80, torch.float32,
+                                  block=16) == 16
+    assert p.plan_attention_block(8, 8, 192, 128, torch.bfloat16,
                                   block=16) == 16
 
 

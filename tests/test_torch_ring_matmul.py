@@ -49,6 +49,10 @@ DTYPES = {"f32": (np.float32, jnp.float32, torch.float32, 1e-4),
     (256, 512, 256, 128, 128, 128, np.float32),
     (64, 64, 64, 32, 32, 32, np.float16),
     (33, 65, 17, 32, 32, 32, np.float32),       # ragged padding
+    # ragged against the CUDA-core tile (128 x 128, K steps of 16)
+    (130, 7, 260, 32, 32, 32, np.float32),      # K under one step
+    (257, 100, 129, 128, 64, 128, np.float32),
+    (1, 300, 5, 32, 128, 32, np.float32),
 ])
 def test_plain_matmul_matches_pallas(M, K, N, bm, bk, bn, dt):
     x = RNG.randn(M, K).astype(dt)
