@@ -31,6 +31,20 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   returns), then one 512-token prefill chunk under the default ``"a2a"``,
   whose grouped GEMMs run the expert-MLP kernel — every launch of both on
   the tensor-core route;
+* the same engine and traffic on deepseek-v3-671b at full width with its
+  depth cut to its 3 leading dense layers and 2 MoE layers (MLA, the
+  latent cache, one shared and 128 routed experts a rank) under
+  ``dispatch_impl="fused"``: every chunk's attention runs flash at D =
+  192, Dv = 128, G = 1 on the tensor-core route, every decode step's
+  attention the absorbed latent form (einsums, no kernel), every MoE layer
+  the fused dispatch on the tensor cores; flash and the ring kernel at the
+  MLA chunk shape beside SDPA, and chunked prefill against token-by-token
+  on an f32 cut (1 dense and 1 MoE layer of 32 experts);
+* qwen1.5-110b and command-r-plus-104b at full width with their depth cut
+  to 4: one 512-token chunk and 8 greedy decode steps each through the
+  built steps, every flash launch on the route the rule gives (G = 8: the
+  tensor cores; command-r-plus's G = 12: the CUDA cores), the chunk's
+  flash call timed beside SDPA;
 * rwkv6-7b and zamba2-1.2b at full width and depth on the same mesh,
   through their prefill and decode steps (the serving engine takes
   positional KV caches only, as in the reference): 4 prompts of 2000
@@ -115,6 +129,17 @@ SERVE_ARCH, SERVE_RANKS = "glm4-9b", 2
 # MoE serving: qwen3-moe-235b-a22b at full width, its 94 layers cut to 8
 # (42 GB of bf16 weights), on the same mesh (EP = TP = 2)
 MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
+# MLA serving: deepseek-v3-671b at full width, its 61 layers cut to its 3
+# leading dense layers and 2 MoE layers (54.31 GB of bf16 weights, MTP
+# leaves included), on the same mesh and traffic under the fused dispatch;
+# its f32 cut for chunked == token by token: 1 dense and 1 MoE layer of 32
+# experts, capacity factor 4.0 (tests/test_models.py's ample capacity)
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 5
+MLA_CUT_EXPERTS, MLA_CUT_CF = 32, 4.0
+# the dense GQA configs at full width, depth cut to 4: one 512-token chunk
+# and GQA_DECODES decode steps through the built steps
+GQA_ARCHS, GQA_LAYERS, GQA_DECODES = ("qwen1-5-110b",
+                                      "command-r-plus-104b"), 4, 8
 SLOTS, MAX_LEN, CHUNK, PAGE_TOKENS = 4, 4096, 512, 64
 REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 256, 3000, 32
 # the recurrent families at full width and depth on the same mesh, through
@@ -675,12 +700,13 @@ def check_minimod(torch, k, g) -> None:
 
 def _attention_route(torch, dt, D, Dv, G) -> str:
     """The route a sweep case's aligned, contiguous operands must take:
-    the tensor cores for f16/bf16 with D and Dv each a multiple of 16 in
-    [16, 128], or 256, and G dividing 64, the CUDA cores otherwise
-    (plan.attention_route's rule, restated here so the sweep checks it)."""
+    the tensor cores for f16/bf16 with D a multiple of 16 in [16, 256], Dv
+    a multiple of 16 in [16, 128], or 256, and G dividing 64, the CUDA
+    cores otherwise (plan.attention_route's rule, restated here so the
+    sweep checks it)."""
     return ("wgmma" if dt in (torch.float16, torch.bfloat16)
-            and all((16 <= x <= 128 and x % 16 == 0) or x == 256
-                    for x in (D, Dv))
+            and 16 <= D <= 256 and D % 16 == 0
+            and ((16 <= Dv <= 128 and Dv % 16 == 0) or Dv == 256)
             and 64 % G == 0 else "simt")
 
 
@@ -705,8 +731,11 @@ def check_flash(torch, k, g) -> None:
     cache with NaN past ``valid_len``; head_dim 80 (stablelm-3b's, two
     64-column boxes, the second partly filled) causal, prefix-LM, at G = 8,
     with NaN past ``valid_len`` and in a split decode, and widths off 64
-    with Dv != D; f32, f16 and bf16, each case on the route the rule gives
-    it.  The plain version folds keys in
+    with Dv != D; deepseek-v3's MLA widths (D = 192, three boxes; Dv =
+    128) at G = 1 causal with per-row offsets and NaN past ``valid_len``,
+    in a prefix window and in a split decode, and D = 256 with Dv = 128;
+    G = 12 (command-r-plus's, off the rule); f32, f16 and bf16, each case
+    on the route the rule gives it.  The plain version folds keys in
     the kernel's key tile, so both sum in the same blocks.  Then the split
     combine against its plain version (``merge_states``).  Operands of
     mixed dtypes are refused on the card."""
@@ -749,6 +778,15 @@ def check_flash(torch, k, g) -> None:
         # widths off 64 with Dv != D: a prefix window, and G = 8 with NaN
         (1, 100, 100, 8, 8, 80, 48, True, 0, 70, None, False),
         (2, 33, 90, 16, 2, 112, 32, True, [10, 50], 0, [60, 90], True),
+        # MLA's D = 192, Dv = 128 (a chunk with offsets, NaN past
+        # valid_len; a prefix window; a split decode), D = 256 with Dv =
+        # 128, and command-r-plus's G = 12 (the CUDA cores by the rule)
+        (2, 70, 200, 4, 4, 192, 128, True, [0, 100], 0, [70, 170], True),
+        (1, 100, 150, 2, 2, 192, 128, True, 0, 70, None, False),
+        (3, 1, 1000, 4, 4, 192, 128, True, [0, 500, 999], 0,
+         [1, 501, 1000], False),
+        (1, 40, 100, 8, 4, 256, 128, True, 60, 0, None, False),
+        (1, 30, 90, 24, 2, 128, 128, True, 60, 0, None, False),
     ]
     for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx, valid, nan) in cases:
         for dt in tols:
@@ -1223,7 +1261,7 @@ def check_ring_attention(torch, k, g) -> None:
     rings of 1-4 virtual ranks, both query layouts (sharded, and shared
     queries over striped keys as in chunked prefill), causal and not, int
     and per-row offsets, a valid length below the padded one, G = 1 and 8,
-    head_dim 64, 80 and 256, Dv != D; f32 and bf16, each case on the route
+    head_dim 64, 80, 192 (Dv 128) and 256, Dv != D; f32 and bf16, each case on the route
     the rule gives it.  Every rank's output is held to the plain version (rank
     0's fold order); operands of mixed dtypes are refused."""
     from repro_torch.core.context import DiompContext, use_default
@@ -1247,6 +1285,8 @@ def check_ring_attention(torch, k, g) -> None:
         (2, 2, 40, 100, 16, 1, 128, 128, False, True, [60, 10], [100, 170]),
         # head_dim 80 (two 64-column boxes, the second partly filled)
         (2, 2, 40, 100, 8, 2, 80, 80, False, True, [60, 10], [100, 170]),
+        # MLA's D = 192, Dv = 128 (three boxes of q and k)
+        (2, 2, 40, 100, 4, 4, 192, 128, False, True, [60, 10], [100, 170]),
     ]
     for (n, B, tq, tk, H, KH, D, Dv, sharded, causal, off, valid) in cases:
         ctx = DiompContext(mesh=RankMesh(("x",), (n,)), device="cuda")
@@ -1322,23 +1362,47 @@ def _sdpa(torch, q, kk, v, visible):
     v4 = v.reshape(-1, *v.shape[-3:]).transpose(1, 2).contiguous()
     kw = dict(is_causal=True) if visible is None else dict(
         attn_mask=visible[:, None])
-    return lambda: F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
-                                                  **kw)
+
+    def call():
+        return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
+                                              **kw)
+
+    call.backend = None                  # PyTorch's own pick
+    if v.shape[-1] == q.shape[-1]:
+        return call
+    # Dv != D (MLA): the first backend, in PyTorch's order, that takes it
+    import warnings
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    for b in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+              SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def pinned(b=b):
+            with sdpa_kernel(b):
+                return call()
+        try:
+            with warnings.catch_warnings():  # each refusal says why
+                warnings.simplefilter("ignore")
+                pinned()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        pinned.backend = b.name
+        return pinned
+    raise RuntimeError("no SDPA backend takes Dv != D")
 
 
 def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
-              sample=False):
+              sample=False, route="wgmma"):
     """The flash kernel against its plain version and SDPA at one shape of
     the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors.  The
-    launch must take the tensor cores and, where ``min_blocks`` is given
-    (a decode), launch at least that many blocks through the key split;
-    ``sample`` samples the card's clock and power over the kernel's
-    timing."""
+    launch must take ``route`` (the tensor cores unless the caller says
+    otherwise) and, where ``min_blocks`` is given (a decode), launch at
+    least that many blocks through the key split; ``sample`` samples the
+    card's clock and power over the kernel's timing."""
     Tq, H, D = q.shape[-3:]
     Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
     kw = dict(causal=True, q_offset=q_off, valid_len=valid)
     got = _counted(k.flash_attention_kernel,
-                   lambda: k.flash_attention_kernel(q, kk, v, **kw), "wgmma")
+                   lambda: k.flash_attention_kernel(q, kk, v, **kw), route)
     grid = dict(k.flash_attention_kernel.last_grid)
     check(grid["blocks"] >= min_blocks,
           f"flash {name}: {grid} launches fewer than {min_blocks} blocks")
@@ -1376,20 +1440,23 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
     library = cuda_ms(torch, sdpa, 10)
     library_dev = device_ms(torch, sdpa, 10, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
-    log(f"flash {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-        f"(keys seen {pairs // H}; {grid}): {ms:.4f} ms (device "
-        f"{_ms(dev, 4)}, L2 cold {_ms(cold, 4)}), plain {plain:.3f}, sdpa "
-        f"{library:.4f} "
-        f"(device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms by {b_by}, "
-        f"err {err:.4g}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
-            "device_ms": dev, "device_ms_cold_l2": cold,
-            "library_device_ms": library_dev,
-            "splits": grid["splits"], "blocks": grid["blocks"]}
+    log(f"flash {name}: q {tuple(q.shape)} k {tuple(kk.shape)} v "
+        f"{tuple(v.shape)} (keys seen {pairs // H}; {grid}): {ms:.4f} ms "
+        f"(device {_ms(dev, 4)}, L2 cold {_ms(cold, 4)}), plain "
+        f"{plain:.3f}, sdpa {library:.4f} (device {_ms(library_dev, 4)}; "
+        f"backend {sdpa.backend or 'default'}), bound {b_ms:.4f} ms by "
+        f"{b_by}, err {err:.4g}")
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+           "device_ms": dev, "device_ms_cold_l2": cold,
+           "library_device_ms": library_dev,
+           "splits": grid["splits"], "blocks": grid["blocks"]}
+    if sdpa.backend:
+        out["library_backend"] = sdpa.backend
+    return out
 
 
-def _flash_call(torch, k, name, args, kw):
+def _flash_call(torch, k, name, args, kw, route="wgmma"):
     """:func:`_flash_at` on the arguments a layer gave the flash kernel,
     its offsets made per-row tensors as the kernel's wrapper makes them."""
     q, kk, v = args
@@ -1403,7 +1470,8 @@ def _flash_call(torch, k, name, args, kw):
 
     vl = kw.get("valid_len")
     return _flash_at(torch, k, name, q, kk, v, per_row(kw.get("q_offset", 0)),
-                     per_row(kk.shape[-3] if vl is None else vl))
+                     per_row(kk.shape[-3] if vl is None else vl),
+                     route=route)
 
 
 def _breakdown(torch, fn, reps: int = 3) -> str:
@@ -1466,8 +1534,14 @@ def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token,
     the weights of the experts its tokens route to, ``steps_experts[i]``
     summed over the layers (from the step's own count tables); a prefill
     chunk of c real tokens reads ``min(E, c·k)`` experts a layer, the most
-    it can reach (every expert, for a chunk of E/k tokens or more)."""
-    mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router")
+    it can reach (every expert, for a chunk of E/k tokens or more).  MLA:
+    the q.k products are D = 192 wide and the p.v products Dv = 128; its
+    decompression of K/V from the latent is not counted (the absorbed form
+    needs none); the MTP leaves are never read."""
+    mm = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "router",
+          "wq_a", "wq_b", "wkv_a", "wkv_b", "w_gate_s", "w_up_s", "w_down_s")
+    # the MTP head is a training loss term: serving reads none of it
+    schema = {n: s for n, s in schema.items() if not n.startswith("mtp/")}
     size = {n: math.prod(s.shape) for n, s in schema.items()}
     nbytes = {n: size[n] * (4 if s.dtype == "float32" else 2)
               for n, s in schema.items()}
@@ -1475,19 +1549,22 @@ def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token,
     tied = "lm_head" not in schema          # the VLM's head is the table
     head = size["embed/table" if tied else "lm_head"]
     experts = [n for n in schema if n.endswith("_e")]
-    L, H, D = cfg.num_layers, cfg.num_heads, cfg.head_dim
+    L, H = cfg.num_layers, cfg.num_heads
+    # the q.k and p.v widths (MLA: 192 and 128), and the MoE layers
+    D, Dv = cfg.head_dim, cfg.v_head_dim or cfg.head_dim
+    Lm = L - cfg.first_k_dense if cfg.moe else L
     E, k = max(cfg.num_experts, 1), cfg.experts_per_token
     dense_bytes = sum(v for n, v in nbytes.items()
                       if (tied or n != "embed/table") and n not in experts)
-    expert_bytes = sum(nbytes[n] for n in experts) / (L * E)  # one, one layer
-    pair_params = sum(size[n] for n in experts) / (L * E)      # 3·d·f
+    expert_bytes = sum(nbytes[n] for n in experts) / (Lm * E)  # one, a layer
+    pair_params = sum(size[n] for n in experts) / (Lm * E)     # 3·d·f
     ttft = []
     for n in lengths:
         n = int(n)
         chunks = [min(CHUNK, n - c) for c in range(0, n, CHUNK)]
-        ops = (2 * layer * n + 2 * L * H * D * n * (n + 1)
-               + 2 * head * len(chunks) + 2 * pair_params * n * k * L)
-        reads = sum(dense_bytes + L * min(E, c * k) * expert_bytes
+        ops = (2 * layer * n + L * H * (D + Dv) * n * (n + 1)
+               + 2 * head * len(chunks) + 2 * pair_params * n * k * Lm)
+        reads = sum(dense_bytes + Lm * min(E, c * k) * expert_bytes
                     for c in chunks) if experts else len(chunks) * dense_bytes
         ttft.append(bound(reads, ops, "bfloat16")[0])
     steps = []
@@ -1497,19 +1574,20 @@ def _serve_bounds(cfg, schema, lengths, steps_keys, kv_bytes_per_token,
             dense_bytes + routed * expert_bytes
             + kv_bytes_per_token * int(sum(keys)),
             2 * (layer + head) * len(keys)
-            + 2 * pair_params * len(keys) * k * L, "bfloat16")[0])
+            + 2 * pair_params * len(keys) * k * Lm, "bfloat16")[0])
     return ttft, steps
 
 
 def _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
-                  on_step=None, chunk_kernel=None):
+                  on_step=None, chunk_kernel="flash_attention",
+                  decode_kernel="flash_attention"):
     """Serve the phase's 8 requests through the port's engine, every
     wrapper's count zeroed just before the run and read just after; each
     decode call is timed with CUDA events (``on_step`` runs after each, off
     the clock).  Checks every request, the decode logits, and that every
-    layer of every call ran flash — or, with ``chunk_kernel``, that every
-    layer of every chunk call ran that kernel and of every decode call
-    flash."""
+    layer of every chunk call ran ``chunk_kernel`` and of every decode
+    call ``decode_kernel`` (flash by default; None: no attention kernel,
+    as MLA's absorbed decode)."""
     import numpy as np
     from types import SimpleNamespace
     from repro_torch.core.context import DiompContext
@@ -1573,16 +1651,16 @@ def _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
               f"request of {n}: {r.prefill_steps} prefill steps")
         check(all(0 <= t < cfg.vocab_size for t in r.out), "bad token")
     check(bool(torch.stack(finite).all()), "non-finite decode logits")
-    flash = launches["flash_attention"]
-    calls = eng.device_calls
-    if chunk_kernel is not None:
-        chunks = sum(r.prefill_steps for r in reqs)
-        calls -= chunks
-        check(launches[chunk_kernel] == cfg.num_layers * chunks,
-              f"{chunk_kernel} launches {launches[chunk_kernel]} != "
-              f"{cfg.num_layers} x {chunks} chunk calls")
-    check(flash == cfg.num_layers * calls,
-          f"flash launches {flash} != {cfg.num_layers} x {calls} calls")
+    chunks = sum(r.prefill_steps for r in reqs)
+    want = {"flash_attention": 0, chunk_kernel: 0}
+    want[chunk_kernel] += cfg.num_layers * chunks
+    if decode_kernel is not None:
+        want[decode_kernel] = want.get(decode_kernel, 0) + cfg.num_layers * (
+            eng.device_calls - chunks)
+    for name, n in want.items():
+        check(launches[name] == n,
+              f"{name} launches {launches[name]} != {n} ({cfg.num_layers} "
+              f"layers, {chunks} chunk calls of {eng.device_calls})")
     return SimpleNamespace(
         eng=eng, reqs=reqs, lengths=lengths, launches=launches, rng=rng,
         routes=routes, combine=combine,
@@ -1601,10 +1679,16 @@ def _report_serving(torch, dev, cfg, mesh, params, run, steps_experts=None):
     eng = run.eng
     stats = eng.latency_stats()
     ttft, steps_ms = stats["ttft_s"], run.steps_ms
-    # K/V bytes a token: each kv head once (a cache replicated over "model"
-    # is read once in the bound)
-    per_token = 2 * eng.cache["k"].element_size() * cfg.num_layers \
-        * cfg.kv_heads * cfg.head_dim
+    if cfg.attention == "mla":
+        # MLA's latent row and rope'd key a token a layer, read by every
+        # "model" rank (each attends over the whole latent)
+        per_token = eng.cache["c"].element_size() * cfg.num_layers \
+            * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * mesh.shape["model"]
+    else:
+        # K/V bytes a token: each kv head once (a cache replicated over
+        # "model" is read once in the bound)
+        per_token = 2 * eng.cache["k"].element_size() * cfg.num_layers \
+            * cfg.kv_heads * cfg.head_dim
     ttft_b, step_b = _serve_bounds(cfg, sch.build_schema(cfg), run.lengths,
                                    run.step_keys, per_token, steps_experts)
     steady, steady_b = steps_ms[2:] or steps_ms, step_b[2:] or step_b
@@ -1763,15 +1847,16 @@ class _Tap:
         setattr(self.module, self.name, self.orig)
 
 
-def _dispatch_at(torch, k, name, args, kw, plan):
+def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True):
     """The fused dispatch kernel at one shape of the serving path (the
     arguments a MoE layer gave it): equal to the emulation through the
     expert-MLP kernel, within tolerance of the plain version, timed (CUDA
     events of back-to-back calls, and the kernel's device time from the
-    profiler, warm and with L2 flushed).  Then the expert-MLP kernel on the
-    same landed blocks (every rank's blocks from every source in one call,
-    the a2a layout), held against its plain version and timed the same
-    way.  Returns the dispatch's numbers and the expert MLP's."""
+    profiler, warm and with L2 flushed).  Then, ``with_mlp``, the
+    expert-MLP kernel on the same landed blocks (every rank's blocks from
+    every source in one call, the a2a layout), held against its plain
+    version and timed the same way.  Returns the dispatch's numbers and
+    the expert MLP's (None without it)."""
     from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
     got, dropped = k.fused_moe_dispatch_kernel(*args, **kw)
     emu, _ = k.fused_moe_dispatch_interpret(*args, **kw, mlp=k.expert_mlp)
@@ -1809,6 +1894,8 @@ def _dispatch_at(torch, k, name, args, kw, plan):
     disp = {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
             "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if not with_mlp:
+        return disp, None
     # the expert MLP on the landed blocks: x (dst, src, E_loc, C, d), each
     # rank's weights shared by its sources (one ring: the mesh is the EP
     # group)
@@ -2021,6 +2108,327 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     del mlp_tap, x, wg, wu, wd, live, got, want, cache, params
     torch.cuda.empty_cache()
     return [mlp_line, line]
+
+
+# -- MLA (deepseek-v3) and the dense GQA configs at full width -------------
+
+
+def _experts_reached(calls, E: int) -> int:
+    """The experts some token reaches in each of the dispatch ``calls``
+    (one decode step's layers), summed over the calls."""
+    from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
+    n = 0
+    for args, kw in calls:
+        counts = dispatch_buffers(*args[:3], kw["plan"])[4]
+        n += int((counts.reshape(-1, E).sum(0) > 0).sum())
+    return n
+
+
+def mla_phase(torch, k, dev, wrappers) -> dict:
+    """Serve deepseek-v3-671b at full width (its 3 leading dense layers and
+    MLA_LAYERS - 3 MoE layers) through the port's engine under
+    ``dispatch_impl="fused"``, glm4-9b's mesh and traffic: every chunk's MLA
+    attention runs flash at D = 192, Dv = 128, G = 1 on the tensor cores,
+    every decode step's runs the absorbed form (f32 einsums, no kernel),
+    every MoE layer the fused dispatch.  Then flash and the ring kernel at
+    the MLA chunk shape, the dispatch at the served shapes, and chunked
+    prefill == token by token on an f32 cut.  Returns the flash and
+    dispatch entries and the phase's launches for the ``kernels`` line."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.kernels.moe_dispatch import ops as moe_ops
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.launch.mesh import RankMesh, make_smoke_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+
+    full = configs.get(MLA_ARCH)
+    cfg = dataclasses.replace(full, num_layers=MLA_LAYERS)
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    tp, kd = mesh.shape["model"], cfg.first_k_dense
+    Lm = cfg.num_layers - kd
+    E, kk, d = cfg.num_experts, cfg.experts_per_token, cfg.d_model
+    H = cfg.num_heads // tp
+    D, Dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True,
+                                 dispatch_impl="fused")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"mla: {cfg.name} at {kd} dense + {Lm} MoE of {full.num_layers} "
+        f"layers on {mesh.shape} ({H} heads and {E // tp} experts a rank, "
+        f"latent {cfg.kv_lora_rank} + {cfg.qk_rope_head_dim}), "
+        f"{nbytes / 1e9:.2f} GB of random weights (MTP leaves included) in "
+        f"{time.perf_counter() - t0:.1f} s, peak of the draw "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    torch.cuda.reset_peak_memory_stats()      # serving's own peak below
+    for name, t_loc in (("decode", SLOTS // tp), ("chunk", CHUNK // tp)):
+        p = OverlapPlanner().plan_alltoall(t_loc, d, kk, E, tp,
+                                           torch.bfloat16)
+        log(f"mla: {name} dispatch plan: t_loc {t_loc}, slots {p.slots}, "
+            f"overlap {p.overlap}, cap_pad {p.cap_pad}, block "
+            f"{p.block_bytes} B")
+        check(p.overlap, f"mla: the {name} plan fell back to no overlap")
+
+    # every decode call's dispatch arguments and the first chunk call's (as
+    # in moe_phase), and the (D, Dv, G) of every flash call the layers make
+    steps_calls, chunk_call, shapes = [], [], set()
+
+    def keep(args, kw):
+        if args[0].shape[-2] <= SLOTS // tp:
+            return True
+        if len(chunk_call) < Lm:          # the first chunk call's layers
+            chunk_call.append((args, kw))
+        return False
+
+    def on_step():
+        steps_calls.append(tap.calls[-Lm:])
+        tap.calls.clear()
+
+    def keep_flash(args, kw):
+        q, kf, v = args[:3]
+        shapes.add((q.shape[-1], v.shape[-1], q.shape[-2] // kf.shape[-2]))
+        return False
+
+    with _Tap(moe_ops, "fused_moe_dispatch_kernel", keep) as tap, \
+            _Tap(layers, "flash_attention", keep_flash):
+        run = _drive_engine(torch, dev, cfg, mesh, pctx, params, wrappers,
+                            on_step=on_step, decode_kernel=None)
+        moe_routes = dict(wrappers["fused_moe_dispatch"].route_launches)
+    chunks = sum(r.prefill_steps for r in run.reqs)
+    flash_n = run.launches["flash_attention"]
+    log(f"mla: {flash_n} flash launches ({cfg.num_layers} layers x {chunks} "
+        f"chunk calls; the {run.eng.device_calls - chunks} decode calls "
+        f"attend in the latent space), (D, Dv, G) {sorted(shapes)}, routes "
+        f"{run.routes['flash_attention']}")
+    check(shapes == {(D, Dv, 1)} and flash_n == cfg.num_layers * chunks
+          and run.routes["flash_attention"]["wgmma"] == flash_n,
+          f"mla: flash shapes {shapes}, launches {flash_n}, routes "
+          f"{run.routes['flash_attention']}")
+    moe_launches = run.launches["fused_moe_dispatch"]
+    check(moe_launches == Lm * run.eng.device_calls,
+          f"mla dispatch launches {moe_launches} != {Lm} x "
+          f"{run.eng.device_calls} device calls")
+    log(f"mla: dispatch routes {moe_routes}")
+    check(moe_routes["simt"] == 0 and moe_routes["wgmma"] == moe_launches,
+          f"mla: a served dispatch launch left the tensor cores: {moe_routes}")
+    steps_experts = [_experts_reached(calls, E) for calls in steps_calls]
+    log(f"mla: experts reached a decode step (over {Lm} MoE layers): "
+        f"median {statistics.median(steps_experts)}, min "
+        f"{min(steps_experts)}, max {max(steps_experts)}")
+    decode_once = _report_serving(torch, dev, cfg, mesh, params, run,
+                                  steps_experts)
+    with run.eng.dctx.dispatch_stats.collect() as ds:
+        decode_once()
+    dropped = float(ds["moe_dropped"].sum())
+    routed = float(ds["moe_routed"].sum())
+    check(dropped == 0 and routed == Lm * SLOTS * kk,
+          f"mla: a decode call dropped {dropped} of {routed} choices")
+    log(f"mla: one decode call under a dispatch_stats frame: dropped "
+        f"{dropped:.0f} of {routed:.0f} (token, choice) pairs")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"mla: peak device memory while serving {peak:.1f} GB")
+    res = {"flash_launches": flash_n, "flash_routes": run.routes[
+        "flash_attention"], "dispatch_launches": moe_launches,
+        "dispatch_routes": moe_routes, "serving_peak_gb": peak}
+    # the dispatch at the served decode and chunk shapes of the last MoE
+    # layer, on a copy of its expert weights once the rest of the model is
+    # freed: the plain version lifts 128 experts of 7168 x 2048 to f32 (the
+    # expert MLP's plain version on the landed blocks, whose batched
+    # product broadcasts them over the sources, is left out).  Each stacked
+    # leaf is dropped as soon as its layer is copied.
+    import gc
+    (d_args, d_kw), (c_args, c_kw) = steps_calls[-1][-1], chunk_call[-1]
+    names = ("w_gate_e", "w_up_e", "w_down_e")
+    stacked = [params[f"layers/{n}"] for n in names]
+    for t, a, b in zip(stacked, d_args[3:6], c_args[3:6]):
+        mine = t.select(mesh.ndim, Lm - 1)
+        check(a.data_ptr() == b.data_ptr() == mine.data_ptr()
+              and a.shape == mine.shape, "mla: the tapped dispatch weights "
+              "are not the last MoE layer's")
+    (d_head, d_tail), (c_head, c_tail) = ((a[:3], a[6:])
+                                          for a in (d_args, c_args))
+    del d_args, c_args, chunk_call, steps_calls, decode_once, params, mine
+    del a, b, t
+    run.eng = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    w = []
+    while stacked:
+        w.append(stacked.pop(0).select(mesh.ndim, Lm - 1).clone())
+        torch.cuda.empty_cache()
+    d_args, c_args = (*d_head, *w, *d_tail), (*c_head, *w, *c_tail)
+    del w
+    log(f"mla: the dispatch checks on {torch.cuda.memory_allocated() / 1e9:.1f}"
+        f" GB of live tensors")
+    with use_default(DiompContext(mesh=mesh, device=dev)):
+        res["dispatch_decode"], _ = _dispatch_at(
+            torch, k, "mla decode", d_args, d_kw, d_kw["plan"],
+            with_mlp=False)
+        res["dispatch_chunk"], _ = _dispatch_at(
+            torch, k, "mla chunk", c_args, c_kw, c_kw["plan"],
+            with_mlp=False)
+    del d_args, c_args
+    torch.cuda.empty_cache()
+
+    # flash at the MLA chunk (512 queries at MAX_LEN - CHUNK over the whole
+    # decompressed 4096-row cache, every head its own K/V) and the ring
+    # kernel at the same chunk under seq_parallel="ring"'s layout (the
+    # chunk's shared queries over each rank's 2048-row stripe)
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(*mesh.sizes, 1, CHUNK, H, D, generator=g,
+                    device=dev).to(torch.bfloat16)
+    kc = torch.randn(*mesh.sizes, 1, MAX_LEN, H, D, generator=g,
+                     device=dev).to(torch.bfloat16)
+    vc = torch.randn(*mesh.sizes, 1, MAX_LEN, H, Dv, generator=g,
+                     device=dev).to(torch.bfloat16)
+    p0 = torch.full((*mesh.sizes, 1), MAX_LEN - CHUNK, dtype=torch.int32,
+                    device=dev)
+    res["flash_chunk"] = _flash_at(torch, k, "mla chunk", q, kc, vc, p0,
+                                   p0 + CHUNK, sample=True)
+    s_loc = MAX_LEN // tp
+    kr, vr = (c[0, 0, :1].unflatten(1, (tp, s_loc)).movedim(1, 0)
+              .contiguous() for c in (kc, vc))
+    qr = q[0, 0, None].expand(tp, *q.shape[-4:]).contiguous()
+    q0 = torch.full((tp, 1), MAX_LEN - CHUNK, dtype=torch.int32, device=dev)
+    plan = OverlapPlanner().plan_ring_attention(
+        1, CHUNK, s_loc, H, H, D, Dv, torch.bfloat16, tp, q_sharded=False,
+        q_offset=None)
+    res["ring_chunk"] = _ring_at(torch, k, "mla chunk",
+                                 RankMesh(("x",), (tp,)), qr, kr, vr, plan,
+                                 q0, q0 + CHUNK)
+    del q, kc, vc, kr, vr, qr
+    torch.cuda.empty_cache()
+
+    # chunked prefill == token by token (greedy): full width, 1 dense and 1
+    # MoE layer of MLA_CUT_EXPERTS experts, float32 weights and cache (the
+    # decode steps attend in the latent space, the chunks over K/V
+    # decompressed from it); capacity factor MLA_CUT_CF, and the fused
+    # dispatch drops nothing either way
+    small = dataclasses.replace(full, num_layers=2, first_k_dense=1,
+                                num_experts=MLA_CUT_EXPERTS,
+                                capacity_factor=MLA_CUT_CF)
+    params = sch.init_params(small, mesh, torch.Generator(device=dev)
+                             .manual_seed(1), device=dev)
+    params = {n: p.float() for n, p in params.items()}
+    prompts = [run.rng.randint(0, cfg.vocab_size, n) for n in (5, 37, 70)]
+    outs, drops = {}, {}
+    for chunk in (1, 32):
+        e = run.engine(small, params, slots=SLOTS, max_len=128,
+                       prefill_chunk=chunk)
+        e.cache = {n: c if n == "pos" else c.float()
+                   for n, c in e.cache.items()}
+        rs = [e.submit(p, max_new=8) for p in prompts]
+        with e.dctx.dispatch_stats.collect() as ds:
+            e.run()
+        outs[chunk] = [r.out for r in rs]
+        drops[chunk] = (float(ds["moe_dropped"].sum()),
+                        float(ds["moe_routed"].sum()))
+    check(outs[1] == outs[32], f"mla: chunked != token by token: {outs}")
+    check(all(dr == 0 and n > 0 for dr, n in drops.values()),
+          f"mla: the f32 cut dropped (dropped, routed) {drops}")
+    log(f"mla: chunked prefill (32) == token by token over 3 prompts, "
+        f"{sum(map(len, outs[1]))} greedy tokens; (dropped, routed) by "
+        f"chunk {drops}")
+    del params, e
+    torch.cuda.empty_cache()
+    return res
+
+
+def gqa_phase(torch, k, dev, wrappers, arch) -> dict:
+    """qwen1.5-110b or command-r-plus-104b at full width, depth cut to
+    GQA_LAYERS, on glm4-9b's mesh: one CHUNK-token chunk through the
+    chunk-prefill step, then GQA_DECODES greedy decode steps on SLOTS slots
+    that continue from it, through the decode step; finite logits; every
+    flash launch on the route the rule gives G = H_loc / KH_loc (qwen1.5's
+    8: the tensor cores; command-r-plus's 12 does not divide 64: the CUDA
+    cores); the chunk's flash call timed beside SDPA.  Returns the flash
+    entry of the chunk and the phase's flash launches by route."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.launch.mesh import make_smoke_mesh
+    from repro_torch.models import layers
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.step import (build_chunk_prefill_step,
+                                        build_decode_step)
+
+    full = configs.get(arch)
+    cfg = dataclasses.replace(full, num_layers=GQA_LAYERS)
+    mesh = make_smoke_mesh(SERVE_RANKS)
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    H = cfg.num_heads // mesh.shape["model"]
+    G = H // layers.local_kv_heads(cfg, pctx)
+    route = _attention_route(torch, torch.bfloat16, cfg.head_dim,
+                             cfg.head_dim, G)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    log(f"{arch}: {cfg.name} at {cfg.num_layers} of {full.num_layers} layers "
+        f"on {mesh.shape} ({H} heads on {H // G} kv heads a rank: G = {G}, "
+        f"head_dim {cfg.head_dim}), {nbytes / 1e9:.2f} GB of random bf16 "
+        f"weights in {time.perf_counter() - t0:.1f} s")
+    chunk = build_chunk_prefill_step(cfg, mesh, pctx, C=CHUNK,
+                                     S_cache=MAX_LEN)
+    dec = build_decode_step(cfg, mesh, pctx, B=SLOTS, S=MAX_LEN,
+                            slot_pos=True)
+    cache = _zero_cache(torch, cfg, mesh, pctx, 1, MAX_LEN, torch.bfloat16,
+                        dev)
+    rng = np.random.RandomState(2)
+    toks = stack_shards(rng.randint(0, cfg.vocab_size, (1, CHUNK)), mesh,
+                        chunk.token_spec, device=dev, dtype=torch.int64)
+    dctx = DiompContext(mesh=mesh, device=dev)
+    with _Tap(layers, "flash_attention",
+              lambda a, kw: a[0].shape[-3] == CHUNK) as tap, \
+            use_default(dctx):
+        _zero_counts(wrappers)
+        logits, cache = chunk(params, toks, cache, CHUNK)
+        first = tap.calls[0]              # the first layer's flash call
+        tap.calls.clear()
+        finite = [torch.isfinite(logits).all()]
+        # every slot continues from the chunk's rows
+        cache = {n: c if n == "pos" else c.expand(
+                     *c.shape[:mesh.ndim + 1], SLOTS, *c.shape[mesh.ndim + 2:])
+                 .contiguous() for n, c in cache.items()}
+        cache["pos"] = stack_shards(np.full(SLOTS, CHUNK, np.int32), mesh,
+                                    dec.cache_specs["pos"], device=dev)
+        nxt = _greedy(torch, logits, chunk, mesh, dev)[0]
+        dtoks = stack_shards(np.repeat(nxt, SLOTS, axis=0), mesh,
+                             dec.token_spec, device=dev, dtype=torch.int64)
+        for _ in range(GQA_DECODES):
+            logits, cache = dec(params, dtoks, cache)
+            finite.append(torch.isfinite(logits).all())
+            _, dtoks = _greedy(torch, logits, dec, mesh, dev)
+        torch.cuda.synchronize()
+    launches = wrappers["flash_attention"].launches
+    routes = dict(wrappers["flash_attention"].route_launches)
+    log(f"{arch}: one {CHUNK}-token chunk and {GQA_DECODES} decode steps on "
+        f"{SLOTS} slots: flash launches {launches}, routes {routes} (the "
+        f"rule at G = {G}: {route})")
+    check(bool(torch.stack(finite).all()), f"{arch}: non-finite logits")
+    check(launches == cfg.num_layers * (1 + GQA_DECODES)
+          and routes[route] == launches,
+          f"{arch}: flash launches {launches}, routes {routes}, not all "
+          f"{route}")
+    del cache, dtoks
+    out = {"launches": launches, "route_launches": routes, "G": G}
+    out.update(_flash_call(torch, k, f"{arch} chunk", *first, route=route))
+    del first, params
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"{arch}: peak device memory {peak:.1f} GB")
+    torch.cuda.empty_cache()
+    return out
 
 
 # -- the recurrent families: rwkv6-7b and zamba2-1.2b -------------------------
@@ -2441,13 +2849,17 @@ def _ring_at(torch, k, name, mesh, q, kk, v, plan, q_offset, valid_len,
     library_dev = device_ms(torch, sdpa, reps, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
     log(f"ring attention {name}: q {tuple(q.shape)} k {tuple(kk.shape)} "
-        f"({pairs // H} visible pairs a head over {n} ranks): {ms:.4f} ms "
-        f"(device {_ms(dev, 4)}), plain {plain:.3f}, sdpa {library:.4f} "
-        f"(device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms by {b_by}, "
+        f"v {tuple(v.shape)} ({pairs // H} visible pairs a head over {n} "
+        f"ranks): {ms:.4f} ms (device {_ms(dev, 4)}), plain {plain:.3f}, "
+        f"sdpa {library:.4f} (device {_ms(library_dev, 4)}; backend "
+        f"{sdpa.backend or 'default'}), bound {b_ms:.4f} ms by {b_by}, "
         f"err {err:.4g}")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
-            "device_ms": dev, "library_device_ms": library_dev}
+    out = {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+           "device_ms": dev, "library_device_ms": library_dev}
+    if sdpa.backend:
+        out["library_backend"] = sdpa.backend
+    return out
 
 
 def ring_phase(torch, k, dev, wrappers) -> dict:
@@ -3881,9 +4293,29 @@ def main() -> int:
     kernels.append(flash)
 
     # -- phase 8: serving qwen3-moe at full width, the dropless ring ----------
-    kernels.extend(moe_phase(torch, k, dev, wrappers))
+    mlp_line, dispatch = moe_phase(torch, k, dev, wrappers)
+    kernels.extend([mlp_line, dispatch])
 
-    # -- phases 9-10: rwkv6-7b and zamba2-1.2b, the recurrent scan ----------
+    # -- phase 9: serving deepseek-v3 (MLA) at full width, flash at D = 192 --
+    mla = mla_phase(torch, k, dev, wrappers)
+    flash["mla_chunk"] = mla["flash_chunk"]
+    dispatch["mla_decode"] = mla["dispatch_decode"]
+    dispatch["mla_chunk"] = mla["dispatch_chunk"]
+    dispatch["launches_by_path"] = {"qwen3-moe": dispatch["launches"],
+                                    "deepseek-v3": mla["dispatch_launches"]}
+    dispatch["launches"] += mla["dispatch_launches"]
+    for route, n in mla["dispatch_routes"].items():
+        dispatch["route_launches"][route] += n
+
+    # -- phase 10: qwen1.5-110b and command-r-plus-104b, flash at G = 8, 12 --
+    by_path = flash.setdefault("launches_by_path", {})
+    by_path["deepseek-v3"] = mla["flash_launches"]
+    for arch in GQA_ARCHS:
+        gqa = gqa_phase(torch, k, dev, wrappers, arch)
+        by_path[arch] = gqa.pop("launches")
+        flash[f"{arch}_chunk"] = gqa
+
+    # -- phases 11-12: rwkv6-7b and zamba2-1.2b, the recurrent scan ---------
     rec = {arch: recurrent_phase(torch, k, dev, wrappers, arch)
            for arch in REC_ARCHS}
     scan = {"name": "linear_scan", "route": "cuda",
@@ -3905,21 +4337,22 @@ def main() -> int:
           "linear_scan: a recurrent phase launched no scan")
     kernels.append(scan)
 
-    # -- phase 11: paligemma-3b under seq_parallel="ring", the ring kernel ---
+    # -- phase 13: paligemma-3b under seq_parallel="ring", the ring kernel ---
     ring = ring_phase(torch, k, dev, wrappers)
     flash.update(ring.pop("flash"))
+    ring["mla_chunk"] = mla["ring_chunk"]
     check(ring["launches"] > 0, "ring attention: the phase launched no ring")
     kernels.append(ring)
 
-    # -- phase 12: the unified runtime and the hierarchical backend -----------
+    # -- phase 14: the unified runtime and the hierarchical backend -----------
     rt = runtime_phase(torch, dev)
     log("runtime: " + json.dumps(rt))
 
-    # -- phase 13: the paper's examples (quickstart, Cannon, Minimod) ---------
+    # -- phase 15: the paper's examples (quickstart, Cannon, Minimod) ---------
     ex = examples_phase(torch, k, dev, wrappers, kernels)
     log("examples: " + json.dumps(ex))
 
-    # -- phase 14: training stablelm-3b, flash attention's gradient -----------
+    # -- phase 16: training stablelm-3b, flash attention's gradient -----------
     bwd = train_phase(torch, k, dev, wrappers)
     flash.setdefault("launches_by_path", {})["train"] = \
         bwd["train"]["flash_forward"]["forward"]

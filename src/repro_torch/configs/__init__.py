@@ -1,9 +1,9 @@
 """Architecture registry: ``get(name)`` / ``get_reduced(name)``.
 
-The dense configs, the GQA MoE config, the VLM (paligemma), and the
-recurrent (rwkv6) and hybrid (zamba2) configs are ported; the reference's
-other four architectures wait for their families (ROADMAP queue 1, item 9:
-MLA and MTP for deepseek-v3, the audio family, and the other configs).
+The dense configs, the GQA MoE config, the MLA MoE config (deepseek-v3),
+the VLM (paligemma), and the recurrent (rwkv6) and hybrid (zamba2) configs
+are ported; the reference's audio architecture (hubert-xlarge) waits for
+its family (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -12,7 +12,8 @@ import importlib
 
 from ..models.config import ModelConfig
 
-ARCHS = ("glm4_9b", "paligemma_3b", "qwen3_moe_235b_a22b", "rwkv6_7b",
+ARCHS = ("command_r_plus_104b", "deepseek_v3_671b", "glm4_9b",
+         "paligemma_3b", "qwen1_5_110b", "qwen3_moe_235b_a22b", "rwkv6_7b",
          "stablelm_3b", "zamba2_1_2b")
 
 # CLI ids (--arch) use dashes, matching the reference
@@ -25,7 +26,7 @@ def _module(name: str):
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet (ported: "
             f"{', '.join(all_archs())}): its family waits in ROADMAP queue 1, "
-            f"item 9 (MLA and MTP, the audio family)")
+            f"item 9 (the audio family)")
     return importlib.import_module(f"{__name__}.{mod}")
 
 

@@ -190,10 +190,11 @@ __device__ __forceinline__ void att_rows(int i0, int rows, int G, int qoff,
 //
 // Taken, by one rule decided before launch (repro_torch/kernels/plan.py
 // attention_route, checked again by each C entry point), for f16/bf16
-// operands with D and Dv each a multiple of 16 in [16, 128], or 256 (the
-// widths att_wgmma_o instantiates), G dividing 64, and 16-byte-aligned base
-// pointers and row strides (TMA's rule).  f32 keeps the CUDA-core routine
-// above: TF32 would change its results; so does D = 192.
+// operands with D a multiple of 16 in [16, 256] (a runtime value), Dv a
+// multiple of 16 in [16, 128], or 256 (the widths att_wgmma_o
+// instantiates), G dividing 64, and 16-byte-aligned base pointers and row
+// strides (TMA's rule).  f32 keeps the CUDA-core routine above: TF32 would
+// change its results.
 //
 // A block is ATT_TC_THREADS threads: one consumer warpgroup that owns the
 // 64 query rows of a tile (row = t * G + g, as above), and one producer warp
@@ -207,7 +208,9 @@ __device__ __forceinline__ void att_rows(int i0, int rows, int G, int qoff,
 // columns past D or Dv read as zero (TMA's fill, counted in the box's
 // bytes), so a width off 64 (stablelm-3b's D = 80: two boxes, the second 16
 // columns deep) needs nothing more: S stops after D / 16 k-steps, and P v
-// runs wgmma's n = Dv across the partly filled last box.  Registers
+// runs wgmma's n = Dv across the partly filled last box.  D is only a count
+// of boxes and k-steps, so deepseek-v3's MLA (D = 192: three boxes, twelve
+// k-steps; Dv = 128) runs the Dv = 128 instance, in 107,568 bytes.  Registers
 // (ptxas, sm_90a): flash's instances 95 (Dv = 16) to 167 (128) and 225
 // (256), 127 at Dv = 80; ring attention's 167 to 255; none spills.
 //
@@ -762,17 +765,15 @@ __device__ inline void att_tc_fold(const AttTcSmem& sm, AttPipe& pipe, int k0,
 
 // -- host side of the tensor-core route ----------------------------------------
 
-// The route rule, checked again at launch: 16-bit operands, D and Dv each
-// a multiple of 16 in [16, 128], or 256, G dividing 64, the key tile 64,
-// and 16-byte-aligned base pointers (att_tc_map refuses byte strides off
-// 16).
+// The route rule, checked again at launch: 16-bit operands, D a multiple
+// of 16 in [16, 256], Dv a multiple of 16 in [16, 128], or 256, G dividing
+// 64, the key tile 64, and 16-byte-aligned base pointers (att_tc_map
+// refuses byte strides off 16).
 static bool att_tc_route_ok(int dtype, int D, int Dv, int G, int BK,
                             std::initializer_list<const void*> ptrs) {
   if (dtype != kBF16 && dtype != kF16) return false;
-  auto head_ok = [](int x) {
-    return (x >= 16 && x <= 128 && x % 16 == 0) || x == 256;
-  };
-  if (!head_ok(D) || !head_ok(Dv)) return false;
+  if (D < 16 || D > 256 || D % 16 != 0) return false;
+  if (!((Dv >= 16 && Dv <= 128 && Dv % 16 == 0) || Dv == 256)) return false;
   if (G < 1 || 64 % G != 0 || BK != ATT_TC_BK) return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;

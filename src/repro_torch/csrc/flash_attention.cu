@@ -34,11 +34,13 @@
 // Two routes, by attention.cuh's rule (plan.attention_route), decided
 // before launch; the entry point refuses a tensor-core launch off the rule:
 //
-// * tensor cores (flash_tc_kernel): f16/bf16 with D and Dv each a multiple
-//   of 16 in [16, 128], or 256, G dividing 64, 16-byte-aligned operands;
-//   one instance a Dv the rule admits, D a runtime value (a width off 64,
-//   such as stablelm-3b's D = Dv = 80, is whole 64-column boxes whose
-//   columns past the width TMA fills with zeros).  One block per (64-row
+// * tensor cores (flash_tc_kernel): f16/bf16 with D a multiple of 16 in
+//   [16, 256], Dv a multiple of 16 in [16, 128], or 256, G dividing 64,
+//   16-byte-aligned operands; one instance a Dv the rule admits, D a
+//   runtime value (a width off 64, such as stablelm-3b's D = Dv = 80, is
+//   whole 64-column boxes whose columns past the width TMA fills with
+//   zeros; deepseek-v3's MLA, D = 192 and Dv = 128, is three boxes of q and
+//   k on the Dv = 128 instance).  One block per (64-row
 //   query tile, key split, kv head, r * B + b), running attention.cuh's
 //   TMA + wgmma tile over its split of the tile's visible keys [0, kend),
 //   in 64-key tiles.
@@ -52,8 +54,9 @@
 //   rows into scratch the wrapper allocates, and flash_combine_kernel
 //   merges the S partials in split order (the merge monoid of
 //   ring_attention/kernel.py, merge_states) and normalizes;
-// * CUDA cores (flash_fwd_kernel): f32 and shapes off the rule (D = 192,
-//   widths off 16, G not dividing 64, unaligned operands); one block
+// * CUDA cores (flash_fwd_kernel): f32 and shapes off the rule (widths
+//   off 16, Dv in (128, 256), G not dividing 64 such as command-r-plus's
+//   12, unaligned operands); one block
 //   per (64-row query tile, kv head, r * B + b), running att_fold over the
 //   keys in tiles of BK (16, 32 or 64, from plan_attention_block).
 //

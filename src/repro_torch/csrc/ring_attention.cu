@@ -39,8 +39,8 @@
 // route), decided before launch:
 //
 // * tensor cores (ring_attention_tc_kernel): the TMA + wgmma tile (the
-//   rule's widths: D and Dv each a multiple of 16 in [16, 128], or 256; one
-//   instance a Dv).  The queries and the slot buffers are 5-D tensor maps
+//   rule's widths: D a multiple of 16 in [16, 256], Dv a multiple of 16 in
+//   [16, 128], or 256; one instance a Dv, D a runtime value).  The queries and the slot buffers are 5-D tensor maps
 //   built once a launch;
 //   a box is one stripe deep, so a tile's keys past tk read zeros, never
 //   the next stripe.  Stripes land in the slots by generic stores (the

@@ -112,7 +112,8 @@ __all__ = [
 #   FLASH_BQ-row q tile and ``ATT_TC_STAGES`` stages of a 64-key k and v
 #   tile in the operands' 16-bit type (``attention_tc_stage_bytes``, the
 #   formula of csrc/attention.cuh's ``att_tc_smem_bytes``, whole
-#   64-column boxes: D = 80 stages two): 161 KiB at D = Dv = 256.  On the
+#   64-column boxes: D = 80 stages two, MLA's D = 192 three): 105 KiB at
+#   D = 192, Dv = 128, 161 KiB at D = Dv = 256.  On the
 #   CUDA cores it stages, per block, the scaled q^T of a
 #   FLASH_BQ-row tile and, per key tile of ``block`` keys, k^T, v and the
 #   probabilities, all in f32 with one column of padding against bank
@@ -189,18 +190,19 @@ def attention_route(dtype, d: int, dv: int, g: int, *ptrs_and_strides: int
                     ) -> str:
     """The route a flash- or ring-attention launch takes in
     ``csrc/attention.cuh``: ``"wgmma"`` (TMA and the tensor cores) for
-    16-bit operands whose head dims D and Dv are each a multiple of 16 in
-    [16, 128], or 256 (the widths of the kernels' instances; every served
-    and trained shape, stablelm-3b's 80 included), whose G = H / KH query
-    heads a kv head divides the 64-row tile, and
-    whose base pointers and byte strides (``ptrs_and_strides``: those TMA
-    reads, the strides of dims longer than 1) are 16-byte aligned;
-    ``"simt"`` (the CUDA cores) otherwise.  f32 stays on the CUDA cores:
-    TF32 would change its results; so does D = 192, which has no
-    instance."""
+    16-bit operands whose query/key head dim D is a multiple of 16 in [16,
+    256] (a runtime value: whole 64-column boxes, so deepseek-v3's MLA
+    D = 192 is three), whose value head dim Dv is a multiple of 16 in [16,
+    128], or 256 (the widths of the kernels' instances; every served and
+    trained shape, stablelm-3b's 80 included), whose G = H / KH query heads
+    a kv head divides the 64-row tile, and whose base pointers and byte
+    strides (``ptrs_and_strides``: those TMA reads, the strides of dims
+    longer than 1) are 16-byte aligned; ``"simt"`` (the CUDA cores)
+    otherwise.  f32 stays on the CUDA cores: TF32 would change its
+    results."""
     if dtype in (torch.float16, torch.bfloat16) \
-            and all((16 <= x <= 128 and x % 16 == 0) or x == 256
-                    for x in (d, dv)) \
+            and 16 <= d <= 256 and d % 16 == 0 \
+            and ((16 <= dv <= 128 and dv % 16 == 0) or dv == 256) \
             and g >= 1 and 64 % g == 0 \
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"

@@ -1,6 +1,6 @@
 """Family-dispatch API: the surface the serving and training layers talk
-to (dense, GQA MoE, VLM, RWKV6 and Zamba2 families; MLA and the audio
-family are still to port, ROADMAP queue 1, item 9).  The training losses
+to (dense, GQA and MLA MoE, VLM, RWKV6 and Zamba2 families; the audio
+family is still to port, ROADMAP queue 1, item 9).  The training losses
 of the dense and VLM families are ported; the MoE loss waits for item 12,
 the RWKV and Zamba2 losses for item 19.
 
@@ -21,7 +21,7 @@ from .config import ModelConfig, ParallelCtx
 from .layers import local_kv_heads
 from .rwkv import rwkv_decode, rwkv_loss
 from .ssm import MAMBA_HEAD_DIM, zamba_decode, zamba_loss
-from .transformer import transformer_decode, transformer_loss
+from .transformer import layer_stacks, transformer_decode, transformer_loss
 
 __all__ = ["TRANSFORMER_FAMILIES", "TensorStruct", "loss_fn", "decode_fn",
            "has_decode", "supports_long_context", "batch_structs",
@@ -122,7 +122,8 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
     group), as in the reference.  The recurrent families' layouts are the
     reference's: RWKV's token-shift carries and f32 WKV state, Zamba's conv
     and f32 SSM states, one KV cache per shared-block application and one
-    scalar position.
+    scalar position.  MLA's latent cache (``c``, ``kr`` and the leading
+    dense layers' ``dense_c``, ``dense_kr``) is replicated over "model".
     """
     if seq_sharded:
         raise NotImplementedError(
@@ -153,12 +154,18 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
                 {"mamba": {"conv": (None, bspec, None, "model"),
                            "S": (None, bspec, "model", None, None)},
                  "k": kspec, "v": kspec, "pos": ()})
-    if cfg.family not in TRANSFORMER_FAMILIES or cfg.attention != "gqa" \
-            or cfg.first_k_dense:
+    if cfg.family not in TRANSFORMER_FAMILIES or cfg.family == "audio":
         raise NotImplementedError(
-            f"{cfg.name}: only the GQA cache (dense, MoE and VLM families) "
-            f"is ported yet; MLA's latent cache and the audio family: ROADMAP "
-            f"queue 1, item 9")
+            f"{cfg.name}: the {cfg.family!r} family's cache is not ported "
+            f"yet: ROADMAP queue 1, item 9")
+    if cfg.attention == "mla":
+        structs, specs = {}, {}
+        for _, L, _, names in layer_stacks(cfg):
+            for n, w in zip(names, (cfg.kv_lora_rank, cfg.qk_rope_head_dim)):
+                structs[n] = TensorStruct((L, B, S, w), dtype)
+                specs[n] = (None, bspec, None, None)
+        structs["pos"], specs["pos"] = TensorStruct((), torch.int32), ()
+        return structs, specs
     KH_loc = local_kv_heads(cfg, ctx)
     kv_model = sch.kv_sharded(cfg) or (sch.head_parallel(cfg) and ctx.tp > 1)
     KH_glob = KH_loc * ctx.tp if kv_model else cfg.kv_heads

@@ -1,5 +1,5 @@
-"""Manual-SPMD layer library on stacked ranks (dense, GQA MoE, VLM, RWKV6
-and Zamba2 families).
+"""Manual-SPMD layer library on stacked ranks (dense, GQA MoE, MLA MoE,
+VLM, RWKV6 and Zamba2 families).
 
 The reference runs every function here inside ``shard_map`` on one rank's
 shard; the port runs it once on stacked tensors whose leading dims are the
@@ -14,13 +14,14 @@ follow the reference (per rank):
   head-sharded or replicated per the same rules.
 
 Not ported here: the context-parallel decode (``cp_decode_attention``) and
-its seq-sharded cache, MLA, MoE's ``expert2d`` placement and
+its seq-sharded cache, MoE's ``expert2d`` placement and
 ``ring_fsdp_matmul``; each raises ``NotImplementedError`` naming its
 ROADMAP item where it would be reached.
 
-The decode and chunk-prefill branches write the new K/V rows into the
-cache in place (the reference returns an updated copy): a step's cache is
-the engine's own tensor, so no second copy of it is ever held.
+The decode and chunk-prefill branches write the new K/V (MLA: latent)
+rows into the cache in place (the reference returns an updated copy): a
+step's cache is the engine's own tensor, so no second copy of it is ever
+held.
 """
 
 from __future__ import annotations
@@ -47,7 +48,7 @@ from .schema import head_parallel, kv_sharded, vocab_sharded
 __all__ = [
     "rmsnorm", "layernorm", "rope", "gather_fsdp", "tp_allreduce",
     "col_matmul", "row_matmul", "embed_lookup", "ce_loss", "Q8Gather",
-    "KVCache", "local_kv_heads",
+    "KVCache", "local_kv_heads", "MLACache", "mla_block",
     "attention_block", "mlp_block", "moe_capacity", "moe_block", "dot",
     "flat_heads",
 ]
@@ -520,6 +521,121 @@ def _prefill_cache(cache: KVCache, k, v, T: int) -> KVCache:
     _write_rows(cache.v, v, zero)
     return KVCache(cache.k, cache.v, torch.full(
         _mesh().sizes, T, dtype=torch.int32, device=k.device))
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class MLACache:
+    """One layer's latent cache on stacked ranks: ``c`` ``(*mesh, B, S,
+    kv_lora_rank)`` and the rope'd shared key ``kr`` ``(*mesh, B, S, dr)``
+    (views of the stacked cache, replicated over "model"); ``pos`` is
+    ``(*mesh,)`` or ``(*mesh, B)``."""
+
+    c: torch.Tensor
+    kr: torch.Tensor
+    pos: torch.Tensor
+
+
+def mla_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
+              ctx: ParallelCtx, *, positions=None,
+              cache: Optional[MLACache] = None, chunked: bool = False):
+    """DeepSeek-V3 multi-head latent attention on x ``(*mesh, B, T, d)``;
+    returns ``(out, cache')``.  Heads are sharded over "model" where they
+    divide ``MAX_TP``; the latent path is replicated (the cache is small).
+
+    * prefill (and the forward) — per-head K and V decompressed from the
+      latent in f32, then flash attention with D = dn + dr, Dv = dv; a
+      cache gets the latents at row 0;
+    * chunked prefill — ``chunked=True`` with a cache: the chunk's latents
+      go in at ``cache.pos`` and its queries attend over K/V decompressed
+      from the whole valid latent prefix (``q_offset``, ``valid_len``);
+    * decode — T == 1 with a cache: the *absorbed* form, f32 einsums in the
+      latent space against the cache under a mask past each row's
+      position (scalar or per slot), as the reference computes it outside
+      any kernel; only the final up-projection touches head dims.
+    """
+    nd = _mesh().ndim
+    T = x.shape[nd + 1]
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    kr_rank = cfg.kv_lora_rank
+    H_loc = cfg.num_heads // ctx.tp if head_parallel(cfg) else cfg.num_heads
+    if positions is None:
+        positions = torch.arange(T, device=x.device)
+    scale = (dn + dr) ** -0.5
+    lead = x.shape[:-1]
+
+    cq = rmsnorm(col_matmul(x, lp["wq_a"], ctx), lp["q_norm"], cfg.norm_eps)
+    q = col_matmul(cq, lp["wq_b"], ctx).reshape(*lead, H_loc, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    q_rope = rope(q_rope, positions, theta=cfg.rope_theta)
+
+    ckv = col_matmul(x, lp["wkv_a"], ctx)                  # (…, kr + dr)
+    c = rmsnorm(ckv[..., :kr_rank], lp["kv_norm"], cfg.norm_eps)
+    k_rope = rope(ckv[..., None, kr_rank:], positions, theta=cfg.rope_theta)
+
+    wkv_b = gather_fsdp(lp["wkv_b"], ctx, dim=0)           # (kr, H_loc·(dn+dv))
+    wkv_b = wkv_b.reshape(*wkv_b.shape[:nd], kr_rank, H_loc, dn + dv)
+
+    new_cache = cache
+    if cache is not None and T == 1:
+        # absorbed decode
+        _write_rows(cache.c, c, cache.pos)
+        _write_rows(cache.kr, k_rope[..., 0, :], cache.pos)
+        new_cache = MLACache(cache.c, cache.kr, cache.pos + 1)
+        q_lat = torch.einsum("...bthn,...khn->...bthk", q_nope.float(),
+                             wkv_b[..., :dn].float())      # (…, B, 1, H, kr)
+        c_all, kr_all = new_cache.c.float(), new_cache.kr.float()
+        s = torch.einsum("...bthk,...bsk->...bhs", q_lat, c_all) \
+            + torch.einsum("...bthr,...bsr->...bhs", q_rope.float(), kr_all)
+        s = s * scale
+        k_pos = torch.arange(c_all.shape[-2], device=x.device)
+        vis = k_pos < _per_row(new_cache.pos)[..., None, None].to(x.device)
+        p = torch.softmax(s.masked_fill(~vis, float("-inf")), dim=-1)
+        ctx_lat = torch.einsum("...bhs,...bsk->...bhk", p, c_all)
+        attn = torch.einsum("...bhk,...khn->...bhn", ctx_lat,
+                            wkv_b[..., dn:].float())       # (…, B, H, dv)
+        attn = attn.unsqueeze(-3).to(x.dtype)              # (…, B, 1, H, dv)
+    elif chunked and cache is not None:
+        # chunked prefill: append the latents at cache.pos, attend over the
+        # decompressed valid prefix (the causal mask and q_offset hide the
+        # padded tail and the unwritten suffix, as in attention_block)
+        p0 = cache.pos
+        _write_rows(cache.c, c, p0)
+        _write_rows(cache.kr, k_rope[..., 0, :], p0)
+        new_cache = MLACache(cache.c, cache.kr, p0 + T)
+        kv_all = torch.einsum("...bsk,...khn->...bshn", cache.c.float(),
+                              wkv_b.float()).to(x.dtype)
+        k_all = torch.cat(
+            [kv_all[..., :dn],
+             cache.kr.to(x.dtype)[..., None, :].expand(
+                 *cache.kr.shape[:-1], H_loc, dr)], dim=-1)
+        v_all = kv_all[..., dn:].contiguous()
+        del kv_all
+        qkr = torch.cat([q_nope, q_rope], dim=-1)
+        attn = flash_attention(qkr, k_all, v_all, causal=True, scale=scale,
+                               q_offset=_per_row(p0),
+                               valid_len=_per_row(p0 + T))
+    else:
+        kv = torch.einsum("...btk,...khn->...bthn", c.float(),
+                          wkv_b.float()).to(x.dtype)       # decompress
+        k = torch.cat([kv[..., :dn],
+                       k_rope.expand(*k_rope.shape[:-2], H_loc, dr)], dim=-1)
+        v = kv[..., dn:].contiguous()
+        qkr = torch.cat([q_nope, q_rope], dim=-1)
+        attn = flash_attention(qkr, k, v, causal=True, scale=scale)
+        if cache is not None:  # prefill the latent cache
+            zero = torch.zeros((), dtype=torch.int32, device=x.device)
+            _write_rows(cache.c, c, zero)
+            _write_rows(cache.kr, k_rope[..., 0, :], zero)
+            new_cache = MLACache(cache.c, cache.kr, torch.full(
+                _mesh().sizes, T, dtype=torch.int32, device=x.device))
+
+    out = row_matmul(attn.reshape(*attn.shape[:-2], H_loc * dv), lp["wo"],
+                     ctx)
+    return out, new_cache
 
 
 # ---------------------------------------------------------------------------

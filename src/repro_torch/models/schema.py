@@ -1,13 +1,13 @@
 """Parameter schema — one declarative table per architecture (dense, GQA
-MoE, VLM, RWKV6 and Zamba2 families).
+MoE, MLA MoE with its leading dense layers and MTP head, VLM, RWKV6 and
+Zamba2 families).
 
 Every parameter declares its global shape and *logical* placement axes
 once; from that declaration come the materialized init (from a
 ``torch.Generator`` on a given device) and the per-dim specs that
 :func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
 against the production TP width (``MAX_TP = 16``), as in the reference.
-The MLA (deepseek-v3) and MTP tables and the audio family are still to
-port (ROADMAP queue 1, item 9).
+The audio family is still to port (ROADMAP queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -79,8 +79,36 @@ def _attn_layer(cfg: ModelConfig, L: int, prefix: str,
 def _dense_layer(cfg: ModelConfig, L: int, d_ff: int, prefix: str,
                  s: Dict[str, ParamSpec]) -> None:
     """One stacked block of standard GQA decoder layers."""
-    d = cfg.d_model
     _attn_layer(cfg, L, prefix, s)
+    _mlp(L, cfg.d_model, d_ff, prefix, s)
+
+
+def _mla_layer(cfg: ModelConfig, L: int, prefix: str,
+               s: Dict[str, ParamSpec]) -> None:
+    """DeepSeek's multi-head latent attention of one stacked block (its FFN
+    slot is added separately, dense or MoE): the low-rank q and kv
+    projections replicated over "model", their up-projections and the
+    output head-sharded."""
+    d, H = cfg.d_model, cfg.num_heads
+    qr, kr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    ha = "heads" if head_parallel(cfg) else None
+    s[f"{prefix}/attn_norm"] = ParamSpec((L, d), (None, None), init="ones")
+    s[f"{prefix}/wq_a"] = ParamSpec((L, d, qr), (None, "embed_fsdp", None))
+    s[f"{prefix}/q_norm"] = ParamSpec((L, qr), (None, None), init="ones")
+    s[f"{prefix}/wq_b"] = ParamSpec((L, qr, H * (dn + dr)),
+                                    (None, "embed_fsdp", ha))
+    s[f"{prefix}/wkv_a"] = ParamSpec((L, d, kr + dr),
+                                     (None, "embed_fsdp", None))
+    s[f"{prefix}/kv_norm"] = ParamSpec((L, kr), (None, None), init="ones")
+    s[f"{prefix}/wkv_b"] = ParamSpec((L, kr, H * (dn + dv)),
+                                     (None, "embed_fsdp", ha))
+    s[f"{prefix}/wo"] = ParamSpec((L, H * dv, d), (None, ha, "embed_fsdp"))
+
+
+def _mlp(L: int, d: int, d_ff: int, prefix: str,
+         s: Dict[str, ParamSpec]) -> None:
+    """A stacked SwiGLU MLP and its norm (column- then row-parallel)."""
     s[f"{prefix}/mlp_norm"] = ParamSpec((L, d), (None, None), init="ones")
     s[f"{prefix}/w_gate"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
     s[f"{prefix}/w_up"] = ParamSpec((L, d, d_ff), (None, "embed_fsdp", "mlp"))
@@ -178,11 +206,6 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
         raise NotImplementedError(
             f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
             f"queue 1, item 9")
-    if cfg.family == "moe" and (cfg.attention != "gqa" or cfg.mtp
-                                or cfg.first_k_dense):
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention, its leading dense layers and the MTP "
-            f"head are not ported yet: ROADMAP queue 1, item 9")
     s: Dict[str, ParamSpec] = {}
     d, V = cfg.d_model, cfg.vocab_size
     va = "vocab" if vocab_sharded(cfg) else None
@@ -190,9 +213,24 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     s["final_norm"] = ParamSpec((d,), (None,), init="ones")
     if cfg.family in ("dense", "vlm"):
         _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
-    elif cfg.family == "moe":  # GQA MoE (qwen3): the FFN replaced by experts
-        _attn_layer(cfg, cfg.num_layers, "layers", s)
-        _moe_ffn(cfg, cfg.num_layers, "layers", s)
+    elif cfg.family == "moe":
+        kd = cfg.first_k_dense
+        Lm = cfg.num_layers - kd
+        if cfg.attention == "mla":   # deepseek: kd dense layers, then MoE
+            if kd:
+                _mla_layer(cfg, kd, "dense_layers", s)
+                _mlp(kd, d, cfg.d_ff, "dense_layers", s)
+            _mla_layer(cfg, Lm, "layers", s)
+        else:                        # GQA MoE (qwen3)
+            _attn_layer(cfg, Lm, "layers", s)
+        _moe_ffn(cfg, Lm, "layers", s)
+        if cfg.mtp:  # the multi-token-prediction head (a training loss term)
+            s["mtp/proj"] = ParamSpec((2 * d, d), ("embed_fsdp", None))
+            s["mtp/norm_h"] = ParamSpec((d,), (None,), init="ones")
+            s["mtp/norm_e"] = ParamSpec((d,), (None,), init="ones")
+            _mla_layer(cfg, 1, "mtp/layer", s)
+            _mlp(1, d, cfg.moe_d_ff * max(cfg.shared_experts, 1),
+                 "mtp/layer", s)
     elif cfg.family == "ssm":  # rwkv6
         s["embed_norm"] = ParamSpec((2, d), (None, None), init="ones")
         _rwkv_layer(cfg, cfg.num_layers, s)

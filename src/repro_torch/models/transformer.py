@@ -1,5 +1,5 @@
-"""Transformer forward passes on stacked ranks (dense, GQA MoE and VLM
-families).
+"""Transformer forward passes on stacked ranks (dense, GQA and MLA MoE, and
+VLM families).
 
 The reference scans its layer stack (``lax.scan`` over the leading L dim of
 every stacked param); the port runs a Python loop over per-layer views of
@@ -13,11 +13,19 @@ with ``1 + scale``, runs a GeGLU MLP and ties its head to the embedding
 table; ``prefix_embeds`` (the image patches, a stub as in the reference)
 go in front of the tokens under a bidirectional prefix window.
 
+DeepSeek-V3 (``attention="mla"``) runs its ``first_k_dense`` leading dense
+layers (``dense_layers/*``) before the MoE stack, each stack from the same
+starting position, as the reference runs two scans; its MTP leaves are
+carried in the parameter tree, and nothing here reads them (the MTP loss is
+ROADMAP queue 1, item 21).
+
 Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
-"v": ..., "pos": (*mesh,) or (*mesh, B)}``; the layers write K/V rows into
-them in place.  MLA (deepseek-v3) and the audio family are still to port
-(ROADMAP queue 1, item 9), and so are the MTP and MoE losses (items 21 and
-12).  Training checkpoints each layer (``ctx.remat``).
+"v": ..., "pos": (*mesh,) or (*mesh, B)}``, or MLA's latent cache ``{"c":
+(*mesh, L, B, S, kv_lora_rank), "kr": (..., dr), "dense_c", "dense_kr",
+"pos"}`` (the leading dense layers' pair apart); the layers write rows into
+them in place.  The audio family is still to port (ROADMAP queue 1, item 9),
+and so are the MTP and MoE losses (items 21 and 12).  Training checkpoints
+each layer (``ctx.remat``).
 A MoE layer's dispatch stats add up over the layer loop in the active
 ``dispatch_stats`` frame, as the reference sums them over its scan.
 """
@@ -31,9 +39,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.context import default_context, recorded_once
 from .config import ModelConfig, ParallelCtx
-from .layers import (KVCache, attention_block, ce_loss, dot_f32,
-                     embed_lookup, local_kv_heads, mlp_block, moe_block,
-                     rmsnorm)
+from .layers import (KVCache, MLACache, attention_block, ce_loss, dot_f32,
+                     embed_lookup, local_kv_heads, mla_block, mlp_block,
+                     moe_block, rmsnorm)
 
 __all__ = ["init_cache", "transformer_forward", "transformer_loss",
            "transformer_prefill", "transformer_chunk_prefill",
@@ -41,13 +49,25 @@ __all__ = ["init_cache", "transformer_forward", "transformer_loss",
 
 
 def _check_family(cfg: ModelConfig) -> None:
+    mla = cfg.attention == "mla"
     if cfg.family not in ("dense", "moe", "vlm") \
             or cfg.moe != (cfg.family == "moe") \
-            or cfg.attention != "gqa" or cfg.first_k_dense or cfg.mtp:
+            or cfg.attention not in ("gqa", "mla") or (mla and not cfg.moe) \
+            or ((cfg.first_k_dense or cfg.mtp) and not mla):
         raise NotImplementedError(
-            f"{cfg.name}: only the dense, MoE and VLM families with GQA "
-            f"attention are ported (MLA, its leading dense layers and MTP for "
-            f"deepseek-v3, and the audio family: ROADMAP queue 1, item 9)")
+            f"{cfg.name}: only the dense and VLM families with GQA attention "
+            f"and the MoE family with GQA or MLA attention (MLA with its "
+            f"leading dense layers and MTP leaves) are ported (the audio "
+            f"family: ROADMAP queue 1, item 9)")
+
+
+def layer_stacks(cfg: ModelConfig):
+    """The layer stacks in order: (param prefix, depth, MoE FFN, the two
+    cache leaves).  DeepSeek's leading dense layers come first."""
+    kd = cfg.first_k_dense if cfg.moe else 0
+    leaves = ("c", "kr") if cfg.attention == "mla" else ("k", "v")
+    out = [("dense_layers", kd, False, ("dense_c", "dense_kr"))] if kd else []
+    return out + [("layers", cfg.num_layers - kd, cfg.moe, leaves)]
 
 
 def _layer(params: Dict[str, torch.Tensor], prefix: str, nd: int,
@@ -58,24 +78,31 @@ def _layer(params: Dict[str, torch.Tensor], prefix: str, nd: int,
             if k.startswith(prefix + "/")}
 
 
-def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, positions,
-                prefix_len: int, cache=None, chunked: bool = False):
-    """One decoder block: (attn + residual) then (ffn + residual)."""
+def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, moe: bool,
+                positions, prefix_len: int, cache=None,
+                chunked: bool = False):
+    """One decoder block: (attn + residual) then (ffn + residual); the FFN
+    is the experts where ``moe`` (deepseek's shared experts sit inside
+    ``moe_block``), else the dense MLP."""
     vlm = cfg.family == "vlm"
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plus_one=vlm)
-    attn, new_cache = attention_block(
-        h, lp, cfg, ctx, positions=positions, prefix_len=prefix_len,
-        cache=cache, causal=cfg.causal, chunked=chunked)
+    if cfg.attention == "mla":
+        attn, new_cache = mla_block(h, lp, cfg, ctx, positions=positions,
+                                    cache=cache, chunked=chunked)
+    else:
+        attn, new_cache = attention_block(
+            h, lp, cfg, ctx, positions=positions, prefix_len=prefix_len,
+            cache=cache, causal=cfg.causal, chunked=chunked)
     x = x + attn
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plus_one=vlm)
-    if cfg.moe:
+    if moe:
         return x + moe_block(h, lp, cfg, ctx), new_cache
     return x + mlp_block(h, lp, ctx, act="gelu" if vlm else "silu"), \
         new_cache
 
 
 def _remat_layer(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions,
-                 prefix_len: int, first: bool):
+                 prefix_len: int, first: bool, moe: bool):
     """One training layer under ``torch.utils.checkpoint``: its
     activations are dropped after the forward and recomputed in the
     backward (the reference's ``jax.checkpoint`` on the scan body).  The
@@ -90,7 +117,7 @@ def _remat_layer(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions,
     def body(h):
         with recorded_once(first and not runs, parent):
             runs.append(1)
-            return _layer_body(h, lp, cfg, ctx, positions=positions,
+            return _layer_body(h, lp, cfg, ctx, moe=moe, positions=positions,
                                prefix_len=prefix_len)[0]
 
     return checkpoint(body, x, use_reentrant=False)
@@ -107,7 +134,10 @@ def _lm_head(params: Dict[str, torch.Tensor], cfg: ModelConfig):
 def init_cache(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int, *,
                seq_sharded: bool = False, dtype=torch.bfloat16, device=None):
     """A zeroed decode cache on the active context's mesh: per rank
-    ``(L, B_loc, S, KH_loc, D)`` K and V, and one position a rank."""
+    ``(L, B_loc, S, KH_loc, D)`` K and V, or MLA's ``(L, B_loc, S,
+    kv_lora_rank)`` latents and ``(L, B_loc, S, dr)`` rope'd keys (the
+    leading dense layers' pair under ``dense_c`` / ``dense_kr``), and one
+    position a rank."""
     _check_family(cfg)
     if seq_sharded:
         raise NotImplementedError(
@@ -116,11 +146,17 @@ def init_cache(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int, *,
     dctx = default_context()
     mesh = dctx.require_mesh()
     device = dctx.device if device is None else device
-    shape = (*mesh.sizes, cfg.num_layers, B_loc, S, local_kv_heads(cfg, ctx),
-             cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device),
-            "pos": torch.zeros(mesh.sizes, dtype=torch.int32, device=device)}
+    if cfg.attention == "mla":       # a row: (c, kr)
+        rows = ((cfg.kv_lora_rank,), (cfg.qk_rope_head_dim,))
+    else:                            # a row: (k, v)
+        rows = ((local_kv_heads(cfg, ctx), cfg.head_dim),) * 2
+    cache = {}
+    for _, L, _, names in layer_stacks(cfg):
+        for name, row in zip(names, rows):
+            cache[name] = torch.zeros((*mesh.sizes, L, B_loc, S, *row),
+                                      dtype=dtype, device=device)
+    cache["pos"] = torch.zeros(mesh.sizes, dtype=torch.int32, device=device)
+    return cache
 
 
 def transformer_forward(params: Dict[str, torch.Tensor], tokens,
@@ -152,22 +188,27 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
         positions = torch.arange(x.shape[nd + 1], device=x.device)
     pos = cache["pos"] if cache is not None else None
     remat = ctx.remat and cache is None and torch.is_grad_enabled()
-    for l in range(cfg.num_layers):
-        lp = _layer(params, "layers", nd, l)
-        if remat:
-            x = _remat_layer(x, lp, cfg, ctx, positions, prefix_len, l == 0)
-            continue
-        layer_cache = None if cache is None else KVCache(
-            cache["k"].select(nd, l), cache["v"].select(nd, l), pos)
-        with recorded_once(l == 0):
-            x, new = _layer_body(x, lp, cfg, ctx, positions=positions,
-                                 prefix_len=prefix_len, cache=layer_cache,
-                                 chunked=chunked)
+    Cache = MLACache if cfg.attention == "mla" else KVCache
+    for prefix, L, moe, (ka, kb) in layer_stacks(cfg):
+        for l in range(L):
+            lp = _layer(params, prefix, nd, l)
+            if remat:
+                x = _remat_layer(x, lp, cfg, ctx, positions, prefix_len,
+                                 l == 0, moe)
+                continue
+            layer_cache = None if cache is None else Cache(
+                cache[ka].select(nd, l), cache[kb].select(nd, l), pos)
+            with recorded_once(l == 0):
+                x, new = _layer_body(x, lp, cfg, ctx, moe=moe,
+                                     positions=positions,
+                                     prefix_len=prefix_len,
+                                     cache=layer_cache, chunked=chunked)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps,
                 plus_one=cfg.family == "vlm")
     if cache is None:
         return x, None
-    return x, {"k": cache["k"], "v": cache["v"], "pos": new.pos}
+    return x, {**{n: t for n, t in cache.items() if n != "pos"},
+               "pos": new.pos}
 
 
 def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):

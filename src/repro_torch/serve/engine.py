@@ -195,7 +195,9 @@ class ServeEngine:
             k: torch.zeros(local_shape(st.shape, mesh, self._specs[k]),
                            dtype=st.dtype, device=self.device)
             for k, st in structs.items() if k != "pos"}
-        self._slot_axes = self._specs["k"][1] or ()
+        # every leaf is (L, B, ...): the slot axes are the batch dim's
+        self._slot_axes = next(spec for n, spec in self._specs.items()
+                               if n != "pos")[1] or ()
         if isinstance(self._slot_axes, str):
             self._slot_axes = (self._slot_axes,)
         self.queue: List[GenRequest] = []

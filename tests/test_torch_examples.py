@@ -148,7 +148,7 @@ def test_serve_example_on_cpu(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert '"requests_done": 2' in out and out.strip().endswith(" done")
     monkeypatch.setattr(sys, "argv", [
-        "serve_lm", "--device", "cpu", "--arch", "deepseek-v3-671b"])
+        "serve_lm", "--device", "cpu", "--arch", "hubert-xlarge"])
     with pytest.raises(SystemExit):
         runpy.run_module("repro_torch.examples.serve_lm", run_name="__main__")
 

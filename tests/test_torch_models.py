@@ -1,8 +1,9 @@
 """The port's model stack held against the JAX package's, dense family.
 
-Reduced ``glm4-9b`` (GQA 8:1 with replicated KV weights, half-dim rotary)
-and reduced ``stablelm-3b`` (MHA, KV heads sharded) run on the 8-rank
-smoke mesh (pod 2 x data 2 x model 2, the reference's ``mesh8``): the
+Reduced ``glm4-9b`` (GQA 8:1 with replicated KV weights, half-dim rotary),
+reduced ``stablelm-3b`` (MHA, KV heads sharded), reduced ``qwen1.5-110b``
+(QKV bias, GQA 2:1) and reduced ``command-r-plus-104b`` (GQA 2:1, rope
+theta 75e6) run on the 8-rank smoke mesh (pod 2 x data 2 x model 2, the reference's ``mesh8``): the
 schema and its placement specs must equal the reference's; the weights
 carried over with ``params_from_reference`` must round-trip exactly; and
 the prefill, chunked-prefill (with a padded tail) and decode (per-slot
@@ -40,7 +41,7 @@ from repro_torch.models import api, schema
 from repro_torch.models.config import ParallelCtx
 from repro_torch.serve import step as t_step
 
-ARCHS = ("glm4-9b", "stablelm-3b")
+ARCHS = ("glm4-9b", "stablelm-3b", "qwen1-5-110b", "command-r-plus-104b")
 DTYPES = {"f32": (jnp.float32, torch.float32, 1e-5),
           "bf16": (jnp.bfloat16, torch.bfloat16, 2e-2)}
 B, S = 4, 32
@@ -248,15 +249,15 @@ def test_step_logs_once_per_built_step(arch, mesh8):
 
 def test_unported_branches_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
-        configs.get("deepseek-v3-671b")
+        configs.get("hubert-xlarge")
     ctx = ParallelCtx.from_mesh(MESH)
     with pytest.raises(NotImplementedError, match="item 8"):
         ParallelCtx.from_mesh(MESH, layout="dp_only")
     cfg = configs.get_reduced("glm4-9b")
-    mla = type(cfg)(**{**{f: getattr(cfg, f)
-                          for f in cfg.__dataclass_fields__},
-                       "family": "moe", "moe": True, "attention": "mla"})
+    audio = type(cfg)(**{**{f: getattr(cfg, f)
+                            for f in cfg.__dataclass_fields__},
+                         "family": "audio", "causal": False})
     with pytest.raises(NotImplementedError, match="item 9"):
-        schema.build_schema(mla)
+        schema.build_schema(audio)
     with pytest.raises(NotImplementedError, match="item 9"):
         api.cache_structs(cfg, MESH, ctx, B, S, seq_sharded=True)

@@ -45,7 +45,7 @@ from repro_torch.interop import (params_from_reference, stack_shards,
                                  unstack_shards)
 from repro_torch.kernels.moe_dispatch.fused import fused_moe_dispatch_kernel
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.models import api, schema
+from repro_torch.models import schema
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig, ParallelCtx
 from repro_torch.models.layers import moe_block, moe_capacity
@@ -314,13 +314,17 @@ def test_decode_matches_reference(impl, dt, mesh8):
 
 
 def test_unported_moe_branches_raise():
-    cfg = configs.get_reduced(ARCH)
-    mla = type(cfg)(**{**{f: getattr(cfg, f)
-                          for f in cfg.__dataclass_fields__},
-                       "attention": "mla"})
-    with pytest.raises(NotImplementedError, match="MLA"):
-        schema.build_schema(mla)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        api.cache_structs(mla, MESH, ParallelCtx.from_mesh(MESH), B, S)
+    """deepseek-v3's loss waits for the MoE gradients (item 12), the MTP
+    loss for item 21; expert2d placement for item 12."""
+    cfg = configs.get_reduced("deepseek-v3-671b")
+    ctx = ParallelCtx.from_mesh(MESH)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tf.transformer_loss({}, {}, cfg, ctx)
+    dense = configs.get_reduced("glm4-9b")
+    mtp = type(dense)(**{**{f: getattr(dense, f)
+                            for f in dense.__dataclass_fields__},
+                         "mtp": True})
+    with pytest.raises(NotImplementedError, match="item 21"):
+        tf.transformer_loss({}, {}, mtp, ctx)
     with pytest.raises(NotImplementedError, match="item 12"):
         ParallelCtx.from_mesh(MESH, expert2d=True)

@@ -399,8 +399,8 @@ def test_stencil_bz_by_route():
     (torch.bfloat16, 72, 64, 1, (), "simt"),                  # D off 16
     (torch.float16, 80, 80, 4, (), "wgmma"),
     (torch.bfloat16, 128, 96, 2, (), "wgmma"),                # Dv off 64
-    (torch.bfloat16, 192, 128, 2, (), "simt"),                # no instance
-    (torch.bfloat16, 144, 144, 1, (), "simt"),                # past 128
+    (torch.bfloat16, 192, 128, 2, (), "wgmma"),               # MLA's D
+    (torch.bfloat16, 144, 144, 1, (), "simt"),                # Dv past 128
     (torch.bfloat16, 80, 256, 8, (), "wgmma"),
     (torch.bfloat16, 320, 64, 1, (), "simt"),                 # D past 256
     (torch.bfloat16, 128, 512, 1, (), "simt"),                # Dv past 256
@@ -414,19 +414,43 @@ def test_attention_route_rule(dtype, d, dv, g, aligned, route):
 
 
 def test_attention_route_over_the_sweep():
-    """dtype x D x Dv x G x alignment against the rule as stated."""
-    def width_ok(x):
+    """dtype x D x Dv x G x alignment against the rule as stated: D a
+    multiple of 16 in [16, 256], Dv one of the instances' widths."""
+    def d_ok(x):
+        return 16 <= x <= 256 and x % 16 == 0
+
+    def dv_ok(x):
         return (16 <= x <= 128 and x % 16 == 0) or x == 256
 
     for dt, d, dv, g, off in itertools.product(
             (torch.float32, torch.float16, torch.bfloat16),
-            (8, 16, 32, 48, 64, 72, 80, 128, 144, 192, 256, 512),
+            (8, 16, 32, 48, 64, 72, 80, 128, 144, 192, 200, 240, 256, 272,
+             512),
             (16, 24, 48, 64, 80, 112, 128, 160, 192, 256, 320),
-            (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
-        want = ("wgmma" if dt != torch.float32 and width_ok(d)
-                and width_ok(dv) and g in (1, 2, 8, 16, 64)
+            (1, 2, 3, 8, 12, 16, 64, 96), (0, 2, 16)):
+        want = ("wgmma" if dt != torch.float32 and d_ok(d)
+                and dv_ok(dv) and g in (1, 2, 8, 16, 64)
                 and off % 16 == 0 else "simt")
         assert tplan.attention_route(dt, d, dv, g, 1 << 20, off) == want
+
+
+@pytest.mark.parametrize("dtype,d,dv,g,route", [
+    (torch.bfloat16, 192, 128, 1, "wgmma"),   # deepseek-v3's MLA chunk
+    (torch.float16, 192, 128, 1, "wgmma"),
+    (torch.bfloat16, 256, 128, 1, "wgmma"),
+    (torch.bfloat16, 200, 128, 1, "simt"),    # D off 16
+    (torch.bfloat16, 272, 128, 1, "simt"),    # D past 256
+    (torch.float32, 192, 128, 1, "simt"),     # no TF32
+    (torch.bfloat16, 192, 192, 1, "simt"),    # Dv has no instance
+    (torch.bfloat16, 128, 128, 8, "wgmma"),   # qwen1.5-110b, 8 q a kv head
+    (torch.bfloat16, 128, 128, 12, "simt"),   # command-r-plus: G = 12
+])
+def test_attention_route_at_the_new_served_shapes(dtype, d, dv, g, route):
+    """The widened rule at the shapes of this slice's served models (the
+    gradient's rule keeps D and Dv to 128)."""
+    assert tplan.attention_route(dtype, d, dv, g, 0, 256) == route
+    assert tplan.attention_bwd_route(dtype, d, dv, g) == (
+        "wgmma" if route == "wgmma" and d <= 128 and dv <= 128 else "simt")
 
 
 def test_both_attention_wrappers_share_the_route_rule():
@@ -541,7 +565,7 @@ def test_attention_tiles_match_the_cuda_sources():
     expr = re.search(r"att_tc_smem_bytes\(int D, int Dv\) \{\s*return "
                      r"([^;]+);", text).group(1)
     widths = [*range(16, 129, 16), 256]
-    for d, dv in itertools.product(widths, repeat=2):
+    for d, dv in itertools.product(range(16, 257, 16), widths):
         assert tplan.attention_route(torch.bfloat16, d, dv, 1) == "wgmma"
         got = eval(" ".join(expr.split()), {
             "D": d, "Dv": dv, "ATT_TC_STAGES": at["ATT_TC_STAGES"]})
@@ -552,6 +576,10 @@ def test_attention_tiles_match_the_cuda_sources():
         1024 + 2 * 8192 + 2 * (2 + 2) * 8192 + 6 * 8
     assert tplan.OverlapPlanner.attention_tc_stage_bytes(80, 48) == \
         1024 + 2 * 8192 + 2 * (2 + 1) * 8192 + 6 * 8
+    # MLA's D = 192, Dv = 128: q three boxes, each stage three of k and
+    # two of v
+    assert tplan.OverlapPlanner.attention_tc_stage_bytes(192, 128) == \
+        1024 + (3 + 2 * (3 + 2)) * 8192 + 48 == 107_568
     # D = Dv = 256: q 32 KiB + 2 x (32 + 32) KiB, the alignment slack and
     # six barriers; one block an SM fits
     big = tplan.OverlapPlanner.attention_tc_stage_bytes(256, 256)
@@ -724,6 +752,8 @@ def test_attention_block_is_fixed_on_the_tensor_core_route():
     assert p.plan_attention_block(8, 8, 80, 80, torch.float32,
                                   block=16) == 16
     assert p.plan_attention_block(8, 8, 192, 128, torch.bfloat16,
+                                  block=16) == 64
+    assert p.plan_attention_block(8, 8, 192, 128, torch.float32,
                                   block=16) == 16
 
 
