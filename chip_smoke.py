@@ -72,6 +72,22 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   backend against the hierarchical one, the int8 codec against flat, and
   a checkpoint saved at step 2 and restored, step 3 bit for bit the
   uninterrupted run's;
+* the long-context decode: zamba2-1.2b at full width and depth at the
+  reference's long_500k cell (B = 1, S = 524,288) on data 4 x model 2, its
+  K/V caches context-sharded over "data" (131,072 rows a rank, 25.8 GB):
+  a 2000-token prompt prefilled, the later rows filled from a seed, 32
+  greedy decode steps from 64 rows short of S, every decode attention
+  ``cp_decode_attention`` (row 5's kernel a rank with the lse, non-causal,
+  merged by three OMPCCL all-reduces); the partial alone at its 131,072
+  keys beside SDPA over the same keys, and the sharded decode against the
+  replicated one at S = 32,768;
+* the audio family: hubert-xlarge at full width and depth on data 2 x
+  model 2, the encoder's forward over 8 x 1500 frames, then 4 masked-frame
+  training steps of 8 x 1024 frames through the launcher under the tp
+  layout and again under ``dp_only``, every attention forward and
+  backward non-causal on the tensor cores at head_dim 80; at depth 2 the
+  kernels' step against the plain versions' and dp_only's first loss
+  against tp's;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the attention gradient, the wave step and
@@ -136,6 +152,7 @@ MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 8
 # experts, capacity factor 4.0 (tests/test_models.py's ample capacity)
 MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 5
 MLA_CUT_EXPERTS, MLA_CUT_CF = 32, 4.0
+MLA_PLAIN_EXPERTS = 8           # experts a plain expert-MLP call holds
 # the dense GQA configs at full width, depth cut to 4: one 512-token chunk
 # and GQA_DECODES decode steps through the built steps
 GQA_ARCHS, GQA_LAYERS, GQA_DECODES = ("qwen1-5-110b",
@@ -148,6 +165,23 @@ REQUESTS, MIN_PROMPT, MAX_PROMPT, MAX_NEW = 8, 256, 3000, 32
 REC_ARCHS = ("rwkv6-7b", "zamba2-1-2b")
 REC_REQUESTS, REC_PROMPT, REC_NEW = 4, 2000, 32
 REC_PREFILL_REPS = 4            # timed prefill calls after the served one
+# the long-context decode: zamba2-1.2b at full width and depth on data 4 x
+# model 2 at the reference's long_500k cell (B = 1, S = 524,288), the K/V
+# caches context-sharded over "data" (131,072 rows a rank, 25.8 GB in all)
+# and the weights replicated over "data" (fsdp_params=False): a prompt of
+# REC_PROMPT tokens prefilled, the later rows filled from a seed, pos set
+# LONG_TAIL rows short of S, then LONG_NEW greedy decode steps; the parity
+# check at LONG_PARITY_S against the replicated cache, LONG_PARITY_NEW
+# teacher-forced steps (the reference's 2e-2 relative)
+LONG_ARCH, LONG_MESH, LONG_S, LONG_TAIL, LONG_NEW = (
+    "zamba2-1-2b", (("data", "model"), (4, 2)), 524_288, 64, 32)
+LONG_PARITY_S, LONG_PARITY_NEW = 32_768, 8
+# the audio family: hubert-xlarge at full width and depth on data 2 x model
+# 2: the encoder's forward over AUDIO_FWD_BATCH x AUDIO_FWD_FRAMES frames,
+# then the launcher's TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ frames
+# (microbatch TRAIN_MICRO) under each layout; its checks at depth 2
+AUDIO_ARCH, AUDIO_FWD_BATCH, AUDIO_FWD_FRAMES = "hubert-xlarge", 8, 1500
+AUDIO_LAYOUTS = ("tp", "dp_only")
 # sequence-parallel serving: paligemma-3b at full width and depth under
 # seq_parallel="ring" on the same mesh, engine and traffic as glm4-9b; the
 # ring kernel also timed at a training-layout shape: 4 virtual ranks of
@@ -1337,9 +1371,76 @@ def check_ring_attention(torch, k, g) -> None:
             plan=plan), "ring attention")
 
 
+def check_cp_decode(torch, k, g) -> None:
+    """The context-sharded decode's partial on the card: row 5's kernel with
+    the lse where a row sees no key (``valid_len`` 0) writes 0 and +inf on
+    both routes, as its plain version does (the combine turns that into
+    weight 0); then ``cp_decode_attention`` over 4 data ranks, one to three
+    of them past ``pos`` and ``pos`` on and across a chunk boundary,
+    against its plain version (the reference's einsum form) and against
+    the replicated decode's flash call on the same keys; bf16 (1.6e-2 of
+    the output's scale) and f32 (2e-5) at D = 64 (the tensor cores in bf16)
+    and D = 48 (off the rule: the CUDA cores)."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import layers
+
+    kern = k.flash_attention_kernel
+    dev = g.device
+    for dt, D in ((torch.bfloat16, 64), (torch.float32, 64),
+                  (torch.bfloat16, 48)):
+        route = _attention_route(torch, dt, D, D, 1)
+        q = torch.randn(2, 1, 1, 4, D, generator=g, device=dev).to(dt)
+        kk, v = (torch.randn(2, 1, 96, 4, D, generator=g, device=dev)
+                 .to(dt) for _ in range(2))
+        vl = torch.tensor([[0], [37]], dtype=torch.int32, device=dev)
+        out, lse = _counted(kern, lambda: kern(
+            q, kk, v, causal=False, valid_len=vl, return_lse=True), route)
+        want, wlse = k.flash_attention_plain(q, kk, v, causal=False,
+                                             valid_len=vl, return_lse=True)
+        check(not out[0].any() and bool(torch.isposinf(lse[0]).all())
+              and bool(torch.isposinf(wlse[0]).all()),
+              f"cp partial {dt} D {D} ({route}): a row with no key wrote "
+              f"{out[0].abs().max()} and lse {lse[0]}")
+        tol = 2e-5 if dt == torch.float32 else 1.6e-2
+        check(max_err(torch, out, want) <= tol * float(want.abs().max())
+              and max_err(torch, lse[1:], wlse[1:]) <= 1e-4,
+              f"cp partial {dt} D {D} ({route}): differs from plain")
+    mesh = RankMesh(("data", "model"), (4, 2))
+    group = DiompGroup(("data",), name="dp_inner")
+    S, s_loc = 256, 64
+    for dt, D in ((torch.bfloat16, 64), (torch.float32, 64),
+                  (torch.bfloat16, 48)):
+        q = torch.randn(4, 2, 2, 1, 8, D, generator=g, device=dev).to(dt)
+        q = q[:1].expand(4, 2, 2, 1, 8, D).contiguous()    # replicated
+        kg, vg = (torch.randn(2, 2, S, 4, D, generator=g, device=dev)
+                  .to(dt) for _ in range(2))               # (model, B, S)
+        sh = [c.unflatten(2, (4, s_loc)).movedim(2, 0).contiguous()
+              for c in (kg, vg)]                           # (data, model..)
+        for pos in (5, 64, 65, 200, S):
+            cache = layers.KVCache(*sh, torch.full((4, 2), pos,
+                                                   dtype=torch.int32,
+                                                   device=dev),
+                                   seq_sharded=True)
+            with use_default(DiompContext(mesh=mesh, device=dev)):
+                got = layers.cp_decode_attention(q, cache, group)
+                want = layers.cp_decode_attention_plain(q, cache, group)
+            whole = k.flash_attention_plain(
+                q[0], kg, vg, causal=False, valid_len=pos)
+            tol = 2e-5 if dt == torch.float32 else 1.6e-2
+            scale = float(want.float().abs().max())
+            check(bool(torch.isfinite(got).all())
+                  and max_err(torch, got, want) <= tol * scale
+                  and max_err(torch, got[0], whole) <= tol * scale,
+                  f"cp_decode_attention {dt} D {D} pos {pos}: err "
+                  f"{max_err(torch, got, want)}")
+
+
 SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "leap": check_leap, "fused_step": check_fused_step,
                 "flash": check_flash, "flash_bwd": check_flash_bwd,
+                "cp_decode": check_cp_decode,
                 "expert_mlp": check_expert_mlp,
                 "moe_dispatch": check_moe_dispatch,
                 "linear_scan": check_linear_scan,
@@ -1350,18 +1451,18 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
 # -- the serving phase ---------------------------------------------------------
 
 
-def _sdpa(torch, q, kk, v, visible):
+def _sdpa(torch, q, kk, v, visible, causal=True):
     """``scaled_dot_product_attention`` on the flash kernel's operands
     (``(..., B, T, H, D)``, GQA) under a boolean ``(N, Tq, Tk)`` mask or,
     with ``visible`` None, under ``is_causal=True`` (the causal mask from
-    position 0, Tq = Tk): the library yardstick, never called by the
-    port."""
+    position 0, Tq = Tk), or with no mask at all where ``causal`` is
+    False: the library yardstick, never called by the port."""
     import torch.nn.functional as F
     q4 = q.reshape(-1, *q.shape[-3:]).transpose(1, 2)
     k4 = kk.reshape(-1, *kk.shape[-3:]).transpose(1, 2).contiguous()
     v4 = v.reshape(-1, *v.shape[-3:]).transpose(1, 2).contiguous()
-    kw = dict(is_causal=True) if visible is None else dict(
-        attn_mask=visible[:, None])
+    kw = (dict(is_causal=causal) if visible is None
+          else dict(attn_mask=visible[:, None]))
 
     def call():
         return F.scaled_dot_product_attention(q4, k4, v4, enable_gqa=True,
@@ -1391,16 +1492,18 @@ def _sdpa(torch, q, kk, v, visible):
 
 
 def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
-              sample=False, route="wgmma"):
+              sample=False, route="wgmma", causal=True):
     """The flash kernel against its plain version and SDPA at one shape of
     the serving path; q_off / valid are ``(*ranks, B)`` int32 tensors.  The
     launch must take ``route`` (the tensor cores unless the caller says
     otherwise) and, where ``min_blocks`` is given (a decode), launch at
     least that many blocks through the key split; ``sample`` samples the
-    card's clock and power over the kernel's timing."""
+    card's clock and power over the kernel's timing.  Non-causal (the
+    audio encoder), every key below ``valid`` is visible, and SDPA runs
+    without a mask where every key is valid."""
     Tq, H, D = q.shape[-3:]
     Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
-    kw = dict(causal=True, q_offset=q_off, valid_len=valid)
+    kw = dict(causal=causal, q_offset=q_off, valid_len=valid)
     got = _counted(k.flash_attention_kernel,
                    lambda: k.flash_attention_kernel(q, kk, v, **kw), route)
     grid = dict(k.flash_attention_kernel.last_grid)
@@ -1418,7 +1521,9 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
     t = torch.arange(Tq, device=q.device)
     kpos = torch.arange(Tk, device=q.device)
     qo, vl = q_off.reshape(-1, 1, 1), valid.reshape(-1, 1, 1)
-    visible = (kpos <= qo + t[:, None]) & (kpos < vl)       # (N, Tq, Tk)
+    visible = (kpos < vl).expand(-1, Tq, Tk)                # (N, Tq, Tk)
+    if causal:
+        visible = visible & (kpos <= qo + t[:, None])
     pairs = int(visible.sum()) * H                          # (row, key) pairs
     rows_read = int(torch.clamp(valid, max=Tk).sum())
     nbytes = 2 * (q.numel() + rows_read * KH * (D + Dv)
@@ -1436,7 +1541,8 @@ def _flash_at(torch, k, name, q, kk, v, q_off, valid, min_blocks=0,
     dev = device_ms(torch, call, 10, FLASH_KERNELS)
     cold = device_ms(torch, call, 10, FLASH_KERNELS, cold_l2=True)
     plain = cuda_ms(torch, lambda: k.flash_attention_plain(q, kk, v, **kw), 3)
-    sdpa = _sdpa(torch, q, kk, v, visible)
+    whole = not causal and bool((valid >= Tk).all())
+    sdpa = _sdpa(torch, q, kk, v, None if whole else visible, causal=causal)
     library = cuda_ms(torch, sdpa, 10)
     library_dev = device_ms(torch, sdpa, 10, ("",))
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
@@ -1460,8 +1566,7 @@ def _flash_call(torch, k, name, args, kw, route="wgmma"):
     """:func:`_flash_at` on the arguments a layer gave the flash kernel,
     its offsets made per-row tensors as the kernel's wrapper makes them."""
     q, kk, v = args
-    check(kw.get("causal", True) and not kw.get("prefix_len"),
-          f"flash {name}: called with {kw}")
+    check(not kw.get("prefix_len"), f"flash {name}: called with {kw}")
     lead = q.shape[:-3]
 
     def per_row(x):
@@ -1471,7 +1576,7 @@ def _flash_call(torch, k, name, args, kw, route="wgmma"):
     vl = kw.get("valid_len")
     return _flash_at(torch, k, name, q, kk, v, per_row(kw.get("q_offset", 0)),
                      per_row(kk.shape[-3] if vl is None else vl),
-                     route=route)
+                     route=route, causal=kw.get("causal", True))
 
 
 def _breakdown(torch, fn, reps: int = 3) -> str:
@@ -1823,9 +1928,11 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
 
 
 class _Tap:
-    """Route ``module.name`` through a recorder: ``keep(args)`` decides
+    """Route ``module.name`` through a recorder: ``keep(args, kw)`` decides
     whether a call's arguments are kept in ``calls``; the original runs
-    either way (its launch counts included)."""
+    either way (its launch counts included).  The recorder is made on
+    entry and dropped on exit, so nothing but ``calls`` outlives the block
+    (no reference cycle keeps the arguments alive)."""
 
     def __init__(self, module, name, keep):
         # keep(args, kw) -> bool
@@ -1847,7 +1954,23 @@ class _Tap:
         setattr(self.module, self.name, self.orig)
 
 
-def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True):
+class _Swap:
+    """``module.name`` replaced by ``fn`` while the block runs."""
+
+    def __init__(self, module, name, fn):
+        self.module, self.name, self.fn = module, name, fn
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+        setattr(self.module, self.name, self.fn)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True,
+                 plain_experts=0):
     """The fused dispatch kernel at one shape of the serving path (the
     arguments a MoE layer gave it): equal to the emulation through the
     expert-MLP kernel, within tolerance of the plain version, timed (CUDA
@@ -1855,8 +1978,10 @@ def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True):
     profiler, warm and with L2 flushed).  Then, ``with_mlp``, the
     expert-MLP kernel on the same landed blocks (every rank's blocks from
     every source in one call, the a2a layout), held against its plain
-    version and timed the same way.  Returns the dispatch's numbers and
-    the expert MLP's (None without it)."""
+    version and timed the same way; with ``plain_experts`` the plain
+    version runs that many experts at a time (at deepseek-v3's widths it
+    lifts every expert's weights to f32 over every source).  Returns the
+    dispatch's numbers and the expert MLP's (None without it)."""
     from repro_torch.kernels.moe_dispatch.fused import dispatch_buffers
     got, dropped = k.fused_moe_dispatch_kernel(*args, **kw)
     emu, _ = k.fused_moe_dispatch_interpret(*args, **kw, mlp=k.expert_mlp)
@@ -1906,11 +2031,19 @@ def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True):
     wg, wu, wd = (w.reshape(ep, *w.shape[-3:]) for w in (wg, wu, wd))
     mlp = lambda: k.expert_mlp(x, wg, wu, wd, live)  # noqa: E731
     got = _counted(k.expert_mlp, mlp, "wgmma")
-    want = k.expert_mlp_plain(x, wg, wu, wd, live)
-    mlp_err = max_err(torch, got, want)
+    E_loc = x.shape[2]
+    step_e = plain_experts or E_loc
+    mlp_err = scale = 0.0
+    for e0 in range(0, E_loc, step_e):
+        sl = slice(e0, e0 + step_e)
+        want = k.expert_mlp_plain(x[:, :, sl].contiguous(), wg[:, sl],
+                                  wu[:, sl], wd[:, sl], live[:, :, sl])
+        mlp_err = max(mlp_err, max_err(torch, got[:, :, sl], want))
+        scale = max(scale, float(want.float().abs().max()))
+        del want
     dead = ~(torch.arange(x.shape[-2], device=x.device) < live[..., None])
-    check(mlp_err <= 1.6e-2 * float(want.float().abs().max())
-          and not got[dead].any(), f"expert_mlp {name}: err {mlp_err}")
+    check(mlp_err <= 1.6e-2 * scale and not got[dead].any(),
+          f"expert_mlp {name}: err {mlp_err}")
     reached = int((live.sum(-2) > 0).sum())      # (rank, expert) pairs
     mlp_bytes = 2 * (reached * 3 * d * f + 2 * pairs * d) + 4 * live.numel()
     mb_ms, mb_by = bound(mlp_bytes, ops, "bfloat16")
@@ -1921,10 +2054,12 @@ def _dispatch_at(torch, k, name, args, kw, plan, with_mlp=True):
         f"{reached} experts: {mlp_ms:.3f} ms, device {_ms(mlp_dev, 4)} warm / "
         f"{_ms(mlp_cold, 4)} L2 flushed, bound {mb_ms:.4f} ms by {mb_by}, err "
         f"{mlp_err:.4g}")
-    del x, live, got, want
+    shape = list(x.shape)
+    del x, live, got
     return disp, {"max_abs_err": mlp_err, "ms": mlp_ms, "device_ms": mlp_dev,
                   "device_ms_l2_flushed": mlp_cold, "bound_ms": mb_ms,
-                  "bound_by": mb_by}
+                  "bound_by": mb_by, "shape": shape,
+                  "live_rows": pairs, "experts_reached": reached}
 
 
 def moe_phase(torch, k, dev, wrappers) -> list:
@@ -2238,10 +2373,11 @@ def mla_phase(torch, k, dev, wrappers) -> dict:
         "dispatch_routes": moe_routes, "serving_peak_gb": peak}
     # the dispatch at the served decode and chunk shapes of the last MoE
     # layer, on a copy of its expert weights once the rest of the model is
-    # freed: the plain version lifts 128 experts of 7168 x 2048 to f32 (the
-    # expert MLP's plain version on the landed blocks, whose batched
-    # product broadcasts them over the sources, is left out).  Each stacked
-    # leaf is dropped as soon as its layer is copied.
+    # freed: the plain version lifts 128 experts of 7168 x 2048 to f32; the
+    # expert MLP's plain version on the chunk's landed blocks, whose
+    # batched product broadcasts them over the sources, runs a few experts
+    # at a time.  Each stacked leaf is dropped as soon as its layer is
+    # copied.
     import gc
     (d_args, d_kw), (c_args, c_kw) = steps_calls[-1][-1], chunk_call[-1]
     names = ("w_gate_e", "w_up_e", "w_down_e")
@@ -2270,9 +2406,11 @@ def mla_phase(torch, k, dev, wrappers) -> dict:
         res["dispatch_decode"], _ = _dispatch_at(
             torch, k, "mla decode", d_args, d_kw, d_kw["plan"],
             with_mlp=False)
-        res["dispatch_chunk"], _ = _dispatch_at(
+        # row 7 at E = 256, d = 7168, f = 2048 on the chunk's landed
+        # blocks, its plain version 8 experts at a time
+        res["dispatch_chunk"], res["mlp_chunk"] = _dispatch_at(
             torch, k, "mla chunk", c_args, c_kw, c_kw["plan"],
-            with_mlp=False)
+            plain_experts=MLA_PLAIN_EXPERTS)
     del d_args, c_args
     torch.cuda.empty_cache()
 
@@ -2530,7 +2668,8 @@ def _recurrent_bounds(cfg, schema, B, T, decode_pos):
     return out
 
 
-def _zero_cache(torch, cfg, mesh, pctx, B, S_cache, dtype, dev):
+def _zero_cache(torch, cfg, mesh, pctx, B, S_cache, dtype, dev,
+                seq_sharded=False):
     """A zeroed stacked decode cache laid out from ``cache_structs``."""
     from repro_torch.interop import local_shape
     from repro_torch.models import api
@@ -2541,7 +2680,8 @@ def _zero_cache(torch, cfg, mesh, pctx, B, S_cache, dtype, dev):
         return torch.zeros(local_shape(structs.shape, mesh, specs),
                            dtype=structs.dtype, device=dev)
 
-    return zeros(*api.cache_structs(cfg, mesh, pctx, B, S_cache, dtype=dtype))
+    return zeros(*api.cache_structs(cfg, mesh, pctx, B, S_cache, dtype=dtype,
+                                    seq_sharded=seq_sharded))
 
 
 def _greedy(torch, logits, step, mesh, dev):
@@ -3430,26 +3570,41 @@ FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel",
                      "bwd_rows_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
 
 
-def _train_flops(cfg, tokens: int) -> float:
+def _layer_matrix_weights(cfg, spec) -> int:
+    """Weights of the layers' matrices that a token passes through: the
+    audio encoder's GELU MLP leaves its schema's ``w_gate`` unread."""
+    unread = ("layers/w_gate",) if cfg.family == "audio" else ()
+    return sum(math.prod(s.shape) for n, s in spec.items()
+               if n.startswith("layers/") and len(s.shape) == 3
+               and n not in unread)
+
+
+def _attn_pairs(T: int, causal: bool) -> int:
+    """(query, key) pairs of one head over a T-token sequence."""
+    return T * (T + 1) // 2 if causal else T * T
+
+
+def _train_flops(cfg, tokens: int, seq: int = None) -> float:
     """Operations of one training step under remat: 8 a token for each
     weight of the layers' matrices (forward, recomputed forward, backward
-    twice the forward), 6 for each weight of the LM head (never
-    recomputed), none for the embedding lookup and the norms; plus the
-    attention's causal score products (forward twice, backward 2.5 times
-    the forward)."""
+    twice the forward), 6 for each weight of the head (LM or masked-frame;
+    never recomputed), none for the embedding lookup and the norms; plus
+    the attention's score products over the visible pairs (causal, or all
+    of them for the encoder; forward twice, backward 2.5 times the
+    forward)."""
     from repro_torch.models import schema
 
+    seq = TRAIN_SEQ if seq is None else seq
     spec = schema.build_schema(cfg)
-    head = "lm_head" if "lm_head" in spec else "embed/table"
-    per_token = 6 * math.prod(spec[head].shape) + 8 * sum(
-        math.prod(s.shape) for n, s in spec.items()
-        if n.startswith("layers/") and len(s.shape) == 3)
+    head = next(h for h in ("lm_head", "head", "embed/table") if h in spec)
+    per_token = 6 * math.prod(spec[head].shape) \
+        + 8 * _layer_matrix_weights(cfg, spec)
     attn = 2 * 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim \
-        * TRAIN_SEQ * (TRAIN_SEQ + 1) / 2 * (tokens / TRAIN_SEQ)
+        * _attn_pairs(seq, cfg.causal) * (tokens / seq)
     return per_token * tokens + (2 + 2.5) * attn
 
 
-def _bwd_at(torch, k, q, kk, v, do):
+def _bwd_at(torch, k, q, kk, v, do, causal=True):
     """The backward kernel at the training path's shape against its plain
     version and SDPA's backward, with its bound (operations at the bf16
     tensor-core rate: S, dP, dv, dq and dk over the visible (row, key)
@@ -3458,18 +3613,20 @@ def _bwd_at(torch, k, q, kk, v, do):
     cores.  Then the forward with the lse at the same shape (row 5's
     training entry, on the tensor cores): its time, device time and bound
     (two products over the visible pairs), beside SDPA's forward under
-    ``is_causal=True`` (the same function at this shape: no offset, every
-    key valid; row 5's library time) and under the same mask as a boolean
-    tensor."""
+    ``is_causal`` (the same function at this shape: no offset, every key
+    valid; row 5's library time) and, causal, under the same mask as a
+    boolean tensor.  ``causal=False`` is the audio encoder's attention:
+    every key visible to every query."""
     import torch.nn.functional as F
     Tq, H, D = q.shape[-3:]
     Tk, Dv = kk.shape[-3], v.shape[-1]
-    o, lse = k.flash_attention_kernel(q, kk, v, return_lse=True)
+    o, lse = k.flash_attention_kernel(q, kk, v, causal=causal,
+                                      return_lse=True)
     args = (q, kk, v, o, do, lse)
     bwd = k.flash_attention_bwd_kernel
-    got = _counted(bwd, lambda: bwd(*args), "wgmma")
+    got = _counted(bwd, lambda: bwd(*args, causal=causal), "wgmma")
     grid = dict(bwd.last_grid)
-    want = k.flash_attention_bwd_plain(*args)
+    want = k.flash_attention_bwd_plain(*args, causal=causal)
     errs = {n: (max_err(torch, x, w), float(w.float().abs().max()),
                 int((x != w).sum()), x.numel())
             for n, x, w in zip(("dq", "dk", "dv"), got, want)}
@@ -3479,23 +3636,28 @@ def _bwd_at(torch, k, q, kk, v, do):
     check(err <= 1.6e-2, f"flash bwd at the training shape: rel err {err}")
     del got, want
     n = q.numel() // (Tq * H * D)
-    pairs = n * H * Tq * (Tq + 1) // 2
+    pairs = n * H * _attn_pairs(Tq, causal)
     ops = 2 * pairs * (3 * D + 2 * Dv)
     nbytes = 2 * (2 * q.numel() + 2 * kk.numel() + 2 * v.numel()
                   + 2 * o.numel()) + 4 * lse.numel()
     b_ms, b_by = bound(nbytes, ops, "bfloat16")
-    ms = cuda_ms(torch, lambda: bwd(*args), 5)
+
+    def call():
+        return bwd(*args, causal=causal)
+
+    ms = cuda_ms(torch, call, 5)
     # the device time by pass, each from its own traces, and their sum (one
     # trace of all three has been seen to hold only some of them)
-    passes = {name: device_ms(torch, lambda: bwd(*args), 3, (name,))
+    passes = {name: device_ms(torch, call, 3, (name,))
               for name in ("bwd_rows_kernel", "dkdv_tc_kernel",
                            "dq_tc_kernel")}
     dev = None if None in passes.values() else sum(passes.values())
-    plain = cuda_ms(torch, lambda: k.flash_attention_bwd_plain(*args), 2)
+    plain = cuda_ms(torch, lambda: k.flash_attention_bwd_plain(
+        *args, causal=causal), 2)
     # the library's yardstick: SDPA's backward alone, on its own forward
     q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (q, kk, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
     do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
 
     def sdpa_bwd():
@@ -3510,13 +3672,15 @@ def _bwd_at(torch, k, q, kk, v, do):
         f"by {b_by}; rel err {err:.3g}")
     # the forward with the lse at the same shape (D = 80: the tensor cores)
     def fwd():
-        return k.flash_attention_kernel(q, kk, v, return_lse=True)
+        return k.flash_attention_kernel(q, kk, v, causal=causal,
+                                        return_lse=True)
 
     f_route = _attention_route(torch, q.dtype, D, Dv, H // kk.shape[-2])
     check(f_route == "wgmma", f"flash forward at the training shape: "
           f"the rule gives {f_route}")
     f_got, f_lse = _counted(k.flash_attention_kernel, fwd, f_route)
-    f_want, f_lse_want = k.flash_attention_plain(q, kk, v, return_lse=True)
+    f_want, f_lse_want = k.flash_attention_plain(q, kk, v, causal=causal,
+                                                 return_lse=True)
     f_err = max_err(torch, f_got, f_want) / max(
         float(f_want.float().abs().max()), 1e-6)
     l_err = max_err(torch, f_lse, f_lse_want)
@@ -3529,24 +3693,28 @@ def _bwd_at(torch, k, q, kk, v, do):
     # calls, under a millisecond) have come back empty late in the script
     f_dev = device_ms(torch, fwd, 10, FLASH_KERNELS)
     f_plain = cuda_ms(torch, lambda: k.flash_attention_plain(
-        q, kk, v, return_lse=True), 2)
+        q, kk, v, causal=causal, return_lse=True), 2)
     f_b_ms, f_b_by = bound(
         2 * (q.numel() + kk.numel() + v.numel() + o.numel())
         + 4 * lse.numel(), 2 * pairs * (D + Dv), "bfloat16")
-    sdpa = _sdpa(torch, q, kk, v, None)
+    sdpa = _sdpa(torch, q, kk, v, None, causal=causal)
     f_lib = cuda_ms(torch, sdpa, 5)
     f_lib_dev = device_ms(torch, sdpa, 10, ("",))
-    t_ = torch.arange(Tq, device=q.device)
-    visible = (t_[None, :] <= t_[:, None]).expand(n, Tq, Tk)
-    sdpa = _sdpa(torch, q, kk, v, visible)
-    f_mask = cuda_ms(torch, sdpa, 5)
-    f_mask_dev = device_ms(torch, sdpa, 10, ("",))
-    del visible, sdpa
-    log(f"flash forward with the lse at q {tuple(q.shape)} ({f_route}): "
-        f"{f_ms:.4f} ms (device {_ms(f_dev, 4)}), bound {f_b_ms:.4f} ms by "
-        f"{f_b_by}, plain {f_plain:.3f}, rel err {f_err:.3g}; sdpa forward "
-        f"is_causal {f_lib:.4f} (device {_ms(f_lib_dev, 4)}), boolean mask "
-        f"{f_mask:.4f} (device {_ms(f_mask_dev, 4)})")
+    f_mask = f_mask_dev = None
+    if causal:
+        t_ = torch.arange(Tq, device=q.device)
+        visible = (t_[None, :] <= t_[:, None]).expand(n, Tq, Tk)
+        sdpa = _sdpa(torch, q, kk, v, visible)
+        f_mask = cuda_ms(torch, sdpa, 5)
+        f_mask_dev = device_ms(torch, sdpa, 10, ("",))
+        del visible
+    del sdpa
+    log(f"flash forward with the lse at q {tuple(q.shape)} ({f_route}, "
+        f"causal {causal}): {f_ms:.4f} ms (device {_ms(f_dev, 4)}), bound "
+        f"{f_b_ms:.4f} ms by {f_b_by}, plain {f_plain:.3f}, rel err "
+        f"{f_err:.3g}; sdpa forward is_causal={causal} {f_lib:.4f} (device "
+        f"{_ms(f_lib_dev, 4)}), boolean mask {_ms(f_mask, 4)} (device "
+        f"{_ms(f_mask_dev, 4)})")
     return {"max_abs_err": err, "ms": ms, "device_ms": dev,
             "pass_device_ms": passes, "plain_ms": plain, "bound_ms": b_ms,
             "bound_by": b_by, "library_ms": library,
@@ -3579,12 +3747,13 @@ def _train_setup(torch, dev, cfg, mesh, **knobs):
                                 **knobs)
     opt = adamw(lambda step: torch.tensor(TRAIN_LR), b1=TRAIN_B1)
     step = build_train_step(cfg, mesh, ctx, opt, donate=False)
-    _, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
-                                  dp_axes=ctx.dp_axes)
+    structs, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
+                                        dp_axes=ctx.dp_axes)
     src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=17)
 
     def batch(i):
-        return {n: stack_shards(a, mesh, bspecs[n], device=dev)
+        return {n: stack_shards(a, mesh, bspecs[n], device=dev,
+                                dtype=structs[n].dtype)
                 for n, a in src.batch_at(i).items()}
     return ctx, opt, step, batch
 
@@ -3902,6 +4071,537 @@ def train_phase(torch, k, dev, wrappers) -> dict:
     del q, kk, v, do
     torch.cuda.empty_cache()
     return row
+
+
+# -- the long-context decode: zamba2-1.2b at 524,288 tokens -----------------
+
+
+def _fill_rows(torch, cache, sharded, lo, hi, g, src=None):
+    """Rows ``[lo, hi)`` of the global sequence in a stacked K/V cache
+    ``(data, model, n_app, B, rows, KH, D)``, context-sharded over "data"
+    or replicated: from ``src`` (those global rows, ``(model, n_app, B,
+    hi - lo, KH, D)``) or drawn from ``g``."""
+    s_loc = cache.shape[-3]
+    for r in range(cache.shape[0]):
+        start = r * s_loc if sharded else 0
+        a, b = max(lo, start), min(hi, start + s_loc)
+        if a >= b:
+            continue
+        rows = cache[r, :, :, :, a - start:b - start]
+        if src is None:
+            rows.normal_(0.0, 1.0, generator=g)
+        else:
+            rows.copy_(src[:, :, :, a - lo:b - lo])
+
+
+def _cp_partial_at(torch, k, args, kw):
+    """Row 5's kernel at the cp partial of the long decode (the arguments a
+    shared-block application gave it): against its plain version (output
+    and lse), timed (events and device time), its bound (the valid K/V rows
+    read once; two products over the visible pairs) and SDPA over the same
+    visible keys (a boolean mask)."""
+    q, kk, v = args
+    Tq, H, D = q.shape[-3:]
+    Tk, KH, Dv = kk.shape[-3], kk.shape[-2], v.shape[-1]
+    vl = torch.as_tensor(kw["valid_len"]).expand(q.shape[:-3]).contiguous()
+
+    def call():
+        return k.flash_attention_kernel(q, kk, v, causal=False, valid_len=vl,
+                                        return_lse=True)
+
+    got, lse = _counted(k.flash_attention_kernel, call, "wgmma")
+    grid = dict(k.flash_attention_kernel.last_grid)
+    want, wlse = k.flash_attention_plain(q, kk, v, causal=False, valid_len=vl,
+                                         return_lse=True)
+    err = max_err(torch, got, want)
+    l_err = max_err(torch, lse, wlse)
+    check(bool(torch.isfinite(got).all()) and l_err <= 1e-3
+          and err <= 1.6e-2 * float(want.float().abs().max()),
+          f"cp partial: err {err}, lse err {l_err}")
+    del got, want, lse, wlse
+    keys = int(vl.sum())
+    nbytes = 2 * (q.numel() + keys * KH * (D + Dv) + q.numel() // D * Dv) \
+        + 4 * q.numel() // D
+    b_ms, b_by = bound(nbytes, 2 * keys * H * Tq * (D + Dv), "bfloat16")
+    ms = cuda_ms(torch, call, 10)
+    dev = device_ms(torch, call, 10, FLASH_KERNELS)
+    plain = cuda_ms(torch, lambda: k.flash_attention_plain(
+        q, kk, v, causal=False, valid_len=vl, return_lse=True), 1)
+    visible = (torch.arange(Tk, device=q.device)
+               < vl.reshape(-1, 1, 1)).expand(-1, Tq, Tk)
+    sdpa = _sdpa(torch, q, kk, v, visible)
+    library = cuda_ms(torch, sdpa, 10)
+    library_dev = device_ms(torch, sdpa, 10, ("",))
+    del visible, sdpa
+    log(f"cp partial: q {tuple(q.shape)} k {tuple(kk.shape)} ({keys} valid "
+        f"keys over {vl.numel()} (rank, row) pairs; {grid}): {ms:.4f} ms "
+        f"(device {_ms(dev, 4)}), plain {plain:.2f}, sdpa over the same "
+        f"keys {library:.4f} (device {_ms(library_dev, 4)}), bound "
+        f"{b_ms:.4f} ms by {b_by}, err {err:.4g}, lse err {l_err:.3g}")
+    return {"max_abs_err": err, "lse_abs_err": l_err, "ms": ms,
+            "device_ms": dev, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": library,
+            "library_device_ms": library_dev, "blocks": grid["blocks"],
+            "splits": grid["splits"], "shape": list(q.shape),
+            "keys": list(kk.shape)}
+
+
+def long_decode_phase(torch, k, dev, wrappers) -> dict:
+    """zamba2-1.2b at full width and depth at the reference's long_500k cell
+    (B = 1, S = 524,288) on data 4 x model 2: the shared block's K/V caches
+    context-sharded over "data" through the port's prefill and decode
+    steps (``seq_sharded=True``), every decode step's attention
+    ``cp_decode_attention`` (row 5's kernel a rank with the lse, three
+    OMPCCL all-reduces).  A REC_PROMPT-token prompt is prefilled, the
+    later rows filled from a seed, and LONG_NEW greedy steps run from pos
+    = S - LONG_TAIL with every wrapper's count zeroed just before and read
+    just after; then the cp partial alone at its 131,072 keys a rank, and
+    the sharded decode against the replicated one at LONG_PARITY_S.
+    Returns the phase's numbers and launches."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.distributed.sharding import rules_for_ctx
+    from repro_torch.interop import stack_shards
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import layers
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.step import build_decode_step, build_prefill_step
+
+    cfg = configs.get(LONG_ARCH)
+    mesh = RankMesh(*LONG_MESH)
+    data = mesh.shape["data"]
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True,
+                                 fsdp_params=False)
+    L, n_app = cfg.num_layers, cfg.num_layers // cfg.attn_every
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev,
+                             rules=rules_for_ctx(pctx))
+    nbytes = sum(p.numel() * p.element_size() for p in params.values())
+    dctx = DiompContext(mesh=mesh, device=dev)
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def run(S, steps, tokens=None, sharded=True, fill=None, weights=None,
+            dt=torch.bfloat16):
+        """Prefill the prompt into a fresh cache of S rows, fill rows
+        [REC_PROMPT, S - LONG_TAIL), decode ``steps`` tokens from pos = S -
+        LONG_TAIL (greedy, or ``tokens`` teacher-forced), with the model's
+        weights (or ``weights``) and a cache of dtype ``dt``; returns
+        (logits a step, event ms a step, the built decode step, the
+        cache)."""
+        weights = params if weights is None else weights
+        pre = build_prefill_step(cfg, mesh, pctx, B=1, S_cache=S,
+                                 seq_sharded=sharded)
+        dec = build_decode_step(cfg, mesh, pctx, B=1, S=S,
+                                seq_sharded=sharded)
+        cache = _zero_cache(torch, cfg, mesh, pctx, 1, S, dt, dev,
+                            seq_sharded=sharded)
+        prompt = np.random.RandomState(0).randint(0, cfg.vocab_size,
+                                                  (1, REC_PROMPT))
+        with use_default(dctx):
+            logits, cache = pre(weights, stack_shards(
+                prompt, mesh, pre.token_spec, device=dev,
+                dtype=torch.int64), cache)
+            for name in ("k", "v"):
+                _fill_rows(torch, cache[name], sharded, REC_PROMPT,
+                           S - LONG_TAIL, g,
+                           None if fill is None else fill[name].to(dt))
+            cache["pos"].fill_(S - LONG_TAIL)
+            nxt, toks = _greedy(torch, logits, pre, mesh, dev)
+            out, events = [], []
+            for i in range(steps):
+                if tokens is not None:
+                    toks = stack_shards(tokens[:, i:i + 1], mesh,
+                                        dec.token_spec, device=dev,
+                                        dtype=torch.int64)
+                e0, e1 = (torch.cuda.Event(enable_timing=True)
+                          for _ in range(2))
+                e0.record()
+                logits, cache = dec(weights, toks, cache)
+                e1.record()
+                events.append((e0, e1))
+                out.append(logits)
+                if tokens is None:
+                    nxt, toks = _greedy(torch, logits, dec, mesh, dev)
+        torch.cuda.synchronize()
+        return out, [a.elapsed_time(b) for a, b in events], dec, cache
+
+    # the long decode: a warm-up of two steps off the record, then the run
+    run(LONG_PARITY_S, 2)
+    torch.cuda.synchronize()
+    parts, shapes = [], set()
+
+    def keep(args, kw):
+        q, kk = args[:2]
+        shapes.add((q.shape[-1], kk.shape[-3], q.shape[-2] // kk.shape[-2],
+                    kw.get("causal"), kw.get("return_lse")))
+        if not parts:
+            parts.append((args, kw))
+        return False
+
+    with _Tap(layers, "flash_attention_kernel", keep):
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        logits, steps_ms, dec, cache = run(LONG_S, LONG_NEW)
+        wall = time.perf_counter() - t0
+        launches = {name: wr.launches for name, wr in wrappers.items()}
+        scan_routes = dict(wrappers["linear_scan"].route_launches)
+        routes = _attention_routes(wrappers, "long")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kv = sum(cache[n].numel() * cache[n].element_size() for n in ("k", "v"))
+    log(f"long: {cfg.name} at full width and depth on {mesh.shape}, "
+        f"{nbytes / 1e9:.2f} GB of weights (replicated over data), a "
+        f"{LONG_S}-row cache ({LONG_S // data} rows a rank, "
+        f"{kv / 1e9:.2f} GB of K/V); a {REC_PROMPT}-token prompt, then "
+        f"{LONG_NEW} greedy steps from pos {LONG_S - LONG_TAIL} in "
+        f"{wall:.1f} s; launches {launches}; flash calls (D, keys a rank, G, "
+        f"causal, lse) {sorted(shapes)}; peak {peak:.1f} GB")
+    finite = all(bool(torch.isfinite(x).all()) for x in logits)
+    check(finite and int(cache["pos"].reshape(-1)[0]) == LONG_S - LONG_TAIL
+          + LONG_NEW, "long: non-finite logits or a wrong position")
+    # every decode step's attention: the cp partial on the tensor cores
+    # (the prefill call's n_app launches are the prompt's causal flash)
+    check(launches["flash_attention"] == n_app * (1 + LONG_NEW)
+          and routes["flash_attention"]["wgmma"] == n_app * (1 + LONG_NEW)
+          and wrappers["flash_attention"].combine_launches == 0
+          and (cfg.head_dim, LONG_S // data, 1, False, True) in shapes,
+          f"long: flash launches {launches['flash_attention']}, routes "
+          f"{routes}, shapes {shapes}")
+    check(launches["linear_scan"] == L * (1 + LONG_NEW)
+          and scan_routes == {"prefill": L, "decode": L * LONG_NEW},
+          f"long: linear_scan launches {launches['linear_scan']}, routes "
+          f"{scan_routes}")
+    check(all(n == 0 for name, n in launches.items()
+              if name not in ("linear_scan", "flash_attention")),
+          f"long: unexpected launches {launches}")
+    steady = steps_ms[2:]
+    _, dec_b = _recurrent_bounds(cfg, sch.build_schema(cfg), 1, REC_PROMPT,
+                                 LONG_S - LONG_TAIL + LONG_NEW // 2)
+    med = statistics.median(steady)
+    log(f"long: decode step median {med:.3f} ms over {len(steady)} steps "
+        f"(min {min(steady):.3f}, max {max(steady):.3f}); bound "
+        f"{dec_b[0]:.3f} ms by {dec_b[1]}; step over bound "
+        f"{med / dec_b[0]:.2f}")
+    toks = stack_shards(np.zeros((1, 1), np.int64), mesh, dec.token_spec,
+                        device=dev, dtype=torch.int64)
+
+    def decode_once():
+        dec(params, toks, cache)
+
+    with use_default(dctx):
+        breakdown = _breakdown(torch, decode_once)
+    log(f"long: decode step: {breakdown}")
+    res = {"launches": launches["flash_attention"],
+           "scan_launches": launches["linear_scan"],
+           "routes": routes["flash_attention"], "step_ms": steps_ms,
+           "step_median_ms": med, "bound_ms": dec_b[0],
+           "bound_by": dec_b[1], "peak_memory_gb": peak,
+           "kv_gb": kv / 1e9, "breakdown": breakdown}
+    (args, kw), = parts
+    res["cp_partial"] = _cp_partial_at(torch, k, args, kw)
+    del parts, args, kw, cache, logits
+    torch.cuda.empty_cache()
+
+    # sharded == replicated at LONG_PARITY_S on the same filled rows and
+    # teacher-forced tokens.  In f32 (weights and caches) the two decodes
+    # differ by the order of f32 sums alone: within 1e-4 of the logits'
+    # scale over every step (the partials on the CUDA cores).  In bf16 the
+    # first decode call's first shared-block attention sees the same
+    # inputs in both and must agree within 1.6e-2 of its scale (one bf16
+    # rounding of each rank's partial plus the order; the partials on the
+    # tensor cores); its logits are logged, not held: with random weights
+    # that rounding grows through the 38 layers and 6 applications (on an
+    # H100, to several percent of the logits' scale at the first step), past
+    # the reference's 2e-2, which holds on its reduced config
+    # (tests/test_torch_cp_decode.py)
+    S = LONG_PARITY_S
+    kv_shape = (mesh.shape["model"], n_app, 1, S - LONG_TAIL - REC_PROMPT,
+                cfg.kv_heads // mesh.shape["model"], cfg.head_dim)
+    fill = {n: torch.randn(*kv_shape, generator=g, device=dev)
+            for n in ("k", "v")}
+    tokens = np.random.RandomState(2).randint(0, cfg.vocab_size,
+                                              (1, LONG_PARITY_NEW))
+    first = {}
+
+    def capture(name):
+        orig = getattr(layers, name)
+
+        def call(*args, **kw):
+            out = orig(*args, **kw)
+            if args[0].shape[-3] == 1:
+                first.setdefault(name, out.float())
+            return out
+        return _Swap(layers, name, call)
+
+    with capture("cp_decode_attention"):
+        got, *_ = run(S, LONG_PARITY_NEW, tokens, sharded=True, fill=fill)
+    with capture("flash_attention"):
+        want, *_ = run(S, LONG_PARITY_NEW, tokens, sharded=False, fill=fill)
+    a_got, a_want = first["cp_decode_attention"], first["flash_attention"]
+    a_rel = max_err(torch, a_got, a_want) / float(a_want.abs().max())
+    bf16_rel = [max_err(torch, x, y) / float(y.abs().max())
+                for x, y in zip(got, want)]
+    check(a_rel <= 1.6e-2, f"long: the first cp attention differs from the "
+          f"replicated flash call by {a_rel} (relative) at S = {S}")
+    del got, want, first, a_got, a_want
+    torch.cuda.empty_cache()
+    p32 = {n: t.float() for n, t in params.items()}
+    got, *_ = run(S, LONG_PARITY_NEW, tokens, sharded=True, fill=fill,
+                  weights=p32, dt=torch.float32)
+    want, *_ = run(S, LONG_PARITY_NEW, tokens, sharded=False, fill=fill,
+                   weights=p32, dt=torch.float32)
+    rel = max(max_err(torch, a, b) / float(b.abs().max())
+              for a, b in zip(got, want))
+    check(rel <= 1e-4, f"long: the f32 sharded decode differs from the "
+          f"replicated one by {rel} (relative) at S = {S}")
+    log(f"long: sharded == replicated decode at S = {S} over "
+        f"{LONG_PARITY_NEW} teacher-forced steps: f32 logits within "
+        f"{rel:.3g} of their scale (bound 1e-4); bf16 first attention call "
+        f"{a_rel:.3g} (bound 1.6e-2), bf16 logits by step (not held) "
+        f"{[round(x, 4) for x in bf16_rel]}")
+    res["parity_bf16_attention_rel"] = a_rel
+    res["parity_bf16_logits_rel"] = bf16_rel
+    res["parity_f32_rel"] = rel
+    del fill, got, want, params, p32
+    torch.cuda.empty_cache()
+    return res
+
+
+# -- the audio family: hubert-xlarge's encoder and masked-frame training ----
+
+
+def _attention_calls(shapes, calls=None):
+    """A tap on the model stack's flash attention: each call's (D, Dv, G,
+    causal) goes into the set ``shapes`` and the first call's arguments
+    into ``calls`` (a training forward's backward inherits its flag)."""
+    from repro_torch.models import layers
+
+    def keep(args, kw):
+        q, kk, v = args[:3]
+        shapes.add((q.shape[-1], v.shape[-1], q.shape[-2] // kk.shape[-2],
+                    kw.get("causal", True)))
+        if calls is not None and not calls:
+            calls.append((args, kw))
+        return False
+
+    return _Tap(layers, "flash_attention", keep)
+
+
+def _encoder_bound(cfg, B, T):
+    """The least device time (ms) of the encoder's forward over ``B x T``
+    frames: two operations a layer-matrix weight a frame (the unread
+    ``w_gate`` left out) and the attention's two products over every (query,
+    key) pair, at the bf16 rate; the weights read once."""
+    from repro_torch.models import schema as sch
+    spec = sch.build_schema(cfg)
+    w = _layer_matrix_weights(cfg, spec)
+    ops = 2 * w * B * T + 2 * 2 * cfg.num_layers * cfg.num_heads \
+        * cfg.head_dim * _attn_pairs(T, False) * B
+    return bound(2 * w + 2 * B * T * cfg.d_model * 2, ops, "bfloat16")
+
+
+def audio_phase(torch, k, dev, wrappers) -> dict:
+    """hubert-xlarge at full width and depth: the encoder's forward over
+    AUDIO_FWD_BATCH x AUDIO_FWD_FRAMES frames under inference on data 2 x
+    model 2, then the launcher's TRAIN_STEPS masked-frame steps of
+    TRAIN_BATCH x TRAIN_SEQ frames (microbatch TRAIN_MICRO, remat, AdamW)
+    under each of AUDIO_LAYOUTS, every wrapper's count zeroed just before
+    and read just after each; every attention forward and backward must
+    run on the tensor cores at (80, 80, G = 1), non-causal.  Then, at depth
+    2: the kernels' step against the plain versions' step, and the first
+    loss under dp_only against the tp layout's on the same weights and
+    batch.  Returns the phase's numbers and launches."""
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.interop import stack_shards
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    from repro_torch.launch import train as launcher
+    from repro_torch.models import api
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.models.transformer import transformer_forward
+    from repro_torch.train.step import per_rank_grads
+
+    cfg = configs.get(AUDIO_ARCH)
+    mesh = launcher.parse_mesh(TRAIN_MESH)
+    want_shape = (cfg.head_dim, cfg.head_dim, 1, False)
+    res = {"params": cfg.param_count()}
+    torch.cuda.empty_cache()
+
+    # 1. the encoder's forward (its "prefill", as the reference lowers it)
+    pctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
+    params = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                             .manual_seed(0), device=dev)
+    structs, bspecs = api.batch_structs(cfg, mesh, AUDIO_FWD_BATCH,
+                                        AUDIO_FWD_FRAMES)
+    frames = np.random.RandomState(0).randn(
+        AUDIO_FWD_BATCH, AUDIO_FWD_FRAMES, cfg.d_model).astype(np.float32)
+    x = stack_shards(frames, mesh, bspecs["embeds"], device=dev,
+                     dtype=structs["embeds"].dtype)
+    dctx = DiompContext(mesh=mesh, device=dev)
+    shapes, calls = set(), []
+
+    def forward():
+        with torch.no_grad():
+            return transformer_forward(params, None, cfg, pctx, embeds=x)[0]
+
+    with use_default(dctx):
+        forward()                                       # warm-up
+        torch.cuda.synchronize()
+        with _attention_calls(shapes, calls):
+            _zero_counts(wrappers)
+            h = forward()
+            torch.cuda.synchronize()
+            launches = {n: w.launches for n, w in wrappers.items()}
+            routes = _attention_routes(wrappers, "audio forward")
+        fwd_ms = [cuda_ms(torch, forward, 1, warmup=0) for _ in range(3)]
+    b_ms, b_by = _encoder_bound(cfg, AUDIO_FWD_BATCH, AUDIO_FWD_FRAMES)
+    check(h.shape[-3:] == (AUDIO_FWD_BATCH // mesh.shape["data"],
+                           AUDIO_FWD_FRAMES, cfg.d_model)
+          and bool(torch.isfinite(h).all()), "audio: bad hidden states")
+    check(launches["flash_attention"] == cfg.num_layers
+          and routes["flash_attention"]["wgmma"] == cfg.num_layers
+          and shapes == {want_shape}
+          and all(n == 0 for name, n in launches.items()
+                  if name != "flash_attention"),
+          f"audio forward: launches {launches}, flash shapes {shapes}")
+    log(f"audio: {cfg.name} ({res['params']} parameters) encoder forward "
+        f"over {AUDIO_FWD_BATCH} x {AUDIO_FWD_FRAMES} frames on "
+        f"{mesh.shape}: {', '.join(f'{t:.2f}' for t in fwd_ms)} ms (bound "
+        f"{b_ms:.3f} ms by {b_by}); flash launches "
+        f"{launches['flash_attention']}, shapes {sorted(shapes)}")
+    res["forward"] = {"ms": fwd_ms, "bound_ms": b_ms, "bound_by": b_by,
+                      "launches": launches["flash_attention"]}
+    (args, kw), = calls
+    res["flash_forward"] = _flash_call(torch, k, "hubert encoder", args, kw)
+    del calls, args, kw, h, x, params
+    torch.cuda.empty_cache()
+
+    # 2. training through the launcher under each layout
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_pass = cfg.num_layers * TRAIN_MICRO * TRAIN_STEPS
+    t_bound = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
+    res["train"] = {}
+    for layout in AUDIO_LAYOUTS:
+        argv = ["--arch", AUDIO_ARCH, "--steps", str(TRAIN_STEPS),
+                "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+                "--microbatch", str(TRAIN_MICRO), "--mesh", TRAIN_MESH,
+                "--layout", layout, "--device", str(torch.device(dev).type)]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        shapes = set()
+        with _attention_calls(shapes):
+            _zero_counts(wrappers)
+            t0 = time.perf_counter()
+            run = launcher.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fwd, bwd = (wrappers[n] for n in ("flash_attention",
+                                              "flash_attention_bwd"))
+            counts = {"forward": fwd.launches, "forward_routes": dict(
+                fwd.route_launches), "backward": bwd.launches,
+                "backward_routes": dict(bwd.route_launches)}
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        steps = [{"ms": x * 1e3, "tokens_per_s": tokens / x}
+                 for x in run["step_s"]]
+        log(f"audio train ({layout}): {TRAIN_STEPS} steps of {TRAIN_BATCH} "
+            f"x {TRAIN_SEQ} frames in {wall:.1f} s; losses {run['losses']}, "
+            f"grad norms {run['grad_norms']}; step ms "
+            f"{[round(x['ms'], 2) for x in steps]}, frames/s "
+            f"{[round(x['tokens_per_s'], 1) for x in steps]}; bound "
+            f"{t_bound:.2f} ms a step; flash {counts}, shapes "
+            f"{sorted(shapes)}; peak {peak:.2f} GB")
+        check(all(math.isfinite(v) for v in run["losses"]
+                  + run["grad_norms"]) and len(run["losses"]) == TRAIN_STEPS,
+              f"audio train ({layout}): a non-finite step")
+        check(counts["forward"] == 2 * per_pass
+              and counts["forward_routes"] == {"simt": 0,
+                                               "wgmma": 2 * per_pass}
+              and counts["backward"] == per_pass
+              and counts["backward_routes"] == {"simt": 0, "wgmma": per_pass}
+              and shapes == {want_shape},
+              f"audio train ({layout}): flash {counts}, shapes {shapes}")
+        res["train"][layout] = {"step_ms": steps, "bound_ms": t_bound,
+                                "peak_memory_gb": peak, "flash": counts,
+                                "losses": run["losses"]}
+        del run
+    torch.cuda.empty_cache()
+
+    # 3. at depth 2: kernels against the plain versions, dp_only against tp
+    small = _cut(cfg, TRAIN_CUT_LAYERS)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    out = {}
+    with use_default(dctx):
+        ctx, opt, step, batch = _train_setup(torch, dev, small, mesh)
+        params = sch.init_params(small, mesh, torch.Generator(device=dev)
+                                 .manual_seed(1), device=dev)
+        b0, st0, nd = batch(0), opt.init(params), mesh.ndim
+        _zero_counts(wrappers)
+        _, st, met_k = step(params, st0, b0, 0)
+        check(wrappers["flash_attention_bwd"].route_launches["simt"] == 0
+              and wrappers["flash_attention"].route_launches["simt"] == 0,
+              "audio checks: an attention launch left the tensor cores")
+        r_k = _step_grads(torch, st, met_k, nd)
+        saved = (fa_mod.flash_attention_kernel,
+                 fa_mod.flash_attention_bwd_kernel)
+        fa_mod.flash_attention_kernel = fa_mod.flash_attention_plain
+        fa_mod.flash_attention_bwd_kernel = fa_mod.flash_attention_bwd_plain
+        try:
+            _, st, met_p = step(params, st0, b0, 0)
+            r_p = _step_grads(torch, st, met_p, nd)
+            l_p, g_p = per_rank_grads(params, b0, small, ctx, mesh)
+        finally:
+            fa_mod.flash_attention_kernel, fa_mod.flash_attention_bwd_kernel \
+                = saved
+        loss_err = float((met_k["loss"] - met_p["loss"]).abs().max()
+                         / met_p["loss"].abs().max())
+        g_scale = {n: max(float(g_p[n].float().abs().max()), 1e-30)
+                   for n in g_p}
+        check(loss_err <= 1e-3, f"audio: kernels vs plain loss {loss_err}")
+        out["kernels_vs_plain"] = {
+            "loss_rel": loss_err,
+            "step_grad_rel": _grads_close(torch, r_k, r_p, 2e-2,
+                                          "audio: kernels vs plain step",
+                                          scale=g_scale)}
+        del r_k, r_p, g_p, st
+        # the same global weights and batch under dp_only
+        from repro_torch.distributed.sharding import rules_for_ctx
+        ctx_d, _, step_d, batch_d = _train_setup(torch, dev, small, mesh,
+                                                 layout="dp_only")
+        tp_specs = sch.partition_specs(small, mesh)
+        dp_specs = sch.partition_specs(small, mesh, rules_for_ctx(ctx_d))
+        p_d = launcher.from_global(launcher.to_global(params, tp_specs, mesh),
+                                   dp_specs, mesh, dev)
+        _, _, met_d = step_d(p_d, opt.init(p_d), batch_d(0), 0)
+        d_err = float((met_d["loss"] - met_k["loss"]).abs().max()
+                      / met_k["loss"].abs().max())
+        # each rank's loss is its own frames' masked mean, so the two
+        # layouts average over other groupings of the same frames: within
+        # bf16's rounding of the loss
+        check(d_err <= BF16_U, f"audio: dp_only first loss differs from "
+              f"tp's by {d_err} (relative)")
+        out["dp_only_vs_tp_loss_rel"] = d_err
+        del p_d, params
+    log("audio checks: " + json.dumps(out))
+    res["checks"] = out
+    torch.cuda.empty_cache()
+
+    # 4. the backward kernel at one layer's training shape, non-causal:
+    # (ranks 2 x 2, a microbatch of 2, TRAIN_SEQ frames, 8 heads of 80)
+    g = torch.Generator(device=dev).manual_seed(4)
+    shape = (2, 2, TRAIN_BATCH // 2 // TRAIN_MICRO, TRAIN_SEQ,
+             cfg.num_heads // mesh.shape["model"], cfg.head_dim)
+    q, kk, v, do = (torch.randn(*shape, generator=g, device=dev)
+                    .to(torch.bfloat16) for _ in range(4))
+    res["bwd"] = _bwd_at(torch, k, q, kk, v, do, causal=False)
+    del q, kk, v, do
+    torch.cuda.empty_cache()
+    return res
 
 
 def main() -> int:
@@ -4301,6 +5001,7 @@ def main() -> int:
     flash["mla_chunk"] = mla["flash_chunk"]
     dispatch["mla_decode"] = mla["dispatch_decode"]
     dispatch["mla_chunk"] = mla["dispatch_chunk"]
+    mlp_line["mla_chunk"] = mla["mlp_chunk"]     # row 7 at deepseek's blocks
     dispatch["launches_by_path"] = {"qwen3-moe": dispatch["launches"],
                                     "deepseek-v3": mla["dispatch_launches"]}
     dispatch["launches"] += mla["dispatch_launches"]
@@ -4358,6 +5059,28 @@ def main() -> int:
         bwd["train"]["flash_forward"]["forward"]
     flash["train"] = bwd.pop("forward")     # row 5's training entry
     kernels.append(bwd)
+
+    # -- phase 17: the long-context decode, zamba2-1.2b at 524,288 tokens ----
+    long = long_decode_phase(torch, k, dev, wrappers)
+    by_path["long_decode"] = long["launches"]
+    flash["long_decode_cp_partial"] = long.pop("cp_partial")
+    scan["launches_by_phase"]["long_decode"] = long["scan_launches"]
+    log("long: " + json.dumps(long))
+
+    # -- phase 18: the audio family, hubert-xlarge's encoder and training ----
+    audio = audio_phase(torch, k, dev, wrappers)
+    by_path["hubert_forward"] = audio["forward"]["launches"]
+    for layout, run in audio["train"].items():
+        by_path[f"hubert_train_{layout}"] = run["flash"]["forward"]
+    flash["hubert_encoder"] = audio.pop("flash_forward")
+    hub = audio.pop("bwd")
+    flash["hubert_train"] = hub.pop("forward")
+    hub["train"] = audio
+    bwd["hubert"] = hub
+    bwd["launches_by_path"] = {
+        "stablelm-3b": bwd["launches"],
+        **{f"hubert-xlarge {layout}": run["flash"]["backward"]
+           for layout, run in audio["train"].items()}}
     check(len(kernels) == len(wrappers) == 10, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,8 @@
 """Architecture registry: ``get(name)`` / ``get_reduced(name)``.
 
-The dense configs, the GQA MoE config, the MLA MoE config (deepseek-v3),
-the VLM (paligemma), and the recurrent (rwkv6) and hybrid (zamba2) configs
-are ported; the reference's audio architecture (hubert-xlarge) waits for
-its family (ROADMAP queue 1, item 9).
+All ten of the reference's configs: the dense configs, the GQA MoE config,
+the MLA MoE config (deepseek-v3), the VLM (paligemma), the audio encoder
+(hubert-xlarge), and the recurrent (rwkv6) and hybrid (zamba2) configs.
 """
 
 from __future__ import annotations
@@ -13,8 +12,8 @@ import importlib
 from ..models.config import ModelConfig
 
 ARCHS = ("command_r_plus_104b", "deepseek_v3_671b", "glm4_9b",
-         "paligemma_3b", "qwen1_5_110b", "qwen3_moe_235b_a22b", "rwkv6_7b",
-         "stablelm_3b", "zamba2_1_2b")
+         "hubert_xlarge", "paligemma_3b", "qwen1_5_110b",
+         "qwen3_moe_235b_a22b", "rwkv6_7b", "stablelm_3b", "zamba2_1_2b")
 
 # CLI ids (--arch) use dashes, matching the reference
 CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}
@@ -23,10 +22,8 @@ CLI_IDS = {a.replace("_", "-"): a for a in ARCHS}
 def _module(name: str):
     mod = CLI_IDS.get(name, name)
     if mod not in ARCHS:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet (ported: "
-            f"{', '.join(all_archs())}): its family waits in ROADMAP queue 1, "
-            f"item 9 (the audio family)")
+        raise KeyError(f"unknown architecture {name!r} (the reference's: "
+                       f"{', '.join(all_archs())})")
     return importlib.import_module(f"{__name__}.{mod}")
 
 

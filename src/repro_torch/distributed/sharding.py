@@ -21,9 +21,9 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..launch.mesh import RankMesh
 
-__all__ = ["ShardingRules", "DEFAULT_RULES", "rules_for_ctx",
-           "logical_to_spec", "RankSharding", "named_sharding",
-           "param_bytes_per_device"]
+__all__ = ["ShardingRules", "DEFAULT_RULES", "DP_ONLY_RULES",
+           "rules_for_ctx", "logical_to_spec", "RankSharding",
+           "named_sharding", "param_bytes_per_device"]
 
 POD, DATA, MODEL = "pod", "data", "model"
 
@@ -78,11 +78,21 @@ DEFAULT_RULES = ShardingRules(
 )
 
 
+# no tensor parallelism: the batch over every mesh axis, and every rule
+# that could only pick "model" replicated (small dense models whose TP
+# activation all-reduces dominate)
+DP_ONLY_RULES = ShardingRules(rules=tuple(
+    (name, (POD, DATA, MODEL)) if name == "batch" else
+    (name, (None,)) if cands and set(cands) <= {MODEL} else
+    (name, cands)
+    for name, cands in DEFAULT_RULES.rules
+))
+
+
 def rules_for_ctx(ctx) -> ShardingRules:
     """The placement-rule table for a ParallelCtx's layout knobs."""
     if getattr(ctx, "layout", "tp") == "dp_only":
-        raise NotImplementedError(
-            "the dp_only layout is not ported yet: ROADMAP queue 1, item 8")
+        return DP_ONLY_RULES
     if getattr(ctx, "expert2d", False):
         raise NotImplementedError(
             "expert2d placement (MoE experts over model x data) is not "

@@ -23,6 +23,7 @@ import torch
 from .. import configs
 from ..core.context import DiompContext, resolve_device
 from ..launch.mesh import make_smoke_mesh
+from ..models import api as model_api
 from ..models import schema as sch
 from ..models.config import ParallelCtx
 from ..serve.engine import ServeEngine
@@ -78,8 +79,11 @@ def main(argv=None):
             max_queue=args.max_queue, queue_high=args.queue_high,
             queue_low=args.queue_low)
 
-    device = resolve_device(args.device)
     cfg = configs.get_reduced(args.arch)
+    if not model_api.has_decode(cfg):
+        ap.error(f"{args.arch} is an encoder ({cfg.family!r} family): it "
+                 f"has no decode step to serve")
+    device = resolve_device(args.device)
     mesh = make_smoke_mesh(8)
     ctx = ParallelCtx.from_mesh(mesh, remat=False, inference=True)
     dctx = DiompContext(mesh=mesh, device=device, segment_bytes=1 << 26,

@@ -14,7 +14,11 @@ its ranks, restores from the latest verified checkpoint and trains on.
 The flags and defaults are the reference's, plus ``--device`` (the card
 unless ``--device cpu``), ``--seed`` (the random weights) and mesh shapes
 given as ``--mesh data=2,model=2``; ``--mesh smoke`` is the 8-rank
-pod x data x model mesh.  ``--chaos-seed`` and ``--kill-rank-step``
+pod x data x model mesh; ``--layout dp_only`` (no tensor parallelism: the
+batch over every axis, the weights replicated over "model") beside the
+default ``tp``.  Every architecture trains on the pipeline's batches of
+its family: hubert-xlarge on audio frames, targets and a frame mask, the
+frames laid out in the batch's bf16.  ``--chaos-seed`` and ``--kill-rank-step``
 (fault injection) raise: ROADMAP queue 1, item 14.  ``main`` returns a
 summary of the run (losses, grad norms, step times, the final parameters
 and optimizer state).
@@ -30,7 +34,7 @@ import torch
 from .. import configs
 from ..core.context import DiompContext, resolve_device, use_default
 from ..core.runtime import DiompRuntime, dtype_bytes
-from ..distributed.sharding import param_bytes_per_device
+from ..distributed.sharding import param_bytes_per_device, rules_for_ctx
 from ..data.pipeline import Prefetcher, SyntheticLM
 from ..interop import stack_shards, unstack_shards
 from ..launch.mesh import RankMesh, make_production_mesh, make_smoke_mesh
@@ -84,8 +88,11 @@ def from_global(tree, specs, mesh: RankMesh, device):
                      tree, specs)
 
 
-def _batch_on(batch, specs, mesh, device):
-    return {k: stack_shards(v, mesh, specs[k], device=device)
+def _batch_on(batch, structs, specs, mesh, device):
+    """A pipeline batch stacked on ``mesh``, each leaf in the dtype
+    ``batch_structs`` gives it."""
+    return {k: stack_shards(v, mesh, specs[k], device=device,
+                            dtype=structs[k].dtype)
             for k, v in batch.items()}
 
 
@@ -105,6 +112,7 @@ def main(argv=None):
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--checkpoint-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--layout", default="tp", choices=["tp", "dp_only"])
     ap.add_argument("--grad-codec", default="none", choices=["none", "int8"])
     ap.add_argument("--dp-backend", default="hierarchical",
                     choices=["flat", "hierarchical"])
@@ -132,11 +140,13 @@ def main(argv=None):
     def make_ctx(mesh):
         return ParallelCtx.from_mesh(
             mesh, remat=True, microbatch=args.microbatch,
-            grad_codec=args.grad_codec, dp_backend=args.dp_backend)
+            grad_codec=args.grad_codec, dp_backend=args.dp_backend,
+            layout=args.layout)
 
     ctx = make_ctx(mesh)
     print(f"arch={cfg.name} params={cfg.param_count()/1e6:.1f}M "
-          f"mesh={mesh.shape} dp={ctx.dp} tp={ctx.tp} device={device}")
+          f"mesh={mesh.shape} layout={args.layout} dp={ctx.dp} tp={ctx.tp} "
+          f"device={device}")
 
     # -- runtime: register every parameter into the PGAS plan -------------
     # (a segment of 1 GiB, as in the reference, or the power of two that
@@ -172,14 +182,16 @@ def main(argv=None):
                                     optimizer_name=opt_name, donate=True)
 
     def specs_for(mesh):
-        _, bspecs = model_api.batch_structs(cfg, mesh, args.batch, args.seq,
-                                            dp_axes=ctx.dp_axes)
-        return (sch.partition_specs(cfg, mesh),
-                opt_state_specs(cfg, mesh, opt_name), bspecs)
+        bstructs, bspecs = model_api.batch_structs(
+            cfg, mesh, args.batch, args.seq, dp_axes=ctx.dp_axes)
+        rules = rules_for_ctx(ctx)
+        return (sch.partition_specs(cfg, mesh, rules),
+                opt_state_specs(cfg, mesh, opt_name, rules), bstructs,
+                bspecs)
 
     dctx = rt.ctx
     step_fn = build_step(mesh, ctx, dctx)
-    pspecs, ospecs, bspecs = specs_for(mesh)
+    pspecs, ospecs, bstructs, bspecs = specs_for(mesh)
 
     # -- init or resume ---------------------------------------------------------
     ckpt = CheckpointManager(args.checkpoint_dir, pool=rt.streams) \
@@ -192,7 +204,8 @@ def main(argv=None):
         print(f"resumed from step {start}")
     else:
         gen = torch.Generator(device=device).manual_seed(args.seed)
-        params = sch.init_params(cfg, mesh, gen, device=device)
+        params = sch.init_params(cfg, mesh, gen, device=device,
+                                 rules=rules_for_ctx(ctx))
         opt_state = opt.init(params)
 
     # -- data + monitoring ------------------------------------------------------
@@ -218,7 +231,7 @@ def main(argv=None):
         monitor.step_start()
         t0 = time.perf_counter()
         _, batch = prefetch.get()
-        batch = _batch_on(batch, bspecs, mesh, device)
+        batch = _batch_on(batch, bstructs, bspecs, mesh, device)
         with use_default(dctx):
             params, opt_state, metrics = step_fn(params, opt_state, batch, i)
         loss = float(metrics["loss"].reshape(-1)[0])
@@ -251,7 +264,7 @@ def main(argv=None):
             dctx = DiompContext(mesh=mesh, device=device,
                                 segment_bytes=1 << 30)
             step_fn = build_step(mesh, ctx, dctx)
-            pspecs, ospecs, bspecs = specs_for(mesh)
+            pspecs, ospecs, bstructs, bspecs = specs_for(mesh)
             i, params, opt_state, _ = ckpt.restore()
             params = from_global(params, pspecs, mesh, device)
             opt_state = from_global(opt_state, ospecs, mesh, device)

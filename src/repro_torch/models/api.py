@@ -1,12 +1,14 @@
 """Family-dispatch API: the surface the serving and training layers talk
-to (dense, GQA and MLA MoE, VLM, RWKV6 and Zamba2 families; the audio
-family is still to port, ROADMAP queue 1, item 9).  The training losses
-of the dense and VLM families are ported; the MoE loss waits for item 12,
-the RWKV and Zamba2 losses for item 19.
+to (dense, GQA and MLA MoE, VLM, audio-encoder, RWKV6 and Zamba2
+families).  The training losses of the dense, VLM and audio families are
+ported; the MoE loss waits for ROADMAP queue 1, item 12, the RWKV and
+Zamba2 losses for item 19.  The audio encoder has no decode step
+(:func:`has_decode`).
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's
 global shape and dtype — with its per-dim spec, from which a stacked cache
-is laid out (:func:`repro_torch.interop.local_shape`).
+is laid out (:func:`repro_torch.interop.local_shape`); ``seq_sharded``
+puts ``"data"`` on the K/V caches' S dim (the context-parallel decode).
 """
 
 from __future__ import annotations
@@ -59,9 +61,7 @@ def decode_fn(cfg: ModelConfig) -> Callable:
     if cfg.family == "hybrid":
         return lambda p, t, cfg, ctx, cache, seq_sharded=False: (
             zamba_decode(p, t, cfg, ctx, cache, seq_sharded=seq_sharded))
-    raise NotImplementedError(
-        f"the {cfg.family!r} family's decode is not ported yet: ROADMAP "
-        f"queue 1, item 9")
+    raise ValueError(cfg.family)
 
 
 def has_decode(cfg: ModelConfig) -> bool:
@@ -123,14 +123,14 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
     reference's: RWKV's token-shift carries and f32 WKV state, Zamba's conv
     and f32 SSM states, one KV cache per shared-block application and one
     scalar position.  MLA's latent cache (``c``, ``kr`` and the leading
-    dense layers' ``dense_c``, ``dense_kr``) is replicated over "model".
+    dense layers' ``dense_c``, ``dense_kr``) is replicated over "model",
+    and whole over "data" whatever ``seq_sharded`` says, as in the
+    reference.  The audio encoder's entry is the dense layout, as the
+    reference's is, though it has no decode step.
     """
-    if seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded cache is not ported yet: ROADMAP "
-            "queue 1, item 9")
     ba = _batch_axes(mesh, B)
     bspec = ba if ba else None
+    sspec = "data" if seq_sharded else None
     if cfg.family == "ssm":
         d, hd, L = cfg.d_model, cfg.rwkv_head_dim, cfg.num_layers
         carry = TensorStruct((L, B, d), dtype)
@@ -142,8 +142,8 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
         din, L = 2 * cfg.d_model, cfg.num_layers
         n_app = L // max(cfg.attn_every, 1)
         kv = TensorStruct((n_app, B, S, cfg.kv_heads, cfg.head_dim), dtype)
-        kspec = (None, bspec, None, "model" if sch.kv_sharded(cfg) else None,
-                 None)
+        kspec = (None, bspec, sspec,
+                 "model" if sch.kv_sharded(cfg) else None, None)
         return ({"mamba": {
                     "conv": TensorStruct((L, B, cfg.conv_width - 1, din),
                                          dtype),
@@ -154,10 +154,8 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
                 {"mamba": {"conv": (None, bspec, None, "model"),
                            "S": (None, bspec, "model", None, None)},
                  "k": kspec, "v": kspec, "pos": ()})
-    if cfg.family not in TRANSFORMER_FAMILIES or cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family's cache is not ported "
-            f"yet: ROADMAP queue 1, item 9")
+    if cfg.family not in TRANSFORMER_FAMILIES:
+        raise ValueError(cfg.family)
     if cfg.attention == "mla":
         structs, specs = {}, {}
         for _, L, _, names in layer_stacks(cfg):
@@ -169,7 +167,7 @@ def cache_structs(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, B: int,
     KH_loc = local_kv_heads(cfg, ctx)
     kv_model = sch.kv_sharded(cfg) or (sch.head_parallel(cfg) and ctx.tp > 1)
     KH_glob = KH_loc * ctx.tp if kv_model else cfg.kv_heads
-    spec = (None, bspec, None, "model" if kv_model else None, None)
+    spec = (None, bspec, sspec, "model" if kv_model else None, None)
     kv = TensorStruct((cfg.num_layers, B, S, KH_glob, cfg.head_dim), dtype)
     return ({"k": kv, "v": kv, "pos": TensorStruct((), torch.int32)},
             {"k": spec, "v": spec, "pos": ()})

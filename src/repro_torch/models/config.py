@@ -117,17 +117,38 @@ class ParallelCtx:
 
     @classmethod
     def from_mesh(cls, mesh: RankMesh, **knobs) -> "ParallelCtx":
-        if knobs.get("layout", "tp") != "tp" or knobs.get("expert2d"):
+        """The layout's sizes and groups on ``mesh``.  ``layout="dp_only"``
+        (small dense models whose TP all-reduces dominate) has no tensor
+        parallelism: ``tp = 1``, the model axis joins the data-parallel
+        domain (``dp_all`` over pod, data and model), and the TP and EP
+        groups are the empty ``self`` group."""
+        if knobs.get("expert2d"):
             raise NotImplementedError(
-                "only the default tp layout is ported (dp_only: ROADMAP "
-                "queue 1, item 8; expert2d, the MoE experts sharded over "
-                "model x data: item 12, still open beside bench_moe and the "
-                "fused dispatch's backward)")
+                "expert2d (the MoE experts sharded over model x data) is "
+                "not ported yet: ROADMAP queue 1, item 12, still open beside "
+                "bench_moe and the fused dispatch's backward")
         g = standard_groups(mesh)
         shape = mesh.shape
         tp = shape.get("model", 1)
         fsdp = shape.get("data", 1)
         pods = shape.get("pod", 1)
+        if knobs.get("layout", "tp") == "dp_only":
+            dp_axes = tuple(a for a in ("pod", "data", "model")
+                            if a in shape)
+            return cls(
+                tp=1, fsdp=fsdp, dp=fsdp * pods * tp, pods=pods,
+                tp_group=DiompGroup((), name="self"),
+                fsdp_group=g.get("dp_inner",
+                                 DiompGroup(("data",), name="dp_inner")),
+                dp_group=DiompGroup(dp_axes, name="dp_all"),
+                ep_group=DiompGroup((), name="self"),
+                world=g["world"],
+                pod_group=g.get("pod"),
+                **knobs,
+            )
+        if knobs.get("layout", "tp") != "tp":
+            raise ValueError(f"unknown layout {knobs['layout']!r} (tp or "
+                             f"dp_only)")
         return cls(
             tp=tp, fsdp=fsdp, dp=fsdp * pods, pods=pods,
             tp_group=g.get("tp", DiompGroup(("model",), name="tp")),

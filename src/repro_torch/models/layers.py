@@ -13,10 +13,13 @@ follow the reference (per rank):
   token-parallel (all-gathered K/V or the fused ring); decode caches
   head-sharded or replicated per the same rules.
 
-Not ported here: the context-parallel decode (``cp_decode_attention``) and
-its seq-sharded cache, MoE's ``expert2d`` placement and
-``ring_fsdp_matmul``; each raises ``NotImplementedError`` naming its
-ROADMAP item where it would be reached.
+A context(seq)-sharded decode cache (``seq_sharded``) holds the S-chunk
+``[r·s_loc, (r+1)·s_loc)`` on data rank r: the owner alone writes a
+step's row, and :func:`cp_decode_attention` merges the ranks' partials
+from row 5's kernel with three OMPCCL all-reduces.  Not ported here:
+MoE's ``expert2d`` placement and ``ring_fsdp_matmul``; each raises
+``NotImplementedError`` naming its ROADMAP item where it would be
+reached.
 
 The decode and chunk-prefill branches write the new K/V (MLA: latent)
 rows into the cache in place (the reference returns an updated copy): a
@@ -36,6 +39,7 @@ import torch.nn.functional as F
 from ..core import ompccl
 from ..core.backends import XlaBackend, group_rank
 from ..core.context import default_context, use_default
+from ..kernels.flash_attention.kernel import flash_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.moe_dispatch.fused import expert_slots, kept_counts, scatter_rows
 from ..kernels.moe_dispatch.kernel import expert_mlp
@@ -48,9 +52,9 @@ from .schema import head_parallel, kv_sharded, vocab_sharded
 __all__ = [
     "rmsnorm", "layernorm", "rope", "gather_fsdp", "tp_allreduce",
     "col_matmul", "row_matmul", "embed_lookup", "ce_loss", "Q8Gather",
-    "KVCache", "local_kv_heads", "MLACache", "mla_block",
-    "attention_block", "mlp_block", "moe_capacity", "moe_block", "dot",
-    "flat_heads",
+    "KVCache", "cp_decode_attention", "local_kv_heads", "MLACache",
+    "mla_block", "attention_block", "mlp_block", "gelu_mlp_block",
+    "moe_capacity", "moe_block", "dot", "flat_heads",
 ]
 
 
@@ -212,7 +216,7 @@ def col_matmul(x, w_local, ctx: ParallelCtx, bias_local=None):
     if ctx.use_ring_matmul:
         raise NotImplementedError(
             "ring_fsdp_matmul (use_ring_matmul) is not ported yet: ROADMAP "
-            "queue 1, item 9")
+            "queue 1, item 9.5")
     y = dot(x, gather_fsdp(w_local, ctx, dim=0))
     if bias_local is not None:
         y = y + _lift(bias_local, y).to(y.dtype)
@@ -343,15 +347,113 @@ def _write_rows(dst: torch.Tensor, src: torch.Tensor,
     dst.index_put_((*idx, rows), src.to(dst.dtype))
 
 
-def _update_cache(cache: KVCache, k_new, v_new) -> KVCache:
-    """Write one decode step's K/V at ``cache.pos`` (scalar or per slot)."""
-    if cache.seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded decode cache (cp_decode_attention) is "
-            "not ported yet: ROADMAP queue 1, item 9")
-    _write_rows(cache.k, k_new, cache.pos)
-    _write_rows(cache.v, v_new, cache.pos)
-    return KVCache(cache.k, cache.v, cache.pos + 1)
+def _update_cache(cache: KVCache, k_new, v_new, group=None) -> KVCache:
+    """Write one decode step's K/V at ``cache.pos`` (scalar or per slot).
+
+    A context-sharded cache (one position a rank) is written by its owner
+    only: the rank of ``group`` whose chunk ``[r·s_loc, (r+1)·s_loc)``
+    holds ``pos`` writes at ``pos - r·s_loc``; every other rank writes its
+    own row at the clamped offset back unchanged, so the write is one
+    indexed put of one row a rank."""
+    if not cache.seq_sharded:
+        _write_rows(cache.k, k_new, cache.pos)
+        _write_rows(cache.v, v_new, cache.pos)
+        return KVCache(cache.k, cache.v, cache.pos + 1)
+    mesh = _mesh()
+    nd = mesh.ndim
+    if cache.pos.dim() > nd:
+        # the reference's per-slot write ignores seq_sharded: it would
+        # write a slot's global position into a chunk's local rows
+        raise ValueError(
+            "per-slot positions (continuous batching) do not support a "
+            "context-sharded cache: its rows are addressed by one position "
+            "a rank")
+    dev = cache.k.device
+    s_loc = cache.k.shape[nd + 1]
+    lo = group_rank(group, mesh, dev) * s_loc
+    pos = cache.pos.to(dev).long()
+    local = (pos - lo).clamp(0, s_loc - 1)                    # (*mesh,)
+    mine = ((pos >= lo) & (pos < lo + s_loc)).reshape(
+        *mesh.sizes, 1, 1, 1, 1)
+    R, B = mesh.size, cache.k.shape[nd]
+    at = (torch.arange(R, device=dev)[:, None],
+          torch.arange(B, device=dev)[None, :], local.reshape(R, 1))
+    for c, new in ((cache.k, k_new), (cache.v, v_new)):
+        old = c.view(R, B, *c.shape[nd + 1:])[at].reshape(new.shape)
+        _write_rows(c, torch.where(mine, new.to(c.dtype), old), local)
+    return KVCache(cache.k, cache.v, cache.pos + 1, seq_sharded=True)
+
+
+def cp_decode_attention(q, cache: KVCache, group, *,
+                        scale: Optional[float] = None):
+    """Decode attention over a context(S)-sharded cache (distributed
+    flash-decode): q ``(*mesh, B, 1, H, D)``; ``cache.k``/``cache.v``
+    ``(*mesh, B, s_loc, KH, D|Dv)``, rank r of ``group`` holding keys
+    ``[r·s_loc, (r+1)·s_loc)``; ``cache.pos`` ``(*mesh,)`` already advanced
+    past the new row, so the first ``pos`` keys are visible.
+
+    Each rank's partial is row 5's kernel over its chunk (no causal mask,
+    ``valid_len = clamp(pos - r·s_loc, 0, s_loc)``) with the rows'
+    log-sum-exp; the partials merge through the reference's three OMPCCL
+    all-reduces over ``group``: the max ``M`` of the rows' statistic, the
+    sum of the weights ``exp(lse_r - M)`` (``(B, KH, G)`` f32 each) and
+    the sum of the weighted outputs (``(B, KH, G, Dv)`` f32).  A rank
+    whose chunk holds no visible key (the kernel and its plain version
+    write its output 0 and its lse +inf) enters with the statistic -inf
+    and weight 0."""
+    mesh = _mesh()
+    nd = mesh.ndim
+    lead = q.shape[:nd]
+    B, _, H, _ = q.shape[nd:]
+    s_loc, KH = cache.k.shape[nd + 1], cache.k.shape[nd + 2]
+    Dv = cache.v.shape[-1]
+    G = H // KH
+    dev = q.device
+    start = group_rank(group, mesh, dev) * s_loc
+    valid = (cache.pos.to(dev).long() - start).clamp(0, s_loc)   # (*mesh,)
+    out, lse = flash_attention_kernel(
+        q, cache.k, cache.v, causal=False, scale=scale,
+        valid_len=valid[..., None].expand(*lead, B), return_lse=True)
+    has = (valid > 0).reshape(*lead, 1, 1, 1)
+    stat = torch.where(has, lse.reshape(*lead, B, KH, G), float("-inf"))
+    m = ompccl.allreduce(stat, group, op="max")
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    w = torch.exp(stat - m_safe)                               # 0 where empty
+    l = ompccl.allreduce(w, group)
+    acc = ompccl.allreduce(
+        w[..., None] * out.float().reshape(*lead, B, KH, G, Dv), group)
+    res = acc / torch.clamp(l, min=1e-30)[..., None]
+    return res.reshape(*lead, B, 1, H, Dv).to(q.dtype)
+
+
+def cp_decode_attention_plain(q, cache: KVCache, group, *,
+                              scale: Optional[float] = None):
+    """The reference's einsum form of :func:`cp_decode_attention` in plain
+    torch (the same three all-reduces): f32 scores of every chunk row,
+    masked past ``pos``, merged by (max, sum, acc)."""
+    mesh = _mesh()
+    nd = mesh.ndim
+    lead = q.shape[:nd]
+    B, _, H, D = q.shape[nd:]
+    s_loc, KH = cache.k.shape[nd + 1], cache.k.shape[nd + 2]
+    Dv = cache.v.shape[-1]
+    G = H // KH
+    dev = q.device
+    scale = D ** -0.5 if scale is None else scale
+    qf = q.float().reshape(*lead, B, KH, G, D) * scale
+    s = torch.einsum("...bhgd,...bshd->...bhgs", qf, cache.k.float())
+    k_pos = _rank_index(group, s.dim(), dev) * s_loc \
+        + torch.arange(s_loc, device=dev)
+    vis = k_pos < cache.pos.to(dev).reshape(*lead, *([1] * (s.dim() - nd)))
+    s = torch.where(vis, s, float("-inf"))
+    m = ompccl.allreduce(s.amax(dim=-1), group, op="max")
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.where(vis, torch.exp(s - m_safe[..., None]), 0.0)
+    l = ompccl.allreduce(p.sum(dim=-1), group)
+    acc = ompccl.allreduce(
+        torch.einsum("...bhgs,...bshd->...bhgd", p, cache.v.float()), group)
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.reshape(*lead, B, 1, H, Dv).to(q.dtype)
 
 
 def local_kv_heads(cfg: ModelConfig, ctx: ParallelCtx) -> int:
@@ -406,7 +508,12 @@ def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
       over "model", the T axis sliced; K/V all-gathered over the group, or
       under ``seq_parallel="ring"`` (no cache, no prefix) rotated through
       the fused ring attention;
-    * decode — T == 1 with a cache (head-sharded or replicated);
+    * decode — T == 1 with a cache: head-sharded or replicated, or
+      context(S)-sharded over the data axis (:func:`cp_decode_attention`);
+      a prompt prefilled into a sharded cache lands at local row 0 on
+      every data rank, which holds while ``T <= S / data``: each later
+      position is rewritten by its owner before the mask lets a query
+      see it;
     * chunked prefill — ``chunked=True`` with a cache: the chunk's K/V go
       in at the running position and its queries attend over the whole
       valid prefix (any padded tail sits after every real query, so the
@@ -455,7 +562,17 @@ def attention_block(x, lp: Dict[str, torch.Tensor], cfg: ModelConfig,
         k = rope(k, pos_me, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
 
     new_cache = cache
-    if decode:
+    if cache is not None and cache.seq_sharded and not decode \
+            and not chunkfill and T > cache.k.shape[nd + 1]:
+        raise ValueError(
+            f"a prompt of {T} tokens does not fit a context-sharded cache's "
+            f"{cache.k.shape[nd + 1]} rows a rank (the prompt lands at local "
+            f"row 0 of every data rank: T <= S / data)")
+    if decode and cache.seq_sharded:
+        new_cache = _update_cache(cache, k, v, ctx.fsdp_group)
+        attn = cp_decode_attention(q, new_cache, ctx.fsdp_group,
+                                   scale=hd ** -0.5)
+    elif decode:
         new_cache = _update_cache(cache, k, v)
         pos = _per_row(new_cache.pos)
         attn = flash_attention(q, new_cache.k, new_cache.v, causal=True,
@@ -651,6 +768,13 @@ def mlp_block(x, lp, ctx: ParallelCtx, *, act: str = "silu",
     h = F.silu(h) if act == "silu" else F.gelu(h, approximate="tanh")
     h = h * col_matmul(x, lp[u], ctx)
     return row_matmul(h, lp[dwn], ctx)
+
+
+def gelu_mlp_block(x, lp, ctx: ParallelCtx):
+    """The plain two-matmul GELU MLP of the audio encoder (hubert): ``w_up``
+    then ``w_down``, GELU in jax's default tanh form."""
+    h = F.gelu(col_matmul(x, lp["w_up"], ctx), approximate="tanh")
+    return row_matmul(h, lp["w_down"], ctx)
 
 
 # ---------------------------------------------------------------------------

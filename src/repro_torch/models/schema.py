@@ -7,7 +7,10 @@ once; from that declaration come the materialized init (from a
 ``torch.Generator`` on a given device) and the per-dim specs that
 :func:`repro_torch.interop.stack_shards` takes.  Shardability is decided
 against the production TP width (``MAX_TP = 16``), as in the reference.
-The audio family is still to port (ROADMAP queue 1, item 9).
+The audio encoder (hubert) keeps the dense layer table (its unused
+``w_gate`` included, as in the reference), a frame-embedding LayerNorm
+``embed_norm`` and a masked-frame head ``head`` ZeRO-3-sharded over its
+``d`` rows.
 """
 
 from __future__ import annotations
@@ -202,17 +205,18 @@ def _shared_block(cfg: ModelConfig, s: Dict[str, ParamSpec]) -> None:
 
 
 def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
-    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid"):
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's schema is not ported yet: ROADMAP "
-            f"queue 1, item 9")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "audio"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
     s: Dict[str, ParamSpec] = {}
     d, V = cfg.d_model, cfg.vocab_size
     va = "vocab" if vocab_sharded(cfg) else None
     s["embed/table"] = ParamSpec((V, d), (va, None), scale=1.0)
     s["final_norm"] = ParamSpec((d,), (None,), init="ones")
-    if cfg.family in ("dense", "vlm"):
+    if cfg.family in ("dense", "vlm", "audio"):
         _dense_layer(cfg, cfg.num_layers, cfg.d_ff, "layers", s)
+        if cfg.family == "audio":
+            s["embed_norm"] = ParamSpec((2, d), (None, None), init="ones")
+            s["head"] = ParamSpec((d, V), ("embed_fsdp", None))
     elif cfg.family == "moe":
         kd = cfg.first_k_dense
         Lm = cfg.num_layers - kd
@@ -237,7 +241,8 @@ def build_schema(cfg: ModelConfig) -> Dict[str, ParamSpec]:
     else:  # hybrid (zamba2): mamba layers and the shared block
         _mamba_layer(cfg, cfg.num_layers, s)
         _shared_block(cfg, s)
-    if cfg.family != "vlm":          # the VLM's logits reuse embed/table
+    if cfg.family not in ("vlm", "audio"):
+        # the VLM's logits reuse embed/table; the encoder scores by head
         s["lm_head"] = ParamSpec((d, V), (None, va))
     return s
 

@@ -18,9 +18,11 @@ one scalar position a rank.  The shared block's attention runs the port's
 
 TP: the inner dim (2·d) is sharded over "model" via the head dim; the B/C
 projection is small and replicated; the gated output norm reduces its
-statistics across TP with an OMPCCL all-reduce.  Still to port: the
-context(seq)-sharded cache (``seq_sharded=True``, ``cp_decode_attention``,
-ROADMAP queue 1, item 9) and the training loss (item 19).
+statistics across TP with an OMPCCL all-reduce.  With ``seq_sharded=True``
+the shared block's K/V caches keep ``S / data`` rows a rank (the long
+context's decode, :func:`~repro_torch.models.layers.cp_decode_attention`);
+the Mamba states are per sequence and stay whole.  Still to port: the
+training loss (ROADMAP queue 1, item 19).
 """
 
 from __future__ import annotations
@@ -144,10 +146,6 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
     stateless forward.  Returns (hidden, new cache); K/V go into the
     cache's tensors in place.
     """
-    if seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded zamba cache (cp_decode_attention) is "
-            "not ported yet: ROADMAP queue 1, item 9")
     nd = default_context().require_mesh().ndim
     x = embed_lookup(tokens, params["embed/table"], cfg, ctx)
     T = tokens.shape[-1]
@@ -166,7 +164,8 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
         new_mamba.append(st2)
         if (i + 1) % every == 0:
             kv = None if cache is None else KVCache(
-                cache["k"].select(nd, app), cache["v"].select(nd, app), pos)
+                cache["k"].select(nd, app), cache["v"].select(nd, app), pos,
+                seq_sharded=seq_sharded)
             hn = rmsnorm(x, shared["attn_norm"], cfg.norm_eps)
             attn, _ = attention_block(hn, shared, cfg, ctx,
                                       positions=positions, cache=kv)
@@ -194,11 +193,8 @@ def zamba_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int,
                      *, seq_sharded: bool = False, dtype=torch.bfloat16,
                      device=None):
     """A zeroed decode cache on the active context's mesh (the layout of
-    :func:`zamba_forward`), one scalar position a rank."""
-    if seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded zamba cache is not ported yet: ROADMAP "
-            "queue 1, item 9")
+    :func:`zamba_forward`), one scalar position a rank; ``seq_sharded``
+    keeps ``S / fsdp`` K/V rows a rank."""
     dctx = default_context()
     mesh = dctx.require_mesh()
     device = dctx.device if device is None else device
@@ -206,7 +202,8 @@ def zamba_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int,
     nh_loc = din_loc // MAMBA_HEAD_DIM
     L = cfg.num_layers
     n_app = L // max(cfg.attn_every, 1)
-    kv = (*mesh.sizes, n_app, B_loc, S, local_kv_heads(cfg, ctx),
+    S_loc = S // ctx.fsdp if seq_sharded else S
+    kv = (*mesh.sizes, n_app, B_loc, S_loc, local_kv_heads(cfg, ctx),
           cfg.head_dim)
     return {
         "mamba": {

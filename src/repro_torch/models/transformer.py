@@ -1,5 +1,5 @@
-"""Transformer forward passes on stacked ranks (dense, GQA and MLA MoE, and
-VLM families).
+"""Transformer forward passes on stacked ranks (dense, GQA and MLA MoE, VLM
+and audio-encoder families).
 
 The reference scans its layer stack (``lax.scan`` over the leading L dim of
 every stacked param); the port runs a Python loop over per-layer views of
@@ -13,6 +13,11 @@ with ``1 + scale``, runs a GeGLU MLP and ties its head to the embedding
 table; ``prefix_embeds`` (the image patches, a stub as in the reference)
 go in front of the tokens under a bidirectional prefix window.
 
+The audio encoder (hubert) takes frame embeddings directly (``embeds``),
+normalizes them by ``embed_norm``, adds sinusoidal positions, attends
+without a causal mask and runs a plain GELU MLP; its loss is the
+masked-frame cross-entropy against ``head``.
+
 DeepSeek-V3 (``attention="mla"``) runs its ``first_k_dense`` leading dense
 layers (``dense_layers/*``) before the MoE stack, each stack from the same
 starting position, as the reference runs two scans; its MTP leaves are
@@ -23,9 +28,10 @@ Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "v": ..., "pos": (*mesh,) or (*mesh, B)}``, or MLA's latent cache ``{"c":
 (*mesh, L, B, S, kv_lora_rank), "kr": (..., dr), "dense_c", "dense_kr",
 "pos"}`` (the leading dense layers' pair apart); the layers write rows into
-them in place.  The audio family is still to port (ROADMAP queue 1, item 9),
-and so are the MTP and MoE losses (items 21 and 12).  Training checkpoints
-each layer (``ctx.remat``).
+them in place.  A context(seq)-sharded cache (``seq_sharded=True``) keeps
+``S / data`` K/V rows a rank; MLA's latent cache ignores the flag, as in
+the reference.  The MTP and MoE losses are still to port (ROADMAP queue 1,
+items 21 and 12).  Training checkpoints each layer (``ctx.remat``).
 A MoE layer's dispatch stats add up over the layer loop in the active
 ``dispatch_stats`` frame, as the reference sums them over its scan.
 """
@@ -40,8 +46,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.context import default_context, recorded_once
 from .config import ModelConfig, ParallelCtx
 from .layers import (KVCache, MLACache, attention_block, ce_loss, dot_f32,
-                     embed_lookup, local_kv_heads, mla_block, mlp_block,
-                     moe_block, rmsnorm)
+                     embed_lookup, gather_fsdp, gelu_mlp_block, layernorm,
+                     local_kv_heads, mla_block, mlp_block, moe_block,
+                     rmsnorm)
 
 __all__ = ["init_cache", "transformer_forward", "transformer_loss",
            "transformer_prefill", "transformer_chunk_prefill",
@@ -50,15 +57,27 @@ __all__ = ["init_cache", "transformer_forward", "transformer_loss",
 
 def _check_family(cfg: ModelConfig) -> None:
     mla = cfg.attention == "mla"
-    if cfg.family not in ("dense", "moe", "vlm") \
+    if cfg.family not in ("dense", "moe", "vlm", "audio") \
             or cfg.moe != (cfg.family == "moe") \
             or cfg.attention not in ("gqa", "mla") or (mla and not cfg.moe) \
             or ((cfg.first_k_dense or cfg.mtp) and not mla):
-        raise NotImplementedError(
-            f"{cfg.name}: only the dense and VLM families with GQA attention "
-            f"and the MoE family with GQA or MLA attention (MLA with its "
-            f"leading dense layers and MTP leaves) are ported (the audio "
-            f"family: ROADMAP queue 1, item 9)")
+        raise ValueError(
+            f"{cfg.name}: the transformer stack runs the dense, VLM and "
+            f"audio families with GQA attention and the MoE family with GQA "
+            f"or MLA attention (MLA with its leading dense layers and MTP "
+            f"leaves)")
+
+
+def _sinusoid(T: int, d: int, dtype, device) -> torch.Tensor:
+    """The audio encoder's additive positions ``(T, d)``: sin on the even
+    columns, cos on the odd, in f32, cast to ``dtype``."""
+    pos = torch.arange(T, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), dim / d)
+    pe = torch.zeros(T, d, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(ang)
+    pe[:, 1::2] = torch.cos(ang[:, :d // 2])
+    return pe.to(dtype)
 
 
 def layer_stacks(cfg: ModelConfig):
@@ -81,9 +100,10 @@ def _layer(params: Dict[str, torch.Tensor], prefix: str, nd: int,
 def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, moe: bool,
                 positions, prefix_len: int, cache=None,
                 chunked: bool = False):
-    """One decoder block: (attn + residual) then (ffn + residual); the FFN
-    is the experts where ``moe`` (deepseek's shared experts sit inside
-    ``moe_block``), else the dense MLP."""
+    """One decoder (or encoder) block: (attn + residual) then (ffn +
+    residual); the FFN is the experts where ``moe`` (deepseek's shared
+    experts sit inside ``moe_block``), the GELU MLP for the audio encoder,
+    else the gated MLP."""
     vlm = cfg.family == "vlm"
     h = rmsnorm(x, lp["attn_norm"], cfg.norm_eps, plus_one=vlm)
     if cfg.attention == "mla":
@@ -97,6 +117,8 @@ def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, moe: bool,
     h = rmsnorm(x, lp["mlp_norm"], cfg.norm_eps, plus_one=vlm)
     if moe:
         return x + moe_block(h, lp, cfg, ctx), new_cache
+    if cfg.family == "audio":
+        return x + gelu_mlp_block(h, lp, ctx), new_cache
     return x + mlp_block(h, lp, ctx, act="gelu" if vlm else "silu"), \
         new_cache
 
@@ -137,12 +159,10 @@ def init_cache(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int, *,
     ``(L, B_loc, S, KH_loc, D)`` K and V, or MLA's ``(L, B_loc, S,
     kv_lora_rank)`` latents and ``(L, B_loc, S, dr)`` rope'd keys (the
     leading dense layers' pair under ``dense_c`` / ``dense_kr``), and one
-    position a rank."""
+    position a rank.  ``seq_sharded`` keeps ``S / fsdp`` K/V rows a rank
+    (the latent cache stays whole, as in the reference); it must be passed
+    again, identically, to the forward."""
     _check_family(cfg)
-    if seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded cache is not ported yet: ROADMAP "
-            "queue 1, item 9")
     dctx = default_context()
     mesh = dctx.require_mesh()
     device = dctx.device if device is None else device
@@ -150,6 +170,8 @@ def init_cache(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int, *,
         rows = ((cfg.kv_lora_rank,), (cfg.qk_rope_head_dim,))
     else:                            # a row: (k, v)
         rows = ((local_kv_heads(cfg, ctx), cfg.head_dim),) * 2
+        if seq_sharded:
+            S = S // ctx.fsdp
     cache = {}
     for _, L, _, names in layer_stacks(cfg):
         for name, row in zip(names, rows):
@@ -166,29 +188,32 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
                         seq_sharded: bool = False, chunked: bool = False):
     """tokens ``(*mesh, B, T)`` -> (hidden ``(*mesh, B, P + T, d)``,
     cache'); ``prefix_embeds (*mesh, B, P, d)`` go in front of the tokens
-    (the VLM's image patches) under a bidirectional prefix window."""
+    (the VLM's image patches) under a bidirectional prefix window;
+    ``embeds (*mesh, B, T, d)`` replace the token lookup (the audio
+    encoder's frames).  ``seq_sharded`` marks a context-sharded cache (see
+    :func:`init_cache`)."""
     _check_family(cfg)
-    if embeds is not None:
-        raise NotImplementedError(
-            "direct embeddings (the audio family) are not ported yet: "
-            "ROADMAP queue 1, item 9")
-    if seq_sharded:
-        raise NotImplementedError(
-            "the context(seq)-sharded cache is not ported yet: ROADMAP "
-            "queue 1, item 9")
     nd = default_context().require_mesh().ndim
-    x = embed_lookup(tokens, params["embed/table"], cfg, ctx)
-    if cfg.family == "vlm":
-        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    if embeds is not None:
+        x = embeds
+    else:
+        x = embed_lookup(tokens, params["embed/table"], cfg, ctx)
+        if cfg.family == "vlm":
+            x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
     prefix_len = 0
     if prefix_embeds is not None:
         x = torch.cat([prefix_embeds.to(x.dtype), x], dim=nd + 1)
         prefix_len = prefix_embeds.shape[nd + 1]
+    if "embed_norm" in params:
+        x = layernorm(x, params["embed_norm"], cfg.norm_eps)
+    if cfg.family == "audio":
+        x = x + _sinusoid(x.shape[nd + 1], cfg.d_model, x.dtype, x.device)
     if positions is None:
         positions = torch.arange(x.shape[nd + 1], device=x.device)
     pos = cache["pos"] if cache is not None else None
     remat = ctx.remat and cache is None and torch.is_grad_enabled()
     Cache = MLACache if cfg.attention == "mla" else KVCache
+    sharded = {} if Cache is MLACache else {"seq_sharded": seq_sharded}
     for prefix, L, moe, (ka, kb) in layer_stacks(cfg):
         for l in range(L):
             lp = _layer(params, prefix, nd, l)
@@ -197,7 +222,8 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
                                  l == 0, moe)
                 continue
             layer_cache = None if cache is None else Cache(
-                cache[ka].select(nd, l), cache[kb].select(nd, l), pos)
+                cache[ka].select(nd, l), cache[kb].select(nd, l), pos,
+                **sharded)
             with recorded_once(l == 0):
                 x, new = _layer_body(x, lp, cfg, ctx, moe=moe,
                                      positions=positions,
@@ -212,16 +238,21 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
 
 
 def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
-    """Next-token cross-entropy of the dense and VLM families: each rank's
-    mean loss over its batch shard, f32 ``(*mesh,)`` (replicated over the
-    TP group).  ``batch["tokens"] (*mesh, B, T)``; the VLM's
-    ``batch["prefix_embeds"] (*mesh, B, P, d)`` go in front, and only the
-    token positions are scored.  With ``ctx.remat`` and gradients on, each
-    layer is checkpointed."""
+    """Next-token cross-entropy of the dense and VLM families, or the audio
+    encoder's masked-frame cross-entropy: each rank's mean loss over its
+    batch shard, f32 ``(*mesh,)`` (replicated over the TP group).
+    ``batch["tokens"] (*mesh, B, T)``; the VLM's ``batch["prefix_embeds"]
+    (*mesh, B, P, d)`` go in front, and only the token positions are
+    scored; the audio batch is ``embeds (*mesh, B, T, d)``, ``targets``
+    and the frame ``mask`` (the loss's weights), scored against ``head``
+    gathered whole over the data axis.  With ``ctx.remat`` and gradients
+    on, each layer is checkpointed."""
     if cfg.family == "audio":
-        raise NotImplementedError(
-            "the audio family's masked-frame loss is not ported yet: ROADMAP "
-            "queue 1, item 9")
+        h, _ = transformer_forward(params, None, cfg, ctx,
+                                   embeds=batch["embeds"])
+        head = gather_fsdp(params["head"], ctx, dim=0)       # (d, V) whole
+        return ce_loss(h, head, batch["targets"], cfg, ctx,
+                       weights=batch.get("mask"))
     if cfg.moe:
         raise NotImplementedError(
             "the MoE loss (the backward of the expert MLP and of the fused "

@@ -1,6 +1,10 @@
 """Serve-step factories: prefill, chunk-prefill and decode steps (dense, MoE
 and VLM families; prefill and decode for the recurrent RWKV6 and hybrid
 Zamba2 families, which the serving engine refuses, as in the reference).
+``seq_sharded=True`` lays the K/V caches out context-sharded over "data"
+(the long-context decode).  The audio encoder has no step here: its
+forward is ``transformer_forward(params, None, cfg, ctx, embeds=...)``
+under an inference context.
 
 The reference wraps each step in ``shard_map`` plus ``jit``; here a built
 step is a plain callable over stacked tensors, carrying the per-dim specs
@@ -77,6 +81,14 @@ def _vocab_spec(cfg: ModelConfig) -> Optional[str]:
     return "model" if sch.vocab_sharded(cfg) else None
 
 
+def _refuse_encoder(cfg: ModelConfig, what: str) -> None:
+    if not model_api.has_decode(cfg):
+        raise ValueError(
+            f"{cfg.name} is an encoder ({cfg.family!r} family): it has no "
+            f"{what} step; its forward is transformer_forward(params, None, "
+            f"cfg, ctx, embeds=...) under an inference context")
+
+
 def build_decode_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, *,
                       B: int, S: int, seq_sharded: bool = False,
                       slot_pos: bool = False) -> ServeStep:
@@ -85,6 +97,7 @@ def build_decode_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, *,
     ``slot_pos=True`` (the serving engine) lays ``cache["pos"]`` out as a
     per-slot (B,) vector sharded like the batch.
     """
+    _refuse_encoder(cfg, "decode")
     ctx = _serve_ctx(ctx)
     decode = model_api.decode_fn(cfg)
     _, cspecs = model_api.cache_structs(cfg, mesh, ctx, B, S,
@@ -115,6 +128,7 @@ def build_chunk_prefill_step(cfg: ModelConfig, mesh: RankMesh,
     if cfg.family not in model_api.TRANSFORMER_FAMILIES:
         raise ValueError(f"chunked prefill supports transformer families "
                          f"only, got {cfg.family!r}")
+    _refuse_encoder(cfg, "chunked-prefill")
     del C                           # the shape comes with the tokens
     ctx = _serve_ctx(ctx)
     _, cspecs = model_api.cache_structs(cfg, mesh, ctx, B, S_cache)
@@ -135,6 +149,7 @@ def build_prefill_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, *,
     Transformer families fill a KV cache; the recurrent families run their
     stack over the prompt from the cache's state (zeros for a fresh one)
     and return the last position's logits with the new state."""
+    _refuse_encoder(cfg, "prefill")
     ctx = _serve_ctx(ctx)
     _, cspecs = model_api.cache_structs(cfg, mesh, ctx, B, S_cache,
                                         seq_sharded=seq_sharded)
@@ -154,9 +169,7 @@ def build_prefill_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx, *,
                                      seq_sharded=seq_sharded)
             return dot_f32(h[..., -1:, :], params["lm_head"]), cache
     else:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family's prefill is not ported yet: ROADMAP "
-            f"queue 1, item 9")
+        raise ValueError(cfg.family)
 
     return ServeStep(step, (bpart, None), cspecs,
                      (bpart, None, _vocab_spec(cfg)))

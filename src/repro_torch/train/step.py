@@ -25,6 +25,11 @@ once on stacked tensors whose leading dims are the mesh axes, with
 * With ``microbatch > 1``, ``overlap_grad_reduce`` and no codec, each
   microbatch's buckets reduce-scatter inside the accumulation loop and one
   invariant all-gather a bucket follows it (the same mean, split RS + AG).
+* Under ``layout="dp_only"`` the model axis is a DP axis: the batch
+  splits over ``dp_all`` (pod, data, model), no axis is left to fold
+  replicas over, and the buckets reduce over the DP axes each
+  parameter's placement leaves unused ("model" among them); the int8
+  codec takes the buckets over the whole DP group, as in the reference.
 * Logs follow the reference's trace-time rule: the reference traces its
   jitted step once, and the microbatch loop's body once in it, so a built
   step logs on its first call (for each input signature), the first

@@ -37,7 +37,7 @@ from repro_torch.core.context import DiompContext, use_default
 from repro_torch.interop import (local_shape, params_from_reference,
                                  stack_shards, unstack_shards)
 from repro_torch.launch.mesh import make_smoke_mesh
-from repro_torch.models import api, schema
+from repro_torch.models import schema
 from repro_torch.models.config import ParallelCtx
 from repro_torch.serve import step as t_step
 
@@ -248,16 +248,23 @@ def test_step_logs_once_per_built_step(arch, mesh8):
 
 
 def test_unported_branches_raise():
-    with pytest.raises(NotImplementedError, match="item 9"):
-        configs.get("hubert-xlarge")
+    """The branches still to port name their ROADMAP items: expert2d
+    (item 12) and ring_fsdp_matmul (item 9.5); an unknown architecture is
+    a KeyError now that all ten of the reference's are ported."""
+    from repro_torch.models import layers
+    from repro_torch.distributed.sharding import rules_for_ctx
+
+    with pytest.raises(NotImplementedError, match="item 12"):
+        ParallelCtx.from_mesh(MESH, expert2d=True)
     ctx = ParallelCtx.from_mesh(MESH)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ParallelCtx.from_mesh(MESH, layout="dp_only")
-    cfg = configs.get_reduced("glm4-9b")
-    audio = type(cfg)(**{**{f: getattr(cfg, f)
-                            for f in cfg.__dataclass_fields__},
-                         "family": "audio", "causal": False})
-    with pytest.raises(NotImplementedError, match="item 9"):
-        schema.build_schema(audio)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.cache_structs(cfg, MESH, ctx, B, S, seq_sharded=True)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        rules_for_ctx(types.SimpleNamespace(layout="tp", expert2d=True))
+    ring = ParallelCtx.from_mesh(MESH, use_ring_matmul=True)
+    x = torch.zeros(*MESH.sizes, 1, 4, 8)
+    w = torch.zeros(*MESH.sizes, 4, 8)
+    with use_default(DiompContext(mesh=MESH, device="cpu")), \
+            pytest.raises(NotImplementedError, match="item 9.5"):
+        layers.col_matmul(x, w, ring)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        configs.get("whisper-large")
+    assert ctx.layout == "tp"

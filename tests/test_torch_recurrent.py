@@ -297,12 +297,6 @@ def test_unported_recurrent_branches_raise():
         rwkv.rwkv_loss({}, {}, rw, ctx)
     with pytest.raises(NotImplementedError, match="item 19"):
         ssm.zamba_loss({}, {}, zb, ctx)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ssm.zamba_forward({}, None, zb, ctx, seq_sharded=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        api.cache_structs(zb, MESH, ctx, B, S, seq_sharded=True)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_step.build_decode_step(zb, MESH, ctx, B=B, S=S, seq_sharded=True)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
