@@ -88,6 +88,22 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   backward non-causal on the tensor cores at head_dim 80; at depth 2 the
   kernels' step against the plain versions' and dp_only's first loss
   against tp's;
+* the recurrent families' training, on data 2 x model 2 with the same
+  traffic (4 steps of 8 x 1024 tokens, microbatch 2): zamba2-1.2b at full
+  width and depth through the launcher, rwkv6-7b at full width with its
+  depth cut to 8 of 32 layers: every scan's forward and remat forward on
+  the scan kernel, every scan's backward on its gradient kernel
+  (``csrc/linear_scan_bwd.cu``), zamba2's shared attention on flash and
+  its gradient on the tensor cores (counted per route), step times and
+  tokens/s beside the bound, the peak memory, one more step profiled by
+  kernel group; at depth 2 (zamba2: 6) each rank's loss and gradients on
+  the kernels against the plain versions'; the scan's backward at a
+  layer's training shape against its plain version (both readouts, a row
+  of decays below 1e-38), twice for equal bits, timed;
+* the weight ring of the ZeRO-3 gather (``use_ring_matmul``): at depth 2
+  stablelm-3b's loss and gradients through the ring ("fused" and "host")
+  against the all-gather path's, then 2 full-width steps through the
+  fused ring in turns with 2 all-gather steps, their times side by side;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the attention gradient, the wave step and
@@ -227,6 +243,7 @@ LEAP_KERNELS = ("leap_tma_kernel", "leap_kernel")
 FUSED_KERNELS = ("fused_tma_kernel", "fused_step_kernel",
                  "fused_carried_kernel")
 SCAN_KERNELS = ("scan_prefill_kernel", "scan_decode_kernel")
+SCAN_BWD_KERNELS = ("scan_bwd_kernel",)
 
 
 def log(msg: str) -> None:
@@ -427,6 +444,8 @@ def load_port():
         ring_attention_ref=ring_attention_ref,
         linear_scan_kernel=ls.linear_scan_kernel,
         linear_scan_plain=ls.linear_scan_plain,
+        linear_scan_bwd_kernel=ls.linear_scan_bwd_kernel,
+        linear_scan_bwd_plain=ls.linear_scan_bwd_plain_dla,
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
         flash_attention_bwd_kernel=fa.flash_attention_bwd_kernel,
@@ -1282,6 +1301,76 @@ def check_linear_scan(torch, k, g) -> None:
                       rule_name="scan_route", route="decode")
 
 
+def _scan_bwd_err(torch, got, want):
+    """Each gradient's max |err| over its largest magnitude (a zero
+    gradient matched exactly)."""
+    worst = 0.0
+    for x, w in zip(got, want):
+        err, scale = max_err(torch, x, w), float(w.abs().max())
+        worst = max(worst, err / scale if scale else err)
+    return worst
+
+
+def check_linear_scan_bwd(torch, k, g) -> None:
+    """Row 11, the scan's backward, against its plain version (the reverse
+    sequential scan, with dla = a * da, 0 where a < 1e-38): both readouts,
+    chunks of 16 whole and ragged (T = 1, 15, 16, 17, 37, 64, 130), zero
+    and given s0 with no and a given cotangent of s_final, decays from the
+    reference sweep's [0.7, 0.999], fixed at e^-1, e^-8 and e^-30, and a
+    row of decays 0, 1e-40 and 1e-39, M = N = 64 and narrow ragged widths.
+    Tolerance 2e-4 of each gradient's largest magnitude, the forward's
+    bound for the chunked form against the sequential scan (dla's terms
+    carry a_t's factor, so strong decays cancel nothing); every gradient
+    finite, dla 0 on the tiny decays; one launch a
+    call; a second call on equal inputs gives equal bits (no atomics).
+    Operands that are not contiguous float32 are refused without a
+    launch."""
+    kern = k.linear_scan_bwd_kernel
+    for (BH, M, N) in ((3, 64, 64), (2, 16, 40), (2, 18, 37)):
+        for T in (1, 15, 16, 17, 37, 64, 130):
+            for decay in (None, math.exp(-1.0), math.exp(-8.0),
+                          math.exp(-30.0), "tiny"):
+                p, q, a, r = _scan_inputs(
+                    torch, g, BH, T, M, N, None if decay == "tiny" else decay)
+                if decay == "tiny":
+                    a[:, T // 2, :3] = torch.tensor([0.0, 1e-40, 1e-39],
+                                                    device=a.device)
+                dy = torch.randn(BH, T, M, generator=g, device="cuda")
+                for given in (False, True):
+                    s0, ds = ((torch.randn(BH, M, N, generator=g,
+                                           device="cuda") for _ in range(2))
+                              if given else (None, None))
+                    for pre in (True, False):
+                        args = (p, q, a, r, s0, dy, ds)
+                        want = k.linear_scan_bwd_plain(*args,
+                                                       readout_pre=pre)
+                        got = _counted(kern, lambda: kern(
+                            *args, readout_pre=pre), "chunked")
+                        err = _scan_bwd_err(torch, got, want)
+                        what = (f"linear_scan_bwd BH{BH} T{T} M{M} N{N} "
+                                f"decay {decay} s0/ds_fin {given} pre {pre}")
+                        check(all(bool(torch.isfinite(t).all()) for t in got)
+                              and err <= 2e-4,
+                              f"{what}: relative err {err:.3g}")
+                        if decay == "tiny":
+                            check(not bool(got[2][:, T // 2, :3].any()),
+                                  f"{what}: dla not 0 on the tiny decays")
+    again = kern(*args, readout_pre=pre)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "linear_scan_bwd: two calls on equal inputs differ")
+    before = kern.launches
+    for bad in (p.to(torch.bfloat16), p.transpose(1, 2).contiguous()
+                .transpose(1, 2)):
+        try:
+            kern(bad, q, a, r, None, dy)
+            check(False, "linear_scan_bwd: a bf16 or strided p was not "
+                  "refused")
+        except TypeError:
+            pass
+    check(kern.launches == before,
+          "linear_scan_bwd: a refused call counted a launch")
+
+
 def _ring_layout(t, n, sharded):
     """Full ``(B, T, ...)`` -> the ring's stacked ``(n, B, T/n, ...)``
     (or, unsharded, ``n`` copies)."""
@@ -1444,6 +1533,7 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "expert_mlp": check_expert_mlp,
                 "moe_dispatch": check_moe_dispatch,
                 "linear_scan": check_linear_scan,
+                "linear_scan_bwd": check_linear_scan_bwd,
                 "ring_attention": check_ring_attention,
                 "minimod": check_minimod}
 
@@ -1607,6 +1697,8 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
                                   + FUSED_KERNELS) else
                  "ring_attention" if "ring_attention" in name else
                  "linear_scan" if any(t in name for t in SCAN_KERNELS) else
+                 "linear_scan_bwd" if any(t in name for t in SCAN_BWD_KERNELS)
+                 else
                  "moe_dispatch" if any(t in name for t in MOE_KERNELS)
                  else
                  "expert_mlp" if any(t in name for t in EXPERT_KERNELS) else
@@ -2807,8 +2899,12 @@ def recurrent_phase(torch, k, dev, wrappers, arch) -> dict:
     scans, flashes = {}, {}
 
     def keep_scan(args, kw):
-        scans.setdefault("prefill" if args[0].shape[1] > 1 else "decode",
-                         (args, kw))
+        # the models pass the log-decay: kept as the decay the kernel reads
+        name = "prefill" if args[0].shape[1] > 1 else "decode"
+        if name not in scans:
+            kw = dict(kw)
+            a = torch.exp(kw.pop("log_a"))
+            scans[name] = ((args[0], args[1], a, *args[3:]), kw)
         return False
 
     def keep_flash(args, kw):
@@ -3587,19 +3683,26 @@ def _attn_pairs(T: int, causal: bool) -> int:
 def _train_flops(cfg, tokens: int, seq: int = None) -> float:
     """Operations of one training step under remat: 8 a token for each
     weight of the layers' matrices (forward, recomputed forward, backward
-    twice the forward), 6 for each weight of the head (LM or masked-frame;
+    twice the forward; zamba2's shared block's once for each of its
+    applications), 6 for each weight of the head (LM or masked-frame;
     never recomputed), none for the embedding lookup and the norms; plus
     the attention's score products over the visible pairs (causal, or all
     of them for the encoder; forward twice, backward 2.5 times the
-    forward)."""
+    forward), in each attention layer (zamba2: each application of the
+    shared block; rwkv6: none).  The recurrent scans' own products (about
+    a hundredth of the weights' at these widths) are left out."""
     from repro_torch.models import schema
 
     seq = TRAIN_SEQ if seq is None else seq
     spec = schema.build_schema(cfg)
     head = next(h for h in ("lm_head", "head", "embed/table") if h in spec)
+    n_app = cfg.num_layers // cfg.attn_every if cfg.family == "hybrid" else 0
+    shared = sum(math.prod(s.shape) for n, s in spec.items()
+                 if n.startswith("shared/") and len(s.shape) == 2)
     per_token = 6 * math.prod(spec[head].shape) \
-        + 8 * _layer_matrix_weights(cfg, spec)
-    attn = 2 * 2 * cfg.num_layers * cfg.num_heads * cfg.head_dim \
+        + 8 * (_layer_matrix_weights(cfg, spec) + n_app * shared)
+    attn_layers = n_app if cfg.family == "hybrid" else cfg.num_layers
+    attn = 2 * 2 * attn_layers * cfg.num_heads * cfg.head_dim \
         * _attn_pairs(seq, cfg.causal) * (tokens / seq)
     return per_token * tokens + (2 + 2.5) * attn
 
@@ -3733,9 +3836,10 @@ def _cut(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
-def _train_setup(torch, dev, cfg, mesh, **knobs):
+def _train_setup(torch, dev, cfg, mesh, donate=False, **knobs):
     """A step on ``mesh`` with the checks' constant learning rate, AdamW,
-    and the first SyntheticLM batch laid out on the card."""
+    and the SyntheticLM batches laid out on the card; ``donate`` updates
+    the parameters and the state in place, as the launcher's loop does."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.interop import stack_shards
     from repro_torch.models import api
@@ -3746,7 +3850,7 @@ def _train_setup(torch, dev, cfg, mesh, **knobs):
     ctx = ParallelCtx.from_mesh(mesh, remat=True, microbatch=TRAIN_MICRO,
                                 **knobs)
     opt = adamw(lambda step: torch.tensor(TRAIN_LR), b1=TRAIN_B1)
-    step = build_train_step(cfg, mesh, ctx, opt, donate=False)
+    step = build_train_step(cfg, mesh, ctx, opt, donate=donate)
     structs, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
                                         dp_axes=ctx.dp_axes)
     src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=17)
@@ -4071,6 +4175,400 @@ def train_phase(torch, k, dev, wrappers) -> dict:
     del q, kk, v, do
     torch.cuda.empty_cache()
     return row
+
+
+# -- training the recurrent families: the scan's backward (row 11) ------------
+
+# zamba2-1.2b at full width and depth through the launcher; rwkv6-7b at full
+# width with its depth cut to REC_TRAIN_LAYERS of 32 (the whole model's
+# 7.53e9 parameters and their AdamW state, about 160 GB, do not fit one
+# card); both on TRAIN_MESH with the training phase's traffic.  The checks'
+# depth: rwkv6 2 layers, zamba2 6 (one application of the shared block)
+REC_TRAIN_LAYERS = {"zamba2-1-2b": None, "rwkv6-7b": 8}
+REC_CHECK_LAYERS = {"zamba2-1-2b": 6, "rwkv6-7b": 2}
+
+
+class _PlainScanFn:
+    """``LinearScanFn``'s stand-in for the checks: the plain scan on the
+    card, differentiated by autograd."""
+
+    @staticmethod
+    def apply(p, q, log_a, r, s0, readout_pre, chunk):
+        import torch
+        from repro_torch.kernels.linear_scan.kernel import linear_scan_plain
+        return linear_scan_plain(p, q, torch.exp(log_a), r, s0,
+                                 readout_pre=readout_pre)
+
+
+def _scan_bwd_work(BH, T, M, N, pre, chunk=16):
+    """(bytes, f32 operations) of one backward call: p, q, a, r and dy read
+    once, dp, dq, dla and dr written once (s0 and ds_fin absent, as in
+    training); the products of its chunked form, 2 a multiply-add: over the
+    visible pairs of each chunk P, A, Aᵀ dy and the pair terms of dr and dq
+    (2M, 2N, 2M, 2N, 2N a pair); 2MN a row for each of the state pass,
+    dp's, dr's and dq's state terms and the carried cotangent, and 2MN a
+    chunk for Σ K ⊙ S_start; and dla's terms (2N each: the K terms of dq
+    before t, the S_start terms of dr at or after t, the pairs straddling
+    t)."""
+    nbytes = 4 * BH * T * (3 * M + 6 * N)
+    ops = 0
+    for c0 in range(0, T, chunk):
+        c = min(chunk, T - c0)
+        rho = [u - 1 if pre else u for u in range(c)]
+        vis = sum(1 for u in range(c) for s in range(c) if s <= rho[u])
+        reads = [sum(1 for u in range(c) if rho[u] >= t) for t in range(c)]
+        dla = sum(t + reads[t] + t * reads[t] for t in range(c))
+        ops += vis * (4 * M + 6 * N) + 5 * 2 * c * M * N + 2 * M * N \
+            + 2 * N * dla
+    return nbytes, BH * ops
+
+
+def _scan_bwd_at(torch, k, g, BH, pre):
+    """Row 11 at the training shape (BH sequences of TRAIN_SEQ rows, M = N
+    = 64: a layer's call in both recurrent models) against its plain
+    version within 2e-4 of each gradient's scale, run twice for equal bits,
+    with
+    a row of decays below 1e-38 (finite, dla 0 there, within the same
+    bound), and timed: CUDA events, the profiler's device time, its bound
+    and the plain version's time."""
+    T, M, N = TRAIN_SEQ, 64, 64
+    p, q, a, r = _scan_inputs(torch, g, BH, T, M, N, None)
+    dy = torch.randn(BH, T, M, generator=g, device=p.device)
+    kern = k.linear_scan_bwd_kernel
+    args = (p, q, a, r, None, dy, None)
+    got = kern(*args, readout_pre=pre)
+    want = k.linear_scan_bwd_plain(*args, readout_pre=pre)
+    err = _scan_bwd_err(torch, got, want)
+    abs_err = max(max_err(torch, x, w) for x, w in zip(got, want))
+    again = kern(*args, readout_pre=pre)
+    same = all(torch.equal(x, y) for x, y in zip(got, again))
+    check(all(bool(torch.isfinite(t).all()) for t in got) and err <= 2e-4
+          and same, f"linear_scan_bwd at the training shape (pre {pre}): "
+          f"relative err {err:.3g}, repeatable {same}")
+    del got, want, again
+    at = a.clone()
+    at[:, T // 3, :8] = 0.0
+    at[:, 2 * T // 3, :8] = 1e-40
+    t_args = (p, q, at, r, None, dy, None)
+    got = kern(*t_args, readout_pre=pre)
+    want = k.linear_scan_bwd_plain(*t_args, readout_pre=pre)
+    t_err = _scan_bwd_err(torch, got, want)
+    check(all(bool(torch.isfinite(t).all()) for t in got) and t_err <= 2e-4
+          and not bool(got[2][:, T // 3, :8].any())
+          and not bool(got[2][:, 2 * T // 3, :8].any()),
+          f"linear_scan_bwd with decays below 1e-38: relative err "
+          f"{t_err:.3g}")
+    del got, want, at, t_args
+    nbytes, ops = _scan_bwd_work(BH, T, M, N, pre)
+    b_ms, b_by = bound(nbytes, ops, "float32")
+
+    def call():
+        return kern(*args, readout_pre=pre)
+
+    ms = cuda_ms(torch, call, 5)
+    dev_ms = device_ms(torch, call, 5, SCAN_BWD_KERNELS)
+    plain = cuda_ms(torch, lambda: k.linear_scan_bwd_plain(
+        *args, readout_pre=pre), 1)
+    log(f"linear_scan_bwd at BH {BH}, T {T}, M {M}, N {N} (pre {pre}): "
+        f"{ms:.4f} ms (device {_ms(dev_ms, 4)}), plain {plain:.2f}, bound "
+        f"{b_ms:.4f} ms by {b_by}; err {abs_err:.4g} (relative {err:.3g}), "
+        f"bitwise repeatable {same}; decays below 1e-38: relative err "
+        f"{t_err:.3g}")
+    return {"max_abs_err": abs_err, "rel_err": err, "tiny_rel_err": t_err,
+            "bitwise_repeatable": same, "ms": ms, "device_ms": dev_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": None, "shape": [BH, T, M, N], "readout_pre": pre}
+
+
+def _rec_train_checks(torch, k, dev, arch) -> dict:
+    """At full width, depth cut to REC_CHECK_LAYERS, on TRAIN_MESH, with
+    f32 weights: each rank's loss and gradients on the kernels (the scan
+    and its backward; zamba2's flash and its gradient) against the same on
+    their plain versions, on the card, from one microbatch of the phase's
+    traffic.  Bounds: the loss within 1e-5 and each gradient leaf within
+    5e-3 of its largest per-rank value: f32 sums in another order, which
+    the embedding table's gradient amplifies (each token's row sums every
+    position's contribution, most of which cancels): on the CPU at full
+    width and T = 256 the chunked emulation of both scan kernels holds
+    zamba2's depth-6 and rwkv6's depth-2 gradients within 7e-5 and 1e-4
+    of the plain scan's, the table's the largest; on the card at T = 1024
+    rwkv6's table differed by 1.2e-3, zamba2's worst leaf by 1.7e-4.  In bf16
+    these random-weight models' gradients are chaotic: the same two runs,
+    whose scans agree within 1e-7, differ by up to 30 % of a leaf's scale
+    in bf16 (on the CPU), so bf16 would hold nothing here."""
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    from repro_torch.kernels.linear_scan import ops as ls_ops
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import schema as sch
+    from repro_torch.train.step import per_rank_grads
+
+    cfg = _cut(configs.get(arch), REC_CHECK_LAYERS[arch])
+    mesh = parse_mesh(TRAIN_MESH)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    params = {n: p.float() for n, p in sch.init_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(1),
+        device=dev).items()}
+    wr = (k.linear_scan_kernel, k.linear_scan_bwd_kernel,
+          k.flash_attention_kernel, k.flash_attention_bwd_kernel)
+    with use_default(dctx):
+        ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh)
+        # one microbatch of the phase's traffic: the training path's shapes
+        b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim] // TRAIN_MICRO)
+              for n, t in batch(0).items()}
+        before = [w.launches for w in wr]
+        l_k, g_k = per_rank_grads(params, b0, cfg, ctx, mesh)
+        launched = [w.launches - b for w, b in zip(wr, before)]
+        with _Swap(ls_ops, "LinearScanFn", _PlainScanFn), \
+                _Swap(fa_mod, "flash_attention_kernel",
+                      fa_mod.flash_attention_plain), \
+                _Swap(fa_mod, "flash_attention_bwd_kernel",
+                      fa_mod.flash_attention_bwd_plain):
+            before = [w.launches for w in wr]
+            l_p, g_p = per_rank_grads(params, b0, cfg, ctx, mesh)
+            plain_launched = [w.launches - b for w, b in zip(wr, before)]
+    del params
+    L = cfg.num_layers
+    n_app = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    check(launched == [2 * L, L, 2 * n_app, n_app] and plain_launched
+          == [0, 0, 0, 0], f"{arch} checks: launches (scan, scan backward, "
+          f"flash, flash backward) {launched} on the kernels, "
+          f"{plain_launched} on the plain versions")
+    loss_err = max_err(torch, l_k, l_p) / float(l_p.abs().max())
+    scale = {n: max(float(g_p[n].float().abs().max()), 1e-30) for n in g_p}
+    errs = sorted(((max_err(torch, g_k[n], g_p[n]) / scale[n], n)
+                   for n in g_p), reverse=True)
+    worst = errs[0]
+    out = {"layers": L, "loss_rel": loss_err, "grad_rel": worst[0],
+           "grad_rel_leaf": worst[1], "grad_rel_top": errs[:4],
+           "loss": float(l_k.mean())}
+    log(f"{arch} checks at depth {L}: kernels vs plain " + json.dumps(out))
+    check(loss_err <= 1e-5 and worst[0] <= 5e-3,
+          f"{arch}: kernels vs plain loss {loss_err}, grads {worst}")
+    del g_k, g_p
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_train_phase(torch, k, dev, wrappers, arch) -> dict:
+    """``arch`` trained TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ tokens
+    (microbatch TRAIN_MICRO) on TRAIN_MESH: zamba2-1.2b at full width and
+    depth through the port's launcher, rwkv6-7b at full width with its
+    depth cut to REC_TRAIN_LAYERS through ``_train_setup`` (AdamW at the
+    checks' constant rate, the state updated in place).  Every wrapper's
+    count is zeroed just before the steps and read just after: every scan
+    forward and remat forward on the scan kernel's prefill route, every
+    scan backward on row 11, zamba2's shared attention (forward and remat
+    forward, backward) on rows 5 and 10 on the tensor cores, nothing else.
+    Then one more step profiled by kernel group, and the depth-cut checks.
+    Returns the phase's numbers."""
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import schema as sch
+
+    layers = REC_TRAIN_LAYERS[arch]
+    cfg = configs.get(arch) if layers is None else _cut(configs.get(arch),
+                                                        layers)
+    tag = f"train {arch}"
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if layers is None:
+        argv = ["--arch", arch, "--steps", str(TRAIN_STEPS), "--batch",
+                str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ), "--microbatch",
+                str(TRAIN_MICRO), "--mesh", TRAIN_MESH, "--device",
+                str(torch.device(dev).type)]
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        run = launcher.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: w.launches for n, w in wrappers.items()}
+        routes = {n: dict(wrappers[n].route_launches) for n in (
+            "linear_scan", "linear_scan_bwd", "flash_attention",
+            "flash_attention_bwd")}
+        losses, norms, step_s = run["losses"], run["grad_norms"], \
+            run["step_s"]
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        breakdown = _train_breakdown(torch, dev, cfg, run)
+        del run
+    else:
+        mesh = parse_mesh(TRAIN_MESH)
+        dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+        with use_default(dctx):
+            _, opt, step, batch = _train_setup(torch, dev, cfg, mesh,
+                                               donate=True)
+            state = [sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                                     .manual_seed(0), device=dev)]
+            state.append(opt.init(state[0]))
+            losses, norms, step_s = [], [], []
+            _zero_counts(wrappers)
+            t0 = time.perf_counter()
+            for i in range(TRAIN_STEPS):
+                t1 = time.perf_counter()
+                state[0], state[1], met = step(state[0], state[1], batch(i),
+                                               i)
+                losses.append(float(met["loss"].reshape(-1)[0]))
+                norms.append(float(met["grad_norm"].reshape(-1)[0]))
+                step_s.append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {n: w.launches for n, w in wrappers.items()}
+            routes = {n: dict(wrappers[n].route_launches) for n in (
+                "linear_scan", "linear_scan_bwd", "flash_attention",
+                "flash_attention_bwd")}
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            extra = batch(TRAIN_STEPS)
+
+            def one():
+                state[0], state[1], _ = step(state[0], state[1], extra,
+                                             TRAIN_STEPS)
+
+            breakdown = _breakdown(torch, one, reps=1)
+            log(f"{tag}: one step profiled: {breakdown}")
+        del state, extra
+    torch.cuda.empty_cache()
+    L = cfg.num_layers
+    n_app = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    passes = TRAIN_MICRO * TRAIN_STEPS
+    log(f"{tag}: {cfg.name} ({cfg.param_count()} parameters, {L} layers) "
+        f"on {TRAIN_MESH}, {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (microbatch {TRAIN_MICRO}) in {wall:.1f} s; "
+        f"losses {losses}, grad norms {norms}; launches {launches}, routes "
+        f"{routes}; peak {peak:.2f} GB")
+    check(all(math.isfinite(x) for x in losses + norms)
+          and len(losses) == TRAIN_STEPS, f"{tag}: a non-finite step")
+    # each layer's scan: a forward and a remat forward on the prefill route
+    # and one backward a microbatch; zamba2's shared block the same on the
+    # attention kernels (head_dim 64, G = 1: the tensor cores on both)
+    want = {"linear_scan": 2 * L * passes, "linear_scan_bwd": L * passes,
+            "flash_attention": 2 * n_app * passes,
+            "flash_attention_bwd": n_app * passes}
+    check(all(launches[n] == c for n, c in want.items())
+          and all(c == 0 for n, c in launches.items() if n not in want),
+          f"{tag}: launches {launches}, not {want}")
+    check(routes["linear_scan"] == {"prefill": 2 * L * passes, "decode": 0}
+          and routes["linear_scan_bwd"] == {"chunked": L * passes}
+          and routes["flash_attention"] == {"simt": 0,
+                                            "wgmma": 2 * n_app * passes}
+          and routes["flash_attention_bwd"] == {"simt": 0,
+                                                "wgmma": n_app * passes},
+          f"{tag}: routes {routes}")
+    b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
+    steps = [{"ms": s * 1e3, "tokens_per_s": tokens / s} for s in step_s]
+    log(f"{tag}: step times (ms, the first with its warm-up) "
+        f"{[round(s['ms'], 2) for s in steps]}, tokens/s "
+        f"{[round(s['tokens_per_s'], 1) for s in steps]}; bound "
+        f"{b_ms:.2f} ms a step ({_train_flops(cfg, tokens):.4g} operations "
+        f"at the bf16 tensor-core rate)")
+    checks = _rec_train_checks(torch, k, dev, arch)
+    return {"arch": arch, "layers": L, "parameters": cfg.param_count(),
+            "step_ms": steps, "bound_ms": b_ms, "peak_memory_gb": peak,
+            "losses": losses, "launches": {n: launches[n] for n in want},
+            "routes": routes, "breakdown": breakdown, "checks": checks}
+
+
+# -- the weight ring of the ZeRO-3 gather (use_ring_matmul) -----------------
+
+RING_TRAIN_STEPS = 2
+
+
+def ring_train_phase(torch, k, dev) -> dict:
+    """stablelm-3b with ``use_ring_matmul=True`` (W's ZeRO-3 shards
+    circulate round the data ring by one-sided puts instead of being
+    gathered): at depth TRAIN_CUT_LAYERS on TRAIN_MESH, with f32 weights,
+    each rank's loss and gradients under ``ring_impl`` "fused" and "host"
+    against the all-gather path's (the loss within 1e-5, each leaf within
+    1e-4 of its largest per-rank value: in f32 the two paths differ only in
+    the order of the GEMMs' sums), the forward's puts logged; then
+    RING_TRAIN_STEPS steps at full width and depth in bf16 under "fused",
+    each in turn with an all-gather step on the same traffic, their times
+    side by side."""
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import schema as sch
+    from repro_torch.train.step import per_rank_grads
+
+    mesh = parse_mesh(TRAIN_MESH)
+    out = {}
+    cfg = _cut(configs.get(TRAIN_ARCH), TRAIN_CUT_LAYERS)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    params = {n: p.float() for n, p in sch.init_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(1),
+        device=dev).items()}
+    with use_default(dctx):
+        ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh)
+        b0 = batch(0)
+        l_g, g_g = per_rank_grads(params, b0, cfg, ctx, mesh)
+        for impl in ("fused", "host"):
+            rctx, _, _, _ = _train_setup(torch, dev, cfg, mesh,
+                                         use_ring_matmul=True, ring_impl=impl)
+            before = dctx.byte_stats()
+            l_r, g_r = per_rank_grads(params, b0, cfg, rctx, mesh)
+            puts = {grp: v.get("put", 0) - before.get(grp, {}).get("put", 0)
+                    for grp, v in dctx.byte_stats().items()}
+            loss_err = max_err(torch, l_r, l_g) / float(l_g.abs().max())
+            worst = max((max_err(torch, g_r[n], g_g[n]) / max(
+                float(g_g[n].float().abs().max()), 1e-30), n) for n in g_g)
+            out[f"depth{TRAIN_CUT_LAYERS}_{impl}"] = {
+                "loss_rel": loss_err, "grad_rel": worst[0],
+                "grad_rel_leaf": worst[1],
+                "put_bytes": {g_: b for g_, b in puts.items() if b}}
+            check(loss_err <= 1e-5 and worst[0] <= 1e-4,
+                  f"ring {impl} vs all-gather at depth {TRAIN_CUT_LAYERS}: "
+                  f"loss {loss_err}, grads {worst}")
+            check(any(puts.values()), f"ring {impl}: no put was logged")
+            del g_r
+    del params, g_g
+    torch.cuda.empty_cache()
+    log("ring: " + json.dumps(out))
+
+    # full width and depth: ring and all-gather steps in turns
+    cfg = configs.get(TRAIN_ARCH)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    torch.cuda.reset_peak_memory_stats()
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    with use_default(dctx):
+        _, opt, gather_step, batch = _train_setup(torch, dev, cfg, mesh,
+                                                  donate=True)
+        _, _, ring_step, _ = _train_setup(torch, dev, cfg, mesh, donate=True,
+                                          use_ring_matmul=True,
+                                          ring_impl="fused")
+        state = [sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)]
+        state.append(opt.init(state[0]))
+        times = {"ring": [], "allgather": []}
+        losses = {"ring": [], "allgather": []}
+        for i in range(RING_TRAIN_STEPS):
+            b = batch(i)
+            for name, step in (("ring", ring_step),
+                               ("allgather", gather_step)):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state[0], state[1], met = step(state[0], state[1], b, i)
+                torch.cuda.synchronize()
+                times[name].append((time.perf_counter() - t0) * 1e3)
+                losses[name].append(float(met["loss"].reshape(-1)[0]))
+    del state
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    check(all(math.isfinite(x) for v in losses.values() for x in v),
+          "ring: a non-finite full-width step")
+    out["full"] = {"step_ms": times, "losses": losses,
+                   "tokens_per_s": {n: [tokens / t * 1e3 for t in v]
+                                    for n, v in times.items()},
+                   "peak_memory_gb": peak}
+    log(f"ring: {cfg.name} at full width and depth on {TRAIN_MESH}, "
+        f"{RING_TRAIN_STEPS} steps of {TRAIN_BATCH} x {TRAIN_SEQ} tokens in "
+        f"turns (the first of each with its warm-up): ring (fused) "
+        f"{[round(t, 2) for t in times['ring']]} ms, all-gather "
+        f"{[round(t, 2) for t in times['allgather']]} ms; losses {losses}; "
+        f"peak {peak:.2f} GB")
+    return out
 
 
 # -- the long-context decode: zamba2-1.2b at 524,288 tokens -----------------
@@ -4648,7 +5146,8 @@ def main() -> int:
                 "fused_moe_dispatch": k.fused_moe_dispatch_kernel,
                 "linear_scan": k.linear_scan_kernel,
                 "fused_ring_attention": k.fused_ring_attention_kernel,
-                "flash_attention_bwd": k.flash_attention_bwd_kernel}
+                "flash_attention_bwd": k.flash_attention_bwd_kernel,
+                "linear_scan_bwd": k.linear_scan_bwd_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -5081,7 +5580,46 @@ def main() -> int:
         "stablelm-3b": bwd["launches"],
         **{f"hubert-xlarge {layout}": run["flash"]["backward"]
            for layout, run in audio["train"].items()}}
-    check(len(kernels) == len(wrappers) == 10, "kernels line incomplete")
+
+    # -- phase 19: training the recurrent families, the scan's backward -----
+    rec_train = {arch: recurrent_train_phase(torch, k, dev, wrappers, arch)
+                 for arch in REC_TRAIN_LAYERS}
+    for arch, run in rec_train.items():
+        scan["launches_by_phase"][f"train {arch}"] = \
+            run["launches"]["linear_scan"]
+        if run["launches"]["flash_attention"]:
+            by_path[f"train {arch}"] = run["launches"]["flash_attention"]
+            bwd["launches_by_path"][arch] = \
+                run["launches"]["flash_attention_bwd"]
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(5)
+    scan_bwd = {"name": "linear_scan_bwd", "route": "cuda",
+                "source": "src/repro_torch/csrc/linear_scan_bwd.cu",
+                "replaces": "src/repro/kernels/linear_scan/kernel.py:104 "
+                            "(the gradient of its forward; the reference "
+                            "differentiates linear_scan_ref, "
+                            "src/repro/kernels/linear_scan/ref.py:23)",
+                "launches": sum(r["launches"]["linear_scan_bwd"]
+                                for r in rec_train.values()),
+                "route_launches": {"chunked": sum(
+                    r["routes"]["linear_scan_bwd"]["chunked"]
+                    for r in rec_train.values())},
+                "launches_by_path": {a: r["launches"]["linear_scan_bwd"]
+                                     for a, r in rec_train.items()}}
+    # a layer's call of the training path: 2 x 2 ranks, a microbatch of 2
+    # sequences, 32 heads a rank (both models), M = N = 64; rwkv6's readout
+    # timed, zamba2's checked
+    BH = 4 * (TRAIN_BATCH // 2 // TRAIN_MICRO) * 32
+    scan_bwd.update(_scan_bwd_at(torch, k, g, BH, True))
+    scan_bwd["post_readout"] = _scan_bwd_at(torch, k, g, BH, False)
+    scan_bwd["train"] = rec_train
+    kernels.append(scan_bwd)
+    torch.cuda.empty_cache()
+
+    # -- phase 20: the weight ring of the ZeRO-3 gather ----------------------
+    ring_fsdp = ring_train_phase(torch, k, dev)
+    log("ring_fsdp: " + json.dumps(ring_fsdp))
+    check(len(kernels) == len(wrappers) == 11, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

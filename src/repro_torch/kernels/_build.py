@@ -58,6 +58,8 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 10 + [_P]}),
     "linear_scan": ("linear_scan.cu", {
         "repro_linear_scan": [_P] * 7 + [_I] * 7 + [_P]}),
+    "linear_scan_bwd": ("linear_scan_bwd.cu", {
+        "repro_linear_scan_bwd": [_P] * 13 + [_I] * 5 + [_P]}),
     "flash_attention": ("flash_attention.cu", {
         "repro_flash_attention": [_P, _LL, _LL, _LL, _LL] * 4
         + [_P, _P] + [_I] * 11 + [_F, _I, _I, _I] + [_P] * 5,

@@ -16,10 +16,12 @@ follow the reference (per rank):
 A context(seq)-sharded decode cache (``seq_sharded``) holds the S-chunk
 ``[r·s_loc, (r+1)·s_loc)`` on data rank r: the owner alone writes a
 step's row, and :func:`cp_decode_attention` merges the ranks' partials
-from row 5's kernel with three OMPCCL all-reduces.  Not ported here:
-MoE's ``expert2d`` placement and ``ring_fsdp_matmul``; each raises
-``NotImplementedError`` naming its ROADMAP item where it would be
-reached.
+from row 5's kernel with three OMPCCL all-reduces.  Under
+``use_ring_matmul`` the column-parallel GEMMs rotate W's ZeRO-3 shards
+around the data ring instead of gathering them
+(:func:`ring_fsdp_matmul`).  Not ported here: MoE's ``expert2d``
+placement, which raises ``NotImplementedError`` naming its ROADMAP item
+where it would be reached.
 
 The decode and chunk-prefill branches write the new K/V (MLA: latent)
 rows into the cache in place (the reference returns an updated copy): a
@@ -39,13 +41,15 @@ import torch.nn.functional as F
 from ..core import ompccl
 from ..core.backends import XlaBackend, group_rank
 from ..core.context import default_context, use_default
+from ..core.rma import ompx_put
 from ..kernels.flash_attention.kernel import flash_attention_kernel
 from ..kernels.flash_attention.ops import flash_attention
 from ..kernels.moe_dispatch.fused import expert_slots, kept_counts, scatter_rows
 from ..kernels.moe_dispatch.kernel import expert_mlp
 from ..kernels.moe_dispatch.ops import moe_dispatch
 from ..kernels.moe_dispatch.ref import route_topk
-from ..kernels.plan import resolve_dispatch_impl, resolve_seq_parallel
+from ..kernels.plan import (RingPlan, resolve_dispatch_impl, resolve_ring_impl,
+                            resolve_seq_parallel)
 from .config import ModelConfig, ParallelCtx
 from .schema import head_parallel, kv_sharded, vocab_sharded
 
@@ -54,7 +58,7 @@ __all__ = [
     "col_matmul", "row_matmul", "embed_lookup", "ce_loss", "Q8Gather",
     "KVCache", "cp_decode_attention", "local_kv_heads", "MLACache",
     "mla_block", "attention_block", "mlp_block", "gelu_mlp_block",
-    "moe_capacity", "moe_block", "dot", "flat_heads",
+    "moe_capacity", "moe_block", "dot", "flat_heads", "ring_fsdp_matmul",
 ]
 
 
@@ -211,13 +215,61 @@ def tp_allreduce(x, ctx: ParallelCtx):
     return ompccl.allreduce(x, ctx.tp_group)
 
 
+def ring_fsdp_matmul(x, w_local, ctx: ParallelCtx):
+    """Cannon-style overlap of the ZeRO-3 gather (the reference's
+    ``ring_fsdp_matmul``, paper §4.4 applied to the weight gather): y = x @
+    W with W row-sharded over ``fsdp_group``.
+
+    Instead of all-gathering W and running one GEMM, W's shards circulate
+    around the group's ring by ``ompx_put`` on the stacked rank dim, on the
+    :class:`~repro_torch.kernels.plan.RingPlan` schedule: bidirectional
+    (``ceil((n-1)/2)`` exchange steps) when ``ctx.ring_impl`` resolves to
+    ``"fused"``, clockwise (``n - 1``) for ``"host"``.  Each step sends
+    first, then multiplies the stripe it holds by x's matching block of
+    columns (rank ``idx`` holds the shard of rank ``(idx ∓ s) mod n`` at
+    step ``s``).  The partial products (the port's :func:`dot`) add up in
+    f32 in schedule order and are cast once.  Autograd differentiates the
+    puts (each a roll of the rank dim); the backward logs no put, as the
+    transpose of the reference's ``ppermute`` does not go through
+    ``ompx_put``.  Without an FSDP group or sharded weights: one ``dot``.
+    """
+    if ctx.fsdp <= 1 or not ctx.fsdp_params:
+        return dot(x, w_local)
+    group = ctx.fsdp_group
+    n = group.axis_size(_mesh())
+    dshard = w_local.shape[-2]
+    idx = _rank_index(group, x.dim() + 1, x.device)     # (*mesh, 1, ..., 1)
+    blocks = x.unflatten(-1, (n, dshard))
+    direction = ("bidi" if resolve_ring_impl(ctx.ring_impl) == "fused"
+                 else "cw")
+    acc = None
+
+    def partial_gemm(acc, stripe, src):
+        xs = torch.gather(blocks, -2, src.expand(*blocks.shape[:-2], 1,
+                                                 dshard)).squeeze(-2)
+        y = dot(xs, stripe).float()
+        return y if acc is None else acc + y
+
+    cw = ccw = w_local
+    for st in RingPlan(n=n, direction=direction).schedule():
+        # forwards first: the next stripes fly while this step's GEMMs run
+        cw_next = ompx_put(cw, group, shift=1) if st.send_cw else cw
+        ccw_next = ompx_put(ccw, group, shift=-1) if st.send_ccw else ccw
+        if st.compute_cw:
+            acc = partial_gemm(acc, cw, (idx - st.index) % n)
+        if st.compute_ccw:
+            acc = partial_gemm(acc, ccw, (idx + st.index) % n)
+        cw, ccw = cw_next, ccw_next
+    return acc.to(x.dtype)
+
+
 def col_matmul(x, w_local, ctx: ParallelCtx, bias_local=None):
-    """Megatron column-parallel: x (…, d) × W (d/fsdp, out/tp) -> (…, out/tp)."""
+    """Megatron column-parallel: x (…, d) × W (d/fsdp, out/tp) -> (…, out/tp),
+    through the weight ring under ``ctx.use_ring_matmul``."""
     if ctx.use_ring_matmul:
-        raise NotImplementedError(
-            "ring_fsdp_matmul (use_ring_matmul) is not ported yet: ROADMAP "
-            "queue 1, item 9.5")
-    y = dot(x, gather_fsdp(w_local, ctx, dim=0))
+        y = ring_fsdp_matmul(x, w_local, ctx)
+    else:
+        y = dot(x, gather_fsdp(w_local, ctx, dim=0))
     if bias_local is not None:
         y = y + _lift(bias_local, y).to(y.dtype)
     return y

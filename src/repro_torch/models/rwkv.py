@@ -17,7 +17,10 @@ context and later layers against its scratch context
 what one reference trace does.  Decode state per layer: the token-shift
 carries ``x_tm``/``x_cm`` ``(*mesh, B, d)`` and the WKV state ``S``
 ``(*mesh, B, H_loc, hd, hd)`` in f32, stacked over the layers.  The
-training loss is still to port (ROADMAP queue 1, item 19).
+training loss (:func:`rwkv_loss`) checkpoints each layer under
+``ctx.remat`` (:func:`~repro_torch.models.transformer.remat`); the scan
+takes the log-decay ``-exp(w_log)``, through which its gradient flows (the
+backward kernel on the card).
 """
 
 from __future__ import annotations
@@ -31,9 +34,9 @@ from ..core import ompccl
 from ..core.context import default_context, recorded_once
 from ..kernels.linear_scan.ops import linear_scan
 from .config import ModelConfig, ParallelCtx
-from .layers import (_lift, _rank_index, col_matmul, dot_f32, embed_lookup,
-                     flat_heads, layernorm, rmsnorm, row_matmul)
-from .transformer import _layer
+from .layers import (_lift, _rank_index, ce_loss, col_matmul, dot_f32,
+                     embed_lookup, flat_heads, layernorm, rmsnorm, row_matmul)
+from .transformer import _layer, remat
 
 __all__ = ["rwkv_forward", "rwkv_loss", "rwkv_init_state", "rwkv_decode"]
 
@@ -83,17 +86,18 @@ def rwkv_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx,
     v = col_matmul(xv, lp["tm_wv"], ctx)
     g = F.silu(col_matmul(xg, lp["tm_wg"], ctx).float())
 
-    # data-dependent decay (LoRA): w = exp(-exp(w0 + tanh(xw A) B))
+    # data-dependent decay (LoRA): w = exp(-exp(w0 + tanh(xw A) B)), given
+    # to the scan as its log, -exp(w_log) (w in (0, 1))
     low = torch.tanh(dot_f32(xw, lp["tm_wA"]))
     w_log = _lift(lp["tm_w0"], xw).float() + dot_f32(low, lp["tm_wB"])
-    w = torch.exp(-torch.exp(w_log))                   # in (0, 1)
+    log_w = -torch.exp(w_log)
 
     def heads(t):  # (*mesh, B, T, d_loc) f32 -> (ranks·B·H_loc, T, hd)
         return flat_heads(t.float().reshape(*lead, B, T, H_loc, hd))
 
     s0 = None if state is None else state["S"].reshape(-1, hd, hd).contiguous()
-    y, s_fin = linear_scan(heads(v), heads(k), heads(w), heads(r), s0,
-                           readout_pre=True)
+    y, s_fin = linear_scan(heads(v), heads(k), None, heads(r), s0,
+                           log_a=heads(log_w), readout_pre=True)
     # diag(u) bonus: y_t += v_t * sum_n(r_t u k_t)
     u = lp["tm_u"].float().reshape(*lead, H_loc, hd)
     rk = (r.float() * k.float()).reshape(*lead, B, T, H_loc, hd)
@@ -139,17 +143,24 @@ def rwkv_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
                  ctx: ParallelCtx, state: Optional[dict] = None):
     """tokens ``(*mesh, B, T)`` -> (hidden ``(*mesh, B, T, d)``, new state
     or None).  ``state`` (stacked per layer) enables prefill and decode;
-    None for a stateless forward."""
+    None for a stateless forward, whose layers are checkpointed under
+    ``ctx.remat`` with gradients on (the reference's ``jax.checkpoint`` of
+    its scan body)."""
     nd = default_context().require_mesh().ndim
     x = embed_lookup(tokens, params["embed/table"], cfg, ctx)
     x = layernorm(x, params["embed_norm"], cfg.norm_eps)
+    checkpointed = ctx.remat and state is None and torch.is_grad_enabled()
     new = []
     for l in range(cfg.num_layers):
+        lp = _layer(params, "layers", nd, l)
+        if checkpointed:
+            x = remat(lambda h, lp=lp: rwkv_block(h, lp, cfg, ctx)[0], x,
+                      l == 0)
+            continue
         st = None if state is None else {
             k: v.select(nd, l) for k, v in state.items()}
         with recorded_once(l == 0):
-            x, st2 = rwkv_block(x, _layer(params, "layers", nd, l), cfg, ctx,
-                                st)
+            x, st2 = rwkv_block(x, lp, cfg, ctx, st)
         new.append(st2)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if state is None:
@@ -158,9 +169,12 @@ def rwkv_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
 
 
 def rwkv_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
-    raise NotImplementedError(
-        "the RWKV training loss (the linear scan's backward) is not ported "
-        "yet: ROADMAP queue 1, item 19")
+    """Next-token cross-entropy: each rank's mean loss over its batch
+    shard, f32 ``(*mesh,)`` (replicated over the TP group)."""
+    h, _ = rwkv_forward(params, batch["tokens"], cfg, ctx)
+    tokens = batch["tokens"]
+    return ce_loss(h[..., :-1, :], params["lm_head"], tokens[..., 1:], cfg,
+                   ctx)
 
 
 def rwkv_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, *,

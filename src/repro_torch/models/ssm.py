@@ -21,8 +21,11 @@ projection is small and replicated; the gated output norm reduces its
 statistics across TP with an OMPCCL all-reduce.  With ``seq_sharded=True``
 the shared block's K/V caches keep ``S / data`` rows a rank (the long
 context's decode, :func:`~repro_torch.models.layers.cp_decode_attention`);
-the Mamba states are per sequence and stay whole.  Still to port: the
-training loss (ROADMAP queue 1, item 19).
+the Mamba states are per sequence and stay whole.  The training loss
+(:func:`zamba_loss`) checkpoints each Mamba block and each application of
+the shared block under ``ctx.remat``; the scan takes the log-decay
+``Δt·A``, through which its gradient flows (the backward kernel on the
+card).
 """
 
 from __future__ import annotations
@@ -36,10 +39,10 @@ from ..core import ompccl
 from ..core.context import default_context
 from ..kernels.linear_scan.ops import linear_scan
 from .config import ModelConfig, ParallelCtx
-from .layers import (KVCache, _lift, attention_block, col_matmul, dot_f32,
-                     embed_lookup, flat_heads, gather_fsdp, local_kv_heads,
-                     mlp_block, rmsnorm, row_matmul)
-from .transformer import _layer
+from .layers import (KVCache, _lift, attention_block, ce_loss, col_matmul,
+                     dot_f32, embed_lookup, flat_heads, gather_fsdp,
+                     local_kv_heads, mlp_block, rmsnorm, row_matmul)
+from .transformer import _layer, remat
 
 __all__ = ["zamba_forward", "zamba_loss", "zamba_init_state", "zamba_decode"]
 
@@ -103,18 +106,18 @@ def mamba_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx,
     x_c = F.silu(x_c.float())
 
     A = -torch.exp(lp["A_log"].float())                # (*mesh, nh_loc)
-    a = torch.exp(_lift(A, dt) * dt)                   # (*mesh, B, T, nh_loc)
+    log_a = _lift(A, dt) * dt                     # (*mesh, B, T, nh_loc)
 
     xh = x_c.reshape(*lead, B, T, nh_loc, hd)
     p = xh * dt[..., None]
     shape = (*lead, B, T, nh_loc, st)
     q_in = B_[..., None, :].expand(shape)
     r_in = C_[..., None, :].expand(shape)
-    a_in = a[..., None].expand(shape)
+    la_in = log_a[..., None].expand(shape)
 
     s0 = None if state is None else state["S"].reshape(-1, hd, st).contiguous()
-    y, s_fin = linear_scan(flat_heads(p), flat_heads(q_in),
-                           flat_heads(a_in), flat_heads(r_in), s0,
+    y, s_fin = linear_scan(flat_heads(p), flat_heads(q_in), None,
+                           flat_heads(r_in), s0, log_a=flat_heads(la_in),
                            readout_pre=False)
     y = y.reshape(*lead, B, nh_loc, T, hd).transpose(-3, -2)
     y = y + _lift(lp["D"].float()[..., None], y) * xh
@@ -143,8 +146,10 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
 
     ``cache``: ``{"mamba": {"conv", "S"} stacked per layer, "k"/"v":
     (*mesh, n_app, B, S, KH_loc, D), "pos": (*mesh,)}`` — None for a
-    stateless forward.  Returns (hidden, new cache); K/V go into the
-    cache's tensors in place.
+    stateless forward, whose Mamba blocks and shared-block applications
+    are each checkpointed under ``ctx.remat`` with gradients on (the
+    reference's ``jax.checkpoint`` of each).  Returns (hidden, new cache);
+    K/V go into the cache's tensors in place.
     """
     nd = default_context().require_mesh().ndim
     x = embed_lookup(tokens, params["embed/table"], cfg, ctx)
@@ -156,22 +161,34 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
     positions = (pos.reshape(*pos.shape, 1, 1) if cache is not None and T == 1
                  else None)
 
+    checkpointed = ctx.remat and cache is None and torch.is_grad_enabled()
+
+    def shared_block(h, kv=None):
+        hn = rmsnorm(h, shared["attn_norm"], cfg.norm_eps)
+        attn, _ = attention_block(hn, shared, cfg, ctx, positions=positions,
+                                  cache=kv)
+        h = h + attn
+        hn = rmsnorm(h, shared["mlp_norm"], cfg.norm_eps)
+        return h + mlp_block(hn, shared, ctx)
+
     new_mamba, app = [], 0
     for i in range(cfg.num_layers):
-        st = None if cache is None else {
-            k: v.select(nd, i) for k, v in cache["mamba"].items()}
-        x, st2 = mamba_block(x, _layer(params, "layers", nd, i), cfg, ctx, st)
-        new_mamba.append(st2)
+        lp = _layer(params, "layers", nd, i)
+        if checkpointed:
+            x = remat(lambda h, lp=lp: mamba_block(h, lp, cfg, ctx)[0], x,
+                      True)
+        else:
+            st = None if cache is None else {
+                k: v.select(nd, i) for k, v in cache["mamba"].items()}
+            x, st2 = mamba_block(x, lp, cfg, ctx, st)
+            new_mamba.append(st2)
         if (i + 1) % every == 0:
-            kv = None if cache is None else KVCache(
-                cache["k"].select(nd, app), cache["v"].select(nd, app), pos,
-                seq_sharded=seq_sharded)
-            hn = rmsnorm(x, shared["attn_norm"], cfg.norm_eps)
-            attn, _ = attention_block(hn, shared, cfg, ctx,
-                                      positions=positions, cache=kv)
-            x = x + attn
-            hn = rmsnorm(x, shared["mlp_norm"], cfg.norm_eps)
-            x = x + mlp_block(hn, shared, ctx)
+            if checkpointed:
+                x = remat(shared_block, x, True)
+            else:
+                x = shared_block(x, None if cache is None else KVCache(
+                    cache["k"].select(nd, app), cache["v"].select(nd, app),
+                    pos, seq_sharded=seq_sharded))
             app += 1
 
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -184,9 +201,12 @@ def zamba_forward(params: Dict[str, torch.Tensor], tokens, cfg: ModelConfig,
 
 
 def zamba_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
-    raise NotImplementedError(
-        "the Zamba2 training loss (the linear scan's backward) is not ported "
-        "yet: ROADMAP queue 1, item 19")
+    """Next-token cross-entropy: each rank's mean loss over its batch
+    shard, f32 ``(*mesh,)`` (replicated over the TP group)."""
+    h, _ = zamba_forward(params, batch["tokens"], cfg, ctx)
+    tokens = batch["tokens"]
+    return ce_loss(h[..., :-1, :], params["lm_head"], tokens[..., 1:], cfg,
+                   ctx)
 
 
 def zamba_init_state(cfg: ModelConfig, ctx: ParallelCtx, B_loc: int, S: int,

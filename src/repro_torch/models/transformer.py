@@ -50,9 +50,9 @@ from .layers import (KVCache, MLACache, attention_block, ce_loss, dot_f32,
                      local_kv_heads, mla_block, mlp_block, moe_block,
                      rmsnorm)
 
-__all__ = ["init_cache", "transformer_forward", "transformer_loss",
-           "transformer_prefill", "transformer_chunk_prefill",
-           "transformer_decode"]
+__all__ = ["init_cache", "remat", "transformer_forward",
+           "transformer_loss", "transformer_prefill",
+           "transformer_chunk_prefill", "transformer_decode"]
 
 
 def _check_family(cfg: ModelConfig) -> None:
@@ -123,24 +123,23 @@ def _layer_body(x, lp, cfg: ModelConfig, ctx: ParallelCtx, *, moe: bool,
         new_cache
 
 
-def _remat_layer(x, lp, cfg: ModelConfig, ctx: ParallelCtx, positions,
-                 prefix_len: int, first: bool, moe: bool):
-    """One training layer under ``torch.utils.checkpoint``: its
+def remat(fn, x, first: bool):
+    """``fn(x)`` for training under ``torch.utils.checkpoint``: its
     activations are dropped after the forward and recomputed in the
-    backward (the reference's ``jax.checkpoint`` on the scan body).  The
-    reference traces the body once, so only the first run of the first
-    layer logs against the active context: the recompute runs the Python
-    again, and logs against the scratch context.  The recompute runs in
-    the backward (on the card, in the autograd engine's thread), so both
-    runs name the context of the forward's caller."""
+    backward (the reference's ``jax.checkpoint``).  The reference traces
+    the checkpointed function once, so only the first run logs, against
+    the active context when ``first`` (else against its scratch context):
+    the recompute runs the Python again, and logs against the scratch
+    context.  The recompute runs in the backward (on the card, in the
+    autograd engine's thread), so both runs name the context of the
+    forward's caller."""
     runs = []
     parent = default_context()
 
     def body(h):
         with recorded_once(first and not runs, parent):
             runs.append(1)
-            return _layer_body(h, lp, cfg, ctx, moe=moe, positions=positions,
-                               prefix_len=prefix_len)[0]
+            return fn(h)
 
     return checkpoint(body, x, use_reentrant=False)
 
@@ -211,15 +210,16 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
     if positions is None:
         positions = torch.arange(x.shape[nd + 1], device=x.device)
     pos = cache["pos"] if cache is not None else None
-    remat = ctx.remat and cache is None and torch.is_grad_enabled()
+    checkpointed = ctx.remat and cache is None and torch.is_grad_enabled()
     Cache = MLACache if cfg.attention == "mla" else KVCache
     sharded = {} if Cache is MLACache else {"seq_sharded": seq_sharded}
     for prefix, L, moe, (ka, kb) in layer_stacks(cfg):
         for l in range(L):
             lp = _layer(params, prefix, nd, l)
-            if remat:
-                x = _remat_layer(x, lp, cfg, ctx, positions, prefix_len,
-                                 l == 0, moe)
+            if checkpointed:   # the reference traces its scan body once
+                x = remat(lambda h, lp=lp, moe=moe: _layer_body(
+                    h, lp, cfg, ctx, moe=moe, positions=positions,
+                    prefix_len=prefix_len)[0], x, l == 0)
                 continue
             layer_cache = None if cache is None else Cache(
                 cache[ka].select(nd, l), cache[kb].select(nd, l), pos,

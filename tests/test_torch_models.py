@@ -248,10 +248,9 @@ def test_step_logs_once_per_built_step(arch, mesh8):
 
 
 def test_unported_branches_raise():
-    """The branches still to port name their ROADMAP items: expert2d
-    (item 12) and ring_fsdp_matmul (item 9.5); an unknown architecture is
-    a KeyError now that all ten of the reference's are ported."""
-    from repro_torch.models import layers
+    """The branch still to port names its ROADMAP item: expert2d (item
+    12); an unknown architecture is a KeyError now that all ten of the
+    reference's are ported."""
     from repro_torch.distributed.sharding import rules_for_ctx
 
     with pytest.raises(NotImplementedError, match="item 12"):
@@ -259,12 +258,6 @@ def test_unported_branches_raise():
     ctx = ParallelCtx.from_mesh(MESH)
     with pytest.raises(NotImplementedError, match="item 12"):
         rules_for_ctx(types.SimpleNamespace(layout="tp", expert2d=True))
-    ring = ParallelCtx.from_mesh(MESH, use_ring_matmul=True)
-    x = torch.zeros(*MESH.sizes, 1, 4, 8)
-    w = torch.zeros(*MESH.sizes, 4, 8)
-    with use_default(DiompContext(mesh=MESH, device="cpu")), \
-            pytest.raises(NotImplementedError, match="item 9.5"):
-        layers.col_matmul(x, w, ring)
     with pytest.raises(KeyError, match="unknown architecture"):
         configs.get("whisper-large")
     assert ctx.layout == "tp"

@@ -289,16 +289,6 @@ def test_step_logs_once_per_built_step(arch, kind, mesh8):
     assert sum(sum(v.values()) for v in tp.values()) > 0
 
 
-def test_unported_recurrent_branches_raise():
-    ctx = ParallelCtx.from_mesh(MESH, inference=True)
-    rw = configs.get_reduced("rwkv6-7b")
-    zb = configs.get_reduced("zamba2-1-2b")
-    with pytest.raises(NotImplementedError, match="item 19"):
-        rwkv.rwkv_loss({}, {}, rw, ctx)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        ssm.zamba_loss({}, {}, zb, ctx)
-
-
 @pytest.mark.parametrize("arch", ARCHS)
 def test_init_state_is_the_zero_cache(arch):
     """``rwkv_init_state``/``zamba_init_state`` lay out the zero cache that

@@ -531,8 +531,7 @@ def test_synthetic_batches_equal_reference(arch):
 
 def test_losses_of_unported_families_name_their_items():
     ctx = ParallelCtx.from_mesh(MESH)
-    for arch, item in (("rwkv6-7b", "item 19"), ("zamba2-1-2b", "item 19"),
-                       ("qwen3-moe-235b-a22b", "item 12")):
+    for arch, item in (("qwen3-moe-235b-a22b", "item 12"),):
         cfg = configs.get_reduced(arch)
         with use_default(DiompContext(mesh=MESH, device="cpu")):
             with pytest.raises(NotImplementedError, match=item):
