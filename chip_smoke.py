@@ -281,45 +281,59 @@ def cuda_ms(torch, fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+DEVICE_TRIES = 50   # traces device_ms takes before it gives up
+
+
 def device_ms(torch, fn, reps: int, names, cold_l2: bool = False):
     """Device time (ms a call) of the kernels whose names contain one of
     ``names``, from ``torch.profiler`` over ``reps`` calls of ``fn``: what
     the card spends in them, without the host's time between launches.
     ``cold_l2`` overwrites a 128 MB buffer before each call, so the call
-    finds its operands in device memory, not in the 50 MB L2.  The trace
-    has been seen to hold one launch fewer than were made (and, once, none
-    of a long kernel's), so each kernel's time is its mean over the
-    launches the trace holds, times its launches a call; a trace that
-    holds none is taken again, up to five times, and None if it never
-    does.  A small kernel of PyTorch's own (``torch.cuda._sleep``'s
-    ``spin_kernel``, never counted, even where ``names`` is ``("",)``)
-    trails the calls inside each trace, so that none of ``fn``'s launches
-    is the trace's last."""
+    finds its operands in device memory, not in the 50 MB L2.  Inside each
+    trace 20 ms of ``torch.cuda._sleep`` on the card lead the calls and a
+    wait of 20 ms on the host follows them: right after a large trace, a
+    trace without them loses the launches of its first milliseconds
+    (``chip_split.py --profiler``).  Now and then, and most often late in
+    a long run, a whole trace still comes back without its launches, or
+    with a few of them, so a trace counts only if it holds at least ``reps
+    - 1`` launches of the named kernels; else it is taken again, up to
+    ``DEVICE_TRIES`` times, and the result is None if none counts.  Each
+    kernel's time is its mean over the launches the trace holds, times its
+    launches a call.  ``spin_kernel`` (``torch.cuda._sleep``'s) is never
+    counted, even where ``names`` is ``("",)``."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(1 << 27, dtype=torch.uint8, device="cuda") \
         if cold_l2 else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(5):
+    for _ in range(DEVICE_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(40_000_000)
             for _ in range(reps):
                 if flush is not None:
                     flush.fill_(1)
                 fn()
             torch.cuda._sleep(1000)
             torch.cuda.synchronize()
-        hits = [e for e in prof.key_averages()
-                if any(n in e.key for n in names) and e.count > 0
-                and "spin_kernel" not in e.key
-                and "CUDA" in str(getattr(e, "device_type", "CUDA"))]
-        if hits:
+            time.sleep(0.02)
+        events = [e for e in prof.key_averages() if e.count > 0]
+        on_card = [e for e in events
+                   if "CUDA" in str(getattr(e, "device_type", "CUDA"))]
+        hits = [e for e in on_card if any(n in e.key for n in names)
+                and "spin_kernel" not in e.key]
+        if sum(e.count for e in hits) >= max(1, reps - 1):
             us = sum(getattr(e, "self_device_time_total",
                              getattr(e, "self_cuda_time_total", 0))
                      / e.count * max(1, round(e.count / reps))
                      for e in hits)
             return us / 1e3
-        log(f"device_ms: no launch of {names} in the trace; taken again")
+        host = sum(e.count for e in events
+                   if "LaunchKernel" in e.key and e not in on_card)
+        log(f"device_ms: {sum(e.count for e in hits)} launches of {names} "
+            f"in the trace after {reps} calls ({sum(e.count for e in on_card)}"
+            f" on the card in all, {host} launch calls on the host); taken "
+            f"again")
     return None
 
 
@@ -446,6 +460,8 @@ def load_port():
         linear_scan_plain=ls.linear_scan_plain,
         linear_scan_bwd_kernel=ls.linear_scan_bwd_kernel,
         linear_scan_bwd_plain=ls.linear_scan_bwd_plain_dla,
+        scan_bwd_smem_bytes=ls.scan_bwd_smem_bytes,
+        BWD_BLOCKS_PER_SM=ls.BWD_BLOCKS_PER_SM,
         flash_attention_kernel=fa.flash_attention_kernel,
         flash_attention_plain=fa.flash_attention_plain,
         flash_attention_bwd_kernel=fa.flash_attention_bwd_kernel,
@@ -1314,7 +1330,8 @@ def _scan_bwd_err(torch, got, want):
 def check_linear_scan_bwd(torch, k, g) -> None:
     """Row 11, the scan's backward, against its plain version (the reverse
     sequential scan, with dla = a * da, 0 where a < 1e-38): both readouts,
-    chunks of 16 whole and ragged (T = 1, 15, 16, 17, 37, 64, 130), zero
+    T across the edges of its 16-row sub-chunks and 32-row chunks, whole
+    and ragged (T = 1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 130), zero
     and given s0 with no and a given cotangent of s_final, decays from the
     reference sweep's [0.7, 0.999], fixed at e^-1, e^-8 and e^-30, and a
     row of decays 0, 1e-40 and 1e-39, M = N = 64 and narrow ragged widths.
@@ -1327,7 +1344,7 @@ def check_linear_scan_bwd(torch, k, g) -> None:
     launch."""
     kern = k.linear_scan_bwd_kernel
     for (BH, M, N) in ((3, 64, 64), (2, 16, 40), (2, 18, 37)):
-        for T in (1, 15, 16, 17, 37, 64, 130):
+        for T in (1, 15, 16, 17, 31, 32, 33, 37, 63, 64, 65, 130):
             for decay in (None, math.exp(-1.0), math.exp(-8.0),
                           math.exp(-30.0), "tiny"):
                 p, q, a, r = _scan_inputs(
@@ -4223,6 +4240,42 @@ def _scan_bwd_work(BH, T, M, N, pre, chunk=16):
     return nbytes, BH * ops
 
 
+def _scan_bwd_design(BH, T, pre):
+    """What ``csrc/linear_scan_bwd.cu`` itself computes for one call, at its
+    padded width D = 64: (f32 operations, exponentials).  Operations, 2 a
+    multiply-add: pass 1's state update (2 C D² a chunk but the last);
+    in pass 2 a chunk's dense products (dp's K term, drS, dqK and K's
+    update, 2 C D² each; P and dp's A term over whole 32 x 32 blocks, 2 C²
+    D each; A's off block and the off-block terms of dr and dq, 2 x 16² D
+    each; Σ K ⊙ S_start, 2 D²) and per visible pair of the two diagonal
+    blocks and channel 3 for A's entry and 8 for the pair terms of dr, dq
+    and dla.  Exponentials: the logs of both passes, the tables, the
+    products' scales, A's per strict pair (s < u) and channel, the pair
+    terms' per visible pair and channel."""
+    C, D, sub = 32, 64, 16
+    nc = -(-T // C)
+    strict = 2 * (sub * (sub - 1) // 2)
+    pairs = strict if pre else strict + 2 * sub
+    chunk = (8 * C * D * D + 4 * C * C * D + 6 * sub * sub * D + 2 * D * D
+             + 11 * pairs * D)
+    ops = (nc - 1) * 2 * C * D * D + nc * chunk
+    exps = (nc - 1) * 2 * C * D + nc * (C * D * 6 + 2 * sub * D + D
+                                        + (strict + pairs) * D)
+    return BH * ops, BH * exps
+
+
+def _ptxas_of(lib: str, kernel: str) -> str:
+    """Registers and spills of ``kernel``'s instances in the build log of
+    ``lib`` (``build/repro_torch/lib<lib>.log``, written by the build)."""
+    from repro_torch.kernels import _build
+    path = _build.BUILD_DIR / f"lib{lib}.log"
+    if not path.exists():
+        return "registers not in this run's build log"
+    found = [f"{func}: {regs} registers, {spills}" for func, regs, spills
+             in ptxas_summary(path.read_text()) if kernel in func]
+    return "; ".join(found) or "registers not in this run's build log"
+
+
 def _scan_bwd_at(torch, k, g, BH, pre):
     """Row 11 at the training shape (BH sequences of TRAIN_SEQ rows, M = N
     = 64: a layer's call in both recurrent models) against its plain
@@ -4261,19 +4314,36 @@ def _scan_bwd_at(torch, k, g, BH, pre):
     del got, want, at, t_args
     nbytes, ops = _scan_bwd_work(BH, T, M, N, pre)
     b_ms, b_by = bound(nbytes, ops, "float32")
+    d_ops, d_exps = _scan_bwd_design(BH, T, pre)
+    smem = k.scan_bwd_smem_bytes()
+    regs = _ptxas_of("linear_scan_bwd", "scan_bwd_kernel")
 
     def call():
         return kern(*args, readout_pre=pre)
 
     ms = cuda_ms(torch, call, 5)
-    dev_ms = device_ms(torch, call, 5, SCAN_BWD_KERNELS)
+    # one launch a call, back to back: its device time lies inside the
+    # events' time and close under it; a reading that does not is read
+    # again (the profiler has returned one under half the events' time)
+    for _ in range(3):
+        dev_ms = device_ms(torch, call, 10, SCAN_BWD_KERNELS)
+        if dev_ms is not None and 0.8 * ms <= dev_ms <= 1.1 * ms:
+            break
+        log(f"linear_scan_bwd: device time {_ms(dev_ms, 4)} ms against "
+            f"{ms:.4f} ms by events; read again")
+    check(dev_ms is not None and 0.8 * ms <= dev_ms <= 1.1 * ms,
+          f"linear_scan_bwd at the training shape (pre {pre}): device time "
+          f"{_ms(dev_ms, 4)} ms against {ms:.4f} ms by events")
     plain = cuda_ms(torch, lambda: k.linear_scan_bwd_plain(
         *args, readout_pre=pre), 1)
     log(f"linear_scan_bwd at BH {BH}, T {T}, M {M}, N {N} (pre {pre}): "
         f"{ms:.4f} ms (device {_ms(dev_ms, 4)}), plain {plain:.2f}, bound "
-        f"{b_ms:.4f} ms by {b_by}; err {abs_err:.4g} (relative {err:.3g}), "
-        f"bitwise repeatable {same}; decays below 1e-38: relative err "
-        f"{t_err:.3g}")
+        f"{b_ms:.4f} ms by {b_by} ({ops:.4g} operations); the design "
+        f"{d_ops:.4g} operations ({d_ops / PEAK_OPS['float32'] * 1e3:.4f} ms "
+        f"at the f32 rate) and {d_exps:.4g} exponentials, {smem} bytes of "
+        f"shared memory a block, {k.BWD_BLOCKS_PER_SM} block an SM; {regs}; "
+        f"err {abs_err:.4g} (relative {err:.3g}), bitwise repeatable {same}; "
+        f"decays below 1e-38: relative err {t_err:.3g}")
     return {"max_abs_err": abs_err, "rel_err": err, "tiny_rel_err": t_err,
             "bitwise_repeatable": same, "ms": ms, "device_ms": dev_ms,
             "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,

@@ -27,6 +27,22 @@ an entry without it cannot run), the scan's prefill at the served shape
 and its decode step; where the other kernels are the earlier one-tile
 leap and one-block-a-sequence scan (their pass markers found), their
 splits too.
+
+With ``--scan-bwd --against DIR`` it does none of that: it builds DIR's
+``linear_scan_bwd.cu`` (the same C entry) and times row 11 of both
+versions in turns at the training shape (BH 256, T 1024, M = N = 64),
+both readouts, with CUDA events and the profiler's device time.
+
+With ``--profiler`` it does none of that either: in a fresh process for
+each variant it takes a profiler trace as large as a profiled training
+step's (30,000 small launches), then thirty short traces of ten GEMMs
+each, as ``chip_smoke.device_ms`` takes them, and prints the launches
+each holds: after no large trace, right after one, after a wait of 3 s,
+after ``gc.collect()``, with ``TEARDOWN_CUPTI=0`` in the environment,
+right after a trace of 1,500 backward passes (autograd's thread), and
+after that with 20 ms of work ahead of the calls inside each trace and
+20 ms of wait behind them, after 30,000 launches made with no profiler
+running, and after those and one empty trace.
 Every output is held against the plain version.  Exits non-zero without a
 card.
 """
@@ -35,10 +51,13 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import gc
 import math
+import os
 import shutil
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -148,7 +167,8 @@ def build(torch, cs, build_mod, name: str, text: str, src_dir: Path,
                + [F, P]}
     for fn, argt in fns.items():
         argt = list(argt)
-        if name != "fused_wave_step" and "int route" not in text:
+        if name not in ("fused_wave_step", "linear_scan_bwd") \
+                and "int route" not in text:
             del argt[-2]             # an entry that takes no route code
         getattr(lib, fn).argtypes = argt
         getattr(lib, fn).restype = ctypes.c_int
@@ -257,28 +277,166 @@ def fused_step(torch, cs, k, g, lib, carried_abi: bool, turns) -> None:
     torch.cuda.empty_cache()
 
 
+def scan_bwd_turns(torch, cs, _build, k, g, other_dir: Path) -> None:
+    """Row 11 at the training shape, this version against ``other_dir``'s
+    ``linear_scan_bwd.cu``, each within 2e-4 of the plain version's
+    gradients, in turns (other, this, this, other) under both readouts."""
+    lib = build(torch, cs, _build, "linear_scan_bwd",
+                (other_dir / "linear_scan_bwd.cu").read_text(), other_dir,
+                "other_linear_scan_bwd")
+    BH, T, M, N = 256, cs.TRAIN_SEQ, 64, 64
+    p, q, a, r = cs._scan_inputs(torch, g, BH, T, M, N, None)
+    dy = torch.randn(BH, T, M, generator=g, device="cuda")
+    args = (p, q, a, r, None, dy, None)
+    outs = [torch.empty_like(x) for x in (p, q, q, q)]
+    ds0 = torch.empty(BH, M, N, device="cuda")
+    states = torch.empty(BH, -(-T // 16), 64, 64, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    for pre in (True, False):
+        def old():
+            st = lib.repro_linear_scan_bwd(
+                p.data_ptr(), q.data_ptr(), a.data_ptr(), r.data_ptr(), None,
+                dy.data_ptr(), None, *(o.data_ptr() for o in outs),
+                ds0.data_ptr(), states.data_ptr(), BH, T, M, N, int(pre),
+                stream)
+            if st != 0:
+                raise RuntimeError(f"other scan backward failed: {st}")
+            return (*outs, ds0)
+
+        def new():
+            return k.linear_scan_bwd_kernel(*args, readout_pre=pre)
+
+        want = k.linear_scan_bwd_plain(*args, readout_pre=pre)
+        err_new = cs._scan_bwd_err(torch, new(), want)
+        err_old = cs._scan_bwd_err(torch, old(), want)
+        cs.check(max(err_new, err_old) <= 2e-4, "scan backward against plain")
+        del want
+        t = [cs.cuda_ms(torch, old, 5), cs.cuda_ms(torch, new, 5),
+             cs.cuda_ms(torch, new, 5), cs.cuda_ms(torch, old, 5)]
+        dn = cs.device_ms(torch, new, 10, cs.SCAN_BWD_KERNELS)
+        do = cs.device_ms(torch, old, 10, cs.SCAN_BWD_KERNELS)
+        print(f"scan backward at ({BH}, {T}, {M}, {N}), pre {pre} (relative "
+              f"err {err_new:.3g} / {err_old:.3g}): this {t[1]:.4f} / "
+              f"{t[2]:.4f} ms (device {cs._ms(dn, 4)}), other {t[0]:.4f} / "
+              f"{t[3]:.4f} ms (device {cs._ms(do, 4)})")
+
+
+PROFILER_VARIANTS = ("no large trace", "right after", "after 3 s",
+                     "after gc.collect()", "TEARDOWN_CUPTI=0",
+                     "right after, autograd", "lead-in, autograd",
+                     "after unprofiled launches",
+                     "drained after unprofiled launches")
+
+
+def profiler_variant(torch, name: str) -> None:
+    """One variant of ``--profiler``, in this process: per short trace the
+    GEMMs and spin kernels it holds, and (µs) the first GEMM's start on the
+    card after the first ``aten::mm``'s on the host."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    x = torch.randn(4096, 4096, device="cuda")
+    small = torch.zeros(1024, device="cuda")
+    w = torch.randn(256, 256, device="cuda", requires_grad=True)
+    torch.mm(x, x)
+    torch.cuda.synchronize()
+    kernels = 0
+    if "unprofiled" in name:  # launches with no profiler running
+        for _ in range(30_000):
+            small.add_(1.0)
+        torch.cuda.synchronize()
+        if name.startswith("drained"):  # one empty trace first
+            with profile(activities=acts):
+                torch.cuda.synchronize()
+    elif name != "no large trace":
+        with profile(activities=acts) as prof:
+            if "autograd" in name:  # backward passes run on autograd's thread
+                for _ in range(1_500):
+                    (torch.tanh(small[:256] @ w) ** 2).sum().backward()
+            else:
+                for _ in range(30_000):
+                    small.add_(1.0)
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if "CUDA" in str(e.device_type))
+        del prof
+        if name == "after 3 s":
+            time.sleep(3.0)
+        if name == "after gc.collect()":
+            gc.collect()
+    seen = []
+    for _ in range(30):
+        with profile(activities=acts) as prof:
+            if name.startswith("lead-in"):  # 20 ms on the card, then calls
+                torch.cuda._sleep(40_000_000)
+            for _ in range(10):
+                torch.mm(x, x)
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            if name.startswith("lead-in"):
+                time.sleep(0.02)
+        ev = prof.events()
+        dev = [e for e in ev if "CUDA" in str(e.device_type)]
+        gemm = sorted(e.time_range.start for e in dev
+                      if "spin_kernel" not in e.name)
+        mm = sorted(e.time_range.start for e in ev if e.name == "aten::mm")
+        lead = round(gemm[0] - mm[0]) if gemm and mm else None
+        seen.append((len(gemm), sum("spin_kernel" in e.name for e in dev),
+                     lead, sum("LaunchKernel" in e.name for e in ev
+                               if e not in dev)))
+    print(f"profiler, {name} (large trace: {kernels} device launches): "
+          f"{sum(s[0] == 0 for s in seen)} of 30 traces hold no GEMM; "
+          f"GEMMs a trace {[s[0] for s in seen]}; spin kernels "
+          f"{[s[1] for s in seen]}; first GEMM after first aten::mm (µs) "
+          f"{[s[2] for s in seen]}; launches the host recorded "
+          f"{[s[3] for s in seen]}")
+
+
 def main() -> int:
     import torch
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--against", type=Path, default=None,
                         help="a csrc directory of another version")
+    parser.add_argument("--scan-bwd", action="store_true",
+                        help="only row 11 against --against's")
+    parser.add_argument("--profiler", action="store_true",
+                        help="only the empty-trace variants")
+    parser.add_argument("--profiler-variant", default=None,
+                        help=argparse.SUPPRESS)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_split: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT))
-    sys.path.insert(0, str(ROOT / "src"))
-    import chip_smoke as cs
-    from repro_torch.kernels import _build
-    from repro_torch.kernels.plan import SCAN_CHUNK, SCAN_ROUTES
+    if args.profiler_variant is not None:
+        profiler_variant(torch, args.profiler_variant)
+        return 0
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
     print(f"card: {card}; torch {torch.__version__}")
+    if args.profiler:
+        for name in PROFILER_VARIANTS:
+            env = dict(os.environ)
+            if name == "TEARDOWN_CUPTI=0":
+                env["TEARDOWN_CUPTI"] = "0"
+            res = subprocess.run([sys.executable, __file__,
+                                  "--profiler-variant", name], env=env)
+            if res.returncode:
+                return res.returncode
+        return 0
+    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "src"))
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.plan import SCAN_CHUNK, SCAN_ROUTES
     k = cs.load_port()
     g = torch.Generator(device="cuda").manual_seed(0)
+    if args.scan_bwd:
+        if args.against is None:
+            parser.error("--scan-bwd needs --against")
+        scan_bwd_turns(torch, cs, _build, k, g, args.against.resolve())
+        return 0
     csrc = _build.CSRC
     now = build(torch, cs, _build, "linear_scan",
                 stamped((csrc / "linear_scan.cu").read_text(), SPLIT_NOW[1]),

@@ -35,14 +35,30 @@ from .ref import linear_scan_bwd_plain, linear_scan_ref
 
 __all__ = ["linear_scan_kernel", "linear_scan_plain", "linear_scan_emulated",
            "linear_scan_bwd_kernel", "linear_scan_bwd_plain_dla",
-           "linear_scan_bwd_emulated", "LinearScanFn", "MAX_CHUNK", "MAX_DIM", "BWD_CHUNK", "BWD_ROUTES",
-           "TINY"]
+           "linear_scan_bwd_emulated", "LinearScanFn", "MAX_CHUNK", "MAX_DIM",
+           "BWD_CHUNK", "BWD_SUB", "BWD_THREADS", "BWD_BLOCKS_PER_SM",
+           "BWD_ROUTES", "TINY", "scan_bwd_smem_bytes"]
 
 MAX_CHUNK = 64   # rows of a chunk the kernel stages
 MAX_DIM = 64     # largest M and N it takes
-BWD_CHUNK = 16   # rows of a chunk of the backward (BWD_C)
+BWD_CHUNK = 32   # rows of a chunk of the backward (BWD_C)
+BWD_SUB = 16     # rows of its sub-chunks (BWD_SUB)
+BWD_THREADS = 512  # threads of its block, one a sequence (BWD_THREADS)
+BWD_BLOCKS_PER_SM = 1  # blocks its shared memory lets an SM hold
 BWD_ROUTES = ("chunked",)   # the backward's one route
 TINY = 1e-38     # the decay both kernels clamp to before the log
+
+
+def scan_bwd_smem_bytes() -> int:
+    """Dynamic shared memory of a backward block (``csrc/linear_scan_bwd.cu``'s
+    ``scan_bwd_smem_bytes``): two buffer sets of five staged chunk-row
+    arrays and five more (rows ``MAX_DIM + 4`` floats apart), the starting
+    state and K, P and A (rows ``BWD_CHUNK + 4`` apart), three exchange
+    arrays, 19 rows of ``MAX_DIM`` and two mbarriers."""
+    c, d = BWD_CHUNK, MAX_DIM
+    rs, ps = d + 4, c + 4
+    return 4 * (15 * c * rs + 2 * d * rs + 2 * c * ps + 3 * c * d + 19 * d
+                + 4)
 
 
 def linear_scan_plain(p, q, a, r, s0=None, *, readout_pre: bool = True):
@@ -189,66 +205,108 @@ def linear_scan_bwd_plain_dla(p, q, a, r, s0, dy, ds_fin=None, *,
 
 
 def linear_scan_bwd_emulated(p, q, a, r, s0, dy, ds_fin=None, *,
-                             readout_pre: bool = True,
-                             chunk: int = BWD_CHUNK):
-    """The backward kernel's factoring in plain torch (f32): a forward
-    pass keeping each chunk's starting state, then the chunks in reverse
-    with the carried cotangent K (the cotangent of the state after the
-    chunk's last row), the per-pair exponentials ``E = exp(Lr_u - L_s)``
-    (every exponent <= 0) inside a chunk, and dla from the terms of ``a_t
-    Σ_m G_t ⊙ S_{t-1}``, each of which carries a_t's factor, so nothing
+                             readout_pre: bool = True):
+    """The backward kernel's factoring in plain torch (f32).  A forward
+    pass keeps each chunk's starting state; then the chunks, of
+    ``BWD_CHUNK`` rows (padded with p = q = r = dy = 0 and a = 1), go in
+    reverse with the carried cotangent K (the cotangent of the state after
+    the chunk's last row).  Inside a chunk, two sub-chunks of ``BWD_SUB``
+    rows: per-pair exponentials ``exp(Lr_u - L_s)`` only on the two
+    diagonal sub-blocks; off them (u in sub-chunk 1, s in sub-chunk 0) each
+    pair term factors as ``R~_u Q~_s`` with ``R~ = r exp(Lr - L_15)`` and
+    ``Q~ = q exp(L_15 - L)``, every exponent <= 0.  dla sums the terms of
+    ``a_t Σ_m G_t ⊙ S_{t-1}``, each of which carries a_t's factor: a
+    diagonal block's straddling pairs per pair, the pairs across the two
+    blocks as a prefix over sub-chunk 0's rows of q ⊙ (dq's off-block
+    term) and a suffix over sub-chunk 1's of r ⊙ (dr's), so nothing
     cancels where the decays are strong.  Returns ``(dp, dq, dla, dr,
     ds0)`` (the CUDA source states the terms)."""
     pf, qf, af, rf, gy = (x.float() for x in (p, q, a, r, dy))
     BH, T, M = pf.shape
     N = qf.shape[-1]
     dev = pf.device
+    C, B = BWD_CHUNK, BWD_SUB
+    lo, hi = slice(0, B), slice(B, C)             # the two sub-chunks
+
+    def pad(x, c0, fill):
+        rows = min(C, T - c0)
+        out = torch.full((BH, C, x.shape[-1]), fill, dtype=torch.float32,
+                         device=dev)
+        out[:, :rows] = x[:, c0:c0 + rows]
+        return out
+
     S = (torch.zeros(BH, M, N, dtype=torch.float32, device=dev)
          if s0 is None else s0.float())
-    starts, logs = [], []
-    for c0 in range(0, T, chunk):
-        rows = slice(c0, min(c0 + chunk, T))
-        L = torch.log(af[:, rows].clamp_min(TINY)).cumsum(1)
+    c0s = list(range(0, T, C))
+    starts = []
+    for c0 in c0s:
         starts.append(S)
-        logs.append(L)
-        S = S * torch.exp(L[:, -1])[:, None, :] + pf[:, rows].transpose(1, 2) \
-            @ (qf[:, rows] * torch.exp(L[:, -1:] - L))
+        L = torch.log(pad(af, c0, 1.0).clamp_min(TINY)).cumsum(1)
+        S = S * torch.exp(L[:, -1])[:, None, :] + pad(pf, c0, 0.0) \
+            .transpose(1, 2) @ (pad(qf, c0, 0.0) * torch.exp(L[:, -1:] - L))
+    t = torch.arange(C, device=dev)
+    sub = t // B
+    rho = t - 1 if readout_pre else t             # the state row u reads
+    vis = t[None, :] <= rho[:, None]              # (u, s)
+    same = sub[:, None] == sub[None, :]
+    before = t[None, :] < t[:, None]              # (t, s): s < t
+    reads = rho[None, :] >= t[:, None]            # (t, u): rho(u) >= t
+    strad = (reads[:, :, None] & before[:, None, :]
+             & same[:, :, None] & same[:, None, :])   # (t, u, s), one block
     K = torch.zeros_like(S) if ds_fin is None else ds_fin.float()
     dp, dq, dla, dr = (torch.empty_like(x) for x in (pf, qf, af, rf))
-    for ci in range(len(starts) - 1, -1, -1):
-        L, S0, c0 = logs[ci], starts[ci], ci * chunk
-        n = L.shape[1]
-        rows = slice(c0, c0 + n)
-        pc, qc, rc, yc = pf[:, rows], qf[:, rows], rf[:, rows], gy[:, rows]
-        Lr = torch.cat([torch.zeros_like(L[:, :1]), L[:, :-1]], 1) \
-            if readout_pre else L
-        L_end = L[:, -1:]
-        t = torch.arange(n, device=dev)
-        rho = t - 1 if readout_pre else t         # the state row u reads
-        vis = t[None, :] <= rho[:, None]           # (u, s)
+    for ci in range(len(c0s) - 1, -1, -1):
+        c0, S0 = c0s[ci], starts[ci]
+        rows = min(C, T - c0)
+        pc, qc, rc, yc = (pad(x, c0, 0.0) for x in (pf, qf, rf, gy))
+        L = torch.log(pad(af, c0, 1.0).clamp_min(TINY)).cumsum(1)
+        Lz = torch.cat([torch.zeros_like(L[:, :1]), L], 1)   # L_{-1} = 0
+        Lr = Lz[:, :-1] if readout_pre else L
+        L_end, l15 = L[:, -1:], L[:, B - 1:B]
+        Qt = qc[:, lo] * torch.exp(l15 - L[:, lo])
+        Rt = rc[:, hi] * torch.exp(Lr[:, hi] - l15)
+        # the diagonal sub-blocks: per pair and channel
         diff = Lr[:, :, None, :] - L[:, None, :, :]          # (BH, u, s, N)
-        E = torch.exp(torch.where(vis[None, :, :, None], diff,
+        E = torch.exp(torch.where((same & vis)[None, :, :, None], diff,
                                   torch.full_like(diff, -torch.inf)))
-        A = torch.einsum("bun,bsn,busn->bus", rc, qc, E)
         P = (yc @ pc.transpose(1, 2)) * vis
+        A = torch.einsum("bun,bsn,busn->bus", rc, qc, E)
+        drD = torch.einsum("bus,bsn,busn->bun", P, qc, E)
+        dqD = torch.einsum("bus,bun,busn->bsn", P, rc, E)
+        X = P[..., None] * rc[:, :, None, :] * qc[:, None, :, :] * E
+        dlaD = torch.einsum("tus,busn->btn", strad.float(), X)
+        # off them: R~ Q~ᵀ
+        A[:, hi, lo] = Rt @ Qt.transpose(1, 2)
+        drO, dqO = torch.zeros_like(rc), torch.zeros_like(qc)
+        drO[:, hi] = torch.exp(Lr[:, hi] - l15) * (P[:, hi, lo] @ Qt)
+        dqO[:, lo] = torch.exp(l15 - L[:, lo]) \
+            * (P[:, hi, lo].transpose(1, 2) @ Rt)
         Eq = torch.exp(L_end - L)
-        dp[:, rows] = A.transpose(1, 2) @ yc + (qc * Eq) @ K.transpose(1, 2)
+        dp_c = A.transpose(1, 2) @ yc + (qc * Eq) @ K.transpose(1, 2)
         drS = torch.exp(Lr) * (yc @ S0)
         dqK = Eq * (pc @ K)
-        dr[:, rows] = drS + torch.einsum("bus,bsn,busn->bun", P, qc, E)
-        dq[:, rows] = dqK + torch.einsum("bus,bun,busn->bsn", P, rc, E)
-        # dla_t: the K ⊙ S_start term, the K term of dq before t, the
-        # S_start term of dr from the rows that read a state at or after t,
-        # and the pairs (u, s) with s < t <= rho(u)
-        before = t[None, :] < t[:, None]                     # (t, s)
-        reads = rho[None, :] >= t[:, None]                   # (t, u)
-        strad = reads[:, :, None] & before[:, None, :]       # (t, u, s)
-        X = P[..., None] * rc[:, :, None, :] * qc[:, None, :, :] * E
-        dla[:, rows] = (torch.exp(L_end) * (K * S0).sum(1, keepdim=True)
-                        + torch.einsum("ts,bsn->btn", before.float(),
-                                       qc * dqK)
-                        + torch.einsum("tu,bun->btn", reads.float(), rc * drS)
-                        + torch.einsum("tus,busn->btn", strad.float(), X))
+        DR, DQ = drS + drO, dqK + dqO
+        # dla_t: the K ⊙ S_start term; the rows before t in t's sub-chunk
+        # (K and off-block terms of dq) and in sub-chunk 0 for t in 1 (K
+        # terms); the rows reading a state at or after t in t's sub-chunk
+        # (S_start and off-block terms of dr) and in sub-chunk 1 for t in
+        # 0 (S_start terms); the diagonal block's straddling pairs
+        sub_t = sub[:, None]
+        pre_in = (before & same).float()
+        pre_out = (sub[None, :] < sub_t).float()
+        suf_in = (reads & same).float()
+        suf_out = (sub[None, :] > sub_t).float()
+        dla_c = (torch.exp(L_end) * (K * S0).sum(1, keepdim=True)
+                 + torch.einsum("ts,bsn->btn", pre_in, qc * DQ)
+                 + torch.einsum("ts,bsn->btn", pre_out, qc * dqK)
+                 + torch.einsum("tu,bun->btn", suf_in, rc * DR)
+                 + torch.einsum("tu,bun->btn", suf_out, rc * drS)
+                 + dlaD)
+        out = slice(c0, c0 + rows)
+        dp[:, out] = dp_c[:, :rows]
+        dq[:, out] = (DQ + dqD)[:, :rows]
+        dr[:, out] = (DR + drD)[:, :rows]
+        dla[:, out] = dla_c[:, :rows]
         K = K * torch.exp(L_end) + yc.transpose(1, 2) @ (rc * torch.exp(Lr))
     dla = torch.where(af < TINY, torch.zeros_like(dla), dla)
     return dp, dq, dla, dr, K
@@ -262,9 +320,11 @@ def linear_scan_bwd_kernel(p, q, a, r, s0, dy, ds_fin=None, *,
     f32, ``dla`` the gradient with respect to log a (0 where a < TINY).
 
     On the card every operand must be contiguous f32 on one device, M, N
-    <= 64; one launch a call (``.launches``, ``.route_launches``), with a
-    scratch of each 16-row chunk's starting state.  On CPU tensors: its
-    plain version, :func:`linear_scan_bwd_plain_dla`."""
+    <= 64; one launch a call (``.launches``, ``.route_launches``): a block
+    of ``BWD_THREADS`` a sequence, chunks of ``BWD_CHUNK`` rows factored in
+    sub-chunks of ``BWD_SUB`` as :func:`linear_scan_bwd_emulated` shows,
+    with a scratch of each chunk's starting state (64 x 64 floats a chunk).
+    On CPU tensors: its plain version, :func:`linear_scan_bwd_plain_dla`."""
     BH, T, M = p.shape
     N = q.shape[-1]
     if q.shape != (BH, T, N) or a.shape != q.shape or r.shape != q.shape \
@@ -292,7 +352,7 @@ def linear_scan_bwd_kernel(p, q, a, r, s0, dy, ds_fin=None, *,
     dq, dla, dr = (torch.empty_like(q) for _ in range(3))
     ds0 = torch.empty(BH, M, N, dtype=torch.float32, device=p.device)
     chunks = -(-T // BWD_CHUNK)
-    states = torch.empty(BH, chunks, M, N, dtype=torch.float32,
+    states = torch.empty(BH, chunks, MAX_DIM, MAX_DIM, dtype=torch.float32,
                          device=p.device)
 
     def ptr(t):

@@ -8,18 +8,22 @@ go through ``jax.vjp`` of that oracle and through the port's
 * ``linear_scan_bwd_plain``, the reverse sequential scan, which returns
   ``da`` itself: within 1e-5 of each gradient's largest magnitude (f32
   sums in another order);
-* ``linear_scan_bwd_emulated``, the backward kernel's chunked factoring
-  (chunks of 16 rows, per-pair exponentials, the carried cotangent, dla's
-  suffix sum), which returns the gradient with respect to log a, held
-  against the reference's ``a * da``: within 1e-4 of each gradient's own
-  largest magnitude (f32 sums in another order over the chunks; measured
-  about 3e-6 at T = 1024, 1e-5 at decays of 1e-13, where the identity
-  ``dla_t = Σ_{u >= t} (r_u ⊙ dr_u − q_u ⊙ dq_u)`` would cancel to noise);
+* ``linear_scan_bwd_emulated``, the backward kernel's factoring (chunks
+  of 32 rows in sub-chunks of 16: per-pair exponentials on the diagonal
+  sub-blocks, ``R~ D Q~`` off them, the carried cotangent, dla's
+  straddling pairs per pair inside a diagonal block and as prefix and
+  suffix sums of dq's and dr's off-block terms across blocks), which
+  returns the gradient with respect to log a, held against the
+  reference's ``a * da``: within 1e-4 of each gradient's own largest
+  magnitude (f32 sums in another order over the chunks, also at decays
+  of e^-8 and e^-30, where the identity ``dla_t = Σ_{u >= t} (r_u ⊙ dr_u
+  − q_u ⊙ dq_u)`` would cancel to noise);
 
 for both readouts, ``s0`` absent (zeros) and given, a cotangent on
-``s_final`` and none, T inside one chunk, at its edge and across chunks
-with a ragged last one, decays from the reference sweep's [0.7, 0.999]
-and fixed at e^-1, e^-8 and e^-30, and a row of decays below 1e-38 (0, 1e-40,
+``s_final`` and none, T inside one sub-chunk, at the edges of sub-chunks
+and chunks (31, 32, 33, 63, 64, 65) and across chunks with a ragged last one
+(57, 100), decays from the reference sweep's [0.7, 0.999] and fixed at
+e^-1, e^-8 and e^-30, and a row of decays below 1e-38 (0, 1e-40,
 1e-39): finite gradients, equal to the reference's there too (the
 kernels' function reads log max(a, 1e-38), flat below it, so its dla is 0
 where the reference's a * da is below 1e-38 times da).  Through a
@@ -103,6 +107,7 @@ CASES = [(pre, T, s0, g) for pre in (True, False) for T in (1, 16, 40)
          for s0 in (False, True) for g in (False, True)]
 IDS = [f"{'pre' if pre else 'post'}-T{T}-{'s0' if s0 else 'zero'}-"
        f"{'dsfin' if g else 'nodsfin'}" for pre, T, s0, g in CASES]
+EDGES = (31, 32, 33, 63, 64, 65, 100)   # about sub-chunk and chunk edges
 
 
 @pytest.mark.parametrize("pre,T,s0,g", CASES, ids=IDS)
@@ -131,10 +136,34 @@ def test_emulated_backward_matches_jax_vjp(pre, T, s0, g):
         assert _rel(x, w) <= 1e-4, name
 
 
+@pytest.mark.parametrize("decay", ["range", "e-8", "e-30", "tiny"])
+@pytest.mark.parametrize("T", EDGES)
+@pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
+def test_emulated_backward_across_chunk_edges(pre, T, decay):
+    """The factoring at T across its 16-row sub-chunks and 32-row chunks
+    (and a ragged last chunk), ``s0`` and ``ds_fin`` given, at the
+    reference sweep's decays, e^-8, e^-30 and with a row of decays below
+    1e-38: dp, dq, dr, ds0 and dla within 1e-4 of ``jax.vjp``'s,
+    everything finite, dla 0 on the tiny decays."""
+    tiny = decay == "tiny"
+    key = (pre, 5, T, None if tiny else DECAYS[decay], True, True)
+    args = _inputs(*key[1:], tiny=tiny)
+    dp, dq, da, dr, ds0 = _vjp(key + ((True,) if tiny else ()))
+    got = ls.linear_scan_bwd_emulated(*(_torch(x) for x in args),
+                                      readout_pre=pre)
+    for name, x, w in zip(("dp", "dq", "dla", "dr", "ds0"), got,
+                          (dp, dq, args[2] * da, dr, ds0)):
+        assert torch.isfinite(x).all(), name
+        assert _rel(x, w) <= 1e-4, name
+    if tiny:
+        assert not got[2][:, TINY_ROW, :len(TINY_VALUES)].any()
+
+
 @pytest.mark.parametrize("decay", list(DECAYS), ids=list(DECAYS))
 @pytest.mark.parametrize("pre", [True, False], ids=["pre", "post"])
 def test_backwards_at_fixed_decays_and_across_chunks(pre, decay):
-    """T = 57 (three whole chunks of 16 and a ragged one) at every decay,
+    """T = 57 (a whole chunk of 32 and a ragged one, three whole sub-chunks
+    of 16 and a ragged one) at every decay,
     e^-8 and e^-30 included (no exponent positive, no term that cancels):
     the plain backward within 1e-5 and the emulated within 1e-4 of the
     reference's, everything finite."""
@@ -258,24 +287,34 @@ def test_backward_wrapper_routes_and_refuses():
 
 
 def test_backward_source_matches_the_wrapper():
-    """``linear_scan_bwd.cu``'s chunk, width limit and threads against the
-    wrapper's constants; its dynamic shared memory, two blocks of which fit
-    the card's 227 KB of an SM; the ctypes argument list against the C
-    entry, parameter by parameter."""
+    """``linear_scan_bwd.cu``'s chunk, sub-chunk, width limit, threads and
+    blocks an SM against the wrapper's constants; its dynamic shared
+    memory against ``scan_bwd_smem_bytes``: one block of it fits the card's
+    227 KB of an SM and two do not, as the source states; the threads fill
+    four warp groups and the registers of an SM at 128 a thread; the
+    ctypes argument list against the C entry, parameter by parameter."""
     text = (_build.CSRC / "linear_scan_bwd.cu").read_text()
     d = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", text)}
-    assert d["BWD_C"] == ls.BWD_CHUNK == 16
-    assert d["BWD_DMAX"] == ls.MAX_DIM and d["BWD_THREADS"] == 256
+    assert d["BWD_C"] == ls.BWD_CHUNK == 32
+    assert d["BWD_SUB"] == ls.BWD_SUB == 16 and ls.BWD_CHUNK // ls.BWD_SUB == 2
+    assert d["BWD_DMAX"] == ls.MAX_DIM
+    assert d["BWD_THREADS"] == ls.BWD_THREADS == 4 * 128
+    assert d["BWD_BLOCKS_PER_SM"] == ls.BWD_BLOCKS_PER_SM == 1
+    assert 0 < d["BWD_SPLIT"] < d["BWD_SUB"]
     assert float(re.search(r"#define BWD_TINY ([\d.e+-]+)f", text)
                  .group(1)) == ls.TINY
+    assert re.search(r"#define BWD_RS \(BWD_DMAX \+ 4\)", text)
+    assert re.search(r"#define BWD_PS \(BWD_C \+ 4\)", text)
+    assert re.search(r"__launch_bounds__\(BWD_THREADS, BWD_BLOCKS_PER_SM\)",
+                     text)
     expr = re.search(r"scan_bwd_smem_bytes\(\) \{\s*return ([^;]+);",
                      text).group(1)
     smem = eval(" ".join(expr.split()), {
-        "BWD_C": 16, "BWD_DMAX": 64, "RS": 65, "CS": 17, "NPAIR": 136})
-    assert re.search(r"#define NPAIR \(BWD_C \* \(BWD_C \+ 1\) / 2\)", text)
-    assert smem == 4 * (9 * 16 * 65 + 2 * 16 * 17 + 2 * 64 * 65 + 136 * 65
-                        + 65) == 108_516
-    assert 2 * smem <= 232_448      # two blocks an SM
+        "BWD_C": 32, "BWD_DMAX": 64, "BWD_RS": 68, "BWD_PS": 36})
+    assert smem == ls.scan_bwd_smem_bytes() == 204_048
+    assert f"{smem:,} bytes" in " ".join(text.split())
+    assert ls.BWD_BLOCKS_PER_SM * smem <= 232_448 < 2 * smem
+    assert ls.BWD_BLOCKS_PER_SM * ls.BWD_THREADS * 128 <= 65_536
     source, fns = _build.LIBRARIES["linear_scan_bwd"]
     assert source == "linear_scan_bwd.cu"
     params = re.search(r'extern "C" int repro_linear_scan_bwd\(([^)]*)\)',
