@@ -104,6 +104,19 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   stablelm-3b's loss and gradients through the ring ("fused" and "host")
   against the all-gather path's, then 2 full-width steps through the
   fused ring in turns with 2 all-gather steps, their times side by side;
+* training qwen3-moe-235b-a22b at full width with its depth cut to 1 of
+  94 layers (Adafactor) on data 2 x model 2: 4 steps of 8 x 1024 tokens
+  under the capacity all-to-all, every expert MLP's forward and remat
+  forward on its kernel and every backward on its gradient kernel
+  (``csrc/expert_mlp_bwd.cu``), then 2 steps under the dropless fused
+  ring in microbatches of one sequence, every MoE layer on the fused
+  dispatch and its gradient kernel (``csrc/moe_dispatch_bwd.cu``), every
+  attention on flash and its gradient, all on the tensor cores and no
+  plain version on either path (counted), with the drop counts, step
+  times, tokens/s, peak memory and one profiled step; both gradient
+  kernels at the steps' calls against their plain versions, twice for
+  equal bits, timed; at depth 1 in f32 the kernels' loss, gradients and
+  drops against the plain versions' with identical routing;
 
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the attention gradient, the wave step and
@@ -238,6 +251,11 @@ FLASH_KERNELS = ("flash_fwd_kernel", "flash_tc_kernel", "flash_combine_kernel")
 MOE_KERNELS = ("dispatch_kernel", "dispatch_tc_kernel")
 EXPERT_KERNELS = ("gate_up_kernel", "down_kernel", "gate_up_tc_kernel",
                   "down_tc_kernel", "ex_list_kernel")
+# the expert MLP's gradient (row 12) and the fused dispatch's (row 13)
+EXPERT_BWD_KERNELS = ("exb_simt_kernel", "exb_list_kernel",
+                      "exb_rows_tc_kernel", "exb_dx_tc_kernel",
+                      "exb_dw_tc_kernel")
+MOE_BWD_KERNELS = ("dispatch_bwd_kernel", "dispatch_bwd_tc_kernel")
 # the wave step's, both routes; the linear scan's, both routes
 LEAP_KERNELS = ("leap_tma_kernel", "leap_kernel")
 FUSED_KERNELS = ("fused_tma_kernel", "fused_step_kernel",
@@ -470,6 +488,10 @@ def load_port():
         flash_combine_plain=fa.flash_combine_plain,
         expert_mlp=moe_kernel.expert_mlp,
         expert_mlp_plain=moe_kernel.expert_mlp_plain,
+        expert_mlp_bwd=moe_kernel.expert_mlp_bwd,
+        expert_mlp_bwd_plain=moe_kernel.expert_mlp_bwd_plain,
+        fused_dispatch_bwd_kernel=moe_fused.fused_dispatch_bwd_kernel,
+        fused_dispatch_bwd_plain=moe_fused.fused_dispatch_bwd_plain,
         fused_moe_dispatch_kernel=moe_fused.fused_moe_dispatch_kernel,
         fused_moe_dispatch_plain=moe_fused.fused_moe_dispatch_plain,
         fused_moe_dispatch_interpret=moe_fused.fused_moe_dispatch_interpret,
@@ -1253,6 +1275,177 @@ def check_moe_dispatch(torch, k, g) -> None:
                               f"moe_dispatch {sizes} f = 96", "expert_route")
 
 
+def _bwd_case(torch, g, G, S, E, C, d, f, dt, counts):
+    """Row 12's operands: rows below each count random in x and dy, the
+    rest zero (the dispatch layouts), weights scaled for g and u of order
+    one; ``counts (G, S, E)``."""
+    live = torch.arange(C, device="cuda") < counts[..., None]
+    x = (torch.randn(G, S, E, C, d, generator=g, device="cuda")
+         * live[..., None]).to(dt)
+    dy = (torch.randn(G, S, E, C, d, generator=g, device="cuda")
+          * live[..., None]).to(dt)
+    ws = [(torch.randn(G, E, a, b, generator=g, device="cuda")
+           * a ** -0.5).to(dt) for a, b in ((d, f), (d, f), (f, d))]
+    return x, ws, dy, live
+
+
+def _bwd_close(torch, got, want, again, tol, tag):
+    """Each of (dx, dwg, dwu, dwd) within ``tol`` of its plain version's
+    largest magnitude, and two launches equal bit for bit; returns the
+    worst relative error."""
+    worst = 0.0
+    for name, x, w, y in zip(("dx", "dwg", "dwu", "dwd"), got, want, again):
+        err = max_err(torch, x, w)
+        scale = max(float(w.float().abs().max()), 1e-6)
+        worst = max(worst, err / scale)
+        check(x.shape == w.shape and bool(torch.isfinite(x).all())
+              and err <= tol * scale,
+              f"{tag} {name}: err {err} (scale {scale})")
+        check(torch.equal(x, y), f"{tag} {name}: two launches differ")
+    return worst
+
+
+def check_expert_mlp_bwd(torch, k, g) -> None:
+    """The expert MLP's gradient kernel (row 12) against its plain version
+    (``expert_mlp_bwd_plain``): bf16 on the tensor cores and f32 on the
+    CUDA cores; experts holding 0, 1, C - 1 and C live rows; C of 20, 80
+    and 130 (off the 64-row tile); S = 1 and 2 sources over G = 1 and 2
+    ranks, the weights one layer of a stacked tensor; a bf16 d off the rule
+    on the CUDA cores.  Tolerances, relative to each gradient's largest
+    magnitude: f32 1e-5 (sums in another order), bf16 1.6e-2 (one ulp of
+    the output and of the rounded dg, du and h, plus the order).  Rows past
+    the counts come out as exact zeros, two launches on the same inputs
+    are equal bit for bit, and a launch off the rule forced onto the
+    tensor cores is refused."""
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    bwd = k.expert_mlp_bwd
+    for G, S, E, C, d, f in ((1, 1, 4, 20, 128, 64), (2, 2, 4, 80, 256, 128),
+                             (1, 2, 3, 130, 192, 320)):
+        lives = [0, 1, C - 1, C, C, 1, 0, C - 1]
+        counts = torch.tensor([[[lives[(gi + si + e) % 8] for e in range(E)]
+                                for si in range(S)] for gi in range(G)],
+                              dtype=torch.int32, device="cuda")
+        for dt, tol in tols.items():
+            x, ws, dy, live = _bwd_case(torch, g, G, S, E, C, d, f, dt,
+                                        counts)
+            stacked = [torch.stack([w, w.flip(0)], dim=1) for w in ws]
+            ws = [w[:, 0] for w in stacked]          # a layer view
+            route = _expert_route(torch, dt, d, f)
+            want = k.expert_mlp_bwd_plain(x, *ws, dy, counts)
+            got = _counted(bwd, lambda: bwd(x, *ws, dy, counts), route)
+            again = bwd(x, *ws, dy, counts)
+            tag = f"expert_mlp_bwd {(G, S, E, C, d, f)} {dt} {route}"
+            _bwd_close(torch, got, want, again, tol, tag)
+            check(not got[0][~live].any(),
+                  f"{tag}: dx rows past the counts are not zero")
+            del x, ws, dy, want, got, again, stacked
+    # bf16 with d off the rule: the CUDA cores, and refused on the tensor
+    # cores
+    counts = torch.tensor([[[3, 0, 20]]], dtype=torch.int32, device="cuda")
+    x, ws, dy, _ = _bwd_case(torch, g, 1, 1, 3, 20, 200, 64, torch.bfloat16,
+                             counts)
+    want = k.expert_mlp_bwd_plain(x, *ws, dy, counts)
+    got = _counted(bwd, lambda: bwd(x, *ws, dy, counts), "simt")
+    _bwd_close(torch, got, want, bwd(x, *ws, dy, counts), 1.6e-2,
+               "expert_mlp_bwd d = 200 bf16 simt")
+    _refused_off_rule(mlp_mod, bwd, lambda: bwd(x, *ws, dy, counts),
+                      "expert_mlp_bwd d = 200", "expert_bwd_route")
+    x, ws, dy, _ = _bwd_case(torch, g, 1, 1, 3, 20, 128, 64, torch.float32,
+                             counts)
+    _refused_off_rule(mlp_mod, bwd, lambda: bwd(x, *ws, dy, counts),
+                      "expert_mlp_bwd f32", "expert_bwd_route")
+
+
+def check_moe_dispatch_bwd(torch, k, g) -> None:
+    """The fused dispatch's gradient kernel (row 13) on ep = 2 and 4
+    virtual rings (and two rings of 2 side by side) under imbalanced
+    routing, on the overlapped and the serialized schedule with a
+    load-sized and the worst-case plan: the block-level gradient (dbuf and
+    the three dW) against its plain version (``fused_dispatch_bwd_plain``)
+    and two launches equal bit for bit; then the whole op's gradient with
+    respect to the tokens, the router's gate weights and the experts
+    through ``FusedDispatchFn`` against the emulation's autograd (the plain
+    expert MLP), the same twice over bit for bit.  f32 on the CUDA cores,
+    bf16 (d = 256, f = 128) on the tensor cores; tolerances as row 12's.
+    A launch off the rule forced onto the tensor cores is refused."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch.ref import (measure_expert_load,
+                                                      route_topk)
+    from repro_torch.kernels.plan import OverlapPlanner
+
+    from repro_torch.launch.mesh import RankMesh
+    tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
+    E, t_loc, d, f, kk = 16, 24, 256, 128, 2
+    bwd = k.fused_dispatch_bwd_kernel
+    for axes, sizes in ((("x",), (2,)), (("x",), (4,)),
+                        (("data", "x"), (2, 2))):
+        mesh = RankMesh(axes, sizes)
+        ep = sizes[-1]
+        group = DiompGroup(("x",), name="ep")
+        for dt, tol in tols.items():
+            toks = torch.randn(*sizes, t_loc, d, generator=g, device="cuda")
+            router = (torch.randn(d, E, generator=g, device="cuda")
+                      + 2.0 * torch.randn(1, E, generator=g, device="cuda"))
+            top_w, top_e = route_topk(toks, router, kk)
+            toks = toks.to(dt)
+            ws = [(torch.randn(*sizes, E // ep, a, b, generator=g,
+                               device="cuda") * a ** -0.5).to(dt)
+                  for a, b in ((d, f), (d, f), (f, d))]
+            loads = measure_expert_load(top_e.reshape(-1, t_loc, kk), E)
+            planner = OverlapPlanner()
+            plans = [planner.plan_alltoall(t_loc, d, kk, E, ep, dt,
+                                           loads=loads),
+                     planner.plan_alltoall(t_loc, d, kk, E, ep, dt),
+                     planner.plan_alltoall(t_loc, d, kk, E, ep, dt,
+                                           overlap=False)]
+            route = _expert_route(torch, dt, d, f)
+            cot = torch.randn(*sizes, t_loc, d, generator=g,
+                              device="cuda").to(dt)
+            with use_default(DiompContext(mesh=mesh, device="cuda")):
+                for p in plans:
+                    name = (f"moe_dispatch_bwd {axes}{sizes} {dt} caps "
+                            f"{p.cap_pad} overlap {p.overlap}")
+                    buf, _, _, _, counts = fused.dispatch_buffers(
+                        toks, top_e, top_w, p)
+                    dfull = torch.randn(buf.shape, generator=g,
+                                        device="cuda").to(dt)
+                    live = (torch.arange(p.cap_pad, device="cuda")
+                            < counts[..., None])[..., None]
+                    dfull = dfull * live
+                    args = (buf, *ws, counts, dfull, group)
+                    want = k.fused_dispatch_bwd_plain(*args)
+                    got = _counted(bwd, lambda: bwd(*args, plan=p), route)
+                    _bwd_close(torch, got, want, bwd(*args, plan=p), tol,
+                               name)
+                    # the whole op under autograd, against the emulation's
+                    runs = []
+                    for mode in ("kernel", "kernel", "emulation"):
+                        leaves = [t.detach().clone().requires_grad_()
+                                  for t in (toks, top_w, *ws)]
+                        a = (leaves[0], top_e, *leaves[1:], group)
+                        if mode == "kernel":
+                            out, _ = k.fused_moe_dispatch_kernel(*a, plan=p)
+                        else:
+                            out, _ = k.fused_moe_dispatch_interpret(
+                                *a, plan=p, mlp=k.expert_mlp_plain)
+                        out.backward(cot)
+                        runs.append([t.grad for t in leaves])
+                    for i, (x, y, w) in enumerate(zip(*runs)):
+                        err = max_err(torch, x, w)
+                        scale = max(float(w.float().abs().max()), 1e-6)
+                        check(torch.equal(x, y), f"{name}: grad {i} differs "
+                              "between two equal steps")
+                        check(err <= tol * scale, f"{name}: grad {i} err "
+                              f"{err} against the emulation (scale {scale})")
+                if dt == torch.float32 and len(sizes) == 1:
+                    _refused_off_rule(fused, bwd, lambda: bwd(*args, plan=p),
+                                      f"moe_dispatch_bwd {sizes} {dt}",
+                                      "expert_bwd_route")
+
+
 def _scan_inputs(torch, g, BH, T, M, N, decay):
     """Scan operands of order one; ``decay`` is a fixed a or None (a drawn
     from [0.7, 0.999], the reference sweep's range)."""
@@ -1549,6 +1742,8 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "cp_decode": check_cp_decode,
                 "expert_mlp": check_expert_mlp,
                 "moe_dispatch": check_moe_dispatch,
+                "expert_mlp_bwd": check_expert_mlp_bwd,
+                "moe_dispatch_bwd": check_moe_dispatch_bwd,
                 "linear_scan": check_linear_scan,
                 "linear_scan_bwd": check_linear_scan_bwd,
                 "ring_attention": check_ring_attention,
@@ -1715,6 +1910,10 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
                  "ring_attention" if "ring_attention" in name else
                  "linear_scan" if any(t in name for t in SCAN_KERNELS) else
                  "linear_scan_bwd" if any(t in name for t in SCAN_BWD_KERNELS)
+                 else
+                 "expert_mlp_bwd" if any(t in name for t in EXPERT_BWD_KERNELS)
+                 else
+                 "moe_dispatch_bwd" if any(t in name for t in MOE_BWD_KERNELS)
                  else
                  "moe_dispatch" if any(t in name for t in MOE_KERNELS)
                  else
@@ -2056,6 +2255,9 @@ class _Tap:
                 self.calls.append((args, kw))
             return self.orig(*args, **kw)
 
+        # a wrapper counts its launches on the function its module's name
+        # holds: the recorder shares the original's counters
+        tapped.__dict__ = self.orig.__dict__
         setattr(self.module, self.name, tapped)
         return self
 
@@ -3706,8 +3908,11 @@ def _train_flops(cfg, tokens: int, seq: int = None) -> float:
     the attention's score products over the visible pairs (causal, or all
     of them for the encoder; forward twice, backward 2.5 times the
     forward), in each attention layer (zamba2: each application of the
-    shared block; rwkv6: none).  The recurrent scans' own products (about
-    a hundredth of the weights' at these widths) are left out."""
+    shared block; rwkv6: none); plus, for the MoE family, the routed
+    experts: 8 a token for each weight of the k experts it reaches, 8 x k x
+    3 x d x f a token a MoE layer (the capacity drops not subtracted).  The
+    recurrent scans' own products (about a hundredth of the weights' at
+    these widths) are left out."""
     from repro_torch.models import schema
 
     seq = TRAIN_SEQ if seq is None else seq
@@ -3718,6 +3923,10 @@ def _train_flops(cfg, tokens: int, seq: int = None) -> float:
                  if n.startswith("shared/") and len(s.shape) == 2)
     per_token = 6 * math.prod(spec[head].shape) \
         + 8 * (_layer_matrix_weights(cfg, spec) + n_app * shared)
+    if cfg.moe:
+        moe_layers = cfg.num_layers - cfg.first_k_dense
+        per_token += 8 * cfg.experts_per_token * 3 * cfg.d_model \
+            * cfg.moe_d_ff * moe_layers
     attn_layers = n_app if cfg.family == "hybrid" else cfg.num_layers
     attn = 2 * 2 * attn_layers * cfg.num_heads * cfg.head_dim \
         * _attn_pairs(seq, cfg.causal) * (tokens / seq)
@@ -3853,21 +4062,30 @@ def _cut(cfg, layers: int):
     return dataclasses.replace(cfg, num_layers=layers)
 
 
-def _train_setup(torch, dev, cfg, mesh, donate=False, **knobs):
-    """A step on ``mesh`` with the checks' constant learning rate, AdamW,
-    and the SyntheticLM batches laid out on the card; ``donate`` updates
-    the parameters and the state in place, as the launcher's loop does."""
+def _train_setup(torch, dev, cfg, mesh, donate=False, optimizer="adamw",
+                 **knobs):
+    """A step on ``mesh`` with the checks' constant learning rate, AdamW
+    (or ``optimizer="adafactor"``, the launcher's choice at 30e9 parameters
+    and more), and the SyntheticLM batches laid out on the card; ``donate``
+    updates the parameters and the state in place, as the launcher's loop
+    does."""
     from repro_torch.data.pipeline import SyntheticLM
     from repro_torch.interop import stack_shards
     from repro_torch.models import api
     from repro_torch.models.config import ParallelCtx
-    from repro_torch.train.optim import adamw
+    from repro_torch.train.optim import adafactor, adafactor_dim_axes, adamw
     from repro_torch.train.step import build_train_step
 
-    ctx = ParallelCtx.from_mesh(mesh, remat=True, microbatch=TRAIN_MICRO,
-                                **knobs)
-    opt = adamw(lambda step: torch.tensor(TRAIN_LR), b1=TRAIN_B1)
-    step = build_train_step(cfg, mesh, ctx, opt, donate=donate)
+    knobs.setdefault("microbatch", TRAIN_MICRO)
+    ctx = ParallelCtx.from_mesh(mesh, remat=True, **knobs)
+    lr = lambda step: torch.tensor(TRAIN_LR)  # noqa: E731
+    if optimizer == "adafactor":
+        opt = adafactor(lr, dim_axes=adafactor_dim_axes(cfg, mesh),
+                        nd=mesh.ndim)
+    else:
+        opt = adamw(lr, b1=TRAIN_B1)
+    step = build_train_step(cfg, mesh, ctx, opt, optimizer_name=optimizer,
+                            donate=donate)
     structs, bspecs = api.batch_structs(cfg, mesh, TRAIN_BATCH, TRAIN_SEQ,
                                         dp_axes=ctx.dp_axes)
     src = SyntheticLM(cfg, TRAIN_BATCH, TRAIN_SEQ, seed=17)
@@ -4539,6 +4757,517 @@ def recurrent_train_phase(torch, k, dev, wrappers, arch) -> dict:
             "step_ms": steps, "bound_ms": b_ms, "peak_memory_gb": peak,
             "losses": losses, "launches": {n: launches[n] for n in want},
             "routes": routes, "breakdown": breakdown, "checks": checks}
+
+
+# -- training qwen3-moe: the expert MLP's and the fused dispatch's gradients -
+
+# qwen3-moe-235b-a22b at full width (d 4096, 64 heads of 128 over 4 kv
+# heads, 128 experts, top-8, moe_d_ff 1536, vocab 151936) on TRAIN_MESH with
+# the training phase's traffic, its depth cut to MOE_TRAIN_LAYERS of 94:
+# one layer holds 2.49e9 parameters; depth 1 stacks 10.0 GB of bf16 over
+# the four ranks (the embedding and head 2.5 GB of it), depth 2 15.0 GB, and
+# a step holds about six times its parameters' bytes (the f32 gradient
+# buffers, their reduction and the update; stablelm-3b's step: 57 GB with
+# 22 GB of AdamW state for 5.6 GB of parameters), so depth 2's step does
+# not fit the card's 80 GB and depth 1's does.  Adafactor, the launcher's
+# choice at the full model's size.  MOE_FUSED_STEPS more steps under
+# dispatch_impl="fused" at the same depth and tokens, in MOE_FUSED_MICRO
+# microbatches a step (one sequence a data rank each): the dropless ring's
+# worst-case plan (caps = t_loc) at microbatch 2 (1024-row blocks of 0.54
+# GB) holds 17 GB of blocks, slots and returns for a layer's forward and
+# about 23 GB more for its backward, over the 68 GB the a2a step peaks at
+# (it ran out of memory there); microbatch 4 halves both.  The checks'
+# depth: 1, in f32; the fused check's tokens: one sequence a data rank,
+# cut to MOE_CHECK_SEQ (its f32 blocks, slots and the backward's scratch
+# beside the f32 parameters and gradients).
+MOE_TRAIN_ARCH = "qwen3-moe-235b-a22b"
+MOE_TRAIN_LAYERS = 1
+MOE_FUSED_STEPS = 2
+MOE_FUSED_MICRO = 4
+MOE_CHECK_SEQ = 256
+
+
+@contextlib.contextmanager
+def _calls_of(pairs):
+    """Counts the calls of each ``(module, name)`` function while the block
+    runs (the plain versions a path must not reach)."""
+    counts, saved = {}, []
+    for mod, name in pairs:
+        fn = getattr(mod, name)
+        key = f"{mod.__name__.rsplit('.', 1)[-1]}.{name}"
+        counts[key] = 0
+
+        def counted(*args, _fn=fn, _key=key, **kw):
+            counts[_key] += 1
+            return _fn(*args, **kw)
+        saved.append((mod, name, fn))
+        setattr(mod, name, counted)
+    try:
+        yield counts
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _plain_pairs():
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    return ((mlp_mod, "expert_mlp_plain"), (mlp_mod, "expert_mlp_bwd_plain"),
+            (fused, "fused_moe_dispatch_plain"),
+            (fused, "fused_dispatch_blocks_plain"),
+            (fused, "fused_dispatch_bwd_plain"),
+            (fa_mod, "flash_attention_plain"),
+            (fa_mod, "flash_attention_bwd_plain"))
+
+
+def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, **knobs):
+    """``steps`` steps of the MoE config on TRAIN_MESH (Adafactor at the
+    checks' constant rate, the state updated in place), every count zeroed
+    just before and read just after; ``tap`` (module, name, keep) routes
+    the last step's calls of one function through ``keep`` (which copies
+    what it needs and keeps no call).  Then one more step profiled by
+    kernel group.  Returns the run's numbers."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import schema as sch
+
+    mesh = parse_mesh(TRAIN_MESH)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"losses": [], "grad_norms": [], "moe_dropped": [],
+           "moe_drop_rate": [], "step_s": []}
+    with use_default(dctx):
+        _, opt, step, batch = _train_setup(torch, dev, cfg, mesh,
+                                           donate=True, optimizer="adafactor",
+                                           **knobs)
+        state = [sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                                 .manual_seed(0), device=dev)]
+        state.append(opt.init(state[0]))
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        with _calls_of(_plain_pairs()) as plain:
+            for i in range(steps):
+                t1 = time.perf_counter()
+                with (_Tap(*tap) if tap is not None and i == steps - 1
+                      else contextlib.nullcontext()):
+                    state[0], state[1], met = step(state[0], state[1],
+                                                   batch(i), i)
+                for key, into in (("loss", "losses"),
+                                  ("grad_norm", "grad_norms"),
+                                  ("moe_dropped", "moe_dropped"),
+                                  ("moe_drop_rate", "moe_drop_rate")):
+                    out[into].append(float(met[key].reshape(-1)[0]))
+                out["step_s"].append(time.perf_counter() - t1)
+            torch.cuda.synchronize()
+        out["wall_s"] = time.perf_counter() - t0
+        out["launches"] = {n: w.launches for n, w in wrappers.items()}
+        out["routes"] = {n: dict(w.route_launches) for n, w in
+                         wrappers.items() if hasattr(w, "route_launches")
+                         and w.launches}
+        out["plain_calls"] = dict(plain)
+        out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        extra = batch(steps)
+
+        def one():
+            state[0], state[1], _ = step(state[0], state[1], extra, steps)
+
+        out["breakdown"] = _breakdown(torch, one, reps=1)
+    del state, extra
+    torch.cuda.empty_cache()
+    return out
+
+
+def _expert_bwd_at(torch, k, g, x, dy, counts):
+    """Row 12 at a training call's shape and live rows (``x``, ``dy`` and
+    ``counts`` of the call; weights random at its shapes) against its plain
+    version, twice for equal bits, timed by CUDA events and by the
+    profiler's device time (whole and by pass), beside its bound (the live
+    rows of x and dy and the weights read once, dx and each dW written
+    once; 16 d f operations a live row)."""
+    # the call's (*mesh, sources, E, C, d) with the mesh dims folded
+    x, dy = (t.reshape(-1, *t.shape[-4:]) for t in (x, dy))
+    G, S_, E, C, d = x.shape
+    counts = counts.reshape(G, S_, E)
+    f = TRAIN_MOE_F
+    ws = [(torch.randn(G, E, a, b, generator=g, device="cuda") * a ** -0.5)
+          .to(x.dtype) for a, b in ((d, f), (d, f), (f, d))]
+    bwd = k.expert_mlp_bwd
+    want = k.expert_mlp_bwd_plain(x, *ws, dy, counts)
+    torch.cuda.empty_cache()
+    got = _counted(bwd, lambda: bwd(x, *ws, dy, counts), "wgmma")
+    worst = _bwd_close(torch, got, want, bwd(x, *ws, dy, counts), 1.6e-2,
+                       f"expert_mlp_bwd at the training call {tuple(x.shape)}")
+    del got, want
+    live = int(counts.sum())
+    isz = x.element_size()
+    nbytes = isz * (2 * live * d + x.numel()
+                    + 2 * sum(w.numel() for w in ws))
+    ops = 16 * d * f * live
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    fn = lambda: bwd(x, *ws, dy, counts)  # noqa: E731
+    row = {"shape": list(x.shape), "f": f, "live_rows": live,
+           "max_abs_err": worst, "ms": cuda_ms(torch, fn, 3),
+           "device_ms": device_ms(torch, fn, 3, EXPERT_BWD_KERNELS),
+           "device_ms_by_kernel": {n: device_ms(torch, fn, 3, (n,))
+                                   for n in EXPERT_BWD_KERNELS[1:]},
+           "plain_ms": cuda_ms(torch, lambda: k.expert_mlp_bwd_plain(
+               x, *ws, dy, counts), 2),
+           "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
+           "library_ms": None}
+    log(f"expert_mlp_bwd at the training call {tuple(x.shape)}, f {f}, "
+        f"{live} live rows: {row['ms']:.3f} ms (device "
+        f"{_ms(row['device_ms'], 3)}; by kernel "
+        f"{row['device_ms_by_kernel']}), plain {row['plain_ms']:.3f}, bound "
+        f"{b_ms:.3f} ms by {b_by}, rel err {worst:.3g}")
+    return row
+
+
+def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
+    """Row 13 at a training call's plan and live rows (its ``counts``;
+    blocks and cotangents random below the counts, zero past them, weights
+    random, at the call's shapes) against its plain version (run
+    MLA_PLAIN_EXPERTS experts at a time), twice for equal bits, timed,
+    beside its bound (the live rows of the blocks and cotangents and the
+    weights read once, dbuf and each dW written once; 16 d f operations a
+    live row)."""
+    from repro_torch.core.context import use_default
+    lead = tuple(counts.shape[:-1])            # (*mesh, ep)
+    E_loc, C, d = plan.E_loc, plan.cap_pad, shape[-1]
+    f = TRAIN_MOE_F
+    live = (torch.arange(C, device="cuda") < counts[..., None])[..., None]
+    buf = (torch.randn(*lead, E_loc, C, d, generator=g, device="cuda")
+           * live).to(torch.bfloat16)
+    dfull = (torch.randn(*lead, E_loc, C, d, generator=g, device="cuda")
+             * live).to(torch.bfloat16)
+    ws = [(torch.randn(*lead[:-1], E_loc, a, b, generator=g, device="cuda")
+           * a ** -0.5).to(torch.bfloat16) for a, b in ((d, f), (d, f),
+                                                        (f, d))]
+    bwd = k.fused_dispatch_bwd_kernel
+    args = (buf, *ws, counts, dfull, group)
+
+    def plain_chunks():
+        # the plain version MLA_PLAIN_EXPERTS experts at a time: whole, its
+        # f32 transients at these blocks do not fit beside the run's
+        out = []
+        for e0 in range(0, E_loc, MLA_PLAIN_EXPERTS):
+            sl = slice(e0, e0 + MLA_PLAIN_EXPERTS)
+            out.append(k.fused_dispatch_bwd_plain(
+                buf[..., sl, :, :], *(w[..., sl, :, :] for w in ws),
+                counts[..., sl], dfull[..., sl, :, :], group))
+        return [torch.cat(parts, dim=-3) for parts in zip(*out)]
+
+    with use_default(dctx):
+        want = plain_chunks()
+        torch.cuda.empty_cache()
+        got = _counted(bwd, lambda: bwd(*args, plan=plan), "wgmma")
+        worst = _bwd_close(torch, got, want, bwd(*args, plan=plan), 1.6e-2,
+                           f"fused_dispatch_bwd at the training plan "
+                           f"{tuple(buf.shape)}")
+        del got, want
+        torch.cuda.empty_cache()
+        fn = lambda: bwd(*args, plan=plan)  # noqa: E731
+        ms = cuda_ms(torch, fn, 2)
+        dms = device_ms(torch, fn, 2, MOE_BWD_KERNELS)
+        plain_ms = cuda_ms(torch, plain_chunks, 1)
+    n_live = int(counts.sum())
+    nbytes = 2 * (2 * n_live * d + buf.numel()
+                  + 2 * sum(w.numel() for w in ws))
+    ops = 16 * d * f * n_live
+    b_ms, b_by = bound(nbytes, ops, "bfloat16")
+    row = {"shape": list(buf.shape), "f": f, "live_rows": n_live,
+           "overlap": plan.overlap, "max_abs_err": worst, "ms": ms,
+           "device_ms": dms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "bytes": nbytes, "ops": ops, "library_ms": None}
+    log(f"fused_dispatch_bwd at the training plan {tuple(buf.shape)}, "
+        f"{n_live} live rows: {ms:.3f} ms (device {_ms(dms, 3)}), plain "
+        f"{plain_ms:.3f} ({MLA_PLAIN_EXPERTS} experts a call), bound "
+        f"{b_ms:.3f} ms by {b_by}, rel err {worst:.3g}")
+    return row
+
+
+TRAIN_MOE_F = 1536                 # qwen3-moe's moe_d_ff
+
+
+def _moe_train_checks(torch, k, dev) -> dict:
+    """At full width, depth 1, in f32, on TRAIN_MESH: each rank's loss,
+    gradients and drop counts on the kernels against the same on their
+    plain versions, the routing of both asserted identical (every (token,
+    choice) of every rank); once under "a2a" (flash and its gradient, the
+    expert MLP and its gradient, on the CUDA cores) from one microbatch of
+    the phase's traffic, and once under "fused" (flash and its gradient,
+    the fused dispatch's block-level function and its gradient, joined to
+    the scatter and the combine by ``FusedDispatchFn``) from one sequence
+    a data rank cut to MOE_CHECK_SEQ tokens.  The plain run's gradients
+    wait on the host while the kernels' run: the two runs' f32 gradients
+    and activations do not fit the card together; no optimizer state is
+    made (the check compares gradients).  Bounds: the loss within 1e-5 and
+    each gradient leaf within 5e-3 of its largest per-rank value, the
+    recurrent checks' bounds: f32 sums in another order, which the
+    embedding table's gradient amplifies (each row sums every position's
+    contribution, most of which cancels)."""
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.kernels.flash_attention import kernel as fa_mod
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.models import api
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import schema as sch
+    from repro_torch.train.step import per_rank_grads
+
+    def blocks_plain(buf, wg, wu, wd, counts, group, plan):
+        return fused.fused_dispatch_blocks_plain(buf, wg, wu, wd, counts,
+                                                 group)
+
+    def blocks_bwd_plain(buf, wg, wu, wd, counts, dfull, group, *, plan):
+        return fused.fused_dispatch_bwd_plain(buf, wg, wu, wd, counts,
+                                              dfull, group)
+
+    cfg = _cut(configs.get(MOE_TRAIN_ARCH), 1)
+    loss_fn = api.loss_fn(cfg)
+    mesh = parse_mesh(TRAIN_MESH)
+    dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
+    params = {n: p.float() for n, p in sch.init_params(
+        cfg, mesh, torch.Generator(device=dev).manual_seed(1),
+        device=dev).items()}
+    flash = [(fa_mod, "flash_attention_kernel", k.flash_attention_kernel,
+              fa_mod.flash_attention_plain),
+             (fa_mod, "flash_attention_bwd_kernel",
+              k.flash_attention_bwd_kernel, fa_mod.flash_attention_bwd_plain)]
+    impls = {
+        "a2a": flash + [
+            (mlp_mod, "expert_mlp", k.expert_mlp, mlp_mod.expert_mlp_plain),
+            (mlp_mod, "expert_mlp_bwd", k.expert_mlp_bwd,
+             mlp_mod.expert_mlp_bwd_plain)],
+        # the Fn calls these two by their module names; the counts are
+        # kept by the wrappers they stand for
+        "fused": flash + [
+            (fused, "_dispatch_launch", k.fused_moe_dispatch_kernel,
+             blocks_plain),
+            (fused, "fused_dispatch_bwd_kernel", k.fused_dispatch_bwd_kernel,
+             blocks_bwd_plain)]}
+    out = {"layers": 1}
+    for impl, swaps in impls.items():
+        wr = [w for _, _, w, _ in swaps]
+        runs = {}
+        torch.cuda.reset_peak_memory_stats()
+        with use_default(dctx):
+            ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh,
+                                            dispatch_impl=impl)
+            b0 = batch(0)
+            if impl == "a2a":
+                b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
+                                  // TRAIN_MICRO) for n, t in b0.items()}
+            else:
+                b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
+                                  // MOE_FUSED_MICRO)
+                      .narrow(mesh.ndim + 1, 0, MOE_CHECK_SEQ)
+                      for n, t in b0.items()}
+            for mode in ("plain", "kernels"):
+                stats = {}
+
+                def framed(p, b, c, x):
+                    # the forward's drops (the recompute records nowhere)
+                    with dctx.dispatch_stats.collect() as ds:
+                        loss = loss_fn(p, b, c, x)
+                    stats.update(ds)
+                    return loss
+
+                before = [w.launches for w in wr]
+                with contextlib.ExitStack() as stack, \
+                        _Tap(layers_mod, "route_topk",
+                             lambda a, kw: True) as rt:
+                    if mode == "plain":
+                        for mod, name, _, plain in swaps:
+                            stack.enter_context(_Swap(mod, name, plain))
+                    loss, grads = per_rank_grads(params, b0, cfg, ctx, mesh,
+                                                 loss_fn=framed)
+                launched = [w.launches - b for w, b in zip(wr, before)]
+                # route_topk returns (top_w, top_e): the tap kept its
+                # inputs; the choices are recomputed from them (the same
+                # function)
+                routes = [layers_mod.route_topk(*a)[1] for a, _ in rt.calls]
+                runs[mode] = {"loss": loss, "launched": launched,
+                              "routes": routes,
+                              "dropped": stats["moe_dropped"].clone(),
+                              "grads": grads if mode == "kernels" else
+                              {n: t.cpu() for n, t in grads.items()}}
+                del grads, rt
+                torch.cuda.empty_cache()
+        kp, pp = runs["kernels"], runs["plain"]
+        tag = f"moe checks ({impl})"
+        check(kp["launched"] == [2, 1, 2, 1] and pp["launched"] == [0] * 4,
+              f"{tag}: launches (flash, flash bwd, the expert products, "
+              f"their gradient) {kp['launched']} on the kernels, "
+              f"{pp['launched']} on the plain versions")
+        flips = sum(int((a != b).any(-1).sum())
+                    for a, b in zip(kp["routes"], pp["routes"]))
+        loss_err = max_err(torch, kp["loss"], pp["loss"]) / float(
+            pp["loss"].abs().max())
+        errs = []
+        for n, want in pp["grads"].items():
+            want = want.to(dev)
+            scale = max(float(want.abs().max()), 1e-30)
+            errs.append((max_err(torch, kp["grads"][n], want) / scale, n))
+            del want
+        errs.sort(reverse=True)
+        res = {"tokens": int(b0["tokens"].numel()), "loss_rel": loss_err,
+               "grad_rel": errs[0][0], "grad_rel_leaf": errs[0][1],
+               "grad_rel_top": errs[:4], "routing_flips": flips,
+               "routing_calls": len(kp["routes"]),
+               "dropped": float(kp["dropped"].sum()),
+               "loss": float(kp["loss"].mean()),
+               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"{tag} at depth 1 (f32): kernels vs plain " + json.dumps(res))
+        check(flips == 0 and len(kp["routes"]) == len(pp["routes"]) > 0,
+              f"{tag}: {flips} routing choices differ between the kernels "
+              f"and the plain versions")
+        check(torch.equal(kp["dropped"], pp["dropped"]),
+              f"{tag}: drops {kp['dropped'].tolist()} on the kernels, "
+              f"{pp['dropped'].tolist()} on the plain versions")
+        check(loss_err <= 1e-5 and errs[0][0] <= 5e-3,
+              f"{tag}: kernels vs plain loss {loss_err}, grads {errs[0]}")
+        out[impl] = res
+        del runs, kp, pp, b0
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_train_phase(torch, k, dev, wrappers) -> dict:
+    """qwen3-moe-235b-a22b at full width, depth cut to MOE_TRAIN_LAYERS,
+    trained TRAIN_STEPS steps on TRAIN_MESH under the default capacity
+    all-to-all, then MOE_FUSED_STEPS steps under the dropless fused ring
+    in microbatches of MOE_FUSED_MICRO;
+    every wrapper's count zeroed just before each run and read just after:
+    under "a2a" every attention's forward and remat forward on flash (G =
+    16, D = 128) and every backward on its gradient, every expert MLP's
+    forward and remat forward on row 7 and every backward on row 12, all
+    on the tensor cores; under "fused" the same attention and every MoE
+    layer's forward and remat forward on row 8 and backward on row 13; no
+    plain version on either path.  Each run's losses, drop counts, step
+    times and tokens/s beside the step's bound, its peak memory and one
+    more step profiled by kernel group; rows 12 and 13 at the runs' own
+    shapes against their plain versions; then the f32 depth-1 checks under
+    both dispatches.  Returns the rows-12 and -13 lines of the ``kernels``
+    JSON."""
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    from repro_torch.launch.train import parse_mesh
+
+    cfg = _cut(configs.get(MOE_TRAIN_ARCH), MOE_TRAIN_LAYERS)
+    L = cfg.num_layers
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
+    g = torch.Generator(device=dev).manual_seed(9)
+    runs, calls = {}, {}
+
+    def first(impl, pick):
+        def keep(args, kw):
+            if impl not in calls:
+                calls[impl] = pick(args, kw)
+            return False
+        return keep
+
+    for impl, steps, micro in (("a2a", TRAIN_STEPS, TRAIN_MICRO),
+                               ("fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO)):
+        tag = f"train {cfg.name} ({impl})"
+        # the last step's first backward call: row 12's x, dy and counts;
+        # row 13's block shape, counts, group and plan
+        if impl == "a2a":
+            tap = (mlp_mod, "expert_mlp_bwd", first(impl, lambda a, kw: (
+                a[0].detach().clone(), a[4].detach().clone(),
+                a[5].clone())))
+        else:
+            tap = (fused, "fused_dispatch_bwd_kernel", first(
+                impl, lambda a, kw: (tuple(a[0].shape), a[4].clone(), a[6],
+                                     kw["plan"])))
+        run = _moe_steps(torch, dev, wrappers, cfg, steps, tap=tap,
+                         dispatch_impl=impl, microbatch=micro)
+        passes = micro * steps
+        launches, routes = run["launches"], run["routes"]
+        log(f"{tag}: {cfg.param_count()} parameters, {L} of 94 layers, on "
+            f"{TRAIN_MESH}, {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
+            f"tokens (microbatch {micro}) in {run['wall_s']:.1f} s; "
+            f"losses {run['losses']}, grad norms {run['grad_norms']}, drops "
+            f"{run['moe_dropped']} (rates {run['moe_drop_rate']}); launches "
+            f"{launches}, routes {routes}; plain calls {run['plain_calls']}; "
+            f"peak {run['peak_memory_gb']:.2f} GB")
+        check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
+              and len(run["losses"]) == steps, f"{tag}: a non-finite step")
+        moe = ({"expert_mlp": 2 * L * passes, "expert_mlp_bwd": L * passes}
+               if impl == "a2a" else
+               {"fused_moe_dispatch": 2 * L * passes,
+                "fused_moe_dispatch_bwd": L * passes})
+        want = {"flash_attention": 2 * L * passes,
+                "flash_attention_bwd": L * passes, **moe}
+        check(all(launches[n] == c for n, c in want.items())
+              and all(c == 0 for n, c in launches.items() if n not in want),
+              f"{tag}: launches {launches}, not {want}")
+        check(all(routes[n] == {"simt": 0, "wgmma": c}
+                  for n, c in want.items()), f"{tag}: routes {routes}")
+        check(not any(run["plain_calls"].values()),
+              f"{tag}: a plain version ran: {run['plain_calls']}")
+        if impl == "fused":
+            check(not any(run["moe_dropped"]),
+                  f"{tag}: the dropless ring dropped {run['moe_dropped']}")
+        steps_ms = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
+                    for s in run["step_s"]]
+        log(f"{tag}: step times (ms, the first with its warm-up) "
+            f"{[round(s['ms'], 2) for s in steps_ms]}, tokens/s "
+            f"{[round(s['tokens_per_s'], 1) for s in steps_ms]}; bound "
+            f"{b_ms:.2f} ms a step ({_train_flops(cfg, tokens):.4g} "
+            f"operations at the bf16 tensor-core rate); one step profiled: "
+            f"{run['breakdown']}")
+        runs[impl] = {"layers": L, "parameters": cfg.param_count(),
+                      "microbatch": micro,
+                      "step_ms": steps_ms, "bound_ms": b_ms,
+                      "peak_memory_gb": run["peak_memory_gb"],
+                      "losses": run["losses"],
+                      "moe_dropped": run["moe_dropped"],
+                      "moe_drop_rate": run["moe_drop_rate"],
+                      "launches": {n: launches[n] for n in want},
+                      "routes": {n: routes[n] for n in want},
+                      "breakdown": run["breakdown"]}
+        del run
+        torch.cuda.empty_cache()
+    # rows 12 and 13 at the runs' own calls
+    row12 = _expert_bwd_at(torch, k, g, *calls.pop("a2a"))
+    shape, counts, group, plan = calls.pop("fused")
+    dctx = DiompContext(mesh=parse_mesh(TRAIN_MESH), device=dev)
+    row13 = _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape)
+    del counts
+    torch.cuda.empty_cache()
+    checks = _moe_train_checks(torch, k, dev)
+    lines = []
+    for name, source, replaces, run, row in (
+            ("expert_mlp_bwd", "src/repro_torch/csrc/expert_mlp_bwd.cu",
+             "src/repro/kernels/moe_dispatch/kernel.py:44 (the gradient of "
+             "its forward; the reference differentiates jnp.einsum, "
+             "src/repro/models/layers.py:831-881)", "a2a", row12),
+            ("fused_moe_dispatch_bwd",
+             "src/repro_torch/csrc/moe_dispatch_bwd.cu",
+             "src/repro/kernels/moe_dispatch/fused.py:284 (the gradient of "
+             "its forward; the reference differentiates its emulation)",
+             "fused", row13)):
+        wrapper = name if name == "expert_mlp_bwd" \
+            else "fused_moe_dispatch_bwd"
+        line = {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces,
+                "launches": runs[run]["launches"][wrapper],
+                "route_launches": runs[run]["routes"][wrapper]}
+        line.update(row)
+        line["train"] = runs[run]
+        lines.append(line)
+    for line, impl in zip(lines, ("a2a", "fused")):
+        line["checks"] = {"layers": checks["layers"], **checks[impl]}
+    return lines
 
 
 # -- the weight ring of the ZeRO-3 gather (use_ring_matmul) -----------------
@@ -5217,7 +5946,9 @@ def main() -> int:
                 "linear_scan": k.linear_scan_kernel,
                 "fused_ring_attention": k.fused_ring_attention_kernel,
                 "flash_attention_bwd": k.flash_attention_bwd_kernel,
-                "linear_scan_bwd": k.linear_scan_bwd_kernel}
+                "linear_scan_bwd": k.linear_scan_bwd_kernel,
+                "expert_mlp_bwd": k.expert_mlp_bwd,
+                "fused_moe_dispatch_bwd": k.fused_dispatch_bwd_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -5689,7 +6420,10 @@ def main() -> int:
     # -- phase 20: the weight ring of the ZeRO-3 gather ----------------------
     ring_fsdp = ring_train_phase(torch, k, dev)
     log("ring_fsdp: " + json.dumps(ring_fsdp))
-    check(len(kernels) == len(wrappers) == 11, "kernels line incomplete")
+
+    # -- phase 21: training qwen3-moe, rows 12 and 13 ------------------------
+    kernels.extend(moe_train_phase(torch, k, dev, wrappers))
+    check(len(kernels) == len(wrappers) == 13, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -342,18 +342,19 @@ __device__ inline ExTcSmem ex_tc_smem_init(unsigned char* raw, int mats) {
 
 // One block builds a pass's work list: list[0] = L, then, problem by
 // problem in increasing p, p * MT + t for each row tile t < ceil(live / BR)
-// (MT = ceil(C / BR)).  live(p) is problem p's count, clamped to [0, C].
-template <typename Live>
+// (MT = ceil(C / BR); BR is EX_TC_BR, or the gradient's 64-row tile).
+// live(p) is problem p's count, clamped to [0, C].
+template <int BR = EX_TC_BR, typename Live>
 __device__ void ex_tc_build_list(long long NP, int C, Live live, int* list) {
   __shared__ int warp_sums[32];
-  const int MT = (C + EX_TC_BR - 1) / EX_TC_BR;
+  const int MT = (C + BR - 1) / BR;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nw = blockDim.x / 32;
   int base = 0;
   for (long long p0 = 0; p0 < NP; p0 += blockDim.x) {
     const long long p = p0 + threadIdx.x;
     const int tiles =
-        p < NP ? (min(max(live(p), 0), C) + EX_TC_BR - 1) / EX_TC_BR : 0;
+        p < NP ? (min(max(live(p), 0), C) + BR - 1) / BR : 0;
     int incl = tiles;  // inclusive scan: over the warp, then the warps
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {

@@ -31,7 +31,8 @@ BUILD_DIR = _PKG.parents[1] / "build" / "repro_torch"
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 # route codes of csrc/hopper.cuh (plan.gemm_route, plan.attention_route,
-# plan.attention_bwd_route and plan.expert_route pick the route)
+# plan.attention_bwd_route, plan.expert_route and plan.expert_bwd_route
+# pick the route)
 ROUTE_CODES = {"simt": 0, "wgmma": 1}
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -56,6 +57,11 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_expert_mlp": [_P] * 8 + [_LL] * 3 + [_I] * 8 + [_P]}),
     "moe_dispatch": ("moe_dispatch.cu", {
         "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 10 + [_P]}),
+    "expert_mlp_bwd": ("expert_mlp_bwd.cu", {
+        "repro_expert_mlp_bwd": [_P] * 12 + [_LL] * 3 + [_I] * 8 + [_P]}),
+    "moe_dispatch_bwd": ("moe_dispatch_bwd.cu", {
+        "repro_moe_dispatch_bwd": [_P] * 16 + [_LL] * 3 + [_I] * 10
+        + [_P]}),
     "linear_scan": ("linear_scan.cu", {
         "repro_linear_scan": [_P] * 7 + [_I] * 7 + [_P]}),
     "linear_scan_bwd": ("linear_scan_bwd.cu", {

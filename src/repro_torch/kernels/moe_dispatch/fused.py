@@ -23,6 +23,20 @@ over stacked ranks (``toks (*mesh, t_loc, d)``, my experts' weights
 
 The routing scatter (:func:`dispatch_buffers`) and the gated combine stay
 outside the kernel, in torch, as in the reference.
+
+Gradients.  On the card the kernel's block-level function, wire blocks
+``buf`` to landed results ``full`` (out block j of rank r is rank j's
+experts on r's block j), runs under :class:`FusedDispatchFn`, whose backward
+is one launch of ``csrc/moe_dispatch_bwd.cu`` (:func:`fused_dispatch_bwd_kernel`:
+the same schedule, each put carrying the x and the cotangent blocks, each
+return the dx block; every dW summed once all blocks have landed).  The
+scatter and the combine stay torch ops under autograd.  On the CPU the
+emulation is differentiated as it stands, with the expert MLP's plain
+version; :func:`fused_dispatch_blocks_plain` and
+:func:`fused_dispatch_bwd_plain` are the block-level function and its
+gradient in plain PyTorch, the versions the kernels are held to.  The
+backward records nothing on the put logs: the reference's AD
+transposes its puts without running their Python.
 """
 
 from __future__ import annotations
@@ -34,18 +48,24 @@ import torch
 import torch.nn.functional as F
 
 from ...core.backends import group_rank, payload_bytes
-from ...core.context import default_communicator, default_context
+from ...core.context import (default_communicator, default_context,
+                             use_default)
 from ...core.groups import DiompGroup
 from ...core.rma import dispatch_window_names, ompx_fence, ompx_put
 from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
                       stream_handle)
-from ..plan import AllToAllPlan, expert_list_len, expert_route
+from ..plan import (AllToAllPlan, expert_bwd_list_len, expert_bwd_route,
+                    expert_list_len, expert_route)
 from .kernel import expert_mlp_plain, rank_strided
-from .ref import expert_mlp_ref
+from .ref import expert_mlp_bwd_plain, expert_mlp_ref
 
 __all__ = [
+    "FusedDispatchFn",
     "dispatch_buffers",
     "expert_slots",
+    "fused_dispatch_blocks_plain",
+    "fused_dispatch_bwd_kernel",
+    "fused_dispatch_bwd_plain",
     "fused_moe_dispatch_interpret",
     "fused_moe_dispatch_kernel",
     "fused_moe_dispatch_plain",
@@ -272,29 +292,25 @@ def _record_traffic(blk, group: DiompGroup, plan: AllToAllPlan) -> None:
                 tracker.on_read(w)
 
 
-def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
-                              group: DiompGroup, *, plan: AllToAllPlan):
-    """Dispatch, expert MLP and return of every rank in one launch of
-    ``csrc/moe_dispatch.cu`` (counted in ``.launches``, and by route in
-    ``.route_launches``: :func:`..plan.expert_route`'s, the expert-MLP
-    kernel's rule), the routing scatter and the combine around it in torch;
-    on CPU tensors, the plain version.  Returns ``(combined (..., t_loc,
-    d), dropped (...))``."""
-    if not toks.is_cuda:
-        return fused_moe_dispatch_plain(toks, top_e, top_w, wg, wu, wd,
-                                        group, plan=plan)
-    mesh = default_context().require_mesh()
+def _kernel_layout(mesh, group, plan):
+    """``(ring_last, G)``: the kernel layout moves the ring's rank dim last
+    of the mesh dims and folds the others into G independent rings."""
     nd = mesh.ndim
-    ep, E_loc, C = plan.ep, plan.E_loc, plan.cap_pad
-    t_loc, d = toks.shape[-2:]
+    ring = group.rank_dims(mesh)[0]
+    return (lambda t: t.movedim(ring, nd - 1)), mesh.size // plan.ep
+
+
+def _check_dispatch(toks_dtype, device, wg, wu, wd, d, mesh, group, plan):
+    nd = mesh.ndim
+    ep, E_loc = plan.ep, plan.E_loc
     f = wg.shape[-1]
     if len(group.axes) != 1 or group.axis_size(mesh) != ep:
         raise ValueError(f"plan for a ring of {ep} on group {group.axes}")
     if ep > MAX_RING:
         raise ValueError(f"the dispatch kernel takes rings of up to "
                          f"{MAX_RING} ranks, got {ep}")
-    if any(w.dtype != toks.dtype or w.device != toks.device
-           for w in (wg, wu, wd)) or toks.dtype not in DTYPE_CODES:
+    if any(w.dtype != toks_dtype or w.device != device
+           for w in (wg, wu, wd)) or toks_dtype not in DTYPE_CODES:
         raise TypeError("fused_moe_dispatch: tokens and weights must share "
                         "one device and a f32/f16/bf16 dtype")
     if tuple(wg.shape[nd:]) != (E_loc, d, f) or wu.shape != wg.shape \
@@ -303,50 +319,195 @@ def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
                          f"{tuple(wd.shape)} for a plan of {E_loc} local "
                          f"experts, d = {d}")
 
-    buf, addr, gates, dropped, counts = dispatch_buffers(toks, top_e, top_w,
-                                                         plan)
-    _record_traffic(buf.select(nd, 0), group, plan)
-    # kernel layout: the ring's rank dim last of the mesh dims, the others
-    # folded into G independent rings
-    ring = group.rank_dims(mesh)[0]
-    G = mesh.size // ep
 
-    def ring_last(t):
-        return t.movedim(ring, nd - 1)
+def fused_dispatch_blocks_plain(buf, wg, wu, wd, counts, group: DiompGroup):
+    """The kernel's block-level function in plain PyTorch: ``buf (*mesh,
+    ep, E_loc, C, d)`` -> the landed results ``full`` of the same layout,
+    block j of rank r being rank j's experts on r's block j (its live rows
+    ``counts (*mesh, ep, E_loc)``)."""
+    mesh = default_context().require_mesh()
+    ring, nd = group.rank_dims(mesh)[0], mesh.ndim
+    # at home rank j the sources r are a (sources) dim sharing j's weights
+    y = expert_mlp_plain(buf.transpose(ring, nd), wg, wu, wd,
+                         counts.transpose(ring, nd))
+    return y.transpose(ring, nd)
 
+
+def fused_dispatch_bwd_plain(buf, wg, wu, wd, counts, dfull,
+                             group: DiompGroup):
+    """The gradient of :func:`fused_dispatch_blocks_plain` for the cotangent
+    ``dfull``, as the backward kernel computes it: ``(dbuf, dwg, dwu,
+    dwd)``, each rank's dW summed over every source's live rows."""
+    mesh = default_context().require_mesh()
+    ring, nd = group.rank_dims(mesh)[0], mesh.ndim
+    dx, dwg, dwu, dwd = expert_mlp_bwd_plain(
+        buf.transpose(ring, nd), wg, wu, wd, dfull.transpose(ring, nd),
+        counts.transpose(ring, nd))
+    return dx.transpose(ring, nd), dwg, dwu, dwd
+
+
+def _dispatch_launch(buf, wg, wu, wd, counts, group, plan):
+    """One launch of ``csrc/moe_dispatch.cu`` on the wire blocks ``buf``;
+    returns ``full`` in buf's layout."""
+    mesh = default_context().require_mesh()
+    nd = mesh.ndim
+    ep, E_loc, C = plan.ep, plan.E_loc, plan.cap_pad
+    d, f = buf.shape[-1], wg.shape[-1]
+    ring_last, G = _kernel_layout(mesh, group, plan)
     kb = ring_last(buf).contiguous()
     (wg, sg), (wu, su), (wd, sd) = (rank_strided(ring_last(w))
                                     for w in (wg, wu, wd))
     kc = ring_last(counts).contiguous()
     out = torch.empty_like(kb)
     slots = kernel_slots(plan)
-    stage = torch.empty(G, ep, slots, E_loc, C, d, dtype=toks.dtype,
-                        device=toks.device)
+    stage = torch.empty(G, ep, slots, E_loc, C, d, dtype=buf.dtype,
+                        device=buf.device)
     ret_stage = torch.empty_like(stage)
-    h = torch.empty(G, ep, E_loc, C, f, dtype=toks.dtype, device=toks.device)
-    sched = _schedule_table(plan, toks.device)
-    isz = toks.element_size()
+    h = torch.empty(G, ep, E_loc, C, f, dtype=buf.dtype, device=buf.device)
+    sched = _schedule_table(plan, buf.device)
+    isz = buf.element_size()
     # TMA reads the local blocks, the landing slots, the weights (their rank
     # strides in bytes) and h
-    route = expert_route(toks.dtype, d, f, kb.data_ptr(), stage.data_ptr(),
+    route = expert_route(buf.dtype, d, f, kb.data_ptr(), stage.data_ptr(),
                          wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
                          h.data_ptr(), sg * isz, su * isz, sd * isz)
     if route == "wgmma":    # a work list a GEMM phase, built on the card
         work = torch.empty(ep * expert_list_len(G * ep * E_loc, C),
-                           dtype=torch.int32, device=toks.device)
+                           dtype=torch.int32, device=buf.device)
     else:                   # two tile counters a GEMM phase
-        work = torch.zeros(2 * ep, dtype=torch.int64, device=toks.device)
+        work = torch.zeros(2 * ep, dtype=torch.int64, device=buf.device)
     status = library("moe_dispatch").repro_moe_dispatch(
         kb.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         kc.data_ptr(), out.data_ptr(), stage.data_ptr(), ret_stage.data_ptr(),
         h.data_ptr(), sched.data_ptr(), work.data_ptr(), sg, su, sd,
         sched.shape[0], G, ep,
-        slots, E_loc, C, d, f, DTYPE_CODES[toks.dtype], ROUTE_CODES[route],
-        stream_handle(toks.device))
+        slots, E_loc, C, d, f, DTYPE_CODES[buf.dtype], ROUTE_CODES[route],
+        stream_handle(buf.device))
     fused_moe_dispatch_kernel.launches += 1
     fused_moe_dispatch_kernel.route_launches[route] += 1
     check_launch(status, "fused_moe_dispatch")
-    full = out.movedim(nd - 1, ring)
+    return out.movedim(nd - 1, group.rank_dims(mesh)[0])
+
+
+def fused_dispatch_bwd_kernel(buf, wg, wu, wd, counts, dfull,
+                              group: DiompGroup, *, plan: AllToAllPlan):
+    """The gradient of the kernel's block-level function for the cotangent
+    ``dfull``: ``(dbuf, dwg, dwu, dwd)``, on the card one launch of
+    ``csrc/moe_dispatch_bwd.cu`` (counted in ``.launches``, and by route in
+    ``.route_launches``: :func:`..plan.expert_bwd_route`'s rule), on CPU
+    tensors :func:`fused_dispatch_bwd_plain`.  The kernel follows the
+    plan's schedule with one landing slot a remote block (``ep - 1``), so
+    every block stays landed until the dW pass has read it."""
+    if not buf.is_cuda:
+        return fused_dispatch_bwd_plain(buf, wg, wu, wd, counts, dfull, group)
+    mesh = default_context().require_mesh()
+    nd = mesh.ndim
+    ep, E_loc, C = plan.ep, plan.E_loc, plan.cap_pad
+    d, f = buf.shape[-1], wg.shape[-1]
+    _check_dispatch(buf.dtype, buf.device, wg, wu, wd, d, mesh, group, plan)
+    if dfull.shape != buf.shape:
+        raise ValueError(f"fused_dispatch_bwd: cotangent {tuple(dfull.shape)}"
+                         f" for blocks {tuple(buf.shape)}")
+    ring_last, G = _kernel_layout(mesh, group, plan)
+    kb = ring_last(buf).contiguous()
+    kd = ring_last(dfull.to(buf.dtype)).contiguous()
+    (wg_k, sg), (wu_k, su), (wd_k, sd) = (rank_strided(ring_last(w))
+                                          for w in (wg, wu, wd))
+    kc = ring_last(counts).contiguous()
+    dbuf = torch.empty_like(kb)
+    # each dW in the ring-last layout, contiguous: (G, ep, E_loc, ...)
+    dw = [torch.empty(*kb.shape[:nd], E_loc, *s, dtype=buf.dtype,
+                      device=buf.device) for s in ((d, f), (d, f), (f, d))]
+    slots = max(ep - 1, 1)
+    xstage = torch.empty(G, ep, slots, E_loc, C, d, dtype=buf.dtype,
+                         device=buf.device)
+    dstage = torch.empty_like(xstage)
+    ret_stage = torch.empty_like(xstage)
+    # dg, du and h of every (rank, offset) block, kept until the dW pass
+    scratch = torch.empty(3, G * ep * ep * E_loc * C * f, dtype=buf.dtype,
+                          device=buf.device)
+    sched = _schedule_table(plan, buf.device)
+    isz = buf.element_size()
+    # TMA reads the local blocks and cotangents, both landing slots, the
+    # weights (their rank strides in bytes) and the scratch planes
+    route = expert_bwd_route(buf.dtype, d, f, kb.data_ptr(), kd.data_ptr(),
+                             xstage.data_ptr(), dstage.data_ptr(),
+                             wg_k.data_ptr(), wu_k.data_ptr(),
+                             wd_k.data_ptr(), scratch.data_ptr(),
+                             scratch[1].data_ptr(), scratch[2].data_ptr(),
+                             sg * isz, su * isz, sd * isz)
+    work = torch.empty(ep * expert_bwd_list_len(G * ep * E_loc, C)
+                       if route == "wgmma" else 0, dtype=torch.int32,
+                       device=buf.device)
+    status = library("moe_dispatch_bwd").repro_moe_dispatch_bwd(
+        kb.data_ptr(), kd.data_ptr(), wg_k.data_ptr(), wu_k.data_ptr(),
+        wd_k.data_ptr(), kc.data_ptr(), dbuf.data_ptr(),
+        *(w.data_ptr() for w in dw), xstage.data_ptr(), dstage.data_ptr(),
+        ret_stage.data_ptr(), scratch.data_ptr(), sched.data_ptr(),
+        work.data_ptr(), sg, su, sd, sched.shape[0], G, ep, slots, E_loc, C,
+        d, f, DTYPE_CODES[buf.dtype], ROUTE_CODES[route],
+        stream_handle(buf.device))
+    fused_dispatch_bwd_kernel.launches += 1
+    fused_dispatch_bwd_kernel.route_launches[route] += 1
+    check_launch(status, "fused_moe_dispatch_bwd")
+    del xstage, dstage, ret_stage, scratch
+    ring = group.rank_dims(mesh)[0]
+    return tuple(t.movedim(nd - 1, ring) for t in (dbuf, *dw))
+
+
+fused_dispatch_bwd_kernel.launches = 0
+fused_dispatch_bwd_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)
+
+
+class FusedDispatchFn(torch.autograd.Function):
+    """The fused dispatch's block-level function with a gradient: ``buf``
+    and the local experts' weights -> the landed results ``full``, the
+    forward kernel (row 8) and the backward kernel (row 13), on the card
+    only.  Saves buf, the weights and the counts."""
+
+    @staticmethod
+    def forward(fctx, buf, wg, wu, wd, counts, group, plan):
+        if not buf.is_cuda:
+            raise ValueError("FusedDispatchFn runs on the card; on the CPU "
+                             "the emulation is differentiated")
+        fctx.save_for_backward(buf, wg, wu, wd, counts)
+        # the backward runs in the autograd engine's thread, where the
+        # caller's use_default scope is not seen
+        fctx.group, fctx.plan, fctx.dctx = group, plan, default_context()
+        return _dispatch_launch(buf, wg, wu, wd, counts, group, plan)
+
+    @staticmethod
+    def backward(fctx, dfull):
+        buf, wg, wu, wd, counts = fctx.saved_tensors
+        with use_default(fctx.dctx):
+            dbuf, dwg, dwu, dwd = fused_dispatch_bwd_kernel(
+                buf, wg, wu, wd, counts, dfull, fctx.group, plan=fctx.plan)
+        need = fctx.needs_input_grad
+        return (dbuf if need[0] else None, dwg if need[1] else None,
+                dwu if need[2] else None, dwd if need[3] else None,
+                None, None, None)
+
+
+def fused_moe_dispatch_kernel(toks, top_e, top_w, wg, wu, wd,
+                              group: DiompGroup, *, plan: AllToAllPlan):
+    """Dispatch, expert MLP and return of every rank in one launch of
+    ``csrc/moe_dispatch.cu`` (counted in ``.launches``, and by route in
+    ``.route_launches``: :func:`..plan.expert_route`'s, the expert-MLP
+    kernel's rule), the routing scatter and the combine around it in torch,
+    with a gradient through :class:`FusedDispatchFn`; on CPU tensors, the
+    plain version (the emulation, differentiable as it stands).  Returns
+    ``(combined (..., t_loc, d), dropped (...))``."""
+    if not toks.is_cuda:
+        return fused_moe_dispatch_plain(toks, top_e, top_w, wg, wu, wd,
+                                        group, plan=plan)
+    mesh = default_context().require_mesh()
+    nd = mesh.ndim
+    t_loc, d = toks.shape[-2:]
+    _check_dispatch(toks.dtype, toks.device, wg, wu, wd, d, mesh, group, plan)
+    buf, addr, gates, dropped, counts = dispatch_buffers(toks, top_e, top_w,
+                                                         plan)
+    _record_traffic(buf.select(nd, 0), group, plan)
+    full = FusedDispatchFn.apply(buf, wg, wu, wd, counts, group, plan)
     return _combine(full, addr, gates, t_loc, d), dropped
 
 

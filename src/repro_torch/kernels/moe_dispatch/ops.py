@@ -10,7 +10,10 @@ with the return combine after each block's expert GEMMs.
   puts, the fences, the GEMMs, all combine puts, one fence).
 
 Both run the CUDA kernel on the card and its plain version on the CPU; a
-custom ``mlp`` runs the emulation (on either device) with that MLP.  The
+custom ``mlp`` runs the emulation (on either device) with that MLP.  Under
+autograd the card's path differentiates through the gradient kernel
+(``csrc/moe_dispatch_bwd.cu``, :class:`~.fused.FusedDispatchFn`), the CPU's
+through the emulation as it stands.  The
 routing stats (``moe_dropped`` / ``moe_routed``) are recorded into the
 active :class:`~repro_torch.core.context.DispatchStats` frame; on a plan
 sized from measured load the dropped count is zero.

@@ -9,8 +9,10 @@ imbalanced routing, because dropless dispatch only moves data.
 renormalized weights), and :func:`measure_expert_load` turns concrete
 routing into the per-expert load vector that
 :meth:`~repro_torch.kernels.plan.OverlapPlanner.plan_alltoall` sizes the
-asymmetric landing regions from.  Every function takes any leading (rank)
-dims.
+asymmetric landing regions from.  :func:`expert_mlp_bwd_plain` is the
+gradient of the expert-MLP kernel's function as its backward kernel
+computes it (``csrc/expert_mlp_bwd.cu``).  Every function takes any leading
+(rank) dims.
 """
 
 from __future__ import annotations
@@ -21,7 +23,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-__all__ = ["expert_mlp_ref", "route_topk", "measure_expert_load", "moe_ref"]
+__all__ = ["expert_mlp_ref", "expert_mlp_bwd_plain", "live_rows",
+           "route_topk", "measure_expert_load", "moe_ref"]
+
+
+def _lift(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Weights ``(*W, E, a, b)`` viewed to broadcast against x's dims."""
+    extra = x.dim() - w.dim()
+    return w.reshape(*w.shape[:-3], *([1] * extra), *w.shape[-3:])
+
+
+def live_rows(counts: torch.Tensor, C: int) -> torch.Tensor:
+    """``(..., E, C)`` mask of the rows below each expert's count."""
+    return torch.arange(C, device=counts.device) < counts[..., None]
 
 
 def expert_mlp_ref(x, wg, wu, wd):
@@ -33,6 +47,59 @@ def expert_mlp_ref(x, wg, wu, wd):
     """
     h = F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)
     return torch.matmul(h, wd)
+
+
+def expert_mlp_bwd_plain(x, wg, wu, wd, dy,
+                         counts: Optional[torch.Tensor] = None):
+    """The gradient of the expert-MLP kernel's function, as its backward
+    kernel computes it: ``(dx, dwg, dwu, dwd)`` for the cotangent ``dy`` of
+    ``y = (silu(x wg) * (x wu)).astype(x) @ wd``.
+
+    Layouts as the forward's (``x, dy (*W, *S, E, C, d)``, weights ``(*W,
+    E, ...)``); dx comes out like x and each dW in its weight's shape, all
+    in x's dtype, dW summed over every S source.  g and u are recomputed in
+    f32; ``dh = dy wd^T`` in f32; ``dg = dh u silu'(g)`` and ``du = dh
+    silu(g)`` in f32, rounded to x's dtype, as is ``h``, before the products
+    the kernel runs on the tensor cores (``dx = dg wg^T + du wu^T``, ``dwg =
+    x^T dg``, ``dwu = x^T du``, ``dwd = h^T dy``, each accumulated in f32 and
+    rounded once).  Rows at or past ``counts`` give zero dx and add nothing
+    to dW.  In f32 every rounding is the identity: this is autograd's
+    gradient of the forward's plain version."""
+    dt = x.dtype
+    C, d = x.shape[-2:]
+    f = wg.shape[-1]
+    nw = wg.dim() - 3
+    xf = x.float()
+    wgf, wuf, wdf = (_lift(w, x).float() for w in (wg, wu, wd))
+    g = torch.matmul(xf, wgf)
+    u = torch.matmul(xf, wuf)
+    s = torch.sigmoid(g)
+    silu = g * s
+    dyf = dy.float()
+    if counts is not None:
+        live = live_rows(counts, C)[..., None]
+        dyf = dyf.masked_fill(~live, 0)
+    dh = torch.matmul(dyf, wdf.transpose(-1, -2))
+    h = (F.silu(g) * u).to(dt)
+    dg = (dh * u * (s * (1 + g * (1 - s)))).to(dt)
+    du = (dh * silu).to(dt)
+    if counts is not None:
+        h, dg, du = (t.masked_fill(~live, 0) for t in (h, dg, du))
+    dx = (torch.matmul(dg.float(), wgf.transpose(-1, -2))
+          + torch.matmul(du.float(), wuf.transpose(-1, -2))).to(dt)
+    if counts is not None:
+        dx = dx.masked_fill(~live, 0)
+    # dW: every source's rows of an expert, (*W, S, E, C, .) flattened
+    lead = x.shape[:nw]
+    rows = (*lead, -1, x.shape[-3], C)
+    xs, dgs, dus, hs, dys = (t.float().reshape(*rows, t.shape[-1])
+                             for t in (xf, dg, du, h, dyf))
+    del g, u, s, silu, dh
+    dwg = torch.einsum("...secd,...secf->...edf", xs, dgs).to(dt)
+    dwu = torch.einsum("...secd,...secf->...edf", xs, dus).to(dt)
+    dwd = torch.einsum("...secf,...secd->...efd", hs, dys).to(dt)
+    return dx, dwg.reshape(wg.shape), dwu.reshape(wu.shape), \
+        dwd.reshape(wd.shape)
 
 
 def route_topk(toks, router, k: int):

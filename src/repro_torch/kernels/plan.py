@@ -42,6 +42,9 @@ __all__ = [
     "attention_route",
     "attention_bwd_route",
     "expert_route",
+    "expert_bwd_route",
+    "expert_bwd_list_len",
+    "expert_bwd_smem_bytes",
     "stencil_route",
     "scan_route",
     "scan_instance",
@@ -77,6 +80,9 @@ __all__ = [
     "EX_TC_NS",
     "EX_TC_STAGES",
     "EX_TC_THREADS",
+    "EXB_BR",
+    "EXB_STAGES",
+    "EXB_BOXES",
     "SMS_DEFAULT",
 ]
 
@@ -130,6 +136,13 @@ __all__ = [
 #   CUDA cores it stages one (BK, BM) tile of x and a (BK, BN) tile of each
 #   of w_gate and w_up per block, in f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB
 #   at the fixed tile of csrc/expert_mlp.cuh, nothing the planner sizes;
+# * their gradients (csrc/expert_bwd.cuh) take the same rule
+#   (:func:`expert_bwd_route`).  On the tensor cores a block keeps
+#   ``EXB_STAGES`` stages of ``EXB_BOXES`` 64 x 64 boxes (weight tiles and
+#   ``EXB_BR``-row tiles) in the operands' 16-bit type
+#   and the dW pass's three 64 x 64 output tiles
+#   (:func:`expert_bwd_smem_bytes`, the formula of ``exb_smem_bytes``):
+#   185 KiB.  On the CUDA cores five (32, 68) f32 tiles, 42.5 KiB;
 # * the fused ring's stripe slots, the fused step's landing windows, the
 #   fused MoE dispatch's landing and return slots and the ring attention's
 #   K/V stripe slots and (m, l, acc) carry live in device memory, not shared
@@ -166,6 +179,9 @@ EX_TC_BR = 128                  # rows of its row tile, at most
 EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
 EX_TC_STAGES = 6                # that route's shared-memory stages
 EX_TC_THREADS = 160             # a consumer warpgroup and a producer warp
+EXB_BR = 64                     # rows of an expert-MLP gradient row tile
+EXB_STAGES = 4                  # that route's shared-memory stages
+EXB_BOXES = 5                   # 64 x 64 boxes a stage holds
 SMS_DEFAULT = 132               # streaming multiprocessors of an H100 SXM
 
 
@@ -242,6 +258,35 @@ def expert_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
     return "simt"
+
+
+def expert_bwd_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:
+    """The route an expert-MLP gradient launch takes in
+    ``csrc/expert_mlp_bwd.cu`` and ``csrc/moe_dispatch_bwd.cu`` (both run
+    the passes of ``csrc/expert_bwd.cuh``): ``"wgmma"`` (TMA and the tensor
+    cores) for 16-bit operands whose model width d and expert width f are
+    multiples of 64 and whose base pointers and byte strides
+    (``ptrs_and_strides``: those TMA reads) are 16-byte aligned; ``"simt"``
+    (the CUDA cores) otherwise.  The forward's rule (:func:`expert_route`):
+    f32 stays on the CUDA cores, as TF32 would change its results."""
+    return expert_route(dtype, d, f, *ptrs_and_strides)
+
+
+def expert_bwd_list_len(problems: int, C: int) -> int:
+    """int32 entries of one gradient pass's work list over ``problems``
+    problems of ``C`` rows: the count and at most every ``EXB_BR``-row
+    tile (``exb_list_len`` in ``csrc/expert_bwd.cuh``)."""
+    return 1 + problems * -(-C // EXB_BR)
+
+
+def expert_bwd_smem_bytes() -> int:
+    """Dynamic shared memory of an expert-MLP gradient block on the
+    tensor-core route (``exb_smem_bytes`` in ``csrc/expert_bwd.cuh``): the
+    alignment slack, ``EXB_STAGES`` stages of ``EXB_BOXES`` 64 x 64 16-bit
+    boxes, the dW pass's three 64 x 64 output tiles, and each stage's full
+    and empty mbarriers."""
+    return 1024 + (EXB_STAGES * EXB_BOXES + 3) * 64 * 64 * 2 \
+        + 16 * EXB_STAGES
 
 
 def stencil_route(dtype, x: int, *ptrs_and_strides: int) -> str:

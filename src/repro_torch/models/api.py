@@ -1,8 +1,8 @@
 """Family-dispatch API: the surface the serving and training layers talk
 to (dense, GQA and MLA MoE, VLM, audio-encoder, RWKV6 and Zamba2
-families).  The training losses of the dense, VLM, audio, RWKV6 and
-Zamba2 families are ported; the MoE loss waits for ROADMAP queue 1, item
-12.  The audio encoder has no decode step
+families).  The training losses of the dense, MoE (GQA), VLM, audio,
+RWKV6 and Zamba2 families are ported; deepseek-v3's MTP loss waits for
+ROADMAP queue 1, item 21.  The audio encoder has no decode step
 (:func:`has_decode`).
 
 ``cache_structs`` gives the global view of a decode cache — each leaf's

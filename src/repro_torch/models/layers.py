@@ -862,6 +862,20 @@ def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
     :mod:`repro_torch.kernels.moe_dispatch`.  Every regime's grouped GEMMs
     run the expert-MLP kernel on the card, with each block's live rows
     counted from the ``keep`` mask.
+
+    Gradient: every regime is differentiable with respect to ``x``, the
+    router and the three expert weights (their ZeRO-3 gathers reduce-
+    scatter in the backward).  On the card the a2a, replicated and local
+    regimes run the expert-MLP kernel forward (row 7, again under remat)
+    and its gradient kernel backward (row 12,
+    :class:`~repro_torch.kernels.moe_dispatch.kernel.ExpertMLPFn`); the
+    fused and host modes run the fused dispatch kernel forward (row 8) and
+    its gradient kernel backward (row 13,
+    :class:`~repro_torch.kernels.moe_dispatch.fused.FusedDispatchFn`).  The
+    routing (softmax, top-k, the renormalized gates), the scatter
+    (``index_copy_``), the collectives and the combine's gather stay torch
+    ops under autograd; on the CPU the plain versions run under autograd
+    in the kernels' place.
     """
     if ctx.expert2d:
         raise NotImplementedError(

@@ -30,8 +30,8 @@ Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "pos"}`` (the leading dense layers' pair apart); the layers write rows into
 them in place.  A context(seq)-sharded cache (``seq_sharded=True``) keeps
 ``S / data`` K/V rows a rank; MLA's latent cache ignores the flag, as in
-the reference.  The MTP and MoE losses are still to port (ROADMAP queue 1,
-items 21 and 12).  Training checkpoints each layer (``ctx.remat``).
+the reference.  The MTP loss is still to port (ROADMAP queue 1, item 21);
+the MoE family trains.  Training checkpoints each layer (``ctx.remat``).
 A MoE layer's dispatch stats add up over the layer loop in the active
 ``dispatch_stats`` frame, as the reference sums them over its scan.
 """
@@ -238,9 +238,13 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
 
 
 def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
-    """Next-token cross-entropy of the dense and VLM families, or the audio
-    encoder's masked-frame cross-entropy: each rank's mean loss over its
-    batch shard, f32 ``(*mesh,)`` (replicated over the TP group).
+    """Next-token cross-entropy of the dense, MoE and VLM families, or the
+    audio encoder's masked-frame cross-entropy: each rank's mean loss over
+    its batch shard, f32 ``(*mesh,)`` (replicated over the TP group).  The
+    MoE family (qwen3-moe) is scored as the dense one, its expert layers'
+    drop counts recorded into the active ``dispatch_stats`` frame; a config
+    with multi-token prediction (deepseek-v3) raises, its MTP loss not
+    being ported (ROADMAP queue 1, item 21).
     ``batch["tokens"] (*mesh, B, T)``; the VLM's ``batch["prefix_embeds"]
     (*mesh, B, P, d)`` go in front, and only the token positions are
     scored; the audio batch is ``embeds (*mesh, B, T, d)``, ``targets``
@@ -253,10 +257,6 @@ def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
         head = gather_fsdp(params["head"], ctx, dim=0)       # (d, V) whole
         return ce_loss(h, head, batch["targets"], cfg, ctx,
                        weights=batch.get("mask"))
-    if cfg.moe:
-        raise NotImplementedError(
-            "the MoE loss (the backward of the expert MLP and of the fused "
-            "dispatch) is not ported yet: ROADMAP queue 1, item 12")
     if cfg.mtp:
         raise NotImplementedError(
             "the multi-token-prediction loss is not ported yet: ROADMAP "

@@ -39,7 +39,14 @@ once on stacked tensors whose leading dims are the mesh axes, with
 
 ``step(params, opt_state, batch, step_idx) -> (params', opt_state',
 metrics)``; metrics are ``(*mesh,)`` tensors, replicated: ``loss`` and
-``grad_norm``.  With ``donate=True`` (the reference's default) the step
+``grad_norm``, and for MoE configs ``moe_dropped`` (the capacity-overflow
+drops summed over layers, microbatches and the world) and
+``moe_drop_rate`` (over the routed (token, choice) pairs).  Each
+microbatch's loss runs inside a ``dispatch_stats`` frame that closes
+before its backward, so a checkpointed layer's recompute (which runs
+``moe_block`` again, with the forward's stats lent to it) records into no
+frame and the drops count once, as the reference's, whose frame opens in
+the traced loss alone.  With ``donate=True`` (the reference's default) the step
 updates ``params`` and ``opt_state`` in place (the reference donates their
 buffers), so a caller must not reuse them; ``donate=False`` leaves them
 untouched.
@@ -260,9 +267,17 @@ def build_train_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx,
     plan = (default_planner().plan_grad_buckets(cfg, mesh, ctx)
             if ctx.explicit_dp and dp_axes and ctx.bucket_bytes else None)
 
-    def grads_of(params, mb):
+    def grads_of(params, mb, stats):
+        # the frame covers the forward only (the reference opens it inside
+        # its traced loss): the backward's recomputes record nowhere
+        def framed(p, b, c, x):
+            with default_context().dispatch_stats.collect() as ds:
+                out = loss_fn(p, b, c, x)
+            for key, val in ds.items():
+                stats[key] = stats[key] + val if key in stats else val
+            return out
         return per_rank_grads(params, mb, cfg, ctx, mesh, pspecs=pspecs,
-                              loss_fn=loss_fn)
+                              loss_fn=framed)
 
     def run(params, opt_state, batch, step_idx):
         dctx = default_context()
@@ -277,12 +292,13 @@ def build_train_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx,
         bufs = None
         reduced = False
         loss = None
+        stats = {}          # moe_dropped / moe_routed over the microbatches
         if overlap:
             acc = {n: None for n in plan.local}
             shards = {}
             for i, mb in enumerate(mbs):
                 with recorded_once(i == 0) as rctx:
-                    l, g = grads_of(params, mb)
+                    l, g = grads_of(params, mb, stats)
                     for n in plan.local:
                         # a replicated gradient is an expanded view: the
                         # accumulator owns a dense copy
@@ -313,7 +329,7 @@ def build_train_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx,
             grads = None
             for i, mb in enumerate(mbs):
                 with recorded_once(i == 0):
-                    l, g = grads_of(params, mb)
+                    l, g = grads_of(params, mb, stats)
                 loss = l if loss is None else loss + l
                 if k == 1:
                     grads = g
@@ -360,6 +376,14 @@ def build_train_step(cfg: ModelConfig, mesh: RankMesh, ctx: ParallelCtx,
         world = dctx.communicator(ctx.world)
         metrics = {"loss": world.allreduce(loss, op="mean"),
                    "grad_norm": gnorm}
+        if cfg.moe:
+            # per-rank sums over layers x microbatches; the world sum is the
+            # step's capacity-overflow drops (zero under fused / host)
+            zero = torch.zeros(mesh.sizes, dtype=F32, device=loss.device)
+            dropped = world.allreduce(stats.get("moe_dropped", zero))
+            routed = world.allreduce(stats.get("moe_routed", zero))
+            metrics["moe_dropped"] = dropped
+            metrics["moe_drop_rate"] = dropped / torch.clamp(routed, min=1.0)
         return params, opt_state, metrics
 
     seen = set()

@@ -314,11 +314,11 @@ def test_decode_matches_reference(impl, dt, mesh8):
 
 
 def test_unported_moe_branches_raise():
-    """deepseek-v3's loss waits for the MoE gradients (item 12), the MTP
-    loss for item 21; expert2d placement for item 12."""
+    """deepseek-v3's loss waits for its MTP term (item 21), as any config
+    with MTP does; expert2d placement for item 12."""
     cfg = configs.get_reduced("deepseek-v3-671b")
     ctx = ParallelCtx.from_mesh(MESH)
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(NotImplementedError, match="item 21"):
         tf.transformer_loss({}, {}, cfg, ctx)
     dense = configs.get_reduced("glm4-9b")
     mtp = type(dense)(**{**{f: getattr(dense, f)

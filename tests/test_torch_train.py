@@ -530,12 +530,23 @@ def test_synthetic_batches_equal_reference(arch):
 
 
 def test_losses_of_unported_families_name_their_items():
+    """deepseek-v3's loss names its missing MTP term (item 21); qwen3-moe's,
+    ported, scores a batch: a finite loss replicated over "model"."""
     ctx = ParallelCtx.from_mesh(MESH)
-    for arch, item in (("qwen3-moe-235b-a22b", "item 12"),):
+    for arch, item in (("deepseek-v3-671b", "item 21"),):
         cfg = configs.get_reduced(arch)
         with use_default(DiompContext(mesh=MESH, device="cpu")):
             with pytest.raises(NotImplementedError, match=item):
                 api.loss_fn(cfg)({}, {"tokens": None}, cfg, ctx)
+    cfg = configs.get_reduced("qwen3-moe-235b-a22b")
+    params = schema.init_params(cfg, MESH, torch.Generator().manual_seed(0),
+                                device="cpu")
+    with use_default(DiompContext(mesh=MESH, device="cpu")), \
+            torch.no_grad():
+        loss = api.loss_fn(cfg)(params, _port_batch(cfg, "f32", ctx), cfg,
+                                ctx)
+    assert loss.shape == MESH.sizes and bool(torch.isfinite(loss).all())
+    assert torch.equal(loss, loss[..., :1].expand_as(loss))
 
 
 def test_launcher_trains_on_the_cpu(tmp_path, monkeypatch):
