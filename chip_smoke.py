@@ -253,8 +253,8 @@ EXPERT_KERNELS = ("gate_up_kernel", "down_kernel", "gate_up_tc_kernel",
                   "down_tc_kernel", "ex_list_kernel")
 # the expert MLP's gradient (row 12) and the fused dispatch's (row 13)
 EXPERT_BWD_KERNELS = ("exb_simt_kernel", "exb_list_kernel",
-                      "exb_rows_tc_kernel", "exb_dx_tc_kernel",
-                      "exb_dw_tc_kernel")
+                      "exb_pack_kernel", "exb_rows_tc_kernel",
+                      "exb_dx_tc_kernel", "exb_dw_tc_kernel")
 MOE_BWD_KERNELS = ("dispatch_bwd_kernel", "dispatch_bwd_tc_kernel")
 # the wave step's, both routes; the linear scan's, both routes
 LEAP_KERNELS = ("leap_tma_kernel", "leap_kernel")
@@ -446,6 +446,12 @@ class CardSampler:
 
 
 def max_err(torch, got, want) -> float:
+    """The largest absolute difference, in f32; a tensor of more than 2^27
+    elements slice by slice along its first dim (the f32 copies of a
+    training call's dW would take tens of GB at once)."""
+    if got.numel() > 1 << 27 and got.dim() > 1 and got.shape == want.shape:
+        return max(max_err(torch, a, b)
+                   for a, b in zip(got.unbind(0), want.unbind(0)))
     return float((got.float() - want.float()).abs().max())
 
 
@@ -1292,15 +1298,24 @@ def _bwd_case(torch, g, G, S, E, C, d, f, dt, counts):
 def _bwd_close(torch, got, want, again, tol, tag):
     """Each of (dx, dwg, dwu, dwd) within ``tol`` of its plain version's
     largest magnitude, and two launches equal bit for bit; returns the
-    worst relative error."""
+    worst relative error.  ``again`` is the second launch's outputs, or a
+    function that launches it, called once ``want`` is released (the
+    caller passes its only reference where three sets of a training call's
+    gradients do not fit beside its operands)."""
     worst = 0.0
-    for name, x, w, y in zip(("dx", "dwg", "dwu", "dwd"), got, want, again):
+    names = ("dx", "dwg", "dwu", "dwd")
+    want = list(want)
+    for i, (name, x) in enumerate(zip(names, got)):
+        w = want[i]
         err = max_err(torch, x, w)
-        scale = max(float(w.float().abs().max()), 1e-6)
+        scale = max(float(w.abs().max()), 1e-6)
         worst = max(worst, err / scale)
         check(x.shape == w.shape and bool(torch.isfinite(x).all())
               and err <= tol * scale,
               f"{tag} {name}: err {err} (scale {scale})")
+    del w
+    want.clear()
+    for name, x, y in zip(names, got, again() if callable(again) else again):
         check(torch.equal(x, y), f"{tag} {name}: two launches differ")
     return worst
 
@@ -1316,16 +1331,21 @@ def check_expert_mlp_bwd(torch, k, g) -> None:
     the output and of the rounded dg, du and h, plus the order).  Rows past
     the counts come out as exact zeros, two launches on the same inputs
     are equal bit for bit, and a launch off the rule forced onto the
-    tensor cores is refused."""
+    tensor cores is refused.  On the tensor cores an expert's live rows
+    over its sources are packed in 64-row tiles: the cases hold experts of
+    0, 1, 2, 3 and 5 such tiles (C = 130: 1, 130 and 259 rows; 5 tiles are
+    more than the dW pass's slots hold)."""
     from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
     tols = {torch.float32: 1e-5, torch.bfloat16: 1.6e-2}
     bwd = k.expert_mlp_bwd
+    packed = []
     for G, S, E, C, d, f in ((1, 1, 4, 20, 128, 64), (2, 2, 4, 80, 256, 128),
                              (1, 2, 3, 130, 192, 320)):
         lives = [0, 1, C - 1, C, C, 1, 0, C - 1]
         counts = torch.tensor([[[lives[(gi + si + e) % 8] for e in range(E)]
                                 for si in range(S)] for gi in range(G)],
                               dtype=torch.int32, device="cuda")
+        packed += counts.sum(1).flatten().tolist()
         for dt, tol in tols.items():
             x, ws, dy, live = _bwd_case(torch, g, G, S, E, C, d, f, dt,
                                         counts)
@@ -1340,6 +1360,9 @@ def check_expert_mlp_bwd(torch, k, g) -> None:
             check(not got[0][~live].any(),
                   f"{tag}: dx rows past the counts are not zero")
             del x, ws, dy, want, got, again, stacked
+    tiles = sorted({-(-n // 64) for n in packed})
+    check(tiles[0] == 0 and tiles[-1] > 2,
+          f"expert_mlp_bwd: the cases' experts pack into {tiles} tiles")
     # bf16 with d off the rule: the CUDA cores, and refused on the tensor
     # cores
     counts = torch.tensor([[[3, 0, 20]]], dtype=torch.int32, device="cuda")
@@ -4772,18 +4795,19 @@ def recurrent_train_phase(torch, k, dev, wrappers, arch) -> dict:
 # not fit the card's 80 GB and depth 1's does.  Adafactor, the launcher's
 # choice at the full model's size.  MOE_FUSED_STEPS more steps under
 # dispatch_impl="fused" at the same depth and tokens, in MOE_FUSED_MICRO
-# microbatches a step (one sequence a data rank each): the dropless ring's
-# worst-case plan (caps = t_loc) at microbatch 2 (1024-row blocks of 0.54
-# GB) holds 17 GB of blocks, slots and returns for a layer's forward and
-# about 23 GB more for its backward, over the 68 GB the a2a step peaks at
-# (it ran out of memory there); microbatch 4 halves both.  The checks'
-# depth: 1, in f32; the fused check's tokens: one sequence a data rank,
-# cut to MOE_CHECK_SEQ (its f32 blocks, slots and the backward's scratch
-# beside the f32 parameters and gradients).
+# microbatches a step, as the a2a steps: the dropless ring's worst-case
+# plan (caps = t_loc) at microbatch 2 (1024-row blocks of 0.54 GB) holds 17
+# GB of blocks, slots and returns for a layer's forward; its backward
+# packs the live rows (1.25 GB of scratch there, where padded blocks,
+# slots and scratch took about 23 GB and ran out of memory), so the fused
+# step fits beside what the a2a step leaves.  The checks' depth: 1, in
+# f32; the fused check's tokens: one sequence a data rank, cut to
+# MOE_CHECK_SEQ (its f32 blocks, slots and the CUDA-core backward's padded
+# scratch beside the f32 parameters and gradients).
 MOE_TRAIN_ARCH = "qwen3-moe-235b-a22b"
 MOE_TRAIN_LAYERS = 1
 MOE_FUSED_STEPS = 2
-MOE_FUSED_MICRO = 4
+MOE_FUSED_MICRO = 2
 MOE_CHECK_SEQ = 256
 
 
@@ -4879,6 +4903,13 @@ def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, **knobs):
     return out
 
 
+def _tiles_by_set(torch, rows) -> dict:
+    """How many weight sets pack into each number of 64-row tiles, from
+    each set's live rows (a tensor)."""
+    tiles = ((rows.flatten().long() + 63) // 64).tolist()
+    return {n: tiles.count(n) for n in sorted(set(tiles))}
+
+
 def _expert_bwd_at(torch, k, g, x, dy, counts):
     """Row 12 at a training call's shape and live rows (``x``, ``dy`` and
     ``counts`` of the call; weights random at its shapes) against its plain
@@ -4916,8 +4947,10 @@ def _expert_bwd_at(torch, k, g, x, dy, counts):
                x, *ws, dy, counts), 2),
            "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes, "ops": ops,
            "library_ms": None}
+    row["sets_by_tiles"] = _tiles_by_set(torch, counts.sum(1))
     log(f"expert_mlp_bwd at the training call {tuple(x.shape)}, f {f}, "
-        f"{live} live rows: {row['ms']:.3f} ms (device "
+        f"{live} live rows (weight sets by packed tiles "
+        f"{row['sets_by_tiles']}): {row['ms']:.3f} ms (device "
         f"{_ms(row['device_ms'], 3)}; by kernel "
         f"{row['device_ms_by_kernel']}), plain {row['plain_ms']:.3f}, bound "
         f"{b_ms:.3f} ms by {b_by}, rel err {worst:.3g}")
@@ -4959,14 +4992,14 @@ def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
         return [torch.cat(parts, dim=-3) for parts in zip(*out)]
 
     with use_default(dctx):
-        want = plain_chunks()
-        torch.cuda.empty_cache()
         got = _counted(bwd, lambda: bwd(*args, plan=plan), "wgmma")
-        worst = _bwd_close(torch, got, want, bwd(*args, plan=plan), 1.6e-2,
+        worst = _bwd_close(torch, got, plain_chunks(),
+                           lambda: bwd(*args, plan=plan), 1.6e-2,
                            f"fused_dispatch_bwd at the training plan "
                            f"{tuple(buf.shape)}")
-        del got, want
+        del got
         torch.cuda.empty_cache()
+        transient = bwd.transient_bytes
         fn = lambda: bwd(*args, plan=plan)  # noqa: E731
         ms = cuda_ms(torch, fn, 2)
         dms = device_ms(torch, fn, 2, MOE_BWD_KERNELS)
@@ -4979,11 +5012,16 @@ def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
     row = {"shape": list(buf.shape), "f": f, "live_rows": n_live,
            "overlap": plan.overlap, "max_abs_err": worst, "ms": ms,
            "device_ms": dms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "bytes": nbytes, "ops": ops, "library_ms": None}
+           "bound_by": b_by, "bytes": nbytes, "ops": ops, "library_ms": None,
+           "transient_bytes": transient,
+           "sets_by_tiles": _tiles_by_set(torch, counts.sum(
+               group.rank_dims(dctx.require_mesh())[0]))}
     log(f"fused_dispatch_bwd at the training plan {tuple(buf.shape)}, "
-        f"{n_live} live rows: {ms:.3f} ms (device {_ms(dms, 3)}), plain "
+        f"{n_live} live rows (weight sets by packed tiles "
+        f"{row['sets_by_tiles']}): {ms:.3f} ms (device {_ms(dms, 3)}), plain "
         f"{plain_ms:.3f} ({MLA_PLAIN_EXPERTS} experts a call), bound "
-        f"{b_ms:.3f} ms by {b_by}, rel err {worst:.3g}")
+        f"{b_ms:.3f} ms by {b_by}, rel err {worst:.3g}; scratch and staging "
+        f"{transient / 1e9:.3f} GB")
     return row
 
 
@@ -5061,9 +5099,8 @@ def _moe_train_checks(torch, k, dev) -> dict:
             if impl == "a2a":
                 b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
                                   // TRAIN_MICRO) for n, t in b0.items()}
-            else:
-                b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
-                                  // MOE_FUSED_MICRO)
+            else:           # one sequence a data rank
+                b0 = {n: t.narrow(mesh.ndim, 0, 1)
                       .narrow(mesh.ndim + 1, 0, MOE_CHECK_SEQ)
                       for n, t in b0.items()}
             for mode in ("plain", "kernels"):

@@ -33,6 +33,21 @@ With ``--scan-bwd --against DIR`` it does none of that: it builds DIR's
 versions in turns at the training shape (BH 256, T 1024, M = N = 64),
 both readouts, with CUDA events and the profiler's device time.
 
+With ``--expert-bwd --against DIR`` it does none of that either: it builds
+DIR's ``expert_mlp_bwd.cu`` and ``moe_dispatch_bwd.cu`` as they are
+(through the entries their sources show) and times rows 12 and 13 of both
+versions in turns (other, this, this, other) with CUDA events and the
+profiler's device time, at qwen3-moe's training shapes (with a ``fill_``
+of row 12's dW bytes as a yardstick for the dW pass): row 12 at the a2a
+call's x (4, 2, 64, 80, 4096), f 1536, with 13,406 live rows spread at
+random over its blocks and with every row live, row 13 at the fused plan's
+blocks (2, 2, 2, 64, 512, 4096) with 16,384 live rows (512 tokens a rank,
+top-8 of 128 experts); every output is held against the plain version
+within 1.6e-2 of its largest magnitude and bit for bit over two launches.
+Row 12's passes are separate launches, timed by kernel; row 13's single
+cooperative launch is split by pass from clock64 stamps (a copy of each
+version's source built into ``build/chip_split/``).
+
 With ``--profiler`` it does none of that either: in a fresh process for
 each variant it takes a profiler trace as large as a profiled training
 step's (30,000 small launches), then thirty short traces of ten GEMMs
@@ -139,6 +154,44 @@ def stamped(text: str, marks) -> str:
     return text
 
 
+def stamp(text: str, head_after: str, marks) -> str:
+    """``text`` with the split's header after the line ``head_after`` and,
+    at each ``(anchor, code, before)``, ``code`` put before (or after) the
+    anchor, which must occur once."""
+    text = text.replace(head_after, head_after + HEAD, 1)
+    for anchor, code, before in marks:
+        if text.count(anchor) != 1:
+            raise ValueError(f"pass marker not found once: {anchor!r}")
+        text = text.replace(anchor, code + anchor if before
+                            else anchor + code)
+    return text
+
+
+# row 13's pass split: this version (the landing of the packed rows and
+# the puts, A, B, C) and the padded-block version (its puts, lists and
+# returns, then A, B, C summed over the ring's offsets); each segment runs
+# to the grid barrier after it, so it holds the wait for the slowest block
+ROW13_SPLIT = ("landing", "A", "B", "C")
+ROW13_MARKS = {
+    "packed": [("  // -- the packed layout's metadata", "  T0();\n", True),
+               ("    // -- pass A\n", "    ACC(0);\n", True),
+               ("    // -- pass B\n", "    ACC(1);\n", True),
+               ("  // -- pass C", "  ACC(2);\n", True),
+               ("  // -- end\n", "  ACC(3);\n", True)],
+    "padded": [("  const ExbTcSmem sm = exb_smem_init(smem);\n"
+                "  cg::grid_group grid = cg::this_grid();\n", "  T0();\n",
+                False),
+               ("    exb_tc_rows_pass<T>(sm, pipe, list, a.C,", "    ACC(0);\n",
+                True),
+               ("    if (threadIdx.x < EX_TC_CONSUMERS)\n"
+                "      ex_zero_dead_rows<T>(NW,", "    ACC(1);\n", True),
+               ("  });\n  exb_tc_dw_pass<T>(sm, pipe, NW,", "    ACC(2);\n",
+                True),
+               ("                    static_cast<T*>(a.dwd));\n", "  ACC(3);\n",
+                False)],
+}
+
+
 def build(torch, cs, build_mod, name: str, text: str, src_dir: Path,
           tag: str):
     """``text`` as ``name``.cu (beside ``src_dir``'s headers) into a
@@ -170,6 +223,9 @@ def build(torch, cs, build_mod, name: str, text: str, src_dir: Path,
         if name not in ("fused_wave_step", "linear_scan_bwd") \
                 and "int route" not in text:
             del argt[-2]             # an entry that takes no route code
+        if name in ("expert_mlp_bwd", "moe_dispatch_bwd") \
+                and "int tiles" not in text:
+            del argt[-4]             # the padded layout's: no tile bound
         getattr(lib, fn).argtypes = argt
         getattr(lib, fn).restype = ctypes.c_int
     return lib
@@ -321,6 +377,239 @@ def scan_bwd_turns(torch, cs, _build, k, g, other_dir: Path) -> None:
               f"{t[3]:.4f} ms (device {cs._ms(do, 4)})")
 
 
+def _a2a_counts(torch, g, G, S, E, C, live):
+    """(G, S, E) int32 counts summing to ``live``: uniform draws scaled,
+    then single entries moved by one until the sum is ``live``."""
+    c = torch.rand(G, S, E, generator=g, device="cuda")
+    c = (c / c.sum() * live).round().clamp(0, C).to(torch.int32).flatten()
+    i = 0
+    while int(c.sum()) != live:
+        step = 1 if int(c.sum()) < live else -1
+        if 0 <= int(c[i]) + step <= C:
+            c[i] += step
+        i = (i + 1) % c.numel()
+    return c.view(G, S, E)
+
+
+def _other_row12(torch, lib, x, ws, dy, counts):
+    """A closure launching the padded-block version of row 12 (its entry
+    as the parent's source shows it) into fresh outputs."""
+    from repro_torch.kernels._build import DTYPE_CODES, ROUTE_CODES
+    from repro_torch.kernels.moe_dispatch.kernel import rank_strided
+    G, S_, E, C, d = x.shape
+    f = ws[0].shape[-1]
+    (wg, sg), (wu, su), (wd, sd) = (rank_strided(w) for w in ws)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        dx = torch.empty_like(x)
+        dw = [torch.empty_like(w) for w in ws]
+        scratch = torch.empty(3 * G * S_ * E * C * f, dtype=x.dtype,
+                              device="cuda")
+        work = torch.empty(1 + G * S_ * E * -(-C // 64), dtype=torch.int32,
+                           device="cuda")
+        st = lib.repro_expert_mlp_bwd(
+            x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
+            dy.data_ptr(), counts.data_ptr(), dx.data_ptr(),
+            *(w.data_ptr() for w in dw), scratch.data_ptr(), work.data_ptr(),
+            sg, su, sd, G, S_, E, C, d, f, DTYPE_CODES[x.dtype],
+            ROUTE_CODES["wgmma"], stream)
+        if st != 0:
+            raise RuntimeError(f"other expert_mlp_bwd failed: {st}")
+        return (dx, *dw)
+    return call
+
+
+def _other_row13(torch, lib, buf, ws, counts, dfull, group, plan):
+    """The same for row 13: the padded blocks, slots and scratch, in the
+    kernel's ring-last layout (the group's rank dim is last of the mesh
+    here, so buf's layout is it)."""
+    from repro_torch.kernels._build import DTYPE_CODES, ROUTE_CODES
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch.kernel import rank_strided
+    ep, E_loc, C = plan.ep, plan.E_loc, plan.cap_pad
+    d, f = buf.shape[-1], ws[0].shape[-1]
+    G = buf.numel() // (ep * ep * E_loc * C * d)
+    (wg, sg), (wu, su), (wd, sd) = (rank_strided(w) for w in ws)
+    sched = fused._schedule_table(plan, buf.device)
+    slots = max(ep - 1, 1)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        dbuf = torch.empty_like(buf)
+        dw = [torch.empty_like(w) for w in ws]
+        stages = [torch.empty(G, ep, slots, E_loc, C, d, dtype=buf.dtype,
+                              device="cuda") for _ in range(3)]
+        scratch = torch.empty(3 * G * ep * ep * E_loc * C * f,
+                              dtype=buf.dtype, device="cuda")
+        work = torch.empty(ep * (1 + G * ep * E_loc * -(-C // 64)),
+                           dtype=torch.int32, device="cuda")
+        st = lib.repro_moe_dispatch_bwd(
+            buf.data_ptr(), dfull.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+            wd.data_ptr(), counts.data_ptr(), dbuf.data_ptr(),
+            *(w.data_ptr() for w in dw), *(s.data_ptr() for s in stages),
+            scratch.data_ptr(), sched.data_ptr(), work.data_ptr(), sg, su, sd,
+            sched.shape[0], G, ep, slots, E_loc, C, d, f,
+            DTYPE_CODES[buf.dtype], ROUTE_CODES["wgmma"], stream)
+        if st != 0:
+            raise RuntimeError(f"other moe_dispatch_bwd failed: {st}")
+        return (dbuf, *dw)
+    return call
+
+
+def _row13_split(torch, cs, lib, call) -> str:
+    """Shares of row 13's passes from a stamped build's clock64 sums."""
+    acc = (ctypes.c_ulonglong * 16)()
+    call()
+    torch.cuda.synchronize()
+    lib.split_reset()
+    call()
+    torch.cuda.synchronize()
+    lib.split_read(acc)
+    total = sum(acc[i] for i in range(len(ROW13_SPLIT)))
+    return ", ".join(f"{n} {100 * acc[i] / total:.1f} %"
+                     for i, n in enumerate(ROW13_SPLIT))
+
+
+def expert_bwd_turns(torch, cs, _build, k, g, other_dir: Path) -> None:
+    """Rows 12 and 13 at the training shapes, this version against
+    ``other_dir``'s sources, each held against the plain version and bit
+    for bit over two launches, timed in turns (other, this, this,
+    other)."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.launch.mesh import RankMesh
+    texts = {n: (other_dir / f"{n}.cu").read_text()
+             for n in ("expert_mlp_bwd", "moe_dispatch_bwd")}
+    other = {n: build(torch, cs, _build, n, t, other_dir, f"other_{n}")
+             for n, t in texts.items()}
+    bf16, tol = torch.bfloat16, 1.6e-2
+
+    def turns(label, new, old, names, reps=3):
+        t = [cs.cuda_ms(torch, old, reps), cs.cuda_ms(torch, new, reps),
+             cs.cuda_ms(torch, new, reps), cs.cuda_ms(torch, old, reps)]
+        dn = cs.device_ms(torch, new, reps, names)
+        do = cs.device_ms(torch, old, reps, names)
+        print(f"{label}: this {t[1]:.3f} / {t[2]:.3f} ms (device "
+              f"{cs._ms(dn, 3)}), other {t[0]:.3f} / {t[3]:.3f} ms (device "
+              f"{cs._ms(do, 3)})", flush=True)
+        return dn, do
+
+    # row 12 at the a2a call, 13,406 live rows and every row live
+    G, S_, E, C, d, f = 4, 2, 64, 80, 4096, 1536
+    for live in (13_406, G * S_ * E * C):
+        counts = _a2a_counts(torch, g, G, S_, E, C, live)
+        x, ws, dy, _ = cs._bwd_case(torch, g, G, S_, E, C, d, f, bf16,
+                                    counts)
+        new = lambda: k.expert_mlp_bwd(x, *ws, dy, counts)  # noqa: E731
+        old = _other_row12(torch, other["expert_mlp_bwd"], x, ws, dy, counts)
+        want = k.expert_mlp_bwd_plain(x, *ws, dy, counts)
+        tag = (f"row 12 {tuple(x.shape)}, {live} live rows (weight sets by "
+               f"packed tiles {cs._tiles_by_set(torch, counts.sum(1))})")
+        errs = [cs._bwd_close(torch, fn(), want, fn(), tol, f"{tag} {who}")
+                for who, fn in (("this", new), ("other", old))]
+        del want
+        torch.cuda.empty_cache()
+        print(f"{tag}: relative err this {errs[0]:.3g}, other "
+              f"{errs[1]:.3g}", flush=True)
+        turns(tag, new, old, cs.EXPERT_BWD_KERNELS)
+        for who, fn, src in (
+                ("this", new, (_build.CSRC / "expert_mlp_bwd.cu").read_text()),
+                ("other", old, texts["expert_mlp_bwd"])):
+            by = {n: cs.device_ms(torch, fn, 3, (n,))
+                  for n in cs.EXPERT_BWD_KERNELS[1:] if n in src}
+            print(f"  {who} by kernel: " + ", ".join(
+                f"{n} {cs._ms(v, 4)}" for n, v in by.items() if v),
+                flush=True)
+        del x, ws, dy, counts
+        torch.cuda.empty_cache()
+
+    # a yardstick for pass C, which writes each dW once: one fill_ of as
+    # many bytes as row 12's three dW at this call
+    dw_bytes = torch.empty(3 * G * E * d * f, dtype=bf16, device="cuda")
+    print(f"fill_ of {dw_bytes.numel() * 2 / 1e9:.3f} GB (row 12's dW): "
+          f"{cs.cuda_ms(torch, lambda: dw_bytes.fill_(0), 5):.3f} ms",
+          flush=True)
+    del dw_bytes
+    torch.cuda.empty_cache()
+
+    # row 13 at the fused training plan
+    mesh = RankMesh(("data", "model"), (2, 2))
+    group = DiompGroup(("model",), name="ep")
+    t_loc, kk, E_all = 512, 8, 128
+    plan = OverlapPlanner().plan_alltoall(t_loc, d, kk, E_all, 2, bf16)
+    logits = (torch.randn(2, 2, t_loc, E_all, generator=g, device="cuda")
+              + 2.0 * torch.randn(E_all, generator=g, device="cuda"))
+    top_e = logits.topk(kk, dim=-1).indices
+    counts = torch.nn.functional.one_hot(top_e, E_all).sum((-3, -2)) \
+        .to(torch.int32).view(2, 2, plan.ep, plan.E_loc)
+    lead = tuple(counts.shape[:-1])
+    livem = (torch.arange(plan.cap_pad, device="cuda")
+             < counts[..., None])[..., None]
+    buf = (torch.randn(*lead, plan.E_loc, plan.cap_pad, d, generator=g,
+                       device="cuda") * livem).to(bf16)
+    dfull = (torch.randn(buf.shape, generator=g, device="cuda")
+             * livem).to(bf16)
+    ws = [(torch.randn(2, 2, plan.E_loc, a, b, generator=g, device="cuda")
+           * a ** -0.5).to(bf16) for a, b in ((d, f), (d, f), (f, d))]
+    del livem
+    dctx = DiompContext(mesh=mesh, device="cuda")
+    with use_default(dctx):
+        new = lambda: k.fused_dispatch_bwd_kernel(  # noqa: E731
+            buf, *ws, counts, dfull, group, plan=plan)
+        old = _other_row13(torch, other["moe_dispatch_bwd"], buf, ws, counts,
+                           dfull, group, plan)
+        parts = []
+        for e0 in range(0, plan.E_loc, cs.MLA_PLAIN_EXPERTS):
+            sl = slice(e0, e0 + cs.MLA_PLAIN_EXPERTS)
+            parts.append(k.fused_dispatch_bwd_plain(
+                buf[..., sl, :, :], *(w[..., sl, :, :] for w in ws),
+                counts[..., sl], dfull[..., sl, :, :], group))
+        want = [torch.cat(p, dim=-3) for p in zip(*parts)]
+        del parts
+        torch.cuda.empty_cache()
+        tag = (f"row 13 {tuple(buf.shape)}, {int(counts.sum())} live rows "
+               f"(overlap {plan.overlap}; weight sets by packed tiles "
+               f"{cs._tiles_by_set(torch, counts.sum(1))})")
+        errs = [cs._bwd_close(torch, fn(), want, fn(), tol, f"{tag} {who}")
+                for who, fn in (("this", new), ("other", old))]
+        del want
+        torch.cuda.empty_cache()
+        print(f"{tag}: relative err this {errs[0]:.3g}, other "
+              f"{errs[1]:.3g}; this version's scratch and staging "
+              f"{k.fused_dispatch_bwd_kernel.transient_bytes / 1e9:.3f} GB",
+              flush=True)
+        dn, do = turns(tag, new, old, cs.MOE_BWD_KERNELS, reps=2)
+        for who, text, marks, fn in (
+                ("this", (_build.CSRC / "moe_dispatch_bwd.cu").read_text(),
+                 "packed", None),
+                ("other", texts["moe_dispatch_bwd"], "padded", old)):
+            try:
+                lib = build(torch, cs, _build, "moe_dispatch_bwd",
+                            stamp(text, '#include "expert_bwd.cuh"\n',
+                                  ROW13_MARKS[marks]),
+                            _build.CSRC if who == "this" else other_dir,
+                            f"{who}_row13_split")
+            except ValueError as e:
+                print(f"  {who} row 13 split: not taken ({e})")
+                continue
+            if who == "this":
+                saved = _build.library("moe_dispatch_bwd")
+                _build._loaded["moe_dispatch_bwd"] = lib
+                try:
+                    shares = _row13_split(torch, cs, lib, new)
+                finally:
+                    _build._loaded["moe_dispatch_bwd"] = saved
+            else:
+                shares = _row13_split(
+                    torch, cs, lib, _other_row13(torch, lib, buf, ws, counts,
+                                                 dfull, group, plan))
+            print(f"  {who} row 13 by pass (clock64 shares of device "
+                  f"{cs._ms(dn if who == 'this' else do, 3)} ms): {shares}",
+                  flush=True)
+
+
 PROFILER_VARIANTS = ("no large trace", "right after", "after 3 s",
                      "after gc.collect()", "TEARDOWN_CUPTI=0",
                      "right after, autograd", "lead-in, autograd",
@@ -398,6 +687,8 @@ def main() -> int:
                         help="a csrc directory of another version")
     parser.add_argument("--scan-bwd", action="store_true",
                         help="only row 11 against --against's")
+    parser.add_argument("--expert-bwd", action="store_true",
+                        help="only rows 12 and 13 against --against's")
     parser.add_argument("--profiler", action="store_true",
                         help="only the empty-trace variants")
     parser.add_argument("--profiler-variant", default=None,
@@ -436,6 +727,11 @@ def main() -> int:
         if args.against is None:
             parser.error("--scan-bwd needs --against")
         scan_bwd_turns(torch, cs, _build, k, g, args.against.resolve())
+        return 0
+    if args.expert_bwd:
+        if args.against is None:
+            parser.error("--expert-bwd needs --against")
+        expert_bwd_turns(torch, cs, _build, k, g, args.against.resolve())
         return 0
     csrc = _build.CSRC
     now = build(torch, cs, _build, "linear_scan",

@@ -9,15 +9,14 @@
 //
 //   A, rows:  g = x wg, u = x wu (recomputed, f32), dh = dy wd^T (f32);
 //             h = silu(g) u, dg = dh u silu'(g), du = dh silu(g), each
-//             rounded to x's dtype into a scratch in device memory, for the
-//             live rows (the rest of a row tile as zeros);
+//             rounded to x's dtype into a scratch in device memory;
 //   B, dx:    dx = dg wg^T + du wu^T (f32 accumulation, rounded once), the
 //             rows past each count as zeros;
-//   C, dW:    dwg = x^T dg, dwu = x^T du, dwd = h^T dy, one block an
-//             (expert, 64 x 64 output tile), K over every live row of every
-//             source in a fixed order (source by source, row tiles in
-//             increasing order), written once: no atomics and no split K,
-//             so the gradients are the same bit for bit from run to run.
+//   C, dW:    dwg = x^T dg, dwu = x^T du, dwd = h^T dy, K over every live
+//             row of every source in a fixed order (source by source, row
+//             by row), each dW element written once: no atomics and no
+//             split K, so the gradients are the same bit for bit from run
+//             to run.
 //
 // A caller runs every pass-A item, synchronises, every pass-B item, and
 // (once all its sources' pass A has run) every pass-C item.
@@ -28,59 +27,72 @@
 // u recompute, dh, dx's two products, the three dW).  At qwen3-moe's d =
 // 4096, f = 1536 with 64 experts on each of 4 ranks that is 19.3 GB (5.8 ms
 // at 3.35 TB/s) against 3.3e12 operations (3.3 ms at 989 TFLOP/s) at about
-// 32,768 live rows.  This first design re-reads row tiles from L2 (pass A
-// reads each row tile once for every 64 columns of f, pass C each for every
-// output tile), which its L2 must serve.
+// 32,768 live rows.
 //
 // Two routes, picked on the host by one stated rule (repro_torch/kernels/
 // plan.py expert_bwd_route, checked again by each C entry point):
 //
 // * tensor cores (exb_tc_*): f16/bf16 with d and f multiples of 64 and
-//   16-byte-aligned pointers and strides.  A block is one consumer
-//   warpgroup and one producer warp, persistent over a pass's items; the
-//   producer streams 64-deep K steps of 64 x 64 boxes (EXB_BOXES a stage,
-//   EXB_STAGES stages, 128-byte swizzled) by TMA, the consumers run wgmma
-//   m64n64k16 with f32 accumulators.  Rows are always 64-row tiles (N = 64
-//   in passes A and B, K in pass C); TMA zero-fills rows past C.  Every
-//   operand is read in place through wgmma's transpose bits: pass A's
-//   weight tiles MN-major (g, u) and w_down K-major (dh = dy wd^T); pass
-//   B's w_gate and w_up K-major (their f is the contraction); pass C's row
-//   tiles MN-major on both sides (the rows are the contraction).  Passes A
-//   and B run only the row tiles with live rows (a list built on the card,
-//   ex_tc_build_list<EXB_BR>); pass B first writes every row past its count
-//   as zeros (ex_zero_dead_rows).  Pass C rounds its three output tiles
-//   into shared memory (each row's 16-byte chunks permuted by the row, so
-//   the accumulators' stores meet no bank conflict) and writes them out in
-//   16-byte stores, 8 threads a 128-byte row: stored straight from the
-//   accumulators, 2-byte stores spread over 8 rows a warp instruction, the
-//   dW writes took 18 of pass C's 28 ms on an H100 at the training call
-//   (x of 4 x 2 x 64 x 80 rows, d 4096, f 1536, 40,960 live rows).
+//   16-byte-aligned pointers and strides.  The rows of one weight set (one
+//   expert's weights) come from several sources (a rank's sources, the
+//   ring's offsets), each with a few live rows in a padded block: at
+//   qwen3-moe's a2a call about 26 live rows a block of 80.  So the route
+//   first packs, on the card from the counts (exb_build_pack, no host
+//   read), each weight set's live rows over all its sources into
+//   consecutive 64-row tiles (ExbPack), copies the live rows of x and dy
+//   there (padding rows zero), and runs every pass over packed tiles.
+//   Passes A and B take one item per (packed tile, 128 columns), each
+//   set's items side by side, so the blocks that run together read one
+//   set's weight tiles from device memory once and find them in L2 for its
+//   other tiles (the padded layout read each weight tile once for every
+//   source and 64-row tile); every item costs the same, however the rows
+//   are spread over the experts.  Pass C runs K over the packed rows, one
+//   64-row step for up to 64 rows of a set, keeps an item's x and dy boxes
+//   in shared memory while each column block's dg, du and h stream past
+//   them (the padded layout re-read all five for every 64 x 64 output
+//   tile), and splits a set's column blocks into as many items as it has
+//   tiles.  A block is two consumer warpgroups and one producer warp,
+//   persistent over a pass's items; the producer streams 64-deep K steps
+//   of 64 x 64 boxes (EXB_STAGES stages, 128-byte swizzled) by TMA, the
+//   consumers run wgmma m64n64k16 with f32 accumulators.  In passes A and
+//   B both warpgroups read the tile's row boxes (warpgroup w takes 64 of
+//   the item's columns; the rows are wgmma's N); pass C shares each tile's
+//   dg, du and h boxes (warpgroup w takes 64 rows of d).  Every operand is
+//   read in place through wgmma's transpose bits: pass A's weight tiles
+//   MN-major (g, u) and w_down K-major (dh = dy wd^T); pass B's w_gate and
+//   w_up K-major (their f is the contraction); pass C's row tiles MN-major
+//   on both sides (the rows are the contraction).  Pass B stores each live
+//   row's dx at that row of the caller's layout; pass C rounds its six
+//   output tiles into shared memory in TMA's 128-byte swizzle and writes
+//   them out by TMA stores.
 // * CUDA cores (exb_*_tile): f32 and every shape off the rule; 256 threads
 //   each keeping 4 x 4 register tiles (three in passes A and C, one in B)
-//   over five (EX_BK, 64 + EX_PAD) f32 tiles in shared memory.
+//   over five (EX_BK, 64 + EX_PAD) f32 tiles in shared memory, over the
+//   padded blocks and a scratch of every padded row.
 #pragma once
 
 #include "expert_mlp.cuh"
 
-#define EXB_BR 64       // rows of a row tile (passes A, B) and a K step (C)
-#define EXB_STAGES 4
-#define EXB_BOXES 5     // 64 x 64 boxes a stage
-#define EXB_THREADS 160
+#define EXB_BR 64       // rows of a packed tile (passes A, B) and a K step (C)
+#define EXB_STAGES 3
+#define EXB_BOXES 8     // 64 x 64 boxes a stage holds at most (pass A)
+#define EXB_SLOTS 3     // pass C's x and dy slots, one a packed tile
+#define EXB_OUT_TILES 6 // pass C's output tiles, three a warpgroup
+#define EXB_THREADS 288
 
 constexpr int EXB_BOX_BYTES = 64 * 64 * 2;
-static_assert(EXB_THREADS == EX_TC_CONSUMERS + 32, "one producer warp");
+constexpr int EXB_CONSUMERS = 256;  // two warpgroups
+constexpr int EXB_C_BOXES = 3;      // a stage's boxes in pass C (dg, du, h)
+// the boxes of pass C's stages, slots and output tiles, over which passes
+// A and B lay their stages
+constexpr int EXB_RING_BOXES =
+    EXB_STAGES * EXB_C_BOXES + 4 * EXB_SLOTS + EXB_OUT_TILES;
+static_assert(EXB_THREADS == EXB_CONSUMERS + 32, "one producer warp");
+static_assert(EXB_STAGES * EXB_BOXES <= EXB_RING_BOXES,
+              "passes A and B fit in pass C's boxes");
 
-// Where a problem's operands sit for TMA: the x and dy maps and their
-// coordinates past (k, row, e), the scratch maps' past (j, row, e), and the
-// weight maps' past (column, k, e).
-struct ExbCoord {
-  const CUtensorMap* xm;
-  const CUtensorMap* dym;
-  int x3, x4, s3, s4, e, wq;
-};
-
-// One problem: one expert's row block from one source, and that expert's
-// weights.
+// One problem of the CUDA-core route: one expert's row block from one
+// source, and that expert's weights.
 template <typename T>
 struct ExbProblem {
   const T* x;   // (C, d)
@@ -93,7 +105,6 @@ struct ExbProblem {
   const T* wu;  // (d, f)
   const T* wd;  // (f, d)
   int live;     // rows [0, live) carry tokens
-  ExbCoord c;
 };
 
 // h, dg and du of one element from f32 g, u and dh, rounded to T
@@ -342,36 +353,184 @@ __device__ void exb_simt_item(int pass, long long item, int NS, int C, int d,
 // -- the tensor-core route ----------------------------------------------------
 
 // Dynamic shared memory: 1024 bytes of slack for the swizzle's alignment,
-// the stages of EXB_BOXES boxes, pass C's three 64 x 64 output tiles, then
-// each stage's full and empty barriers.
+// pass C's stages (EXB_C_BOXES boxes each), x and dy slots and output
+// tiles (passes A and B lay their stages of up to EXB_BOXES boxes in the
+// same bytes), then the full and empty barriers of each stage and of each
+// of pass C's slots.
 __host__ __device__ inline int exb_smem_bytes() {
-  return 1024 + EXB_STAGES * EXB_BOXES * EXB_BOX_BYTES + 3 * EXB_BOX_BYTES
-         + 16 * EXB_STAGES;
+  return 1024
+         + (EXB_STAGES * EXB_C_BOXES + 4 * EXB_SLOTS + EXB_OUT_TILES)
+               * EXB_BOX_BYTES
+         + 8 * (2 * EXB_STAGES + 2 * EXB_SLOTS);
 }
 
-// Entries of a pass's work list over `problems` problems of C rows.
-__host__ __device__ inline long long exb_list_len(long long problems, int C) {
-  return 1 + problems * ((C + EXB_BR - 1) / EXB_BR);
+// The packed rows.  Weight set wp gathers the live rows of its NS sources,
+// source by source and row by row, into ceil(rows / 64) consecutive 64-row
+// tiles of a layout of at most PT tiles (the caller's bound); the rows of
+// its last tile past the live ones are padding, zero in the packed x and
+// dy.  The work area holds the int32 metadata exb_build_pack writes:
+// meta[0] the tiles in use, meta[1 + t] the weight set of tile t (t < PT),
+// then each weight set's first tile, then each weight set's NS + 1 row
+// offsets (where each source's rows start, then its rows in all); then,
+// 8-byte aligned, rowoff[p]: the element offset of packed row p's source
+// row in the caller's layout of x, dy and dx, or -1 for a padding row.
+struct ExbPack {
+  const int* meta;
+  const long long* rowoff;
+  long long NW;
+  int NS, PT;
+  __device__ int tiles() const { return meta[0]; }
+  __device__ int set_of(long long t) const { return meta[1 + t]; }
+  __device__ int first(long long wp) const { return meta[1 + PT + wp]; }
+  __device__ const int* seg(long long wp) const {
+    return meta + 1 + PT + NW + wp * (NS + 1);
+  }
+  __device__ int ntiles(long long wp) const {
+    return (seg(wp)[NS] + EXB_BR - 1) / EXB_BR;
+  }
+};
+
+__host__ __device__ inline long long exb_meta_words(long long NW, int NS,
+                                                    int PT) {
+  return 1 + PT + NW * (NS + 2);
+}
+
+// int32 words of the work area: the metadata, then the row offsets
+__host__ __device__ inline long long exb_work_words(long long NW, int NS,
+                                                    int PT) {
+  const long long m = exb_meta_words(NW, NS, PT);
+  return m + (m & 1) + 2LL * PT * EXB_BR;
+}
+
+__host__ __device__ inline ExbPack exb_pack_view(void* work, long long NW,
+                                                 int NS, int PT) {
+  const long long m = exb_meta_words(NW, NS, PT);
+  const int* meta = static_cast<const int*>(work);
+  return ExbPack{meta, reinterpret_cast<const long long*>(meta + m + (m & 1)),
+                 NW, NS, PT};
+}
+
+// The scratch of the route, in the packed layout: x and dy (PT * 64 rows
+// of d), then dg, du and h (PT * 64 rows of f).
+template <typename T>
+struct ExbPlanes {
+  T* xp;
+  T* dyp;
+  T* dg;
+  T* du;
+  T* h;
+};
+
+template <typename T>
+__host__ __device__ inline ExbPlanes<T> exb_planes(void* scratch, int PT,
+                                                   int d, int f) {
+  T* p = static_cast<T*>(scratch);
+  const long long R = (long long)PT * EXB_BR;
+  return ExbPlanes<T>{p, p + R * d, p + 2 * R * d, p + 2 * R * d + R * f,
+                      p + 2 * R * d + 2 * R * f};
+}
+
+// One block fills the metadata from live(wp, s) (each clamped to [0, C]),
+// a block-wide scan of the weight sets' tile counts.  More tiles than PT (a
+// caller's bound that does not hold) traps: a launch error the wrapper
+// raises, not a write past the buffers.
+template <typename Live>
+__device__ void exb_build_pack(long long NW, int NS, int C, int PT,
+                               Live live, int* meta) {
+  int* first = meta + 1 + PT;
+  int* seg = first + NW;
+  int base = 0;
+  for (long long w0 = 0; w0 < NW; w0 += blockDim.x) {
+    const long long wp = w0 + threadIdx.x;
+    int tiles = 0;
+    if (wp < NW) {
+      int n = 0;
+      for (int s = 0; s < NS; ++s) {
+        seg[wp * (NS + 1) + s] = n;
+        n += min(max(live(wp, s), 0), C);
+      }
+      seg[wp * (NS + 1) + NS] = n;
+      tiles = (n + EXB_BR - 1) / EXB_BR;
+    }
+    int total;
+    const int off = base + ex_block_scan(tiles, total);
+    if (off + tiles > PT) __trap();
+    if (wp < NW) first[wp] = off;
+    for (int t = 0; t < tiles; ++t) meta[1 + off + t] = (int)wp;
+    base += total;
+  }
+  if (threadIdx.x == 0) meta[0] = base;
+}
+
+// The packed rows of source `only` (of every source where only < 0) copied
+// from x and dy into xp and dyp, one warp a row, 16 bytes a lane, warps
+// warp0, warp0 + warps, ... of a grid-wide numbering.  With `first` set it
+// also writes every row's rowoff and zeroes the padding rows.  src(wp, s,
+// r) is the element offset of row r of source s of weight set wp in x's
+// layout.
+template <typename T, typename Src>
+__device__ void exb_pack_rows(const ExbPack& pk, int d, int only, bool first,
+                              const T* x, const T* dy, T* xp, T* dyp,
+                              long long* rowoff, Src src, long long warp0,
+                              long long warps) {
+  const int lane = threadIdx.x % 32;
+  const int vec = d * (int)sizeof(T) / 16;
+  const long long rows = (long long)pk.tiles() * EXB_BR;
+  for (long long p = warp0; p < rows; p += warps) {
+    const int wp = pk.set_of(p / EXB_BR);
+    const int* seg = pk.seg(wp);
+    const int local = (int)(p - (long long)pk.first(wp) * EXB_BR);
+    int s = 0;
+    while (s < pk.NS && seg[s + 1] <= local) ++s;  // NS: a padding row
+    const long long off = s < pk.NS ? src(wp, s, local - seg[s]) : -1;
+    if (first && lane == 0) rowoff[p] = off;
+    uint4* xo = reinterpret_cast<uint4*>(xp + p * d);
+    uint4* yo = reinterpret_cast<uint4*>(dyp + p * d);
+    if (off < 0) {
+      if (first)
+        for (int v = lane; v < vec; v += 32)
+          xo[v] = yo[v] = make_uint4(0, 0, 0, 0);
+    } else if (only < 0 || s == only) {
+      const uint4* xi = reinterpret_cast<const uint4*>(x + off);
+      const uint4* yi = reinterpret_cast<const uint4*>(dy + off);
+      for (int v = lane; v < vec; v += 32) {
+        xo[v] = xi[v];
+        yo[v] = yi[v];
+      }
+    }
+  }
 }
 
 struct ExbTcSmem {
   uint32_t base;  // shared-window address of stage 0, 1024-byte aligned
-  __device__ uint32_t box(int s, int i) const {
-    return base + (s * EXB_BOXES + i) * EXB_BOX_BYTES;
+  // box i of stage s in a pass whose stages hold nbox boxes
+  __device__ uint32_t box(int nbox, int s, int i) const {
+    return base + (s * nbox + i) * EXB_BOX_BYTES;
   }
-  // pass C's output tile t (dwg, dwu, dwd), 64 rows of 128 bytes
+  // pass C's slot sl, box i: x and dy of warpgroup 0, then of 1
+  __device__ uint32_t slot(int sl, int i) const {
+    return base + (EXB_STAGES * EXB_C_BOXES + 4 * sl + i) * EXB_BOX_BYTES;
+  }
+  // pass C's output tile t (warpgroup t / 3's dwg, dwu, dwd), 64 rows of
+  // 128 bytes
   __device__ uint32_t out(int t) const {
-    return base + (EXB_STAGES * EXB_BOXES + t) * EXB_BOX_BYTES;
+    return slot(EXB_SLOTS, t);
   }
   __device__ uint32_t full(int s) const {
-    return base + (EXB_STAGES * EXB_BOXES + 3) * EXB_BOX_BYTES + 8 * s;
+    return base + EXB_RING_BOXES * EXB_BOX_BYTES + 8 * s;
   }
   __device__ uint32_t empty(int s) const { return full(EXB_STAGES + s); }
+  __device__ uint32_t xfull(int sl) const { return full(2 * EXB_STAGES + sl); }
+  __device__ uint32_t xempty(int sl) const {
+    return full(2 * EXB_STAGES + EXB_SLOTS + sl);
+  }
 };
 
 using ExbPipe = StagePipe<EXB_STAGES>;
 
-// Every thread of the block calls it once (it syncs the block).
+// Every thread of the block calls it once (it syncs the block).  A full
+// barrier waits on the producer's arrival and its bytes, an empty one on
+// the 8 consumer warps (both warpgroups release every stage and slot).
 __device__ inline ExbTcSmem exb_smem_init(unsigned char* raw) {
   ExbTcSmem sm;
   sm.base = (static_cast<uint32_t>(__cvta_generic_to_shared(raw)) + 1023)
@@ -379,7 +538,11 @@ __device__ inline ExbTcSmem exb_smem_init(unsigned char* raw) {
   if (threadIdx.x == 0) {
     for (int s = 0; s < EXB_STAGES; ++s) {
       mbar_init(sm.full(s), 1);
-      mbar_init(sm.empty(s), EX_TC_CONSUMERS / 32);
+      mbar_init(sm.empty(s), EXB_CONSUMERS / 32);
+    }
+    for (int sl = 0; sl < EXB_SLOTS; ++sl) {
+      mbar_init(sm.xfull(sl), 1);
+      mbar_init(sm.xempty(sl), EXB_CONSUMERS / 32);
     }
     fence_mbar_init();
   }
@@ -445,6 +608,12 @@ __device__ __forceinline__ void exb_fence3(float (&a)[32], float (&b)[32],
   ex_fence_acc(c);
 }
 
+__device__ __forceinline__ void exb_zero3(float (&a)[32], float (&b)[32],
+                                          float (&c)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) a[i] = b[i] = c[i] = 0.f;
+}
+
 // mbar_wait that traps after about ten seconds on the SM clock: a lost
 // arrival becomes a launch error the wrapper raises, not a hung card.
 __device__ __forceinline__ void exb_wait(uint32_t bar, uint32_t parity) {
@@ -473,10 +642,11 @@ __device__ __forceinline__ void exb_produce(const ExbTcSmem& sm, ExbPipe& pipe,
 }
 
 // The consumers' K step: wait for the stage, run mma(stage) (which issues
-// the step's wgmma, one group), wait for the group and release the stage.
-// No group stays in flight past the step: the compiler does not know that
-// wgmma writes the accumulators late, and may copy them between registers
-// at a loop's exit (a copy of an in-flight accumulator reads it stale).
+// the step's wgmma, one group, or none for a warpgroup with no tile in the
+// step), wait for the group and release the stage.  No group stays in
+// flight past the step: the compiler does not know that wgmma writes the
+// accumulators late, and may copy them between registers at a loop's exit
+// (a copy of an in-flight accumulator reads it stale).
 template <typename Fence, typename Mma>
 __device__ __forceinline__ void exb_consume(const ExbTcSmem& sm, ExbPipe& pipe,
                                             const Fence& fence,
@@ -492,29 +662,22 @@ __device__ __forceinline__ void exb_consume(const ExbTcSmem& sm, ExbPipe& pipe,
   pipe.advance();
 }
 
-// the 128 consumer threads alone (named barrier 1; the producer warp runs
+// the 256 consumer threads alone (named barrier 1; the producer warp runs
 // on)
 __device__ __forceinline__ void exb_consumers_sync() {
-  asm volatile("bar.sync 1, 128;" ::: "memory");
+  asm volatile("bar.sync 1, 256;" ::: "memory");
 }
 
-// Byte offset of element (r, c) of a 64 x 64 16-bit tile in shared memory:
-// row r's 16-byte chunks permuted by r & 7, so the 8 rows a warp's
-// accumulator stores touch at once fall in 8 different bank groups.
+// Byte offset of element (r, c) of a 64 x 64 16-bit tile in shared memory
+// (1024-byte aligned): row r's 16-byte chunks permuted by r & 7, TMA's
+// 128-byte swizzle, so the 8 rows a warp's accumulator stores touch at
+// once fall in 8 different bank groups.
 __device__ __forceinline__ uint32_t exb_tile_at(int r, int c) {
   return r * 128 + (((c >> 3) ^ (r & 7)) << 4) + (c & 7) * 2;
 }
 
 __device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
   asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v) : "memory");
-}
-
-__device__ __forceinline__ uint4 ld_shared_v4(uint32_t addr) {
-  uint4 v;
-  asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "r"(addr) : "memory");
-  return v;
 }
 
 // two f32 values rounded into one 32-bit word of two 16-bit elements, a
@@ -533,196 +696,301 @@ __device__ __forceinline__ uint32_t exb_pack2<__half>(float a, float b) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// accumulator i of thread (warp, lane): row m (wgmma's M) and column n (N)
+// accumulator i of consumer thread (warp, lane) of its warpgroup: row m
+// (wgmma's M) and column n (N)
 __device__ __forceinline__ void exb_acc_at(int i, int& m, int& n) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = (threadIdx.x % 128) / 32, lane = threadIdx.x % 32;
   m = 16 * warp + lane / 4 + 8 * ((i >> 1) & 1);
   n = 8 * (i >> 2) + 2 * (lane % 4) + (i & 1);
 }
 
-// Pass A over a work list (entries p * MT + row tile; items (entry, 64
-// columns of f), the column fastest; block b takes items b, b + grid, ...).
-// prob(p) describes problem p.  M is f's columns, N the 64 rows, K d.
-template <typename T, typename Prob>
+// The items of passes A and B: (packed tile, 128 columns), each weight
+// set's items in a run of its own, the tile fastest, so the blocks that
+// run together read one set's weight boxes (from device memory once, the
+// rest from L2) and its tiles' row boxes again for each column block while
+// they are still in L2; every item costs the same.  it -> the set, its
+// tile (among the set's) and the column block.
+struct ExbTileItem {
+  long long wp;
+  int t, tiles, col0;
+};
+
+__device__ __forceinline__ ExbTileItem exb_tile_item(const ExbPack& pk,
+                                                     long long it, int ncol) {
+  ExbTileItem r;
+  r.wp = pk.set_of(it / ncol);
+  const long long local = it - (long long)pk.first(r.wp) * ncol;
+  r.tiles = pk.ntiles(r.wp);
+  r.t = (int)(local % r.tiles);
+  r.col0 = (int)(local / r.tiles) * 128;
+  return r;
+}
+
+// Pass A: items (packed tile, 128 columns of f); warpgroup w takes the
+// columns col0 + 64 w.  Per 64-deep K step of d the producer loads the
+// set's w_gate, w_up and w_down boxes of both column halves and the tile's
+// x and dy boxes, which both warpgroups read.  M is f's columns, N the
+// tile's rows, K d; padding rows are zero in x and dy, so their h, dg and
+// du come out as zeros.  The weight set's weight-map coordinates are
+// (wp % E, wp / E).  Where f is an odd multiple of 64 the last column
+// block's upper half is neither loaded nor computed.
+template <typename T>
 __device__ void exb_tc_rows_pass(const ExbTcSmem& sm, ExbPipe& pipe,
-                                 const int* list, int C, int d, int f,
+                                 const ExbPack& pk, int E, int d, int f,
                                  const CUtensorMap* wgm, const CUtensorMap* wum,
-                                 const CUtensorMap* wdm, const Prob& prob) {
-  const int MT = (C + EXB_BR - 1) / EXB_BR, nt = f / 64, nk = d / 64;
-  const long long items = (long long)list[0] * nt;
+                                 const CUtensorMap* wdm, const CUtensorMap* xm,
+                                 const CUtensorMap* dym,
+                                 const ExbPlanes<T>& pl) {
+  const int ncol = (f + 127) / 128, nk = d / 64, w = threadIdx.x / 128;
+  const long long items = (long long)pk.tiles() * ncol;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const int entry = list[1 + it / nt];
-    const int col0 = (int)(it % nt) * 64;
-    const ExbProblem<T> p = prob(entry / MT);
-    const int row0 = (entry % MT) * EXB_BR;
-    const ExbCoord& c = p.c;
-    if (threadIdx.x == EX_TC_CONSUMERS) {
+    const ExbTileItem c = exb_tile_item(pk, it, ncol);
+    const int halves = c.col0 + 64 < f ? 2 : 1;
+    const int e = (int)(c.wp % E), q = (int)(c.wp / E);
+    const int row0 = (pk.first(c.wp) + c.t) * EXB_BR;
+    if (threadIdx.x == EXB_CONSUMERS) {
       for (int kb = 0; kb < nk; ++kb)
-        exb_produce(sm, pipe, 5, [&](int s, uint32_t full) {
+        exb_produce(sm, pipe, 3 * halves + 2, [&](int s, uint32_t full) {
           const int k0 = kb * 64;
-          tma_load_5d(sm.box(s, 0), wgm, full, col0, k0, c.e, c.wq, 0);
-          tma_load_5d(sm.box(s, 1), wum, full, col0, k0, c.e, c.wq, 0);
-          tma_load_5d(sm.box(s, 2), wdm, full, k0, col0, c.e, c.wq, 0);
-          tma_load_5d(sm.box(s, 3), c.xm, full, k0, row0, c.e, c.x3, c.x4);
-          tma_load_5d(sm.box(s, 4), c.dym, full, k0, row0, c.e, c.x3, c.x4);
+          auto box = [&](int i) { return sm.box(EXB_BOXES, s, i); };
+          tma_load_5d(box(0), xm, full, k0, row0, 0, 0, 0);
+          tma_load_5d(box(1), dym, full, k0, row0, 0, 0, 0);
+          for (int h = 0; h < halves; ++h) {
+            const int col = c.col0 + 64 * h;
+            tma_load_5d(box(2 + 3 * h), wgm, full, col, k0, e, q, 0);
+            tma_load_5d(box(3 + 3 * h), wum, full, col, k0, e, q, 0);
+            tma_load_5d(box(4 + 3 * h), wdm, full, k0, col, e, q, 0);
+          }
         });
-    } else if (threadIdx.x < EX_TC_CONSUMERS) {
+    } else if (threadIdx.x < EXB_CONSUMERS) {
+      const bool mine = w < halves;  // uniform over the warpgroup
       float ag[32], au[32], ah[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) ag[i] = au[i] = ah[i] = 0.f;
+      exb_zero3(ag, au, ah);
       auto fence = [&] { exb_fence3(ag, au, ah); };
       for (int kb = 0; kb < nk; ++kb)
         exb_consume(sm, pipe, fence, [&](int s) {
+          if (!mine) return;
+          auto box = [&](int i) { return sm.box(EXB_BOXES, s, i); };
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            const uint64_t bx = exb_k(sm.box(s, 3), kk);
-            ExbMma<T, 1, 0>::run(ag, exb_mn(sm.box(s, 0), kk), bx);
-            ExbMma<T, 1, 0>::run(au, exb_mn(sm.box(s, 1), kk), bx);
-            ExbMma<T, 0, 0>::run(ah, exb_k(sm.box(s, 2), kk),
-                                 exb_k(sm.box(s, 4), kk));
+            const uint64_t bx = exb_k(box(0), kk);
+            ExbMma<T, 1, 0>::run(ag, exb_mn(box(2 + 3 * w), kk), bx);
+            ExbMma<T, 1, 0>::run(au, exb_mn(box(3 + 3 * w), kk), bx);
+            ExbMma<T, 0, 0>::run(ah, exb_k(box(4 + 3 * w), kk),
+                                 exb_k(box(1), kk));
           }
         });
-      const int rows = min(p.live - row0, EXB_BR);
-      const int lim = min(C - row0, EXB_BR);  // the tile's rows inside C
+      if (mine) {
+        const int col = c.col0 + 64 * w;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        int m, r;
-        exb_acc_at(i, m, r);
-        const long long at = (long long)(row0 + r) * f + col0 + m;
-        if (r < rows) {
-          exb_grads<T>(ag[i], au[i], ah[i], p.h, p.dg, p.du, at);
-        } else if (r < lim) {  // read by pass C's 64-row K steps
-          p.h[at] = from_f32<T>(0.f);
-          p.dg[at] = from_f32<T>(0.f);
-          p.du[at] = from_f32<T>(0.f);
+        for (int i = 0; i < 32; ++i) {
+          int m, r;
+          exb_acc_at(i, m, r);
+          exb_grads<T>(ag[i], au[i], ah[i], pl.h, pl.dg, pl.du,
+                       (long long)(row0 + r) * f + col + m);
         }
       }
     }
   }
 }
 
-// Pass B over the same list: items (entry, 64 columns of d).  M is d's
-// columns, N the rows, K f; dx = dg wg^T + du wu^T in one accumulator.
-template <typename T, typename Prob>
+// Pass B: items (packed tile, 128 columns of d), walked as pass A's, K
+// over f; warpgroup w takes the columns c0 + 64 w.  Per step the producer
+// loads the w_gate and w_up boxes of both halves and the tile's dg and du
+// boxes.  M is d's columns, N the rows; dx = dg wg^T + du wu^T in one
+// accumulator, and each live row's dx is stored at its row of the caller's
+// layout, dx + rowoff (padding rows are skipped).  Where d is an odd
+// multiple of 64 the last column block's upper half is neither loaded nor
+// stored.
+template <typename T>
 __device__ void exb_tc_dx_pass(const ExbTcSmem& sm, ExbPipe& pipe,
-                               const int* list, int C, int d, int f,
+                               const ExbPack& pk, int E, int d, int f,
                                const CUtensorMap* wgm, const CUtensorMap* wum,
                                const CUtensorMap* dgm, const CUtensorMap* dum,
-                               const Prob& prob) {
-  const int MT = (C + EXB_BR - 1) / EXB_BR, nt = d / 64, nk = f / 64;
-  const long long items = (long long)list[0] * nt;
+                               T* dx) {
+  const int ncol = (d + 127) / 128, nk = f / 64, w = threadIdx.x / 128;
+  const long long items = (long long)pk.tiles() * ncol;
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const int entry = list[1 + it / nt];
-    const int col0 = (int)(it % nt) * 64;
-    const ExbProblem<T> p = prob(entry / MT);
-    const int row0 = (entry % MT) * EXB_BR;
-    const ExbCoord& c = p.c;
-    if (threadIdx.x == EX_TC_CONSUMERS) {
+    const ExbTileItem c = exb_tile_item(pk, it, ncol);
+    const int halves = c.col0 + 64 < d ? 2 : 1;
+    const int e = (int)(c.wp % E), q = (int)(c.wp / E);
+    const int row0 = (pk.first(c.wp) + c.t) * EXB_BR;
+    if (threadIdx.x == EXB_CONSUMERS) {
       for (int kb = 0; kb < nk; ++kb)
-        exb_produce(sm, pipe, 4, [&](int s, uint32_t full) {
+        exb_produce(sm, pipe, 2 * halves + 2, [&](int s, uint32_t full) {
           const int k0 = kb * 64;
-          tma_load_5d(sm.box(s, 0), wgm, full, k0, col0, c.e, c.wq, 0);
-          tma_load_5d(sm.box(s, 1), wum, full, k0, col0, c.e, c.wq, 0);
-          tma_load_5d(sm.box(s, 2), dgm, full, k0, row0, c.e, c.s3, c.s4);
-          tma_load_5d(sm.box(s, 3), dum, full, k0, row0, c.e, c.s3, c.s4);
+          auto box = [&](int i) { return sm.box(EXB_BOXES, s, i); };
+          tma_load_5d(box(0), dgm, full, k0, row0, 0, 0, 0);
+          tma_load_5d(box(1), dum, full, k0, row0, 0, 0, 0);
+          for (int h = 0; h < halves; ++h) {
+            tma_load_5d(box(2 + 2 * h), wgm, full, k0, c.col0 + 64 * h, e, q,
+                        0);
+            tma_load_5d(box(3 + 2 * h), wum, full, k0, c.col0 + 64 * h, e, q,
+                        0);
+          }
         });
-    } else if (threadIdx.x < EX_TC_CONSUMERS) {
+    } else if (threadIdx.x < EXB_CONSUMERS) {
+      const bool mine = w < halves;
       float acc[32];
 #pragma unroll
       for (int i = 0; i < 32; ++i) acc[i] = 0.f;
       auto fence = [&] { ex_fence_acc(acc); };
       for (int kb = 0; kb < nk; ++kb)
         exb_consume(sm, pipe, fence, [&](int s) {
+          if (!mine) return;
+          auto box = [&](int i) { return sm.box(EXB_BOXES, s, i); };
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk) {
-            ExbMma<T, 0, 0>::run(acc, exb_k(sm.box(s, 0), kk),
-                                 exb_k(sm.box(s, 2), kk));
-            ExbMma<T, 0, 0>::run(acc, exb_k(sm.box(s, 1), kk),
-                                 exb_k(sm.box(s, 3), kk));
+            ExbMma<T, 0, 0>::run(acc, exb_k(box(2 + 2 * w), kk),
+                                 exb_k(box(0), kk));
+            ExbMma<T, 0, 0>::run(acc, exb_k(box(3 + 2 * w), kk),
+                                 exb_k(box(1), kk));
           }
         });
-      const int rows = min(p.live - row0, EXB_BR);
+      if (mine) {
+        const long long r0 = row0;
+        const int col = c.col0 + 64 * w;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        int m, r;
-        exb_acc_at(i, m, r);
-        if (r < rows)
-          p.dx[(long long)(row0 + r) * d + col0 + m] = from_f32<T>(acc[i]);
+        for (int i = 0; i < 32; ++i) {
+          int m, r;
+          exb_acc_at(i, m, r);
+          const long long off = pk.rowoff[r0 + r];
+          if (off >= 0) dx[off + col + m] = from_f32<T>(acc[i]);
+        }
       }
     }
   }
 }
 
-// Pass C: items (weight set, 64 rows of d, 64 columns of f), the f tile
-// fastest; K over the live rows of each source get(wp, sp), sp < NS, in
-// 64-row steps.  dwg and dwu have M = d, N = f (x^T dg, x^T du); dwd has
-// M = f, N = d (h^T dy).  A weight set with no live row writes zeros.
-template <typename T, typename Get>
+// Pass C: items (weight set, 128 rows of d, a run of 64-column blocks j0
+// of f); for each j0 in turn, K over the set's packed tiles in order, one
+// 64-row step each.  A set of n tiles has n items for each 128 rows of d,
+// its nj column blocks in n runs of ceil(nj / n), so that every item costs
+// about the same; a set with no live row has one item for each 128 rows,
+// which writes zeros.  Warpgroup w computes dwg and dwu (M = d, N = f: x^T
+// dg, x^T du) and dwd (M = f, N = d: h^T dy) of its 64 rows k0 + 64 w of
+// d, then the six tiles go out.  Tile t's x and dy boxes (both warpgroups'
+// rows of d) sit in slot t % EXB_SLOTS while the producer streams each
+// tile's dg, du and h boxes (columns j0) through the stages: a set of at
+// most EXB_SLOTS tiles loads them once an item, a set of more once for
+// every j0.  Where d is an odd multiple of 64 the last item's upper half
+// is neither loaded nor stored.
+template <typename T>
 __device__ void exb_tc_dw_pass(const ExbTcSmem& sm, ExbPipe& pipe,
-                               long long NW, int NS, int d, int f,
+                               const ExbPack& pk, int d, int f,
+                               const CUtensorMap* xm, const CUtensorMap* dym,
                                const CUtensorMap* dgm, const CUtensorMap* dum,
-                               const CUtensorMap* hm, const Get& get, T* dwg,
-                               T* dwu, T* dwd) {
-  const int nj = f / 64, nkt = d / 64;
-  const long long items = NW * nj * nkt;
+                               const CUtensorMap* hm, const CUtensorMap* dwgm,
+                               const CUtensorMap* dwum,
+                               const CUtensorMap* dwdm) {
+  const int nj = f / 64, nkt = (d + 127) / 128, w = threadIdx.x / 128;
+  const long long T_ = pk.tiles();
+  const long long items = (T_ + pk.NW) * nkt;
+  uint32_t xphase = 0;  // bit sl: slot sl's phase, kept by each role
   for (long long it = blockIdx.x; it < items; it += gridDim.x) {
-    const int j0 = (int)(it % nj) * 64;
-    const int k0 = (int)((it / nj) % nkt) * 64;
-    const long long wp = it / nj / nkt;
-    if (threadIdx.x == EX_TC_CONSUMERS) {
-      for (int sp = 0; sp < NS; ++sp) {
-        const ExbProblem<T> p = get(wp, sp);
-        const ExbCoord& c = p.c;
-        for (int r0 = 0; r0 < p.live; r0 += EXB_BR)
-          exb_produce(sm, pipe, 5, [&](int s, uint32_t full) {
-            tma_load_5d(sm.box(s, 0), c.xm, full, k0, r0, c.e, c.x3, c.x4);
-            tma_load_5d(sm.box(s, 1), c.dym, full, k0, r0, c.e, c.x3, c.x4);
-            tma_load_5d(sm.box(s, 2), dgm, full, j0, r0, c.e, c.s3, c.s4);
-            tma_load_5d(sm.box(s, 3), dum, full, j0, r0, c.e, c.s3, c.s4);
-            tma_load_5d(sm.box(s, 4), hm, full, j0, r0, c.e, c.s3, c.s4);
+    const int k0 = (int)(it % nkt) * 128;
+    const long long entry = it / nkt;
+    long long wp;
+    int tiles, j_lo, j_hi;
+    if (entry < T_) {  // run entry - first of the set's tiles
+      wp = pk.set_of(entry);
+      tiles = pk.ntiles(wp);
+      const int run = (nj + tiles - 1) / tiles;
+      j_lo = (int)(entry - pk.first(wp)) * run;
+      j_hi = min(nj, j_lo + run);
+    } else {           // a set with no live row: zeros
+      wp = entry - T_;
+      tiles = pk.ntiles(wp);
+      j_lo = 0;
+      j_hi = tiles ? 0 : nj;
+    }
+    if (j_lo >= j_hi) continue;  // uniform over the block
+    const int halves = k0 + 64 < d ? 2 : 1;
+    const int first = pk.first(wp);
+    const bool keep = tiles <= EXB_SLOTS;  // the slots hold every tile
+    if (threadIdx.x == EXB_CONSUMERS) {
+      for (int j = j_lo; j < j_hi; ++j)
+        for (int t = 0; t < tiles; ++t) {
+          const int r0 = (first + t) * EXB_BR, sl = t % EXB_SLOTS;
+          if (!keep || j == j_lo) {
+            exb_wait(sm.xempty(sl), ((xphase >> sl) & 1) ^ 1);
+            mbar_expect_tx(sm.xfull(sl), 2 * halves * EXB_BOX_BYTES);
+            for (int h = 0; h < halves; ++h) {
+              tma_load_5d(sm.slot(sl, 2 * h), xm, sm.xfull(sl), k0 + 64 * h,
+                          r0, 0, 0, 0);
+              tma_load_5d(sm.slot(sl, 2 * h + 1), dym, sm.xfull(sl),
+                          k0 + 64 * h, r0, 0, 0, 0);
+            }
+            xphase ^= 1u << sl;
+          }
+          exb_produce(sm, pipe, EXB_C_BOXES, [&](int s, uint32_t full) {
+            auto box = [&](int i) { return sm.box(EXB_C_BOXES, s, i); };
+            tma_load_5d(box(0), dgm, full, 64 * j, r0, 0, 0, 0);
+            tma_load_5d(box(1), dum, full, 64 * j, r0, 0, 0, 0);
+            tma_load_5d(box(2), hm, full, 64 * j, r0, 0, 0, 0);
           });
-      }
-    } else if (threadIdx.x < EX_TC_CONSUMERS) {
-      float ag[32], au[32], ad[32];
-#pragma unroll
-      for (int i = 0; i < 32; ++i) ag[i] = au[i] = ad[i] = 0.f;
-      auto fence = [&] { exb_fence3(ag, au, ad); };
-      for (int sp = 0; sp < NS; ++sp) {
-        const int live = get(wp, sp).live;
-        for (int r0 = 0; r0 < live; r0 += EXB_BR)
+        }
+    } else if (threadIdx.x < EXB_CONSUMERS) {
+      const bool mine = w < halves;
+      for (int j = j_lo; j < j_hi; ++j) {
+        float ag[32], au[32], ad[32];
+        exb_zero3(ag, au, ad);
+        auto fence = [&] { exb_fence3(ag, au, ad); };
+        for (int t = 0; t < tiles; ++t) {
+          const int sl = t % EXB_SLOTS;
+          if (!keep || j == j_lo) {
+            exb_wait(sm.xfull(sl), (xphase >> sl) & 1);
+            xphase ^= 1u << sl;
+          }
           exb_consume(sm, pipe, fence, [&](int s) {
+            if (!mine) return;
+            auto box = [&](int i) { return sm.box(EXB_C_BOXES, s, i); };
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
-              const uint64_t ax = exb_mn(sm.box(s, 0), kk);
-              ExbMma<T, 1, 1>::run(ag, ax, exb_mn(sm.box(s, 2), kk));
-              ExbMma<T, 1, 1>::run(au, ax, exb_mn(sm.box(s, 3), kk));
-              ExbMma<T, 1, 1>::run(ad, exb_mn(sm.box(s, 4), kk),
-                                   exb_mn(sm.box(s, 1), kk));
+              const uint64_t ax = exb_mn(sm.slot(sl, 2 * w), kk);
+              ExbMma<T, 1, 1>::run(ag, ax, exb_mn(box(0), kk));
+              ExbMma<T, 1, 1>::run(au, ax, exb_mn(box(1), kk));
+              ExbMma<T, 1, 1>::run(ad, exb_mn(box(2), kk),
+                                   exb_mn(sm.slot(sl, 2 * w + 1), kk));
             }
           });
-      }
-      // the three tiles through shared memory, rounded, then out in
-      // 16-byte stores, a row's 128 bytes by 8 neighbouring threads (a
-      // thread's own accumulators are 2-element runs of 8 rows)
-      exb_consumers_sync();  // the previous item's tiles are out
+          if ((!keep || j == j_hi - 1) && threadIdx.x % 32 == 0)
+            mbar_arrive(sm.xempty(sl));
+        }
+        // the six tiles rounded into shared memory in TMA's 128-byte
+        // swizzle (each row's 16-byte chunks permuted by the row, which also
+        // spreads the accumulators' stores over the banks), then out by TMA
+        // stores that run on while the next column block is computed
+        if (threadIdx.x == 0) bulk_wait_read();  // the last tiles are read
+        exb_consumers_sync();
+        if (mine) {
 #pragma unroll
-      for (int i = 0; i < 32; i += 2) {
-        int m, n;
-        exb_acc_at(i, m, n);
-        const uint32_t at = exb_tile_at(m, n);
-        st_shared_b32(sm.out(0) + at, exb_pack2<T>(ag[i], ag[i + 1]));
-        st_shared_b32(sm.out(1) + at, exb_pack2<T>(au[i], au[i + 1]));
-        st_shared_b32(sm.out(2) + at, exb_pack2<T>(ad[i], ad[i + 1]));
-      }
-      exb_consumers_sync();
-      const long long wo = wp * (long long)d * f;
-      for (int q = threadIdx.x; q < 3 * 512; q += EX_TC_CONSUMERS) {
-        const int t = q / 512, r = (q % 512) / 8, c8 = q % 8;
-        const uint4 v = ld_shared_v4(sm.out(t) + exb_tile_at(r, 8 * c8));
-        T* dst = t == 2 ? dwd + wo + (long long)(j0 + r) * d + k0
-                        : (t ? dwu : dwg) + wo + (long long)(k0 + r) * f + j0;
-        *reinterpret_cast<uint4*>(dst + 8 * c8) = v;
+          for (int i = 0; i < 32; i += 2) {
+            int m, n;
+            exb_acc_at(i, m, n);
+            const uint32_t at = exb_tile_at(m, n);
+            st_shared_b32(sm.out(3 * w) + at, exb_pack2<T>(ag[i], ag[i + 1]));
+            st_shared_b32(sm.out(3 * w + 1) + at,
+                          exb_pack2<T>(au[i], au[i + 1]));
+            st_shared_b32(sm.out(3 * w + 2) + at,
+                          exb_pack2<T>(ad[i], ad[i + 1]));
+          }
+        }
+        fence_proxy_async_shared();
+        exb_consumers_sync();
+        if (threadIdx.x == 0) {
+          for (int o = 0; o < 3 * halves; ++o) {
+            const int kc = k0 + 64 * (o / 3);
+            if (o % 3 == 2)
+              tma_store_5d(dwdm, sm.out(o), kc, 64 * j, (int)wp, 0, 0);
+            else
+              tma_store_5d(o % 3 ? dwum : dwgm, sm.out(o), 64 * j, kc,
+                           (int)wp, 0, 0);
+          }
+          bulk_commit();
+        }
       }
     }
   }
+  if (threadIdx.x == 0) bulk_wait();
 }

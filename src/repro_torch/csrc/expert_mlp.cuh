@@ -340,43 +340,53 @@ __device__ inline ExTcSmem ex_tc_smem_init(unsigned char* raw, int mats) {
   return sm;
 }
 
-// One block builds a pass's work list: list[0] = L, then, problem by
-// problem in increasing p, p * MT + t for each row tile t < ceil(live / BR)
-// (MT = ceil(C / BR); BR is EX_TC_BR, or the gradient's 64-row tile).
-// live(p) is problem p's count, clamped to [0, C].
-template <int BR = EX_TC_BR, typename Live>
-__device__ void ex_tc_build_list(long long NP, int C, Live live, int* list) {
+// Exclusive scan of v over the threads of the block, in thread order
+// (every thread calls it): returns this thread's offset and sets total to
+// the block's sum.  Over the warp by shuffles, then over the warps.
+__device__ inline int ex_block_scan(int v, int& total) {
   __shared__ int warp_sums[32];
-  const int MT = (C + BR - 1) / BR;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int nw = blockDim.x / 32;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += u;
+  }
+  if (lane == 31) warp_sums[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    int s = lane < nw ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, s, o);
+      if (lane >= o) s += u;
+    }
+    if (lane < nw) warp_sums[lane] = s;
+  }
+  __syncthreads();
+  const int off = (warp ? warp_sums[warp - 1] : 0) + incl - v;
+  total = warp_sums[nw - 1];
+  __syncthreads();  // warp_sums is free for the next call
+  return off;
+}
+
+// One block builds a pass's work list: list[0] = L, then, problem by
+// problem in increasing p, p * MT + t for each row tile t < ceil(live /
+// EX_TC_BR) (MT = ceil(C / EX_TC_BR)).  live(p) is problem p's count,
+// clamped to [0, C].
+template <typename Live>
+__device__ void ex_tc_build_list(long long NP, int C, Live live, int* list) {
+  const int MT = (C + EX_TC_BR - 1) / EX_TC_BR;
   int base = 0;
   for (long long p0 = 0; p0 < NP; p0 += blockDim.x) {
     const long long p = p0 + threadIdx.x;
     const int tiles =
-        p < NP ? (min(max(live(p), 0), C) + BR - 1) / BR : 0;
-    int incl = tiles;  // inclusive scan: over the warp, then the warps
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int v = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += v;
-    }
-    if (lane == 31) warp_sums[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-      int v = lane < nw ? warp_sums[lane] : 0;
-#pragma unroll
-      for (int o = 1; o < 32; o <<= 1) {
-        const int u = __shfl_up_sync(0xffffffffu, v, o);
-        if (lane >= o) v += u;
-      }
-      if (lane < nw) warp_sums[lane] = v;
-    }
-    __syncthreads();
-    const int off = base + (warp ? warp_sums[warp - 1] : 0) + incl - tiles;
+        p < NP ? (min(max(live(p), 0), C) + EX_TC_BR - 1) / EX_TC_BR : 0;
+    int total;
+    const int off = base + ex_block_scan(tiles, total);
     for (int t = 0; t < tiles; ++t) list[1 + off + t] = (int)(p * MT + t);
-    base += warp_sums[nw - 1];
-    __syncthreads();
+    base += total;
   }
   if (threadIdx.x == 0) list[0] = base;
 }
@@ -668,10 +678,12 @@ static int ex_tc_map(CUtensorMap* map, const void* base, int dtype,
   return tc_map_nd(map, base, dtype, 5, dims, strides, box);
 }
 
-// The persistent grid of a tensor-core kernel with `smem` bytes of dynamic
-// shared memory: as many blocks as the card holds at once.
+// The persistent grid of a tensor-core kernel of `threads` threads a block
+// with `smem` bytes of dynamic shared memory: as many blocks as the card
+// holds at once.
 template <typename Kernel>
-static int ex_tc_grid(Kernel kern, int smem, int& blocks) {
+static int ex_tc_grid(Kernel kern, int smem, int& blocks,
+                      int threads = EX_TC_THREADS) {
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   int device = 0, sms = 0, per_sm = 0;
@@ -680,7 +692,7 @@ static int ex_tc_grid(Kernel kern, int smem, int& blocks) {
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
-                                                      EX_TC_THREADS, smem);
+                                                      threads, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   blocks = per_sm * sms;

@@ -2,8 +2,9 @@
 // matmul.cuh (matmul.cu, ring_matmul.cu), attention.cuh
 // (flash_attention.cu, ring_attention.cu, flash_attention_bwd.cu) and
 // expert_mlp.cuh (expert_mlp.cu, moe_dispatch.cu), and by the stencils'
-// plane ring (stencil_ring.cuh): mbarriers, TMA loads and their tensor
-// maps, proxy fences, and the wgmma shared-memory descriptor.
+// plane ring (stencil_ring.cuh): mbarriers, TMA loads (and expert_bwd.cuh's
+// TMA stores) and their tensor maps, proxy fences, and the wgmma
+// shared-memory descriptor.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its encoder's types (no libcuda link)
@@ -99,6 +100,33 @@ __device__ __forceinline__ void tma_load_5d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6, %7}], [%2];" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3), "r"(c4) : "memory");
+}
+
+// shared memory at src -> box (c0 innermost, ..., c4) of a 5-D tensor map,
+// in this thread's bulk group; src must stay unchanged until the group's
+// reads are done (bulk_wait_read)
+__device__ __forceinline__ void tma_store_5d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2, int c3, int c4) {
+  asm volatile(
+      "cp.async.bulk.tensor.5d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5, %6}], [%1];" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(c4) : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+}
+
+// this thread's bulk groups have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+}
+
+// ... and written their global memory
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;" ::: "memory");
 }
 
 // the same box into shared memory at dst of every CTA in mask, each

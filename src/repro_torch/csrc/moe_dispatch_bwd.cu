@@ -8,49 +8,59 @@
 // out[r][j] = MLP_j(buf[r][j]) (rank j's experts on rank r's block for j);
 // this kernel computes, for the cotangent dout,
 //   dbuf[r][j] = J_j(buf[r][j])^T dout[r][j]    and    dW_j = sum_r ...
-// with expert_bwd.cuh's passes, following the same AllToAllPlan.schedule()
-// table as the forward:
+// with expert_bwd.cuh's passes, walking the same AllToAllPlan.schedule()
+// table as the forward.  A weight set is rank r's expert e; its sources
+// are the ring's offsets s = 0 .. ep - 1 (the block from rank r - s; s = 0
+// the local block).
 //
-// * each dispatch put carries two blocks, rank r's x block and dout block
-//   for r + s, into rank (r + s)'s landing slot s % slots of two slot
-//   buffers; the return ("ret") carries the dx block back into dbuf[r - s]
-//   [r], where the forward's carried y;
-// * a fence is a grid-wide barrier (cooperative launch, the grid sized from
-//   occupancy); pending puts are carried out before the phase that needs
-//   them, as in the forward;
-// * each "gemm" phase s runs pass A (h, dg, du of the landed pair into a
-//   scratch kept for every (rank, offset)), a barrier, pass B (dx into the
-//   return slot, or straight into dbuf's diagonal at s = 0), a barrier;
-// * after the schedule every block has landed and every pass A has run:
-//   pass C then sums, for each (rank, expert, 64 x 64 tile), every source's
-//   live rows offset by offset (s = 0, 1, ..., ep - 1), so each dW is
-//   written once with no atomics and no f32 scratch of dW, and is the same
-//   bit for bit from run to run.  That needs one slot a remote block: the
-//   wrapper passes ep - 1 (offset s lands in slot s % slots, distinct for
-//   every s in [1, ep)), and the entry point refuses fewer.
+// On the tensor cores (dispatch_bwd_tc_kernel, the rule of
+// plan.expert_bwd_route) the blocks land packed: one block first fills the
+// packed layout's metadata from the counts (each weight set's live rows,
+// offset by offset), the grid copies the local blocks' live rows of x and
+// dout (and zeroes the padding rows), and each dispatch put of offset s
+// carries only the live rows of rank r's x block and dout block for r + s,
+// into that weight set's rows of offset s: the landing of every remote
+// block is its own range of the packed layout (one slot a remote block,
+// ep - 1 of them).  Fences are grid-wide barriers (cooperative launch, the
+// grid sized from occupancy); pending puts are carried out before the phase
+// that needs them, as in the forward.  The GEMM phases run as one, at the
+// schedule's last "gemm" record, when every block has landed: passes A and
+// B over every weight set's packed tiles (so each weight tile is read once
+// a pass, not once a ring offset), and pass B stores each live row's dx
+// straight into dbuf of its source (the return carries the live rows only;
+// the "ret" records find nothing left to move), after the rows past the
+// counts are written as zeros.  Pass C then sums each dW over the packed
+// rows, offset by offset: written once, no atomics, the same bit for bit
+// from run to run.  Every thread fences the async proxy after its generic
+// stores and after each barrier (TMA reads the packed rows and the
+// scratch).
 //
-// Both routes of expert_bwd.cuh: on the tensor cores (dispatch_bwd_tc_kernel,
-// the rule of plan.expert_bwd_route) the grid first builds each GEMM
-// phase's list of 64-row tiles with live rows (one block a phase), and the
-// landed blocks, the scratch and the local blocks are read by TMA: every
-// thread fences the async proxy after its generic stores and after each
-// barrier.  On the CUDA cores (dispatch_bwd_kernel) the grid deals out
-// every tile of a pass round robin.  Nothing is recorded on the host's put
-// logs: the reference's AD transposes its puts without running their
-// Python.
+// On the CUDA cores (dispatch_bwd_kernel) each put carries the padded x and
+// dout blocks into rank (r + s)'s landing slot s % slots, each "gemm" phase
+// runs passes A and B on one offset (the grid deals out every tile round
+// robin, a scratch kept for every (rank, offset)), each return carries the
+// padded dx block home, and pass C runs after the schedule; that needs one
+// slot a remote block: the wrapper passes ep - 1, and the entry point
+// refuses fewer.  Nothing is recorded on the host's put logs: the
+// reference's AD transposes its puts without running their Python.
 //
 // Bound on this card: the grouped MLP gradient's (expert_bwd.cuh), plus the
-// puts and returns: 3 (ep - 1) padded blocks a rank read and written at
-// memory speed.
+// live rows' puts and dx.
 //
 // Layout: buf, dout, dbuf (G, ep_src, ep_dst, E_loc, C, d); wg, wu (G, ep,
 // E_loc, d, f); wd (G, ep, E_loc, f, d), each rank's experts contiguous and
-// the ranks sg, su, sd elements apart; dwg, dwu (G, ep, E_loc, d, f) and dwd
-// (G, ep, E_loc, f, d) contiguous; counts (G, ep_src, ep_dst, E_loc) int32;
-// xstage, dstage, ret_stage (G, ep, slots, E_loc, C, d); scratch three (G,
-// ep, ep_offset, E_loc, C, f) planes (dg, du, h); work: on the tensor-core
-// route ep lists of exb_list_len(G ep E_loc, C) int32, one a GEMM phase.
+// the ranks sg, su, sd elements apart; dwg, dwu (G, ep, E_loc, d, f) and
+// dwd (G, ep, E_loc, f, d) contiguous; counts (G, ep_src, ep_dst, E_loc)
+// int32.  CUDA cores: xstage, dstage, ret_stage (G, ep, slots, E_loc, C, d);
+// scratch three (G, ep, ep_offset, E_loc, C, f) planes (dg, du, h); work
+// and tiles unused.  Tensor cores: xstage, dstage and ret_stage unused;
+// tiles packed 64-row tiles at most (the caller's bound); scratch
+// exb_planes(tiles) (packed x and dout, then dg, du, h); work
+// exb_work_words(G ep E_loc, ep, tiles) int32.
 #include <cooperative_groups.h>
+
+#include <cstddef>
+#include <type_traits>
 
 #include "expert_bwd.cuh"
 
@@ -77,7 +87,7 @@ struct DispatchBwdArgs {
   const int* sched;
   void* work;
   long long sg, su, sd;
-  int nrec, G, ep, slots, E_loc, C, d, f;
+  int nrec, G, ep, slots, E_loc, C, d, f, tiles;
 };
 
 // The problems of the backward: weight set wp = (g ep + r) E_loc + e (rank
@@ -86,11 +96,24 @@ struct DispatchBwdArgs {
 template <typename T>
 struct RingBwdGet {
   DispatchBwdArgs a;
-  const CUtensorMap* xlm;  // x / dout maps of the local blocks and the slots
-  const CUtensorMap* xsm;
-  const CUtensorMap* dlm;
-  const CUtensorMap* dsm;
 
+  // index of the (g, src, r, e) block of wp at offset s in buf's layout
+  __device__ long long block(long long wp, int s) const {
+    const int E = a.E_loc, ep = a.ep;
+    const long long q = wp / E;
+    const int r = (int)(q % ep), g = (int)(q / ep);
+    const int src = (r - s + ep) % ep;
+    return (((long long)g * ep + src) * ep + r) * E + wp % E;
+  }
+  __device__ int live(long long wp, int s) const {
+    return min(max(a.counts[block(wp, s)], 0), a.C);
+  }
+  // element offset of that block's row r in buf's (and dout's, dbuf's)
+  // layout
+  __device__ long long row(long long wp, int s, int r) const {
+    return (block(wp, s) * a.C + r) * (long long)a.d;
+  }
+  // the CUDA-core route's problem
   __device__ ExbProblem<T> operator()(long long wp, int s) const {
     const int E = a.E_loc, ep = a.ep, C = a.C, d = a.d, f = a.f;
     const long long q = wp / E;
@@ -104,13 +127,11 @@ struct RingBwdGet {
       p.x = static_cast<const T*>(a.buf) + off;
       p.dy = static_cast<const T*>(a.dout) + off;
       p.dx = static_cast<T*>(a.dbuf) + off;
-      p.c = ExbCoord{xlm, dlm, r, g, s, (int)q, e, (int)q};
     } else {
       const long long off = (q * a.slots + s % a.slots) * blk + eoff;
       p.x = static_cast<const T*>(a.xstage) + off;
       p.dy = static_cast<const T*>(a.dstage) + off;
       p.dx = static_cast<T*>(a.ret_stage) + off;
-      p.c = ExbCoord{xsm, dsm, s % a.slots, (int)q, s, (int)q, e, (int)q};
     }
     const long long plane = (long long)a.G * ep * ep * E * C * f;
     p.dg = static_cast<T*>(a.scratch) + ((q * ep + s) * E + e) * C * f;
@@ -163,11 +184,16 @@ __device__ void pair_copy(int G, int ep, long long n, Src src, Dst dst) {
 }
 
 // The schedule, record by record, on every thread of the grid; gemm(s) runs
-// GEMM phase s (passes A and B).  Every thread fences the async proxy after
-// its puts and after each fence's barrier (TMA reads the landed blocks).
-template <typename T, typename Gemm>
+// GEMM phase s.  With pack null (the CUDA-core route) each put carries rank
+// r's padded x and dout blocks for r + s into a landing slot and each
+// return the padded dx block home; else pack(s) lands offset s's live rows
+// and a return has nothing left to move (pass B stored the dx rows home).
+// Every thread fences the async proxy after its puts and after each
+// fence's barrier (TMA reads the landed rows).
+template <typename T, typename Gemm, typename Pack>
 __device__ void walk_bwd(const DispatchBwdArgs& a, cg::grid_group& grid,
-                         Gemm gemm) {
+                         Gemm gemm, Pack pack) {
+  constexpr bool padded = std::is_same<Pack, std::nullptr_t>::value;
   const int ep = a.ep, slots = a.slots;
   const long long blk = (long long)a.E_loc * a.C * a.d;
   const T* buf = static_cast<const T*>(a.buf);
@@ -183,12 +209,16 @@ __device__ void walk_bwd(const DispatchBwdArgs& a, cg::grid_group& grid,
     return (((long long)g * ep + r) * slots + sl) * blk;
   };
   auto put = [&](int s) {  // rank r's x and dout blocks for r + s
-    pair_copy<T>(a.G, ep, blk,
-        [=](int g, int r) { return buf + pair_off(g, r, (r + s) % ep); },
-        [=](int g, int r) { return xstage + slot_off(g, (r + s) % ep, s % slots); });
-    pair_copy<T>(a.G, ep, blk,
-        [=](int g, int r) { return dout + pair_off(g, r, (r + s) % ep); },
-        [=](int g, int r) { return dstage + slot_off(g, (r + s) % ep, s % slots); });
+    if constexpr (padded) {
+      pair_copy<T>(a.G, ep, blk,
+          [=](int g, int r) { return buf + pair_off(g, r, (r + s) % ep); },
+          [=](int g, int r) { return xstage + slot_off(g, (r + s) % ep, s % slots); });
+      pair_copy<T>(a.G, ep, blk,
+          [=](int g, int r) { return dout + pair_off(g, r, (r + s) % ep); },
+          [=](int g, int r) { return dstage + slot_off(g, (r + s) % ep, s % slots); });
+    } else {
+      pack(s);
+    }
   };
   unsigned long long pending = 0;  // issued puts not yet carried out
 
@@ -208,9 +238,10 @@ __device__ void walk_bwd(const DispatchBwdArgs& a, cg::grid_group& grid,
       fence_proxy_async_global();
       gemm(s);
     } else if (phase == kRet) {  // dx of the block from r - s, home to it
-      pair_copy<T>(a.G, ep, blk,
-          [=](int g, int r) { return ret_stage + slot_off(g, r, s % slots); },
-          [=](int g, int r) { return dbuf + pair_off(g, (r - s % ep + ep) % ep, r); });
+      if constexpr (padded)
+        pair_copy<T>(a.G, ep, blk,
+            [=](int g, int r) { return ret_stage + slot_off(g, r, s % slots); },
+            [=](int g, int r) { return dbuf + pair_off(g, (r - s % ep + ep) % ep, r); });
     } else if (phase == kFenceRet) {
       grid.sync();
     }
@@ -223,7 +254,7 @@ __global__ void __launch_bounds__(EX_THREADS, 1)
 dispatch_bwd_kernel(DispatchBwdArgs a) {
   __shared__ __align__(16) ExbSmem sm;
   cg::grid_group grid = cg::this_grid();
-  const RingBwdGet<T> get{a, nullptr, nullptr, nullptr, nullptr};
+  const RingBwdGet<T> get{a};
   const long long NW = (long long)a.G * a.ep * a.E_loc;
   const int C = a.C, d = a.d, f = a.f;
   T* dwg = static_cast<T*>(a.dwg);
@@ -237,65 +268,86 @@ dispatch_bwd_kernel(DispatchBwdArgs a) {
         exb_simt_item<T>(pass, it, 1, C, d, f, one, dwg, dwu, dwd, sm);
       grid.sync();
     }
-  });
+  }, nullptr);
   const long long n = exb_dw_items(NW, d, f);
   for (long long it = blockIdx.x; it < n; it += gridDim.x)
     exb_simt_item<T>(2, it, a.ep, C, d, f, get, dwg, dwu, dwd, sm);
 }
 
-// Tensor-core route: one block an SM (the stages and pass C's output tiles
-// take 185 KiB).
+// Tensor-core route: one block an SM (the stages take 217 KiB).
 template <typename T>
 __global__ void __launch_bounds__(EXB_THREADS, 1)
 dispatch_bwd_tc_kernel(const __grid_constant__ CUtensorMap wgm,
                        const __grid_constant__ CUtensorMap wum,
                        const __grid_constant__ CUtensorMap wdm,
-                       const __grid_constant__ CUtensorMap xlm,
-                       const __grid_constant__ CUtensorMap xsm,
-                       const __grid_constant__ CUtensorMap dlm,
-                       const __grid_constant__ CUtensorMap dsm,
+                       const __grid_constant__ CUtensorMap xm,
+                       const __grid_constant__ CUtensorMap dym,
                        const __grid_constant__ CUtensorMap dgm,
                        const __grid_constant__ CUtensorMap dum,
                        const __grid_constant__ CUtensorMap hm,
+                       const __grid_constant__ CUtensorMap dwgm,
+                       const __grid_constant__ CUtensorMap dwum,
+                       const __grid_constant__ CUtensorMap dwdm,
                        DispatchBwdArgs a) {
   extern __shared__ unsigned char smem[];
   const ExbTcSmem sm = exb_smem_init(smem);
   cg::grid_group grid = cg::this_grid();
-  const RingBwdGet<T> get{a, &xlm, &xsm, &dlm, &dsm};
+  const RingBwdGet<T> get{a};
   const long long NW = (long long)a.G * a.ep * a.E_loc;
-  const long long len = exb_list_len(NW, a.C);
-  int* lists = static_cast<int*>(a.work);
-  for (int s = blockIdx.x; s < a.ep; s += gridDim.x)  // a block a phase
-    ex_tc_build_list<EXB_BR>(
-        NW, a.C, [&](long long wp) { return get(wp, s).live; },
-        lists + s * len);
+  const ExbPack pk = exb_pack_view(a.work, NW, a.ep, a.tiles);
+  const ExbPlanes<T> pl = exb_planes<T>(a.scratch, a.tiles, a.d, a.f);
+  const T* buf = static_cast<const T*>(a.buf);
+  const T* dout = static_cast<const T*>(a.dout);
+  T* dbuf = static_cast<T*>(a.dbuf);
+  // -- the packed layout's metadata (the "// -- " lines mark the passes
+  // for chip_split.py's clock64 split)
+  if (blockIdx.x == 0)
+    exb_build_pack(NW, a.ep, a.C, a.tiles,
+                   [&](long long wp, int s) { return get.live(wp, s); },
+                   static_cast<int*>(a.work));
   grid.sync();
+  // offset s's live rows into the packed layout, a warp a row (s = 0: the
+  // local blocks, every row's source offset and the padding rows)
+  const long long warps = (long long)gridDim.x * (EXB_THREADS / 32);
+  auto pack = [&](int s) {
+    exb_pack_rows<T>(
+        pk, a.d, s, s == 0, buf, dout, pl.xp, pl.dyp,
+        const_cast<long long*>(pk.rowoff),
+        [&](long long wp, int o, int r) { return get.row(wp, o, r); },
+        (long long)blockIdx.x * (EXB_THREADS / 32) + threadIdx.x / 32, warps);
+  };
+  pack(0);
   ExbPipe pipe;
-  const long long warp = (long long)blockIdx.x * (EX_TC_CONSUMERS / 32)
-                         + threadIdx.x / 32;
-  const long long warps = (long long)gridDim.x * (EX_TC_CONSUMERS / 32);
-  walk_bwd<T>(a, grid, [&](int s) {
-    const int* list = lists + s * len;
-    auto prob = [&](long long p) { return get(p, s); };
-    exb_tc_rows_pass<T>(sm, pipe, list, a.C, a.d, a.f, &wgm, &wum, &wdm,
-                        prob);
+  int gemms = 0;
+  walk_bwd<T>(a, grid, [&](int) {
+    if (++gemms < a.ep) return;  // the last "gemm" record: all landed
+    fence_proxy_async_global();
+    grid.sync();
+    fence_proxy_async_global();
+    // -- pass A
+    exb_tc_rows_pass<T>(sm, pipe, pk, a.E_loc, a.d, a.f, &wgm, &wum, &wdm,
+                        &xm, &dym, pl);
     fence_proxy_async_global();  // the scratch, before TMA reads it
     grid.sync();
     fence_proxy_async_global();
-    if (threadIdx.x < EX_TC_CONSUMERS)
-      ex_zero_dead_rows<T>(NW, a.C, a.d, [&](long long wp, int& live) {
-        const ExbProblem<T> p = get(wp, s);
-        live = p.live;
-        return p.dx;
-      }, warp, warps);
-    exb_tc_dx_pass<T>(sm, pipe, list, a.C, a.d, a.f, &wgm, &wum, &dgm, &dum,
-                      prob);
-    grid.sync();
-    fence_proxy_async_global();
-  });
-  exb_tc_dw_pass<T>(sm, pipe, NW, a.ep, a.d, a.f, &dgm, &dum, &hm, get,
-                    static_cast<T*>(a.dwg), static_cast<T*>(a.dwu),
-                    static_cast<T*>(a.dwd));
+    // -- pass B
+    if (threadIdx.x < EXB_CONSUMERS)
+      ex_zero_dead_rows<T>(
+          (long long)a.G * a.ep * a.ep * a.E_loc, a.C, a.d,
+          [&](long long p, int& live) {
+            live = min(max(a.counts[p], 0), a.C);
+            return dbuf + p * a.C * a.d;
+          },
+          (long long)blockIdx.x * (EXB_CONSUMERS / 32) + threadIdx.x / 32,
+          (long long)gridDim.x * (EXB_CONSUMERS / 32));
+    exb_tc_dx_pass<T>(sm, pipe, pk, a.E_loc, a.d, a.f, &wgm, &wum, &dgm, &dum,
+                      dbuf);
+  }, pack);
+  __syncthreads();  // pass C's stages lie over pass B's: all released
+  // -- pass C
+  exb_tc_dw_pass<T>(sm, pipe, pk, a.d, a.f, &xm, &dym, &dgm, &dum, &hm,
+                    &dwgm, &dwum, &dwdm);
+  // -- end
 }
 
 template <typename T>
@@ -316,44 +368,49 @@ static int launch(DispatchBwdArgs a, cudaStream_t stream) {
 
 template <typename T>
 static int launch_tc(DispatchBwdArgs a, int dtype, cudaStream_t stream) {
-  const long long C = a.C, d = a.d, f = a.f, E = a.E_loc, ep = a.ep;
-  const long long Q = (long long)a.G * ep, blk = E * C * d, df = d * f;
-  const long long plane = Q * ep * E * C * f;
-  T* dg = static_cast<T*>(a.scratch);
-  if (!ex_tc_route_ok(dtype, a.d, a.f,
-                      {a.buf, a.dout, a.wg, a.wu, a.wd, a.dbuf, a.dwg, a.dwu,
-                       a.dwd, a.xstage, a.dstage, a.ret_stage, dg, dg + plane,
-                       dg + 2 * plane, a.work}))
+  const long long d = a.d, f = a.f, E = a.E_loc, ep = a.ep;
+  const long long Q = (long long)a.G * ep, df = d * f;
+  const ExbPlanes<T> pl = exb_planes<T>(a.scratch, a.tiles, a.d, a.f);
+  if (a.tiles < 1 || (long long)a.tiles * EXB_BR > 0x7fffffffLL
+      || !ex_tc_route_ok(dtype, a.d, a.f,
+                         {a.buf, a.dout, a.wg, a.wu, a.wd, a.dbuf, a.dwg,
+                          a.dwu, a.dwd, pl.xp, pl.dyp, pl.dg, pl.du, pl.h,
+                          a.work}))
     return static_cast<int>(cudaErrorInvalidValue);
+  const long long R = (long long)a.tiles * EXB_BR;
   const long long wdims[5] = {f, d, E, Q, 1}, ddims[5] = {d, f, E, Q, 1};
   const long long wge[4] = {f, df, a.sg, a.sg * Q};
   const long long wue[4] = {f, df, a.su, a.su * Q};
   const long long wde[4] = {d, df, a.sd, a.sd * Q};
-  const long long xldims[5] = {d, C, E, ep, a.G};
-  const long long xle[4] = {d, C * d, (ep + 1) * blk, ep * ep * blk};
-  const long long xsdims[5] = {d, C, E, a.slots, Q};
-  const long long xse[4] = {d, C * d, blk, a.slots * blk};
-  const long long sdims[5] = {f, C, E, ep, Q};
-  const long long se[4] = {f, C * f, E * C * f, ep * E * C * f};
-  CUtensorMap wgm, wum, wdm, xlm, xsm, dlm, dsm, dgm, dum, hm;
+  const long long xdims[5] = {d, R, 1, 1, 1}, sdims[5] = {f, R, 1, 1, 1};
+  const long long xe[4] = {d, R * d, R * d, R * d};
+  const long long se[4] = {f, R * f, R * f, R * f};
+  // each dW (Q E, d, f) or (Q E, f, d), stored by TMA
+  const long long NW = Q * E;
+  const long long gdims[5] = {f, d, NW, 1, 1}, vdims[5] = {d, f, NW, 1, 1};
+  const long long ge[4] = {f, df, NW * df, NW * df};
+  const long long ve[4] = {d, df, NW * df, NW * df};
+  CUtensorMap wgm, wum, wdm, xm, dym, dgm, dum, hm, dwgm, dwum, dwdm;
   int err = ex_tc_map(&wgm, a.wg, dtype, wdims, wge, 64);
   if (err == 0) err = ex_tc_map(&wum, a.wu, dtype, wdims, wue, 64);
   if (err == 0) err = ex_tc_map(&wdm, a.wd, dtype, ddims, wde, 64);
-  if (err == 0) err = ex_tc_map(&xlm, a.buf, dtype, xldims, xle, EXB_BR);
-  if (err == 0) err = ex_tc_map(&xsm, a.xstage, dtype, xsdims, xse, EXB_BR);
-  if (err == 0) err = ex_tc_map(&dlm, a.dout, dtype, xldims, xle, EXB_BR);
-  if (err == 0) err = ex_tc_map(&dsm, a.dstage, dtype, xsdims, xse, EXB_BR);
-  if (err == 0) err = ex_tc_map(&dgm, dg, dtype, sdims, se, EXB_BR);
-  if (err == 0) err = ex_tc_map(&dum, dg + plane, dtype, sdims, se, EXB_BR);
-  if (err == 0) err = ex_tc_map(&hm, dg + 2 * plane, dtype, sdims, se, EXB_BR);
+  if (err == 0) err = ex_tc_map(&xm, pl.xp, dtype, xdims, xe, EXB_BR);
+  if (err == 0) err = ex_tc_map(&dym, pl.dyp, dtype, xdims, xe, EXB_BR);
+  if (err == 0) err = ex_tc_map(&dgm, pl.dg, dtype, sdims, se, EXB_BR);
+  if (err == 0) err = ex_tc_map(&dum, pl.du, dtype, sdims, se, EXB_BR);
+  if (err == 0) err = ex_tc_map(&hm, pl.h, dtype, sdims, se, EXB_BR);
+  if (err == 0) err = ex_tc_map(&dwgm, a.dwg, dtype, gdims, ge, 64);
+  if (err == 0) err = ex_tc_map(&dwum, a.dwu, dtype, gdims, ge, 64);
+  if (err == 0) err = ex_tc_map(&dwdm, a.dwd, dtype, vdims, ve, 64);
   // the cooperative grid: as many blocks as fit the card at once, with the
   // route's dynamic shared memory set first
   const int smem = exb_smem_bytes();
   int blocks = 0;
-  if (err == 0) err = ex_tc_grid(dispatch_bwd_tc_kernel<T>, smem, blocks);
+  if (err == 0)
+    err = ex_tc_grid(dispatch_bwd_tc_kernel<T>, smem, blocks, EXB_THREADS);
   if (err != 0) return err;
-  void* args[] = {&wgm, &wum, &wdm, &xlm, &xsm, &dlm, &dsm, &dgm, &dum, &hm,
-                  &a};
+  void* args[] = {&wgm, &wum, &wdm, &xm, &dym,  &dgm, &dum,
+                  &hm,  &dwgm, &dwum, &dwdm, &a};
   cudaError_t e = cudaLaunchCooperativeKernel(
       (const void*)dispatch_bwd_tc_kernel<T>, dim3(blocks), dim3(EXB_THREADS),
       args, smem, stream);
@@ -367,7 +424,7 @@ extern "C" int repro_moe_dispatch_bwd(
     void* dwd, void* xstage, void* dstage, void* ret_stage, void* scratch,
     const void* sched, void* work, long long sg, long long su, long long sd,
     int nrec, int G, int ep, int slots, int E_loc, int C, int d, int f,
-    int dtype, int route, void* stream) {
+    int tiles, int dtype, int route, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // every remote block keeps its own slot until pass C has read it
   if (ep < 1 || ep > 64 || slots < ep - 1)
@@ -376,7 +433,7 @@ extern "C" int repro_moe_dispatch_bwd(
                           static_cast<const int*>(counts), dbuf, dwg, dwu,
                           dwd, xstage, dstage, ret_stage, scratch,
                           static_cast<const int*>(sched), work, sg, su, sd,
-                          nrec, G, ep, slots, E_loc, C, d, f};
+                          nrec, G, ep, slots, E_loc, C, d, f, tiles};
   if (route == kRouteWgmma) {
     switch (dtype) {
       case kF16: return launch_tc<__half>(a, dtype, st);

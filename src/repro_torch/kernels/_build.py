@@ -58,9 +58,9 @@ LIBRARIES: Dict[str, tuple] = {
     "moe_dispatch": ("moe_dispatch.cu", {
         "repro_moe_dispatch": [_P] * 11 + [_LL] * 3 + [_I] * 10 + [_P]}),
     "expert_mlp_bwd": ("expert_mlp_bwd.cu", {
-        "repro_expert_mlp_bwd": [_P] * 12 + [_LL] * 3 + [_I] * 8 + [_P]}),
+        "repro_expert_mlp_bwd": [_P] * 12 + [_LL] * 3 + [_I] * 9 + [_P]}),
     "moe_dispatch_bwd": ("moe_dispatch_bwd.cu", {
-        "repro_moe_dispatch_bwd": [_P] * 16 + [_LL] * 3 + [_I] * 10
+        "repro_moe_dispatch_bwd": [_P] * 16 + [_LL] * 3 + [_I] * 11
         + [_P]}),
     "linear_scan": ("linear_scan.cu", {
         "repro_linear_scan": [_P] * 7 + [_I] * 7 + [_P]}),

@@ -54,8 +54,9 @@ from ...core.groups import DiompGroup
 from ...core.rma import dispatch_window_names, ompx_fence, ompx_put
 from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
                       stream_handle)
-from ..plan import (AllToAllPlan, expert_bwd_list_len, expert_bwd_route,
-                    expert_list_len, expert_route)
+from ..plan import (AllToAllPlan, expert_bwd_route, expert_bwd_scratch_elems,
+                    expert_bwd_tiles, expert_bwd_work_words, expert_list_len,
+                    expert_route)
 from .kernel import expert_mlp_plain, rank_strided
 from .ref import expert_mlp_bwd_plain, expert_mlp_ref
 
@@ -394,10 +395,14 @@ def fused_dispatch_bwd_kernel(buf, wg, wu, wd, counts, dfull,
     """The gradient of the kernel's block-level function for the cotangent
     ``dfull``: ``(dbuf, dwg, dwu, dwd)``, on the card one launch of
     ``csrc/moe_dispatch_bwd.cu`` (counted in ``.launches``, and by route in
-    ``.route_launches``: :func:`..plan.expert_bwd_route`'s rule), on CPU
-    tensors :func:`fused_dispatch_bwd_plain`.  The kernel follows the
-    plan's schedule with one landing slot a remote block (``ep - 1``), so
-    every block stays landed until the dW pass has read it."""
+    ``.route_launches``: :func:`..plan.expert_bwd_route`'s rule; the bytes
+    of its scratch and staging in ``.transient_bytes``), on CPU tensors
+    :func:`fused_dispatch_bwd_plain`.  The kernel follows the plan's
+    schedule with one landing slot a remote block (``ep - 1``), so every
+    block stays landed until the dW pass has read it; on the tensor cores
+    a block lands as its live rows, packed by weight set, and the packed
+    layout is sized by every rank's ``t_loc * k`` choices, the most live
+    rows the dropless plan sends."""
     if not buf.is_cuda:
         return fused_dispatch_bwd_plain(buf, wg, wu, wd, counts, dfull, group)
     mesh = default_context().require_mesh()
@@ -419,44 +424,54 @@ def fused_dispatch_bwd_kernel(buf, wg, wu, wd, counts, dfull,
     dw = [torch.empty(*kb.shape[:nd], E_loc, *s, dtype=buf.dtype,
                       device=buf.device) for s in ((d, f), (d, f), (f, d))]
     slots = max(ep - 1, 1)
-    xstage = torch.empty(G, ep, slots, E_loc, C, d, dtype=buf.dtype,
-                         device=buf.device)
-    dstage = torch.empty_like(xstage)
-    ret_stage = torch.empty_like(xstage)
-    # dg, du and h of every (rank, offset) block, kept until the dW pass
-    scratch = torch.empty(3, G * ep * ep * E_loc * C * f, dtype=buf.dtype,
-                          device=buf.device)
     sched = _schedule_table(plan, buf.device)
     isz = buf.element_size()
-    # TMA reads the local blocks and cotangents, both landing slots, the
-    # weights (their rank strides in bytes) and the scratch planes
+    # the tensor cores read the weights by TMA (their rank strides in
+    # bytes) and the blocks and cotangents 16 bytes a lane
     route = expert_bwd_route(buf.dtype, d, f, kb.data_ptr(), kd.data_ptr(),
-                             xstage.data_ptr(), dstage.data_ptr(),
                              wg_k.data_ptr(), wu_k.data_ptr(),
-                             wd_k.data_ptr(), scratch.data_ptr(),
-                             scratch[1].data_ptr(), scratch[2].data_ptr(),
-                             sg * isz, su * isz, sd * isz)
-    work = torch.empty(ep * expert_bwd_list_len(G * ep * E_loc, C)
-                       if route == "wgmma" else 0, dtype=torch.int32,
-                       device=buf.device)
+                             wd_k.data_ptr(), sg * isz, su * isz, sd * isz)
+    sets = G * ep * E_loc
+    if route == "wgmma":
+        # every weight set's live rows over the ring's offsets, packed in
+        # 64-row tiles (x and the cotangent, then dg, du and h)
+        tiles = expert_bwd_tiles(sets, ep, C,
+                                 rows=G * ep * plan.t_loc * plan.k)
+        scratch = torch.empty(expert_bwd_scratch_elems(tiles, d, f),
+                              dtype=buf.dtype, device=buf.device)
+        work = torch.empty(expert_bwd_work_words(sets, ep, tiles),
+                           dtype=torch.int32, device=buf.device)
+        stages = ()
+    else:
+        tiles = 0
+        stages = tuple(torch.empty(G, ep, slots, E_loc, C, d, dtype=buf.dtype,
+                                   device=buf.device) for _ in range(3))
+        # dg, du and h of every (rank, offset) block, kept until the dW pass
+        scratch = torch.empty(3, G * ep * ep * E_loc * C * f,
+                              dtype=buf.dtype, device=buf.device)
+        work = torch.empty(0, dtype=torch.int32, device=buf.device)
+    fused_dispatch_bwd_kernel.transient_bytes = sum(
+        t.numel() * t.element_size() for t in (scratch, work, *stages))
+    xstage, dstage, ret_stage = (s.data_ptr() for s in stages) if stages \
+        else (None, None, None)
     status = library("moe_dispatch_bwd").repro_moe_dispatch_bwd(
         kb.data_ptr(), kd.data_ptr(), wg_k.data_ptr(), wu_k.data_ptr(),
         wd_k.data_ptr(), kc.data_ptr(), dbuf.data_ptr(),
-        *(w.data_ptr() for w in dw), xstage.data_ptr(), dstage.data_ptr(),
-        ret_stage.data_ptr(), scratch.data_ptr(), sched.data_ptr(),
-        work.data_ptr(), sg, su, sd, sched.shape[0], G, ep, slots, E_loc, C,
-        d, f, DTYPE_CODES[buf.dtype], ROUTE_CODES[route],
-        stream_handle(buf.device))
+        *(w.data_ptr() for w in dw), xstage, dstage, ret_stage,
+        scratch.data_ptr(), sched.data_ptr(), work.data_ptr(), sg, su, sd,
+        sched.shape[0], G, ep, slots, E_loc, C, d, f, tiles,
+        DTYPE_CODES[buf.dtype], ROUTE_CODES[route], stream_handle(buf.device))
     fused_dispatch_bwd_kernel.launches += 1
     fused_dispatch_bwd_kernel.route_launches[route] += 1
     check_launch(status, "fused_moe_dispatch_bwd")
-    del xstage, dstage, ret_stage, scratch
+    del stages, scratch, work
     ring = group.rank_dims(mesh)[0]
     return tuple(t.movedim(nd - 1, ring) for t in (dbuf, *dw))
 
 
 fused_dispatch_bwd_kernel.launches = 0
 fused_dispatch_bwd_kernel.route_launches = dict.fromkeys(ROUTE_CODES, 0)
+fused_dispatch_bwd_kernel.transient_bytes = 0
 
 
 class FusedDispatchFn(torch.autograd.Function):

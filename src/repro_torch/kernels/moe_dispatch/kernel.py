@@ -37,7 +37,8 @@ import torch.nn.functional as F
 
 from .._build import (DTYPE_CODES, ROUTE_CODES, check_launch, library,
                       stream_handle)
-from ..plan import (expert_bwd_list_len, expert_bwd_route, expert_list_len,
+from ..plan import (expert_bwd_route, expert_bwd_scratch_elems,
+                    expert_bwd_tiles, expert_bwd_work_words, expert_list_len,
                     expert_route)
 from .ref import _lift, expert_mlp_bwd_plain, live_rows
 
@@ -167,24 +168,31 @@ def expert_mlp_bwd(x, wg, wu, wd, dy, counts: Optional[torch.Tensor] = None):
     if x.numel() == 0:
         return dx, dwg.zero_(), dwu.zero_(), dwd.zero_()
     (wg, sg), (wu, su), (wd, sd) = (rank_strided(w) for w in (wg, wu, wd))
-    # dg, du and h of every row, in x's dtype
-    scratch = torch.empty(3, G * S * E * C * f, dtype=x.dtype,
-                          device=x.device)
     isz = x.element_size()
-    # TMA reads x, dy, the weights (their rank strides in bytes) and the
-    # three scratch planes
+    # the tensor cores read the weights by TMA (their rank strides in
+    # bytes) and x and dy 16 bytes a lane
     route = expert_bwd_route(x.dtype, d, f, x.data_ptr(), dy.data_ptr(),
                              wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
-                             scratch.data_ptr(), scratch[1].data_ptr(),
-                             scratch[2].data_ptr(), sg * isz, su * isz,
-                             sd * isz)
-    work = torch.empty(expert_bwd_list_len(G * S * E, C) if route == "wgmma"
-                       else 0, dtype=torch.int32, device=x.device)
+                             sg * isz, su * isz, sd * isz)
+    if route == "wgmma":
+        # each expert's live rows over the S sources packed in 64-row
+        # tiles (x and dy, then dg, du and h), the metadata built on the
+        # card from the counts
+        tiles = expert_bwd_tiles(G * E, S, C)
+        scratch = torch.empty(expert_bwd_scratch_elems(tiles, d, f),
+                              dtype=x.dtype, device=x.device)
+        work = torch.empty(expert_bwd_work_words(G * E, S, tiles),
+                           dtype=torch.int32, device=x.device)
+    else:                   # dg, du and h of every row
+        tiles = 0
+        scratch = torch.empty(3, G * S * E * C * f, dtype=x.dtype,
+                              device=x.device)
+        work = torch.empty(0, dtype=torch.int32, device=x.device)
     status = library("expert_mlp_bwd").repro_expert_mlp_bwd(
         x.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(),
         dy.data_ptr(), cptr, dx.data_ptr(), dwg.data_ptr(), dwu.data_ptr(),
         dwd.data_ptr(), scratch.data_ptr(), work.data_ptr(), sg, su, sd, G,
-        S, E, C, d, f, DTYPE_CODES[x.dtype], ROUTE_CODES[route],
+        S, E, C, d, f, tiles, DTYPE_CODES[x.dtype], ROUTE_CODES[route],
         stream_handle(x.device))
     expert_mlp_bwd.launches += 1
     expert_mlp_bwd.route_launches[route] += 1

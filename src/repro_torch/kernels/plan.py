@@ -43,7 +43,9 @@ __all__ = [
     "attention_bwd_route",
     "expert_route",
     "expert_bwd_route",
-    "expert_bwd_list_len",
+    "expert_bwd_tiles",
+    "expert_bwd_work_words",
+    "expert_bwd_scratch_elems",
     "expert_bwd_smem_bytes",
     "stencil_route",
     "scan_route",
@@ -83,6 +85,9 @@ __all__ = [
     "EXB_BR",
     "EXB_STAGES",
     "EXB_BOXES",
+    "EXB_SLOTS",
+    "EXB_OUT_TILES",
+    "EXB_THREADS",
     "SMS_DEFAULT",
 ]
 
@@ -137,12 +142,14 @@ __all__ = [
 #   of w_gate and w_up per block, in f32 — (32·68 + 2·32·64)·4 B = 24.5 KiB
 #   at the fixed tile of csrc/expert_mlp.cuh, nothing the planner sizes;
 # * their gradients (csrc/expert_bwd.cuh) take the same rule
-#   (:func:`expert_bwd_route`).  On the tensor cores a block keeps
-#   ``EXB_STAGES`` stages of ``EXB_BOXES`` 64 x 64 boxes (weight tiles and
-#   ``EXB_BR``-row tiles) in the operands' 16-bit type
-#   and the dW pass's three 64 x 64 output tiles
-#   (:func:`expert_bwd_smem_bytes`, the formula of ``exb_smem_bytes``):
-#   185 KiB.  On the CUDA cores five (32, 68) f32 tiles, 42.5 KiB;
+#   (:func:`expert_bwd_route`).  On the tensor cores a block keeps the dW
+#   pass's ``EXB_STAGES`` stages of three 64 x 64 boxes, its ``EXB_SLOTS``
+#   slots of four (x and dy of ``EXB_BR`` packed rows) and its
+#   ``EXB_OUT_TILES`` output tiles, over which the other passes lay their
+#   stages of up to ``EXB_BOXES`` boxes (weight tiles and packed tiles), in
+#   the operands' 16-bit type, and the barriers of each stage and slot
+#   (:func:`expert_bwd_smem_bytes`, the formula of ``exb_smem_bytes``): 217
+#   KiB.  On the CUDA cores five (32, 68) f32 tiles, 42.5 KiB;
 # * the fused ring's stripe slots, the fused step's landing windows, the
 #   fused MoE dispatch's landing and return slots and the ring attention's
 #   K/V stripe slots and (m, l, acc) carry live in device memory, not shared
@@ -179,9 +186,12 @@ EX_TC_BR = 128                  # rows of its row tile, at most
 EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
 EX_TC_STAGES = 6                # that route's shared-memory stages
 EX_TC_THREADS = 160             # a consumer warpgroup and a producer warp
-EXB_BR = 64                     # rows of an expert-MLP gradient row tile
-EXB_STAGES = 4                  # that route's shared-memory stages
-EXB_BOXES = 5                   # 64 x 64 boxes a stage holds
+EXB_BR = 64                     # rows of an expert-MLP gradient packed tile
+EXB_STAGES = 3                  # that route's shared-memory stages
+EXB_BOXES = 8                   # 64 x 64 boxes a stage holds at most (pass A)
+EXB_SLOTS = 3                   # its dW pass's x and dy slots, a tile each
+EXB_OUT_TILES = 6               # its dW pass's 64 x 64 output tiles
+EXB_THREADS = 288               # two consumer warpgroups and a producer warp
 SMS_DEFAULT = 132               # streaming multiprocessors of an H100 SXM
 
 
@@ -272,21 +282,48 @@ def expert_bwd_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:
     return expert_route(dtype, d, f, *ptrs_and_strides)
 
 
-def expert_bwd_list_len(problems: int, C: int) -> int:
-    """int32 entries of one gradient pass's work list over ``problems``
-    problems of ``C`` rows: the count and at most every ``EXB_BR``-row
-    tile (``exb_list_len`` in ``csrc/expert_bwd.cuh``)."""
-    return 1 + problems * -(-C // EXB_BR)
+def expert_bwd_tiles(weight_sets: int, sources: int, C: int,
+                     rows: Optional[int] = None) -> int:
+    """Packed ``EXB_BR``-row tiles a tensor-core launch of the expert MLP's
+    gradient sizes its buffers for, without reading the counts: each of
+    ``weight_sets`` weight sets packs its live rows over ``sources`` blocks
+    of ``C`` rows into ``ceil(rows / EXB_BR)`` tiles, so at most
+    ``weight_sets * ceil(sources * C / EXB_BR)`` tiles, and, where the
+    caller knows that the live rows of every set number ``rows`` at most
+    (the dropless dispatch: every rank's tokens times top-k), at most
+    ``ceil((rows + (EXB_BR - 1) * weight_sets) / EXB_BR)``.  The kernel
+    traps where the counts need more (``exb_build_pack``)."""
+    tiles = weight_sets * -(-sources * C // EXB_BR)
+    if rows is not None:
+        tiles = min(tiles, -(-(rows + (EXB_BR - 1) * weight_sets) // EXB_BR))
+    return max(tiles, 1)
+
+
+def expert_bwd_work_words(weight_sets: int, sources: int, tiles: int) -> int:
+    """int32 words of that launch's work area (``exb_work_words`` in
+    ``csrc/expert_bwd.cuh``): the tiles in use, each tile's weight set,
+    each weight set's first tile and ``sources + 1`` row offsets, then,
+    8-byte aligned, an int64 source-row offset for every packed row."""
+    meta = 1 + tiles + weight_sets * (sources + 2)
+    return meta + meta % 2 + 2 * tiles * EXB_BR
+
+
+def expert_bwd_scratch_elems(tiles: int, d: int, f: int) -> int:
+    """Elements of that launch's scratch (``exb_planes``): the packed rows
+    of x and dy (``d`` wide), then dg, du and h (``f`` wide)."""
+    return tiles * EXB_BR * (2 * d + 3 * f)
 
 
 def expert_bwd_smem_bytes() -> int:
     """Dynamic shared memory of an expert-MLP gradient block on the
     tensor-core route (``exb_smem_bytes`` in ``csrc/expert_bwd.cuh``): the
-    alignment slack, ``EXB_STAGES`` stages of ``EXB_BOXES`` 64 x 64 16-bit
-    boxes, the dW pass's three 64 x 64 output tiles, and each stage's full
-    and empty mbarriers."""
-    return 1024 + (EXB_STAGES * EXB_BOXES + 3) * 64 * 64 * 2 \
-        + 16 * EXB_STAGES
+    alignment slack, the dW pass's ``EXB_STAGES`` stages of three 64 x 64
+    16-bit boxes, ``EXB_SLOTS`` slots of four and ``EXB_OUT_TILES`` output
+    tiles (the other passes' stages of up to ``EXB_BOXES`` boxes lie in the
+    same bytes), and the full and empty mbarriers of each stage and of
+    each slot."""
+    return 1024 + (EXB_STAGES * 3 + 4 * EXB_SLOTS + EXB_OUT_TILES) \
+        * 64 * 64 * 2 + 8 * (2 * EXB_STAGES + 2 * EXB_SLOTS)
 
 
 def stencil_route(dtype, x: int, *ptrs_and_strides: int) -> str:

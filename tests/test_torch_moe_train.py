@@ -31,8 +31,11 @@
   what one ``jax.eval_shape`` trace of ``value_and_grad`` of the
   reference's loss logs;
 * the launcher trains reduced qwen3-moe on the CPU, its loss falling;
-* the two new CUDA sources' entry points, ``#define``s and shared memory
-  against the wrappers' ctypes lists and the planner's constants.
+* the two new CUDA sources' entry points, ``#define``s, shared memory,
+  work area and scratch planes against the wrappers' ctypes lists and the
+  planner's constants and sizes; the planner's bound on the packed tiles
+  against a numpy reckoning of each weight set's live rows, at small
+  shapes and at both training calls.
 """
 
 import re
@@ -550,20 +553,128 @@ def test_gradient_sources_match_the_wrappers(lib):
 
 
 def test_gradient_header_matches_the_planner():
+    """``expert_bwd.cuh``'s ``#define``s, shared memory, work area and
+    scratch planes against the planner's constants and sizes."""
     text = (_build.CSRC / "expert_bwd.cuh").read_text()
     d = {k: int(v) for k, v in re.findall(r"#define (\w+) (\d+)", text)}
     assert d["EXB_BR"] == plan.EXB_BR == 64
-    assert d["EXB_STAGES"] == plan.EXB_STAGES
-    assert d["EXB_BOXES"] == plan.EXB_BOXES == 5
-    assert d["EXB_THREADS"] == plan.EX_TC_THREADS == 160
+    for name in ("EXB_STAGES", "EXB_BOXES", "EXB_SLOTS", "EXB_OUT_TILES",
+                 "EXB_THREADS"):
+        assert d[name] == getattr(plan, name), name
+    assert plan.EXB_THREADS == 2 * 128 + 32     # two warpgroups, a producer
+    consts = {k: d[k] for k in ("EXB_STAGES", "EXB_BOXES", "EXB_SLOTS",
+                                "EXB_OUT_TILES", "EXB_BR")}
     expr = re.search(r"exb_smem_bytes\(\) \{\s*return ([^;]+);",
                      text).group(1)
-    smem = eval(" ".join(expr.split()), {
-        "EXB_STAGES": d["EXB_STAGES"], "EXB_BOXES": d["EXB_BOXES"],
-        "EXB_BOX_BYTES": 64 * 64 * 2})
+    # pass C's stages of dg, du and h, its slots of x and dy (two
+    # warpgroups' boxes each) and output tiles; passes A and B lay their
+    # stages in the same bytes
+    c_boxes = int(re.search(r"EXB_C_BOXES = (\d+);", text).group(1))
+    assert c_boxes == 3
+    smem = eval(" ".join(expr.split()), {**consts, "EXB_C_BOXES": c_boxes,
+                                         "EXB_BOX_BYTES": 64 * 64 * 2})
     assert smem == plan.expert_bwd_smem_bytes() <= plan.SMEM_BUDGET_DEFAULT
-    assert re.search(r"return 1 \+ problems \* \(\(C \+ EXB_BR - 1\) / "
-                     r"EXB_BR\);", text)
-    for problems, C in ((1, 1), (8, 64), (8, 65), (512, 80)):
-        assert plan.expert_bwd_list_len(problems, C) \
-            == 1 + problems * -(-C // 64)
+    ring = plan.EXB_STAGES * c_boxes + 4 * plan.EXB_SLOTS \
+        + plan.EXB_OUT_TILES
+    assert plan.EXB_STAGES * plan.EXB_BOXES <= ring
+    meta = re.search(r"exb_meta_words\([^)]*\) \{\s*return ([^;]+);",
+                     text).group(1)
+    work = re.search(r"exb_work_words\([^)]*\) \{\s*const long long m = "
+                     r"[^;]+;\s*return ([^;]+);", text).group(1)
+    planes = re.search(r"return ExbPlanes<T>\{([^}]*)\};", text).group(1)
+    for NW, NS, PT, dd, ff in ((1, 1, 1, 64, 64), (256, 2, 768, 4096, 1536),
+                               (256, 2, 508, 4096, 1536), (9, 3, 17, 192, 320)):
+        env = {"NW": NW, "NS": NS, "PT": PT, **consts}
+        m = eval(meta, env)
+        words = eval(work.replace("LL", ""), {**env, "m": m})
+        assert words == plan.expert_bwd_work_words(NW, NS, PT)
+        starts = [eval(x.strip().replace("p + ", "").replace("p", "0"),
+                       {"R": PT * 64, "d": dd, "f": ff})
+                  for x in " ".join(planes.split()).split(",")]
+        assert starts[-1] + PT * 64 * ff \
+            == plan.expert_bwd_scratch_elems(PT, dd, ff)
+
+
+def _routed_counts(rng, ranks, ep, E_loc, t_loc, k):
+    """``(ranks, ep, E_loc)`` kept rows a dropless dispatch sends: each
+    rank's ``t_loc`` tokens choose ``k`` distinct experts of ``ep E_loc``,
+    the experts' popularity skewed."""
+    E = ep * E_loc
+    pop = rng.gamma(0.5, size=E)
+    counts = np.zeros((ranks, E), np.int64)
+    for r in range(ranks):
+        for _ in range(t_loc):
+            counts[r, rng.choice(E, k, replace=False, p=pop / pop.sum())] += 1
+    return counts.reshape(ranks, ep, E_loc)
+
+
+# (G, S, E, C) of the grouped call, or the ring's (ranks, ep, E_loc, C,
+# t_loc, k); the training calls are qwen3-moe's a2a call (4 ranks, 2
+# sources, 64 experts of 80 rows; about 13,406 live rows, and every row
+# live) and its fused plan (2 rings of 2, 64 local experts, the worst-case
+# plan's 512 rows, 512 tokens a rank, top-8)
+PACK_CASES = {
+    "a2a call": ("grouped", (4, 2, 64, 80), 0.33),
+    "a2a every row": ("grouped", (4, 2, 64, 80), 1.0),
+    "small checks": ("grouped", (2, 2, 4, 80), 0.6),
+    "off the tile": ("grouped", (1, 2, 3, 130), 0.8),
+    "fused plan": ("ring", (4, 2, 64, 512, 512, 8), None),
+    "fused ring of 4": ("ring", (4, 4, 4, 48, 24, 2), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACK_CASES))
+def test_packed_tiles_hold_every_live_row(case):
+    """The planner's packed-tile bound against a numpy reckoning of what
+    ``exb_build_pack`` fills: each weight set's live rows over its sources
+    in ``ceil(rows / 64)`` tiles, every tile within the bound (the kernel
+    traps past it), and the work area and scratch of that many tiles.  At
+    the training calls: the a2a call packs into at most 768 tiles (1.26 GB
+    of scratch, against the padded layout's 0.38 GB of dg, du and h) and the
+    fused plan's transients are under 1 GB, against about 5.6 GB of padded
+    scratch and landing slots."""
+    kind, shape, fill = PACK_CASES[case]
+    rng = np.random.RandomState(len(case))
+    d, f = 4096, 1536
+    if kind == "grouped":
+        G, S_, E, C = shape
+        counts = (rng.rand(G, S_, E) * fill * 2 * C).astype(int).clip(0, C)
+        if fill == 1.0:
+            counts[:] = C
+        live = counts.transpose(0, 2, 1).reshape(G * E, S_)  # (set, source)
+        sets, sources, rows = G * E, S_, None
+        bound = plan.expert_bwd_tiles(sets, sources, C)
+    else:
+        ranks, ep, E_loc, C, t_loc, k = shape
+        counts = _routed_counts(rng, ranks, ep, E_loc, t_loc, k)
+        assert counts.max() <= C and (counts.sum((1, 2)) == t_loc * k).all()
+        G = ranks // ep
+        # (g, src, dst, e) -> set (g, dst, e), source offset s = dst - src
+        c = counts.reshape(G, ep, ep, E_loc)
+        live = np.zeros((G, ep, E_loc, ep), np.int64)
+        for src in range(ep):
+            for dst in range(ep):
+                live[:, dst, :, (dst - src) % ep] = c[:, src, dst]
+        live = live.reshape(G * ep * E_loc, ep)
+        sets, sources, rows = G * ep * E_loc, ep, ranks * t_loc * k
+        bound = plan.expert_bwd_tiles(sets, sources, C, rows=rows)
+        # the worst the plan allows: every set one row past a tile
+        worst = -(-(rows + 63 * sets) // 64)
+        assert bound == min(sets * -(-ep * C // 64), worst)
+    per_set = live.sum(1)
+    need = int(np.ceil(per_set / 64).sum())
+    assert need <= bound
+    assert plan.expert_bwd_tiles(sets, sources, C) >= bound
+    words = 1 + bound + sets * (sources + 2)
+    assert plan.expert_bwd_work_words(sets, sources, bound) \
+        == words + words % 2 + 2 * 64 * bound
+    scratch = 2 * plan.expert_bwd_scratch_elems(bound, d, f)   # bf16 bytes
+    assert scratch == 2 * bound * 64 * (2 * d + 3 * f)
+    if case == "a2a call":
+        assert bound == 768 and scratch == 1_258_291_200
+        assert 12_000 <= per_set.sum() <= 15_000
+    if case == "fused plan":
+        assert bound == 508 and int(per_set.sum()) == 16_384
+        transient = scratch + 4 * plan.expert_bwd_work_words(sets, ep, bound)
+        padded = 2 * 3 * G * ep * E_loc * C * (ep * f + (ep - 1) * d)
+        assert transient < 1e9 and 5.5e9 < padded < 5.7e9
