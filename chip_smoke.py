@@ -809,12 +809,15 @@ def _attention_route(torch, dt, D, Dv, G) -> str:
 
 def _attention_bwd_route(torch, dt, D, Dv, G) -> str:
     """The route a gradient case's aligned, contiguous operands must take:
-    the tensor cores for f16/bf16 with D and Dv each a multiple of 16 in
-    [16, 128] and G dividing 64, the CUDA cores otherwise
+    the tensor cores for f16/bf16 with D a multiple of 16 in [16, 128] or
+    192 (MLA's heads, the wide instance), Dv a multiple of 16 in [16, 128]
+    and G dividing 64, the CUDA cores otherwise
     (plan.attention_bwd_route's rule, restated here so the cases check
     it)."""
+    def width_ok(x):
+        return 16 <= x <= 128 and x % 16 == 0
     return ("wgmma" if dt in (torch.float16, torch.bfloat16)
-            and all(16 <= x <= 128 and x % 16 == 0 for x in (D, Dv))
+            and (width_ok(D) or D == 192) and width_ok(Dv)
             and 64 % G == 0 else "simt")
 
 
@@ -954,12 +957,15 @@ def check_flash_bwd(torch, k, g) -> None:
     window across key tiles), non-causal and a query offset, G = 1 at
     D = Dv = 80 across three causal 64-key tiles, and one case for each
     other instance width of the tensor-core route (W = max(D, Dv) 16, 32,
-    48, 96 and 112); f32, f16 and bf16, each
-    case on the route ``attention_bwd_route``'s rule gives it (the 16-bit
-    cases with D and Dv up to 128 on the tensor cores, D 256 and f32 on
-    the CUDA cores).  Both take the plain forward's output and
-    log-sum-exp; the forward kernel's lse (written on the route the rule
-    gives the case) is held against the plain version's first.
+    48, 96 and 112), and the wide instance (D = 192: MLA's Dv 128 over one
+    to three causal key tiles and two query tiles, a prefix window, Dv 64
+    and 80 at G = 4 with a query offset and without the causal mask); f32,
+    f16 and bf16, each case on the route ``attention_bwd_route``'s rule
+    gives it (the 16-bit cases with D up to 128 or 192 and Dv up to 128 on
+    the tensor cores, D 256 and f32 on the CUDA cores).  Both take the
+    plain forward's output and log-sum-exp; the forward kernel's lse
+    (written on the route the rule gives the case) is held against the
+    plain version's first.
     Tolerances, relative to each gradient's largest magnitude: f32 1e-4
     (sums of up to 300 terms a row, in another order), f16 2e-3 and bf16
     1.6e-2 (one ulp of the output type, 2^-10 / 2^-7, plus that order;
@@ -984,6 +990,12 @@ def check_flash_bwd(torch, k, g) -> None:
         (1, 50, 70, 4, 2, 48, 48, False, 0, 0),
         (1, 33, 33, 2, 2, 16, 96, True, 0, 0),
         (1, 64, 64, 2, 1, 112, 96, True, 0, 10),
+        # the wide instance: D = 192 (deepseek-v3's MLA heads)
+        (2, 70, 70, 4, 4, 192, 128, True, 0, 0),
+        (1, 130, 130, 2, 2, 192, 128, True, 0, 0),
+        (1, 100, 100, 2, 2, 192, 128, True, 0, 70),
+        (1, 45, 97, 8, 2, 192, 64, True, 64, 0),
+        (2, 29, 53, 4, 1, 192, 80, False, 0, 0),
     ]
     for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx) in cases:
         for dt in tols:
@@ -3905,15 +3917,19 @@ TRAIN_CHECK_MESH = "pod=2,data=2,model=2"
 TRAIN_LR = 1e-4                 # the checks' constant learning rate
 TRAIN_B1 = 0.9                  # the checks' AdamW first-moment decay
 FLASH_BWD_KERNELS = ("delta_kernel", "dkdv_kernel", "dq_kernel",
-                     "bwd_rows_kernel", "dkdv_tc_kernel", "dq_tc_kernel")
+                     "bwd_rows_kernel", "dkdv_tc_kernel", "dkdv_wide_kernel",
+                     "dq_tc_kernel")
 
 
-def _layer_matrix_weights(cfg, spec) -> int:
-    """Weights of the layers' matrices that a token passes through: the
-    audio encoder's GELU MLP leaves its schema's ``w_gate`` unread."""
+def _layer_matrix_weights(cfg, spec, prefixes=("layers/", "dense_layers/")
+                          ) -> int:
+    """Weights of the layers' matrices that a token passes through (the
+    stacks under ``prefixes``: the layers and deepseek-v3's leading dense
+    layers; the routed experts' 4-D stacks apart): the audio encoder's
+    GELU MLP leaves its schema's ``w_gate`` unread."""
     unread = ("layers/w_gate",) if cfg.family == "audio" else ()
     return sum(math.prod(s.shape) for n, s in spec.items()
-               if n.startswith("layers/") and len(s.shape) == 3
+               if n.startswith(prefixes) and len(s.shape) == 3
                and n not in unread)
 
 
@@ -3926,16 +3942,21 @@ def _train_flops(cfg, tokens: int, seq: int = None) -> float:
     """Operations of one training step under remat: 8 a token for each
     weight of the layers' matrices (forward, recomputed forward, backward
     twice the forward; zamba2's shared block's once for each of its
-    applications), 6 for each weight of the head (LM or masked-frame;
+    applications; deepseek-v3's leading dense layers and MLA's own
+    matrices included), 6 for each weight of the head (LM or masked-frame;
     never recomputed), none for the embedding lookup and the norms; plus
     the attention's score products over the visible pairs (causal, or all
-    of them for the encoder; forward twice, backward 2.5 times the
-    forward), in each attention layer (zamba2: each application of the
-    shared block; rwkv6: none); plus, for the MoE family, the routed
-    experts: 8 a token for each weight of the k experts it reaches, 8 x k x
-    3 x d x f a token a MoE layer (the capacity drops not subtracted).  The
-    recurrent scans' own products (about a hundredth of the weights' at
-    these widths) are left out."""
+    of them for the encoder): 2 (D + Dv) a pair and head forward, twice,
+    and 2 (3 D + 2 Dv) backward (D = Dv = head_dim, or MLA's D = dn + dr
+    and Dv = v_head_dim), in each attention layer (zamba2: each
+    application of the shared block; rwkv6: none); plus, for the MoE
+    family, only the routed experts a token reaches: 8 x k x 3 x d x f a
+    token a MoE layer (the capacity drops not subtracted); plus, with
+    multi-token prediction, its module over the T - 1 positions it sees:
+    the projection of [h; e] at 6 a weight (not recomputed), its layer at 8
+    and its attention as above, and a second LM-head pass at 6 a weight
+    over the T - 2 positions it scores.  The recurrent scans' own products
+    (about a hundredth of the weights' at these widths) are left out."""
     from repro_torch.models import schema
 
     seq = TRAIN_SEQ if seq is None else seq
@@ -3951,17 +3972,70 @@ def _train_flops(cfg, tokens: int, seq: int = None) -> float:
         per_token += 8 * cfg.experts_per_token * 3 * cfg.d_model \
             * cfg.moe_d_ff * moe_layers
     attn_layers = n_app if cfg.family == "hybrid" else cfg.num_layers
-    attn = 2 * 2 * attn_layers * cfg.num_heads * cfg.head_dim \
-        * _attn_pairs(seq, cfg.causal) * (tokens / seq)
-    return per_token * tokens + (2 + 2.5) * attn
+    if cfg.attention == "mla":
+        D, Dv = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim
+    else:
+        D = Dv = cfg.head_dim
+    per_pair = cfg.num_heads * (2 * 2 * (D + Dv) + 2 * (3 * D + 2 * Dv))
+    seqs = tokens / seq
+    total = per_token * tokens \
+        + per_pair * attn_layers * _attn_pairs(seq, cfg.causal) * seqs
+    if cfg.mtp:
+        total += seqs * (
+            (seq - 1) * (6 * math.prod(spec["mtp/proj"].shape)
+                         + 8 * _layer_matrix_weights(cfg, spec,
+                                                     ("mtp/layer/",)))
+            + per_pair * _attn_pairs(seq - 1, cfg.causal)
+            + (seq - 2) * 6 * math.prod(spec[head].shape))
+    return total
+
+
+def _sdpa_grad(torch, q, kk, v, do, causal=True):
+    """SDPA's backward alone on its own forward (the library's yardstick
+    for the gradient kernel, never called by the port): q, k, v and dO in
+    the flash kernel's layout.  Where Dv != D (MLA) the forward, and so its
+    backward, is pinned to the first backend in PyTorch's order whose
+    forward and backward take it; ``.backend`` names it (None: PyTorch's
+    own pick)."""
+    import warnings
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
+                  .requires_grad_() for t in (q, kk, v))
+    do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
+    backends = [None] if v.shape[-1] == q.shape[-1] else [
+        SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+        SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
+    for b in backends:
+        try:
+            with warnings.catch_warnings(), (
+                    sdpa_kernel(b) if b is not None
+                    else contextlib.nullcontext()):
+                warnings.simplefilter("ignore")   # each refusal says why
+                o4 = F.scaled_dot_product_attention(q4, k4, v4,
+                                                    is_causal=causal)
+                torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def call(o4=o4):
+            return torch.autograd.grad(o4, (q4, k4, v4), do4,
+                                       retain_graph=True)
+        call.backend = None if b is None else b.name
+        return call
+    raise RuntimeError(f"no SDPA backend differentiates q {tuple(q.shape)}, "
+                       f"v {tuple(v.shape)}")
 
 
 def _bwd_at(torch, k, q, kk, v, do, causal=True):
     """The backward kernel at the training path's shape against its plain
-    version and SDPA's backward, with its bound (operations at the bf16
+    version (and a second launch, equal bit for bit) and SDPA's backward,
+    with its bound (operations at the bf16
     tensor-core rate: S, dP, dv, dq and dk over the visible (row, key)
     pairs; bytes: q, k, v, o, dO and lse read, dq, dk, dv written) and the
-    device time of each of its passes; the launch must take the tensor
+    device time of each of its passes (the dk/dv pass is
+    ``dkdv_wide_kernel`` at D = 192); the launch must take the tensor
     cores.  Then the forward with the lse at the same shape (row 5's
     training entry, on the tensor cores): its time, device time and bound
     (two products over the visible pairs), beside SDPA's forward under
@@ -3969,7 +4043,6 @@ def _bwd_at(torch, k, q, kk, v, do, causal=True):
     valid; row 5's library time) and, causal, under the same mask as a
     boolean tensor.  ``causal=False`` is the audio encoder's attention:
     every key visible to every query."""
-    import torch.nn.functional as F
     Tq, H, D = q.shape[-3:]
     Tk, Dv = kk.shape[-3], v.shape[-1]
     o, lse = k.flash_attention_kernel(q, kk, v, causal=causal,
@@ -3978,6 +4051,10 @@ def _bwd_at(torch, k, q, kk, v, do, causal=True):
     bwd = k.flash_attention_bwd_kernel
     got = _counted(bwd, lambda: bwd(*args, causal=causal), "wgmma")
     grid = dict(bwd.last_grid)
+    again = bwd(*args, causal=causal)
+    check(all(torch.equal(x, y) for x, y in zip(got, again)),
+          "flash bwd at the training shape: two launches differ")
+    del again
     want = k.flash_attention_bwd_plain(*args, causal=causal)
     errs = {n: (max_err(torch, x, w), float(w.float().abs().max()),
                 int((x != w).sum()), x.numel())
@@ -4000,28 +4077,24 @@ def _bwd_at(torch, k, q, kk, v, do, causal=True):
     ms = cuda_ms(torch, call, 5)
     # the device time by pass, each from its own traces, and their sum (one
     # trace of all three has been seen to hold only some of them)
+    dkdv = "dkdv_wide_kernel" if D == 192 else "dkdv_tc_kernel"
     passes = {name: device_ms(torch, call, 3, (name,))
-              for name in ("bwd_rows_kernel", "dkdv_tc_kernel",
-                           "dq_tc_kernel")}
+              for name in ("bwd_rows_kernel", dkdv, "dq_tc_kernel")}
     dev = None if None in passes.values() else sum(passes.values())
     plain = cuda_ms(torch, lambda: k.flash_attention_bwd_plain(
         *args, causal=causal), 2)
     # the library's yardstick: SDPA's backward alone, on its own forward
-    q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
-                  .requires_grad_() for t in (q, kk, v))
-    o4 = F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal)
-    do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
-
-    def sdpa_bwd():
-        return torch.autograd.grad(o4, (q4, k4, v4), do4, retain_graph=True)
-
+    sdpa_bwd = _sdpa_grad(torch, q, kk, v, do, causal=causal)
     library = cuda_ms(torch, sdpa_bwd, 5)
     library_dev = device_ms(torch, sdpa_bwd, 3, ("",))
-    del q4, k4, v4, o4, do4
-    log(f"flash bwd at q {tuple(q.shape)}: {ms:.4f} ms (device "
-        f"{_ms(dev, 4)}; passes {passes}), plain {plain:.3f}, sdpa backward "
-        f"{library:.4f} (device {_ms(library_dev, 4)}), bound {b_ms:.4f} ms "
-        f"by {b_by}; rel err {err:.3g}")
+    library_backend = sdpa_bwd.backend
+    del sdpa_bwd
+    torch.cuda.empty_cache()
+    log(f"flash bwd at q {tuple(q.shape)}, v {tuple(v.shape)}: {ms:.4f} ms "
+        f"(device {_ms(dev, 4)}; passes {passes}), plain {plain:.3f}, sdpa "
+        f"backward {library:.4f} (device {_ms(library_dev, 4)}; backend "
+        f"{library_backend or 'default'}), bound {b_ms:.4f} ms by {b_by}; "
+        f"rel err {err:.3g}")
     # the forward with the lse at the same shape (D = 80: the tensor cores)
     def fwd():
         return k.flash_attention_kernel(q, kk, v, causal=causal,
@@ -4050,6 +4123,7 @@ def _bwd_at(torch, k, q, kk, v, do, causal=True):
         2 * (q.numel() + kk.numel() + v.numel() + o.numel())
         + 4 * lse.numel(), 2 * pairs * (D + Dv), "bfloat16")
     sdpa = _sdpa(torch, q, kk, v, None, causal=causal)
+    f_lib_backend = sdpa.backend
     f_lib = cuda_ms(torch, sdpa, 5)
     f_lib_dev = device_ms(torch, sdpa, 10, ("",))
     f_mask = f_mask_dev = None
@@ -4064,20 +4138,26 @@ def _bwd_at(torch, k, q, kk, v, do, causal=True):
     log(f"flash forward with the lse at q {tuple(q.shape)} ({f_route}, "
         f"causal {causal}): {f_ms:.4f} ms (device {_ms(f_dev, 4)}), bound "
         f"{f_b_ms:.4f} ms by {f_b_by}, plain {f_plain:.3f}, rel err "
-        f"{f_err:.3g}; sdpa forward is_causal={causal} {f_lib:.4f} (device "
+        f"{f_err:.3g}; sdpa forward ({f_lib_backend or 'default'} backend) "
+        f"is_causal={causal} {f_lib:.4f} (device "
         f"{_ms(f_lib_dev, 4)}), boolean mask {_ms(f_mask, 4)} (device "
         f"{_ms(f_mask_dev, 4)})")
-    return {"max_abs_err": err, "ms": ms, "device_ms": dev,
-            "pass_device_ms": passes, "plain_ms": plain, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": library,
-            "library_device_ms": library_dev, "grid": grid,
-            "shape": list(q.shape),
-            "forward": {"route": f_route, "max_abs_err": f_err, "ms": f_ms,
-                        "device_ms": f_dev, "plain_ms": f_plain,
-                        "bound_ms": f_b_ms, "bound_by": f_b_by,
-                        "library_ms": f_lib, "library_device_ms": f_lib_dev,
-                        "library_mask_ms": f_mask,
-                        "library_mask_device_ms": f_mask_dev}}
+    out = {"max_abs_err": err, "ms": ms, "device_ms": dev,
+           "pass_device_ms": passes, "plain_ms": plain, "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": library,
+           "library_device_ms": library_dev, "grid": grid,
+           "shape": list(q.shape),
+           "forward": {"route": f_route, "max_abs_err": f_err, "ms": f_ms,
+                       "device_ms": f_dev, "plain_ms": f_plain,
+                       "bound_ms": f_b_ms, "bound_by": f_b_by,
+                       "library_ms": f_lib, "library_device_ms": f_lib_dev,
+                       "library_mask_ms": f_mask,
+                       "library_mask_device_ms": f_mask_dev}}
+    if library_backend:
+        out["library_backend"] = library_backend
+    if f_lib_backend:
+        out["forward"]["library_backend"] = f_lib_backend
+    return out
 
 
 def _cut(cfg, layers: int):
@@ -4845,13 +4925,14 @@ def _plain_pairs():
             (fa_mod, "flash_attention_bwd_plain"))
 
 
-def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, **knobs):
+def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, profile=True,
+               **knobs):
     """``steps`` steps of the MoE config on TRAIN_MESH (Adafactor at the
     checks' constant rate, the state updated in place), every count zeroed
     just before and read just after; ``tap`` (module, name, keep) routes
     the last step's calls of one function through ``keep`` (which copies
-    what it needs and keeps no call).  Then one more step profiled by
-    kernel group.  Returns the run's numbers."""
+    what it needs and keeps no call).  Then, with ``profile``, one more
+    step profiled by kernel group.  Returns the run's numbers."""
     from repro_torch.core.context import DiompContext, use_default
     from repro_torch.launch.train import parse_mesh
     from repro_torch.models import schema as sch
@@ -4892,13 +4973,16 @@ def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, **knobs):
                          and w.launches}
         out["plain_calls"] = dict(plain)
         out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        extra = batch(steps)
+        out["breakdown"] = None
+        if profile:
+            extra = batch(steps)
 
-        def one():
-            state[0], state[1], _ = step(state[0], state[1], extra, steps)
+            def one():
+                state[0], state[1], _ = step(state[0], state[1], extra,
+                                             steps)
 
-        out["breakdown"] = _breakdown(torch, one, reps=1)
-    del state, extra
+            out["breakdown"] = _breakdown(torch, one, reps=1)
+    del state
     torch.cuda.empty_cache()
     return out
 
@@ -4910,9 +4994,10 @@ def _tiles_by_set(torch, rows) -> dict:
     return {n: tiles.count(n) for n in sorted(set(tiles))}
 
 
-def _expert_bwd_at(torch, k, g, x, dy, counts):
+def _expert_bwd_at(torch, k, g, x, dy, counts, f=None):
     """Row 12 at a training call's shape and live rows (``x``, ``dy`` and
-    ``counts`` of the call; weights random at its shapes) against its plain
+    ``counts`` of the call; weights random at its shapes, ``f`` the
+    expert width, qwen3-moe's by default) against its plain
     version, twice for equal bits, timed by CUDA events and by the
     profiler's device time (whole and by pass), beside its bound (the live
     rows of x and dy and the weights read once, dx and each dW written
@@ -4921,7 +5006,7 @@ def _expert_bwd_at(torch, k, g, x, dy, counts):
     x, dy = (t.reshape(-1, *t.shape[-4:]) for t in (x, dy))
     G, S_, E, C, d = x.shape
     counts = counts.reshape(G, S_, E)
-    f = TRAIN_MOE_F
+    f = TRAIN_MOE_F if f is None else f
     ws = [(torch.randn(G, E, a, b, generator=g, device="cuda") * a ** -0.5)
           .to(x.dtype) for a, b in ((d, f), (d, f), (f, d))]
     bwd = k.expert_mlp_bwd
@@ -4957,10 +5042,11 @@ def _expert_bwd_at(torch, k, g, x, dy, counts):
     return row
 
 
-def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
+def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape, f=None):
     """Row 13 at a training call's plan and live rows (its ``counts``;
     blocks and cotangents random below the counts, zero past them, weights
-    random, at the call's shapes) against its plain version (run
+    random, at the call's shapes; ``f`` the expert width, qwen3-moe's by
+    default) against its plain version (run
     MLA_PLAIN_EXPERTS experts at a time), twice for equal bits, timed,
     beside its bound (the live rows of the blocks and cotangents and the
     weights read once, dbuf and each dW written once; 16 d f operations a
@@ -4968,7 +5054,7 @@ def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
     from repro_torch.core.context import use_default
     lead = tuple(counts.shape[:-1])            # (*mesh, ep)
     E_loc, C, d = plan.E_loc, plan.cap_pad, shape[-1]
-    f = TRAIN_MOE_F
+    f = TRAIN_MOE_F if f is None else f
     live = (torch.arange(C, device="cuda") < counts[..., None])[..., None]
     buf = (torch.randn(*lead, E_loc, C, d, generator=g, device="cuda")
            * live).to(torch.bfloat16)
@@ -5028,17 +5114,67 @@ def _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape):
 TRAIN_MOE_F = 1536                 # qwen3-moe's moe_d_ff
 
 
-def _moe_train_checks(torch, k, dev) -> dict:
-    """At full width, depth 1, in f32, on TRAIN_MESH: each rank's loss,
+def _replayed_routes(torch, choices):
+    """``route_topk`` replaying ``choices`` (one ``top_e`` a call, in call
+    order): each call's weights are its own probabilities at those experts,
+    renormalized as ``route_topk`` renormalizes them."""
+    calls = iter(choices)
+
+    def route(toks, router, k):
+        top_e = next(calls)
+        probs = torch.softmax(torch.matmul(toks.float(), router.float()),
+                              dim=-1)
+        top_w = torch.gather(probs, -1, top_e)
+        return top_w / top_w.sum(-1, keepdim=True).clamp(min=1e-9), top_e
+    return route
+
+
+def _route_flips(torch, own, replayed, args):
+    """The tokens whose own top-k (its experts in order) differs from the
+    replayed one, and the largest, among them, of the token's smallest
+    relative gap between neighbouring probabilities of its own top k + 1
+    (a choice or its order can only move where two of them nearly tie)."""
+    flips, gap = 0, 0.0
+    for mine, theirs, (toks, router, k) in zip(own, replayed, args):
+        moved = (mine != theirs).any(-1)
+        n = int(moved.sum())
+        if n:
+            with torch.no_grad():
+                probs = torch.softmax(torch.matmul(toks.float(),
+                                                   router.float()), dim=-1)
+                top = torch.topk(probs, k + 1, dim=-1)[0][moved]
+                rel = (top[:, :-1] - top[:, 1:]) / top[:, :-1]
+            gap = max(gap, float(rel.min(-1)[0].max()))
+        flips += n
+    return flips, gap
+
+
+# deepseek-v3 routes after a dense layer and an MLA layer, whose f32 sums in
+# another order move its router's probabilities by about 1e-6: over a
+# microbatch of 8192 tokens a few sit that close to a tie (4 tokens, the
+# widest gap 5.5e-7, on an H100), so its checks allow a token's choices to
+# differ where two neighbouring probabilities of its top k + 1 are within
+# this relative gap; qwen3-moe's allow none
+MOE_CHECK_TIE_GAP = {"deepseek-v3-671b": 1e-4}
+
+
+def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
+    """At full width, depth 1 (or ``cfg``'s cut), in f32, on TRAIN_MESH:
+    each rank's loss (deepseek-v3's MTP term included),
     gradients and drop counts on the kernels against the same on their
     plain versions, the routing of both asserted identical (every (token,
     choice) of every rank); once under "a2a" (flash and its gradient, the
     expert MLP and its gradient, on the CUDA cores) from one microbatch of
-    the phase's traffic, and once under "fused" (flash and its gradient,
+    the phase's traffic (``short``: from one sequence a data rank cut to
+    MOE_CHECK_SEQ tokens), and once under "fused" (flash and its gradient,
     the fused dispatch's block-level function and its gradient, joined to
     the scatter and the combine by ``FusedDispatchFn``) from one sequence
-    a data rank cut to MOE_CHECK_SEQ tokens.  The plain run's gradients
-    wait on the host while the kernels' run: the two runs' f32 gradients
+    a data rank cut to MOE_CHECK_SEQ tokens.  The kernels' run replays the
+    plain run's expert choices (``_replayed_routes``), so both compute one
+    function; its own choices must equal them, or, for a config in
+    MOE_CHECK_TIE_GAP, differ only at near ties (``_route_flips``).  The
+    plain run's gradients wait on the host while the kernels' run: the
+    two runs' f32 gradients
     and activations do not fit the card together; no optimizer state is
     made (the check compares gradients).  Bounds: the loss within 1e-5 and
     each gradient leaf within 5e-3 of its largest per-rank value, the
@@ -5064,7 +5200,13 @@ def _moe_train_checks(torch, k, dev) -> dict:
         return fused.fused_dispatch_bwd_plain(buf, wg, wu, wd, counts,
                                               dfull, group)
 
-    cfg = _cut(configs.get(MOE_TRAIN_ARCH), 1)
+    if cfg is None:
+        cfg = _cut(configs.get(MOE_TRAIN_ARCH), 1)
+    # flash's forwards and backwards (a forward and a remat forward an
+    # attention layer, the MTP layer's included), the expert products'
+    attn_layers = cfg.num_layers + int(cfg.mtp)
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    launches = [2 * attn_layers, attn_layers, 2 * moe_layers, moe_layers]
     loss_fn = api.loss_fn(cfg)
     mesh = parse_mesh(TRAIN_MESH)
     dctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 26)
@@ -5087,7 +5229,7 @@ def _moe_train_checks(torch, k, dev) -> dict:
              blocks_plain),
             (fused, "fused_dispatch_bwd_kernel", k.fused_dispatch_bwd_kernel,
              blocks_bwd_plain)]}
-    out = {"layers": 1}
+    out = {"layers": cfg.num_layers}
     for impl, swaps in impls.items():
         wr = [w for _, _, w, _ in swaps]
         runs = {}
@@ -5096,7 +5238,7 @@ def _moe_train_checks(torch, k, dev) -> dict:
             ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh,
                                             dispatch_impl=impl)
             b0 = batch(0)
-            if impl == "a2a":
+            if impl == "a2a" and not short:
                 b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
                                   // TRAIN_MICRO) for n, t in b0.items()}
             else:           # one sequence a data rank
@@ -5114,34 +5256,39 @@ def _moe_train_checks(torch, k, dev) -> dict:
                     return loss
 
                 before = [w.launches for w in wr]
-                with contextlib.ExitStack() as stack, \
-                        _Tap(layers_mod, "route_topk",
-                             lambda a, kw: True) as rt:
+                with contextlib.ExitStack() as stack:
                     if mode == "plain":
                         for mod, name, _, plain in swaps:
                             stack.enter_context(_Swap(mod, name, plain))
+                    else:
+                        stack.enter_context(_Swap(
+                            layers_mod, "route_topk", _replayed_routes(
+                                torch, runs["plain"]["routes"])))
+                    rt = stack.enter_context(_Tap(
+                        layers_mod, "route_topk", lambda a, kw: True))
                     loss, grads = per_rank_grads(params, b0, cfg, ctx, mesh,
                                                  loss_fn=framed)
                 launched = [w.launches - b for w, b in zip(wr, before)]
                 # route_topk returns (top_w, top_e): the tap kept its
-                # inputs; the choices are recomputed from them (the same
-                # function)
+                # inputs; each run's own choices are recomputed from them
+                # (the same function)
                 routes = [layers_mod.route_topk(*a)[1] for a, _ in rt.calls]
                 runs[mode] = {"loss": loss, "launched": launched,
-                              "routes": routes,
+                              "routes": routes, "route_args": [
+                                  a for a, _ in rt.calls],
                               "dropped": stats["moe_dropped"].clone(),
                               "grads": grads if mode == "kernels" else
                               {n: t.cpu() for n, t in grads.items()}}
                 del grads, rt
                 torch.cuda.empty_cache()
         kp, pp = runs["kernels"], runs["plain"]
-        tag = f"moe checks ({impl})"
-        check(kp["launched"] == [2, 1, 2, 1] and pp["launched"] == [0] * 4,
+        tag = f"moe checks {cfg.name} ({impl})"
+        check(kp["launched"] == launches and pp["launched"] == [0] * 4,
               f"{tag}: launches (flash, flash bwd, the expert products, "
               f"their gradient) {kp['launched']} on the kernels, "
               f"{pp['launched']} on the plain versions")
-        flips = sum(int((a != b).any(-1).sum())
-                    for a, b in zip(kp["routes"], pp["routes"]))
+        flips, gap = _route_flips(torch, kp["routes"], pp["routes"],
+                                  kp["route_args"])
         loss_err = max_err(torch, kp["loss"], pp["loss"]) / float(
             pp["loss"].abs().max())
         errs = []
@@ -5154,14 +5301,19 @@ def _moe_train_checks(torch, k, dev) -> dict:
         res = {"tokens": int(b0["tokens"].numel()), "loss_rel": loss_err,
                "grad_rel": errs[0][0], "grad_rel_leaf": errs[0][1],
                "grad_rel_top": errs[:4], "routing_flips": flips,
+               "routing_flip_gap": gap,
                "routing_calls": len(kp["routes"]),
                "dropped": float(kp["dropped"].sum()),
                "loss": float(kp["loss"].mean()),
                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-        log(f"{tag} at depth 1 (f32): kernels vs plain " + json.dumps(res))
-        check(flips == 0 and len(kp["routes"]) == len(pp["routes"]) > 0,
-              f"{tag}: {flips} routing choices differ between the kernels "
-              f"and the plain versions")
+        log(f"{tag} at depth {cfg.num_layers} (f32): kernels vs plain "
+            + json.dumps(res))
+        tie_gap = MOE_CHECK_TIE_GAP.get(cfg.name)
+        check(len(kp["routes"]) == len(pp["routes"]) > 0
+              and (flips == 0 if tie_gap is None else gap <= tie_gap),
+              f"{tag}: {flips} tokens' routing differs between the kernels "
+              f"and the plain versions (its widest neighbouring-probability "
+              f"gap {gap}, allowed {tie_gap or 'none'})")
         check(torch.equal(kp["dropped"], pp["dropped"]),
               f"{tag}: drops {kp['dropped'].tolist()} on the kernels, "
               f"{pp['dropped'].tolist()} on the plain versions")
@@ -5173,6 +5325,105 @@ def _moe_train_checks(torch, k, dev) -> dict:
     del params
     torch.cuda.empty_cache()
     return out
+
+
+def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
+                    profiled=("a2a", "fused")):
+    """``cfg`` trained TRAIN_STEPS steps on TRAIN_MESH under the default
+    capacity all-to-all at TRAIN_MICRO, then MOE_FUSED_STEPS steps under the
+    dropless fused ring at MOE_FUSED_MICRO (:func:`_moe_steps`), every
+    wrapper's count zeroed just before each run and read just after: each
+    of the ``attn_layers`` attention layers a forward and a remat forward
+    on flash and a backward on its gradient, each of the ``moe_layers`` MoE
+    layers a forward and a remat forward on row 7 and a backward on row 12
+    under "a2a", on rows 8 and 13 under "fused", all on the tensor cores,
+    no plain version, no drop under "fused".  Logs each run's losses, drop
+    counts, step times and tokens/s beside the step's bound, its peak
+    memory and, for the dispatches in ``profiled``, one more step
+    profiled by kernel group.  Returns the runs
+    and, by dispatch, the last step's first backward call of its expert
+    rows: row 12's x, dy and counts; row 13's block shape, counts, group
+    and plan."""
+    from repro_torch.kernels.moe_dispatch import fused
+    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = _train_flops(cfg, tokens)
+    b_ms = flops / PEAK_OPS["bfloat16"] * 1e3
+    runs, calls = {}, {}
+
+    def first(impl, pick):
+        def keep(args, kw):
+            if impl not in calls:
+                calls[impl] = pick(args, kw)
+            return False
+        return keep
+
+    for impl, steps, micro in (("a2a", TRAIN_STEPS, TRAIN_MICRO),
+                               ("fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO)):
+        tag = f"train {cfg.name} ({impl})"
+        if impl == "a2a":
+            tap = (mlp_mod, "expert_mlp_bwd", first(impl, lambda a, kw: (
+                a[0].detach().clone(), a[4].detach().clone(),
+                a[5].clone())))
+        else:
+            tap = (fused, "fused_dispatch_bwd_kernel", first(
+                impl, lambda a, kw: (tuple(a[0].shape), a[4].clone(), a[6],
+                                     kw["plan"])))
+        run = _moe_steps(torch, dev, wrappers, cfg, steps, tap=tap,
+                         profile=impl in profiled, dispatch_impl=impl,
+                         microbatch=micro)
+        passes = micro * steps
+        launches, routes = run["launches"], run["routes"]
+        log(f"{tag}: {cfg.param_count()} parameters, {cfg.num_layers} "
+            f"layers, on {TRAIN_MESH}, {steps} steps of {TRAIN_BATCH} x "
+            f"{TRAIN_SEQ} tokens (microbatch {micro}) in "
+            f"{run['wall_s']:.1f} s; losses {run['losses']}, grad norms "
+            f"{run['grad_norms']}, drops {run['moe_dropped']} (rates "
+            f"{run['moe_drop_rate']}); launches {launches}, routes {routes}; "
+            f"plain calls {run['plain_calls']}; peak "
+            f"{run['peak_memory_gb']:.2f} GB")
+        check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
+              and len(run["losses"]) == steps, f"{tag}: a non-finite step")
+        moe = ({"expert_mlp": 2 * moe_layers * passes,
+                "expert_mlp_bwd": moe_layers * passes}
+               if impl == "a2a" else
+               {"fused_moe_dispatch": 2 * moe_layers * passes,
+                "fused_moe_dispatch_bwd": moe_layers * passes})
+        want = {"flash_attention": 2 * attn_layers * passes,
+                "flash_attention_bwd": attn_layers * passes, **moe}
+        check(all(launches[n] == c for n, c in want.items())
+              and all(c == 0 for n, c in launches.items() if n not in want),
+              f"{tag}: launches {launches}, not {want}")
+        check(all(routes[n] == {"simt": 0, "wgmma": c}
+                  for n, c in want.items()), f"{tag}: routes {routes}")
+        check(not any(run["plain_calls"].values()),
+              f"{tag}: a plain version ran: {run['plain_calls']}")
+        if impl == "fused":
+            check(not any(run["moe_dropped"]),
+                  f"{tag}: the dropless ring dropped {run['moe_dropped']}")
+        steps_ms = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
+                    for s in run["step_s"]]
+        log(f"{tag}: step times (ms, the first with its warm-up) "
+            f"{[round(s['ms'], 2) for s in steps_ms]}, tokens/s "
+            f"{[round(s['tokens_per_s'], 1) for s in steps_ms]}; bound "
+            f"{b_ms:.2f} ms a step ({flops:.4g} operations at the bf16 "
+            f"tensor-core rate); one step profiled: "
+            f"{run['breakdown'] or 'not profiled'}")
+        runs[impl] = {"layers": cfg.num_layers,
+                      "parameters": cfg.param_count(), "microbatch": micro,
+                      "step_ms": steps_ms, "bound_ms": b_ms,
+                      "peak_memory_gb": run["peak_memory_gb"],
+                      "losses": run["losses"],
+                      "grad_norms": run["grad_norms"],
+                      "moe_dropped": run["moe_dropped"],
+                      "moe_drop_rate": run["moe_drop_rate"],
+                      "launches": {n: launches[n] for n in want},
+                      "routes": {n: routes[n] for n in want},
+                      "breakdown": run["breakdown"]}
+        del run
+        torch.cuda.empty_cache()
+    return runs, calls
 
 
 def moe_train_phase(torch, k, dev, wrappers) -> dict:
@@ -5194,86 +5445,12 @@ def moe_train_phase(torch, k, dev, wrappers) -> dict:
     JSON."""
     from repro_torch import configs
     from repro_torch.core.context import DiompContext
-    from repro_torch.kernels.moe_dispatch import fused
-    from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
     from repro_torch.launch.train import parse_mesh
 
     cfg = _cut(configs.get(MOE_TRAIN_ARCH), MOE_TRAIN_LAYERS)
-    L = cfg.num_layers
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    b_ms = _train_flops(cfg, tokens) / PEAK_OPS["bfloat16"] * 1e3
     g = torch.Generator(device=dev).manual_seed(9)
-    runs, calls = {}, {}
-
-    def first(impl, pick):
-        def keep(args, kw):
-            if impl not in calls:
-                calls[impl] = pick(args, kw)
-            return False
-        return keep
-
-    for impl, steps, micro in (("a2a", TRAIN_STEPS, TRAIN_MICRO),
-                               ("fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO)):
-        tag = f"train {cfg.name} ({impl})"
-        # the last step's first backward call: row 12's x, dy and counts;
-        # row 13's block shape, counts, group and plan
-        if impl == "a2a":
-            tap = (mlp_mod, "expert_mlp_bwd", first(impl, lambda a, kw: (
-                a[0].detach().clone(), a[4].detach().clone(),
-                a[5].clone())))
-        else:
-            tap = (fused, "fused_dispatch_bwd_kernel", first(
-                impl, lambda a, kw: (tuple(a[0].shape), a[4].clone(), a[6],
-                                     kw["plan"])))
-        run = _moe_steps(torch, dev, wrappers, cfg, steps, tap=tap,
-                         dispatch_impl=impl, microbatch=micro)
-        passes = micro * steps
-        launches, routes = run["launches"], run["routes"]
-        log(f"{tag}: {cfg.param_count()} parameters, {L} of 94 layers, on "
-            f"{TRAIN_MESH}, {steps} steps of {TRAIN_BATCH} x {TRAIN_SEQ} "
-            f"tokens (microbatch {micro}) in {run['wall_s']:.1f} s; "
-            f"losses {run['losses']}, grad norms {run['grad_norms']}, drops "
-            f"{run['moe_dropped']} (rates {run['moe_drop_rate']}); launches "
-            f"{launches}, routes {routes}; plain calls {run['plain_calls']}; "
-            f"peak {run['peak_memory_gb']:.2f} GB")
-        check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
-              and len(run["losses"]) == steps, f"{tag}: a non-finite step")
-        moe = ({"expert_mlp": 2 * L * passes, "expert_mlp_bwd": L * passes}
-               if impl == "a2a" else
-               {"fused_moe_dispatch": 2 * L * passes,
-                "fused_moe_dispatch_bwd": L * passes})
-        want = {"flash_attention": 2 * L * passes,
-                "flash_attention_bwd": L * passes, **moe}
-        check(all(launches[n] == c for n, c in want.items())
-              and all(c == 0 for n, c in launches.items() if n not in want),
-              f"{tag}: launches {launches}, not {want}")
-        check(all(routes[n] == {"simt": 0, "wgmma": c}
-                  for n, c in want.items()), f"{tag}: routes {routes}")
-        check(not any(run["plain_calls"].values()),
-              f"{tag}: a plain version ran: {run['plain_calls']}")
-        if impl == "fused":
-            check(not any(run["moe_dropped"]),
-                  f"{tag}: the dropless ring dropped {run['moe_dropped']}")
-        steps_ms = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
-                    for s in run["step_s"]]
-        log(f"{tag}: step times (ms, the first with its warm-up) "
-            f"{[round(s['ms'], 2) for s in steps_ms]}, tokens/s "
-            f"{[round(s['tokens_per_s'], 1) for s in steps_ms]}; bound "
-            f"{b_ms:.2f} ms a step ({_train_flops(cfg, tokens):.4g} "
-            f"operations at the bf16 tensor-core rate); one step profiled: "
-            f"{run['breakdown']}")
-        runs[impl] = {"layers": L, "parameters": cfg.param_count(),
-                      "microbatch": micro,
-                      "step_ms": steps_ms, "bound_ms": b_ms,
-                      "peak_memory_gb": run["peak_memory_gb"],
-                      "losses": run["losses"],
-                      "moe_dropped": run["moe_dropped"],
-                      "moe_drop_rate": run["moe_drop_rate"],
-                      "launches": {n: launches[n] for n in want},
-                      "routes": {n: routes[n] for n in want},
-                      "breakdown": run["breakdown"]}
-        del run
-        torch.cuda.empty_cache()
+    runs, calls = _moe_train_runs(torch, dev, wrappers, cfg, cfg.num_layers,
+                                  cfg.num_layers)
     # rows 12 and 13 at the runs' own calls
     row12 = _expert_bwd_at(torch, k, g, *calls.pop("a2a"))
     shape, counts, group, plan = calls.pop("fused")
@@ -5305,6 +5482,85 @@ def moe_train_phase(torch, k, dev, wrappers) -> dict:
     for line, impl in zip(lines, ("a2a", "fused")):
         line["checks"] = {"layers": checks["layers"], **checks[impl]}
     return lines
+
+
+# -- training deepseek-v3: MLA, its MTP term, row 10 at D = 192 --------------
+
+# deepseek-v3-671b at full width (d_model 7168, 128 heads of MLA: q / kv
+# lora 1536 / 512, nope / rope 128 / 64, v 128; d_ff 18432, moe_d_ff 2048,
+# top-8 with 1 shared expert, vocab 129,280) with its MTP module whole and
+# its depth and experts cut to fit one card: 1 of its 3 leading dense
+# layers, 1 of its 58 MoE layers, 16 of its 256 routed experts (8 a rank at
+# EP = 2).  That is 3.707e9 parameters; the 3 dense + 1 MoE layers at 256
+# experts hold 1.54e10, past what one card trains.  The traffic is
+# qwen3-moe's (moe_train_phase): Adafactor on TRAIN_MESH, TRAIN_STEPS steps
+# under the capacity all-to-all at TRAIN_MICRO, then MOE_FUSED_STEPS under
+# the fused ring at MOE_FUSED_MICRO.
+DS_TRAIN_ARCH = "deepseek-v3-671b"
+DS_TRAIN_CUT = {"num_layers": 2, "first_k_dense": 1, "num_experts": 16}
+
+
+def deepseek_train_phase(torch, k, dev, wrappers) -> dict:
+    """deepseek-v3 at the DS_TRAIN_CUT cut, trained as qwen3-moe is
+    (:func:`moe_train_phase`), every wrapper's count zeroed just before each
+    run and read just after: every attention (the dense, MoE and MTP
+    layers: MLA at D = 192, Dv = 128) a forward and a remat forward on row
+    5 and a backward on row 10, all on the tensor cores; under "a2a" the
+    MoE layer's expert MLP forward and remat forward on row 7 and its
+    backward on row 12, under "fused" on rows 8 and 13; no plain version.
+    Each run's losses, grad norms, drops, step times and tokens/s beside
+    the step's bound, its peak memory and one more step profiled by kernel
+    group; row 10 at the step's own shape (:func:`_bwd_at`: against its
+    plain version, twice for equal bits, timed beside SDPA's backward and
+    its bound; the forward with the lse there too); rows 12 and 13 at the
+    runs' own calls (d 7168, f 2048); then the f32 checks of
+    :func:`_moe_train_checks` at the same cut under both dispatches."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext
+    from repro_torch.launch.train import parse_mesh
+
+    t_phase = time.perf_counter()
+    full = configs.get(DS_TRAIN_ARCH)
+    cfg = dataclasses.replace(full, **DS_TRAIN_CUT)
+    moe_layers = cfg.num_layers - cfg.first_k_dense
+    log(f"train {DS_TRAIN_ARCH}: cut to {cfg.first_k_dense} of "
+        f"{full.first_k_dense} dense layers, {moe_layers} of "
+        f"{full.num_layers - full.first_k_dense} MoE layers, "
+        f"{cfg.num_experts} of {full.num_experts} routed experts, the MTP "
+        f"module whole: {cfg.param_count()} parameters (the whole model "
+        f"{full.param_count()}); full width")
+    g = torch.Generator(device=dev).manual_seed(11)
+    # the attention layers: the dense, the MoE and the MTP layer; one
+    # profiled step, the capacity all-to-all's
+    runs, calls = _moe_train_runs(torch, dev, wrappers, cfg,
+                                  cfg.num_layers + 1, moe_layers,
+                                  profiled=("a2a",))
+    # row 10 at one attention layer's call of the step: ranks 2 x 2, a
+    # microbatch of 2 sequences of TRAIN_SEQ, 64 heads a rank (KH = H: MLA
+    # expands its shared rope key), D 192, Dv 128, bf16
+    D = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    lead = (2, 2, TRAIN_BATCH // 2 // TRAIN_MICRO, TRAIN_SEQ,
+            cfg.num_heads // 2)
+    Dv = cfg.v_head_dim
+    q, kk, v, do = (torch.randn(*lead, w, generator=g, device=dev)
+                    .to(torch.bfloat16) for w in (D, D, Dv, Dv))
+    row10 = _bwd_at(torch, k, q, kk, v, do)
+    del q, kk, v, do
+    torch.cuda.empty_cache()
+    # rows 12 and 13 at the runs' own calls
+    row12 = _expert_bwd_at(torch, k, g, *calls.pop("a2a"), f=cfg.moe_d_ff)
+    shape, counts, group, plan = calls.pop("fused")
+    dctx = DiompContext(mesh=parse_mesh(TRAIN_MESH), device=dev)
+    row13 = _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape,
+                             f=cfg.moe_d_ff)
+    del counts
+    torch.cuda.empty_cache()
+    checks = _moe_train_checks(torch, k, dev, cfg, short=True)
+    seconds = time.perf_counter() - t_phase
+    log(f"train {cfg.name}: the phase took {seconds:.1f} s")
+    return {"runs": runs, "row10": row10, "row12": row12, "row13": row13,
+            "checks": checks, "seconds": seconds}
 
 
 # -- the weight ring of the ZeRO-3 gather (use_ring_matmul) -----------------
@@ -6459,7 +6715,33 @@ def main() -> int:
     log("ring_fsdp: " + json.dumps(ring_fsdp))
 
     # -- phase 21: training qwen3-moe, rows 12 and 13 ------------------------
-    kernels.extend(moe_train_phase(torch, k, dev, wrappers))
+    row12, row13 = moe_train_phase(torch, k, dev, wrappers)
+    kernels.extend([row12, row13])
+
+    # -- phase 22: training deepseek-v3, its MTP term, row 10 at D = 192 ----
+    ds = deepseek_train_phase(torch, k, dev, wrappers)
+    a2a, fused_run = ds["runs"]["a2a"], ds["runs"]["fused"]
+    by_path["train deepseek-v3"] = (a2a["launches"]["flash_attention"]
+                                    + fused_run["launches"]["flash_attention"])
+    flash["deepseek_train"] = ds["row10"].pop("forward")
+    bwd["launches_by_path"]["deepseek-v3"] = (
+        a2a["launches"]["flash_attention_bwd"]
+        + fused_run["launches"]["flash_attention_bwd"])
+    bwd["deepseek_train"] = {**ds["row10"], "train": ds["runs"],
+                             "phase_s": ds["seconds"]}
+    mlp_line.setdefault("launches_by_path", {})["train deepseek-v3"] = \
+        a2a["launches"]["expert_mlp"]
+    dispatch["launches_by_path"]["train deepseek-v3"] = \
+        fused_run["launches"]["fused_moe_dispatch"]
+    for row, impl, name in ((row12, "a2a", "expert_mlp_bwd"),
+                            (row13, "fused", "fused_moe_dispatch_bwd")):
+        row["launches_by_path"] = {
+            "qwen3-moe": row["launches"],
+            "deepseek-v3": ds["runs"][impl]["launches"][name]}
+        row["deepseek_train"] = {
+            **ds["row12" if impl == "a2a" else "row13"],
+            "checks": {"layers": ds["checks"]["layers"],
+                       **ds["checks"][impl]}}
     check(len(kernels) == len(wrappers) == 13, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))

@@ -614,27 +614,12 @@ __device__ __forceinline__ void exb_zero3(float (&a)[32], float (&b)[32],
   for (int i = 0; i < 32; ++i) a[i] = b[i] = c[i] = 0.f;
 }
 
-// mbar_wait that traps after about ten seconds on the SM clock: a lost
-// arrival becomes a launch error the wrapper raises, not a hung card.
-__device__ __forceinline__ void exb_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (!done && clock64() - t0 > 20000000000LL) __trap();
-  } while (!done);
-}
-
 // The producer's K step: `nbox` boxes into the next stage once its
 // consumers have released it; load(stage) issues them.
 template <typename Load>
 __device__ __forceinline__ void exb_produce(const ExbTcSmem& sm, ExbPipe& pipe,
                                             int nbox, const Load& load) {
-  exb_wait(sm.empty(pipe.stage), pipe.phase ^ 1);
+  mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
   const uint32_t full = sm.full(pipe.stage);
   mbar_expect_tx(full, nbox * EXB_BOX_BYTES);
   load(pipe.stage, full);
@@ -651,7 +636,7 @@ template <typename Fence, typename Mma>
 __device__ __forceinline__ void exb_consume(const ExbTcSmem& sm, ExbPipe& pipe,
                                             const Fence& fence,
                                             const Mma& mma) {
-  exb_wait(sm.full(pipe.stage), pipe.phase);
+  mbar_wait_trap(sm.full(pipe.stage), pipe.phase);
   fence();
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
   mma(pipe.stage);
@@ -913,7 +898,7 @@ __device__ void exb_tc_dw_pass(const ExbTcSmem& sm, ExbPipe& pipe,
         for (int t = 0; t < tiles; ++t) {
           const int r0 = (first + t) * EXB_BR, sl = t % EXB_SLOTS;
           if (!keep || j == j_lo) {
-            exb_wait(sm.xempty(sl), ((xphase >> sl) & 1) ^ 1);
+            mbar_wait_trap(sm.xempty(sl), ((xphase >> sl) & 1) ^ 1);
             mbar_expect_tx(sm.xfull(sl), 2 * halves * EXB_BOX_BYTES);
             for (int h = 0; h < halves; ++h) {
               tma_load_5d(sm.slot(sl, 2 * h), xm, sm.xfull(sl), k0 + 64 * h,
@@ -939,7 +924,7 @@ __device__ void exb_tc_dw_pass(const ExbTcSmem& sm, ExbPipe& pipe,
         for (int t = 0; t < tiles; ++t) {
           const int sl = t % EXB_SLOTS;
           if (!keep || j == j_lo) {
-            exb_wait(sm.xfull(sl), (xphase >> sl) & 1);
+            mbar_wait_trap(sm.xfull(sl), (xphase >> sl) & 1);
             xphase ^= 1u << sl;
           }
           exb_consume(sm, pipe, fence, [&](int s) {

@@ -41,10 +41,12 @@
 // plan.py attention_bwd_route; the entry point checks it again and refuses
 // a tensor-core launch off it):
 //
-// * tensor cores (bwd_rows_kernel, dkdv_tc_kernel, dq_tc_kernel): f16 and
-//   bf16 with D and Dv each a multiple of 16 in [16, 128], G dividing 64,
-//   16-byte-aligned operands.  `delta` holds 3 N KH Rp values, Rp the rows
-//   Tq G of a kv head rounded up to the 64-row tile.
+// * tensor cores (bwd_rows_kernel, dkdv_tc_kernel or dkdv_wide_kernel,
+//   dq_tc_kernel): f16 and bf16 with D a multiple of 16 in [16, 128] or 192
+//   (deepseek-v3's MLA heads: the wide instance, below), Dv a multiple of
+//   16 in [16, 128], G dividing 64, 16-byte-aligned operands.  `delta`
+//   holds 3 N KH Rp values, Rp the rows Tq G of a kv head rounded up to
+//   the 64-row tile.
 //   - bwd_rows_kernel: one thread a (n, kv head, row) of the padded tile
 //     order writes the row's lse log2(e), delta and key end (the forward's
 //     masks make every row see a prefix of the keys, [0, rend)); a padded
@@ -74,9 +76,9 @@
 //     transpose bit).  K rows past the tile's key end are zeroed in shared
 //     memory first (0 x NaN is NaN inside wgmma; a cache's rows past
 //     valid_len may hold anything).
-//   W = max(D, Dv) is the instance: both accumulators are W wide, and a
-//   narrower operand's columns past its width are TMA's zero fill (D = 80
-//   is two 64-column boxes, the second read 16 columns deep).  The S and dP
+//   W = max(D, Dv) is the narrow instance: both accumulators are W wide,
+//   and a narrower operand's columns past its width are TMA's zero fill
+//   (D = 80 is two 64-column boxes, the second read 16 columns deep).  The S and dP
 //   contractions run D / 16 and Dv / 16 k16 steps.  Every box is 128-byte
 //   swizzled; positions past Tq or Tk read as zero.  Both grids are 1-D
 //   with the heaviest tiles first under the causal mask (the dk/dv pass by
@@ -97,6 +99,13 @@
 //   min 2) capped it at 168 and spilled 1,172 bytes, and the pass took 2.4
 //   times as long.  At W = 128 it takes 237 (one block an SM).  The dq
 //   pass takes 149 at W = 80.  chip_smoke.py logs every instance's count.
+//   The wide instance (D = 192, Dv up to 128) cannot hold dk and dv in one
+//   warpgroup (224 accumulators beside the score fragments), so its dk/dv
+//   pass (dkdv_wide_kernel) splits them over two consumer warpgroups,
+//   each forming S^T itself; its dq pass is dq_tc_kernel with dq 192 wide
+//   and the D- and Dv-wide operands 3 and 2 boxes (bwd_tc_wide_smem_bytes:
+//   the stages hold what each operand needs, not max(D, Dv) columns of
+//   each).  Its waits trap after about ten seconds instead of hanging.
 //
 // * CUDA cores (delta_kernel, dkdv_kernel, dq_kernel): f32 and every shape
 //   off the rule.  `delta` holds N Tq H values.
@@ -465,18 +474,26 @@ __host__ __device__ inline int bwd_tc_smem_bytes(int nbox) {
          + BWD_TC_STAGES * BWD_ROW_STATS + 8 * (2 * BWD_TC_STAGES + 1);
 }
 
+// The same layout with the D-wide operands (q, K) kb boxes and the Dv-wide
+// ones (dO, V) vb boxes: the wide instance's (below).  At kb = vb = nbox it
+// is bwd_tc_smem_bytes(nbox).
+__host__ __device__ inline int bwd_tc_wide_smem_bytes(int kb, int vb) {
+  return 1024 + (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX
+         + BWD_TC_STAGES * BWD_ROW_STATS + 8 * (2 * BWD_TC_STAGES + 1);
+}
+
 struct BwdTcSmem {
   uint32_t base;        // shared-window address, 1024-byte aligned
   unsigned char* gen;   // the same byte through a generic pointer
-  int nbox;
+  int kb, vb;           // boxes of a D-wide (q, K) and a Dv-wide (dO, V) tile
   // i = 0: K (dk/dv pass) or q (dq pass); i = 1: V or dO
-  __device__ uint32_t res(int i) const { return base + i * nbox * BWD_BOX; }
+  __device__ uint32_t res(int i) const { return base + i * kb * BWD_BOX; }
   // i = 0: q (dk/dv pass) or K (dq pass); i = 1: dO or V
   __device__ uint32_t op(int s, int i) const {
-    return base + (2 + 2 * s + i) * nbox * BWD_BOX;
+    return base + ((1 + s) * (kb + vb) + i * kb) * BWD_BOX;
   }
   __device__ uint32_t stats_off(int s) const {
-    return (2 + 2 * BWD_TC_STAGES) * nbox * BWD_BOX + s * BWD_ROW_STATS;
+    return (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX + s * BWD_ROW_STATS;
   }
   __device__ uint32_t stats(int s) const { return base + stats_off(s); }
   __device__ const float* lse2(int s) const {
@@ -496,17 +513,20 @@ struct BwdTcSmem {
 
 using BwdPipe = StagePipe<BWD_TC_STAGES>;
 
-// Every thread of the block calls it once (it syncs the block).
-__device__ inline BwdTcSmem bwd_tc_smem_init(unsigned char* raw, int nbox) {
+// Every thread of the block calls it once (it syncs the block).  A stage's
+// empty barrier waits on every consumer warp.
+__device__ inline BwdTcSmem bwd_tc_smem_init(unsigned char* raw, int kb,
+                                             int vb, int consumers) {
   BwdTcSmem sm;
   const uint32_t raw_s = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
   sm.base = (raw_s + 1023) & ~1023u;
   sm.gen = raw + (sm.base - raw_s);
-  sm.nbox = nbox;
+  sm.kb = kb;
+  sm.vb = vb;
   if (threadIdx.x == 0) {
     for (int s = 0; s < BWD_TC_STAGES; ++s) {
       mbar_init(sm.full(s), 1);
-      mbar_init(sm.empty(s), BWD_TC_CONSUMERS / 32);
+      mbar_init(sm.empty(s), consumers / 32);
     }
     mbar_init(sm.resfull(), 1);
     fence_mbar_init();
@@ -633,6 +653,77 @@ __device__ __forceinline__ int bwd_first_row(const BwdParams& p, int k0,
   return max(k0 - qoff, 0) * p.G / BWD_BQ * BWD_BQ;
 }
 
+// P^T = 2^(S^T scale log2(e) - lse log2(e)) in place of S^T's fragment
+// (s[4 j + 2 h + e]: key key0 + 8 h, row 8 j + c0 + e of the tile), 0
+// where the row's key end hides the key
+__device__ __forceinline__ void bwd_pt_tc(float (&s)[32], int key0, int c0,
+                                          const float* l2, const int* re,
+                                          float scale2) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = 8 * j + c0 + e;
+      const float lo = l2[col];
+      const int lim = re[col];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * j + 2 * h + e;
+        s[i] = key0 + 8 * h < lim ? att_exp2(fmaf(s[i], scale2, -lo)) : 0.f;
+      }
+    }
+}
+
+// The dk/dv pass's block: its key tile, kv head and sequence, and the
+// query tiles that can see the keys (from row0 on, ntiles of them).
+struct BwdKeyBlock {
+  int kh, n, k0, row0, ntiles;
+};
+
+__device__ __forceinline__ BwdKeyBlock bwd_key_block(const BwdParams& p) {
+  BwdKeyBlock b;
+  const int heads = p.KH * p.N;
+  const int kt = blockIdx.x / heads, rest = blockIdx.x % heads;
+  b.kh = rest % p.KH;
+  b.n = rest / p.KH;
+  b.k0 = kt * ATT_TC_BK;
+  const int vlen = min(p.valid_len[b.n], p.Tk);
+  b.row0 = bwd_first_row(p, b.k0, p.q_offset[b.n]);
+  b.ntiles = b.k0 < vlen
+                 ? max((p.Tq * p.G - b.row0 + BWD_BQ - 1) / BWD_BQ, 0)
+                 : 0;
+  return b;
+}
+
+// Producer of the dk/dv pass: K and V of the block's keys once, then q, dO
+// and the rows' stats of each query tile into the next stage.
+__device__ __forceinline__ void bwd_key_producer(
+    const BwdTcSmem& sm, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* dmap, const BwdTcArgs& a,
+    const BwdKeyBlock& b) {
+  const BwdParams& p = a.p;
+  const long long seg = ((long long)b.n * p.KH + b.kh) * a.Rp;
+  const long long total = (long long)p.N * p.KH * a.Rp;
+  BwdPipe pipe;
+  mbar_expect_tx(sm.resfull(), (sm.kb + sm.vb) * BWD_BOX);
+  bwd_load_boxes(sm.res(0), kmap, sm.resfull(), sm.kb, b.kh, b.k0, b.n);
+  bwd_load_boxes(sm.res(1), vmap, sm.resfull(), sm.vb, b.kh, b.k0, b.n);
+  for (int it = 0; it < b.ntiles; ++it) {
+    const int i0 = b.row0 + it * BWD_BQ;
+    mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
+    const uint32_t full = sm.full(pipe.stage);
+    mbar_expect_tx(full, (sm.kb + sm.vb) * BWD_BOX + BWD_ROW_STATS);
+    bwd_load_boxes(sm.op(pipe.stage, 0), qmap, full, sm.kb, b.kh * p.G,
+                   i0 / p.G, b.n);
+    bwd_load_boxes(sm.op(pipe.stage, 1), dmap, full, sm.vb, b.kh * p.G,
+                   i0 / p.G, b.n);
+    for (int j = 0; j < 3; ++j)
+      bulk_load(sm.stats(pipe.stage) + j * 256,
+                a.stats + j * total + seg + i0, 256, full);
+    pipe.advance();
+  }
+}
+
 // -- dk/dv pass: one block a (64-key tile, kv head, n), key tiles ascending
 // (the heaviest first under the causal mask)
 
@@ -645,41 +736,16 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   extern __shared__ unsigned char tc_smem[];
   constexpr int NBOX = (W + 63) / 64;
   const BwdParams& p = a.p;
-  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, NBOX);
-  const int heads = p.KH * p.N;
-  const int kt = blockIdx.x / heads, rest = blockIdx.x % heads;
-  const int kh = rest % p.KH, n = rest / p.KH;
-  const int k0 = kt * ATT_TC_BK, G = p.G;
-  const int vlen = min(p.valid_len[n], p.Tk);
-  const int row0 = bwd_first_row(p, k0, p.q_offset[n]);
-  const int ntiles = k0 < vlen ? max((p.Tq * G - row0 + BWD_BQ - 1) / BWD_BQ,
-                                     0)
-                               : 0;
-  const long long seg = ((long long)n * p.KH + kh) * a.Rp;
-  const long long total = (long long)p.N * p.KH * a.Rp;
-  BwdPipe pipe;
+  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, NBOX, NBOX,
+                                        BWD_TC_CONSUMERS);
+  const BwdKeyBlock b = bwd_key_block(p);
+  const int kh = b.kh, n = b.n, k0 = b.k0, ntiles = b.ntiles;
   if (threadIdx.x == BWD_TC_CONSUMERS) {
-    if (ntiles == 0) return;
-    mbar_expect_tx(sm.resfull(), 2 * NBOX * BWD_BOX);
-    bwd_load_boxes(sm.res(0), &kmap, sm.resfull(), NBOX, kh, k0, n);
-    bwd_load_boxes(sm.res(1), &vmap, sm.resfull(), NBOX, kh, k0, n);
-    for (int it = 0; it < ntiles; ++it) {
-      const int i0 = row0 + it * BWD_BQ;
-      mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1);
-      const uint32_t full = sm.full(pipe.stage);
-      mbar_expect_tx(full, 2 * NBOX * BWD_BOX + BWD_ROW_STATS);
-      bwd_load_boxes(sm.op(pipe.stage, 0), &qmap, full, NBOX, kh * G, i0 / G,
-                     n);
-      bwd_load_boxes(sm.op(pipe.stage, 1), &dmap, full, NBOX, kh * G, i0 / G,
-                     n);
-      for (int j = 0; j < 3; ++j)
-        bulk_load(sm.stats(pipe.stage) + j * 256,
-                  a.stats + j * total + seg + i0, 256, full);
-      pipe.advance();
-    }
+    if (ntiles > 0) bwd_key_producer(sm, &qmap, &kmap, &vmap, &dmap, a, b);
     return;
   }
   if (threadIdx.x > BWD_TC_CONSUMERS) return;
+  BwdPipe pipe;
 
   const int lane = threadIdx.x % 32;
   const int c0 = 2 * (lane & 3);
@@ -702,23 +768,9 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     bwd_scores_tc<T>(dp, sm.res(1), sm.op(stage, 1), p.Dv / 16);  // dP^T
     wgmma_wait<1>();
     att_fence_regs(s);
-    // s[4 j + 2 h + e]: key key0 + 8 h, row 8 j + c0 + e of the tile
-    const float* l2 = sm.lse2(stage);
     const float* dl = sm.delta(stage);
     const int* re = sm.rend(stage);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * j + c0 + e;
-        const float lo = l2[col];
-        const int lim = re[col];
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = 4 * j + 2 * h + e;
-          s[i] = key0 + 8 * h < lim ? att_exp2(fmaf(s[i], scale2, -lo)) : 0.f;
-        }
-      }
+    bwd_pt_tc(s, key0, c0, sm.lse2(stage), re, scale2);
     wgmma_wait<0>();
     att_fence_regs(dp);
     // dS^T, and both A fragments packed a register pair at a time, so P^T
@@ -766,19 +818,184 @@ dkdv_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// -- the wide dk/dv pass: D = 192 (MLA's heads), Dv up to 128
+//
+// One warpgroup would hold dk (64 x 192: 96 a thread), dv (64 x 128: 64)
+// and the S^T and dP^T fragments (64): 224 accumulators, past what ptxas
+// can give a thread beside its addresses and packed fragments (255).  So
+// the pass splits over two consumer warpgroups on the same stages:
+// warpgroup 0 owns dk and forms S^T, dP^T and dS^T; warpgroup 1 owns dv
+// and forms S^T again (D / 16 = 12 m64n64k16 steps: the five products'
+// 40 steps a tile become 52) for P^T.  Neither waits on the other: each
+// warp releases a stage itself (the empty barrier counts all 8), so P^T
+// never crosses shared memory and no named barrier joins them; every wait
+// traps after about ten seconds (mbar_wait_trap), so a lost arrival is a
+// launch error, not a hung card.  A block of 288 threads caps ptxas at 168
+// registers a thread, and warpgroup 0's dk, S^T and dP^T (160 values)
+// spill 1,188 bytes there (a 384-thread block whose producer warpgroup
+// gave registers to the consumers by setmaxnreg compiled to the same 168
+// and the same spill, and ran no faster).  K (3
+// boxes) and V (2) stay resident, q and dO stream in stages of 3 + 2
+// boxes: bwd_tc_wide_smem_bytes(3, 2) = 125,480 bytes, one block an SM.
+
+// Warpgroup 0: dk += dS^T q over the block's query tiles; stores dk.
+template <typename T, int WD>
+__device__ __forceinline__ void bwd_wide_dk(const BwdTcSmem& sm,
+                                            const BwdParams& p,
+                                            const BwdKeyBlock& b) {
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane & 3);
+  const int key0 = b.k0 + att_tc_row0();   // the thread's keys: key0, + 8
+  const float scale2 = p.scale * ATT_LOG2E;
+  float dk[WD / 2];
+#pragma unroll
+  for (int j = 0; j < WD / 2; ++j) dk[j] = 0.f;
+  BwdPipe pipe;
+  if (b.ntiles > 0) mbar_wait_trap(sm.resfull(), 0);
+  for (int it = 0; it < b.ntiles; ++it) {
+    const int stage = pipe.stage;
+    mbar_wait_trap(sm.full(stage), pipe.phase);
+    float s[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = dp[j] = 0.f;
+    att_fence_regs(s);
+    att_fence_regs(dp);
+    wgmma_fence();
+    bwd_scores_tc<T>(s, sm.res(0), sm.op(stage, 0), p.D / 16);    // S^T
+    bwd_scores_tc<T>(dp, sm.res(1), sm.op(stage, 1), p.Dv / 16);  // dP^T
+    wgmma_wait<1>();
+    att_fence_regs(s);
+    const float* dl = sm.delta(stage);
+    const int* re = sm.rend(stage);
+    bwd_pt_tc(s, key0, c0, sm.lse2(stage), re, scale2);
+    wgmma_wait<0>();
+    att_fence_regs(dp);
+    uint32_t sa[4][4];      // dS^T, packed a register pair at a time
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int col = 8 * (i >> 2) + c0, key = key0 + 8 * ((i >> 1) & 1);
+      const float d0 = key < re[col] ? s[i] * (dp[i] - dl[col]) : 0.f;
+      const float d1 =
+          key < re[col + 1] ? s[i + 1] * (dp[i + 1] - dl[col + 1]) : 0.f;
+      sa[i >> 3][(i & 7) >> 1] = att_pack<T>(d0, d1);
+    }
+    att_fence_regs(dk);
+    wgmma_fence();
+    bwd_acc_tc<T, WD>(dk, sa, sm.op(stage, 0));   // dk += dS^T q
+    wgmma_commit();
+    wgmma_wait<0>();
+    att_fence_regs(dk);
+    if (lane == 0) mbar_arrive(sm.empty(stage));
+    pipe.advance();
+  }
+  T* gk = static_cast<T*>(p.dk);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= p.Tk) continue;
+    const long long at = ((long long)b.n * p.Tk + key) * p.KH + b.kh;
+#pragma unroll
+    for (int j = 0; j < WD / 8; ++j) {
+      const int col = 8 * j + c0;
+      if (col < p.D)
+        store2(gk + at * p.D + col, dk[4 * j + 2 * h] * p.scale,
+               dk[4 * j + 2 * h + 1] * p.scale);
+    }
+  }
+}
+
+// Warpgroup 1: dv += P^T dO over the same tiles; stores dv.
+template <typename T, int WV>
+__device__ __forceinline__ void bwd_wide_dv(const BwdTcSmem& sm,
+                                            const BwdParams& p,
+                                            const BwdKeyBlock& b) {
+  const int lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane & 3);
+  const int key0 = b.k0 + att_tc_row0() - 64;   // warpgroup 1's rows
+  const float scale2 = p.scale * ATT_LOG2E;
+  float dv[WV / 2];
+#pragma unroll
+  for (int j = 0; j < WV / 2; ++j) dv[j] = 0.f;
+  BwdPipe pipe;
+  if (b.ntiles > 0) mbar_wait_trap(sm.resfull(), 0);
+  for (int it = 0; it < b.ntiles; ++it) {
+    const int stage = pipe.stage;
+    mbar_wait_trap(sm.full(stage), pipe.phase);
+    float s[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) s[j] = 0.f;
+    att_fence_regs(s);
+    wgmma_fence();
+    bwd_scores_tc<T>(s, sm.res(0), sm.op(stage, 0), p.D / 16);    // S^T
+    wgmma_wait<0>();
+    att_fence_regs(s);
+    bwd_pt_tc(s, key0, c0, sm.lse2(stage), sm.rend(stage), scale2);
+    uint32_t pa[4][4];      // P^T, packed
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      pa[i >> 3][(i & 7) >> 1] = att_pack<T>(s[i], s[i + 1]);
+    att_fence_regs(dv);
+    wgmma_fence();
+    bwd_acc_tc<T, WV>(dv, pa, sm.op(stage, 1));   // dv += P^T dO
+    wgmma_commit();
+    wgmma_wait<0>();
+    att_fence_regs(dv);
+    if (lane == 0) mbar_arrive(sm.empty(stage));
+    pipe.advance();
+  }
+  T* gv = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= p.Tk) continue;
+    const long long at = ((long long)b.n * p.Tk + key) * p.KH + b.kh;
+#pragma unroll
+    for (int j = 0; j < WV / 8; ++j) {
+      const int col = 8 * j + c0;
+      if (col < p.Dv)
+        store2(gv + at * p.Dv + col, dv[4 * j + 2 * h],
+               dv[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
+#define BWD_WIDE_THREADS 288
+constexpr int BWD_WIDE_CONSUMERS = 256;     // two warpgroups
+static_assert(BWD_WIDE_THREADS == BWD_WIDE_CONSUMERS + 32, "one producer");
+
+template <typename T, int WD, int WV>
+__global__ void __launch_bounds__(BWD_WIDE_THREADS, 1)
+dkdv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap,
+                 const __grid_constant__ CUtensorMap dmap, BwdTcArgs a) {
+  extern __shared__ unsigned char tc_smem[];
+  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, (WD + 63) / 64,
+                                        (WV + 63) / 64, BWD_WIDE_CONSUMERS);
+  const BwdKeyBlock b = bwd_key_block(a.p);
+  if (threadIdx.x == BWD_WIDE_CONSUMERS) {
+    if (b.ntiles > 0) bwd_key_producer(sm, &qmap, &kmap, &vmap, &dmap, a, b);
+    return;
+  }
+  if (threadIdx.x > BWD_WIDE_CONSUMERS) return;
+  if (threadIdx.x < BWD_TC_CONSUMERS)
+    bwd_wide_dk<T, WD>(sm, a.p, b);
+  else
+    bwd_wide_dv<T, WV>(sm, a.p, b);
+}
+
 // -- dq pass: one block a (64-row query tile, kv head, n), query tiles
 // descending (the heaviest first under the causal mask)
 
-template <typename T, int W>
+template <typename T, int W, int KB, int VB>
 __global__ void __launch_bounds__(BWD_TC_THREADS, 1)
 dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
              const __grid_constant__ CUtensorMap kmap,
              const __grid_constant__ CUtensorMap vmap,
              const __grid_constant__ CUtensorMap dmap, BwdTcArgs a) {
   extern __shared__ unsigned char tc_smem[];
-  constexpr int NBOX = (W + 63) / 64;
   const BwdParams& p = a.p;
-  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, NBOX);
+  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, KB, VB, BWD_TC_CONSUMERS);
   const int heads = p.KH * p.N;
   const int qtiles = a.Rp / BWD_BQ;
   const int qt = qtiles - 1 - (int)(blockIdx.x / heads);
@@ -792,16 +1009,16 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   BwdPipe pipe;
   if (threadIdx.x == BWD_TC_CONSUMERS) {
     if (ntiles == 0) return;
-    mbar_expect_tx(sm.resfull(), 2 * NBOX * BWD_BOX);
-    bwd_load_boxes(sm.res(0), &qmap, sm.resfull(), NBOX, kh * G, i0 / G, n);
-    bwd_load_boxes(sm.res(1), &dmap, sm.resfull(), NBOX, kh * G, i0 / G, n);
+    mbar_expect_tx(sm.resfull(), (KB + VB) * BWD_BOX);
+    bwd_load_boxes(sm.res(0), &qmap, sm.resfull(), KB, kh * G, i0 / G, n);
+    bwd_load_boxes(sm.res(1), &dmap, sm.resfull(), VB, kh * G, i0 / G, n);
     for (int it = 0; it < ntiles; ++it) {
-      mbar_wait(sm.empty(pipe.stage), pipe.phase ^ 1);
+      mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
       const uint32_t full = sm.full(pipe.stage);
-      mbar_expect_tx(full, 2 * NBOX * BWD_BOX);
-      bwd_load_boxes(sm.op(pipe.stage, 0), &kmap, full, NBOX, kh,
+      mbar_expect_tx(full, (KB + VB) * BWD_BOX);
+      bwd_load_boxes(sm.op(pipe.stage, 0), &kmap, full, KB, kh,
                      it * ATT_TC_BK, n);
-      bwd_load_boxes(sm.op(pipe.stage, 1), &vmap, full, NBOX, kh,
+      bwd_load_boxes(sm.op(pipe.stage, 1), &vmap, full, VB, kh,
                      it * ATT_TC_BK, n);
       pipe.advance();
     }
@@ -827,17 +1044,17 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   float dq[W / 2];
 #pragma unroll
   for (int j = 0; j < W / 2; ++j) dq[j] = 0.f;
-  if (ntiles > 0) mbar_wait(sm.resfull(), 0);
+  if (ntiles > 0) mbar_wait_trap(sm.resfull(), 0);
   for (int it = 0; it < ntiles; ++it) {
     const int kl0 = it * ATT_TC_BK;
     const int stage = pipe.stage;
-    mbar_wait(sm.full(stage), pipe.phase);
+    mbar_wait_trap(sm.full(stage), pipe.phase);
     if (kl0 + ATT_TC_BK > kend) {
       // K's rows [j0, 64) of every box to zero (whole 128-byte rows, so the
       // swizzle does not matter); V's may stay, dP is masked by a select
       const int j0 = kend - kl0;
       const int per_box = (ATT_TC_BK - j0) * 8;   // 16-byte chunks
-      for (int e = threadIdx.x; e < NBOX * per_box; e += BWD_TC_CONSUMERS) {
+      for (int e = threadIdx.x; e < KB * per_box; e += BWD_TC_CONSUMERS) {
         const uint32_t addr = sm.op(stage, 0) + (e / per_box) * BWD_BOX
                               + (j0 + (e % per_box) / 8) * 128
                               + (e % 8) * 16;
@@ -941,15 +1158,16 @@ static int dispatch_bwd(const BwdParams& p, cudaStream_t stream) {
 
 // -- host side of the tensor-core route -------------------------------------
 
-// The route rule, checked again at launch: 16-bit operands, D and Dv each a
-// multiple of 16 in [16, 128], G dividing 64, and 16-byte-aligned pointers
-// of what TMA, the bulk copies and the rows pass's vector loads read (the
-// maps refuse byte strides off 16).
+// The route rule, checked again at launch: 16-bit operands, D a multiple of
+// 16 in [16, 128] or 192 (MLA's heads, the wide instance), Dv a multiple of
+// 16 in [16, 128], G dividing 64, and 16-byte-aligned pointers of what TMA,
+// the bulk copies and the rows pass's vector loads read (the maps refuse
+// byte strides off 16).
 static bool bwd_tc_route_ok(int dtype, int D, int Dv, int G,
                             std::initializer_list<const void*> ptrs) {
   if (dtype != kBF16 && dtype != kF16) return false;
   auto head_ok = [](int x) { return x >= 16 && x <= 128 && x % 16 == 0; };
-  if (!head_ok(D) || !head_ok(Dv)) return false;
+  if (!(head_ok(D) || D == 192) || !head_ok(Dv)) return false;
   if (G < 1 || 64 % G != 0) return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
@@ -966,13 +1184,16 @@ static int bwd_map(CUtensorMap* map, const void* base, int dtype, int C,
   return att_tc_map(map, base, dtype, dims, el, box_heads, box_pos);
 }
 
-template <typename T, int W>
-static int launch_bwd_tc(const BwdParams& p, int dtype, cudaStream_t stream) {
-  BwdTcArgs a;
+// The tensor maps of q, dO, K and V, and the rows pass (lse log2(e),
+// delta and key end of every padded row into a.stats).
+template <typename T>
+static int bwd_tc_prologue(const BwdParams& p, int dtype, BwdTcArgs& a,
+                           CUtensorMap& qmap, CUtensorMap& kmap,
+                           CUtensorMap& vmap, CUtensorMap& dmap,
+                           cudaStream_t stream) {
   a.p = p;
   a.stats = p.delta;
   a.Rp = (p.Tq * p.G + BWD_BQ - 1) / BWD_BQ * BWD_BQ;
-  CUtensorMap qmap, kmap, vmap, dmap;
   int err = bwd_map(&qmap, p.q, dtype, p.D, p.H, p.Tq, p.N, p.G,
                     BWD_BQ / p.G);
   if (err == 0)
@@ -986,11 +1207,21 @@ static int launch_bwd_tc(const BwdParams& p, int dtype, cudaStream_t stream) {
   const long long total = (long long)p.N * p.KH * a.Rp;
   bwd_rows_kernel<T><<<(unsigned)((total + BWD_NT - 1) / BWD_NT), BWD_NT, 0,
                        stream>>>(a);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const int smem = bwd_tc_smem_bytes((W + 63) / 64);
-  e = cudaFuncSetAttribute(dkdv_tc_kernel<T, W>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int W>
+static int launch_bwd_tc(const BwdParams& p, int dtype, cudaStream_t stream) {
+  BwdTcArgs a;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  const int err = bwd_tc_prologue<T>(p, dtype, a, qmap, kmap, vmap, dmap,
+                                     stream);
+  if (err != 0) return err;
+  constexpr int NBOX = (W + 63) / 64;
+  const int smem = bwd_tc_smem_bytes(NBOX);
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_tc_kernel<T, W>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const unsigned heads = (unsigned)(p.KH * p.N);
   const unsigned ktiles = (unsigned)((p.Tk + ATT_TC_BK - 1) / ATT_TC_BK);
@@ -998,17 +1229,49 @@ static int launch_bwd_tc(const BwdParams& p, int dtype, cudaStream_t stream) {
       qmap, kmap, vmap, dmap, a);
   e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(dq_tc_kernel<T, W>,
+  e = cudaFuncSetAttribute(dq_tc_kernel<T, W, NBOX, NBOX>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dq_tc_kernel<T, W><<<(unsigned)(a.Rp / BWD_BQ) * heads, BWD_TC_THREADS,
-                       smem, stream>>>(qmap, kmap, vmap, dmap, a);
+  dq_tc_kernel<T, W, NBOX, NBOX><<<(unsigned)(a.Rp / BWD_BQ) * heads,
+                                   BWD_TC_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, dmap, a);
+  REPRO_RETURN_LAUNCH_STATUS();
+}
+
+// The wide instance (D = 192, Dv up to 128): the two-warpgroup dk/dv pass,
+// then the dq pass with dq 192 wide, q and K three boxes, dO and V two.
+template <typename T>
+static int launch_bwd_tc_wide(const BwdParams& p, int dtype,
+                              cudaStream_t stream) {
+  BwdTcArgs a;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  const int err = bwd_tc_prologue<T>(p, dtype, a, qmap, kmap, vmap, dmap,
+                                     stream);
+  if (err != 0) return err;
+  const int smem = bwd_tc_wide_smem_bytes(3, 2);
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_wide_kernel<T, 192, 128>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned heads = (unsigned)(p.KH * p.N);
+  const unsigned ktiles = (unsigned)((p.Tk + ATT_TC_BK - 1) / ATT_TC_BK);
+  dkdv_wide_kernel<T, 192, 128><<<ktiles * heads, BWD_WIDE_THREADS, smem,
+                                  stream>>>(qmap, kmap, vmap, dmap, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(dq_tc_kernel<T, 192, 3, 2>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_tc_kernel<T, 192, 3, 2><<<(unsigned)(a.Rp / BWD_BQ) * heads,
+                               BWD_TC_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, dmap, a);
   REPRO_RETURN_LAUNCH_STATUS();
 }
 
 template <typename T>
 static int dispatch_bwd_tc(const BwdParams& p, int dtype,
                            cudaStream_t stream) {
+  if (p.D == 192) return launch_bwd_tc_wide<T>(p, dtype, stream);
   switch (p.D > p.Dv ? p.D : p.Dv) {
     case 16: return launch_bwd_tc<T, 16>(p, dtype, stream);
     case 32: return launch_bwd_tc<T, 32>(p, dtype, stream);

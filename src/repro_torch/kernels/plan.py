@@ -41,6 +41,7 @@ __all__ = [
     "gemm_route",
     "attention_route",
     "attention_bwd_route",
+    "attention_bwd_wide_smem_bytes",
     "expert_route",
     "expert_bwd_route",
     "expert_bwd_tiles",
@@ -181,6 +182,7 @@ ATT_TC_STAGES = 2               # that route's k / v stages
 ATT_TC_THREADS = 160            # a consumer warpgroup and a producer warp
 BWD_TC_STAGES = 2               # the gradient's tensor-core ring of stages
 BWD_TC_THREADS = 160            # a consumer warpgroup and a producer warp
+BWD_WIDE_THREADS = 288          # its D = 192 dk/dv pass: 2 warpgroups
 EX_TC_TILE = (64, 64)           # (weight columns, K) of an expert-MLP item
 EX_TC_BR = 128                  # rows of its row tile, at most
 EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
@@ -239,19 +241,38 @@ def attention_bwd_route(dtype, d: int, dv: int, g: int,
                         *ptrs_and_strides: int) -> str:
     """The route a flash-attention gradient launch takes in
     ``csrc/flash_attention_bwd.cu``: ``"wgmma"`` (TMA and the tensor cores)
-    for 16-bit operands whose head dims D and Dv are each a multiple of 16
-    in [16, 128], whose G = H / KH query heads a kv head divides the
-    64-row tile, and whose base pointers and byte strides
-    (``ptrs_and_strides``: those TMA and the bulk copies read) are 16-byte
-    aligned; ``"simt"`` (the CUDA cores) otherwise.  f32 stays on the CUDA
-    cores (TF32 would change its results); so does D or Dv of 256, whose
-    64-key dk and dv accumulators do not fit a warpgroup's registers."""
+    for 16-bit operands whose head dim D is a multiple of 16 in [16, 128]
+    or 192 (deepseek-v3's MLA: the wide instance, its dk/dv pass split
+    over two warpgroups) and whose Dv is a multiple of 16 in [16, 128],
+    whose G = H / KH query heads a kv head divides the 64-row tile, and
+    whose base pointers and byte strides (``ptrs_and_strides``: those TMA
+    and the bulk copies read) are 16-byte aligned; ``"simt"`` (the CUDA
+    cores) otherwise.  f32 stays on the CUDA cores (TF32 would change its
+    results); so does D or Dv of 256 (paligemma-3b), whose 64-key dk and
+    dv accumulators do not fit two warpgroups' registers beside their
+    score fragments."""
+    def width_ok(x):
+        return 16 <= x <= 128 and x % 16 == 0
+
     if dtype in (torch.float16, torch.bfloat16) \
-            and all(16 <= x <= 128 and x % 16 == 0 for x in (d, dv)) \
+            and (width_ok(d) or d == 192) and width_ok(dv) \
             and g >= 1 and 64 % g == 0 \
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
     return "simt"
+
+
+def attention_bwd_wide_smem_bytes(kb: int = 3, vb: int = 2) -> int:
+    """Dynamic shared memory of the gradient's wide instance (D = 192, Dv
+    up to 128) on the tensor cores (``bwd_tc_wide_smem_bytes`` in
+    ``csrc/flash_attention_bwd.cu``): the alignment slack, the resident
+    pair (K and V, or q and dO) and ``BWD_TC_STAGES`` stages of the
+    streamed pair, D-wide operands ``kb`` 64-column boxes and Dv-wide ones
+    ``vb`` (64 rows of 16-bit values a box), each stage's 64 rows of lse,
+    delta and key end, and the full and empty barriers of each stage and
+    the resident pair's: 125,480 bytes at (3, 2), one block an SM."""
+    return 1024 + (1 + BWD_TC_STAGES) * (kb + vb) * 64 * 64 * 2 \
+        + BWD_TC_STAGES * 3 * FLASH_BQ * 4 + 8 * (2 * BWD_TC_STAGES + 1)
 
 
 def expert_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:

@@ -126,7 +126,8 @@ class ParallelCtx:
             raise NotImplementedError(
                 "expert2d (the MoE experts sharded over model x data) is "
                 "not ported yet: ROADMAP queue 1, item 12, still open beside "
-                "bench_moe and the fused dispatch's backward")
+                "bench_moe (the fused dispatch's backward is row 13's "
+                "kernel)")
         g = standard_groups(mesh)
         shape = mesh.shape
         tp = shape.get("model", 1)

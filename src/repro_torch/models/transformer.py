@@ -20,9 +20,9 @@ masked-frame cross-entropy against ``head``.
 
 DeepSeek-V3 (``attention="mla"``) runs its ``first_k_dense`` leading dense
 layers (``dense_layers/*``) before the MoE stack, each stack from the same
-starting position, as the reference runs two scans; its MTP leaves are
-carried in the parameter tree, and nothing here reads them (the MTP loss is
-ROADMAP queue 1, item 21).
+starting position, as the reference runs two scans; its loss adds the
+multi-token-prediction term (:func:`mtp_loss`, one more MLA layer over the
+``mtp/*`` leaves).
 
 Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "v": ..., "pos": (*mesh,) or (*mesh, B)}``, or MLA's latent cache ``{"c":
@@ -30,8 +30,8 @@ Caches are dicts of stacked tensors, ``{"k": (*mesh, L, B, S, KH_loc, D),
 "pos"}`` (the leading dense layers' pair apart); the layers write rows into
 them in place.  A context(seq)-sharded cache (``seq_sharded=True``) keeps
 ``S / data`` K/V rows a rank; MLA's latent cache ignores the flag, as in
-the reference.  The MTP loss is still to port (ROADMAP queue 1, item 21);
-the MoE family trains.  Training checkpoints each layer (``ctx.remat``).
+the reference.  Every family here trains; training checkpoints each
+layer (``ctx.remat``), the MTP layer included.
 A MoE layer's dispatch stats add up over the layer loop in the active
 ``dispatch_stats`` frame, as the reference sums them over its scan.
 """
@@ -45,12 +45,12 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.context import default_context, recorded_once
 from .config import ModelConfig, ParallelCtx
-from .layers import (KVCache, MLACache, attention_block, ce_loss, dot_f32,
-                     embed_lookup, gather_fsdp, gelu_mlp_block, layernorm,
-                     local_kv_heads, mla_block, mlp_block, moe_block,
-                     rmsnorm)
+from .layers import (KVCache, MLACache, attention_block, ce_loss, dot,
+                     dot_f32, embed_lookup, gather_fsdp, gelu_mlp_block,
+                     layernorm, local_kv_heads, mla_block, mlp_block,
+                     moe_block, rmsnorm)
 
-__all__ = ["init_cache", "remat", "transformer_forward",
+__all__ = ["init_cache", "mtp_loss", "remat", "transformer_forward",
            "transformer_loss", "transformer_prefill",
            "transformer_chunk_prefill", "transformer_decode"]
 
@@ -144,6 +144,21 @@ def remat(fn, x, first: bool):
     return checkpoint(body, x, use_reentrant=False)
 
 
+def _remat_stack(x, params, prefix: str, L: int, moe: bool,
+                 cfg: ModelConfig, ctx: ParallelCtx, positions,
+                 prefix_len: int):
+    """The ``L`` layers of the ``prefix/…`` stack over ``x`` for training,
+    each checkpointed (:func:`remat`); the reference traces the stack's
+    scan body once, so only the first layer logs."""
+    nd = default_context().require_mesh().ndim
+    for l in range(L):
+        lp = _layer(params, prefix, nd, l)
+        x = remat(lambda h, lp=lp: _layer_body(
+            h, lp, cfg, ctx, moe=moe, positions=positions,
+            prefix_len=prefix_len)[0], x, l == 0)
+    return x
+
+
 def _lm_head(params: Dict[str, torch.Tensor], cfg: ModelConfig):
     """The LM head ``(*mesh, d, V_loc)``: the VLM's is the transposed
     embedding table (tied embeddings)."""
@@ -214,13 +229,12 @@ def transformer_forward(params: Dict[str, torch.Tensor], tokens,
     Cache = MLACache if cfg.attention == "mla" else KVCache
     sharded = {} if Cache is MLACache else {"seq_sharded": seq_sharded}
     for prefix, L, moe, (ka, kb) in layer_stacks(cfg):
+        if checkpointed:
+            x = _remat_stack(x, params, prefix, L, moe, cfg, ctx, positions,
+                             prefix_len)
+            continue
         for l in range(L):
             lp = _layer(params, prefix, nd, l)
-            if checkpointed:   # the reference traces its scan body once
-                x = remat(lambda h, lp=lp, moe=moe: _layer_body(
-                    h, lp, cfg, ctx, moe=moe, positions=positions,
-                    prefix_len=prefix_len)[0], x, l == 0)
-                continue
             layer_cache = None if cache is None else Cache(
                 cache[ka].select(nd, l), cache[kb].select(nd, l), pos,
                 **sharded)
@@ -243,8 +257,8 @@ def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
     its batch shard, f32 ``(*mesh,)`` (replicated over the TP group).  The
     MoE family (qwen3-moe) is scored as the dense one, its expert layers'
     drop counts recorded into the active ``dispatch_stats`` frame; a config
-    with multi-token prediction (deepseek-v3) raises, its MTP loss not
-    being ported (ROADMAP queue 1, item 21).
+    with multi-token prediction (deepseek-v3) adds 0.1 times
+    :func:`mtp_loss`, whose layer is dense and records no drops.
     ``batch["tokens"] (*mesh, B, T)``; the VLM's ``batch["prefix_embeds"]
     (*mesh, B, P, d)`` go in front, and only the token positions are
     scored; the audio batch is ``embeds (*mesh, B, T, d)``, ``targets``
@@ -257,10 +271,6 @@ def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
         head = gather_fsdp(params["head"], ctx, dim=0)       # (d, V) whole
         return ce_loss(h, head, batch["targets"], cfg, ctx,
                        weights=batch.get("mask"))
-    if cfg.mtp:
-        raise NotImplementedError(
-            "the multi-token-prediction loss is not ported yet: ROADMAP "
-            "queue 1, item 21")
     nd = default_context().require_mesh().ndim
     prefix = batch.get("prefix_embeds")
     h, _ = transformer_forward(params, batch["tokens"], cfg, ctx,
@@ -268,7 +278,36 @@ def transformer_loss(params, batch, cfg: ModelConfig, ctx: ParallelCtx):
     if prefix is not None:
         h = h[..., prefix.shape[nd + 1]:, :]
     tokens = batch["tokens"]
-    return ce_loss(h[..., :-1, :], _lm_head(params, cfg), tokens[..., 1:],
+    loss = ce_loss(h[..., :-1, :], _lm_head(params, cfg), tokens[..., 1:],
+                   cfg, ctx)
+    if cfg.mtp:
+        loss = loss + 0.1 * mtp_loss(params, h, tokens, cfg, ctx)
+    return loss
+
+
+def mtp_loss(params, h, tokens, cfg: ModelConfig, ctx: ParallelCtx):
+    """DeepSeek-V3's multi-token-prediction term (before its 0.1 weight):
+    the final-normed hidden ``h (*mesh, B, T, d)`` at positions ``t < T - 1``
+    and the embedding of token ``t + 1``, each normalized (``mtp/norm_h``,
+    ``mtp/norm_e``), joined and projected by ``mtp/proj`` (gathered over
+    FSDP on its input dim, accumulated in f32), run through the one MLA
+    layer of ``mtp/layer`` (a dense MLP; positions from 0) and scored
+    through the LM head against token ``t + 2``.  Each rank's mean, f32
+    ``(*mesh,)``."""
+    nd = default_context().require_mesh().ndim
+    emb = embed_lookup(tokens[..., 1:], params["embed/table"], cfg, ctx)
+    hm = rmsnorm(h[..., :-1, :], params["mtp/norm_h"], cfg.norm_eps)
+    em = rmsnorm(emb, params["mtp/norm_e"], cfg.norm_eps)
+    z = dot(torch.cat([hm, em], dim=-1),
+            gather_fsdp(params["mtp/proj"], ctx, dim=0))
+    positions = torch.arange(z.shape[nd + 1], device=z.device)
+    if ctx.remat and torch.is_grad_enabled():
+        z = _remat_stack(z, params, "mtp/layer", 1, False, cfg, ctx,
+                         positions, 0)
+    else:
+        z = _layer_body(z, _layer(params, "mtp/layer", nd, 0), cfg, ctx,
+                        moe=False, positions=positions, prefix_len=0)[0]
+    return ce_loss(z[..., :-1, :], _lm_head(params, cfg), tokens[..., 2:],
                    cfg, ctx)
 
 

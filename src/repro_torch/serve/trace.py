@@ -1,8 +1,8 @@
 """Seeded bursty request traces for overload experiments.
 
-ROADMAP item 1 gates disaggregated serving on "simulated
+Overload and disaggregated-serving experiments need simulated
 millions-of-users request traces (bursty arrivals, mixed prompt lengths,
-priority tiers)" — this module is that trace source, scaled down to CI.
+priority tiers); this module is that trace source, scaled down to CI.
 ``bursty_trace`` models the canonical serving workload shape:
 
 * **Poisson bursts**: arrivals come in bursts whose inter-burst gaps are

@@ -182,28 +182,36 @@ def adafactor(lr_fn, *, decay: float = 0.8, eps: float = 1e-30,
             dev = g.device
             bt, lrt = beta.to(dev), lr.to(dev)
             last_ax, prev_ax = dim_axes.get(name, ((), ()))
+            # leaf-sized temporaries are made in place where the values
+            # stay the same, and dropped once read: a vocabulary-sized
+            # leaf (deepseek-v3's head, 1.85e9 f32 values stacked) would
+            # otherwise hold five of them at once
             gf = g.float()
-            g2 = gf * gf + eps
+            g2 = (gf * gf).add_(eps)
             if "vr" in st:
                 vr = bt * st["vr"] + (1 - bt) * _pmean(g2.mean(-1), last_ax)
                 vc = bt * st["vc"] + (1 - bt) * _pmean(g2.mean(-2), prev_ax)
+                del g2
                 vr_mean = _pmean(vr.mean(-1, keepdim=True), prev_ax)
                 denom = (vr / torch.clamp(vr_mean, min=eps))[..., None] \
                     * vc[..., None, :]
-                u = gf * torch.rsqrt(torch.clamp(denom, min=eps))
+                u = denom.clamp_(min=eps).rsqrt_().mul_(gf)
+                del denom
                 new = {"vr": _put(st["vr"], vr, inplace),
                        "vc": _put(st["vc"], vc, inplace)}
             else:
                 v = bt * st["v"] + (1 - bt) * g2
-                u = gf * torch.rsqrt(torch.clamp(v, min=eps))
+                del g2
+                u = torch.clamp(v, min=eps).rsqrt_().mul_(gf)
                 new = {"v": _put(st["v"], v, inplace)}
             local = _local_dims(u, nd)
             ms = (u * u).mean(local) if local else u * u
             rms = torch.sqrt(_pmean(ms, tuple(last_ax) + tuple(prev_ax))
                              + eps)
             rms = rms.reshape(*rms.shape, *([1] * (u.dim() - rms.dim())))
-            u = u / torch.clamp(rms / clip_threshold, min=1.0)
-            updates[name] = (-lrt * u).to(p.dtype)
+            u.div_(torch.clamp(rms / clip_threshold, min=1.0))
+            updates[name] = u.mul_(-lrt).to(p.dtype)
+            del u
             new_state[name] = new
         return updates, new_state
 

@@ -6,7 +6,8 @@ The reference trains through its blockwise oracle under
 log-sum-exp, and its plain version (``flash_attention_bwd_plain``) runs the
 same formulas in torch.  Here, over the reference's sweep
 (``tests/test_kernels.py``, plus GQA, Dv != D, prefix-LM and a query offset
-at the training path's head_dim 80): the plain backward against ``jax.vjp``
+at the training path's head_dim 80 and at MLA's D = 192, Dv = 128): the
+plain backward against ``jax.vjp``
 of ``repro.kernels.flash_attention.ref.flash_attention_ref`` on the same
 numpy inputs, and against torch autograd through the plain forward; the
 plain forward's lse against the log-sum-exp of the scores; and the
@@ -41,6 +42,7 @@ SWEEP = [
     (2, 16, 16, 4, 4, 64, 64, True, 0, 0, np.float16),
     (1, 37, 37, 8, 1, 80, 80, True, 0, 0, np.float32),
     (2, 29, 29, 4, 2, 80, 48, True, 0, 17, np.float32),
+    (1, 40, 40, 4, 4, 192, 128, True, 0, 0, np.float32),   # MLA's heads
 ]
 TOL = {np.float32: 2e-5, np.float16: 2e-3}
 IDS = [str(i) for i in range(len(SWEEP))]

@@ -45,7 +45,7 @@ from repro_torch.interop import (params_from_reference, stack_shards,
                                  unstack_shards)
 from repro_torch.kernels.moe_dispatch.fused import fused_moe_dispatch_kernel
 from repro_torch.launch.mesh import RankMesh
-from repro_torch.models import schema
+from repro_torch.models import api, schema
 from repro_torch.models import transformer as tf
 from repro_torch.models.config import ModelConfig, ParallelCtx
 from repro_torch.models.layers import moe_block, moe_capacity
@@ -314,17 +314,30 @@ def test_decode_matches_reference(impl, dt, mesh8):
 
 
 def test_unported_moe_branches_raise():
-    """deepseek-v3's loss waits for its MTP term (item 21), as any config
-    with MTP does; expert2d placement for item 12."""
+    """deepseek-v3's loss, its MTP term included, scores a batch: a finite
+    loss a rank, replicated over "model"; MTP without MLA is refused, as
+    the reference's schema has no MTP layer for it; expert2d placement
+    waits for item 12."""
     cfg = configs.get_reduced("deepseek-v3-671b")
     ctx = ParallelCtx.from_mesh(MESH)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tf.transformer_loss({}, {}, cfg, ctx)
+    tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, 12))
+    with use_default(DiompContext(mesh=MESH, device="cpu")), \
+            torch.no_grad():
+        params = schema.init_params(cfg, MESH,
+                                    torch.Generator().manual_seed(1),
+                                    device="cpu")
+        _, bspecs = api.batch_structs(cfg, MESH, B, 12, dp_axes=ctx.dp_axes)
+        batch = {"tokens": stack_shards(tokens.astype(np.int32), MESH,
+                                        bspecs["tokens"])}
+        loss = tf.transformer_loss(params, batch, cfg, ctx)
+    assert loss.shape == MESH.sizes and bool(torch.isfinite(loss).all())
+    assert torch.equal(loss, loss[..., :1].expand_as(loss))
     dense = configs.get_reduced("glm4-9b")
     mtp = type(dense)(**{**{f: getattr(dense, f)
                             for f in dense.__dataclass_fields__},
                          "mtp": True})
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tf.transformer_loss({}, {}, mtp, ctx)
+    with use_default(DiompContext(mesh=MESH, device="cpu")), \
+            pytest.raises(ValueError, match="MTP"):
+        tf.transformer_loss({}, {"tokens": None}, mtp, ctx)
     with pytest.raises(NotImplementedError, match="item 12"):
         ParallelCtx.from_mesh(MESH, expert2d=True)

@@ -447,10 +447,11 @@ def test_attention_route_over_the_sweep():
 ])
 def test_attention_route_at_the_new_served_shapes(dtype, d, dv, g, route):
     """The widened rule at the shapes of this slice's served models (the
-    gradient's rule keeps D and Dv to 128)."""
+    gradient's rule keeps Dv to 128 and D to 128 or MLA's 192)."""
     assert tplan.attention_route(dtype, d, dv, g, 0, 256) == route
     assert tplan.attention_bwd_route(dtype, d, dv, g) == (
-        "wgmma" if route == "wgmma" and d <= 128 and dv <= 128 else "simt")
+        "wgmma" if route == "wgmma" and (d <= 128 or d == 192)
+        and dv <= 128 else "simt")
 
 
 def test_both_attention_wrappers_share_the_route_rule():
@@ -478,6 +479,12 @@ def test_both_attention_wrappers_share_the_route_rule():
     (torch.bfloat16, 16, 16, 64, (), "wgmma"),
     (torch.float16, 80, 48, 1, (), "wgmma"),
     (torch.bfloat16, 128, 128, 8, (), "wgmma"),
+    (torch.bfloat16, 192, 128, 1, (0, 384, 49152), "wgmma"),  # deepseek MLA
+    (torch.float16, 192, 64, 2, (), "wgmma"),                 # wide, Dv < 128
+    (torch.float32, 192, 128, 1, (), "simt"),                 # no TF32
+    (torch.bfloat16, 192, 256, 1, (), "simt"),                # Dv past 128
+    (torch.bfloat16, 192, 128, 1, (0, 8), "simt"),            # a pointer
+    (torch.bfloat16, 176, 128, 1, (), "simt"),                # no instance
     (torch.float32, 80, 80, 1, (0, 160), "simt"),             # no TF32
     (torch.float32, 64, 64, 4, (), "simt"),
     (torch.bfloat16, 72, 72, 1, (), "simt"),                  # D off 16
@@ -498,11 +505,12 @@ def test_attention_bwd_route_over_the_sweep():
     """dtype x D x Dv x G x alignment against the rule as stated."""
     for dt, d, dv, g, off in itertools.product(
             (torch.float32, torch.float16, torch.bfloat16),
-            (8, 16, 48, 64, 72, 80, 128, 144, 256),
-            (16, 24, 48, 80, 96, 128, 160, 256),
+            (8, 16, 48, 64, 72, 80, 128, 144, 192, 256),
+            (16, 24, 48, 80, 96, 128, 160, 192, 256),
             (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
-        want = ("wgmma" if dt != torch.float32 and 16 <= d <= 128
-                and d % 16 == 0 and 16 <= dv <= 128 and dv % 16 == 0
+        want = ("wgmma" if dt != torch.float32
+                and ((16 <= d <= 128 and d % 16 == 0) or d == 192)
+                and 16 <= dv <= 128 and dv % 16 == 0
                 and g in (1, 2, 8, 16, 64) and off % 16 == 0 else "simt")
         assert tplan.attention_bwd_route(dt, d, dv, g, 1 << 20, off) == want
 
@@ -550,6 +558,43 @@ def test_backward_tiles_match_the_cuda_source():
         "nbox": 2, "BWD_TC_STAGES": bw["BWD_TC_STAGES"],
         "BWD_BOX": 64 * 128, "BWD_ROW_STATS": 3 * 64 * 4})
     assert 2 * (got + 1024) <= 233_472
+
+
+def test_backward_wide_instance_matches_the_cuda_source():
+    """The wide instance (D = 192: deepseek-v3's MLA heads): its launch
+    width and the planner's, its one instance (dk 192 wide in warpgroup 0,
+    dv 128 in warpgroup 1, the dq pass 192 wide over 3 + 2 boxes), and its
+    shared memory, ``bwd_tc_wide_smem_bytes`` read from the source,
+    against :func:`attention_bwd_wide_smem_bytes`; at kb = vb = nbox the
+    same formula is ``bwd_tc_smem_bytes(nbox)``."""
+    bw = _defines("flash_attention_bwd.cu")
+    assert bw["BWD_WIDE_THREADS"] == tplan.BWD_WIDE_THREADS == 2 * 128 + 32
+    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    assert set(re.findall(r"dkdv_wide_kernel<T, (\d+), (\d+)>", text)) \
+        == {("192", "128")}
+    assert set(re.findall(r"dq_tc_kernel<T, 192, (\d+), (\d+)>", text)) \
+        == {("3", "2")}
+    assert re.search(r"if \(p\.D == 192\) return launch_bwd_tc_wide<T>",
+                     text)
+    env = {"BWD_TC_STAGES": bw["BWD_TC_STAGES"], "BWD_BOX": 64 * 128,
+           "BWD_ROW_STATS": 3 * 64 * 4}
+    wide = " ".join(re.search(
+        r"bwd_tc_wide_smem_bytes\(int kb, int vb\) \{\s*return ([^;]+);",
+        text).group(1).split())
+    narrow = " ".join(re.search(
+        r"bwd_tc_smem_bytes\(int nbox\) \{\s*return ([^;]+);",
+        text).group(1).split())
+    got = eval(wide, {**env, "kb": 3, "vb": 2})
+    assert got == tplan.attention_bwd_wide_smem_bytes(3, 2) == 125_480
+    assert got <= tplan.SMEM_BUDGET_DEFAULT
+    for nbox in (1, 2, 3):
+        assert eval(wide, {**env, "kb": nbox, "vb": nbox}) == \
+            eval(narrow, {**env, "nbox": nbox}) == \
+            tplan.attention_bwd_wide_smem_bytes(nbox, nbox)
+    # the C side's rule admits D = 192 beside the narrow widths, Dv as before
+    rule = re.search(r"static bool bwd_tc_route_ok\([^{]*\{(.*?)\n\}",
+                     text, re.S).group(1)
+    assert "D == 192" in rule and "head_ok(Dv)" in rule
 
 
 def test_attention_tiles_match_the_cuda_sources():
