@@ -148,12 +148,14 @@ does a machine without CUDA and a directory that does not hold the port.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import statistics
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -221,10 +223,12 @@ SEQ_RANKS, SEQ_T_LOC = 4, 4096
 # 8-rank smoke mesh (pod 2 x data 2 x model 2), a gradient of its embedding
 # table's shape all-reduced over DP = (pod, data) through the flat and the
 # hierarchical backend, and the host time of one all-reduce call of a
-# 4 KiB payload (LinkModel.dispatch_s), the median of DISPATCH_TIMINGS
-# timings of DISPATCH_REPS calls; the median must lie within DISPATCH_BAND
-# (relative) of LinkModel.dispatch_s: on a shared host the runs' medians
-# have ranged from 50.90 to 91.03 us, and the band holds both
+# 4 KiB payload (LinkModel.dispatch_s) in DISPATCH_TIMINGS timings of
+# DISPATCH_REPS calls; the least of them must lie within DISPATCH_BAND
+# (relative) of LinkModel.dispatch_s.  The host's cores are shared: the
+# runs' medians have ranged from 50.90 to 117.03 us and single timings up
+# to 137.03, while the least of a run's nine has stayed between 45.78 and
+# 81.51 us where recorded
 RT_ARCH, RT_RANKS, DISPATCH_BYTES = "glm4-9b", 8, 4096
 DISPATCH_REPS, DISPATCH_TIMINGS, DISPATCH_BAND = 200, 9, 0.5
 # bf16's unit roundoff: the flat sum rounds once, the hierarchical one's
@@ -1916,6 +1920,22 @@ def _flash_call(torch, k, name, args, kw, route="wgmma"):
                      route=route, causal=kw.get("causal", True))
 
 
+def _device_events(prof) -> dict:
+    """Each kernel's (or copy's) device time in a finished trace, in us by
+    name, read from the trace's raw events: only those on the card.  What
+    ``key_averages()`` gives for them, without turning every host event of
+    the trace into a ``FunctionEvent`` first (about 30 s for a profiled
+    training step of tens of thousands of host ops)."""
+    out = {}
+    for evt in prof.profiler.kineto_results.events():
+        if "CUDA" not in str(evt.device_type()) or getattr(
+                evt, "is_user_annotation", lambda: False)():
+            continue
+        us = evt.duration_ns() / 1e3
+        out[evt.name()] = out.get(evt.name(), 0.0) + us
+    return out
+
+
 def _breakdown(torch, fn, reps: int = 3) -> str:
     """Device time of ``fn`` by kernel group from ``torch.profiler`` (ms a
     call), and the device's busy share of the wall time of those calls."""
@@ -1930,13 +1950,9 @@ def _breakdown(torch, fn, reps: int = 3) -> str:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     groups, top = {}, []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total",
-                     getattr(evt, "self_cuda_time_total", 0))
-        if us <= 0 or getattr(evt, "device_type", None) is not None and \
-                "CUDA" not in str(evt.device_type):
+    for name, us in _device_events(prof).items():
+        if us <= 0:
             continue
-        name = evt.key
         group = ("flash" if any(t in name for t in FLASH_KERNELS) else
                  "flash_bwd" if any(t in name for t in FLASH_BWD_KERNELS)
                  else
@@ -2554,16 +2570,38 @@ def moe_phase(torch, k, dev, wrappers) -> list:
           and launches["fused_moe_dispatch"] == 0,
           f"moe a2a chunk: launches {launches}")
     check(bool(torch.isfinite(logits).all()), "moe a2a chunk: bad logits")
-    x, wg, wu, wd, live = mlp_tap.calls[0][0]
+    mlp_line = {"name": "expert_mlp", "route": "cuda",
+                "source": "src/repro_torch/csrc/expert_mlp.cu",
+                "replaces": "src/repro/kernels/moe_dispatch/kernel.py:44",
+                "launches": launches["expert_mlp"],
+                "route_launches": mlp_routes, "shape": "a2a chunk"}
+    mlp_line.update(_expert_mlp_at(torch, k, "a2a chunk",
+                                   *mlp_tap.calls[0][0]))
+    mlp_line.update({"dispatch_decode_blocks": mlp_decode,
+                     "dispatch_chunk_blocks": mlp_chunk})
+    del mlp_tap, cache, params
+    torch.cuda.empty_cache()
+    return [mlp_line, line]
+
+
+def _expert_mlp_at(torch, k, tag, x, wg, wu, wd, live) -> dict:
+    """Row 7 at one call of a path (its landed blocks ``x (*lead, sources,
+    E, C, d)`` and live rows ``live``) against its plain version, timed by
+    CUDA events and by its device time (warm and with L2 flushed), beside
+    its bound: the weights of every (rank, expert) some row reaches read
+    once, each live row read and written once; 6 d f operations a live
+    row."""
     got, want = k.expert_mlp(x, wg, wu, wd, live), \
         k.expert_mlp_plain(x, wg, wu, wd, live)
     err = max_err(torch, got, want)
-    dead = ~(torch.arange(x.shape[-2], device=dev) < live[..., None])
+    dead = ~(torch.arange(x.shape[-2], device=x.device) < live[..., None])
     check(err <= 1.6e-2 * float(want.float().abs().max())
-          and not got[dead].any(), f"expert_mlp a2a chunk: err {err}")
+          and not got[dead].any(), f"expert_mlp {tag}: err {err}")
+    del got, want
+    torch.cuda.empty_cache()
     pairs = int(live.sum())
     reached = int((live.sum(-2) > 0).sum())      # (rank, expert) pairs
-    f = wg.shape[-1]
+    d, f = wg.shape[-2:]
     nbytes = 2 * (reached * 3 * d * f + 2 * pairs * d) + 4 * live.numel()
     mlp = lambda: k.expert_mlp(x, wg, wu, wd, live)  # noqa: E731
     ms = cuda_ms(torch, mlp, 5)
@@ -2571,24 +2609,248 @@ def moe_phase(torch, k, dev, wrappers) -> list:
     cold_ms = device_ms(torch, mlp, 5, EXPERT_KERNELS, cold_l2=True)
     plain = cuda_ms(torch, lambda: k.expert_mlp_plain(x, wg, wu, wd, live), 2)
     b_ms, b_by = bound(nbytes, 2 * 3 * d * f * pairs, "bfloat16")
-    log(f"expert_mlp a2a chunk: x {tuple(x.shape)}, {pairs} live rows on "
+    log(f"expert_mlp {tag}: x {tuple(x.shape)}, {pairs} live rows on "
         f"{reached} experts: {ms:.3f} ms, device {_ms(dev_ms, 4)} warm / "
         f"{_ms(cold_ms, 4)} L2 flushed, plain {plain:.3f}, bound "
-        f"{b_ms:.4f} ms "
-        f"by {b_by}, err {err:.4g}")
-    mlp_line = {"name": "expert_mlp", "route": "cuda",
-                "source": "src/repro_torch/csrc/expert_mlp.cu",
-                "replaces": "src/repro/kernels/moe_dispatch/kernel.py:44",
-                "launches": launches["expert_mlp"],
-                "route_launches": mlp_routes, "shape": "a2a chunk",
-                "max_abs_err": err, "ms": ms, "device_ms": dev_ms,
-                "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                "dispatch_decode_blocks": mlp_decode,
-                "dispatch_chunk_blocks": mlp_chunk}
-    del mlp_tap, x, wg, wu, wd, live, got, want, cache, params
+        f"{b_ms:.4f} ms by {b_by}, err {err:.4g}")
+    return {"max_abs_err": err, "ms": ms, "device_ms": dev_ms,
+            "device_ms_l2_flushed": cold_ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "blocks": list(x.shape), "live_rows": pairs,
+            "experts_reached": reached}
+
+
+# -- expert2d serving: qwen3-moe's experts over model x data -----------------
+
+# qwen3-moe-235b-a22b at full width, depth cut to MOE_E2D_LAYERS, on data 2
+# x model 2 (EP = 4 under expert2d: 32 whole experts a rank): glm4-9b's 8
+# requests onto SLOTS slots under the default layout and under expert2d
+# (decodes of 2 slots a data rank: the a2a regime), then
+# MOE_E2D_SHORT_PROMPTS on 2 slots under expert2d (one a data rank: the
+# replicated regime, its tokens all-gathered over "data"), MOE_E2D_SHORT_NEW
+# tokens each; the tokens of both layouts compared greedy on an f32 cut at
+# the same depth and width (MOE_E2D_F32_PROMPTS, MOE_E2D_F32_NEW tokens, on
+# 4 and on 2 slots)
+MOE_E2D_LAYERS, MOE_E2D_MESH = 4, (("data", "model"), (2, 2))
+MOE_E2D_SHORT_PROMPTS, MOE_E2D_SHORT_NEW = (300, 700), 16
+MOE_E2D_F32_PROMPTS, MOE_E2D_F32_NEW = (5, 37, 70), 8
+
+
+def _moe_regimes(sizes):
+    """A tap of the model stack's ``moe_block``: each call's tokens a rank
+    (B_loc x T) appended to ``sizes``, no call kept."""
+    from repro_torch.models import transformer as tf_mod
+
+    def keep(args, kw):
+        x = args[0]
+        nd = x.dim() - 3
+        sizes.append(x.shape[nd] * x.shape[nd + 1])
+        return False
+    return _Tap(tf_mod, "moe_block", keep)
+
+
+def _served_moe(wrappers, cfg, calls, tag):
+    """Every MoE layer of every device call on row 7 (``wgmma``), none on
+    row 8; returns the counts."""
+    launches = {n: w.launches for n, w in wrappers.items()}
+    routes = dict(wrappers["expert_mlp"].route_launches)
+    check(launches["expert_mlp"] == cfg.num_layers * calls
+          and launches["fused_moe_dispatch"] == 0
+          and routes == {"simt": 0, "wgmma": launches["expert_mlp"]},
+          f"{tag}: expert-MLP launches {launches['expert_mlp']} (routes "
+          f"{routes}) for {cfg.num_layers} layers x {calls} device calls, "
+          f"dispatch launches {launches['fused_moe_dispatch']}")
+    return {"expert_mlp": launches["expert_mlp"], "routes": routes}
+
+
+def moe_expert2d_serve_phase(torch, k, dev, wrappers) -> dict:
+    """qwen3-moe served under expert2d at full width (MOE_E2D_LAYERS of 94
+    layers) on data 2 x model 2, beside the default layout at the same cut,
+    every wrapper's count zeroed just before each run and read just after:
+    every MoE layer of every chunk and decode call on row 7 on the tensor
+    cores, no dispatch kernel (the a2a and replicated regimes run the
+    expert MLP on the landed blocks); time to first token and the decode
+    step of both layouts; one expert2d decode and chunk call profiled by
+    kernel group, and a decode call's drops; then 2 slots under expert2d
+    (the replicated regime at decode, asserted from the tokens a rank that
+    reach ``moe_block``); then the greedy tokens of both layouts on an f32
+    cut, equal, on 4 and on 2 slots."""
+    import dataclasses
+    import numpy as np
+    from repro_torch import configs
+    from repro_torch.core.context import DiompContext
+    from repro_torch.distributed.sharding import rules_for_ctx
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import layers as layers_mod
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    from repro_torch.serve.engine import ServeEngine
+
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(MOE_ARCH), num_layers=MOE_E2D_LAYERS)
+    mesh = RankMesh(*MOE_E2D_MESH)
+    out = {"layers": cfg.num_layers, "mesh": dict(mesh.shape)}
+
+    def params_of(pctx, dtype=None):
+        p = sch.init_params(cfg, mesh, torch.Generator(device=dev)
+                            .manual_seed(0), device=dev,
+                            rules=rules_for_ctx(pctx))
+        if dtype is not None:           # leaf by leaf: one copy at a time
+            p = {n: p.pop(n).to(dtype) for n in sorted(p)}
+        return p
+
+    # the two layouts' weights (the same values) side by side, served in
+    # turns: default, expert2d, expert2d, default
+    pctxs = {name: ParallelCtx.from_mesh(mesh, remat=False, inference=True,
+                                         expert2d=name == "expert2d")
+             for name in ("default", "expert2d")}
+    weights = {name: params_of(pctx) for name, pctx in pctxs.items()}
+    for name in ("default", "expert2d"):
+        out[name] = {"runs": []}
+    for turn, name in enumerate(("default", "expert2d", "expert2d",
+                                 "default")):
+        tag = f"serve {cfg.name} ({name}, {cfg.num_layers} layers)"
+        pctx, params = pctxs[name], weights[name]
+        torch.cuda.reset_peak_memory_stats()
+        sizes, pending, steps_experts = [], [], []
+
+        def route(toks, router, kk, _orig=layers_mod.route_topk):
+            top_w, top_e = _orig(toks, router, kk)
+            if toks.shape[-2] <= SLOTS:          # a decode call's layer
+                pending.append(top_e)
+            return top_w, top_e
+
+        def on_step():
+            # the experts each decode step's tokens reach (their owners
+            # read them once), summed over its layers, off the clock
+            steps_experts.append(sum(int(t.unique().numel())
+                                     for t in pending[-cfg.num_layers:]))
+            pending.clear()
+
+        with _moe_regimes(sizes), \
+                _Swap(layers_mod, "route_topk", route):
+            run = _drive_engine(torch, dev, cfg, mesh, pctx, params,
+                                wrappers, on_step=on_step)
+        res = _served_moe(wrappers, cfg, run.eng.device_calls, tag)
+        stats = run.eng.latency_stats()
+        steady = run.steps_ms[2:] or run.steps_ms
+        res.update({"ttft_ms": {q: stats["ttft_s"][q] * 1e3
+                                for q in ("p50", "max")},
+                    "decode_ms": {"median": statistics.median(steady),
+                                  "min": min(steady), "max": max(steady),
+                                  "steps": len(steady)},
+                    "device_calls": run.eng.device_calls,
+                    "experts_a_decode_step": statistics.median(
+                        steps_experts),
+                    "tokens_a_rank_at_moe": sorted(set(sizes))})
+        if name == "expert2d":
+            # the decodes: SLOTS // 2 tokens a data rank, 1 a model rank
+            # (the a2a regime)
+            check(SLOTS // mesh.shape["data"] in sizes,
+                  f"{tag}: no decode reached moe_block with "
+                  f"{SLOTS // mesh.shape['data']} tokens a rank: {sizes}")
+        if turn == 2:
+            decode_once = _report_serving(torch, dev, cfg, mesh, params, run,
+                                          steps_experts)
+            with run.eng.dctx.dispatch_stats.collect() as ds:
+                decode_once()
+            res["decode_dropped"] = float(ds["moe_dropped"].sum())
+            res["decode_routed"] = float(ds["moe_routed"].sum())
+            del decode_once
+        res["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"{tag}, turn {turn}: " + json.dumps(res))
+        out[name]["runs"].append(res)
+        del run
+    del weights["default"]
+    params = weights.pop("expert2d")
     torch.cuda.empty_cache()
-    return [mlp_line, line]
+    for name in ("default", "expert2d"):
+        runs = out[name]["runs"]
+        out[name]["expert_mlp"] = sum(r["expert_mlp"] for r in runs)
+        out[name]["ttft_ms_p50"] = [r["ttft_ms"]["p50"] for r in runs]
+        out[name]["decode_ms_median"] = [r["decode_ms"]["median"]
+                                         for r in runs]
+    d, e = out["default"], out["expert2d"]
+    log(f"serve {cfg.name}: expert2d against the default layout, in turns "
+        f"(default, expert2d, expert2d, default): time to first token "
+        f"medians {e['ttft_ms_p50']} ms against {d['ttft_ms_p50']}, decode "
+        f"step medians {e['decode_ms_median']} ms against "
+        f"{d['decode_ms_median']}")
+
+    # 2 slots under expert2d: one decode token a data rank, the replicated
+    # regime (every rank of the four dispatches the gathered tokens)
+    tag = f"serve {cfg.name} (expert2d, 2 slots)"
+    pctx = pctxs["expert2d"]
+    eng = ServeEngine(cfg, mesh, pctx, params, context=DiompContext(
+        mesh=mesh, device=dev, segment_bytes=1 << 31, allocator="buddy"),
+        slots=2, max_len=MAX_LEN, prefill_chunk=CHUNK,
+        page_tokens=PAGE_TOKENS)
+    rng = np.random.RandomState(3)
+    reqs = [eng.submit(rng.randint(0, cfg.vocab_size, n),
+                       max_new=MOE_E2D_SHORT_NEW)
+            for n in MOE_E2D_SHORT_PROMPTS]
+    sizes = []
+    _zero_counts(wrappers)
+    t0 = time.perf_counter()
+    with _moe_regimes(sizes), \
+            eng.dctx.dispatch_stats.collect() as ds:
+        eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == MOE_E2D_SHORT_NEW for r in reqs),
+          f"{tag}: a request unfinished")
+    res = _served_moe(wrappers, cfg, eng.device_calls, tag)
+    check(1 in sizes, f"{tag}: no decode took the replicated regime "
+          f"(tokens a rank at moe_block {sorted(set(sizes))})")
+    ep = pctx.ep_group.descriptor()
+    logged = eng.dctx.stats().get(ep, {})
+    check(logged.get("allreduce", 0) > 0 and logged.get("alltoall", 0) > 0,
+          f"{tag}: the EP group's logged verbs {logged}")
+    res.update({"wall_s": wall, "device_calls": eng.device_calls,
+                "tokens_a_rank_at_moe": sorted(set(sizes)),
+                "ep_group_verbs": logged,
+                "dropped": float(ds["moe_dropped"].sum()),
+                "routed": float(ds["moe_routed"].sum()),
+                "ttft_ms": eng.latency_stats()["ttft_s"]["p50"] * 1e3})
+    log(f"{tag}: " + json.dumps(res))
+    out["expert2d_2slots"] = res
+    del eng, reqs, params
+    torch.cuda.empty_cache()
+
+    # the greedy tokens of both layouts on an f32 cut at the same depth
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in MOE_E2D_F32_PROMPTS]
+    toks = {}
+    for e2d, pctx in zip((False, True), pctxs.values()):
+        params = params_of(pctx, torch.float32)
+        for slots in (SLOTS, 2):
+            eng = ServeEngine(cfg, mesh, pctx, params, context=DiompContext(
+                mesh=mesh, device=dev, segment_bytes=1 << 31,
+                allocator="buddy"), slots=slots, max_len=128,
+                prefill_chunk=32, page_tokens=PAGE_TOKENS)
+            eng.cache = {n: c if n == "pos" else c.float()
+                         for n, c in eng.cache.items()}
+            rs = [eng.submit(p, max_new=MOE_E2D_F32_NEW) for p in prompts]
+            eng.run()
+            check(all(r.done for r in rs), "f32 cut: a request unfinished")
+            toks[(e2d, slots)] = [list(r.out) for r in rs]
+            del eng, rs
+        del params
+        torch.cuda.empty_cache()
+    for slots in (SLOTS, 2):
+        check(toks[(True, slots)] == toks[(False, slots)],
+              f"serve {cfg.name}: expert2d's greedy tokens on the f32 cut "
+              f"({slots} slots) differ from the default layout's: "
+              f"{toks[(True, slots)]} against {toks[(False, slots)]}")
+    out["f32_tokens"] = {"prompts": list(MOE_E2D_F32_PROMPTS),
+                         "new": MOE_E2D_F32_NEW,
+                         "equal_on_slots": [SLOTS, 2],
+                         "tokens": toks[(True, SLOTS)]}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"serve {cfg.name}: expert2d's greedy tokens on the f32 cut equal "
+        f"the default layout's on {SLOTS} and 2 slots "
+        f"({sum(map(len, toks[(True, SLOTS)]))} tokens a run); the phase "
+        f"took {out['seconds']:.1f} s")
+    return out
 
 
 # -- MLA (deepseek-v3) and the dense GQA configs at full width -------------
@@ -3659,22 +3921,31 @@ def runtime_phase(torch, dev) -> dict:
     torch.cuda.empty_cache()
 
     # the host's time to issue one all-reduce (the free function, through
-    # the runtime's default context)
+    # the runtime's default context), with the garbage collector off while
+    # the calls are timed, as ``timeit`` does
     x = torch.zeros(*mesh.sizes, DISPATCH_BYTES // 4, device=dev)
-    gaps = [host_and_events(torch, lambda: ompccl.allreduce(x, dp),
-                            DISPATCH_REPS) for _ in range(DISPATCH_TIMINGS)]
+    gc.collect()
+    gc.disable()
+    try:
+        gaps = [host_and_events(torch, lambda: ompccl.allreduce(x, dp),
+                                DISPATCH_REPS)
+                for _ in range(DISPATCH_TIMINGS)]
+    finally:
+        gc.enable()
     host_us = sorted(g_["host_ms"] * 1e3 for g_ in gaps)
     event_us = sorted(g_["event_ms"] * 1e3 for g_ in gaps)
     gap = {"host_ms": statistics.median(host_us) / 1e3,
+           "host_min_ms": host_us[0] / 1e3,
            "event_ms": statistics.median(event_us) / 1e3}
     log(f"runtime: one ompccl.allreduce of {DISPATCH_BYTES} B a rank over "
-        f"dp: host {gap['host_ms'] * 1e3:.2f} us a call (median of "
-        f"{DISPATCH_TIMINGS} x {DISPATCH_REPS} calls; "
-        f"{', '.join(f'{u:.2f}' for u in host_us)}), events "
-        f"{gap['event_ms'] * 1e3:.2f} us (LinkModel.dispatch_s "
+        f"dp: host {host_us[0]:.2f} us a call at the least, "
+        f"{gap['host_ms'] * 1e3:.2f} the median ({DISPATCH_TIMINGS} x "
+        f"{DISPATCH_REPS} calls; {', '.join(f'{u:.2f}' for u in host_us)}),"
+        f" events {gap['event_ms'] * 1e3:.2f} us (LinkModel.dispatch_s "
         f"{link.dispatch_s * 1e6:.2f} us)")
-    check(abs(gap["host_ms"] / 1e3 / link.dispatch_s - 1) <= DISPATCH_BAND,
-          f"runtime: the dispatch time {gap['host_ms'] * 1e3:.2f} us lies "
+    check(abs(gap["host_min_ms"] / 1e3 / link.dispatch_s - 1)
+          <= DISPATCH_BAND,
+          f"runtime: the least dispatch time {host_us[0]:.2f} us lies "
           f"outside {DISPATCH_BAND:.0%} of LinkModel.dispatch_s "
           f"({link.dispatch_s * 1e6:.2f} us)")
     rt.close()
@@ -3685,6 +3956,7 @@ def runtime_phase(torch, dev) -> dict:
             "allreduce_scale": scale, "payload_bytes": payload,
             "wire_bytes": wire, "modeled_s": modeled,
             "dispatch_host_ms": gap["host_ms"],
+            "dispatch_host_min_ms": gap["host_min_ms"],
             "dispatch_event_ms": gap["event_ms"]}
 
 
@@ -4173,6 +4445,7 @@ def _train_setup(torch, dev, cfg, mesh, donate=False, optimizer="adamw",
     updates the parameters and the state in place, as the launcher's loop
     does."""
     from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.distributed.sharding import rules_for_ctx
     from repro_torch.interop import stack_shards
     from repro_torch.models import api
     from repro_torch.models.config import ParallelCtx
@@ -4183,8 +4456,8 @@ def _train_setup(torch, dev, cfg, mesh, donate=False, optimizer="adamw",
     ctx = ParallelCtx.from_mesh(mesh, remat=True, **knobs)
     lr = lambda step: torch.tensor(TRAIN_LR)  # noqa: E731
     if optimizer == "adafactor":
-        opt = adafactor(lr, dim_axes=adafactor_dim_axes(cfg, mesh),
-                        nd=mesh.ndim)
+        opt = adafactor(lr, dim_axes=adafactor_dim_axes(
+            cfg, mesh, rules_for_ctx(ctx)), nd=mesh.ndim)
     else:
         opt = adamw(lr, b1=TRAIN_B1)
     step = build_train_step(cfg, mesh, ctx, opt, optimizer_name=optimizer,
@@ -4925,15 +5198,17 @@ def _plain_pairs():
             (fa_mod, "flash_attention_bwd_plain"))
 
 
-def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, profile=True,
+def _moe_steps(torch, dev, wrappers, cfg, steps, taps=(), profile=True,
                **knobs):
     """``steps`` steps of the MoE config on TRAIN_MESH (Adafactor at the
-    checks' constant rate, the state updated in place), every count zeroed
-    just before and read just after; ``tap`` (module, name, keep) routes
-    the last step's calls of one function through ``keep`` (which copies
-    what it needs and keeps no call).  Then, with ``profile``, one more
-    step profiled by kernel group.  Returns the run's numbers."""
+    checks' constant rate, the state updated in place, the parameters laid
+    out by the knobs' rules), every count zeroed just before and read just
+    after; each of ``taps`` (module, name, keep) routes the last step's
+    calls of one function through ``keep`` (which copies what it needs and
+    keeps no call).  Then, with ``profile``, one more step profiled by
+    kernel group.  Returns the run's numbers."""
     from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.distributed.sharding import rules_for_ctx
     from repro_torch.launch.train import parse_mesh
     from repro_torch.models import schema as sch
 
@@ -4944,19 +5219,22 @@ def _moe_steps(torch, dev, wrappers, cfg, steps, tap=None, profile=True,
     out = {"losses": [], "grad_norms": [], "moe_dropped": [],
            "moe_drop_rate": [], "step_s": []}
     with use_default(dctx):
-        _, opt, step, batch = _train_setup(torch, dev, cfg, mesh,
-                                           donate=True, optimizer="adafactor",
-                                           **knobs)
+        ctx, opt, step, batch = _train_setup(
+            torch, dev, cfg, mesh, donate=True, optimizer="adafactor",
+            **knobs)
         state = [sch.init_params(cfg, mesh, torch.Generator(device=dev)
-                                 .manual_seed(0), device=dev)]
+                                 .manual_seed(0), device=dev,
+                                 rules=rules_for_ctx(ctx))]
         state.append(opt.init(state[0]))
         _zero_counts(wrappers)
         t0 = time.perf_counter()
         with _calls_of(_plain_pairs()) as plain:
             for i in range(steps):
                 t1 = time.perf_counter()
-                with (_Tap(*tap) if tap is not None and i == steps - 1
-                      else contextlib.nullcontext()):
+                with contextlib.ExitStack() as stack:
+                    if i == steps - 1:
+                        for tap in taps:
+                            stack.enter_context(_Tap(*tap))
                     state[0], state[1], met = step(state[0], state[1],
                                                    batch(i), i)
                 for key, into in (("loss", "losses"),
@@ -5158,6 +5436,31 @@ def _route_flips(torch, own, replayed, args):
 MOE_CHECK_TIE_GAP = {"deepseek-v3-671b": 1e-4}
 
 
+def _global_of(t, mesh, spec):
+    """``interop.unstack_shards`` on the card: the global tensor a stacked
+    one lays out by ``spec`` (replicas read from index 0)."""
+    def axes(e):
+        return () if e is None else (e,) if isinstance(e, str) else tuple(e)
+    used = [a for e in spec for a in axes(e)]
+    for a in reversed(mesh.axis_names):
+        if a not in used:
+            t = t.select(mesh.dim(a), 0)
+    kept = [a for a in mesh.axis_names if a in used]
+    perm, shape = [], []
+    for d, e in enumerate(spec):
+        perm += [kept.index(a) for a in axes(e)] + [len(kept) + d]
+        shape.append(math.prod(mesh.shape[a] for a in axes(e))
+                     * t.shape[len(kept) + d])
+    return t.permute(perm).reshape(shape)
+
+
+def _relayout(t, mesh, src, dst):
+    """A stacked tensor laid out by ``src`` moved to ``dst`` on the card
+    (the same values: a permutation)."""
+    from repro_torch.interop import stack_shards
+    return stack_shards(_global_of(t, mesh, src), mesh, dst, device=t.device)
+
+
 def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
     """At full width, depth 1 (or ``cfg``'s cut), in f32, on TRAIN_MESH:
     each rank's loss (deepseek-v3's MTP term included),
@@ -5169,12 +5472,17 @@ def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
     MOE_CHECK_SEQ tokens), and once under "fused" (flash and its gradient,
     the fused dispatch's block-level function and its gradient, joined to
     the scatter and the combine by ``FusedDispatchFn``) from one sequence
-    a data rank cut to MOE_CHECK_SEQ tokens.  The kernels' run replays the
-    plain run's expert choices (``_replayed_routes``), so both compute one
-    function; its own choices must equal them, or, for a config in
-    MOE_CHECK_TIE_GAP, differ only at near ties (``_route_flips``).  The
-    plain run's gradients wait on the host while the kernels' run: the
-    two runs' f32 gradients
+    a data rank cut to MOE_CHECK_SEQ tokens.  Under "a2a" a third run,
+    "expert2d", holds the kernels under expert2d (the experts over model x
+    data, whole at full width, the dispatch over the four ranks: the expert
+    leaves of the same weights laid out again on the card) against the
+    default layout's plain run on the same tokens; the expert leaves'
+    gradients are compared in their global view.  Each kernels' run
+    replays the plain run's expert choices (``_replayed_routes``), so all
+    compute one function; its own choices must equal them, or, for a
+    config in MOE_CHECK_TIE_GAP, differ only at near ties
+    (``_route_flips``).  The plain run's gradients wait on the host while
+    the kernels' runs: the two runs' f32 gradients
     and activations do not fit the card together; no optimizer state is
     made (the check compares gradients).  Bounds: the loss within 1e-5 and
     each gradient leaf within 5e-3 of its largest per-rank value, the
@@ -5183,6 +5491,7 @@ def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
     contribution, most of which cancels)."""
     from repro_torch import configs
     from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.distributed.sharding import rules_for_ctx
     from repro_torch.kernels.flash_attention import kernel as fa_mod
     from repro_torch.kernels.moe_dispatch import fused
     from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
@@ -5229,60 +5538,14 @@ def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
              blocks_plain),
             (fused, "fused_dispatch_bwd_kernel", k.fused_dispatch_bwd_kernel,
              blocks_bwd_plain)]}
+    # the layouts' specs: the expert leaves are the ones that differ
+    specs = {e2d: sch.partition_specs(cfg, mesh, rules_for_ctx(
+        types.SimpleNamespace(expert2d=e2d))) for e2d in (False, True)}
+    moved = sorted(n for n, sp in specs[False].items()
+                   if sp != specs[True][n])
     out = {"layers": cfg.num_layers}
-    for impl, swaps in impls.items():
-        wr = [w for _, _, w, _ in swaps]
-        runs = {}
-        torch.cuda.reset_peak_memory_stats()
-        with use_default(dctx):
-            ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh,
-                                            dispatch_impl=impl)
-            b0 = batch(0)
-            if impl == "a2a" and not short:
-                b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
-                                  // TRAIN_MICRO) for n, t in b0.items()}
-            else:           # one sequence a data rank
-                b0 = {n: t.narrow(mesh.ndim, 0, 1)
-                      .narrow(mesh.ndim + 1, 0, MOE_CHECK_SEQ)
-                      for n, t in b0.items()}
-            for mode in ("plain", "kernels"):
-                stats = {}
 
-                def framed(p, b, c, x):
-                    # the forward's drops (the recompute records nowhere)
-                    with dctx.dispatch_stats.collect() as ds:
-                        loss = loss_fn(p, b, c, x)
-                    stats.update(ds)
-                    return loss
-
-                before = [w.launches for w in wr]
-                with contextlib.ExitStack() as stack:
-                    if mode == "plain":
-                        for mod, name, _, plain in swaps:
-                            stack.enter_context(_Swap(mod, name, plain))
-                    else:
-                        stack.enter_context(_Swap(
-                            layers_mod, "route_topk", _replayed_routes(
-                                torch, runs["plain"]["routes"])))
-                    rt = stack.enter_context(_Tap(
-                        layers_mod, "route_topk", lambda a, kw: True))
-                    loss, grads = per_rank_grads(params, b0, cfg, ctx, mesh,
-                                                 loss_fn=framed)
-                launched = [w.launches - b for w, b in zip(wr, before)]
-                # route_topk returns (top_w, top_e): the tap kept its
-                # inputs; each run's own choices are recomputed from them
-                # (the same function)
-                routes = [layers_mod.route_topk(*a)[1] for a, _ in rt.calls]
-                runs[mode] = {"loss": loss, "launched": launched,
-                              "routes": routes, "route_args": [
-                                  a for a, _ in rt.calls],
-                              "dropped": stats["moe_dropped"].clone(),
-                              "grads": grads if mode == "kernels" else
-                              {n: t.cpu() for n, t in grads.items()}}
-                del grads, rt
-                torch.cuda.empty_cache()
-        kp, pp = runs["kernels"], runs["plain"]
-        tag = f"moe checks {cfg.name} ({impl})"
+    def judge(kp, pp, tag):
         check(kp["launched"] == launches and pp["launched"] == [0] * 4,
               f"{tag}: launches (flash, flash bwd, the expert products, "
               f"their gradient) {kp['launched']} on the kernels, "
@@ -5293,19 +5556,22 @@ def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
             pp["loss"].abs().max())
         errs = []
         for n, want in pp["grads"].items():
-            want = want.to(dev)
+            want, got = want.to(dev), kp["grads"][n]
+            if kp["expert2d"] and n in moved:      # the global views
+                want = _global_of(want, mesh, specs[False][n])
+                got = _global_of(got, mesh, specs[True][n])
             scale = max(float(want.abs().max()), 1e-30)
-            errs.append((max_err(torch, kp["grads"][n], want) / scale, n))
-            del want
+            errs.append((max_err(torch, got, want) / scale, n))
+            del want, got
         errs.sort(reverse=True)
-        res = {"tokens": int(b0["tokens"].numel()), "loss_rel": loss_err,
+        res = {"tokens": int(kp["tokens"]), "loss_rel": loss_err,
                "grad_rel": errs[0][0], "grad_rel_leaf": errs[0][1],
                "grad_rel_top": errs[:4], "routing_flips": flips,
                "routing_flip_gap": gap,
                "routing_calls": len(kp["routes"]),
                "dropped": float(kp["dropped"].sum()),
                "loss": float(kp["loss"].mean()),
-               "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+               "peak_memory_gb": kp["peak_memory_gb"]}
         log(f"{tag} at depth {cfg.num_layers} (f32): kernels vs plain "
             + json.dumps(res))
         tie_gap = MOE_CHECK_TIE_GAP.get(cfg.name)
@@ -5319,8 +5585,87 @@ def _moe_train_checks(torch, k, dev, cfg=None, short=False) -> dict:
               f"{pp['dropped'].tolist()} on the plain versions")
         check(loss_err <= 1e-5 and errs[0][0] <= 5e-3,
               f"{tag}: kernels vs plain loss {loss_err}, grads {errs[0]}")
-        out[impl] = res
-        del runs, kp, pp, b0
+        return res
+
+    for impl, swaps in impls.items():
+        wr = [w for _, _, w, _ in swaps]
+        runs = {}
+        modes = ("plain", "kernels", "expert2d") if impl == "a2a" \
+            else ("plain", "kernels")
+        with use_default(dctx):
+            ctx, _, _, batch = _train_setup(torch, dev, cfg, mesh,
+                                            dispatch_impl=impl)
+            b0 = batch(0)
+            if impl == "a2a" and not short:
+                b0 = {n: t.narrow(mesh.ndim, 0, t.shape[mesh.ndim]
+                                  // TRAIN_MICRO) for n, t in b0.items()}
+            else:           # one sequence a data rank
+                b0 = {n: t.narrow(mesh.ndim, 0, 1)
+                      .narrow(mesh.ndim + 1, 0, MOE_CHECK_SEQ)
+                      for n, t in b0.items()}
+            for mode in modes:
+                stats = {}
+                torch.cuda.reset_peak_memory_stats()
+
+                def framed(p, b, c, x):
+                    # the forward's drops (the recompute records nowhere)
+                    with dctx.dispatch_stats.collect() as ds:
+                        loss = loss_fn(p, b, c, x)
+                    stats.update(ds)
+                    return loss
+
+                run_ctx = ctx
+                if mode == "expert2d":
+                    run_ctx = _train_setup(torch, dev, cfg, mesh,
+                                           dispatch_impl=impl,
+                                           expert2d=True)[0]
+                    for n in moved:         # the same weights, laid out again
+                        params[n] = _relayout(params[n], mesh,
+                                              specs[False][n],
+                                              specs[True][n])
+                before = [w.launches for w in wr]
+                with contextlib.ExitStack() as stack:
+                    if mode == "plain":
+                        for mod, name, _, plain in swaps:
+                            stack.enter_context(_Swap(mod, name, plain))
+                    else:
+                        stack.enter_context(_Swap(
+                            layers_mod, "route_topk", _replayed_routes(
+                                torch, runs["plain"]["routes"])))
+                    rt = stack.enter_context(_Tap(
+                        layers_mod, "route_topk", lambda a, kw: True))
+                    loss, grads = per_rank_grads(params, b0, cfg, run_ctx,
+                                                 mesh, loss_fn=framed)
+                launched = [w.launches - b for w, b in zip(wr, before)]
+                if mode == "expert2d":
+                    for n in moved:
+                        params[n] = _relayout(params[n], mesh,
+                                              specs[True][n],
+                                              specs[False][n])
+                # route_topk returns (top_w, top_e): the tap kept its
+                # inputs; each run's own choices are recomputed from them
+                # (the same function)
+                routes = [layers_mod.route_topk(*a)[1] for a, _ in rt.calls]
+                runs[mode] = {"loss": loss, "launched": launched,
+                              "routes": routes, "route_args": [
+                                  a for a, _ in rt.calls],
+                              "dropped": stats["moe_dropped"].clone(),
+                              "tokens": b0["tokens"].numel(),
+                              "expert2d": mode == "expert2d",
+                              "peak_memory_gb":
+                                  torch.cuda.max_memory_allocated() / 1e9,
+                              "grads": grads if mode != "plain" else
+                              {n: t.cpu() for n, t in grads.items()}}
+                del grads, rt
+                if mode != "plain":
+                    tag = f"moe checks {cfg.name} ({impl})" \
+                        if mode == "kernels" else \
+                        f"moe checks {cfg.name} (expert2d against the " \
+                        f"default layout's plain run)"
+                    out[impl if mode == "kernels" else mode] = judge(
+                        runs.pop(mode), runs["plain"], tag)
+                torch.cuda.empty_cache()
+        del runs, b0
         torch.cuda.empty_cache()
     del params
     torch.cuda.empty_cache()
@@ -5331,48 +5676,66 @@ def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
                     profiled=("a2a", "fused")):
     """``cfg`` trained TRAIN_STEPS steps on TRAIN_MESH under the default
     capacity all-to-all at TRAIN_MICRO, then MOE_FUSED_STEPS steps under the
-    dropless fused ring at MOE_FUSED_MICRO (:func:`_moe_steps`), every
+    dropless fused ring at MOE_FUSED_MICRO, then MOE_FUSED_STEPS steps
+    under expert2d at MOE_FUSED_MICRO (the experts over model x data, E / 4
+    a rank at full width; ``dispatch_impl="fused"`` asked for, which the
+    two-axis EP group turns into the capacity all-to-all over the four
+    ranks, as the reference's does) (:func:`_moe_steps`), every
     wrapper's count zeroed just before each run and read just after: each
     of the ``attn_layers`` attention layers a forward and a remat forward
     on flash and a backward on its gradient, each of the ``moe_layers`` MoE
     layers a forward and a remat forward on row 7 and a backward on row 12
-    under "a2a", on rows 8 and 13 under "fused", all on the tensor cores,
-    no plain version, no drop under "fused".  Logs each run's losses, drop
+    under "a2a" and "expert2d", on rows 8 and 13 under "fused", all on the
+    tensor cores, no plain version, no drop under "fused", no launch of
+    rows 8 and 13 under "expert2d".  Logs each run's losses, drop
     counts, step times and tokens/s beside the step's bound, its peak
-    memory and, for the dispatches in ``profiled``, one more step
+    memory and, for the runs in ``profiled``, one more step
     profiled by kernel group.  Returns the runs
-    and, by dispatch, the last step's first backward call of its expert
+    and, by run, the last step's first backward call of its expert
     rows: row 12's x, dy and counts; row 13's block shape, counts, group
-    and plan."""
+    and plan; and under "a2a_fwd" and "expert2d_fwd" the last step's first
+    forward call of row 7 (its blocks, live rows and the weights'
+    shapes)."""
     from repro_torch.kernels.moe_dispatch import fused
     from repro_torch.kernels.moe_dispatch import kernel as mlp_mod
+    from repro_torch.models import layers as layers_mod
 
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = _train_flops(cfg, tokens)
     b_ms = flops / PEAK_OPS["bfloat16"] * 1e3
     runs, calls = {}, {}
 
-    def first(impl, pick):
+    def first(key, pick):
         def keep(args, kw):
-            if impl not in calls:
-                calls[impl] = pick(args, kw)
+            if key not in calls:
+                calls[key] = pick(args, kw)
             return False
         return keep
 
-    for impl, steps, micro in (("a2a", TRAIN_STEPS, TRAIN_MICRO),
-                               ("fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO)):
-        tag = f"train {cfg.name} ({impl})"
-        if impl == "a2a":
-            tap = (mlp_mod, "expert_mlp_bwd", first(impl, lambda a, kw: (
-                a[0].detach().clone(), a[4].detach().clone(),
-                a[5].clone())))
+    def row12_tap(key):
+        return (mlp_mod, "expert_mlp_bwd", first(key, lambda a, kw: (
+            a[0].detach().clone(), a[4].detach().clone(), a[5].clone())))
+
+    def row7_tap(key):
+        return (layers_mod, "expert_mlp", first(key, lambda a, kw: (
+            a[0].detach().clone(), a[4].clone(), tuple(a[1].shape),
+            tuple(a[3].shape))))
+
+    for name, impl, steps, micro, knobs in (
+            ("a2a", "a2a", TRAIN_STEPS, TRAIN_MICRO, {}),
+            ("fused", "fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO, {}),
+            ("expert2d", "fused", MOE_FUSED_STEPS, MOE_FUSED_MICRO,
+             {"expert2d": True})):
+        tag = f"train {cfg.name} ({name})"
+        if name == "fused":
+            taps = [(fused, "fused_dispatch_bwd_kernel", first(
+                name, lambda a, kw: (tuple(a[0].shape), a[4].clone(), a[6],
+                                     kw["plan"])))]
         else:
-            tap = (fused, "fused_dispatch_bwd_kernel", first(
-                impl, lambda a, kw: (tuple(a[0].shape), a[4].clone(), a[6],
-                                     kw["plan"])))
-        run = _moe_steps(torch, dev, wrappers, cfg, steps, tap=tap,
-                         profile=impl in profiled, dispatch_impl=impl,
-                         microbatch=micro)
+            taps = [row12_tap(name), row7_tap(f"{name}_fwd")]
+        run = _moe_steps(torch, dev, wrappers, cfg, steps, taps=taps,
+                         profile=name in profiled, dispatch_impl=impl,
+                         microbatch=micro, **knobs)
         passes = micro * steps
         launches, routes = run["launches"], run["routes"]
         log(f"{tag}: {cfg.param_count()} parameters, {cfg.num_layers} "
@@ -5385,11 +5748,11 @@ def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
             f"{run['peak_memory_gb']:.2f} GB")
         check(all(math.isfinite(x) for x in run["losses"] + run["grad_norms"])
               and len(run["losses"]) == steps, f"{tag}: a non-finite step")
-        moe = ({"expert_mlp": 2 * moe_layers * passes,
-                "expert_mlp_bwd": moe_layers * passes}
-               if impl == "a2a" else
-               {"fused_moe_dispatch": 2 * moe_layers * passes,
-                "fused_moe_dispatch_bwd": moe_layers * passes})
+        moe = ({"fused_moe_dispatch": 2 * moe_layers * passes,
+                "fused_moe_dispatch_bwd": moe_layers * passes}
+               if name == "fused" else
+               {"expert_mlp": 2 * moe_layers * passes,
+                "expert_mlp_bwd": moe_layers * passes})
         want = {"flash_attention": 2 * attn_layers * passes,
                 "flash_attention_bwd": attn_layers * passes, **moe}
         check(all(launches[n] == c for n, c in want.items())
@@ -5399,7 +5762,7 @@ def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
                   for n, c in want.items()), f"{tag}: routes {routes}")
         check(not any(run["plain_calls"].values()),
               f"{tag}: a plain version ran: {run['plain_calls']}")
-        if impl == "fused":
+        if name == "fused":
             check(not any(run["moe_dropped"]),
                   f"{tag}: the dropless ring dropped {run['moe_dropped']}")
         steps_ms = [{"ms": s * 1e3, "tokens_per_s": tokens / s}
@@ -5410,7 +5773,7 @@ def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
             f"{b_ms:.2f} ms a step ({flops:.4g} operations at the bf16 "
             f"tensor-core rate); one step profiled: "
             f"{run['breakdown'] or 'not profiled'}")
-        runs[impl] = {"layers": cfg.num_layers,
+        runs[name] = {"layers": cfg.num_layers,
                       "parameters": cfg.param_count(), "microbatch": micro,
                       "step_ms": steps_ms, "bound_ms": b_ms,
                       "peak_memory_gb": run["peak_memory_gb"],
@@ -5421,6 +5784,8 @@ def _moe_train_runs(torch, dev, wrappers, cfg, attn_layers, moe_layers,
                       "launches": {n: launches[n] for n in want},
                       "routes": {n: routes[n] for n in want},
                       "breakdown": run["breakdown"]}
+        if knobs:
+            runs[name]["knobs"] = {**knobs, "dispatch_impl": impl}
         del run
         torch.cuda.empty_cache()
     return runs, calls
@@ -5437,12 +5802,16 @@ def moe_train_phase(torch, k, dev, wrappers) -> dict:
     forward and remat forward on row 7 and every backward on row 12, all
     on the tensor cores; under "fused" the same attention and every MoE
     layer's forward and remat forward on row 8 and backward on row 13; no
-    plain version on either path.  Each run's losses, drop counts, step
-    times and tokens/s beside the step's bound, its peak memory and one
-    more step profiled by kernel group; rows 12 and 13 at the runs' own
-    shapes against their plain versions; then the f32 depth-1 checks under
-    both dispatches.  Returns the rows-12 and -13 lines of the ``kernels``
-    JSON."""
+    plain version on either path; then MOE_FUSED_STEPS steps under
+    expert2d (E / 4 = 32 experts a rank from 4 sources at full width),
+    every expert MLP on rows 7 and 12 and none on rows 8 and 13.  Each
+    run's losses, drop counts, step times and tokens/s beside the step's
+    bound, its peak memory and, for the first two, one more step profiled
+    by kernel group; rows 12 and 13 at the runs' own shapes against their
+    plain versions, and rows 12 and 7 at the expert2d run's own calls; then
+    the f32 depth-1 checks under both dispatches and expert2d against the
+    default layout.  Returns the rows-12 and -13 lines of the ``kernels``
+    JSON and row 7's expert2d instance."""
     from repro_torch import configs
     from repro_torch.core.context import DiompContext
     from repro_torch.launch.train import parse_mesh
@@ -5458,6 +5827,22 @@ def moe_train_phase(torch, k, dev, wrappers) -> dict:
     row13 = _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape)
     del counts
     torch.cuda.empty_cache()
+    # rows 12 and 7 at the expert2d run's own calls, row 7 also at the
+    # default layout's (random weights at their shapes: a rank's 32 whole
+    # experts, or its 64 gathered ones)
+    row12_e2d = _expert_bwd_at(torch, k, g, *calls.pop("expert2d"))
+    row7 = {}
+    for name in ("expert2d", "a2a"):
+        x, live, gshape, dshape = calls.pop(f"{name}_fwd")
+        ws = [(torch.randn(*shp, generator=g, device=dev) * shp[-2] ** -0.5)
+              .to(x.dtype) for shp in (gshape, gshape, dshape)]
+        row7[name] = _expert_mlp_at(torch, k, f"{name} training call", x,
+                                    *ws, live)
+        del x, live, ws
+        torch.cuda.empty_cache()
+    row7_e2d = row7["expert2d"]
+    row7_e2d["launches"] = runs["expert2d"]["launches"]["expert_mlp"]
+    row7_e2d["default_layout_call"] = row7["a2a"]
     checks = _moe_train_checks(torch, k, dev)
     lines = []
     for name, source, replaces, run, row in (
@@ -5481,7 +5866,12 @@ def moe_train_phase(torch, k, dev, wrappers) -> dict:
         lines.append(line)
     for line, impl in zip(lines, ("a2a", "fused")):
         line["checks"] = {"layers": checks["layers"], **checks[impl]}
-    return lines
+    lines[0]["expert2d"] = {
+        **row12_e2d,
+        "launches": runs["expert2d"]["launches"]["expert_mlp_bwd"],
+        "train": runs["expert2d"],
+        "checks": {"layers": checks["layers"], **checks["expert2d"]}}
+    return lines + [row7_e2d]
 
 
 # -- training deepseek-v3: MLA, its MTP term, row 10 at D = 192 --------------
@@ -5514,7 +5904,9 @@ def deepseek_train_phase(torch, k, dev, wrappers) -> dict:
     plain version, twice for equal bits, timed beside SDPA's backward and
     its bound; the forward with the lse there too); rows 12 and 13 at the
     runs' own calls (d 7168, f 2048); then the f32 checks of
-    :func:`_moe_train_checks` at the same cut under both dispatches."""
+    :func:`_moe_train_checks` at the same cut under both dispatches and
+    under expert2d (16 experts, 4 a rank at EP = 4) against the default
+    layout."""
     import dataclasses
     from repro_torch import configs
     from repro_torch.core.context import DiompContext
@@ -5555,6 +5947,7 @@ def deepseek_train_phase(torch, k, dev, wrappers) -> dict:
     row13 = _dispatch_bwd_at(torch, k, g, dctx, counts, plan, group, shape,
                              f=cfg.moe_d_ff)
     del counts
+    calls.clear()                   # the expert2d run's calls: not timed
     torch.cuda.empty_cache()
     checks = _moe_train_checks(torch, k, dev, cfg, short=True)
     seconds = time.perf_counter() - t_phase
@@ -6589,6 +6982,13 @@ def main() -> int:
     mlp_line, dispatch = moe_phase(torch, k, dev, wrappers)
     kernels.extend([mlp_line, dispatch])
 
+    # -- phase 8b: serving qwen3-moe under expert2d, row 7 on 4 ranks -------
+    e2d_serve = moe_expert2d_serve_phase(torch, k, dev, wrappers)
+    mlp_line["expert2d_serve"] = e2d_serve
+    mlp_line.setdefault("launches_by_path", {})["serve qwen3-moe expert2d"] \
+        = e2d_serve["expert2d"]["expert_mlp"] \
+        + e2d_serve["expert2d_2slots"]["expert_mlp"]
+
     # -- phase 9: serving deepseek-v3 (MLA) at full width, flash at D = 192 --
     mla = mla_phase(torch, k, dev, wrappers)
     flash["mla_chunk"] = mla["flash_chunk"]
@@ -6714,9 +7114,13 @@ def main() -> int:
     ring_fsdp = ring_train_phase(torch, k, dev)
     log("ring_fsdp: " + json.dumps(ring_fsdp))
 
-    # -- phase 21: training qwen3-moe, rows 12 and 13 ------------------------
-    row12, row13 = moe_train_phase(torch, k, dev, wrappers)
+    # -- phase 21: training qwen3-moe, rows 12 and 13; expert2d ------------
+    row12, row13, row7_e2d = moe_train_phase(torch, k, dev, wrappers)
     kernels.extend([row12, row13])
+    mlp_line["expert2d_train"] = row7_e2d       # row 7 at E_loc 32, 4 sources
+    mlp_line.setdefault("launches_by_path", {}).update({
+        "train qwen3-moe": row12["train"]["launches"]["expert_mlp"],
+        "train qwen3-moe expert2d": row7_e2d["launches"]})
 
     # -- phase 22: training deepseek-v3, its MTP term, row 10 at D = 192 ----
     ds = deepseek_train_phase(torch, k, dev, wrappers)
@@ -6729,8 +7133,13 @@ def main() -> int:
         + fused_run["launches"]["flash_attention_bwd"])
     bwd["deepseek_train"] = {**ds["row10"], "train": ds["runs"],
                              "phase_s": ds["seconds"]}
-    mlp_line.setdefault("launches_by_path", {})["train deepseek-v3"] = \
-        a2a["launches"]["expert_mlp"]
+    e2d = ds["runs"]["expert2d"]
+    by_path["train deepseek-v3"] += e2d["launches"]["flash_attention"]
+    bwd["launches_by_path"]["deepseek-v3"] += \
+        e2d["launches"]["flash_attention_bwd"]
+    mlp_line["launches_by_path"].update({
+        "train deepseek-v3": a2a["launches"]["expert_mlp"],
+        "train deepseek-v3 expert2d": e2d["launches"]["expert_mlp"]})
     dispatch["launches_by_path"]["train deepseek-v3"] = \
         fused_run["launches"]["fused_moe_dispatch"]
     for row, impl, name in ((row12, "a2a", "expert_mlp_bwd"),
@@ -6742,6 +7151,11 @@ def main() -> int:
             **ds["row12" if impl == "a2a" else "row13"],
             "checks": {"layers": ds["checks"]["layers"],
                        **ds["checks"][impl]}}
+    row12["launches_by_path"].update({
+        "qwen3-moe expert2d": row12["expert2d"]["launches"],
+        "deepseek-v3 expert2d": e2d["launches"]["expert_mlp_bwd"]})
+    row12["expert2d"]["deepseek_checks"] = {
+        "layers": ds["checks"]["layers"], **ds["checks"]["expert2d"]}
     check(len(kernels) == len(wrappers) == 13, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))

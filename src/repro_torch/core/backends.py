@@ -561,9 +561,11 @@ class LinkModel:
     and 91.03 µs; single timings of 200 calls from 46.99 to 96.32 µs).
     The runs disagree: one's timings fell into two groups, 49.13 to 50.90
     and 81.06 to 88.84 µs, another's lay from 46.99 to 70.60, another's
-    from 81.51 to 96.32; the host's cores are shared.  ``chip_smoke.py``
-    fails if a run's median lies outside half to one and a half times
-    this value.
+    from 81.51 to 96.32, a later one's from 70.07 to 137.03 (median
+    117.03); the host's cores are shared.  The least timing of a run is
+    the one other processes disturb least (45.78 to 81.51 µs where
+    recorded), and ``chip_smoke.py`` fails if it lies outside half to one
+    and a half times this value.
     """
 
     bandwidth_Bps: float = 450e9

@@ -21,8 +21,8 @@ from typing import List, Optional, Sequence, Tuple
 
 from ..launch.mesh import RankMesh
 
-__all__ = ["ShardingRules", "DEFAULT_RULES", "DP_ONLY_RULES",
-           "rules_for_ctx", "logical_to_spec", "RankSharding",
+__all__ = ["ShardingRules", "DEFAULT_RULES", "EXPERT2D_RULES",
+           "DP_ONLY_RULES", "rules_for_ctx", "logical_to_spec", "RankSharding",
            "named_sharding", "param_bytes_per_device"]
 
 POD, DATA, MODEL = "pod", "data", "model"
@@ -78,6 +78,10 @@ DEFAULT_RULES = ShardingRules(
 )
 
 
+# MoE experts over model x data (each rank whole experts at full d and ff,
+# the dispatch over the combined EP group, no ZeRO-3 gather of them)
+EXPERT2D_RULES = DEFAULT_RULES.replace("expert", (MODEL, DATA))
+
 # no tensor parallelism: the batch over every mesh axis, and every rule
 # that could only pick "model" replicated (small dense models whose TP
 # activation all-reduces dominate)
@@ -93,12 +97,10 @@ def rules_for_ctx(ctx) -> ShardingRules:
     """The placement-rule table for a ParallelCtx's layout knobs."""
     if getattr(ctx, "layout", "tp") == "dp_only":
         return DP_ONLY_RULES
-    if getattr(ctx, "expert2d", False):
-        raise NotImplementedError(
-            "expert2d placement (MoE experts over model x data) is not "
-            "ported yet: ROADMAP queue 1, item 12 (the default expert "
-            "placement over model is ported)")
-    rules = DEFAULT_RULES
+    # expert2d: the expert dim takes both axes first, so the expert
+    # weights' d and ff dims find "data" taken (whole experts a rank)
+    rules = EXPERT2D_RULES if getattr(ctx, "expert2d", False) \
+        else DEFAULT_RULES
     if not getattr(ctx, "fsdp_params", True):
         # inference weight-stationary: dense weights TP-sharded only
         rules = rules.replace("embed_fsdp", (None,))

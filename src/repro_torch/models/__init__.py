@@ -1,3 +1,2 @@
-"""The model stack: dense, GQA MoE, VLM, RWKV6 and Zamba2 families (MLA,
-the audio family and training are still to port: ROADMAP queue 1, items 9
-and 10)."""
+"""The model stack: the dense, GQA MoE, MLA MoE, VLM, audio, RWKV6 and
+Zamba2 families, served and trained."""

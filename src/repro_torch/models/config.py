@@ -121,13 +121,10 @@ class ParallelCtx:
         (small dense models whose TP all-reduces dominate) has no tensor
         parallelism: ``tp = 1``, the model axis joins the data-parallel
         domain (``dp_all`` over pod, data and model), and the TP and EP
-        groups are the empty ``self`` group."""
-        if knobs.get("expert2d"):
-            raise NotImplementedError(
-                "expert2d (the MoE experts sharded over model x data) is "
-                "not ported yet: ROADMAP queue 1, item 12, still open beside "
-                "bench_moe (the fused dispatch's backward is row 13's "
-                "kernel)")
+        groups are the empty ``self`` group.  ``expert2d=True`` shards the
+        MoE experts over model x data: the EP group is ``ep2d`` over
+        ("model", "data"), its rank model-major, and each rank owns whole
+        experts at full d and ff."""
         g = standard_groups(mesh)
         shape = mesh.shape
         tp = shape.get("model", 1)
@@ -150,13 +147,16 @@ class ParallelCtx:
         if knobs.get("layout", "tp") != "tp":
             raise ValueError(f"unknown layout {knobs['layout']!r} (tp or "
                              f"dp_only)")
+        ep_group = (DiompGroup(("model", "data"), name="ep2d")
+                    if knobs.get("expert2d") else
+                    g.get("ep", DiompGroup(("model",), name="ep")))
         return cls(
             tp=tp, fsdp=fsdp, dp=fsdp * pods, pods=pods,
             tp_group=g.get("tp", DiompGroup(("model",), name="tp")),
             fsdp_group=g.get("dp_inner",
                              DiompGroup(("data",), name="dp_inner")),
             dp_group=g["dp"],
-            ep_group=g.get("ep", DiompGroup(("model",), name="ep")),
+            ep_group=ep_group,
             world=g["world"],
             pod_group=g.get("pod"),
             **knobs,
@@ -165,3 +165,11 @@ class ParallelCtx:
     @property
     def dp_axes(self) -> Tuple[str, ...]:
         return self.dp_group.axes
+
+    @property
+    def ep_size(self) -> int:
+        """Ranks in the EP group, from the stored axis sizes."""
+        n = 1
+        for ax in self.ep_group.axes:
+            n *= {"model": self.tp, "data": self.fsdp, "pod": self.pods}[ax]
+        return n

@@ -19,9 +19,10 @@ step's row, and :func:`cp_decode_attention` merges the ranks' partials
 from row 5's kernel with three OMPCCL all-reduces.  Under
 ``use_ring_matmul`` the column-parallel GEMMs rotate W's ZeRO-3 shards
 around the data ring instead of gathering them
-(:func:`ring_fsdp_matmul`).  Not ported here: MoE's ``expert2d``
-placement, which raises ``NotImplementedError`` naming its ROADMAP item
-where it would be reached.
+(:func:`ring_fsdp_matmul`).  Under ``expert2d`` the MoE experts are
+sharded over model x data instead: each rank owns whole experts at full d
+and ff, and :func:`moe_block` dispatches over the combined EP group with
+no ZeRO-3 gather of them.
 
 The decode and chunk-prefill branches write the new K/V (MLA: latent)
 rows into the cache in place (the reference returns an updated copy): a
@@ -842,24 +843,36 @@ def moe_capacity(t_loc: int, k: int, E: int, capacity_factor: float) -> int:
 
 
 def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
-    """Top-k expert-parallel FFN on ``x (*mesh, B, T, d)``: experts sharded
-    over "model" (E/tp a rank), each keeping a ZeRO-3 d-shard that is
-    all-gathered at use.
+    """Top-k expert-parallel FFN on ``x (*mesh, B, T, d)``.
+
+    EP layouts, as the reference's:
+
+    * default — experts sharded over "model" (E/tp a rank), each keeping a
+      ZeRO-3 d-shard that is all-gathered at use;
+    * ``ctx.expert2d`` — experts sharded over ("model", "data") (E/ep a
+      rank, ep = ``ctx.ep_size``), each rank whole experts at full d and
+      ff: the dispatch runs over the combined EP group and no expert
+      weight is gathered.
 
     Regimes per call, as the reference picks them:
 
-    * ``"a2a"`` — tokens sliced over "model", one ``ompccl.alltoall`` out
-      and back (prefill, and decode with at least one token a rank);
-    * ``"replicated"`` — fewer tokens than ranks: the dispatch is
-      replicated across the EP group, each rank runs its experts, and a
-      partial combine is summed over the group;
+    * ``"a2a"`` — tokens sliced over "model" only, one ``ompccl.alltoall``
+      over the EP group out and back (prefill, and decode with at least
+      one token a model rank);
+    * ``"replicated"`` — fewer tokens than model ranks: the dispatch is
+      replicated across the EP group (expert2d first all-gathers the
+      data-sharded tokens over "data"), each rank runs its experts, a
+      partial combine is summed over the group (expert2d then keeps its
+      own data shard's rows);
     * ``"local"`` — tp == 1 or E does not divide.
 
     Capacity is :func:`moe_capacity` (at least 4); overflow drops, with
     the drop count recorded into the context's ``dispatch_stats`` frame.
     ``ctx.dispatch_impl`` = ``"fused"``/``"host"`` swaps the a2a regime's
     collectives for the dropless one-sided ring of
-    :mod:`repro_torch.kernels.moe_dispatch`.  Every regime's grouped GEMMs
+    :mod:`repro_torch.kernels.moe_dispatch` where the EP group has one
+    axis (expert2d's two-axis group keeps the all-to-all, as the
+    reference's does).  Every regime's grouped GEMMs
     run the expert-MLP kernel on the card, with each block's live rows
     counted from the ``keep`` mask.
 
@@ -877,17 +890,15 @@ def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
     ops under autograd; on the CPU the plain versions run under autograd
     in the kernels' place.
     """
-    if ctx.expert2d:
-        raise NotImplementedError(
-            "expert2d placement (MoE experts over model x data) is not "
-            "ported yet: ROADMAP queue 1, item 12")
     mesh = _mesh()
     nd = mesh.ndim
     lead = x.shape[:nd]
     R = mesh.size
     B, T, d = x.shape[nd:]
     E, k = cfg.num_experts, cfg.experts_per_token
-    tp = ep = ctx.tp
+    tp = ctx.tp
+    ep2d = ctx.expert2d and ctx.ep_size > 1 and E % ctx.ep_size == 0
+    ep = ctx.ep_size if ep2d else tp
     E_loc = E // ep if (E % ep == 0 and ep > 1) else E
     if E % ep == 0 and ep > 1 and (B * T) % tp == 0 and B * T >= tp:
         regime = "a2a"
@@ -904,13 +915,23 @@ def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
         mine = group_rank(ctx.tp_group, mesh, x.device)[..., None] * t_loc \
             + torch.arange(t_loc, device=x.device)   # my rows, per rank
         toks = _take_rows(flat, mine)
+    elif regime == "replicated" and ep2d and ctx.fsdp > 1:
+        # decode: the tokens are data-sharded; gather them so the dispatch
+        # is the same on every rank of the combined group
+        toks = ompccl.allgather(flat, ctx.fsdp_group, axis=0,
+                                invariant=ctx.inference)
+        t_loc = B * T * ctx.fsdp
     else:
         toks, t_loc = flat, B * T
     top_w, top_e = route_topk(toks, lp["router"], k)         # (*mesh, t_loc, k)
 
-    wg = gather_fsdp(lp["w_gate_e"], ctx, dim=1)              # (E_loc, d, ffm)
-    wu = gather_fsdp(lp["w_up_e"], ctx, dim=1)
-    wd = gather_fsdp(lp["w_down_e"], ctx, dim=2)              # (E_loc, ffm, d)
+    if ep2d:
+        # expert2d: the weights already hold full d and ff
+        wg, wu, wd = lp["w_gate_e"], lp["w_up_e"], lp["w_down_e"]
+    else:
+        wg = gather_fsdp(lp["w_gate_e"], ctx, dim=1)          # (E_loc, d, ffm)
+        wu = gather_fsdp(lp["w_up_e"], ctx, dim=1)
+        wd = gather_fsdp(lp["w_down_e"], ctx, dim=2)          # (E_loc, ffm, d)
 
     # the dropless one-sided dispatch: opt-in by the ParallelCtx knob,
     # where the a2a regime holds on a single-axis EP group (the put ring)
@@ -973,6 +994,10 @@ def moe_block(x, lp, cfg: ModelConfig, ctx: ParallelCtx):
                              torch.zeros((), dtype=x.dtype, device=x.device))
         combined = (picked * gates).reshape(*lead, t_loc, k, d).sum(dim=-2)
         combined = ompccl.allreduce(combined, ctx.ep_group)
+        if ep2d and ctx.fsdp > 1:        # back to my data shard's rows
+            rows = group_rank(ctx.fsdp_group, mesh, x.device)[..., None] \
+                * (B * T) + torch.arange(B * T, device=x.device)
+            combined = _take_rows(combined, rows)
     else:
         out_e = expert_mlp(buf.view(*lead, E, cap, d), wg, wu, wd,
                            counts.view(*lead, E))

@@ -248,16 +248,17 @@ def test_step_logs_once_per_built_step(arch, mesh8):
 
 
 def test_unported_branches_raise():
-    """The branch still to port names its ROADMAP item: expert2d (item
-    12); an unknown architecture is a KeyError now that all ten of the
-    reference's are ported."""
+    """expert2d, the last layout knob, is ported: its context builds and
+    its rules put the experts over model x data; an unknown architecture
+    is a KeyError now that all ten of the reference's are ported."""
     from repro_torch.distributed.sharding import rules_for_ctx
 
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ParallelCtx.from_mesh(MESH, expert2d=True)
+    e2d = ParallelCtx.from_mesh(MESH, expert2d=True)
+    assert e2d.ep_group.axes == ("model", "data") and e2d.ep_size == 4
     ctx = ParallelCtx.from_mesh(MESH)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        rules_for_ctx(types.SimpleNamespace(layout="tp", expert2d=True))
+    rules = rules_for_ctx(types.SimpleNamespace(layout="tp", expert2d=True))
+    assert dict(rules.rules)["expert"] == ("model", "data")
+    assert rules_for_ctx(e2d) == rules
     with pytest.raises(KeyError, match="unknown architecture"):
         configs.get("whisper-large")
     assert ctx.layout == "tp"

@@ -317,7 +317,7 @@ def test_unported_moe_branches_raise():
     """deepseek-v3's loss, its MTP term included, scores a batch: a finite
     loss a rank, replicated over "model"; MTP without MLA is refused, as
     the reference's schema has no MTP layer for it; expert2d placement
-    waits for item 12."""
+    builds its context, the EP group over model x data."""
     cfg = configs.get_reduced("deepseek-v3-671b")
     ctx = ParallelCtx.from_mesh(MESH)
     tokens = np.random.RandomState(1).randint(0, cfg.vocab_size, (B, 12))
@@ -339,5 +339,7 @@ def test_unported_moe_branches_raise():
     with use_default(DiompContext(mesh=MESH, device="cpu")), \
             pytest.raises(ValueError, match="MTP"):
         tf.transformer_loss({}, {"tokens": None}, mtp, ctx)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ParallelCtx.from_mesh(MESH, expert2d=True)
+    e2d = ParallelCtx.from_mesh(MESH, expert2d=True)
+    assert (e2d.ep_group.name, e2d.ep_group.axes, e2d.ep_size) == \
+        ("ep2d", ("model", "data"), 4)
+    assert cfg.num_experts // e2d.ep_size == 2
