@@ -60,6 +60,14 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   cache), every decode attention the flash kernel at head_dim 256, G = 8;
   one full-width chunk call under ``"ring"`` against the same call under
   ``"allgather"``, and chunked prefill against token-by-token on an f32 cut;
+  then paligemma-3b's attention block trained under ``seq_parallel="ring"``
+  at full width (data 1 x model 4, 4 x 4096 tokens, bf16): one forward and
+  backward of a scalar loss through the ring kernel with the rows' lse and
+  its gradient kernel (``csrc/ring_attention_bwd.cu``), against the same
+  block under ``"allgather"`` (flash and its gradient), and on an f32 cut
+  against the plain emulation's gradient; the gradient kernel timed at
+  that shape beside its bound, its plain version, flash's gradient on the
+  same global problem and SDPA's backward;
 * after the runtime and examples phases, training: stablelm-3b at full
   width and depth (random bf16 weights, data 2 x model 2) for 4 steps of
   8 x 1024 tokens in microbatches of 2 through the port's launcher, every
@@ -483,6 +491,9 @@ def load_port():
     return SimpleNamespace(
         fused_ring_attention_kernel=ra_fused.fused_ring_attention_kernel,
         fused_ring_attention_plain=ra_fused.fused_ring_attention_interpret,
+        fused_ring_attention_bwd_kernel=(
+            ra_fused.fused_ring_attention_bwd_kernel),
+        fused_ring_attention_bwd_plain=ra_fused.fused_ring_attention_bwd_plain,
         ring_attention_ref=ring_attention_ref,
         linear_scan_kernel=ls.linear_scan_kernel,
         linear_scan_plain=ls.linear_scan_plain,
@@ -1709,6 +1720,133 @@ def check_ring_attention(torch, k, g) -> None:
             plan=plan), "ring attention")
 
 
+RING_BWD_CASES = [
+    # n, B, tq, tk, H, KH, D, Dv, q_sharded, causal, q_offset, valid_len
+    (1, 2, 20, 20, 4, 4, 64, 64, True, True, 0, None),
+    (2, 1, 33, 33, 8, 1, 256, 256, True, True, 0, None),
+    (3, 2, 10, 17, 8, 1, 64, 64, True, False, 0, 45),
+    (4, 1, 16, 12, 8, 1, 256, 256, False, True, 30, 46),
+    (2, 2, 24, 40, 8, 1, 64, 48, False, True, [50, 20], [74, 44]),
+    (4, 2, 7, 13, 4, 4, 256, 256, True, True, [0, 9], [52, 40]),
+    (3, 1, 70, 70, 8, 1, 64, 64, False, False, 100, 150),
+    # stripes of several key tiles, ragged, past the valid length
+    (2, 1, 130, 150, 8, 1, 128, 128, True, True, 0, 290),
+    # head_dim 80, and MLA's D = 192 with Dv = 128
+    (2, 2, 40, 100, 8, 2, 80, 80, False, True, [60, 10], [100, 170]),
+    (2, 2, 40, 100, 4, 4, 192, 128, True, True, 0, 190),
+    # the tensor cores' other widths W = max(D, Dv), G 16 and 64
+    (3, 1, 50, 70, 16, 1, 32, 16, True, True, 0, None),
+    (2, 1, 64, 64, 64, 1, 16, 96, True, True, 0, 120),
+    (4, 1, 30, 30, 4, 2, 112, 48, True, False, 0, None),
+]
+
+
+def _ring_bwd_route(torch, dt, D, Dv, G) -> str:
+    """The route a ring-gradient case's aligned, contiguous operands must
+    take: the tensor cores for f16/bf16 with D and Dv multiples of 16 in
+    [16, 128] and G dividing 64, the CUDA cores otherwise (fused.py's
+    ring_bwd_route, row 10's rule without its wide instance, restated here
+    so the cases check it)."""
+    return ("wgmma" if dt in (torch.float16, torch.bfloat16)
+            and all(16 <= x <= 128 and x % 16 == 0 for x in (D, Dv))
+            and 64 % G == 0 else "simt")
+
+
+def check_ring_attention_bwd(torch, k, g) -> None:
+    """Row 14, the ring's gradient kernel, against its plain version (the
+    emulation's chain-form backward, ``fused_ring_attention_bwd_plain``, on
+    the same card tensors) at ``check_ring_attention``'s ragged shapes:
+    rings of 1-4 virtual ranks, both query layouts, causal and not, int and
+    per-row offsets, a valid length below the padded one, G = 1, 4 and 8,
+    D 64, 80, 128, 192 (Dv 128) and 256, Dv != D; f32 and bf16, each case
+    on the route ``ring_bwd_route``'s rule gives it (bf16 with D and Dv up
+    to 128 on the tensor cores, the rest on the CUDA cores).  The lse comes
+    from row
+    9 (``return_lse``, on the route the rule gives the case) and is held
+    against the plain version's first: within 1e-4, +inf exactly where a
+    row sees no key.  Tolerances, relative to each gradient's largest
+    magnitude: f32 1e-4 (sums in another order: the kernel takes the
+    global lse, the plain version folds per-stripe states), bf16 1.6e-2
+    (one ulp of the output type, 2^-7, plus that order; the tensor cores
+    also round P and dS to bf16).  Two launches on the same inputs are
+    equal bit for bit, the autograd path (``RingAttentionFn``) gives the
+    same bits, mixed dtypes are refused and an f32 launch forced onto the
+    tensor cores is refused by the C entry."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.kernels.ring_attention import fused as ra_mod
+    from repro_torch.launch.mesh import RankMesh
+    tols = {torch.float32: 1e-4, torch.bfloat16: 1.6e-2}
+    group = DiompGroup(("x",), name="x")
+    fwd, bwd = k.fused_ring_attention_kernel, k.fused_ring_attention_bwd_kernel
+    for (n, B, tq, tk, H, KH, D, Dv, sharded, causal, off, valid) in \
+            RING_BWD_CASES:
+        ctx = DiompContext(mesh=RankMesh(("x",), (n,)), device="cuda")
+        for dt, tol in tols.items():
+            q = torch.randn(n, B, tq, H, D, generator=g, device="cuda").to(dt)
+            kk = torch.randn(n, B, tk, KH, D, generator=g,
+                             device="cuda").to(dt)
+            v = torch.randn(n, B, tk, KH, Dv, generator=g,
+                            device="cuda").to(dt)
+            do = torch.randn(n, B, tq, H, Dv, generator=g,
+                             device="cuda").to(dt)
+            qo = torch.tensor(off, dtype=torch.int32, device="cuda")
+            vl = None if valid is None else torch.tensor(
+                valid, dtype=torch.int32, device="cuda")
+            plan = OverlapPlanner().plan_ring_attention(
+                B, tq, tk, H, KH, D, Dv, dt, n, causal=causal,
+                q_sharded=sharded, q_offset=None)
+            kw = dict(plan=plan, q_offset=qo, valid_len=vl)
+            tag = (f"ring bwd n={n} B{B} tq{tq} tk{tk} H{H}/{KH} D{D}/{Dv} "
+                   f"sharded={sharded} causal={causal} {dt}")
+            route = _attention_route(torch, dt, D, Dv, H // KH)
+            with use_default(ctx):
+                o, lse = _counted(fwd, lambda: fwd(q, kk, v, group,
+                                                   return_lse=True, **kw),
+                                  route)
+                _, want_lse = k.fused_ring_attention_plain(
+                    q, kk, v, group, return_lse=True, **kw)
+                dead = torch.isposinf(want_lse)
+                l_err = max_err(torch, torch.where(dead, 0, lse),
+                                torch.where(dead, 0, want_lse))
+                check(torch.equal(torch.isposinf(lse), dead)
+                      and bool(torch.isfinite(lse[~dead]).all())
+                      and l_err <= 1e-4, f"{tag}: lse err {l_err}")
+                want = k.fused_ring_attention_bwd_plain(q, kk, v, do, group,
+                                                        **kw)
+                b_route = _ring_bwd_route(torch, dt, D, Dv, H // KH)
+                got = _counted(bwd, lambda: bwd(q, kk, v, o, do, lse, group,
+                                                **kw), b_route)
+                again = bwd(q, kk, v, o, do, lse, group, **kw)
+                args = [t.detach().requires_grad_() for t in (q, kk, v)]
+                out = fwd(*args, group, **kw)
+                auto = torch.autograd.grad(out, args, do)
+            check(torch.equal(out, o), f"{tag}: RingAttentionFn's output")
+            for name, x, w, y, a in zip(("dq", "dk", "dv"), got, want, again,
+                                        auto):
+                err = max_err(torch, x, w)
+                scale = max(float(w.float().abs().max()), 1e-6)
+                check(bool(torch.isfinite(x).all()) and err <= tol * scale,
+                      f"{tag} {name} on {b_route}: err {err} (scale {scale})")
+                check(torch.equal(x, y) and torch.equal(x, a),
+                      f"{tag} {name} on {b_route}: two launches differ")
+    before = bwd.launches
+    try:
+        with use_default(ctx):
+            bwd(q, kk, v, o.float(), do, lse, group, **kw)
+        check(False, "ring bwd: an f32 output over bf16 operands was not "
+              "refused")
+    except TypeError:
+        pass
+    check(bwd.launches == before, "ring bwd: a refused call counted a launch")
+    f32 = [t.float() for t in (q, kk, v, o, do)]
+    with use_default(ctx):
+        _refused_off_rule(ra_mod, bwd, lambda: bwd(
+            *f32[:4], f32[4], lse, group, **kw), "ring bwd",
+            rule_name="ring_bwd_route")
+
+
 def check_cp_decode(torch, k, g) -> None:
     """The context-sharded decode's partial on the card: row 5's kernel with
     the lse where a row sees no key (``valid_len`` 0) writes 0 and +inf on
@@ -1786,6 +1924,7 @@ SMALL_CHECKS = {"matmul": check_matmul, "ring": check_ring,
                 "linear_scan": check_linear_scan,
                 "linear_scan_bwd": check_linear_scan_bwd,
                 "ring_attention": check_ring_attention,
+                "ring_attention_bwd": check_ring_attention_bwd,
                 "minimod": check_minimod}
 
 
@@ -4262,20 +4401,20 @@ def _train_flops(cfg, tokens: int, seq: int = None) -> float:
     return total
 
 
-def _sdpa_grad(torch, q, kk, v, do, causal=True):
+def _sdpa_grad(torch, q, kk, v, do, causal=True, pin=False):
     """SDPA's backward alone on its own forward (the library's yardstick
     for the gradient kernel, never called by the port): q, k, v and dO in
-    the flash kernel's layout.  Where Dv != D (MLA) the forward, and so its
-    backward, is pinned to the first backend in PyTorch's order whose
-    forward and backward take it; ``.backend`` names it (None: PyTorch's
-    own pick)."""
+    the flash kernel's layout.  Where Dv != D (MLA), or where ``pin`` asks,
+    the forward, and so its backward, is pinned to the first backend in
+    PyTorch's order whose forward and backward take it; ``.backend`` names
+    it (None: PyTorch's own pick)."""
     import warnings
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
     q4, k4, v4 = (t.reshape(-1, *t.shape[-3:]).transpose(1, 2).contiguous()
                   .requires_grad_() for t in (q, kk, v))
     do4 = do.reshape(-1, *do.shape[-3:]).transpose(1, 2).contiguous()
-    backends = [None] if v.shape[-1] == q.shape[-1] else [
+    backends = [None] if v.shape[-1] == q.shape[-1] and not pin else [
         SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
         SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH]
     for b in backends:
@@ -6059,6 +6198,264 @@ def ring_train_phase(torch, k, dev) -> dict:
 # -- the long-context decode: zamba2-1.2b at 524,288 tokens -----------------
 
 
+RING_TRAIN_CUT = 1024     # tokens a rank of the f32 cut of the ring phase
+RING_BWD_KERNELS = ("ring_bwd_kernel", "ring_bwd_tc_kernel")
+
+
+def _block_grads(torch, dev, cfg, mesh, lp, x, ct, sp):
+    """paligemma-3b's attention block (``models/layers.py`` attention_block,
+    token-parallel) under ``seq_parallel=sp``: its output on rank 0's
+    replica, and the gradients of the scalar loss <that output, ct> with
+    respect to x and to each weight, each summed over the ranks (the
+    replicas' shares)."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.models import layers
+    from repro_torch.models.config import ParallelCtx
+    pctx = ParallelCtx.from_mesh(mesh, seq_parallel=sp)
+    nd = mesh.ndim
+    xs = x.expand(*mesh.sizes, *x.shape).clone().requires_grad_()
+    w = {n: t.detach().clone().requires_grad_() for n, t in lp.items()}
+    with use_default(DiompContext(mesh=mesh, device=dev)):
+        out, _ = layers.attention_block(xs, w, cfg, pctx)
+        first = out[(0,) * nd]
+        loss = (first.float() * ct).sum()
+        grads = torch.autograd.grad(loss, [xs, *w.values()])
+    ranks = tuple(range(nd))
+    return first.detach(), {n: g.sum(dim=ranks) for n, g in
+                            zip(("x", *w), grads)}
+
+
+def _ring_bwd_at(torch, k, g, n, t_loc, H, KH, hd):
+    """Row 14 at the sequence-parallel training shape (``n`` ranks of
+    ``t_loc`` tokens, queries sharded, causal, bf16): against its plain
+    version (the chain form) and a second launch, timed by CUDA events and
+    device time beside its bound, the plain version, row 9's forward with
+    and without the lse, row 10 and SDPA's backward on the same global
+    causal problem (SDPA's K and V heads repeated to the query heads)."""
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.plan import OverlapPlanner
+    from repro_torch.launch.mesh import RankMesh
+    group = DiompGroup(("x",), name="x")
+    dev, dt = g.device, torch.bfloat16
+    q = torch.randn(n, 1, t_loc, H, hd, generator=g, device=dev).to(dt)
+    kk, v = (torch.randn(n, 1, t_loc, KH, hd, generator=g, device=dev).to(dt)
+             for _ in range(2))
+    do = torch.randn(n, 1, t_loc, H, hd, generator=g, device=dev).to(dt)
+    plan = OverlapPlanner().plan_ring_attention(1, t_loc, t_loc, H, KH, hd,
+                                                hd, dt, n)
+    fwd, bwd = k.fused_ring_attention_kernel, k.fused_ring_attention_bwd_kernel
+    with use_default(DiompContext(mesh=RankMesh(("x",), (n,)), device=dev)):
+        o, lse = fwd(q, kk, v, group, plan=plan, return_lse=True)
+
+        def call():
+            return bwd(q, kk, v, o, do, lse, group, plan=plan)
+
+        route = _ring_bwd_route(torch, dt, hd, hd, H // KH)
+        got = _counted(bwd, call, route)
+        check(all(torch.equal(a, b) for a, b in zip(got, call())),
+              "ring bwd at the training shape: two launches differ")
+        t0 = time.perf_counter()
+        want = k.fused_ring_attention_bwd_plain(q, kk, v, do, group,
+                                                plan=plan)
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t0) * 1e3
+        errs = {name: max_err(torch, a, b) for name, a, b in
+                zip(("dq", "dk", "dv"), got, want)}
+        scales = {name: float(b.float().abs().max()) for name, b in
+                  zip(("dq", "dk", "dv"), want)}
+        del want
+        for name, err in errs.items():
+            check(err <= 1.6e-2 * scales[name],
+                  f"ring bwd at the training shape: {name} err {err} (scale "
+                  f"{scales[name]})")
+        ms = cuda_ms(torch, call, 3)
+        dev_ms = device_ms(torch, call, 3, RING_BWD_KERNELS)
+        fwd_ms = cuda_ms(torch, lambda: fwd(q, kk, v, group, plan=plan), 3)
+        fwd_lse_ms = cuda_ms(torch, lambda: fwd(q, kk, v, group, plan=plan,
+                                                return_lse=True), 3)
+        fwd_dev = device_ms(torch, lambda: fwd(q, kk, v, group, plan=plan),
+                            3, ("ring_attention",))
+        fwd_lse_dev = device_ms(torch, lambda: fwd(
+            q, kk, v, group, plan=plan, return_lse=True), 3,
+            ("ring_attention",))
+    del got, o, lse
+    # row 10 on the same global problem (flash's forward for o and the lse;
+    # at D = 256 its rule gives the CUDA cores too)
+    whole = [t.movedim(0, 1).flatten(1, 2) for t in (q, kk, v, do)]
+    o, lse = k.flash_attention_kernel(*whole[:3], return_lse=True)
+    row10 = cuda_ms(torch, lambda: k.flash_attention_bwd_kernel(
+        *whole[:3], o, whole[3], lse), 2)
+    row10_route = k.flash_attention_bwd_kernel.last_grid["route"]
+    del o, lse
+    # SDPA's backward over the whole sequence (the ranks' rows in order)
+    whole[1], whole[2] = (t.repeat_interleave(H // KH, dim=-2)
+                          for t in whole[1:3])
+    sdpa = _sdpa_grad(torch, whole[0], whole[1], whole[2], whole[3],
+                      pin=True)
+    library = cuda_ms(torch, sdpa, 3)
+    library_dev = device_ms(torch, sdpa, 3, ("",))
+    T = n * t_loc
+    pairs = T * (T + 1) // 2 * H
+    nbytes = 2 * (3 * q.numel() + 4 * kk.numel()) + 4 * q.numel() // hd
+    b_ms, b_by = bound(nbytes, 2 * (3 * hd + 2 * hd) * pairs, "bfloat16")
+    log(f"ring bwd (row 14, {route}) at {n} x {t_loc} tokens, {H} heads on "
+        f"{KH}, head_dim {hd}, causal, bf16 ({pairs // H} visible pairs a "
+        f"head): "
+        f"{ms:.3f} ms (device {_ms(dev_ms, 3)}), plain {plain:.1f}, bound "
+        f"{b_ms:.4f} ms by {b_by}, sdpa backward {library:.3f} (device "
+        f"{_ms(library_dev, 3)}; backend {sdpa.backend}, "
+        f"K/V heads repeated); err {errs} of {scales}; row 9 forward "
+        f"{fwd_ms:.3f} ms (device {_ms(fwd_dev, 3)}), with the lse "
+        f"{fwd_lse_ms:.3f} (device {_ms(fwd_lse_dev, 3)}); row 10 on the "
+        f"same global problem {row10:.3f} ms ({row10_route})")
+    return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
+            "device_ms": dev_ms, "library_device_ms": library_dev,
+            "library_backend": sdpa.backend,
+            "errs": errs, "scales": scales,
+            "shape": f"{n} x {t_loc} tokens, {H} heads on {KH}, D {hd}",
+            "kernel_route": route,
+            "row10_same_problem": {"ms": row10, "route": row10_route},
+            "row9_forward": {"ms": fwd_ms, "device_ms": fwd_dev,
+                             "with_lse_ms": fwd_lse_ms,
+                             "with_lse_device_ms": fwd_lse_dev}}
+
+
+def ring_attention_train_phase(torch, k, dev, wrappers) -> dict:
+    """Train paligemma-3b's attention block under ``seq_parallel="ring"``
+    at full width (d 2048, 8 heads on 1 kv head, head_dim 256; random bf16
+    weights) on data 1 x model 4, B = 1, 4 x 4096 tokens, against the same
+    block under ``"allgather"`` (row 5 and row 10): the forward and the
+    backward of a scalar loss, the output and the gradients of x and of
+    the block's weights within 3e-2 of each tensor's largest magnitude in
+    bf16 (row 14 and row 10 both round to bf16, in other orders, and the
+    differences pass through the block's products); rows 9 and 14 launched
+    once each a ring run, never flash or its gradient, and the plain
+    versions never called.  Then an f32 cut (4 x 1024 tokens): the ring's
+    gradients against the plain emulation's (its chain-form VJP, swapped
+    in for the kernel) within 1e-4 of each magnitude.  Then row 14 alone
+    at the bf16 shape (``_ring_bwd_at``), and at head_dim 128 on the
+    tensor cores.  Returns row 14's line of the
+    ``kernels`` JSON, with row 9's launches under ``"row9"``."""
+    import dataclasses
+    from repro_torch import configs
+    from repro_torch.kernels.ring_attention import fused as ra_fused
+    from repro_torch.kernels.ring_attention import ops as ra_ops
+    from repro_torch.launch.mesh import RankMesh
+    from repro_torch.models import schema as sch
+
+    t_start = time.perf_counter()
+    cfg = dataclasses.replace(configs.get(RING_ARCH), num_layers=1)
+    check(not sch.head_parallel(cfg), "paligemma's attention is not "
+          "token-parallel")
+    mesh = RankMesh(("data", "model"), (1, SEQ_RANKS))
+    g = torch.Generator(device=dev).manual_seed(11)
+    params = sch.init_params(cfg, mesh, g, device=dev)
+    lp = {n.split("/")[1]: p.select(mesh.ndim, 0) for n, p in params.items()
+          if n.startswith("layers/") and n.split("/")[1] in
+          ("wq", "wk", "wv", "wo")}
+    del params
+    T = SEQ_RANKS * SEQ_T_LOC
+    names = ("fused_ring_attention", "fused_ring_attention_bwd",
+             "flash_attention", "flash_attention_bwd")
+    out = {}
+    for dt, t, tol in ((torch.bfloat16, T, 3e-2),
+                       (torch.float32, SEQ_RANKS * RING_TRAIN_CUT, 1e-4)):
+        x = torch.randn(1, t, cfg.d_model, generator=g, device=dev).to(dt)
+        ct = torch.randn(1, t, cfg.d_model, generator=g, device=dev)
+        w = {n: p.to(dt) for n, p in lp.items()}
+        runs = {}
+        for sp in ("ring", "allgather"):
+            _zero_counts(wrappers)
+            # the plain versions are taps that must record no call
+            with _Tap(ra_fused, "fused_ring_attention_interpret",
+                      lambda a, kw: True) as fplain, \
+                    _Tap(ra_fused, "_ring_grads",
+                         lambda a, kw: True) as bplain:
+                t0 = time.perf_counter()
+                runs[sp] = _block_grads(torch, dev, cfg, mesh, w, x, ct, sp)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+            counts = {n: wrappers[n].launches for n in names}
+            want = ({"fused_ring_attention": 1, "fused_ring_attention_bwd": 1,
+                     "flash_attention": 0, "flash_attention_bwd": 0}
+                    if sp == "ring" else
+                    {"fused_ring_attention": 0, "fused_ring_attention_bwd": 0,
+                     "flash_attention": 1, "flash_attention_bwd": 1})
+            check(counts == want and not fplain.calls and not bplain.calls,
+                  f"ring train {dt} {sp}: launches {counts}, plain calls "
+                  f"{len(fplain.calls)} + {len(bplain.calls)}")
+            out.setdefault(str(dt), {})[sp] = {
+                "launches": counts, "seconds": secs,
+                "routes": {n: dict(wrappers[n].route_launches)
+                           for n in names}}
+            log(f"ring train {dt}: {sp} block forward + backward at "
+                f"{SEQ_RANKS} x {t // SEQ_RANKS} tokens in {secs:.2f} s, "
+                f"launches {counts}")
+        if dt == torch.float32:
+            # the plain emulation's gradient (the chain form) on the card's
+            # tensors: the kernel wrapper swapped for the emulation
+            with _Swap(ra_ops, "fused_ring_attention_kernel",
+                       ra_fused.fused_ring_attention_interpret):
+                runs["plain"] = _block_grads(torch, dev, cfg, mesh, w, x, ct,
+                                             "ring")
+        errs = {}
+        for other in [r for r in runs if r != "ring"]:
+            (o_r, g_r), (o_o, g_o) = runs["ring"], runs[other]
+            for name, a, b in [("out", o_r, o_o)] + [
+                    (n, g_r[n], g_o[n]) for n in g_r]:
+                err = max_err(torch, a, b)
+                scale = max(float(b.float().abs().max()), 1e-30)
+                errs[f"{other} {name}"] = err / scale
+                check(bool(torch.isfinite(a).all()) and err <= tol * scale,
+                      f"ring train {dt}: {name} under 'ring' differs from "
+                      f"{other} by {err} (scale {scale})")
+        out[str(dt)]["rel_errs"] = errs
+        log(f"ring train {dt}: 'ring' against "
+            f"{[r for r in runs if r != 'ring']}, errors relative to each "
+            f"tensor's largest magnitude (limit {tol}): "
+            + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+        del runs, x, ct, w
+        torch.cuda.empty_cache()
+    def routes(name):
+        return {r: sum(out[d]["ring"]["routes"][name][r] for d in out)
+                for r in ("simt", "wgmma")}
+
+    # every row 14 launch on its rule's route (the CUDA cores), row 9's in
+    # bf16 on the tensor cores
+    check(routes("fused_ring_attention_bwd")["wgmma"] == 0
+          and out[str(torch.bfloat16)]["ring"]["routes"][
+              "fused_ring_attention"]["wgmma"] == 1,
+          f"ring train: routes {[out[d]['ring']['routes'] for d in out]}")
+    launches = sum(out[d]["ring"]["launches"]["fused_ring_attention_bwd"]
+                   for d in out)
+    row9 = sum(out[d]["ring"]["launches"]["fused_ring_attention"] for d in out)
+    line = {"name": "fused_ring_attention_bwd", "route": "cuda",
+            "source": "src/repro_torch/csrc/ring_attention_bwd.cu",
+            "replaces": "src/repro/kernels/ring_attention/fused.py:362 (the "
+                        "gradient of its forward; the reference "
+                        "differentiates its emulation's custom VJP, "
+                        "fused.py:169-219)",
+            "launches": launches,
+            "route_launches": routes("fused_ring_attention_bwd"),
+            "shape": f"train: {SEQ_RANKS} x {SEQ_T_LOC}"}
+    line.update(_ring_bwd_at(torch, k, torch.Generator(device=dev)
+                             .manual_seed(12), SEQ_RANKS, SEQ_T_LOC,
+                             cfg.num_heads, cfg.kv_heads, cfg.head_dim))
+    # the tensor-core route at the same layout with head_dim 128 (the
+    # rule's widest): no config trains through the ring there
+    line["tensor_cores_d128"] = _ring_bwd_at(
+        torch, k, torch.Generator(device=dev).manual_seed(13), SEQ_RANKS,
+        SEQ_T_LOC, cfg.num_heads, cfg.kv_heads, 128)
+    line["train"] = out
+    line["row9"] = {"launches": row9}
+    line["phase_s"] = time.perf_counter() - t_start
+    log(f"ring train: phase in {line['phase_s']:.1f} s")
+    torch.cuda.empty_cache()
+    return line
+
+
 def _fill_rows(torch, cache, sharded, lo, hi, g, src=None):
     """Rows ``[lo, hi)`` of the global sequence in a stacked K/V cache
     ``(data, model, n_app, B, rows, KH, D)``, context-sharded over "data"
@@ -6634,7 +7031,8 @@ def main() -> int:
                 "flash_attention_bwd": k.flash_attention_bwd_kernel,
                 "linear_scan_bwd": k.linear_scan_bwd_kernel,
                 "expert_mlp_bwd": k.expert_mlp_bwd,
-                "fused_moe_dispatch_bwd": k.fused_dispatch_bwd_kernel}
+                "fused_moe_dispatch_bwd": k.fused_dispatch_bwd_kernel,
+                "fused_ring_attention_bwd": k.fused_ring_attention_bwd_kernel}
 
     from repro_torch.apps.minimod import run_minimod
     from repro_torch.core.context import DiompContext, use_default
@@ -7038,6 +7436,17 @@ def main() -> int:
     check(ring["launches"] > 0, "ring attention: the phase launched no ring")
     kernels.append(ring)
 
+    # -- phase 13b: paligemma-3b's attention block trained under "ring" ----
+    ring_bwd = ring_attention_train_phase(torch, k, dev, wrappers)
+    ring["launches_by_path"] = {"serve paligemma-3b": ring["launches"],
+                                "train paligemma-3b block":
+                                    ring_bwd.pop("row9")["launches"]}
+    ring["launches"] += ring["launches_by_path"]["train paligemma-3b block"]
+    ring["seq_parallel"]["with_lse"] = ring_bwd.pop("row9_forward")
+    check(ring_bwd["launches"] > 0, "ring attention's gradient: the phase "
+          "launched no row 14")
+    kernels.append(ring_bwd)
+
     # -- phase 14: the unified runtime and the hierarchical backend -----------
     rt = runtime_phase(torch, dev)
     log("runtime: " + json.dumps(rt))
@@ -7156,7 +7565,7 @@ def main() -> int:
         "deepseek-v3 expert2d": e2d["launches"]["expert_mlp_bwd"]})
     row12["expert2d"]["deepseek_checks"] = {
         "layers": ds["checks"]["layers"], **ds["checks"]["expert2d"]}
-    check(len(kernels) == len(wrappers) == 13, "kernels line incomplete")
+    check(len(kernels) == len(wrappers) == 14, "kernels line incomplete")
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -173,6 +173,12 @@ __device__ __forceinline__ int att_key_end(int i0, int rows, int G, int qoff,
   return min(vlen, frontier);
 }
 
+// A row's log-sum-exp of the scaled scores from its final carry, +inf for
+// a row that saw no key (so a P recomputed from it is exactly 0).
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
+}
+
 // The rows a thread owns in the tile starting at i0: their validity and
 // query positions (qoff + t).
 __device__ __forceinline__ void att_rows(int i0, int rows, int G, int qoff,

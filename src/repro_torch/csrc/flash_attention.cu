@@ -91,10 +91,6 @@ struct FlashParams {
   float* lse;
 };
 
-__device__ __forceinline__ float row_lse(float m, float l) {
-  return l > 0.f ? m + logf(l) : __int_as_float(0x7f800000);
-}
-
 template <typename T, int DVT>
 __global__ void __launch_bounds__(ATT_NT) flash_fwd_kernel(FlashParams p) {
   extern __shared__ float smem[];

@@ -108,7 +108,9 @@
 //   each).  Its waits trap after about ten seconds instead of hanging.
 //
 // * CUDA cores (delta_kernel, dkdv_kernel, dq_kernel): f32 and every shape
-//   off the rule.  `delta` holds N Tq H values.
+//   off the rule.  `delta` holds N Tq H values.  Their item routines live in
+//   attention_bwd.cuh, which the ring's gradient (ring_attention_bwd.cu)
+//   runs too.
 //   1. delta_kernel: one warp a (n, t, h) row, delta in f32;
 //   2. dkdv_kernel: one block a (key tile, kv head, n), looping over the
 //      query rows that can see the tile and holding the tile's dk and dv in
@@ -125,13 +127,13 @@
 //   65), k (D x (BK + 1)), v (Dv x (BK + 1)), then P and dS (64 x (BK +
 //   1)).  KA = 4 (64 keys) up to 128 columns, 2 (32 keys) above, which
 //   keeps a block under 227 KB at D = Dv = 256.
-#include "attention.cuh"
-
-#include <math_constants.h>
+#include "attention_bwd.cuh"
 
 #define BWD_BQ 64
 #define BWD_NT 256
-#define BWD_NEG_INF (-1e30f)
+
+// the CUDA-core passes' tile is attention_bwd.cuh's (attention.cuh's)
+static_assert(BWD_BQ == ATT_BQ && BWD_NT == ATT_NT, "one 64-row tile");
 
 struct BwdParams {
   const void* q;
@@ -150,9 +152,23 @@ struct BwdParams {
   float scale;
 };
 
-__host__ __device__ inline size_t bwd_smem_floats(int D, int Dv, int BK) {
-  return (size_t)(D + Dv) * (BWD_BQ + 1) + (size_t)(D + Dv) * (BK + 1) +
-         2 * (size_t)BWD_BQ * (BK + 1) + 2 * BWD_BQ;
+// The work item of sequence n, kv head kh: its queries and its whole K/V.
+template <typename T>
+__device__ __forceinline__ BwdItem<T> bwd_item(const BwdParams& p, int n,
+                                               int kh) {
+  BwdItem<T> it;
+  it.q = static_cast<const T*>(p.q);
+  it.dout = static_cast<const T*>(p.dout);
+  it.lse = p.lse;
+  it.delta = p.delta;
+  it.k = static_cast<const T*>(p.k);
+  it.v = static_cast<const T*>(p.v);
+  it.n = it.kn = n;
+  it.Tq = p.Tq; it.H = p.H; it.G = p.G; it.qoff = p.q_offset[n];
+  it.Tk = p.Tk; it.KH = p.KH; it.kh = kh; it.kbase = 0;
+  it.D = p.D; it.Dv = p.Dv; it.vlen = min(p.valid_len[n], p.Tk);
+  it.causal = p.causal; it.prefix_len = p.prefix_len; it.scale = p.scale;
+  return it;
 }
 
 // -- pass 1 ------------------------------------------------------------------
@@ -160,202 +176,26 @@ __host__ __device__ inline size_t bwd_smem_floats(int D, int Dv, int BK) {
 template <typename T>
 __global__ void __launch_bounds__(BWD_NT) delta_kernel(BwdParams p) {
   const long long rows = (long long)p.N * p.Tq * p.H;
-  const long long row = (long long)blockIdx.x * (BWD_NT / 32) +
-                        threadIdx.x / 32;
-  if (row >= rows) return;
-  const int lane = threadIdx.x % 32;
-  const T* o = static_cast<const T*>(p.o) + row * p.Dv;
-  const T* d = static_cast<const T*>(p.dout) + row * p.Dv;
-  float s = 0.f;
-  for (int c = lane; c < p.Dv; c += 32) s = fmaf(to_f32(o[c]), to_f32(d[c]), s);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) p.delta[row] = s;
-}
-
-// -- shared routines ---------------------------------------------------------
-
-// Stage rows [i0, i0 + 64) (row = t G + g, head kh G + g) of a (N, Tq, H,
-// C) operand of sequence n, times mul, transposed into dst (C x 65); rows
-// past `rows` as zeros.
-template <typename T>
-__device__ __forceinline__ void bwd_stage_rows(float* dst, const T* src,
-                                               int n, int i0, int rows,
-                                               int Tq, int H, int G, int kh,
-                                               int C, float mul) {
-  for (int e = threadIdx.x; e < BWD_BQ * C; e += BWD_NT) {
-    const int i = e / C, c = e % C;
-    const int row = i0 + i;
-    float val = 0.f;
-    if (row < rows) {
-      const int t = row / G, h = kh * G + row % G;
-      val = to_f32(src[(((long long)n * Tq + t) * H + h) * C + c]) * mul;
-    }
-    dst[c * (BWD_BQ + 1) + i] = val;
-  }
-}
-
-// Stage keys [k0, k0 + BK) of kv head kh of a (N, Tk, KH, C) operand,
-// transposed into dst (C x (BK + 1)); keys at or past kend as zeros.
-template <typename T>
-__device__ __forceinline__ void bwd_stage_keys(float* dst, const T* src,
-                                               int n, int k0, int kend,
-                                               int Tk, int KH, int kh, int C,
-                                               int BK) {
-  for (int e = threadIdx.x; e < BK * C; e += BWD_NT) {
-    const int j = e / C, c = e % C;
-    const int kp = k0 + j;
-    dst[c * (BK + 1) + j] =
-        kp < kend ? to_f32(src[(((long long)n * Tk + kp) * KH + kh) * C + c])
-                  : 0.f;
-  }
-}
-
-// The rows' lse and delta of the tile starting at i0 into ls / ds (64 each);
-// rows past `rows` get lse = +inf (p = 0).
-__device__ __forceinline__ void bwd_stage_stats(float* ls, float* ds,
-                                                const BwdParams& p, int n,
-                                                int i0, int rows, int kh) {
-  for (int i = threadIdx.x; i < BWD_BQ; i += BWD_NT) {
-    const int row = i0 + i;
-    float l = CUDART_INF_F, d = 0.f;
-    if (row < rows) {
-      const int t = row / p.G, h = kh * p.G + row % p.G;
-      const long long at = ((long long)n * p.Tq + t) * p.H + h;
-      l = p.lse[at];
-      d = p.delta[at];
-    }
-    ls[i] = l;
-    ds[i] = d;
-  }
-}
-
-// One (query tile, key tile) step: S = q_scaled k^T and dP = dO v^T from the
-// staged operands, then P and dS into ps / dss (64 x (BK + 1)).  Key
-// k0 + j is visible to a row at qpos under the forward's masks.
-template <int KA>
-__device__ __forceinline__ void bwd_scores(
-    const float* qt, const float* dot, const float* kt, const float* vt,
-    const float* ls, const float* dls, float* ps, float* dss, int D, int Dv,
-    int i0, int rows, int G, int qoff, int k0, int vlen, int causal,
-    int prefix_len) {
-  constexpr int BK = 16 * KA;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float s[4][KA], dp[4][KA];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < KA; ++j) s[i][j] = dp[i][j] = 0.f;
-  for (int d = 0; d < D; ++d) {
-    float qa[4], kb[KA];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) qa[i] = qt[d * (BWD_BQ + 1) + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < KA; ++j) kb[j] = kt[d * (BK + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KA; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
-  }
-  for (int c = 0; c < Dv; ++c) {
-    float da[4], vb[KA];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) da[i] = dot[c * (BWD_BQ + 1) + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < KA; ++j) vb[j] = vt[c * (BK + 1) + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < KA; ++j) dp[i][j] = fmaf(da[i], vb[j], dp[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty + 16 * i;
-    const int row = i0 + r;
-    const bool rvalid = row < rows;
-    const int qpos = qoff + (rvalid ? row / G : 0);
-#pragma unroll
-    for (int j = 0; j < KA; ++j) {
-      const int kp = k0 + tx + 16 * j;
-      bool vis = rvalid && kp < vlen;
-      if (causal)
-        vis = vis && (kp <= qpos || (kp < prefix_len && qpos < prefix_len));
-      const float pv = vis ? expf(s[i][j] - ls[r]) : 0.f;
-      ps[r * (BK + 1) + tx + 16 * j] = pv;
-      dss[r * (BK + 1) + tx + 16 * j] = vis ? pv * (dp[i][j] - dls[r]) : 0.f;
-    }
-  }
+  bwd_delta_rows(p.delta, static_cast<const T*>(p.o),
+                 static_cast<const T*>(p.dout), rows, p.Dv,
+                 (long long)blockIdx.x * (BWD_NT / 32) + threadIdx.x / 32,
+                 rows);
 }
 
 // -- pass 2: dk and dv ---------------------------------------------------------
 
 template <typename T, int NT, int KA>
 __global__ void __launch_bounds__(BWD_NT) dkdv_kernel(BwdParams p) {
-  constexpr int BK = 16 * KA;
   extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv, G = p.G;
-  float* qt = smem;                              // [D][65]  q scaled
-  float* dot = qt + D * (BWD_BQ + 1);            // [Dv][65] dO
-  float* kt = dot + Dv * (BWD_BQ + 1);           // [D][BK + 1]
-  float* vt = kt + D * (BK + 1);                 // [Dv][BK + 1]
-  float* ps = vt + Dv * (BK + 1);                // [64][BK + 1] P
-  float* dss = ps + BWD_BQ * (BK + 1);           // [64][BK + 1] dS
-  float* ls = dss + BWD_BQ * (BK + 1);           // [64] lse
-  float* dls = ls + BWD_BQ;                      // [64] delta
+  const int k0 = blockIdx.x * 16 * KA;
+  const BwdItem<T> it = bwd_item<T>(p, blockIdx.z, blockIdx.y);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int k0 = blockIdx.x * BK, kh = blockIdx.y, n = blockIdx.z;
-  const int rows = p.Tq * G;
-  const int qoff = p.q_offset[n];
-  const int vlen = min(p.valid_len[n], p.Tk);
-  const T* q = static_cast<const T*>(p.q);
-  const T* dO = static_cast<const T*>(p.dout);
-
   float dk[KA][NT], dv[KA][NT];
 #pragma unroll
   for (int a = 0; a < KA; ++a)
 #pragma unroll
     for (int c = 0; c < NT; ++c) dk[a][c] = dv[a][c] = 0.f;
-
-  if (k0 < vlen) {
-    bwd_stage_keys(kt, static_cast<const T*>(p.k), n, k0, vlen, p.Tk, p.KH,
-                   kh, D, BK);
-    bwd_stage_keys(vt, static_cast<const T*>(p.v), n, k0, vlen, p.Tk, p.KH,
-                   kh, Dv, BK);
-    // the first row that can see a key of the tile: every row inside the
-    // prefix window, else the causal frontier
-    int row0 = 0;
-    if (p.causal && k0 >= p.prefix_len) row0 = max(k0 - qoff, 0) * G;
-    for (int i0 = row0; i0 < rows; i0 += BWD_BQ) {
-      __syncthreads();                         // previous tile consumed
-      bwd_stage_rows(qt, q, n, i0, rows, p.Tq, p.H, G, kh, D, p.scale);
-      bwd_stage_rows(dot, dO, n, i0, rows, p.Tq, p.H, G, kh, Dv, 1.f);
-      bwd_stage_stats(ls, dls, p, n, i0, rows, kh);
-      __syncthreads();
-      bwd_scores<KA>(qt, dot, kt, vt, ls, dls, ps, dss, D, Dv, i0, rows, G,
-                     qoff, k0, vlen, p.causal, p.prefix_len);
-      __syncthreads();
-      for (int r = 0; r < BWD_BQ; ++r) {
-        float pa[KA], sa[KA];
-#pragma unroll
-        for (int a = 0; a < KA; ++a) {
-          pa[a] = ps[r * (BK + 1) + ty + 16 * a];
-          sa[a] = dss[r * (BK + 1) + ty + 16 * a];
-        }
-#pragma unroll
-        for (int c = 0; c < NT; ++c) {
-          const int col = tx + 16 * c;
-          const float dov = col < Dv ? dot[col * (BWD_BQ + 1) + r] : 0.f;
-          const float qv = col < D ? qt[col * (BWD_BQ + 1) + r] : 0.f;
-#pragma unroll
-          for (int a = 0; a < KA; ++a) {
-            dv[a][c] = fmaf(pa[a], dov, dv[a][c]);
-            dk[a][c] = fmaf(sa[a], qv, dk[a][c]);
-          }
-        }
-      }
-    }
-  }
+  bwd_dkdv_tile<T, NT, KA>(smem, it, k0, dk, dv);
 
   T* gk = static_cast<T*>(p.dk);
   T* gv = static_cast<T*>(p.dv);
@@ -363,12 +203,12 @@ __global__ void __launch_bounds__(BWD_NT) dkdv_kernel(BwdParams p) {
   for (int a = 0; a < KA; ++a) {
     const int kp = k0 + ty + 16 * a;
     if (kp >= p.Tk) continue;
-    const long long at = ((long long)n * p.Tk + kp) * p.KH + kh;
+    const long long at = ((long long)it.n * p.Tk + kp) * p.KH + it.kh;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) gk[at * D + col] = from_f32<T>(dk[a][c]);
-      if (col < Dv) gv[at * Dv + col] = from_f32<T>(dv[a][c]);
+      if (col < p.D) gk[at * p.D + col] = from_f32<T>(dk[a][c]);
+      if (col < p.Dv) gv[at * p.Dv + col] = from_f32<T>(dv[a][c]);
     }
   }
 }
@@ -377,102 +217,35 @@ __global__ void __launch_bounds__(BWD_NT) dkdv_kernel(BwdParams p) {
 
 template <typename T, int NT, int KA>
 __global__ void __launch_bounds__(BWD_NT) dq_kernel(BwdParams p) {
-  constexpr int BK = 16 * KA;
   extern __shared__ float smem[];
-  const int D = p.D, Dv = p.Dv, G = p.G;
-  float* qt = smem;
-  float* dot = qt + D * (BWD_BQ + 1);
-  float* kt = dot + Dv * (BWD_BQ + 1);
-  float* vt = kt + D * (BK + 1);
-  float* ps = vt + Dv * (BK + 1);
-  float* dss = ps + BWD_BQ * (BK + 1);
-  float* ls = dss + BWD_BQ * (BK + 1);
-  float* dls = ls + BWD_BQ;
+  const int i0 = blockIdx.x * BWD_BQ;
+  const BwdItem<T> it = bwd_item<T>(p, blockIdx.z, blockIdx.y);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int i0 = blockIdx.x * BWD_BQ, kh = blockIdx.y, n = blockIdx.z;
-  const int rows = p.Tq * G;
-  const int qoff = p.q_offset[n];
-  const int vlen = min(p.valid_len[n], p.Tk);
-  // the last key any row of the tile sees, plus one (the forward's
-  // att_key_end)
-  int kend = vlen;
-  if (p.causal) {
-    const int t_first = i0 / G, t_last = (min(i0 + BWD_BQ, rows) - 1) / G;
-    int frontier = qoff + t_last + 1;
-    if (qoff + t_first < p.prefix_len) frontier = max(frontier, p.prefix_len);
-    kend = min(vlen, frontier);
-  }
-
-  bwd_stage_rows(qt, static_cast<const T*>(p.q), n, i0, rows, p.Tq, p.H, G,
-                 kh, D, p.scale);
-  bwd_stage_rows(dot, static_cast<const T*>(p.dout), n, i0, rows, p.Tq, p.H,
-                 G, kh, Dv, 1.f);
-  bwd_stage_stats(ls, dls, p, n, i0, rows, kh);
-
+  bwd_stage_query_tile(smem, it, i0, 16 * KA);
   float dq[4][NT];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
     for (int c = 0; c < NT; ++c) dq[i][c] = 0.f;
-  const T* k = static_cast<const T*>(p.k);
-  const T* v = static_cast<const T*>(p.v);
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();                           // previous tile consumed
-    bwd_stage_keys(kt, k, n, k0, kend, p.Tk, p.KH, kh, D, BK);
-    bwd_stage_keys(vt, v, n, k0, kend, p.Tk, p.KH, kh, Dv, BK);
-    __syncthreads();
-    bwd_scores<KA>(qt, dot, kt, vt, ls, dls, ps, dss, D, Dv, i0, rows, G,
-                   qoff, k0, kend, p.causal, p.prefix_len);
-    __syncthreads();
-    for (int j = 0; j < BK; ++j) {
-      float sa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) sa[i] = dss[(ty + 16 * i) * (BK + 1) + j];
-#pragma unroll
-      for (int c = 0; c < NT; ++c) {
-        const int col = tx + 16 * c;
-        const float kv = col < D ? kt[col * (BK + 1) + j] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) dq[i][c] = fmaf(sa[i], kv, dq[i][c]);
-      }
-    }
-  }
+  bwd_dq_keys<T, NT, KA>(smem, it, i0, bwd_tile_key_end(it, i0), dq);
 
   T* g = static_cast<T*>(p.dq);
+  const int rows = p.Tq * p.G;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = i0 + ty + 16 * i;
     if (row >= rows) continue;
-    const int t = row / G, h = kh * G + row % G;
-    const long long at = ((long long)n * p.Tq + t) * p.H + h;
+    const int t = row / p.G, h = it.kh * p.G + row % p.G;
+    const long long at = ((long long)it.n * p.Tq + t) * p.H + h;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       const int col = tx + 16 * c;
-      if (col < D) g[at * D + col] = from_f32<T>(dq[i][c] * p.scale);
+      if (col < p.D) g[at * p.D + col] = from_f32<T>(dq[i][c] * p.scale);
     }
   }
 }
 
 // -- the tensor-core route (TMA + wgmma) -------------------------------------
-
-#define BWD_TC_STAGES 2
-#define BWD_TC_THREADS 160
-
-constexpr int BWD_TC_CONSUMERS = 128;       // one warpgroup, 64 rows or keys
-constexpr int BWD_BOX = 64 * 128;           // one box: 64 rows of 128 bytes
-constexpr int BWD_ROW_STATS = 3 * 64 * 4;   // a tile's lse log2(e), delta, rend
-static_assert(BWD_TC_THREADS == BWD_TC_CONSUMERS + 32, "one producer warp");
-static_assert(BWD_BQ == 64 && ATT_TC_BK == 64, "wgmma m64 / n64 tiles");
-
-// Dynamic shared memory of a tensor-core pass whose operands are `nbox`
-// 64-column boxes wide: 1024 bytes of slack for the swizzle's alignment,
-// the block's resident pair (K and V, or q and dO), the stages' streamed
-// pairs, the stages' row stats and the barriers (full and empty of each
-// stage, and the resident pair's).
-__host__ __device__ inline int bwd_tc_smem_bytes(int nbox) {
-  return 1024 + (2 + 2 * BWD_TC_STAGES) * nbox * BWD_BOX
-         + BWD_TC_STAGES * BWD_ROW_STATS + 8 * (2 * BWD_TC_STAGES + 1);
-}
 
 // The same layout with the D-wide operands (q, K) kb boxes and the Dv-wide
 // ones (dO, V) vb boxes: the wide instance's (below).  At kb = vb = nbox it
@@ -480,70 +253,6 @@ __host__ __device__ inline int bwd_tc_smem_bytes(int nbox) {
 __host__ __device__ inline int bwd_tc_wide_smem_bytes(int kb, int vb) {
   return 1024 + (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX
          + BWD_TC_STAGES * BWD_ROW_STATS + 8 * (2 * BWD_TC_STAGES + 1);
-}
-
-struct BwdTcSmem {
-  uint32_t base;        // shared-window address, 1024-byte aligned
-  unsigned char* gen;   // the same byte through a generic pointer
-  int kb, vb;           // boxes of a D-wide (q, K) and a Dv-wide (dO, V) tile
-  // i = 0: K (dk/dv pass) or q (dq pass); i = 1: V or dO
-  __device__ uint32_t res(int i) const { return base + i * kb * BWD_BOX; }
-  // i = 0: q (dk/dv pass) or K (dq pass); i = 1: dO or V
-  __device__ uint32_t op(int s, int i) const {
-    return base + ((1 + s) * (kb + vb) + i * kb) * BWD_BOX;
-  }
-  __device__ uint32_t stats_off(int s) const {
-    return (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX + s * BWD_ROW_STATS;
-  }
-  __device__ uint32_t stats(int s) const { return base + stats_off(s); }
-  __device__ const float* lse2(int s) const {
-    return reinterpret_cast<const float*>(gen + stats_off(s));
-  }
-  __device__ const float* delta(int s) const { return lse2(s) + 64; }
-  __device__ const int* rend(int s) const {
-    return reinterpret_cast<const int*>(lse2(s) + 128);
-  }
-  __device__ uint32_t bar(int i) const {
-    return base + stats_off(BWD_TC_STAGES) + 8 * i;
-  }
-  __device__ uint32_t full(int s) const { return bar(s); }
-  __device__ uint32_t empty(int s) const { return bar(BWD_TC_STAGES + s); }
-  __device__ uint32_t resfull() const { return bar(2 * BWD_TC_STAGES); }
-};
-
-using BwdPipe = StagePipe<BWD_TC_STAGES>;
-
-// Every thread of the block calls it once (it syncs the block).  A stage's
-// empty barrier waits on every consumer warp.
-__device__ inline BwdTcSmem bwd_tc_smem_init(unsigned char* raw, int kb,
-                                             int vb, int consumers) {
-  BwdTcSmem sm;
-  const uint32_t raw_s = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
-  sm.base = (raw_s + 1023) & ~1023u;
-  sm.gen = raw + (sm.base - raw_s);
-  sm.kb = kb;
-  sm.vb = vb;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < BWD_TC_STAGES; ++s) {
-      mbar_init(sm.full(s), 1);
-      mbar_init(sm.empty(s), consumers / 32);
-    }
-    mbar_init(sm.resfull(), 1);
-    fence_mbar_init();
-  }
-  __syncthreads();
-  return sm;
-}
-
-// `bytes` (a multiple of 16) from global src (16-byte aligned) to shared
-// dst, completing on the barrier at bar
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
-      : "memory");
 }
 
 // The tensor-core route's launch arguments besides the maps: the rows
@@ -596,82 +305,12 @@ __global__ void __launch_bounds__(BWD_NT) bwd_rows_kernel(BwdTcArgs a) {
   reinterpret_cast<int*>(a.stats)[2 * total + w] = rend;
 }
 
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-
-// d (64 x 64, f32) = A B^T over `ksteps` 16-deep steps, A and B (64 rows,
-// K-major, 64-column boxes) at shared addresses a and b; committed as one
-// group, not waited for
-template <typename T>
-__device__ __forceinline__ void bwd_scores_tc(float (&d)[32], uint32_t a,
-                                              uint32_t b, int ksteps) {
-  for (int kk = 0; kk < ksteps; ++kk) {
-    // 16 columns are 32 bytes of each 128-byte row; 64-column boxes
-    // BWD_BOX apart; 8-row groups 1024 bytes apart
-    const uint32_t off = (kk >> 2) * BWD_BOX + (kk & 3) * 32;
-    att_wgmma_s<T>(d, tc_desc(a + off, 16, 1024), tc_desc(b + off, 16, 1024),
-                   kk > 0);
-  }
-  wgmma_commit();
-}
-
-// acc (64 x W) += A (64 x 64, the fragments a) times the 64 x W operand at
-// shared address b (64 rows, 64-column boxes, N-major); not committed
-template <typename T, int W>
-__device__ __forceinline__ void bwd_acc_tc(float (&acc)[W / 2],
-                                           const uint32_t (&a)[4][4],
-                                           uint32_t b) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    // 16 rows are 2048 bytes of each box; 64-column boxes BWD_BOX apart
-    // (leading byte offset); 8-row groups 1024 apart
-    att_wgmma_o<T, W>(acc, a[kk], tc_desc(b + kk * 16 * 128, BWD_BOX, 1024));
-}
-
-// Producer: `nbox` 64-column boxes of a 5-D map at (kh0, pos, n) into dst
-__device__ __forceinline__ void bwd_load_boxes(uint32_t dst,
-                                               const CUtensorMap* map,
-                                               uint32_t bar, int nbox,
-                                               int kh0, int pos, int n) {
-  for (int c = 0; c < nbox; ++c)
-    tma_load_5d(dst + c * BWD_BOX, map, bar, c * 64, kh0, pos, n, 0);
-}
-
 // The first row of the padded tile order that can see key k0: every row
 // in the prefix window, else the causal frontier; rounded down to a tile.
 __device__ __forceinline__ int bwd_first_row(const BwdParams& p, int k0,
                                              int qoff) {
   if (!p.causal || k0 < p.prefix_len) return 0;
   return max(k0 - qoff, 0) * p.G / BWD_BQ * BWD_BQ;
-}
-
-// P^T = 2^(S^T scale log2(e) - lse log2(e)) in place of S^T's fragment
-// (s[4 j + 2 h + e]: key key0 + 8 h, row 8 j + c0 + e of the tile), 0
-// where the row's key end hides the key
-__device__ __forceinline__ void bwd_pt_tc(float (&s)[32], int key0, int c0,
-                                          const float* l2, const int* re,
-                                          float scale2) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int col = 8 * j + c0 + e;
-      const float lo = l2[col];
-      const int lim = re[col];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int i = 4 * j + 2 * h + e;
-        s[i] = key0 + 8 * h < lim ? att_exp2(fmaf(s[i], scale2, -lo)) : 0.f;
-      }
-    }
 }
 
 // The dk/dv pass's block: its key tile, kv head and sequence, and the
@@ -1172,16 +811,6 @@ static bool bwd_tc_route_ok(int dtype, int D, int Dv, int G,
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
   return true;
-}
-
-// A contiguous (N, T, heads, C) operand as the 5-D map (C, heads, T, N, 1)
-// with box (64 columns, box_heads, box_pos).
-static int bwd_map(CUtensorMap* map, const void* base, int dtype, int C,
-                   int heads, int T, int N, int box_heads, int box_pos) {
-  const long long dims[5] = {C, heads, T, N, 1};
-  const long long el[4] = {C, (long long)heads * C, (long long)T * heads * C,
-                           0};
-  return att_tc_map(map, base, dtype, dims, el, box_heads, box_pos);
 }
 
 // The tensor maps of q, dO, K and V, and the rows pass (lse log2(e),

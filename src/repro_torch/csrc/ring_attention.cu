@@ -21,7 +21,8 @@
 //   memory (f32, one row per (t, g) pair), folds the stripe of each live
 //   direction with attention.cuh's tile routine (clockwise before
 //   counter-clockwise, the merge order of AttentionRingPlan.fold_steps()),
-//   and stores the carry, or on the last step writes the normalized output;
+//   and stores the carry, or on the last step writes the normalized output
+//   (and, where asked, the rows' log-sum-exp for the gradient);
 // * q_offset and valid_len come per (ring, rank, b) from int32 device
 //   tensors (the query start already includes the rank's own rows when the
 //   queries are sharded), so a serving chunk's offsets never reach the
@@ -59,17 +60,16 @@
 // release/acquire flags in place of the grid barrier are later work.
 //
 // Layout: q (rings, n, B, tq, H, D), k (rings, n, B, tk, KH, D), v (rings, n,
-// B, tk, KH, Dv) and out (rings, n, B, tq, H, Dv), contiguous; bufk / bufv
+// B, tk, KH, Dv) and out (rings, n, B, tq, H, Dv), contiguous; lse (rings,
+// n, B, tq, H) f32 or null; bufk / bufv
 // (rings, n, 2, slots, B, tk, KH, D / Dv); cm, cl (items' rows) and cacc
 // (rows x Dv) f32, rows indexed ((((g n + r) B + b) KH + kh) tq G + row).
 #include <cooperative_groups.h>
 
 #include "attention.cuh"
+#include "ring_attention.cuh"
 
 namespace cg = cooperative_groups;
-
-// columns of one schedule row (repro_torch/kernels/ring_attention/fused.py)
-enum { kStepIndex = 0, kComputeCw, kComputeCcw, kSendCw, kSendCcw, kStepCols };
 
 struct RingAttnParams {
   const void* q;
@@ -86,6 +86,10 @@ struct RingAttnParams {
   const int* vlen;
   int nsteps, rings, n, slots, B, tq, tk, H, KH, D, Dv, G, BK, causal;
   float scale;
+  // where not null: each (ring, rank, b, t, h) row's log-sum-exp lse =
+  // m + log l of the scaled scores, f32, +inf for a row that saw no key;
+  // the gradient (ring_attention_bwd.cu) recomputes P from it
+  float* lse;
 };
 
 template <typename T>
@@ -94,49 +98,10 @@ __device__ __forceinline__ void copy_stripes(const RingAttnParams& p,
                                              int slot_from, int slot_to,
                                              bool seed, bool send_cw,
                                              bool send_ccw) {
-  // seed: my stripe -> both of my directions' slot 0;
-  // else: my direction-d slot -> the neighbour's next slot
-  const long long sk = (long long)p.B * p.tk * p.KH * p.D;
-  const long long sv = (long long)p.B * p.tk * p.KH * p.Dv;
-  const long long per = sk + sv;
-  const long long total = (long long)p.rings * p.n * per;
-  const long long gtid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  const long long gstride = (long long)gridDim.x * blockDim.x;
-  T* bk = static_cast<T*>(p.bufk);
-  T* bv = static_cast<T*>(p.bufv);
-  auto slot_k = [&](long long gr, int dir, int s) {
-    return bk + ((gr * 2 + dir) * p.slots + s) * sk;
-  };
-  auto slot_v = [&](long long gr, int dir, int s) {
-    return bv + ((gr * 2 + dir) * p.slots + s) * sv;
-  };
-  for (long long e = gtid; e < total; e += gstride) {
-    const long long gr = e / per;          // ring * n + rank
-    const long long i = e % per;
-    const int g = (int)(gr / p.n), r = (int)(gr % p.n);
-    const long long right = (long long)g * p.n + (r + 1) % p.n;
-    const long long left = (long long)g * p.n + (r + p.n - 1) % p.n;
-    if (i < sk) {
-      if (seed) {
-        const T x = k[gr * sk + i];
-        slot_k(gr, 0, 0)[i] = x;
-        slot_k(gr, 1, 0)[i] = x;
-      } else {
-        if (send_cw) slot_k(right, 0, slot_to)[i] = slot_k(gr, 0, slot_from)[i];
-        if (send_ccw) slot_k(left, 1, slot_to)[i] = slot_k(gr, 1, slot_from)[i];
-      }
-    } else {
-      const long long j = i - sk;
-      if (seed) {
-        const T x = v[gr * sv + j];
-        slot_v(gr, 0, 0)[j] = x;
-        slot_v(gr, 1, 0)[j] = x;
-      } else {
-        if (send_cw) slot_v(right, 0, slot_to)[j] = slot_v(gr, 0, slot_from)[j];
-        if (send_ccw) slot_v(left, 1, slot_to)[j] = slot_v(gr, 1, slot_from)[j];
-      }
-    }
-  }
+  const RingSlots sl = {p.bufk, p.bufv, p.rings, p.n, p.slots, p.B, p.tk,
+                        p.KH, p.D, p.Dv};
+  ring_copy_stripes<T>(sl, k, v, slot_from, slot_to, seed, send_cw,
+                       send_ccw);
 }
 
 template <typename T, int DVT>
@@ -228,6 +193,8 @@ ring_attention_kernel(RingAttnParams p) {
           T* o = static_cast<T*>(p.o) +
                  (nb * p.tq + t) * (long long)p.H * p.Dv + (long long)h * p.Dv;
           const float inv = 1.f / fmaxf(l[a], 1e-30f);
+          if (p.lse && tx == 0)
+            p.lse[(nb * p.tq + t) * p.H + h] = row_lse(m[a], l[a]);
 #pragma unroll
           for (int c = 0; c < DVT; ++c) {
             const int col = tx + 16 * c;
@@ -416,6 +383,8 @@ ring_attention_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                        (it.nb * p.tq + t) * (long long)p.H * DV +
                        (long long)head * DV;
             const float inv = 1.f / fmaxf(l[h], 1e-30f);
+            if (p.lse && (lane & 3) == 0)
+              p.lse[(it.nb * p.tq + t) * p.H + head] = row_lse(m[h], l[h]);
 #pragma unroll
             for (int j = 0; j < DV / 8; ++j)
               store2(o_row + 8 * j + 2 * (lane & 3), o[4 * j + 2 * h] * inv,
@@ -506,9 +475,9 @@ static int dispatch_tc(const RingAttnParams& p, int dtype,
 }
 
 extern "C" int repro_ring_attention(
-    const void* q, const void* k, const void* v, void* o, void* bufk,
-    void* bufv, void* cm, void* cl, void* cacc, const void* sched, int nsteps,
-    const void* q0, const void* vlen, int rings, int n, int slots, int B,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    void* bufk, void* bufv, void* cm, void* cl, void* cacc,
+    const void* sched, int nsteps, const void* q0, const void* vlen, int rings, int n, int slots, int B,
     int tq, int tk, int H, int KH, int D, int Dv, int BK, int causal,
     float scale, int dtype, int route, void* stream) {
   if (Dv > 256 || BK % 16 != 0 || BK < 16 || BK > 64 || H % KH != 0 ||
@@ -516,6 +485,7 @@ extern "C" int repro_ring_attention(
     return static_cast<int>(cudaErrorInvalidValue);
   RingAttnParams p;
   p.q = q; p.k = k; p.v = v; p.o = o; p.bufk = bufk; p.bufv = bufv;
+  p.lse = static_cast<float*>(lse);
   p.cm = static_cast<float*>(cm);
   p.cl = static_cast<float*>(cl);
   p.cacc = static_cast<float*>(cacc);

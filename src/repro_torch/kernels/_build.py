@@ -74,8 +74,11 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_flash_attention_bwd": [_P] * 12 + [_I] * 9
         + [_F, _I, _I, _P]}),
     "ring_attention": ("ring_attention.cu", {
-        "repro_ring_attention": [_P] * 10 + [_I, _P, _P] + [_I] * 12
+        "repro_ring_attention": [_P] * 11 + [_I, _P, _P] + [_I] * 12
         + [_F, _I, _I, _P]}),
+    "ring_attention_bwd": ("ring_attention_bwd.cu", {
+        "repro_ring_attention_bwd": [_P] * 16 + [_I, _P, _I, _P, _P]
+        + [_I] * 11 + [_F, _I, _I, _P]}),
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -7,13 +7,14 @@ kernel on CUDA tensors and the plain version on CPU tensors; it takes
 ``q_offset`` and ``valid_len`` as ints or per-row tensors (decode).  Where
 a gradient is wanted (grad mode on and an operand that requires it) it
 goes through :class:`~.kernel.FlashAttention`, whose backward is the
-gradient kernel; ``impl="ring"`` has no gradient yet (ROADMAP queue 1,
-item 20).
+gradient kernel.
 ``impl="ring"`` is the sequence-parallel path: per-rank K/V shards rotate
 through :func:`~repro_torch.kernels.ring_attention.ring_attention` over
 ``group`` (``q_sharded`` picks the training or the chunked-prefill query
-layout).  The reference's ``"ref"`` and ``"pallas"`` are refused, so no
-caller reaches the plain version on the card.
+layout); its gradient is the ring's own (the emulation's hand-written VJP
+on the CPU, ``csrc/ring_attention_bwd.cu`` on the card).  The reference's
+``"ref"`` and ``"pallas"`` are refused, so no caller reaches the plain
+version on the card.
 
 ``block=None`` lets the kernel wrapper take the planner's key tile
 (:meth:`~repro_torch.kernels.plan.OverlapPlanner.plan_attention_block`);
@@ -51,12 +52,6 @@ def flash_attention(q, k, v, *, causal: bool = True, q_offset=0,
             raise ValueError(
                 "impl='ring' is the sequence-parallel path: pass the "
                 "DiompGroup whose axis the K/V stripes rotate over")
-        if torch.is_grad_enabled() and any(t.requires_grad
-                                           for t in (q, k, v)):
-            raise NotImplementedError(
-                "ring attention's gradient (chain_grads) is not ported yet: "
-                "ROADMAP queue 1, item 20; train under "
-                "seq_parallel='allgather'")
         if prefix_len:
             raise ValueError(
                 "impl='ring' does not take prefix_len: bidirectional "

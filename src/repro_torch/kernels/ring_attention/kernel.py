@@ -23,14 +23,27 @@ float64 and rounds its result to float32 once.  Everything else is
 elementwise float32 arithmetic, which rounds the same wherever it runs.
 
 Shapes (f32; GQA grouped like the flash kernel; any leading dims ``...``):
-``m, l: (..., Tq, KH, G)``; ``acc: (..., Tq, KH, G, Dv)``.  The VJP pieces
-of the reference (``chain_grads`` and the ``*_bwd`` functions) belong to
-training and are not ported.
+``m, l: (..., Tq, KH, G)``; ``acc: (..., Tq, KH, G, Dv)``.
+
+The gradient
+------------
+Autodiff through the ring would sum each K/V shard's cotangent in an order
+that depends on how the ring is executed, so every execution (the plain
+version, the host listing, the fused emulation) differentiates the whole
+schedule by hand with :func:`chain_grads` and sums a shard's contributions
+in ONE canonical order: the owner's own stripe, then the clockwise
+deliveries by ascending step, then the counter-clockwise ones.  The pieces
+keep the forward's rule (float64 products, row sums and exponentials,
+rounded once; elementwise float32 else), so the executions' gradients are
+equal bit for bit too.  The finalized output does not depend on any ``m``
+(the normalizer cancels between ``l`` and ``acc``), so every ``m``
+cotangent is exactly zero and the rest are the plain softmax and rescale
+pullbacks.  :func:`custom_vjp` installs such a backward on a function.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, List, Sequence, Tuple
 
 import torch
 
@@ -41,6 +54,11 @@ __all__ = [
     "stripe_state",
     "merge_states",
     "finalize_state",
+    "finalize_bwd",
+    "merge_bwd",
+    "stripe_bwd",
+    "chain_grads",
+    "custom_vjp",
 ]
 
 State = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -51,6 +69,11 @@ _NEG_INF = float("-inf")
 def _exp(x: torch.Tensor) -> torch.Tensor:
     """f32 ``exp`` computed in float64 and rounded once (see module doc)."""
     return torch.exp(x.double()).float()
+
+
+def _einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """An f32 product computed in float64 and rounded once."""
+    return torch.einsum(eq, *(t.double() for t in ops)).float()
 
 
 def scaled_queries(q: torch.Tensor, kh: int, scale: float) -> torch.Tensor:
@@ -91,23 +114,26 @@ def stripe_mask(S: int, *, q_pos: torch.Tensor, k_start, causal: bool,
                                              (*lead, q_pos.shape[-1], S)))
 
 
+def _stripe_p(qg: torch.Tensor, k: torch.Tensor, vis: torch.Tensor):
+    """Softmax numerator ``p`` (0 where masked) and row max ``m`` of one
+    stripe."""
+    s = _einsum("...qhgd,...khd->...qhgk", qg, k)
+    see = vis[..., :, None, None, :]
+    s = torch.where(see, s, _NEG_INF)
+    m = s.amax(dim=-1)                            # -inf on fully masked rows
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    return torch.where(see, _exp(s - m_safe[..., None]), 0.0), m
+
+
 def stripe_state(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  vis: torch.Tensor) -> State:
     """Partial-softmax state of the queries ``qg (..., Tq, KH, G, D)``
     against one stripe ``k (..., S, KH, D)``, ``v (..., S, KH, Dv)`` under
     the visibility ``vis (..., Tq, S)``.  A fully masked stripe returns
     exactly :func:`empty_state`'s values."""
-    s = torch.einsum("...qhgd,...khd->...qhgk", qg.double(),
-                     k.double()).float()
-    see = vis[..., :, None, None, :]
-    s = torch.where(see, s, _NEG_INF)
-    m = s.amax(dim=-1)                            # -inf on fully masked rows
-    m_safe = torch.where(torch.isneginf(m), 0.0, m)
-    p = torch.where(see, _exp(s - m_safe[..., None]), 0.0)
+    p, m = _stripe_p(qg, k, vis)
     l = p.double().sum(dim=-1).float()
-    acc = torch.einsum("...qhgk,...khd->...qhgd", p.double(),
-                       v.double()).float()
-    return m, l, acc
+    return m, l, _einsum("...qhgk,...khd->...qhgd", p, v)
 
 
 def merge_states(a: State, b: State) -> State:
@@ -135,3 +161,95 @@ def finalize_state(state: State, dtype) -> torch.Tensor:
     _, l, acc = state
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.reshape(*out.shape[:-3], -1, out.shape[-1]).to(dtype)
+
+
+# -- the hand-written VJP of a fold chain -------------------------------------
+
+
+def finalize_bwd(ct: torch.Tensor, l: torch.Tensor, acc: torch.Tensor):
+    """Cotangents ``(gl, gacc)`` of :func:`finalize_state`'s normalize for
+    the output cotangent ``ct (..., Tq, KH, G, Dv)`` f32; ``gl`` is 0 on
+    rows that saw no key (``l < 1e-30``)."""
+    L = torch.clamp(l, min=1e-30)
+    gacc = ct / L[..., None]
+    rowsum = (ct.double() * acc.double()).sum(dim=-1).float()
+    gl = torch.where(l >= 1e-30, -rowsum / (L * L), 0.0)
+    return gl, gacc
+
+
+def merge_bwd(m1: torch.Tensor, m2: torch.Tensor, gl: torch.Tensor,
+              gacc: torch.Tensor):
+    """Cotangents ``(gl1, gl2, gacc1, gacc2)`` of one merge, from the two
+    sides' row maxes; an empty side of the merge passed the other through
+    verbatim, so the other's cotangent passes through verbatim too."""
+    empty1, empty2 = torch.isneginf(m1), torch.isneginf(m2)
+    m = torch.maximum(m1, m2)
+    m_safe = torch.where(torch.isneginf(m), 0.0, m)
+    e1 = _exp(m1 - m_safe)
+    e2 = _exp(m2 - m_safe)
+    c1 = torch.where(empty2, 1.0, torch.where(empty1, 0.0, e1))
+    c2 = torch.where(empty2, 0.0, torch.where(empty1, 1.0, e2))
+    return gl * c1, gl * c2, gacc * c1[..., None], gacc * c2[..., None]
+
+
+def stripe_bwd(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               vis: torch.Tensor, gl: torch.Tensor, gacc: torch.Tensor):
+    """Cotangents ``(gqg, gk, gv)`` (f32) of one :func:`stripe_state` from
+    those of its ``l`` and ``acc``: ``ds = p (gl + gacc v^T)``, 0 where
+    masked."""
+    p, _ = _stripe_p(qg, k, vis)
+    ds = p * (gl[..., None] + _einsum("...qhgd,...khd->...qhgk", gacc, v))
+    return (_einsum("...qhgk,...khd->...qhgd", ds, k),
+            _einsum("...qhgk,...qhgd->...khd", ds, qg),
+            _einsum("...qhgk,...qhgd->...khd", p, gacc))
+
+
+def chain_grads(qg: torch.Tensor, stripes: Sequence, ct: torch.Tensor
+                ) -> Tuple[torch.Tensor, List[torch.Tensor],
+                           List[torch.Tensor]]:
+    """Backward of ``finalize(fold(empty, stripes))`` for the queries
+    ``qg``: ``stripes`` the fold-order ``(k, v, vis)`` and ``ct (..., Tq,
+    KH, G, Dv)`` the f32 output cotangent.  Recomputes the forward chain,
+    walks the merges in reverse and returns ``(gqg, [gk_i], [gv_i])``: the
+    query cotangent summed over the stripes in fold order and each stripe's
+    K/V cotangents (f32, fold order), for the caller to route to the
+    stripes' owners and sum canonically."""
+    state = empty_state(qg, stripes[0][1].shape[-1])
+    states, blocks = [], []
+    for k, v, vis in stripes:
+        blk = stripe_state(qg, k, v, vis)
+        states.append(state)
+        blocks.append(blk)
+        state = merge_states(state, blk)
+    gl, gacc = finalize_bwd(ct, state[1], state[2])
+    per_stripe = [None] * len(stripes)
+    for i in reversed(range(len(stripes))):
+        gl1, gl2, ga1, ga2 = merge_bwd(states[i][0], blocks[i][0], gl, gacc)
+        per_stripe[i] = (gl2, ga2)
+        gl, gacc = gl1, ga1                  # the empty state's dies at i=0
+    gqg, gks, gvs = None, [], []
+    for (k, v, vis), (gl_i, ga_i) in zip(stripes, per_stripe):
+        gq_i, gk_i, gv_i = stripe_bwd(qg, k, v, vis, gl_i, ga_i)
+        gqg = gq_i if gqg is None else gqg + gq_i
+        gks.append(gk_i)
+        gvs.append(gv_i)
+    return gqg, gks, gvs
+
+
+class _CustomVjp(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, run, grads, *args):
+        fctx.save_for_backward(*args)
+        fctx.grads = grads
+        return run(*args)
+
+    @staticmethod
+    def backward(fctx, ct):
+        return (None, None, *fctx.grads(*fctx.saved_tensors, ct))
+
+
+def custom_vjp(run: Callable, grads: Callable, *args: torch.Tensor):
+    """``run(*args)`` whose backward is ``grads(*args, ct)`` (one cotangent
+    an argument), not autograd through ``run``: the port's
+    ``jax.custom_vjp``."""
+    return _CustomVjp.apply(run, grads, *args)

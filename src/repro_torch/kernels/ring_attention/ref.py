@@ -7,7 +7,13 @@ ring rank performs: one :func:`~.kernel.stripe_state` per K/V stripe, folded
 with :func:`~.kernel.merge_states` in the ring's schedule order
 (:meth:`AttentionRingPlan.sources`).  The emulation (:mod:`.fused`) is
 therefore equal to it bit for bit, and both are within float tolerance of
-flash attention.  Forward only: the reference's VJP belongs to training.
+flash attention.
+
+It carries the emulation's hand-written gradient (:func:`~.kernel.
+chain_grads` a rank, each stripe's K/V cotangents summed in the canonical
+order: the owner's own stripe, then the clockwise deliveries by ascending
+step, then the counter-clockwise ones), so the bit contract holds for the
+gradients too.
 """
 
 from __future__ import annotations
@@ -17,8 +23,8 @@ from typing import Optional
 import torch
 
 from ..plan import AttentionRingPlan
-from .kernel import (empty_state, finalize_state, merge_states,
-                     scaled_queries, stripe_mask, stripe_state)
+from .kernel import (chain_grads, custom_vjp, empty_state, finalize_state,
+                     merge_states, scaled_queries, stripe_mask, stripe_state)
 
 __all__ = ["ring_attention_ref"]
 
@@ -52,19 +58,69 @@ def ring_attention_ref(q, k, v, *, n: int, causal: bool = True, q_offset=0,
                                  q_sharded=q_sharded)
     dev = q.device
     offset = torch.as_tensor(q_offset, device=dev).reshape(-1, 1)
-    outs = []
-    for r in range(n if q_sharded else 1):
-        qr = q[:, r * tq_loc:(r + 1) * tq_loc] if q_sharded else q
+    R = n if q_sharded else 1
+    folds = plan.fold_steps()
+    G = H // KH
+
+    def rank_stripes(r, k, v):
+        """Rank r's fold-order ``(k, v, vis)`` stripes."""
         q_pos = offset + (r * tq_loc if q_sharded else 0) \
             + torch.arange(tq_loc, device=dev)
-        qg = scaled_queries(qr, KH, scale)
-        state = empty_state(qg, Dv)
+        out = []
         for src in plan.sources(r):
             vis = stripe_mask(tk_loc, q_pos=q_pos, k_start=src * tk_loc,
                               causal=causal, valid_len=valid_len)
             rows = slice(src * tk_loc, (src + 1) * tk_loc)
-            state = merge_states(state, stripe_state(
-                qg, k[:, rows], v[:, rows],
-                vis.expand(B, tq_loc, tk_loc)))
-        outs.append(finalize_state(state, q.dtype))
-    return torch.cat(outs, dim=1) if q_sharded else outs[0]
+            out.append((k[:, rows], v[:, rows],
+                        vis.expand(B, tq_loc, tk_loc)))
+        return out
+
+    def rank_q(r, t):
+        return t[:, r * tq_loc:(r + 1) * tq_loc] if q_sharded else t
+
+    def run(q, k, v):
+        outs = []
+        for r in range(R):
+            qg = scaled_queries(rank_q(r, q), KH, scale)
+            state = empty_state(qg, Dv)
+            for k_str, v_str, vis in rank_stripes(r, k, v):
+                state = merge_states(state, stripe_state(qg, k_str, v_str,
+                                                         vis))
+            outs.append(finalize_state(state, q.dtype))
+        return torch.cat(outs, dim=1) if q_sharded else outs[0]
+
+    def grads(q, k, v, ct):
+        ct32 = ct.float()
+        gq, gks, gvs = [], [], []
+        for r in range(R):
+            gqg, gk_r, gv_r = chain_grads(
+                scaled_queries(rank_q(r, q), KH, scale),
+                rank_stripes(r, k, v),
+                rank_q(r, ct32).reshape(B, tq_loc, KH, G, Dv))
+            gq.append((gqg.reshape(B, tq_loc, H, D) * scale).to(q.dtype))
+            gks.append(gk_r)
+            gvs.append(gv_r)
+        own = folds.index(("cw", 0))
+        gk_stripes, gv_stripes = [], []
+        for p in range(n):
+            if q_sharded:
+                # the emulation's canonical sum at the owner: own stripe,
+                # then cw deliveries, then ccw
+                gk_p, gv_p = gks[p][own], gvs[p][own]
+                for want in ("cw", "ccw"):
+                    for i, (dirn, s) in enumerate(folds):
+                        if dirn != want or s == 0:
+                            continue
+                        rr = (p + s) % n if dirn == "cw" else (p - s) % n
+                        gk_p = gk_p + gks[rr][i]
+                        gv_p = gv_p + gvs[rr][i]
+            else:
+                i = plan.sources(0).index(p)
+                gk_p, gv_p = gks[0][i], gvs[0][i]
+            gk_stripes.append(gk_p)
+            gv_stripes.append(gv_p)
+        return (torch.cat(gq, dim=1) if q_sharded else gq[0],
+                torch.cat(gk_stripes, dim=1).to(k.dtype),
+                torch.cat(gv_stripes, dim=1).to(v.dtype))
+
+    return custom_vjp(run, grads, q, k, v)

@@ -203,8 +203,17 @@ def test_gradient_refusals():
         flash_attention(q, q, q, valid_len=4)
     with pytest.raises(ValueError, match="q_offset"):
         flash_attention(q, q, q, q_offset=torch.tensor([0, 3]))
-    with pytest.raises(NotImplementedError, match="item 20"):
-        flash_attention(q, q, q, impl="ring", group=object())
+    # the ring's gradient runs: on CPU tensors the emulation's hand-written
+    # backward, here over a ring of 2 stacked ranks
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.launch.mesh import RankMesh
+    qr = torch.randn(2, 2, 4, 4, 16).requires_grad_()
+    with use_default(DiompContext(mesh=RankMesh(("x",), (2,)),
+                                  device="cpu")):
+        flash_attention(qr, qr, qr, impl="ring",
+                        group=DiompGroup(("x",), name="x")).sum().backward()
+    assert qr.grad.shape == qr.shape and bool(torch.isfinite(qr.grad).all())
+    assert qr.grad.abs().sum() > 0
     # without a gradient the serving paths keep per-row offsets
     with torch.no_grad():
         flash_attention(q, q, q, q_offset=torch.tensor([0, 3]),

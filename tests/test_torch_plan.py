@@ -536,11 +536,13 @@ def test_backward_wrapper_counts_per_route():
 
 def test_backward_tiles_match_the_cuda_source():
     from repro_torch.kernels import _build
-    bw = _defines("flash_attention_bwd.cu")
+    # the tensor-core route's shared pieces live in attention_bwd.cuh
+    bw = {**_defines("attention_bwd.cuh"), **_defines("flash_attention_bwd.cu")}
     assert bw["BWD_BQ"] == tplan.FLASH_BQ == 64
     assert bw["BWD_TC_STAGES"] == tplan.BWD_TC_STAGES
     assert bw["BWD_TC_THREADS"] == tplan.BWD_TC_THREADS == 128 + 32
-    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    text = (CSRC / "flash_attention_bwd.cu").read_text() \
+        + (CSRC / "attention_bwd.cuh").read_text()
     # one instance a width the rule admits: W = max(D, Dv), 16 to 128
     inst = {int(w) for w in re.findall(r"launch_bwd_tc<T, (\d+)>", text)}
     assert inst == set(range(16, 129, 16))
@@ -567,9 +569,10 @@ def test_backward_wide_instance_matches_the_cuda_source():
     shared memory, ``bwd_tc_wide_smem_bytes`` read from the source,
     against :func:`attention_bwd_wide_smem_bytes`; at kb = vb = nbox the
     same formula is ``bwd_tc_smem_bytes(nbox)``."""
-    bw = _defines("flash_attention_bwd.cu")
+    bw = {**_defines("attention_bwd.cuh"), **_defines("flash_attention_bwd.cu")}
     assert bw["BWD_WIDE_THREADS"] == tplan.BWD_WIDE_THREADS == 2 * 128 + 32
-    text = (CSRC / "flash_attention_bwd.cu").read_text()
+    text = (CSRC / "flash_attention_bwd.cu").read_text() \
+        + (CSRC / "attention_bwd.cuh").read_text()
     assert set(re.findall(r"dkdv_wide_kernel<T, (\d+), (\d+)>", text)) \
         == {("192", "128")}
     assert set(re.findall(r"dq_tc_kernel<T, 192, (\d+), (\d+)>", text)) \
