@@ -825,14 +825,16 @@ def _attention_route(torch, dt, D, Dv, G) -> str:
 def _attention_bwd_route(torch, dt, D, Dv, G) -> str:
     """The route a gradient case's aligned, contiguous operands must take:
     the tensor cores for f16/bf16 with D a multiple of 16 in [16, 128] or
-    192 (MLA's heads, the wide instance), Dv a multiple of 16 in [16, 128]
+    192 (MLA's heads, the wide instance) and Dv a multiple of 16 in [16,
+    128], or D = Dv = 256 (paligemma-3b's heads, the 256-wide instance),
     and G dividing 64, the CUDA cores otherwise
     (plan.attention_bwd_route's rule, restated here so the cases check
     it)."""
     def width_ok(x):
         return 16 <= x <= 128 and x % 16 == 0
     return ("wgmma" if dt in (torch.float16, torch.bfloat16)
-            and (width_ok(D) or D == 192) and width_ok(Dv)
+            and (((width_ok(D) or D == 192) and width_ok(Dv))
+                 or D == Dv == 256)
             and 64 % G == 0 else "simt")
 
 
@@ -974,10 +976,13 @@ def check_flash_bwd(torch, k, g) -> None:
     other instance width of the tensor-core route (W = max(D, Dv) 16, 32,
     48, 96 and 112), and the wide instance (D = 192: MLA's Dv 128 over one
     to three causal key tiles and two query tiles, a prefix window, Dv 64
-    and 80 at G = 4 with a query offset and without the causal mask); f32,
-    f16 and bf16, each case on the route ``attention_bwd_route``'s rule
-    gives it (the 16-bit cases with D up to 128 or 192 and Dv up to 128 on
-    the tensor cores, D 256 and f32 on the CUDA cores).  Both take the
+    and 80 at G = 4 with a query offset and without the causal mask), and
+    the 256-wide instance (D = Dv = 256 at G = 8, causal with a query
+    offset and paligemma-3b's prefix-LM mask, a window across key tiles);
+    f32, f16 and bf16, each case on the route ``attention_bwd_route``'s
+    rule gives it (the 16-bit cases with D up to 128 or 192 and Dv up to
+    128, or D = Dv = 256, on the tensor cores, f32 on the CUDA cores).
+    Both take the
     plain forward's output and log-sum-exp; the forward kernel's lse
     (written on the route the rule gives the case) is held against the
     plain version's first.
@@ -1011,6 +1016,8 @@ def check_flash_bwd(torch, k, g) -> None:
         (1, 100, 100, 2, 2, 192, 128, True, 0, 70),
         (1, 45, 97, 8, 2, 192, 64, True, 64, 0),
         (2, 29, 53, 4, 1, 192, 80, False, 0, 0),
+        # the 256-wide instance under paligemma-3b's prefix-LM mask, G = 8
+        (1, 150, 150, 8, 1, 256, 256, True, 0, 90),
     ]
     for (B, Tq, Tk, H, KH, D, Dv, causal, off, pfx) in cases:
         for dt in tols:
@@ -1744,11 +1751,12 @@ RING_BWD_CASES = [
 def _ring_bwd_route(torch, dt, D, Dv, G) -> str:
     """The route a ring-gradient case's aligned, contiguous operands must
     take: the tensor cores for f16/bf16 with D and Dv multiples of 16 in
-    [16, 128] and G dividing 64, the CUDA cores otherwise (fused.py's
-    ring_bwd_route, row 10's rule without its wide instance, restated here
-    so the cases check it)."""
+    [16, 128], or D = Dv = 256 (the 256-wide instance), and G dividing 64,
+    the CUDA cores otherwise (fused.py's ring_bwd_route, row 10's rule
+    without its wide instance, restated here so the cases check it)."""
     return ("wgmma" if dt in (torch.float16, torch.bfloat16)
-            and all(16 <= x <= 128 and x % 16 == 0 for x in (D, Dv))
+            and (all(16 <= x <= 128 and x % 16 == 0 for x in (D, Dv))
+                 or D == Dv == 256)
             and 64 % G == 0 else "simt")
 
 
@@ -1760,7 +1768,8 @@ def check_ring_attention_bwd(torch, k, g) -> None:
     per-row offsets, a valid length below the padded one, G = 1, 4 and 8,
     D 64, 80, 128, 192 (Dv 128) and 256, Dv != D; f32 and bf16, each case
     on the route ``ring_bwd_route``'s rule gives it (bf16 with D and Dv up
-    to 128 on the tensor cores, the rest on the CUDA cores).  The lse comes
+    to 128, or D = Dv = 256, on the tensor cores, the rest on the CUDA
+    cores).  The lse comes
     from row
     9 (``return_lse``, on the route the rule gives the case) and is held
     against the plain version's first: within 1e-4, +inf exactly where a
@@ -6281,12 +6290,19 @@ def _ring_bwd_at(torch, k, g, n, t_loc, H, KH, hd):
             ("ring_attention",))
     del got, o, lse
     # row 10 on the same global problem (flash's forward for o and the lse;
-    # at D = 256 its rule gives the CUDA cores too)
+    # its rule gives the same route as row 14's here)
     whole = [t.movedim(0, 1).flatten(1, 2) for t in (q, kk, v, do)]
     o, lse = k.flash_attention_kernel(*whole[:3], return_lse=True)
-    row10 = cuda_ms(torch, lambda: k.flash_attention_bwd_kernel(
-        *whole[:3], o, whole[3], lse), 2)
+
+    def row10_call():
+        return k.flash_attention_bwd_kernel(*whole[:3], o, whole[3], lse)
+
+    row10 = cuda_ms(torch, row10_call, 2)
+    row10_dev = device_ms(torch, row10_call, 2,
+                          ("bwd_rows_kernel", "dkdv_", "dq_"))
     row10_route = k.flash_attention_bwd_kernel.last_grid["route"]
+    check(row10_route == route, f"row 10 at head_dim {hd} on {row10_route}, "
+          f"row 14 on {route}")
     del o, lse
     # SDPA's backward over the whole sequence (the ranks' rows in order)
     whole[1], whole[2] = (t.repeat_interleave(H // KH, dim=-2)
@@ -6299,6 +6315,16 @@ def _ring_bwd_at(torch, k, g, n, t_loc, H, KH, hd):
     pairs = T * (T + 1) // 2 * H
     nbytes = 2 * (3 * q.numel() + 4 * kk.numel()) + 4 * q.numel() // hd
     b_ms, b_by = bound(nbytes, 2 * (3 * hd + 2 * hd) * pairs, "bfloat16")
+    # the registers and spills of the bf16 instances these launches ran
+    # (their mangled names: the tensor-core instances by width)
+    wide = hd == 256 and route == "wgmma"
+    ptxas = {"row14": _ptxas_of("ring_attention_bwd",
+                                f"ring_bwd_tc_kernelI13__nv_bfloat16Li"
+                                f"{256 if wide else 128}E"),
+             "row10": _ptxas_of("flash_attention_bwd",
+                                "_w_kernelI13__nv_bfloat16E" if wide else
+                                "kernelI13__nv_bfloat16Li128E")}
+    log(f"ring bwd at head_dim {hd}: ptxas {ptxas}")
     log(f"ring bwd (row 14, {route}) at {n} x {t_loc} tokens, {H} heads on "
         f"{KH}, head_dim {hd}, causal, bf16 ({pairs // H} visible pairs a "
         f"head): "
@@ -6308,7 +6334,8 @@ def _ring_bwd_at(torch, k, g, n, t_loc, H, KH, hd):
         f"K/V heads repeated); err {errs} of {scales}; row 9 forward "
         f"{fwd_ms:.3f} ms (device {_ms(fwd_dev, 3)}), with the lse "
         f"{fwd_lse_ms:.3f} (device {_ms(fwd_lse_dev, 3)}); row 10 on the "
-        f"same global problem {row10:.3f} ms ({row10_route})")
+        f"same global problem {row10:.3f} ms (device {_ms(row10_dev, 3)}; "
+        f"{row10_route})")
     return {"max_abs_err": max(errs.values()), "ms": ms, "plain_ms": plain,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": library,
             "device_ms": dev_ms, "library_device_ms": library_dev,
@@ -6316,7 +6343,9 @@ def _ring_bwd_at(torch, k, g, n, t_loc, H, KH, hd):
             "errs": errs, "scales": scales,
             "shape": f"{n} x {t_loc} tokens, {H} heads on {KH}, D {hd}",
             "kernel_route": route,
-            "row10_same_problem": {"ms": row10, "route": row10_route},
+            "row10_same_problem": {"ms": row10, "device_ms": row10_dev,
+                                   "route": row10_route},
+            "ptxas": ptxas,
             "row9_forward": {"ms": fwd_ms, "device_ms": fwd_dev,
                              "with_lse_ms": fwd_lse_ms,
                              "with_lse_device_ms": fwd_lse_dev}}
@@ -6332,7 +6361,8 @@ def ring_attention_train_phase(torch, k, dev, wrappers) -> dict:
     bf16 (row 14 and row 10 both round to bf16, in other orders, and the
     differences pass through the block's products); rows 9 and 14 launched
     once each a ring run, never flash or its gradient, and the plain
-    versions never called.  Then an f32 cut (4 x 1024 tokens): the ring's
+    versions never called; in bf16 rows 14 and 10 on the tensor cores (the
+    256-wide instances), in f32 on the CUDA cores.  Then an f32 cut (4 x 1024 tokens): the ring's
     gradients against the plain emulation's (its chain-form VJP, swapped
     in for the kernel) within 1e-4 of each magnitude.  Then row 14 alone
     at the bf16 shape (``_ring_bwd_at``), and at head_dim 128 on the
@@ -6422,12 +6452,20 @@ def ring_attention_train_phase(torch, k, dev, wrappers) -> dict:
         return {r: sum(out[d]["ring"]["routes"][name][r] for d in out)
                 for r in ("simt", "wgmma")}
 
-    # every row 14 launch on its rule's route (the CUDA cores), row 9's in
-    # bf16 on the tensor cores
-    check(routes("fused_ring_attention_bwd")["wgmma"] == 0
-          and out[str(torch.bfloat16)]["ring"]["routes"][
-              "fused_ring_attention"]["wgmma"] == 1,
-          f"ring train: routes {[out[d]['ring']['routes'] for d in out]}")
+    # every launch on its rule's route: in bf16 rows 9 and 14 under "ring"
+    # and rows 5 and 10 under "allgather" on the tensor cores (D = Dv =
+    # 256: the gradients' 256-wide instances), in f32 both gradients on
+    # the CUDA cores
+    bf, f32 = out[str(torch.bfloat16)], out[str(torch.float32)]
+    check(bf["ring"]["routes"]["fused_ring_attention"]["wgmma"] == 1
+          and bf["ring"]["routes"]["fused_ring_attention_bwd"]["wgmma"] == 1
+          and bf["allgather"]["routes"]["flash_attention"]["wgmma"] == 1
+          and bf["allgather"]["routes"]["flash_attention_bwd"]["wgmma"] == 1
+          and f32["ring"]["routes"]["fused_ring_attention_bwd"]["simt"] == 1
+          and f32["allgather"]["routes"]["flash_attention_bwd"]["simt"] == 1,
+          "ring train: routes " + str({(d, sp): out[d][sp]["routes"]
+                                       for d in out
+                                       for sp in ("ring", "allgather")}))
     launches = sum(out[d]["ring"]["launches"]["fused_ring_attention_bwd"]
                    for d in out)
     row9 = sum(out[d]["ring"]["launches"]["fused_ring_attention"] for d in out)
@@ -6443,8 +6481,8 @@ def ring_attention_train_phase(torch, k, dev, wrappers) -> dict:
     line.update(_ring_bwd_at(torch, k, torch.Generator(device=dev)
                              .manual_seed(12), SEQ_RANKS, SEQ_T_LOC,
                              cfg.num_heads, cfg.kv_heads, cfg.head_dim))
-    # the tensor-core route at the same layout with head_dim 128 (the
-    # rule's widest): no config trains through the ring there
+    # the narrow tensor-core instance at the same layout with head_dim 128:
+    # no config trains through the ring there
     line["tensor_cores_d128"] = _ring_bwd_at(
         torch, k, torch.Generator(device=dev).manual_seed(13), SEQ_RANKS,
         SEQ_T_LOC, cfg.num_heads, cfg.kv_heads, 128)

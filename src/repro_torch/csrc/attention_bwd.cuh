@@ -366,14 +366,25 @@ struct BwdTcSmem {
   uint32_t base;        // shared-window address, 1024-byte aligned
   unsigned char* gen;   // the same byte through a generic pointer
   int kb, vb;           // boxes of a D-wide (q, K) and a Dv-wide (dO, V) tile
+  int xbytes;           // the exchange tiles' bytes (the 256-wide layout's)
   // i = 0: K (dk/dv pass) or q (dq pass); i = 1: V or dO
   __device__ uint32_t res(int i) const { return base + i * kb * BWD_BOX; }
   // i = 0: q (dk/dv pass) or K (dq pass); i = 1: dO or V
   __device__ uint32_t op(int s, int i) const {
     return base + ((1 + s) * (kb + vb) + i * kb) * BWD_BOX;
   }
+  __device__ uint32_t boxes_end() const {
+    return (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX;
+  }
+  // the 256-wide layout's exchange tiles, after the boxes: P and dS in the
+  // operand type (one box each) and P in f32
+  __device__ uint32_t xp16() const { return base + boxes_end(); }
+  __device__ uint32_t xds() const { return base + boxes_end() + BWD_BOX; }
+  __device__ float* xp32() const {
+    return reinterpret_cast<float*>(gen + boxes_end() + 2 * BWD_BOX);
+  }
   __device__ uint32_t stats_off(int s) const {
-    return (1 + BWD_TC_STAGES) * (kb + vb) * BWD_BOX + s * BWD_ROW_STATS;
+    return boxes_end() + xbytes + s * BWD_ROW_STATS;
   }
   __device__ uint32_t stats(int s) const { return base + stats_off(s); }
   __device__ const float* lse2(int s) const {
@@ -389,20 +400,29 @@ struct BwdTcSmem {
   __device__ uint32_t full(int s) const { return bar(s); }
   __device__ uint32_t empty(int s) const { return bar(BWD_TC_STAGES + s); }
   __device__ uint32_t resfull() const { return bar(2 * BWD_TC_STAGES); }
+  // the 256-wide layout's loader state, after the barriers
+  template <typename S>
+  __device__ S* loads() const {
+    return reinterpret_cast<S*>(gen + stats_off(BWD_TC_STAGES) +
+                                8 * (2 * BWD_TC_STAGES + 1));
+  }
 };
 
 using BwdPipe = StagePipe<BWD_TC_STAGES>;
 
 // Every thread of the block calls it once (it syncs the block).  A stage's
-// empty barrier waits on every consumer warp.
+// empty barrier waits on every consumer warp.  `xbytes`: the exchange
+// tiles of the 256-wide layout (BWD_W_XBYTES), 0 in the others.
 __device__ inline BwdTcSmem bwd_tc_smem_init(unsigned char* raw, int kb,
-                                             int vb, int consumers) {
+                                             int vb, int consumers,
+                                             int xbytes = 0) {
   BwdTcSmem sm;
   const uint32_t raw_s = static_cast<uint32_t>(__cvta_generic_to_shared(raw));
   sm.base = (raw_s + 1023) & ~1023u;
   sm.gen = raw + (sm.base - raw_s);
   sm.kb = kb;
   sm.vb = vb;
+  sm.xbytes = xbytes;
   if (threadIdx.x == 0) {
     for (int s = 0; s < BWD_TC_STAGES; ++s) {
       mbar_init(sm.full(s), 1);
@@ -507,4 +527,324 @@ static int bwd_map(CUtensorMap* map, const void* base, int dtype, int C,
   const long long el[4] = {C, (long long)heads * C, (long long)T * heads * C,
                            0};
   return att_tc_map(map, base, dtype, dims, el, box_heads, box_pos);
+}
+
+// -- the 256-wide pair step (D = Dv = 256) ------------------------------------
+//
+// One warpgroup cannot hold a 64-key tile's dk and dv at 256 columns (256
+// accumulators a thread) beside its score fragments, so the 256-wide
+// instances (flash_attention_bwd.cu's passes and ring_attention_bwd.cu's
+// items) run four consumer warpgroups, BWD_W_THREADS = 512 threads, and no
+// producer warp: a 17th warp would put five warps on one of the SM's four
+// schedulers and cap ptxas at 96 registers a thread (16,384 registers a
+// scheduler), where 16 warps leave 128.  A (64-key tile, 64-row query
+// tile) pair, bwd_w_kv_pair in a dk/dv item, bwd_w_q_pair in a dq item:
+//  * warpgroup 0 forms S (S^T in a dk/dv item) and warpgroup 1 dP (dP^T),
+//    each once a pair, 32 f32 a thread; warpgroup 0 turns S into P and
+//    writes it to shared memory twice: in f32 in its fragment order (xp32,
+//    16 KB) and, for a dk/dv item, rounded to the operand type as a 64 x 64
+//    K-major tile, 128-byte swizzled as TMA would write it (xp16, 8 KB);
+//    warpgroup 1 reads P back in f32, forms dS = P o (dP - delta) and writes
+//    it rounded to the operand type (xds, 8 KB).  P and dS are rounded where
+//    the narrow instances round them; dS takes P in f32, as there;
+//  * then every warpgroup runs its share of the products with both operands
+//    in shared memory (wgmma's SS form, the 16-bit operand through the
+//    transpose bit): in a dk/dv item warpgroup w holds one 64 x 128 f32
+//    slice, 64 registers a thread: dv[:, :128] and dv[:, 128:] (P^T dO),
+//    dk[:, :128] and dk[:, 128:] (dS^T q); in a dq item one 64 x 64 slice of
+//    dq (dS K), 32 a thread.
+// Named barriers order the exchange: 1 (every consumer) once the scores
+// are formed and the last pair's products are done with the tiles, 2
+// (warpgroups 0 and 1) for P in f32, 3 (every consumer) before the
+// products read P and dS, 4 (every consumer) after a dq item's key rows
+// past its end are zeroed, 5 (warpgroups 0-2 arrive, 3 waits) once every
+// product of the pair is done.  The block's loads are issued by one
+// thread of warpgroup 3 (BWD_W_LOADER) through a loader the caller gives,
+// at two hooks: scores_done(item_end) after barrier 1 (the resident pair
+// is free once an item's last scores are formed) and products_done()
+// after barrier 5 (the pair's stage is free: the pair two ahead lands
+// there while the next one runs).  No empty barriers; every value is
+// still written by one thread in one order: no atomics.
+// Shared memory (bwd_w_smem_bytes): the narrow layout at four boxes an
+// operand (its empty barriers unused), the exchange tiles after the boxes
+// and the loader's state after the barriers (BWD_W_LOADS bytes: only the
+// loading thread reads it, so it takes no register of the others),
+// 232,104 bytes of the card's 232,448 a block.
+
+#define BWD_W_THREADS 512
+
+constexpr int BWD_W_CONSUMERS = 512;        // four warpgroups
+constexpr int BWD_W_LOADER = 384;           // warpgroup 3's first thread
+constexpr int BWD_W_XBYTES = 2 * BWD_BOX + 64 * 64 * 4;
+static_assert(BWD_W_THREADS == BWD_W_CONSUMERS, "no producer warp");
+
+// The loader's state in shared memory: BWD_W_LOADS bytes after the
+// barriers; a block of a pass keeps its next tile, its tiles, the loads'
+// (stage, phase) and its coordinates (kv head, sequence, first row)
+// (ring_attention_bwd.cu keeps its cursors and the step there).
+constexpr int BWD_W_LOADS = 128;
+struct BwdWLoads {
+  int tile, ntiles, stage;
+  uint32_t phase;
+  int kh, n, row0;
+};
+
+__host__ __device__ inline int bwd_w_smem_bytes() {
+  return 1024 + (2 + 2 * BWD_TC_STAGES) * 4 * BWD_BOX + 2 * BWD_BOX
+         + 64 * 64 * 4 + BWD_TC_STAGES * BWD_ROW_STATS
+         + 8 * (2 * BWD_TC_STAGES + 1) + BWD_W_LOADS;
+}
+
+// The first of the two rows (of S, or of an accumulator) a thread owns in
+// its warpgroup's tile: 16 warp + lane / 4 (the other is 8 below it).
+__device__ __forceinline__ int bwd_w_row0() {
+  return 16 * ((threadIdx.x / 32) & 3) + threadIdx.x % 32 / 4;
+}
+
+__device__ __forceinline__ void bwd_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void bwd_bar_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Byte offset of element (m, k) of a 64 x 64 16-bit K-major tile,
+// 128-byte swizzled: 16-byte chunk k / 8 of row m sits at chunk (k / 8) ^
+// (m % 8).
+__device__ __forceinline__ uint32_t bwd_swz(int m, int k) {
+  return m * 128 + ((((k >> 3) ^ m) & 7) << 4) + (k & 7) * 2;
+}
+
+__device__ __forceinline__ void bwd_st32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(x) : "memory");
+}
+
+#define BWD_WGMMA_SS64T(TY)                                                   \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." #TY "." #TY " {"          \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31 "                                                   \
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31])                                              \
+      : "l"(da), "l"(db), "r"(1))
+
+#define BWD_WGMMA_SS128T(TY)                                                  \
+  asm volatile(                                                               \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                            \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." #TY "." #TY " {"         \
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "     \
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "     \
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "     \
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "     \
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "                     \
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"                                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),           \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),           \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),      \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),      \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),      \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),      \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),      \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),      \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),      \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),      \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])                    \
+      : "l"(da), "l"(db), "r"(1))
+
+// acc (64 x N, N = 64 or 128) += A (64 x 64, K-major, one swizzled box at
+// shared address a) times the 64 x N operand at shared address b (64 rows,
+// 64-column boxes, N-major); committed and waited for
+template <typename T, int N>
+__device__ __forceinline__ void bwd_w_acc(float (&d)[N / 2], uint32_t a,
+                                          uint32_t b) {
+  static_assert(N == 64 || N == 128, "a 256-wide slice");
+  att_fence_regs(d);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = tc_desc(a + kk * 32, 16, 1024);
+    const uint64_t db = tc_desc(b + kk * 16 * 128, BWD_BOX, 1024);
+    if constexpr (N == 64) {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        BWD_WGMMA_SS64T(bf16);
+      } else {
+        BWD_WGMMA_SS64T(f16);
+      }
+    } else {
+      if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+        BWD_WGMMA_SS128T(bf16);
+      } else {
+        BWD_WGMMA_SS128T(f16);
+      }
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+  att_fence_regs(d);
+}
+
+// Warpgroups 0 and 1: S (or S^T) from the pair (a0, b0) and dP (or dP^T)
+// from (a1, b1) over `ksteps` 16-deep steps each, one a warpgroup, into s.
+template <typename T>
+__device__ __forceinline__ void bwd_w_scores(float (&s)[32], int wg,
+                                             uint32_t a0, uint32_t b0,
+                                             uint32_t a1, uint32_t b1,
+                                             int ksteps) {
+#pragma unroll
+  for (int j = 0; j < 32; ++j) s[j] = 0.f;
+  att_fence_regs(s);
+  wgmma_fence();
+  bwd_scores_tc<T>(s, wg == 0 ? a0 : a1, wg == 0 ? b0 : b1, ksteps);
+  wgmma_wait<0>();
+  att_fence_regs(s);
+}
+
+// The end of a pair: once every warpgroup's products are done, the loader
+// fills the pair's stage (warpgroups 0-2 arrive and go on to the next
+// pair's scores; warpgroup 3 waits).
+template <typename L>
+__device__ __forceinline__ void bwd_w_pair_end(int wg, L& ld) {
+  if (wg < 3) {
+    bwd_bar_arrive(5, BWD_W_CONSUMERS);
+  } else {
+    bwd_bar_sync(5, BWD_W_CONSUMERS);
+    ld.products_done();
+  }
+}
+
+// One pair of a dk/dv item: the stage's query tile against the resident 64
+// keys (key0: the thread's first key, global; visible below its row's key
+// end and kcap).  acc is the warpgroup's slice (above); D = Dv = 256;
+// item_end: the item's last pair.
+template <typename T, typename L>
+__device__ __forceinline__ void bwd_w_kv_pair(const BwdTcSmem& sm, int stage,
+                                              float (&acc)[64], int key0,
+                                              int kcap, float scale2, L& ld,
+                                              bool item_end) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int c0 = 2 * (threadIdx.x & 3), m0 = bwd_w_row0();
+  const int* re = sm.rend(stage);
+  float s[32];
+  if (wg < 2) {
+    // S^T = K q^T (warpgroup 0), dP^T = V dO^T (warpgroup 1)
+    bwd_w_scores<T>(s, wg, sm.res(0), sm.op(stage, 0), sm.res(1),
+                    sm.op(stage, 1), 16);
+    if (wg == 0) bwd_pt_tc(s, key0, c0, sm.lse2(stage), re, scale2, kcap);
+  }
+  bwd_bar_sync(1, BWD_W_CONSUMERS);   // the last pair's products are done
+  if (wg == 3) ld.scores_done(item_end);
+  float* xp = sm.xp32();
+  if (wg == 0) {
+    // s[4 j + 2 h + e]: key m0 + 8 h, row 8 j + c0 + e of the query tile
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xp[i * 128 + t] = s[i];
+#pragma unroll
+    for (int i = 0; i < 32; i += 2)
+      bwd_st32(sm.xp16() + bwd_swz(m0 + 8 * ((i >> 1) & 1),
+                                   8 * (i >> 2) + c0),
+               att_pack<T>(s[i], s[i + 1]));
+    fence_proxy_async_shared();
+    bwd_bar_arrive(2, 256);
+  } else if (wg == 1) {
+    bwd_bar_sync(2, 256);             // P in f32
+    const float* dl = sm.delta(stage);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int col = 8 * (i >> 2) + c0, h = (i >> 1) & 1;
+      const int key = key0 + 8 * h;
+      const float d0 = key < min(re[col], kcap)
+                           ? xp[i * 128 + t] * (s[i] - dl[col]) : 0.f;
+      const float d1 = key < min(re[col + 1], kcap)
+                           ? xp[(i + 1) * 128 + t] * (s[i + 1] - dl[col + 1])
+                           : 0.f;
+      bwd_st32(sm.xds() + bwd_swz(m0 + 8 * h, col), att_pack<T>(d0, d1));
+    }
+    fence_proxy_async_shared();
+  }
+  bwd_bar_sync(3, BWD_W_CONSUMERS);   // P^T and dS^T in place
+  // dv[:, 128 (w & 1) ..] += P^T dO, dk[:, 128 (w & 1) ..] += dS^T q
+  bwd_w_acc<T, 128>(acc, wg < 2 ? sm.xp16() : sm.xds(),
+                    sm.op(stage, wg < 2 ? 1 : 0) + (wg & 1) * 2 * BWD_BOX);
+  bwd_w_pair_end(wg, ld);
+}
+
+// One pair of a dq item: the stage's 64 keys (local kl0 ..; the item's
+// keys end at kend) against the resident query tile; the thread's rows see
+// local keys below cap[h] (h: its rows m0 and m0 + 8), their lse log2(e)
+// lo and delta de.  acc is the warpgroup's 64-column slice of dq.
+template <typename T, typename L>
+__device__ __forceinline__ void bwd_w_q_pair(const BwdTcSmem& sm, int stage,
+                                             float (&acc)[32], int kl0,
+                                             int kend, const int (&cap)[2],
+                                             const float (&lo)[2],
+                                             const float (&de)[2],
+                                             float scale2, L& ld,
+                                             bool item_end) {
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128;
+  const int c0 = 2 * (threadIdx.x & 3), m0 = bwd_w_row0();
+  if (kl0 + ATT_TC_BK > kend) {
+    // K's rows [j0, 64) of its four boxes to zero (whole 128-byte rows);
+    // V's may stay, dP is masked by a select
+    const int j0 = kend - kl0;
+    const int per_box = (ATT_TC_BK - j0) * 8;   // 16-byte chunks
+    for (int e = threadIdx.x; e < 4 * per_box; e += BWD_W_CONSUMERS) {
+      const uint32_t addr = sm.op(stage, 0) + (e / per_box) * BWD_BOX +
+                            (j0 + (e % per_box) / 8) * 128 + (e % 8) * 16;
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};" ::"r"(addr),
+                   "r"(0), "r"(0), "r"(0), "r"(0) : "memory");
+    }
+    fence_proxy_async_shared();
+    bwd_bar_sync(4, BWD_W_CONSUMERS);
+  }
+  float s[32];
+  if (wg < 2) {
+    // S = q K^T (warpgroup 0), dP = dO V^T (warpgroup 1)
+    bwd_w_scores<T>(s, wg, sm.res(0), sm.op(stage, 0), sm.res(1),
+                    sm.op(stage, 1), 16);
+    if (wg == 0) {
+      // s[4 j + 2 h + e]: row m0 + 8 h, local key kl0 + 8 j + c0 + e
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int h = (i >> 1) & 1;
+        const bool vis = kl0 + 8 * (i >> 2) + c0 + (i & 1) < cap[h];
+        s[i] = vis ? att_exp2(fmaf(s[i], scale2, -lo[h])) : 0.f;
+      }
+    }
+  }
+  bwd_bar_sync(1, BWD_W_CONSUMERS);   // the last pair's products are done
+  if (wg == 3) ld.scores_done(item_end);
+  float* xp = sm.xp32();
+  if (wg == 0) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xp[i * 128 + t] = s[i];
+    bwd_bar_arrive(2, 256);
+  } else if (wg == 1) {
+    bwd_bar_sync(2, 256);             // P in f32
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int h = (i >> 1) & 1, key = kl0 + 8 * (i >> 2) + c0;
+      const float d0 =
+          key < cap[h] ? xp[i * 128 + t] * (s[i] - de[h]) : 0.f;
+      const float d1 = key + 1 < cap[h]
+                           ? xp[(i + 1) * 128 + t] * (s[i + 1] - de[h])
+                           : 0.f;
+      bwd_st32(sm.xds() + bwd_swz(m0 + 8 * h, 8 * (i >> 2) + c0),
+               att_pack<T>(d0, d1));
+    }
+    fence_proxy_async_shared();
+  }
+  bwd_bar_sync(3, BWD_W_CONSUMERS);   // dS in place
+  // dq[:, 64 w ..] += dS K
+  bwd_w_acc<T, 64>(acc, sm.xds(), sm.op(stage, 0) + wg * BWD_BOX);
+  bwd_w_pair_end(wg, ld);
 }

@@ -42,9 +42,11 @@
 // a tensor-core launch off it):
 //
 // * tensor cores (bwd_rows_kernel, dkdv_tc_kernel or dkdv_wide_kernel,
-//   dq_tc_kernel): f16 and bf16 with D a multiple of 16 in [16, 128] or 192
-//   (deepseek-v3's MLA heads: the wide instance, below), Dv a multiple of
-//   16 in [16, 128], G dividing 64, 16-byte-aligned operands.  `delta`
+//   dq_tc_kernel; dkdv_w_kernel and dq_w_kernel at 256): f16 and bf16 with
+//   D a multiple of 16 in [16, 128] or 192 (deepseek-v3's MLA heads: the
+//   wide instance, below) and Dv a multiple of 16 in [16, 128], or D = Dv
+//   = 256 (paligemma-3b's heads: the 256-wide instance, below), G dividing
+//   64, 16-byte-aligned operands.  `delta`
 //   holds 3 N KH Rp values, Rp the rows Tq G of a kv head rounded up to
 //   the 64-row tile.
 //   - bwd_rows_kernel: one thread a (n, kv head, row) of the padded tile
@@ -106,6 +108,14 @@
 //   and the D- and Dv-wide operands 3 and 2 boxes (bwd_tc_wide_smem_bytes:
 //   the stages hold what each operand needs, not max(D, Dv) columns of
 //   each).  Its waits trap after about ten seconds instead of hanging.
+//   The 256-wide instance (D = Dv = 256) runs both passes on
+//   attention_bwd.cuh's pair step: four consumer warpgroups share each
+//   (key tile, query tile) pair, S and dP formed once a pair by warpgroups
+//   0 and 1 and exchanged through shared memory as P and dS, every product
+//   in wgmma's SS form; in the dk/dv pass each warpgroup holds a 128-column
+//   slice of dk or dv, in the dq pass a 64-column slice of dq.  No producer
+//   warp: one consumer thread issues the loads at the pair step's barriers
+//   (BwdWLoader), which leaves ptxas 128 registers a thread.
 //
 // * CUDA cores (delta_kernel, dkdv_kernel, dq_kernel): f32 and every shape
 //   off the rule.  `delta` holds N Tq H values.  Their item routines live in
@@ -334,31 +344,44 @@ __device__ __forceinline__ BwdKeyBlock bwd_key_block(const BwdParams& p) {
   return b;
 }
 
-// Producer of the dk/dv pass: K and V of the block's keys once, then q, dO
-// and the rows' stats of each query tile into the next stage.
+// The dk/dv pass's loads: K and V of the block's keys (the resident pair),
+// and q, dO and the rows' stats of query tile i0 into stage s.
+__device__ __forceinline__ void bwd_key_res_load(const BwdTcSmem& sm,
+                                                 const CUtensorMap* kmap,
+                                                 const CUtensorMap* vmap,
+                                                 const BwdKeyBlock& b) {
+  mbar_expect_tx(sm.resfull(), (sm.kb + sm.vb) * BWD_BOX);
+  bwd_load_boxes(sm.res(0), kmap, sm.resfull(), sm.kb, b.kh, b.k0, b.n);
+  bwd_load_boxes(sm.res(1), vmap, sm.resfull(), sm.vb, b.kh, b.k0, b.n);
+}
+
+__device__ __forceinline__ void bwd_key_tile_load(
+    const BwdTcSmem& sm, const CUtensorMap* qmap, const CUtensorMap* dmap,
+    const BwdTcArgs& a, const BwdKeyBlock& b, int i0, int s) {
+  const BwdParams& p = a.p;
+  const long long seg = ((long long)b.n * p.KH + b.kh) * a.Rp;
+  const long long total = (long long)p.N * p.KH * a.Rp;
+  const uint32_t full = sm.full(s);
+  mbar_expect_tx(full, (sm.kb + sm.vb) * BWD_BOX + BWD_ROW_STATS);
+  bwd_load_boxes(sm.op(s, 0), qmap, full, sm.kb, b.kh * p.G, i0 / p.G, b.n);
+  bwd_load_boxes(sm.op(s, 1), dmap, full, sm.vb, b.kh * p.G, i0 / p.G, b.n);
+  for (int j = 0; j < 3; ++j)
+    bulk_load(sm.stats(s) + j * 256, a.stats + j * total + seg + i0, 256,
+              full);
+}
+
+// Producer of the dk/dv pass: the resident pair once, then each query
+// tile into the next stage once the consumers release it.
 __device__ __forceinline__ void bwd_key_producer(
     const BwdTcSmem& sm, const CUtensorMap* qmap, const CUtensorMap* kmap,
     const CUtensorMap* vmap, const CUtensorMap* dmap, const BwdTcArgs& a,
     const BwdKeyBlock& b) {
-  const BwdParams& p = a.p;
-  const long long seg = ((long long)b.n * p.KH + b.kh) * a.Rp;
-  const long long total = (long long)p.N * p.KH * a.Rp;
   BwdPipe pipe;
-  mbar_expect_tx(sm.resfull(), (sm.kb + sm.vb) * BWD_BOX);
-  bwd_load_boxes(sm.res(0), kmap, sm.resfull(), sm.kb, b.kh, b.k0, b.n);
-  bwd_load_boxes(sm.res(1), vmap, sm.resfull(), sm.vb, b.kh, b.k0, b.n);
+  bwd_key_res_load(sm, kmap, vmap, b);
   for (int it = 0; it < b.ntiles; ++it) {
-    const int i0 = b.row0 + it * BWD_BQ;
     mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
-    const uint32_t full = sm.full(pipe.stage);
-    mbar_expect_tx(full, (sm.kb + sm.vb) * BWD_BOX + BWD_ROW_STATS);
-    bwd_load_boxes(sm.op(pipe.stage, 0), qmap, full, sm.kb, b.kh * p.G,
-                   i0 / p.G, b.n);
-    bwd_load_boxes(sm.op(pipe.stage, 1), dmap, full, sm.vb, b.kh * p.G,
-                   i0 / p.G, b.n);
-    for (int j = 0; j < 3; ++j)
-      bulk_load(sm.stats(pipe.stage) + j * 256,
-                a.stats + j * total + seg + i0, 256, full);
+    bwd_key_tile_load(sm, qmap, dmap, a, b, b.row0 + it * BWD_BQ,
+                      pipe.stage);
     pipe.advance();
   }
 }
@@ -623,6 +646,68 @@ dkdv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
     bwd_wide_dv<T, WV>(sm, a.p, b);
 }
 
+// The dq pass's loads: q and dO of the block's rows (from position t0:
+// the resident pair), and K and V of key tile `it` into stage s.
+__device__ __forceinline__ void bwd_query_res_load(const BwdTcSmem& sm,
+                                                   const CUtensorMap* qmap,
+                                                   const CUtensorMap* dmap,
+                                                   int kh, int n, int t0,
+                                                   int G) {
+  mbar_expect_tx(sm.resfull(), (sm.kb + sm.vb) * BWD_BOX);
+  bwd_load_boxes(sm.res(0), qmap, sm.resfull(), sm.kb, kh * G, t0, n);
+  bwd_load_boxes(sm.res(1), dmap, sm.resfull(), sm.vb, kh * G, t0, n);
+}
+
+__device__ __forceinline__ void bwd_query_tile_load(const BwdTcSmem& sm,
+                                                    const CUtensorMap* kmap,
+                                                    const CUtensorMap* vmap,
+                                                    int kh, int n, int it,
+                                                    int s) {
+  const uint32_t full = sm.full(s);
+  mbar_expect_tx(full, (sm.kb + sm.vb) * BWD_BOX);
+  bwd_load_boxes(sm.op(s, 0), kmap, full, sm.kb, kh, it * ATT_TC_BK, n);
+  bwd_load_boxes(sm.op(s, 1), vmap, full, sm.vb, kh, it * ATT_TC_BK, n);
+}
+
+// Producer of the dq pass: the resident pair once, then each of its ntiles
+// key tiles into the next stage once the consumers release it.
+__device__ __forceinline__ void bwd_query_producer(
+    const BwdTcSmem& sm, const CUtensorMap* qmap, const CUtensorMap* kmap,
+    const CUtensorMap* vmap, const CUtensorMap* dmap, int kh, int n, int t0,
+    int G, int ntiles) {
+  if (ntiles == 0) return;
+  BwdPipe pipe;
+  bwd_query_res_load(sm, qmap, dmap, kh, n, t0, G);
+  for (int it = 0; it < ntiles; ++it) {
+    mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
+    bwd_query_tile_load(sm, kmap, vmap, kh, n, it, pipe.stage);
+    pipe.advance();
+  }
+}
+
+// The dq pass's block: its query tile (descending: the heaviest first
+// under the causal mask), kv head and sequence, and its key end.
+struct BwdQueryBlock {
+  int kh, n, i0, kend, ntiles;
+};
+
+__device__ __forceinline__ BwdQueryBlock bwd_query_block(const BwdTcArgs& a) {
+  const BwdParams& p = a.p;
+  BwdQueryBlock b;
+  const int heads = p.KH * p.N;
+  const int qtiles = a.Rp / BWD_BQ;
+  const int qt = qtiles - 1 - (int)(blockIdx.x / heads);
+  const int rest = blockIdx.x % heads;
+  b.kh = rest % p.KH;
+  b.n = rest / p.KH;
+  b.i0 = qt * BWD_BQ;
+  const int vlen = min(p.valid_len[b.n], p.Tk);
+  b.kend = att_key_end(b.i0, p.Tq * p.G, p.G, p.q_offset[b.n], vlen,
+                       p.causal, p.prefix_len);
+  b.ntiles = b.kend > 0 ? (b.kend + ATT_TC_BK - 1) / ATT_TC_BK : 0;
+  return b;
+}
+
 // -- dq pass: one block a (64-row query tile, kv head, n), query tiles
 // descending (the heaviest first under the causal mask)
 
@@ -635,32 +720,13 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   extern __shared__ unsigned char tc_smem[];
   const BwdParams& p = a.p;
   const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, KB, VB, BWD_TC_CONSUMERS);
-  const int heads = p.KH * p.N;
-  const int qtiles = a.Rp / BWD_BQ;
-  const int qt = qtiles - 1 - (int)(blockIdx.x / heads);
-  const int rest = blockIdx.x % heads;
-  const int kh = rest % p.KH, n = rest / p.KH;
-  const int i0 = qt * BWD_BQ, G = p.G, rows = p.Tq * G;
-  const int vlen = min(p.valid_len[n], p.Tk);
-  const int kend = att_key_end(i0, rows, G, p.q_offset[n], vlen, p.causal,
-                               p.prefix_len);
-  const int ntiles = kend > 0 ? (kend + ATT_TC_BK - 1) / ATT_TC_BK : 0;
+  const BwdQueryBlock b = bwd_query_block(a);
+  const int kh = b.kh, n = b.n, i0 = b.i0, kend = b.kend, ntiles = b.ntiles;
+  const int G = p.G, rows = p.Tq * G;
   BwdPipe pipe;
   if (threadIdx.x == BWD_TC_CONSUMERS) {
-    if (ntiles == 0) return;
-    mbar_expect_tx(sm.resfull(), (KB + VB) * BWD_BOX);
-    bwd_load_boxes(sm.res(0), &qmap, sm.resfull(), KB, kh * G, i0 / G, n);
-    bwd_load_boxes(sm.res(1), &dmap, sm.resfull(), VB, kh * G, i0 / G, n);
-    for (int it = 0; it < ntiles; ++it) {
-      mbar_wait_trap(sm.empty(pipe.stage), pipe.phase ^ 1);
-      const uint32_t full = sm.full(pipe.stage);
-      mbar_expect_tx(full, (KB + VB) * BWD_BOX);
-      bwd_load_boxes(sm.op(pipe.stage, 0), &kmap, full, KB, kh,
-                     it * ATT_TC_BK, n);
-      bwd_load_boxes(sm.op(pipe.stage, 1), &vmap, full, VB, kh,
-                     it * ATT_TC_BK, n);
-      pipe.advance();
-    }
+    bwd_query_producer(sm, &qmap, &kmap, &vmap, &dmap, kh, n, i0 / G, G,
+                       ntiles);
     return;
   }
   if (threadIdx.x > BWD_TC_CONSUMERS) return;
@@ -757,6 +823,156 @@ dq_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// -- the 256-wide passes: D = Dv = 256 (paligemma-3b's heads) on
+// attention_bwd.cuh's pair step (four consumer warpgroups, no producer
+// warp), the blocks of the passes above; one thread of warpgroup 3 loads
+// the resident pair and the first two tiles, then each tile two ahead as
+// the pair step's hooks call it.
+
+// The block's stream of tiles, by BWD_W_LOADER: the next tile into the
+// loads' next stage.  Its state (BwdWLoads: the block's coordinates, the
+// next tile, the loads' (stage, phase)) lives in shared memory, so it
+// holds no register of the consumers.  KEYS: the dk/dv pass (q, dO and the
+// rows' stats of query tiles, maps m0 and m1 = q and dO), else the dq pass
+// (K and V of key tiles, m0 and m1 = K and V).
+template <bool KEYS>
+struct BwdWLoader {
+  const BwdTcSmem& sm;
+  const CUtensorMap *m0, *m1;
+  const BwdTcArgs& a;
+  __device__ void fill() const {
+    BwdWLoads& ls = *sm.loads<BwdWLoads>();
+    if (ls.tile >= ls.ntiles) return;
+    if constexpr (KEYS)
+      bwd_key_tile_load(sm, m0, m1, a,
+                        BwdKeyBlock{ls.kh, ls.n, 0, ls.row0, ls.ntiles},
+                        ls.row0 + ls.tile * BWD_BQ, ls.stage);
+    else
+      bwd_query_tile_load(sm, m0, m1, ls.kh, ls.n, ls.tile, ls.stage);
+    ++ls.tile;
+    if (++ls.stage == BWD_TC_STAGES) {
+      ls.stage = 0;
+      ls.phase ^= 1;
+    }
+  }
+  // the block's coordinates, then its first two tiles (BWD_W_LOADER)
+  __device__ void start(int kh, int n, int row0, int ntiles) const {
+    BwdWLoads& ls = *sm.loads<BwdWLoads>();
+    ls = BwdWLoads{0, ntiles, 0, 0, kh, n, row0};
+    fill();
+    fill();
+  }
+  __device__ void scores_done(bool) const {}
+  __device__ void products_done() const {
+    if (threadIdx.x == BWD_W_LOADER) fill();
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_W_THREADS, 1)
+dkdv_w_kernel(const __grid_constant__ CUtensorMap qmap,
+              const __grid_constant__ CUtensorMap kmap,
+              const __grid_constant__ CUtensorMap vmap,
+              const __grid_constant__ CUtensorMap dmap, BwdTcArgs a) {
+  extern __shared__ unsigned char tc_smem[];
+  const BwdParams& p = a.p;
+  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, 4, 4, BWD_W_CONSUMERS,
+                                        BWD_W_XBYTES);
+  const BwdKeyBlock b = bwd_key_block(p);
+  const BwdWLoader<true> ld{sm, &qmap, &dmap, a};
+  if (threadIdx.x == BWD_W_LOADER && b.ntiles > 0) {
+    bwd_key_res_load(sm, &kmap, &vmap, b);
+    ld.start(b.kh, b.n, b.row0, b.ntiles);
+  }
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane & 3);
+  const int key0 = b.k0 + bwd_w_row0();    // the thread's keys: key0, + 8
+  const float scale2 = p.scale * ATT_LOG2E;
+  float acc[64];                           // dv or dk, 128 columns
+#pragma unroll
+  for (int j = 0; j < 64; ++j) acc[j] = 0.f;
+  BwdPipe pipe;
+  if (b.ntiles > 0) mbar_wait_trap(sm.resfull(), 0);
+  for (int it = 0; it < b.ntiles; ++it) {
+    const int stage = pipe.stage;
+    mbar_wait_trap(sm.full(stage), pipe.phase);
+    bwd_w_kv_pair<T>(sm, stage, acc, key0, 0x7fffffff, scale2, ld,
+                     it == b.ntiles - 1);
+    pipe.advance();
+  }
+  // warpgroups 0 and 1 hold dv, 2 and 3 dk (times scale)
+  T* g = static_cast<T*>(wg < 2 ? p.dv : p.dk);
+  const float mul = wg < 2 ? 1.f : p.scale;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= p.Tk) continue;
+    const long long at = ((long long)b.n * p.Tk + key) * p.KH + b.kh;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      store2(g + at * 256 + (wg & 1) * 128 + 8 * j + c0,
+             acc[4 * j + 2 * h] * mul, acc[4 * j + 2 * h + 1] * mul);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(BWD_W_THREADS, 1)
+dq_w_kernel(const __grid_constant__ CUtensorMap qmap,
+            const __grid_constant__ CUtensorMap kmap,
+            const __grid_constant__ CUtensorMap vmap,
+            const __grid_constant__ CUtensorMap dmap, BwdTcArgs a) {
+  extern __shared__ unsigned char tc_smem[];
+  const BwdParams& p = a.p;
+  const BwdTcSmem sm = bwd_tc_smem_init(tc_smem, 4, 4, BWD_W_CONSUMERS,
+                                        BWD_W_XBYTES);
+  const BwdQueryBlock b = bwd_query_block(a);
+  const int G = p.G, rows = p.Tq * G;
+  const BwdWLoader<false> ld{sm, &kmap, &vmap, a};
+  if (threadIdx.x == BWD_W_LOADER && b.ntiles > 0) {
+    bwd_query_res_load(sm, &qmap, &dmap, b.kh, b.n, b.i0 / G, G);
+    ld.start(b.kh, b.n, 0, b.ntiles);
+  }
+  const int wg = threadIdx.x / 128, lane = threadIdx.x % 32;
+  const int c0 = 2 * (lane & 3);
+  const int r0 = b.i0 + bwd_w_row0();      // the thread's rows: r0, + 8
+  const long long seg = ((long long)b.n * p.KH + b.kh) * a.Rp;
+  const long long total = (long long)p.N * p.KH * a.Rp;
+  float lo[2], de[2];
+  int lim[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lo[h] = a.stats[seg + r0 + 8 * h];
+    de[h] = a.stats[total + seg + r0 + 8 * h];
+    lim[h] = reinterpret_cast<const int*>(a.stats)[2 * total + seg + r0 +
+                                                   8 * h];
+  }
+  const float scale2 = p.scale * ATT_LOG2E;
+  float acc[32];                           // dq, 64 columns
+#pragma unroll
+  for (int j = 0; j < 32; ++j) acc[j] = 0.f;
+  BwdPipe pipe;
+  if (b.ntiles > 0) mbar_wait_trap(sm.resfull(), 0);
+  for (int it = 0; it < b.ntiles; ++it) {
+    const int stage = pipe.stage;
+    mbar_wait_trap(sm.full(stage), pipe.phase);
+    bwd_w_q_pair<T>(sm, stage, acc, it * ATT_TC_BK, b.kend, lim, lo, de,
+                    scale2, ld, it == b.ntiles - 1);
+    pipe.advance();
+  }
+  T* g = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = r0 + 8 * h;
+    if (row >= rows) continue;
+    const int t = row / G, head = b.kh * G + row % G;
+    const long long at = ((long long)b.n * p.Tq + t) * p.H + head;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      store2(g + at * 256 + wg * 64 + 8 * j + c0,
+             acc[4 * j + 2 * h] * p.scale, acc[4 * j + 2 * h + 1] * p.scale);
+  }
+}
+
 // -- host side -------------------------------------------------------------------
 
 template <typename T, int NT>
@@ -798,15 +1014,17 @@ static int dispatch_bwd(const BwdParams& p, cudaStream_t stream) {
 // -- host side of the tensor-core route -------------------------------------
 
 // The route rule, checked again at launch: 16-bit operands, D a multiple of
-// 16 in [16, 128] or 192 (MLA's heads, the wide instance), Dv a multiple of
-// 16 in [16, 128], G dividing 64, and 16-byte-aligned pointers of what TMA,
-// the bulk copies and the rows pass's vector loads read (the maps refuse
-// byte strides off 16).
+// 16 in [16, 128] or 192 (MLA's heads, the wide instance) with Dv a
+// multiple of 16 in [16, 128], or D = Dv = 256 (paligemma-3b's heads, the
+// 256-wide instance), G dividing 64, and 16-byte-aligned pointers of what
+// TMA, the bulk copies and the rows pass's vector loads read (the maps
+// refuse byte strides off 16).
 static bool bwd_tc_route_ok(int dtype, int D, int Dv, int G,
                             std::initializer_list<const void*> ptrs) {
   if (dtype != kBF16 && dtype != kF16) return false;
   auto head_ok = [](int x) { return x >= 16 && x <= 128 && x % 16 == 0; };
-  if (!(head_ok(D) || D == 192) || !head_ok(Dv)) return false;
+  if (!(((head_ok(D) || D == 192) && head_ok(Dv)) || (D == 256 && Dv == 256)))
+    return false;
   if (G < 1 || 64 % G != 0) return false;
   for (const void* p : ptrs)
     if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
@@ -897,10 +1115,38 @@ static int launch_bwd_tc_wide(const BwdParams& p, int dtype,
   REPRO_RETURN_LAUNCH_STATUS();
 }
 
+// The 256-wide instance (D = Dv = 256): both passes on the pair step.
+template <typename T>
+static int launch_bwd_tc_w256(const BwdParams& p, int dtype,
+                              cudaStream_t stream) {
+  BwdTcArgs a;
+  CUtensorMap qmap, kmap, vmap, dmap;
+  const int err = bwd_tc_prologue<T>(p, dtype, a, qmap, kmap, vmap, dmap,
+                                     stream);
+  if (err != 0) return err;
+  const int smem = bwd_w_smem_bytes();
+  cudaError_t e = cudaFuncSetAttribute(
+      dkdv_w_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const unsigned heads = (unsigned)(p.KH * p.N);
+  const unsigned ktiles = (unsigned)((p.Tk + ATT_TC_BK - 1) / ATT_TC_BK);
+  dkdv_w_kernel<T><<<ktiles * heads, BWD_W_THREADS, smem, stream>>>(
+      qmap, kmap, vmap, dmap, a);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = cudaFuncSetAttribute(dq_w_kernel<T>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  dq_w_kernel<T><<<(unsigned)(a.Rp / BWD_BQ) * heads, BWD_W_THREADS, smem,
+                   stream>>>(qmap, kmap, vmap, dmap, a);
+  REPRO_RETURN_LAUNCH_STATUS();
+}
+
 template <typename T>
 static int dispatch_bwd_tc(const BwdParams& p, int dtype,
                            cudaStream_t stream) {
   if (p.D == 192) return launch_bwd_tc_wide<T>(p, dtype, stream);
+  if (p.D == 256) return launch_bwd_tc_w256<T>(p, dtype, stream);
   switch (p.D > p.Dv ? p.D : p.Dv) {
     case 16: return launch_bwd_tc<T, 16>(p, dtype, stream);
     case 32: return launch_bwd_tc<T, 32>(p, dtype, stream);

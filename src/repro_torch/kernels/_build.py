@@ -77,7 +77,7 @@ LIBRARIES: Dict[str, tuple] = {
         "repro_ring_attention": [_P] * 11 + [_I, _P, _P] + [_I] * 12
         + [_F, _I, _I, _P]}),
     "ring_attention_bwd": ("ring_attention_bwd.cu", {
-        "repro_ring_attention_bwd": [_P] * 16 + [_I, _P, _I, _P, _P]
+        "repro_ring_attention_bwd": [_P] * 16 + [_I, _P, _P, _I, _P, _P]
         + [_I] * 11 + [_F, _I, _I, _P]}),
 }
 

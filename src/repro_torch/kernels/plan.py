@@ -41,6 +41,7 @@ __all__ = [
     "gemm_route",
     "attention_route",
     "attention_bwd_route",
+    "attention_bwd_w256_smem_bytes",
     "attention_bwd_wide_smem_bytes",
     "expert_route",
     "expert_bwd_route",
@@ -183,6 +184,7 @@ ATT_TC_THREADS = 160            # a consumer warpgroup and a producer warp
 BWD_TC_STAGES = 2               # the gradient's tensor-core ring of stages
 BWD_TC_THREADS = 160            # a consumer warpgroup and a producer warp
 BWD_WIDE_THREADS = 288          # its D = 192 dk/dv pass: 2 warpgroups
+BWD_W_THREADS = 512             # its D = Dv = 256 passes: 4 warpgroups
 EX_TC_TILE = (64, 64)           # (weight columns, K) of an expert-MLP item
 EX_TC_BR = 128                  # rows of its row tile, at most
 EX_TC_NS = (8, 16, 32, 64, 128)  # the row tile's instances (wgmma's N)
@@ -243,19 +245,22 @@ def attention_bwd_route(dtype, d: int, dv: int, g: int,
     ``csrc/flash_attention_bwd.cu``: ``"wgmma"`` (TMA and the tensor cores)
     for 16-bit operands whose head dim D is a multiple of 16 in [16, 128]
     or 192 (deepseek-v3's MLA: the wide instance, its dk/dv pass split
-    over two warpgroups) and whose Dv is a multiple of 16 in [16, 128],
+    over two warpgroups) and whose Dv is a multiple of 16 in [16, 128], or
+    with D = Dv = 256,
     whose G = H / KH query heads a kv head divides the 64-row tile, and
     whose base pointers and byte strides (``ptrs_and_strides``: those TMA
     and the bulk copies read) are 16-byte aligned; ``"simt"`` (the CUDA
     cores) otherwise.  f32 stays on the CUDA cores (TF32 would change its
-    results); so does D or Dv of 256 (paligemma-3b), whose 64-key dk and
-    dv accumulators do not fit two warpgroups' registers beside their
-    score fragments."""
+    results).  D = Dv = 256 (paligemma-3b's heads) takes the tensor cores
+    too, on the 256-wide instance (four consumer warpgroups, each holding
+    a 128-column slice of a 64-key tile's dk or dv); D or Dv of 256 with
+    the other width off 256 stays on the CUDA cores."""
     def width_ok(x):
         return 16 <= x <= 128 and x % 16 == 0
 
     if dtype in (torch.float16, torch.bfloat16) \
-            and (width_ok(d) or d == 192) and width_ok(dv) \
+            and (((width_ok(d) or d == 192) and width_ok(dv))
+                 or d == dv == 256) \
             and g >= 1 and 64 % g == 0 \
             and all(x % 16 == 0 for x in ptrs_and_strides):
         return "wgmma"
@@ -273,6 +278,21 @@ def attention_bwd_wide_smem_bytes(kb: int = 3, vb: int = 2) -> int:
     the resident pair's: 125,480 bytes at (3, 2), one block an SM."""
     return 1024 + (1 + BWD_TC_STAGES) * (kb + vb) * 64 * 64 * 2 \
         + BWD_TC_STAGES * 3 * FLASH_BQ * 4 + 8 * (2 * BWD_TC_STAGES + 1)
+
+
+def attention_bwd_w256_smem_bytes() -> int:
+    """Dynamic shared memory of the gradients' 256-wide instance (D = Dv =
+    256) on the tensor cores (``bwd_w_smem_bytes`` in
+    ``csrc/attention_bwd.cuh``: row 10's passes and row 14's kernel): the
+    alignment slack, the resident pair and ``BWD_TC_STAGES`` stages of the
+    streamed pair at four 64-column boxes an operand, the exchange tiles
+    (P and dS in the operand type, one box each, and P in f32), each
+    stage's 64 rows of lse, delta and key end, the barriers and the
+    loader's 128 bytes of state: 232,104 bytes, one block an SM."""
+    box = 64 * 64 * 2
+    return 1024 + (2 + 2 * BWD_TC_STAGES) * 4 * box + 2 * box \
+        + 64 * 64 * 4 + BWD_TC_STAGES * 3 * FLASH_BQ * 4 \
+        + 8 * (2 * BWD_TC_STAGES + 1) + 128
 
 
 def expert_route(dtype, d: int, f: int, *ptrs_and_strides: int) -> str:

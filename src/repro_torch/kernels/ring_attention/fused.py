@@ -33,8 +33,10 @@ then the gradient kernel :func:`fused_ring_attention_bwd_kernel`
 
 from __future__ import annotations
 
+import functools
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ...core.backends import group_rank, payload_bytes
@@ -271,6 +273,66 @@ def _schedule_table(plan: AttentionRingPlan, device) -> torch.Tensor:
     return torch.tensor(rows, dtype=torch.int32, device=device)
 
 
+def _step_work(plan: AttentionRingPlan, st, rings: int, B: int, tq: int,
+               tk: int, KH: int, G: int, bk: int) -> np.ndarray:
+    """The work of each item of the gradient kernel's step ``st``, in the
+    kernel's item order (``csrc/ring_attention_bwd.cu``: the dk/dv items,
+    (live direction, sequence, kv head, key tile of ``bk`` keys), then the
+    dq items, (sequence, kv head, 64-row query tile)): a dk/dv item's count
+    of query tiles that see its keys (``ring_kv_item``'s ``ntiles``), a dq
+    item's count of key tiles its rows see over the step's stripes
+    (``ring_q_item``'s ``nt[0] + nt[1]``).  Counted from the plan and the
+    shapes alone: the plan's ``q_offset`` (0 where it is None) and
+    ``valid_len`` (``n tk`` where it is None), never the call's tensors."""
+    n, rows = plan.n, tq * G
+    qtiles, ktiles = -(-rows // 64), -(-tk // bk)
+    vlen = n * tk if plan.valid_len is None else min(plan.valid_len, n * tk)
+    r = np.arange(rings * n * B) // B % n             # each sequence's rank
+    q0 = (plan.q_offset or 0) + r * (tq if plan.q_sharded else 0)
+    dirs = [d for d, on in ((0, st.compute_cw), (1, st.compute_ccw)) if on]
+    srcs = [(r - st.index) % n if d == 0 else (r + st.index) % n
+            for d in dirs]
+    kv = []
+    k0 = np.arange(ktiles) * bk
+    for src in srcs:
+        kbase = (src * tk)[:, None]
+        klim = np.clip(np.minimum(tk, vlen - kbase), 0, None)
+        row0 = np.maximum(kbase + k0 - q0[:, None], 0) * G // 64 * 64 \
+            if plan.causal else np.zeros_like(kbase + k0)
+        ntiles = np.where(k0 < klim, np.maximum(-(-(rows - row0) // 64), 0),
+                          0)
+        kv.append(np.broadcast_to(ntiles[:, None, :], (len(q0), KH, ktiles)))
+    i0 = np.arange(qtiles) * 64
+    if plan.causal:
+        t_last = (np.minimum(i0 + 64, rows) - 1) // G
+        kend = np.minimum(vlen, q0[:, None] + t_last + 1)
+    else:
+        kend = np.full((len(q0), qtiles), vlen)
+    nt = np.zeros_like(kend)
+    for src in srcs:
+        kbase = (src * tk)[:, None]
+        klim = np.clip(np.minimum(tk, vlen - kbase), 0, None)
+        nt = nt + -(-np.clip(np.minimum(klim, kend - kbase), 0, None) // bk)
+    dq = np.broadcast_to(nt[:, None, :], (len(q0), KH, qtiles))
+    return np.concatenate([w.ravel() for w in (*kv, dq)])
+
+
+@functools.lru_cache(maxsize=64)
+def _item_order(plan: AttentionRingPlan, rings: int, B: int, tq: int,
+                tk: int, KH: int, G: int, bk: int) -> torch.Tensor:
+    """The gradient kernel's deal: each step's items, heaviest first by
+    :func:`_step_work` (ties in item order), one permutation a step of the
+    schedule, concatenated, int32 on the host.  The kernel deals each
+    step's order to its cooperative grid a round at a time, each round in
+    the direction the last did not take, so each step's heaviest items
+    start first and the light ones fill in behind them; the order changes
+    no item's arithmetic."""
+    return torch.from_numpy(np.concatenate([
+        np.argsort(-_step_work(plan, st, rings, B, tq, tk, KH, G, bk),
+                   kind="stable")
+        for st in plan.schedule()]).astype(np.int32))
+
+
 def _record_traffic(k, v, group: DiompGroup, plan: AttentionRingPlan):
     """Log the schedule's puts and landings as the emulation logs them (the
     OMPCCL call and byte logs and the RMATracker's windows)."""
@@ -460,9 +522,10 @@ def ring_bwd_route(dtype, d: int, dv: int, g: int,
     ``csrc/ring_attention_bwd.cu``: row 10's rule
     (:func:`..plan.attention_bwd_route`) without its wide instance —
     ``"wgmma"`` (TMA and the tensor cores) for 16-bit operands with D and Dv
-    multiples of 16 in [16, 128], G dividing 64 and 16-byte-aligned
-    pointers and strides; ``"simt"`` (the CUDA cores) otherwise: f32, MLA's
-    D = 192 and paligemma-3b's D = Dv = 256 among them."""
+    multiples of 16 in [16, 128], or D = Dv = 256 (paligemma-3b's heads,
+    the 256-wide instance), G dividing 64 and 16-byte-aligned pointers and
+    strides; ``"simt"`` (the CUDA cores) otherwise: f32, MLA's D = 192 and
+    a width of 256 beside another among them."""
     if d == 192:
         return "simt"
     return attention_bwd_route(dtype, d, dv, g, *ptrs_and_strides)
@@ -478,7 +541,9 @@ def fused_ring_attention_bwd_kernel(q, k, v, o, do, lse, group: DiompGroup,
     (counted in ``.launches`` and ``.route_launches``): the stripes rotate
     on the forward's schedule, each rank's dq sums in fold order and each
     stripe's dk / dv come home to their owner, summed in the canonical
-    order.  Each launch takes :func:`ring_bwd_route`'s route.  On CPU
+    order; each step's items are dealt heaviest first
+    (:func:`_item_order`).  Each launch takes :func:`ring_bwd_route`'s
+    route.  On CPU
     tensors it is the
     plain version, :func:`fused_ring_attention_bwd_plain` (``o`` and
     ``lse`` unused).  ``mesh`` defaults to the active context's."""
@@ -527,6 +592,11 @@ def fused_ring_attention_bwd_kernel(q, k, v, o, do, lse, group: DiompGroup,
     part_v = torch.empty(rings, n, folds, *kv.shape[nd:], **f32)
     dq, dk, dv = (torch.empty_like(t) for t in (kq, kk, kv))
     sched = _schedule_table(plan, q.device)
+    # the items' key tile: 64 keys on the tensor cores, 64 or (above 128
+    # columns) 32 on the CUDA cores
+    bk = 64 if route == "wgmma" or max(D, Dv) <= 128 else 32
+    order = _item_order(plan, rings, B, tq, tk, KH, H // KH, bk).to(
+        q.device)
     canon = torch.tensor(_canonical_folds(plan), dtype=torch.int32,
                          device=q.device)
     status = library("ring_attention_bwd").repro_ring_attention_bwd(
@@ -534,9 +604,10 @@ def fused_ring_attention_bwd_kernel(q, k, v, o, do, lse, group: DiompGroup,
         kdo.data_ptr(), klse.data_ptr(), delta.data_ptr(), bufk.data_ptr(),
         bufv.data_ptr(), dq_acc.data_ptr(), part_k.data_ptr(),
         part_v.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        sched.data_ptr(), sched.shape[0], canon.data_ptr(), folds,
-        q0.data_ptr(), vl.data_ptr(), rings, n, slots, B, tq, tk, H, KH, D,
-        Dv, int(plan.causal), float(D ** -0.5 if scale is None else scale),
+        sched.data_ptr(), sched.shape[0], order.data_ptr(),
+        canon.data_ptr(), folds, q0.data_ptr(), vl.data_ptr(), rings, n,
+        slots, B, tq, tk, H, KH, D, Dv, int(plan.causal),
+        float(D ** -0.5 if scale is None else scale),
         DTYPE_CODES[q.dtype], ROUTE_CODES[route], stream_handle(q.device))
     fused_ring_attention_bwd_kernel.launches += 1
     fused_ring_attention_bwd_kernel.route_launches[route] += 1

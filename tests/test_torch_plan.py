@@ -489,7 +489,13 @@ def test_both_attention_wrappers_share_the_route_rule():
     (torch.float32, 64, 64, 4, (), "simt"),
     (torch.bfloat16, 72, 72, 1, (), "simt"),                  # D off 16
     (torch.float16, 64, 40, 1, (), "simt"),                   # Dv off 16
-    (torch.bfloat16, 256, 256, 8, (), "simt"),                # paligemma
+    (torch.bfloat16, 256, 256, 8, (0, 512, 4096), "wgmma"),   # paligemma
+    (torch.float16, 256, 256, 1, (), "wgmma"),                # 256-wide
+    (torch.float32, 256, 256, 8, (), "simt"),                 # no TF32
+    (torch.bfloat16, 256, 128, 8, (), "simt"),                # Dv off 256
+    (torch.bfloat16, 256, 192, 1, (), "simt"),
+    (torch.bfloat16, 256, 256, 12, (), "simt"),               # G off 64
+    (torch.bfloat16, 256, 256, 8, (0, 8), "simt"),            # a pointer
     (torch.bfloat16, 144, 128, 1, (), "simt"),                # D past 128
     (torch.bfloat16, 128, 256, 1, (), "simt"),                # Dv past 128
     (torch.bfloat16, 80, 80, 3, (), "simt"),                  # G off 64
@@ -509,8 +515,9 @@ def test_attention_bwd_route_over_the_sweep():
             (16, 24, 48, 80, 96, 128, 160, 192, 256),
             (1, 2, 3, 8, 16, 64, 96), (0, 2, 16)):
         want = ("wgmma" if dt != torch.float32
-                and ((16 <= d <= 128 and d % 16 == 0) or d == 192)
-                and 16 <= dv <= 128 and dv % 16 == 0
+                and ((((16 <= d <= 128 and d % 16 == 0) or d == 192)
+                      and 16 <= dv <= 128 and dv % 16 == 0)
+                     or d == dv == 256)
                 and g in (1, 2, 8, 16, 64) and off % 16 == 0 else "simt")
         assert tplan.attention_bwd_route(dt, d, dv, g, 1 << 20, off) == want
 
@@ -598,6 +605,67 @@ def test_backward_wide_instance_matches_the_cuda_source():
     rule = re.search(r"static bool bwd_tc_route_ok\([^{]*\{(.*?)\n\}",
                      text, re.S).group(1)
     assert "D == 192" in rule and "head_ok(Dv)" in rule
+
+
+def _c_rule(text: str, fn: str):
+    """The width and G conditions of the C route rule ``fn`` (its ``if
+    (...) return false;`` statements but the pointers' alignment) as a
+    Python predicate of (dtype code, D, Dv, G)."""
+    body = re.search(r"static bool " + fn + r"\([^{]*\{(.*?)\n\}", text,
+                     re.S).group(1)
+    conds = [" ".join(c.split()) for c in re.findall(
+        r"if \((.*?)\)\s*return false;", body, re.S)
+        if "reinterpret_cast" not in c]
+    expr = " or ".join(f"({c})" for c in conds)
+    for c_op, py in (("&&", " and "), ("||", " or "), ("!=", " ~NE~ "),
+                     ("!", " not "), ("~NE~", "!=")):
+        expr = expr.replace(c_op, py)
+
+    def head_ok(x):
+        return 16 <= x <= 128 and x % 16 == 0
+
+    def admits(dtype, D, Dv, G):
+        return not eval(expr, {"head_ok": head_ok, "dtype": dtype, "D": D,
+                               "Dv": Dv, "G": G, "kBF16": 2, "kF16": 1})
+    return admits
+
+
+def test_backward_w256_instance_matches_the_cuda_source():
+    """The 256-wide instances of rows 10 and 14 (D = Dv = 256: four
+    consumer warpgroups on ``attention_bwd.cuh``'s pair step, no producer
+    warp): the block's threads, ``bwd_w_smem_bytes`` read from the source
+    against :func:`attention_bwd_w256_smem_bytes` and the card's 232,448
+    bytes a block (both rows launch it as it is), the dispatches that pick
+    them, and both C rules against the planner's over a sweep of widths
+    and G."""
+    from repro_torch.kernels.ring_attention import fused
+    bw = _defines("attention_bwd.cuh")
+    assert bw["BWD_W_THREADS"] == tplan.BWD_W_THREADS == 4 * 128
+    head = (CSRC / "attention_bwd.cuh").read_text()
+    flash = (CSRC / "flash_attention_bwd.cu").read_text()
+    ring = (CSRC / "ring_attention_bwd.cu").read_text()
+    expr = " ".join(re.search(r"bwd_w_smem_bytes\(\) \{\s*return ([^;]+);",
+                              head).group(1).split())
+    loads = int(re.search(r"constexpr int BWD_W_LOADS = (\d+);",
+                          head).group(1))
+    got = eval(expr, {"BWD_TC_STAGES": bw["BWD_TC_STAGES"],
+                      "BWD_BOX": 64 * 128, "BWD_ROW_STATS": 3 * 64 * 4,
+                      "BWD_W_LOADS": loads})
+    assert got == tplan.attention_bwd_w256_smem_bytes() == 232_104
+    assert got <= tplan.SMEM_BUDGET_DEFAULT == 232_448
+    assert re.search(r"smem = W == 256 \? bwd_w_smem_bytes\(\)", ring)
+    assert "const int smem = bwd_w_smem_bytes();" in flash
+    assert re.search(r"if \(p\.D == 256\) return launch_bwd_tc_w256<T>",
+                     flash)
+    assert re.search(r"if \(p\.D == 256\) return launch_tc<T, 256>", ring)
+    rules = ((_c_rule(flash, "bwd_tc_route_ok"), tplan.attention_bwd_route),
+             (_c_rule(ring, "ring_bwd_tc_route_ok"), fused.ring_bwd_route))
+    for (c_rule, rule), d, dv, g in itertools.product(
+            rules, (16, 64, 80, 128, 144, 192, 240, 256),
+            (16, 64, 128, 192, 256), (1, 8, 12, 64)):
+        for dt, code in ((torch.bfloat16, 2), (torch.float16, 1),
+                         (torch.float32, 0)):
+            assert c_rule(code, d, dv, g) == (rule(dt, d, dv, g) == "wgmma")
 
 
 def test_attention_tiles_match_the_cuda_sources():

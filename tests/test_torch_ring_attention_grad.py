@@ -390,7 +390,11 @@ def test_kernel_wrappers_on_cpu_are_the_plain_versions():
     assert route(torch.float16, 112, 48, 2) == "wgmma"
     assert route(torch.float32, 64, 64, 1) == "simt"
     assert route(torch.bfloat16, 192, 128, 1) == "simt"      # MLA
-    assert route(torch.bfloat16, 256, 256, 8) == "simt"      # paligemma
+    assert route(torch.bfloat16, 256, 256, 8) == "wgmma"     # paligemma
+    assert route(torch.float32, 256, 256, 8) == "simt"       # no TF32
+    assert route(torch.bfloat16, 256, 128, 8) == "simt"      # Dv off 256
+    assert route(torch.bfloat16, 128, 256, 8) == "simt"
+    assert route(torch.bfloat16, 256, 256, 8, 8) == "simt"   # a pointer
     assert route(torch.bfloat16, 64, 64, 12) == "simt"       # G off 64
     assert route(torch.bfloat16, 64, 64, 1, 8) == "simt"     # a pointer
     assert set(fused.fused_ring_attention_bwd_kernel.route_launches) == set(
@@ -427,11 +431,91 @@ def test_bwd_abi_matches_the_cuda_source():
         assert len(fns[fn]) == sig.count(",") + 1, lib
         assert sig.replace(" ", "").replace("\n", "").endswith(
             "intdtype,introute,void*stream")
+    # the gradient's deal: the order table follows the schedule's rows
+    assert "intnsteps,constvoid*order,constvoid*canon,intnfolds" in re.search(
+        r"repro_ring_attention_bwd\(([^)]*)\)", (CSRC / "ring_attention_bwd.cu")
+        .read_text()).group(1).replace(" ", "").replace("\n", "")
     text = (CSRC / "ring_attention_bwd.cu").read_text()
     assert '#include "attention_bwd.cuh"' in text
     assert '#include "ring_attention.cuh"' in text
     assert '#include "attention_bwd.cuh"' in (
         CSRC / "flash_attention_bwd.cu").read_text()
+
+
+def _item_work(plan, st, rings, B, tq, tk, KH, G, bk):
+    """Each item's work at step ``st``, one item at a time as the kernel
+    derives it (``ring_kv_item``'s ``ntiles``, ``ring_q_item``'s ``nt[0] +
+    nt[1]``) from the plan's static offsets, in the kernel's item order."""
+    n, rows = plan.n, tq * G
+    qtiles, ktiles = -(-rows // 64), -(-tk // bk)
+    seqs = rings * n * B
+    vlen = n * tk if plan.valid_len is None else min(plan.valid_len, n * tk)
+    live = [d for d, on in ((0, st.compute_cw), (1, st.compute_ccw)) if on]
+
+    def src_of(r, d):
+        return (r - st.index) % n if d == 0 else (r + st.index) % n
+
+    def q0_of(nb):
+        r = nb // B % n
+        return (plan.q_offset or 0) + (r * tq if plan.q_sharded else 0)
+
+    work = []
+    for d in live:
+        for nb in range(seqs):
+            kbase = src_of(nb // B % n, d) * tk
+            klim = max(min(tk, vlen - kbase), 0)
+            for _ in range(KH):
+                for kt in range(ktiles):
+                    k0 = kt * bk
+                    row0 = (max(kbase + k0 - q0_of(nb), 0) * G // 64 * 64
+                            if plan.causal else 0)
+                    work.append(max(-(-(rows - row0) // 64), 0)
+                                if k0 < klim else 0)
+    for nb in range(seqs):
+        for _ in range(KH):
+            for qt in range(qtiles):
+                i0 = qt * 64
+                kend = min(vlen, q0_of(nb) + (min(i0 + 64, rows) - 1) // G
+                           + 1) if plan.causal else vlen
+                nt = 0
+                for d in live:
+                    kbase = src_of(nb // B % n, d) * tk
+                    klim = max(min(tk, vlen - kbase), 0)
+                    nt += -(-max(min(klim, kend - kbase), 0) // bk)
+                work.append(nt)
+    return work
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 4, 5])
+@pytest.mark.parametrize("sharded,causal", [(True, True), (True, False),
+                                            (False, True), (False, False)])
+def test_gradient_items_are_dealt_heaviest_first(n, sharded, causal):
+    """Row 14's deal (``fused._item_order``): each step's items, a
+    permutation of the kernel's item indices, in an order along which the
+    work (counted item by item as the kernel derives it) never increases,
+    at both key tiles (64 keys; 32 on the CUDA cores above 128 columns),
+    both query layouts, causal and not, with ragged shapes, G 1 and 8 and
+    a valid length off the stripes' end."""
+    for (B, tq, tk, KH, G, bk, q_offset, valid) in [
+            (2, 70, 70, 1, 8, 64, 0, None), (1, 33, 100, 2, 1, 32, 5, None),
+            (2, 40, 64, 1, 4, 64, 0, 64 * n - 30)]:
+        rp = dataclasses.replace(plan.OverlapPlanner().plan_ring_attention(
+            B, tq, tk, KH * G, KH, 64, 64, torch.bfloat16, n, causal=causal,
+            q_sharded=sharded, q_offset=q_offset), valid_len=valid)
+        order = fused._item_order(rp, 2, B, tq, tk, KH, G, bk)
+        assert order.dtype == torch.int32
+        at = 0
+        for st in rp.schedule():
+            work = _item_work(rp, st, 2, B, tq, tk, KH, G, bk)
+            ord_ = order[at:at + len(work)].tolist()
+            at += len(work)
+            assert sorted(ord_) == list(range(len(work)))
+            dealt = [work[i] for i in ord_]
+            assert all(a >= b for a, b in zip(dealt, dealt[1:]))
+            # ties keep the item order
+            assert all(i < j for i, j, a, b in zip(ord_, ord_[1:], dealt,
+                                                   dealt[1:]) if a == b)
+        assert at == len(order)
 
 
 # -- attention_block under "ring" ------------------------------------------------------
