@@ -126,6 +126,26 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   equal bits, timed; at depth 1 in f32 the kernels' loss, gradients and
   drops against the plain versions' with identical routing;
 
+* fault injection (``repro_torch.core.faults``): each fused kernel's path
+  run twice against a calm context (an inert plan) and a chaos context (a
+  seeded plan of drop, fail and timeout faults at p = 0.3 a dispatch,
+  retried without sleeping) — the fused and host rings at N = 30240,
+  Minimod at 1024³ fused and host, the fused MoE dispatch at qwen3-moe's
+  chunk shape, the ring attention at paligemma's served chunk — outputs
+  bit for bit, the call, byte and RMA logs, each wrapper's launches and
+  routes equal, every fault recovered by one retry; glm4-9b at full width
+  and depth served undisturbed, through a graceful death of rank 0
+  mid-decode (its pages drained over the validated migrate) and through
+  an abrupt one (its pages lost, its requests requeued), tokens equal and
+  the page ledger balanced; stablelm-3b at full width and depth 2 on data
+  2 x model 2 through the launcher as a user runs it (its own retry
+  policy) with and without ``--chaos-seed``, losses, gradient norms and
+  parameters bit for bit, and with ``--kill-rank-step`` (the elastic
+  restore onto half the ranks): every loss within ELASTIC_LOSS_TOL and
+  every final parameter within ELASTIC_PARAM_TOL of the uninterrupted
+  run's (the reduction order's gap, well under what a broken restore
+  makes) and the final loss within the reference's 5e-2;
+
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the attention gradient, the wave step and
 the scan, and flash's split-combine count) zeroed
@@ -2402,6 +2422,10 @@ def serve_phase(torch, k, dev, wrappers) -> dict:
     run.eng = None
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"serve: peak device memory {peak:.1f} GB")
+    # rank death on the same weights: undisturbed, graceful, abrupt
+    t0 = time.perf_counter()
+    rank_death_runs(torch, dev, cfg, mesh, pctx, params, wrappers)
+    log(f"rank death: three runs in {time.perf_counter() - t0:.1f} s")
     del params
     torch.cuda.empty_cache()
 
@@ -2680,6 +2704,12 @@ def moe_phase(torch, k, dev, wrappers) -> list:
         args, kw = chunk_call[0]
         line["chunk"], mlp_chunk = _dispatch_at(torch, k, "chunk", args, kw,
                                                 kw["plan"])
+        # row 8 under chaos at the chunk's shape: the kernel route's puts
+        # logged, rolled and retried before the launch
+        _chaos_path(torch, "moe_dispatch chunk", wrappers,
+                    ["fused_moe_dispatch"], _in_context(
+                        mesh, dev, lambda: k.fused_moe_dispatch_kernel(
+                            *args, **kw)))
     del run, chunk_call, steps_calls, args, kw, decode_once
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"moe: peak device memory {peak:.1f} GB")
@@ -3774,6 +3804,7 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
     import dataclasses
     from repro_torch import configs
     from repro_torch.core.context import use_default
+    from repro_torch.core.groups import DiompGroup
     from repro_torch.interop import stack_shards
     from repro_torch.kernels.plan import OverlapPlanner
     from repro_torch.launch.mesh import RankMesh, make_smoke_mesh
@@ -3875,6 +3906,13 @@ def ring_phase(torch, k, dev, wrappers) -> dict:
             "route_launches": run.routes["fused_ring_attention"]}
     line.update(_ring_at(torch, k, "served chunk", ring_mesh, q, kk, vv,
                          plan, q0, q0 + CHUNK))
+    # row 9 under chaos at the served chunk
+    ring_group = DiompGroup(("x",), name="x")
+    _chaos_path(torch, "ring attention served chunk", wrappers,
+                ["fused_ring_attention"], _in_context(
+                    ring_mesh, dev, lambda: k.fused_ring_attention_kernel(
+                        q, kk, vv, ring_group, plan=plan, q_offset=q0,
+                        valid_len=q0 + CHUNK)))
     del eng, q, kc, vc, kk, vv
     run.eng = None
     peak = torch.cuda.max_memory_allocated() / 1e9
@@ -7022,6 +7060,378 @@ def audio_phase(torch, k, dev, wrappers) -> dict:
     return res
 
 
+# -- fault injection: the fused kernels, the engine and the launcher ----------
+
+# a chaos run's plan: transient faults at CHAOS_P a dispatch, retried without
+# sleeping; a calm run's plan is inert.  Every path starts a fresh plan, so
+# every path's stream is the seed's from call 0: seed 36 faults the first
+# put (and its first retry) and the first halo exchange, so that the host
+# Minimod run, whose one recorded step rolls one halo exchange, injects too
+CHAOS_SEED, CHAOS_P, CHAOS_KINDS = 36, 0.3, ("drop", "fail", "timeout")
+CHAOS_ROUNDS = 2                # calm / chaos pairs a path (host times: min)
+# glm4-9b's rank death: DEATH_REQUESTS prompts of DEATH_MIN..DEATH_MAX
+# tokens, DEATH_NEW new tokens each, on DEATH_SLOTS slots in chunks of
+# CHUNK; the graceful death of rank 0 at engine step DEATH_STEP
+# (mid-decode), the abrupt one after ABRUPT_AFTER steps
+DEATH_REQUESTS, DEATH_MIN, DEATH_MAX, DEATH_NEW = 4, 256, 1024, 8
+DEATH_SLOTS, DEATH_MAX_LEN, DEATH_STEP, ABRUPT_AFTER = 2, 2048, 4, 5
+# stablelm-3b under chaos: TRAIN_CUT_LAYERS at full width on TRAIN_MESH,
+# CHAOS_TRAIN_STEPS steps; the elastic run's death after step ELASTIC_KILL,
+# so the restored optimizer state drives a step whose loss is read.  Its
+# losses are held at ELASTIC_LOSS_TOL of the uninterrupted run's and each
+# final parameter tensor at ELASTIC_PARAM_TOL (relative Frobenius norm):
+# the restored run reduces over half the ranks, a gap in the order of
+# reduction, where a restore that zeroes the optimizer state or skips the
+# resumed step moves some tensor by 1e-2 or more (the reduced config's
+# test_elastic_restore_parameters_tell_a_broken_restore); a zeroed state
+# barely moves the final loss, so the parameters are what tells it
+CHAOS_TRAIN_STEPS, ELASTIC_KILL = 4, 1
+ELASTIC_LOSS_TOL, ELASTIC_PARAM_TOL = 1e-4, 5e-3
+CHAOS = {}              # path -> its chaos record (logged, and in the line)
+CHAOS_LAUNCHES = {}     # kernel -> its launches in the chaos phase's runs
+
+
+def _outputs(out) -> list:
+    """The tensors of a path's output, in order."""
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in _outputs(o)]
+    return [] if out is None else [out]
+
+
+def _total(stats) -> int:
+    return sum(sum(ops.values()) for ops in stats.values())
+
+
+def _chaos_plans():
+    """(calm plan, chaos plan, retry policy) for one calm / chaos pair."""
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.resilience import RetryPolicy
+    return (FaultPlan(0, p=0.0),
+            FaultPlan(CHAOS_SEED, p=CHAOS_P, kinds=CHAOS_KINDS),
+            RetryPolicy(sleep=False))
+
+
+def _in_context(mesh, dev, call):
+    """A path that runs ``call()`` inside a fresh context on ``mesh``: its
+    books are the context's call and byte logs and the RMA tracker's."""
+    from repro_torch.core.context import DiompContext, use_default
+
+    def run(plan, policy):
+        ctx = DiompContext(mesh=mesh, device=dev, fault_plan=plan,
+                           retry_policy=policy)
+        with use_default(ctx):
+            out = call()
+        books = (ctx.stats(), ctx.byte_stats(), ctx.rma.puts,
+                 ctx.rma.put_bytes, ctx.rma.fences,
+                 dict(ctx.rma.window_bytes))
+        return (out, books, _total(ctx.retry_stats()),
+                _total(ctx.retry_byte_stats()))
+    return run
+
+
+def _chaos_path(torch, path, wrappers, names, run) -> dict:
+    """``run(plan, policy)`` drives one path and returns ``(output, books,
+    retries, retry bytes)``.  CHAOS_ROUNDS times, a calm run and a chaos
+    run: every output equal to the first calm run's bit for bit, the books
+    and each of ``names``' launches and routes equal to the calm run's
+    (and not zero), faults injected, every one recovered by one retry.
+    Records the injected counts by kind, the retries and their bytes, and
+    the least host time of each kind of run."""
+    first, times = None, {"calm": [], "chaos": []}
+    for _ in range(CHAOS_ROUNDS):
+        calm_plan, plan, policy = _chaos_plans()
+        seen = {}
+        for kind, fp in (("calm", calm_plan), ("chaos", plan)):
+            before = {n: (wrappers[n].launches,
+                          dict(getattr(wrappers[n], "route_launches", {})))
+                      for n in names}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, books, retries, rbytes = run(fp, policy)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+            counts = {n: (wrappers[n].launches - before[n][0],
+                          {r: c - before[n][1][r] for r, c in
+                           getattr(wrappers[n], "route_launches", {}).items()})
+                      for n in names}
+            for n, (c, _) in counts.items():
+                CHAOS_LAUNCHES[n] = CHAOS_LAUNCHES.get(n, 0) + c
+            outs = _outputs(out)
+            if first is None:
+                first = outs
+            check(len(outs) == len(first)
+                  and all(torch.equal(a, b) for a, b in zip(outs, first)),
+                  f"chaos {path}: a {kind} run's output differs from the "
+                  "first calm run's")
+            seen[kind] = (books, counts, retries, rbytes)
+            del out, outs
+        (c_books, c_counts, c_retries, _), (books, counts, retries, rbytes) \
+            = seen["calm"], seen["chaos"]
+        check(books == c_books, f"chaos {path}: logical logs differ from "
+              f"the calm run's: {books} vs {c_books}")
+        check(counts == c_counts and all(c > 0 for c, _ in counts.values()),
+              f"chaos {path}: launches {counts}, calm {c_counts}")
+        check(c_retries == 0 and calm_plan.injected == [],
+              f"chaos {path}: the calm run retried {c_retries}")
+        check(len(plan.injected) > 0 and plan.unrecovered() == []
+              and retries == len(plan.injected),
+              f"chaos {path}: {len(plan.injected)} injected, "
+              f"{len(plan.unrecovered())} unrecovered, {retries} retries")
+    del first
+    rec = {"injected": plan.injected_counts(), "faults": len(plan.injected),
+           "retries": retries, "retry_bytes": rbytes,
+           "calm_s": min(times["calm"]), "chaos_s": min(times["chaos"]),
+           "launches": {n: c for n, (c, _) in counts.items()}}
+    CHAOS[path] = rec
+    log(f"chaos {path}: injected {rec['injected']} ({rec['faults']} faults, "
+        f"{retries} retries, {rbytes} retry bytes a rank), outputs, logs and "
+        f"launches {rec['launches']} equal to the calm run's; host "
+        f"{rec['chaos_s']:.6f} s against calm {rec['calm_s']:.6f} s "
+        f"(least of {CHAOS_ROUNDS})")
+    return rec
+
+
+def chaos_main_path(torch, k, dev, wrappers, x, w, u0, up0) -> None:
+    """Rows 1-4 under chaos at the main path's sizes: the fused ring (its
+    kernel route's puts logged and rolled before the launch) and the host
+    ring (``ompx_put``) at N = 30240, and Minimod at 1024³ fused (carried)
+    and host."""
+    from repro_torch.apps.minimod import run_minimod
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.kernels.ring_matmul.ops import ring_allgather_matmul
+    from repro_torch.launch.mesh import RankMesh
+
+    mesh, ring = RankMesh(("ring",), (RING_RANKS,)), DiompGroup(("ring",),
+                                                                name="ring")
+    for impl, name in (("fused", "fused_ring_allgather_matmul"),
+                       ("host", "matmul")):
+        _chaos_path(torch, f"ring {impl}", wrappers, [name], _in_context(
+            mesh, dev, lambda impl=impl: ring_allgather_matmul(
+                x, w, ring, impl=impl)))
+        torch.cuda.empty_cache()
+    for mode, name in (("fused", "fused_wave_step"), ("host", "wave_step")):
+        def run(plan, policy, mode=mode):
+            r = run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode=mode,
+                            u0=u0, u_prev0=up0, device=dev, fault_plan=plan,
+                            retry_policy=policy)
+            books = {a: getattr(r, a) for a in MINIMOD_COUNTERS}
+            return r.field, books, r.retries, r.retry_bytes
+        _chaos_path(torch, f"minimod {mode}", wrappers, [name], run)
+        torch.cuda.empty_cache()
+
+
+def rank_death_runs(torch, dev, cfg, mesh, pctx, params, wrappers) -> dict:
+    """glm4-9b at full width and depth on the serving phase's weights:
+    DEATH_REQUESTS requests served undisturbed, through a graceful death of
+    rank 0 at engine step DEATH_STEP (a ``FaultPlan``), and through an
+    abrupt one after ABRUPT_AFTER steps; tokens equal to the undisturbed
+    run's, the page ledger balanced, the drain's page transfers validated
+    under the plan, flash counted on every run."""
+    import numpy as np
+    from repro_torch.core.context import DiompContext
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.resilience import RetryPolicy
+    from repro_torch.serve.engine import ServeEngine
+
+    rng = np.random.RandomState(CHAOS_SEED)
+    lengths = rng.randint(DEATH_MIN, DEATH_MAX + 1, size=DEATH_REQUESTS)
+    prompts = [rng.randint(0, cfg.vocab_size, n) for n in lengths]
+    flash = wrappers["flash_attention"]
+
+    def serve(plan, abrupt=False):
+        ctx = DiompContext(mesh=mesh, device=dev, segment_bytes=1 << 31,
+                           allocator="buddy", fault_plan=plan,
+                           retry_policy=RetryPolicy(sleep=False))
+        eng = ServeEngine(cfg, mesh, pctx, params, context=ctx,
+                          page_tokens=PAGE_TOKENS, slots=DEATH_SLOTS,
+                          max_len=DEATH_MAX_LEN, prefill_chunk=CHUNK)
+        n0 = flash.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reqs = [eng.submit(p, max_new=DEATH_NEW) for p in prompts]
+        homed = []
+        if abrupt:
+            for _ in range(ABRUPT_AFTER):
+                eng.step()
+            homed = [r for r in eng.active.values() if r.kv is not None
+                     and r.kv.home_rank == 0 and r.kv.page_table]
+            check(len(homed) > 0, "abrupt death: no request's pages are "
+                  "homed on rank 0")
+            eng.on_rank_death(0, graceful=False)
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = flash.launches - n0
+        CHAOS_LAUNCHES["flash_attention"] = \
+            CHAOS_LAUNCHES.get("flash_attention", 0) + launches
+        check(all(r.done and len(r.out) == DEATH_NEW for r in reqs)
+              and launches > 0, "rank death: a request unfinished")
+        return eng, [r.out for r in reqs], launches, wall, len(homed)
+
+    out = {}
+    eng, want, launches, wall, _ = serve(FaultPlan(0, p=0.0))
+    out["undisturbed"] = {"flash_launches": launches, "s": wall,
+                          "kv": dict(eng.kv_stats)}
+    del eng
+    plan = FaultPlan(0, p=0.0).kill_rank(DEATH_STEP, rank=0, graceful=True)
+    eng, got, launches, wall, _ = serve(plan)
+    (step, rank, graceful, drained, lost), = eng.rank_death_log
+    kv = eng.kv_stats
+    gets = eng.dctx.stats()[eng._group.descriptor()].get("get", 0)
+    check(got == want, f"graceful death: tokens {got} != undisturbed {want}")
+    check(graceful and rank == 0 and drained > 0 and lost == 0,
+          f"graceful death: log {eng.rank_death_log}")
+    check(kv["pages_allocated"] == kv["pages_freed"] > 0
+          and kv["pages_lost"] == 0, f"graceful death: ledger {kv}")
+    # every page transfer of the drain went through the validated migrate:
+    # one "migrate" roll of the plan and one fenced, checked put a page
+    check(plan._counters.get("migrate", 0) == gets > 0
+          and eng.alloc.stats["migrations"] > 0,
+          f"graceful death: {plan._counters.get('migrate', 0)} migrate "
+          f"rolls for {gets} page gets")
+    out["graceful"] = {"step": step, "drained_bytes": drained,
+                       "pages_validated": gets, "flash_launches": launches,
+                       "s": wall, "kv": dict(kv)}
+    del eng
+    eng, got, launches, wall, homed = serve(FaultPlan(0, p=0.0), abrupt=True)
+    kv, st = eng.kv_stats, eng.latency_stats()
+    check(got == want, f"abrupt death: tokens {got} != undisturbed {want}")
+    check(st["requeued"] >= homed and st["live_ranks"] == 1,
+          f"abrupt death: requeued {st['requeued']} of {homed} homed")
+    check(kv["pages_lost"] > 0
+          and kv["pages_allocated"] == kv["pages_freed"],
+          f"abrupt death: ledger {kv}")
+    out["abrupt"] = {"homed": homed, "requeued": st["requeued"],
+                     "log": eng.rank_death_log[0][:5],
+                     "flash_launches": launches, "s": wall, "kv": dict(kv)}
+    del eng
+    CHAOS["glm4-9b rank death"] = out
+    log(f"rank death: glm4-9b, {DEATH_REQUESTS} requests (prompts "
+        f"{sorted(lengths.tolist())}, {DEATH_NEW} new tokens, {DEATH_SLOTS} "
+        f"slots): {json.dumps(out)}; tokens equal to the undisturbed run's")
+    return out
+
+
+def _global_params(torch, launcher, cfg, run) -> dict:
+    """A launcher run's final parameters as global float64 CPU tensors."""
+    from repro_torch.distributed.sharding import rules_for_ctx
+    from repro_torch.models import schema as sch
+    from repro_torch.models.config import ParallelCtx
+    mesh = run["mesh"]
+    specs = sch.partition_specs(cfg, mesh,
+                                rules_for_ctx(ParallelCtx.from_mesh(mesh)))
+    return {n: t.to(torch.float64) for n, t in
+            launcher.to_global(run["params"], specs, mesh).items()}
+
+
+def train_chaos_phase(torch, k, dev, wrappers) -> dict:
+    """stablelm-3b at full width, depth TRAIN_CUT_LAYERS, on TRAIN_MESH
+    through the launcher as a user runs it, its retry policy its own:
+    CHAOS_TRAIN_STEPS steps calm and under ``--chaos-seed`` (losses,
+    gradient norms, final parameters bit for bit, logical logs equal, one
+    retry a fault, rows 5 and 10 on the tensor cores in both), then with
+    ``--kill-rank-step ELASTIC_KILL``: one elastic restore onto half the
+    ranks, each loss within ELASTIC_LOSS_TOL and each final parameter
+    within ELASTIC_PARAM_TOL of the uninterrupted run's, and the final
+    loss within the reference's 5e-2."""
+    import shutil
+    from repro_torch import configs
+    from repro_torch.launch import train as launcher
+
+    cfg = _cut(configs.get(TRAIN_ARCH), TRAIN_CUT_LAYERS)
+    argv = ["--arch", TRAIN_ARCH, "--steps", str(CHAOS_TRAIN_STEPS),
+            "--batch", str(TRAIN_BATCH), "--seq", str(TRAIN_SEQ),
+            "--microbatch", str(TRAIN_MICRO), "--mesh", TRAIN_MESH,
+            "--device", str(torch.device(dev).type)]
+    chaos = ["--chaos-seed", str(CHAOS_SEED), "--chaos-p", str(CHAOS_P)]
+    ckpt_dir = ROOT / "build" / "chip_smoke_elastic"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    fwd, bwd = wrappers["flash_attention"], wrappers["flash_attention_bwd"]
+    runs = {}
+    for name, extra in (("calm", []), ("chaos", chaos),
+                        ("elastic", chaos + [
+                            "--kill-rank-step", str(ELASTIC_KILL),
+                            "--max-restarts", "1", "--checkpoint-dir",
+                            str(ckpt_dir), "--checkpoint-every",
+                            str(CHAOS_TRAIN_STEPS + 1)])):
+        torch.cuda.empty_cache()
+        _zero_counts(wrappers)
+        t0 = time.perf_counter()
+        run = launcher.main(argv + extra, cfg=cfg)
+        torch.cuda.synchronize()
+        run["s"] = time.perf_counter() - t0
+        run["flash"] = {"forward": fwd.launches, "forward_routes": dict(
+            fwd.route_launches), "backward": bwd.launches,
+            "backward_routes": dict(bwd.route_launches)}
+        for name_k, n in (("flash_attention", fwd.launches),
+                          ("flash_attention_bwd", bwd.launches)):
+            CHAOS_LAUNCHES[name_k] = CHAOS_LAUNCHES.get(name_k, 0) + n
+        runs[name] = run
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    calm, hit, el = runs["calm"], runs["chaos"], runs["elastic"]
+    plan = hit["context"].fault_plan
+    retries = _total(hit["context"].retry_stats())
+    per_pass = cfg.num_layers * TRAIN_MICRO * CHAOS_TRAIN_STEPS
+    for name in ("calm", "chaos"):
+        f = runs[name]["flash"]
+        check(f["forward"] == 2 * per_pass and f["backward"] == per_pass
+              and f["forward_routes"]["simt"] == 0
+              and f["backward_routes"]["simt"] == 0,
+              f"train chaos: {name} run's flash launches {f}")
+    check(hit["flash"] == calm["flash"], "train chaos: launches differ")
+    check(hit["losses"] == calm["losses"]
+          and hit["grad_norms"] == calm["grad_norms"],
+          f"train chaos: losses {hit['losses']} / {calm['losses']}, norms "
+          f"{hit['grad_norms']} / {calm['grad_norms']}")
+    same = all(torch.equal(hit["params"][n], p)
+               for n, p in calm["params"].items())
+    check(same, "train chaos: final parameters differ from the calm run's")
+    check(hit["context"].stats() == calm["context"].stats()
+          and hit["context"].byte_stats() == calm["context"].byte_stats(),
+          "train chaos: logical logs differ from the calm run's")
+    check(len(plan.injected) > 0 and plan.unrecovered() == []
+          and retries == len(plan.injected),
+          f"train chaos: {len(plan.injected)} injected, {retries} retries")
+    eplan = el["context"].fault_plan
+    loss_gaps = [abs(a - b) for a, b in zip(el["losses"], calm["losses"])]
+    want, got = (_global_params(torch, launcher, cfg, r) for r in (calm, el))
+    param_gaps = {n: float((got[n] - p).norm() / p.norm())
+                  for n, p in want.items()}
+    del want, got
+    param_gap = max(param_gaps.values())
+    check(el["restarts"] == 1 and el["mesh"].size < calm["mesh"].size
+          and [d.fired for d in eplan.deaths] == [True]
+          and len(el["losses"]) == len(calm["losses"])
+          and max(loss_gaps) <= ELASTIC_LOSS_TOL
+          and abs(el["loss"] - calm["loss"]) <= 5e-2
+          and param_gap <= ELASTIC_PARAM_TOL,
+          f"elastic restore: restarts {el['restarts']}, mesh "
+          f"{el['mesh'].shape}, losses {el['losses']} vs {calm['losses']}, "
+          f"parameter gap {param_gap} (limit {ELASTIC_PARAM_TOL})")
+    check(len(eplan.injected) > 0 and eplan.unrecovered() == [],
+          "elastic restore: the restored run injected nothing")
+    out = {"layers": cfg.num_layers, "mesh": TRAIN_MESH,
+           "steps": CHAOS_TRAIN_STEPS, "losses": calm["losses"],
+           "injected": plan.injected_counts(), "faults": len(plan.injected),
+           "retries": retries,
+           "retry_bytes": _total(hit["context"].retry_byte_stats()),
+           "calm_s": calm["s"], "chaos_s": hit["s"],
+           "step_s": {"calm": calm["step_s"], "chaos": hit["step_s"]},
+           "flash": calm["flash"],
+           "elastic": {"restarts": el["restarts"],
+                       "mesh": dict(zip(el["mesh"].axis_names,
+                                        el["mesh"].sizes)),
+                       "loss": el["loss"], "uninterrupted": calm["loss"],
+                       "loss_gaps": loss_gaps, "param_gap": param_gap,
+                       "s": el["s"], "faults": len(eplan.injected)}}
+    CHAOS["train stablelm-3b"] = out
+    log(f"train chaos: {cfg.name} at depth {cfg.num_layers}: "
+        f"{json.dumps(out)}")
+    del runs, calm, hit, el
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -7231,6 +7641,11 @@ def main() -> int:
     check(err <= 2e-5 * float(want.abs().max()), f"fused step: err {err}")
     del want, y_step
     torch.cuda.empty_cache()
+
+    # -- the main path's kernels under chaos (rows 1-4) ------------------------
+    t0 = time.perf_counter()
+    chaos_main_path(torch, k, dev, wrappers, x, w, u0, up0)
+    log(f"chaos: main path's rows in {time.perf_counter() - t0:.1f} s")
 
     # -- timings at the main path's shapes --------------------------------------
     kernels = []
@@ -7500,6 +7915,11 @@ def main() -> int:
     flash["train"] = bwd.pop("forward")     # row 5's training entry
     kernels.append(bwd)
 
+    # -- phase 16b: stablelm-3b under chaos, and the elastic restore -------
+    t0 = time.perf_counter()
+    train_chaos_phase(torch, k, dev, wrappers)
+    log(f"chaos: training runs in {time.perf_counter() - t0:.1f} s")
+
     # -- phase 17: the long-context decode, zamba2-1.2b at 524,288 tokens ----
     long = long_decode_phase(torch, k, dev, wrappers)
     by_path["long_decode"] = long["launches"]
@@ -7604,6 +8024,16 @@ def main() -> int:
     row12["expert2d"]["deepseek_checks"] = {
         "layers": ds["checks"]["layers"], **ds["checks"]["expert2d"]}
     check(len(kernels) == len(wrappers) == 14, "kernels line incomplete")
+    # the chaos phase's launches, by kernel: every row it drives launched
+    by_name = {row["name"]: row for row in kernels}
+    for name in ("matmul", "fused_ring_allgather_matmul", "wave_step",
+                 "fused_wave_step", "flash_attention", "fused_moe_dispatch",
+                 "fused_ring_attention", "flash_attention_bwd"):
+        check(CHAOS_LAUNCHES.get(name, 0) > 0,
+              f"chaos: {name} was not launched in the chaos phase")
+    for name, n in CHAOS_LAUNCHES.items():
+        by_name[name].setdefault("launches_by_path", {})["chaos"] = n
+    log("chaos: " + json.dumps(CHAOS))
 
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,6 +14,8 @@ point runs on the card unless the caller passes ``device="cpu"``.
 
 from .core.context import (Communicator, DiompContext, default_context,
                            init, reset_default_context, use_default)
+from .core.faults import ChaosBackend, FaultPlan, FaultSpec
+from .core.resilience import RetryPolicy
 
 __all__ = [
     "init",
@@ -22,4 +24,8 @@ __all__ = [
     "default_context",
     "use_default",
     "reset_default_context",
+    "FaultPlan",
+    "FaultSpec",
+    "ChaosBackend",
+    "RetryPolicy",
 ]

@@ -40,7 +40,9 @@ import torch.nn.functional as F
 
 from ..core import ompccl, rma
 from ..core.context import DiompContext, use_default
+from ..core.faults import FaultPlan
 from ..core.groups import DiompGroup
+from ..core.resilience import RetryPolicy
 from ..kernels.plan import HaloPlan, default_planner, split_extents
 from ..kernels.stencil.fused import (Halos, _zslice, exchange_halos,
                                      fused_wave_step)
@@ -172,6 +174,9 @@ class MinimodResult:
     # PGAS plan of the wavefield regions
     region_sizes: Tuple[int, ...]
     alloc_counts: Dict[str, int]
+    # re-issued wire attempts under a fault plan (the retry logs)
+    retries: int = 0
+    retry_bytes: int = 0
 
     @property
     def energy(self) -> float:
@@ -203,6 +208,8 @@ def run_minimod(
     u0=None,
     u_prev0=None,
     device="cuda",
+    fault_plan: Optional[FaultPlan] = None,
+    retry_policy: Optional[RetryPolicy] = None,
 ) -> MinimodResult:
     """Run ``steps`` of Minimod on an (nz × ny) decomposition.
 
@@ -210,7 +217,9 @@ def run_minimod(
     name) overrides grid/steps/nz/ny/weights.  The default initial
     condition is the point source at the grid center; ``u0``/``u_prev0``
     are logical (Z, Y, X) arrays or tensors.  Runs on the card unless
-    ``device="cpu"``.
+    ``device="cpu"``.  ``fault_plan`` and ``retry_policy`` go to the run's
+    context (the ``DiompContext`` defaults otherwise); as the reference
+    traces its time loop once, only the first step's verbs roll the plan.
     """
     if isinstance(shape, str):
         shape = STENCIL_SHAPES[shape]
@@ -235,8 +244,9 @@ def run_minimod(
     y_loc = Y // ny
 
     mesh = RankMesh(("z", "y"), (nz, ny))
-    ctx = DiompContext(mesh=mesh, device=device)
-    replay = DiompContext(mesh=mesh, device=device)
+    ctx = DiompContext(mesh=mesh, device=device, fault_plan=fault_plan,
+                       retry_policy=retry_policy)
+    replay = DiompContext(mesh=mesh, device=device, fault_plan=FaultPlan(0))
     dev = ctx.device
     with use_default(ctx):
         zg = DiompGroup(("z",), name="z")
@@ -312,6 +322,8 @@ def run_minimod(
             ctx.memory.free(h)
         stats = ctx.stats()
         bstats = ctx.byte_stats()
+        retries = ctx.retry_stats()
+        rbytes = ctx.retry_byte_stats()
         return MinimodResult(
             field=unpad_shards(_from_ranks(u), z_extents),
             wall_s=wall, mode=mode, grid=tuple(grid), steps=steps, nz=nz,
@@ -325,4 +337,6 @@ def run_minimod(
             window_bytes=dict(ctx.rma.window_bytes),
             region_sizes=region_sizes,
             alloc_counts=dict(ctx.memory.alloc_counts),
+            retries=sum(sum(ops.values()) for ops in retries.values()),
+            retry_bytes=sum(sum(ops.values()) for ops in rbytes.values()),
         )

@@ -31,8 +31,10 @@ import torch
 from ..launch.mesh import RankMesh
 from . import backends as _backends
 from .backends import CclBackend, get_backend
+from .faults import ChaosBackend, FaultPlan
 from .groups import DiompGroup, standard_groups
 from .pgas import GlobalMemory
+from .resilience import RetryPolicy, call_with_retries
 from .rma import RMATracker
 from .streams import HybridPoller, StreamPool
 
@@ -74,21 +76,34 @@ class Communicator:
     dispatched through the backend instance.  Delegating ops (``reduce``
     via ``allreduce``, ``get`` via ``put``) log their bytes only at the
     leaf op, so summing a group's ops never double-counts wire volume.
-    Dispatch goes straight through: fault injection and retries are not
-    part of this package yet.
+
+    Faults and retries: every dispatch runs under the context's
+    :class:`RetryPolicy` through
+    :func:`~repro_torch.core.resilience.call_with_retries`: a backend
+    raising ``TransientFault`` (a :class:`~repro_torch.core.faults.ChaosBackend`
+    injection, or a real transport error) is re-dispatched with backoff.
+    Re-issued attempts go only to the retry logs (``retries`` /
+    ``retry_nbytes``), never to the logical call and byte logs, so those
+    hold the same numbers under chaos as in a calm run.
     """
 
-    __slots__ = ("group", "backend", "mesh", "device", "calls", "nbytes")
+    __slots__ = ("group", "backend", "mesh", "device", "calls", "nbytes",
+                 "retries", "retry_nbytes", "policy")
 
     def __init__(self, group: DiompGroup, backend: CclBackend,
                  mesh: Optional[RankMesh], device: torch.device,
-                 calls: Dict[str, int], nbytes: Dict[str, int]):
+                 calls: Dict[str, int], nbytes: Dict[str, int],
+                 retries: Dict[str, int], retry_nbytes: Dict[str, int],
+                 policy: RetryPolicy):
         self.group = group
         self.backend = backend
         self.mesh = mesh
         self.device = device
         self.calls = calls    # shared across handles of the same group
         self.nbytes = nbytes  # op -> cumulative per-rank payload bytes
+        self.retries = retries            # op -> re-issued wire attempts
+        self.retry_nbytes = retry_nbytes  # op -> their per-rank bytes
+        self.policy = policy
 
     def _mesh(self) -> RankMesh:
         if self.mesh is None:
@@ -103,9 +118,33 @@ class Communicator:
             self.nbytes[op] = self.nbytes.get(op, 0) \
                 + _backends.payload_bytes(payload, self._mesh().size)
 
+    def record_retry(self, op: str, payload=None) -> None:
+        """Account one re-issued wire attempt, kept OUT of the logical
+        call and byte logs."""
+        self.retries[op] = self.retries.get(op, 0) + 1
+        if payload is not None:
+            self.retry_nbytes[op] = self.retry_nbytes.get(op, 0) \
+                + _backends.payload_bytes(payload, self._mesh().size)
+
     def _dispatch(self, op: str, payload, thunk):
+        """Record the logical call once, then dispatch under the retry
+        policy."""
         self.record(op, payload)
-        return thunk()
+        return call_with_retries(
+            thunk, op, self.policy,
+            on_retry=lambda attempt, tf: self.record_retry(op, payload))
+
+    def kernel_put(self, x) -> None:
+        """Log one put whose wire transfer a fused kernel makes.
+
+        The kernel route's counterpart of :meth:`put`: the call and its
+        bytes are recorded, and the backend's fault plan is rolled under
+        the retry policy with nothing to re-dispatch, each retry accounted
+        in the retry logs.  Call it for every put of the kernel's schedule
+        before the launch, so the plan's stream, the logical logs and the
+        retry logs equal those of the schedule's ``ompx_put`` emulation."""
+        roll = getattr(self.backend, "roll", None) or (lambda verb: None)
+        self._dispatch("put", x, lambda: roll("put"))
 
     # -- collectives --------------------------------------------------------
     def allreduce(self, x, *, op: str = "sum"):
@@ -211,15 +250,27 @@ class Communicator:
 class CommTable:
     """The context's communicator table (OMPCCL's per-group comm registry):
     one call log per group descriptor, shared by every backend's handle for
-    that group, plus one cached backend instance per backend name."""
+    that group, plus one cached backend instance per backend name.
 
-    def __init__(self, mesh: Optional[RankMesh], device: torch.device):
+    When the table carries a :class:`~repro_torch.core.faults.FaultPlan`,
+    every backend instance it creates is wrapped in a
+    :class:`~repro_torch.core.faults.ChaosBackend` (a caller-owned instance
+    is the caller's to wrap), and every handle carries the table's
+    :class:`RetryPolicy`, so injected faults are retried and logged."""
+
+    def __init__(self, mesh: Optional[RankMesh], device: torch.device, *,
+                 fault_plan: Optional[FaultPlan],
+                 retry_policy: RetryPolicy):
         self.mesh = mesh
         self.device = device
         self._comms: Dict[Tuple[str, str], Communicator] = {}
         self._calls: Dict[str, Dict[str, int]] = {}
         self._nbytes: Dict[str, Dict[str, int]] = {}
+        self._retries: Dict[str, Dict[str, int]] = {}
+        self._retry_nbytes: Dict[str, Dict[str, int]] = {}
         self._backends: Dict[str, CclBackend] = {}
+        self.fault_plan = fault_plan
+        self.retry_policy = retry_policy
 
     def backend_instance(self, backend: BackendLike,
                          default: str = "xla") -> CclBackend:
@@ -227,7 +278,11 @@ class CommTable:
             return backend
         name = backend or default
         if name not in self._backends:
-            self._backends[name] = get_backend(name)()
+            inst = get_backend(name)()
+            if self.fault_plan is not None \
+                    and not isinstance(inst, ChaosBackend):
+                inst = ChaosBackend(inst, self.fault_plan)
+            self._backends[name] = inst
         return self._backends[name]
 
     def communicator(self, group: DiompGroup,
@@ -241,18 +296,21 @@ class CommTable:
             bkey = inst.name
         key = (group.descriptor(), bkey)
         if key not in self._comms:
-            calls = self._calls.setdefault(key[0], {})
-            nbytes = self._nbytes.setdefault(key[0], {})
-            self._comms[key] = Communicator(group, inst, self.mesh,
-                                            self.device, calls, nbytes)
+            self._comms[key] = Communicator(
+                group, inst, self.mesh, self.device,
+                self._calls.setdefault(key[0], {}),
+                self._nbytes.setdefault(key[0], {}),
+                self._retries.setdefault(key[0], {}),
+                self._retry_nbytes.setdefault(key[0], {}),
+                self.retry_policy)
         return self._comms[key]
 
     def reset(self) -> None:
         """Zero every call count IN PLACE (live handles keep recording)."""
-        for calls in self._calls.values():
-            calls.clear()
-        for nbytes in self._nbytes.values():
-            nbytes.clear()
+        for log in (self._calls, self._nbytes, self._retries,
+                    self._retry_nbytes):
+            for ops in log.values():
+                ops.clear()
 
     def stats(self) -> Dict[str, Dict[str, int]]:
         """descriptor -> per-op call counts, aggregated over backends."""
@@ -261,6 +319,15 @@ class CommTable:
     def byte_stats(self) -> Dict[str, Dict[str, int]]:
         """descriptor -> per-op cumulative per-rank payload bytes."""
         return {k: dict(v) for k, v in self._nbytes.items() if v}
+
+    def retry_stats(self) -> Dict[str, Dict[str, int]]:
+        """descriptor -> per-op re-issued wire attempts (the retry log)."""
+        return {k: dict(v) for k, v in self._retries.items() if v}
+
+    def retry_byte_stats(self) -> Dict[str, Dict[str, int]]:
+        """descriptor -> per-op re-issued per-rank wire bytes (the chaos
+        overhead, kept apart from the logical byte log)."""
+        return {k: dict(v) for k, v in self._retry_nbytes.items() if v}
 
 
 class DispatchStats:
@@ -308,6 +375,12 @@ class DiompContext:
     algebra need none); stacked-rank verbs need one.  ``device`` is where
     the context's entry points run: the card by default, ``"cpu"`` only
     when asked; asking for the card where there is none raises.
+
+    ``fault_plan`` (a :class:`~repro_torch.core.faults.FaultPlan`; by
+    default :meth:`FaultPlan.from_env`, None unless ``DIOMP_CHAOS_SEED`` is
+    set) runs every backend the context creates under deterministic fault
+    injection; ``retry_policy`` (a default policy is always attached)
+    governs the communicators' retries, counted in :meth:`retry_stats`.
     """
 
     def __init__(
@@ -320,12 +393,9 @@ class DiompContext:
         max_active_streams: int = 8,
         default_backend: str = "xla",
         comm_backend: str = "gasnet-ex",  # config fidelity; no-op here
-        fault_plan=None,
+        fault_plan: Optional[FaultPlan] = None,
+        retry_policy: Optional[RetryPolicy] = None,
     ):
-        if fault_plan is not None:
-            raise NotImplementedError(
-                "fault injection (FaultPlan/ChaosBackend/RetryPolicy) is not "
-                "ported yet: ROADMAP queue 1, item 14")
         self.device = resolve_device(device)
         self.mesh = mesh
         self.comm_backend = comm_backend
@@ -339,7 +409,13 @@ class DiompContext:
         self.poller = HybridPoller()
         self.rma = RMATracker()
         self.dispatch_stats = DispatchStats()
-        self.comms = CommTable(mesh, self.device)
+        self.fault_plan = fault_plan if fault_plan is not None \
+            else FaultPlan.from_env()
+        self.retry_policy = retry_policy if retry_policy is not None \
+            else RetryPolicy()
+        self.comms = CommTable(mesh, self.device,
+                               fault_plan=self.fault_plan,
+                               retry_policy=self.retry_policy)
         # bootstrap: validate every group's descriptor (UniqueID handshake)
         self._descriptors = {
             name: g.validate(mesh).descriptor()
@@ -382,8 +458,12 @@ class DiompContext:
         return self.comms.byte_stats()
 
     def retry_stats(self) -> Dict[str, Dict[str, int]]:
-        """Re-issued wire attempts: none, since nothing injects faults."""
-        return {}
+        """Per-group, per-op re-issued wire attempts (fault retries)."""
+        return self.comms.retry_stats()
+
+    def retry_byte_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-group, per-op re-issued per-rank wire bytes."""
+        return self.comms.retry_byte_stats()
 
     def reset_stats(self) -> None:
         self.comms.reset()
@@ -475,12 +555,15 @@ def scratch_context(ctx: DiompContext) -> DiompContext:
     the compiled body runs (a ``lax.scan`` body, a jitted step).  The port
     runs Python loops eagerly, so it replays every pass after the first
     against this context: ``ctx``'s call, byte and RMA logs then hold what
-    the reference's hold."""
+    the reference's hold.  The reference rolls a fault plan only while it
+    traces, so the scratch context carries an inert plan, whatever the
+    environment says: only first passes inject."""
     key = (ctx.mesh, str(ctx.device))
     with _default_lock:
         if key not in _scratch:
             _scratch[key] = DiompContext(mesh=ctx.mesh, device=ctx.device,
-                                         segment_bytes=1 << 20)
+                                         segment_bytes=1 << 20,
+                                         fault_plan=FaultPlan(0, p=0.0))
         return _scratch[key]
 
 

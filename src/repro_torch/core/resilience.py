@@ -16,9 +16,9 @@ Ported from the reference's ``core/resilience.py``, which is pure Python:
 * ``content_digest`` / ``corrupt_digest`` — the RMA-window checksums the
   KV allocator's validated migration uses.
 
-Fault injection (``FaultPlan``, ``ChaosBackend``) is not ported yet
-(ROADMAP queue 1, item 14): nothing in this package raises
-``TransientFault`` by itself.
+Fault injection itself (``FaultPlan``, ``ChaosBackend``) is
+:mod:`repro_torch.core.faults`; the communicator runs every dispatch under
+``call_with_retries`` with its context's ``RetryPolicy``.
 """
 
 from __future__ import annotations

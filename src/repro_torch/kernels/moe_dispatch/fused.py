@@ -271,8 +271,9 @@ def _schedule_table(plan: AllToAllPlan, device) -> torch.Tensor:
 
 def _record_traffic(blk, group: DiompGroup, plan: AllToAllPlan) -> None:
     """Log the schedule's puts as the emulation logs them: the OMPCCL call
-    and byte logs and the RMATracker's windows (``blk`` is one padded wire
-    block of every rank)."""
+    and byte logs, the fault plan's rolls and retries, and the
+    RMATracker's windows (``blk`` is one padded wire block of every
+    rank)."""
     ctx = default_context()
     comm = default_communicator(group)
     tracker = ctx.rma
@@ -283,7 +284,7 @@ def _record_traffic(blk, group: DiompGroup, plan: AllToAllPlan) -> None:
             win = (dwin if phase == "put" else cwin)[s - 1]
             tracker.ensure(win)
             tracker.on_put(win, nbytes)
-            comm.record("put", blk)
+            comm.kernel_put(blk)
         elif phase == "fence":
             tracker.on_fence(dwin[s - 1])
             tracker.on_read(dwin[s - 1])

@@ -335,7 +335,8 @@ def _item_order(plan: AttentionRingPlan, rings: int, B: int, tq: int,
 
 def _record_traffic(k, v, group: DiompGroup, plan: AttentionRingPlan):
     """Log the schedule's puts and landings as the emulation logs them (the
-    OMPCCL call and byte logs and the RMATracker's windows)."""
+    OMPCCL call and byte logs, the fault plan's rolls and retries, and the
+    RMATracker's windows)."""
     if plan.n == 1:
         return
     ctx = default_context()
@@ -350,7 +351,7 @@ def _record_traffic(k, v, group: DiompGroup, plan: AttentionRingPlan):
                 tracker.ensure(wins[st.index])
                 for b, x in zip(nbytes, (k, v)):
                     tracker.on_put(wins[st.index], b)
-                    comm.record("put", x)
+                    comm.kernel_put(x)
                 tracker.on_fence(wins[st.index])
                 tracker.on_read(wins[st.index])
 

@@ -130,6 +130,16 @@ def fused_ring_allgather_matmul_emulated(
     return out
 
 
+def _record_traffic(x, group: DiompGroup, plan: RingPlan) -> None:
+    """Log the schedule's puts as the emulation's ``ompx_put`` logs them:
+    the call and byte logs, the fault plan's rolls and retries."""
+    comm = default_communicator(group)
+    for st in plan.schedule():
+        for sent in (st.send_cw, st.send_ccw):
+            if sent:
+                comm.kernel_put(x)
+
+
 def fused_ring_allgather_matmul(
     x: torch.Tensor, w: torch.Tensor, group: DiompGroup, *,
     plan: Optional[RingPlan] = None,
@@ -141,8 +151,10 @@ def fused_ring_allgather_matmul(
     ``plan`` defaults to the process planner's
     :meth:`~repro_torch.kernels.plan.OverlapPlanner.plan_ring_matmul`.  On
     the card, a mesh that is the ring alone and no custom ``dot`` run the
-    CUDA kernel — its puts are recorded on the communicator exactly as the
-    emulation records them; everything else runs the emulation.
+    CUDA kernel — its puts are logged on the communicator before the
+    launch (:meth:`~repro_torch.core.context.Communicator.kernel_put`:
+    recorded, and rolled under the fault plan and retried, as the
+    emulation's ``ompx_put`` is); everything else runs the emulation.
     """
     mesh = default_context().require_mesh()
     n = group.axis_size(mesh)
@@ -153,11 +165,7 @@ def fused_ring_allgather_matmul(
     if plan.n != n:
         raise ValueError(f"plan for n={plan.n} used on a ring of {n}")
     if x.is_cuda and dot is None and mesh.ndim == 1:
-        comm = default_communicator(group)
-        for st in plan.schedule():
-            for sent in (st.send_cw, st.send_ccw):
-                if sent:
-                    comm.record("put", x)
+        _record_traffic(x, group, plan)
         return fused_ring_allgather_matmul_kernel(x, w, plan=plan)
     return fused_ring_allgather_matmul_emulated(x, w, group, plan=plan,
                                                 dot=dot)

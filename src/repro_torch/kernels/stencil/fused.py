@@ -475,7 +475,8 @@ def _record_single_step(u, zgroup: DiompGroup) -> None:
     """The fused step's exchange audit trail (two slab puts, one fence,
     two reads), exactly as the emulation records it for the single step
     and for the carried one, whose boundary output slabs are R rows of
-    the field's shape too."""
+    the field's shape too; each put rolls the fault plan and retries as
+    the emulation's ``ompx_put`` does."""
     R = RADIUS
     lo_w, hi_w = halo_window_names(zgroup, 0)
     ctx = default_context()
@@ -484,7 +485,7 @@ def _record_single_step(u, zgroup: DiompGroup) -> None:
     for w in (lo_w, hi_w):
         ctx.rma.ensure(w)
         ctx.rma.on_put(w, payload_bytes(slab, ctx.require_mesh().size))
-        comm.record("put", slab)
+        comm.kernel_put(slab)
     ctx.rma.on_fence(lo_w, hi_w)
     ctx.rma.on_read(lo_w)
     ctx.rma.on_read(hi_w)

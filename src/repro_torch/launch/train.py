@@ -18,10 +18,13 @@ pod x data x model mesh; ``--layout dp_only`` (no tensor parallelism: the
 batch over every axis, the weights replicated over "model") beside the
 default ``tp``.  Every architecture trains on the pipeline's batches of
 its family: hubert-xlarge on audio frames, targets and a frame mask, the
-frames laid out in the batch's bf16.  ``--chaos-seed`` and ``--kill-rank-step``
-(fault injection) raise: ROADMAP queue 1, item 14.  ``main`` returns a
-summary of the run (losses, grad norms, step times, the final parameters
-and optimizer state).
+frames laid out in the batch's bf16.  ``--chaos-seed`` runs the step under
+a seeded ``FaultPlan`` (drop, fail and timeout faults with probability
+``--chaos-p`` a dispatch, each retried: the run's numbers equal the calm
+run's); with it, ``--kill-rank-step`` kills the mesh's last rank at that
+step, and the straggler monitor's escalation starts the elastic restore.
+``main`` returns a summary of the run (losses, grad norms, step times, the
+final parameters and optimizer state).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 
 from .. import configs
 from ..core.context import DiompContext, resolve_device, use_default
+from ..core.faults import FaultPlan
 from ..core.runtime import DiompRuntime, dtype_bytes
 from ..distributed.sharding import param_bytes_per_device, rules_for_ctx
 from ..data.pipeline import Prefetcher, SyntheticLM
@@ -96,7 +100,9 @@ def _batch_on(batch, structs, specs, mesh, device):
             for k, v in batch.items()}
 
 
-def main(argv=None):
+def main(argv=None, cfg=None):
+    """Run the flags' training; ``cfg``, where given, is the model config
+    in place of ``--arch``'s (a depth cut, say)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="stablelm-3b",
                     choices=configs.all_archs())
@@ -117,10 +123,13 @@ def main(argv=None):
     ap.add_argument("--dp-backend", default="hierarchical",
                     choices=["flat", "hierarchical"])
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="fault injection (not ported: ROADMAP item 14)")
-    ap.add_argument("--chaos-p", type=float, default=0.05)
+                    help="enable deterministic fault injection (FaultPlan)")
+    ap.add_argument("--chaos-p", type=float, default=0.05,
+                    help="per-dispatch fault probability under --chaos-seed")
     ap.add_argument("--kill-rank-step", type=int, default=None,
-                    help="a scheduled rank death (not ported: item 14)")
+                    help="schedule a rank death at this step (elastic "
+                         "restore exercise; needs --chaos-seed and "
+                         "--checkpoint-dir)")
     ap.add_argument("--max-restarts", type=int, default=1)
     ap.add_argument("--device", default="cuda",
                     help="where the step runs (the card by default)")
@@ -128,14 +137,17 @@ def main(argv=None):
                     help="seed of the random weights")
     args = ap.parse_args(argv)
 
-    if args.chaos_seed is not None or args.kill_rank_step is not None:
-        raise NotImplementedError(
-            "fault injection (--chaos-seed, --kill-rank-step: FaultPlan, "
-            "ChaosBackend) is not ported yet: ROADMAP queue 1, item 14")
     device = resolve_device(args.device)
-    cfg = configs.get_reduced(args.arch) if args.reduced \
-        else configs.get(args.arch)
+    if cfg is None:
+        cfg = configs.get_reduced(args.arch) if args.reduced \
+            else configs.get(args.arch)
     mesh = parse_mesh(args.mesh)
+    fault_plan = None
+    if args.chaos_seed is not None:
+        fault_plan = FaultPlan(args.chaos_seed, p=args.chaos_p,
+                               kinds=("drop", "fail", "timeout"))
+        if args.kill_rank_step is not None:
+            fault_plan.kill_rank(args.kill_rank_step, rank=mesh.size - 1)
 
     def make_ctx(mesh):
         return ParallelCtx.from_mesh(
@@ -157,7 +169,8 @@ def main(argv=None):
                    for spec in schema.values())
     segment = max(1 << 30, 1 << (2 * per_rank - 1).bit_length())
     rt = DiompRuntime(mesh, context=DiompContext(
-        mesh=mesh, device=device, segment_bytes=segment))
+        mesh=mesh, device=device, segment_bytes=segment,
+        fault_plan=fault_plan))
     for name, spec in schema.items():
         rt.register(name, spec.shape, spec.dtype, spec.axes)
     print(f"PGAS plan: {rt.bytes_in_use()/2**20:.1f} MiB/device in "
@@ -239,7 +252,10 @@ def main(argv=None):
         step_s.append(time.perf_counter() - t0)
         losses.append(loss)
         norms.append(gnorm)
-        monitor.step_end(i)
+        if fault_plan is not None and fault_plan.deaths_at(i):
+            monitor.escalate(i, "rank-death")
+        else:
+            monitor.step_end(i)
         if i % 5 == 0 or i == end - 1:
             print(f"step {i:5d}  loss {loss:.4f}  gnorm {gnorm:.3f}  "
                   f"({(time.time()-t_start)/max(i-start+1,1):.2f}s/step)")
@@ -261,8 +277,12 @@ def main(argv=None):
                 save(i, params, opt_state, blocking=True)
             mesh = make_smoke_mesh(max(mesh.size // 2, 2))
             ctx = make_ctx(mesh)
+            # the same plan and policy: the run keeps injecting, and the
+            # death, already fired, does not fire again
             dctx = DiompContext(mesh=mesh, device=device,
-                                segment_bytes=1 << 30)
+                                segment_bytes=1 << 30,
+                                fault_plan=dctx.fault_plan,
+                                retry_policy=dctx.retry_policy)
             step_fn = build_step(mesh, ctx, dctx)
             pspecs, ospecs, bstructs, bspecs = specs_for(mesh)
             i, params, opt_state, _ = ckpt.restore()

@@ -29,8 +29,10 @@ threads (StreamPool) stay free for tokenize/detokenize work.
 Port notes: the cache is one stacked tensor per leaf on the context's
 device (ranks leading, the slot dim sharded like the batch), decode steps
 update it in place, and a chunk-prefill step runs on a copy of one slot's
-rows that is written back.  The rank-death paths (``on_rank_death``) and
-fault-plan chaos wait for fault injection (ROADMAP queue 1, item 14).
+rows that is written back.  Rank deaths scheduled on the context's
+``FaultPlan`` fire in ``step()``; ``on_rank_death`` drains a dying rank's
+pages over the validated ``migrate`` (graceful) or requeues its requests
+(abrupt), as the reference does.
 
 Overload behavior (docs/SERVING.md "Overload & SLOs"): with an
 ``SLOPolicy`` attached, ``submit()`` returns an explicit admit / reject /
@@ -213,8 +215,10 @@ class ServeEngine:
         self.device_calls = 0
         self._arrival = 0
         self._all: List[GenRequest] = []
-        # rank death waits for fault injection (ROADMAP queue 1, item 14):
-        # the port's contexts carry no FaultPlan, so no rank ever dies
+        # rank-death recovery (docs/RESILIENCE.md): deaths scheduled on the
+        # context's FaultPlan fire in step(); dead ranks leave the scheduling
+        # set, their pages drain (graceful) or their requests requeue
+        self.faults = context.fault_plan
         self.dead_ranks: set = set()
         self.rank_death_log: List[tuple] = []
         self.requeued = 0
@@ -314,6 +318,9 @@ class ServeEngine:
         prefill for filling slots, one decode step for decode-ready slots."""
         self.steps += 1
         self._now = self.clock()
+        if self.faults is not None:
+            for death in self.faults.deaths_at(self.steps):
+                self.on_rank_death(death.rank, graceful=death.graceful)
         if self.slo_ctl is not None:
             self._shed_expired()
             self.slo_ctl.update_pressure(len(self.queue), self.steps)
@@ -446,8 +453,14 @@ class ServeEngine:
         return f"kv/req{req.kv.rid}"
 
     def _migrate_kw(self, req: GenRequest) -> dict:
-        return dict(comm=self._comm, tracker=self.dctx.rma,
-                    window=self._win(req))
+        kw = dict(comm=self._comm, tracker=self.dctx.rma,
+                  window=self._win(req))
+        if self.faults is not None:
+            # chaos active: validate every page transfer get-side so an
+            # injected corrupt/drop is detected and re-put, never absorbed
+            kw.update(faults=self.faults, policy=self.dctx.retry_policy,
+                      validate=True)
+        return kw
 
     def _admit(self) -> None:
         # resumptions first: preempted requests hold committed progress
@@ -543,11 +556,75 @@ class ServeEngine:
 
     # -- rank death (docs/RESILIENCE.md lifecycle) --------------------------
     def on_rank_death(self, rank: int, *, graceful: bool = False) -> None:
-        """Remove ``rank`` from the serving set: waits for fault injection
-        and the rank-death paths (ROADMAP queue 1, item 14)."""
-        raise NotImplementedError(
-            "rank-death recovery (drain / requeue) is not ported yet: "
-            "ROADMAP queue 1, item 14")
+        """Remove ``rank`` from the serving set.
+
+        ``graceful`` (the rank announced eviction): its requests' paged KV
+        drains to surviving ranks over the one-sided ``migrate`` path
+        first.  Abrupt: pages homed there are gone — preempted requests
+        survive on their host row snapshots (resume re-reserves pages);
+        active requests requeue from scratch.  Either way the scheduler's
+        rank set shrinks and latency stats keep flowing.
+        """
+        if rank in self.dead_ranks or not (0 <= rank < self.memory.nranks):
+            return
+        live_after = [r for r in self._live_ranks() if r != rank]
+        if not live_after:
+            raise RuntimeError("cannot remove the last live rank")
+        holders = [r for r in (list(self.active.values())
+                               + list(self.preempted))
+                   if r.kv is not None and r.kv.home_rank == rank
+                   and r.kv.page_table]
+        drained, lost = 0, []
+        if graceful:
+            for req in holders:
+                dst = live_after[req.kv.rid % len(live_after)]
+                moved = self._migrate(req, dst)
+                if moved:
+                    drained += moved
+                else:
+                    lost.append(req)    # surviving heaps full: treat as lost
+        else:
+            lost = holders
+        self.dead_ranks.add(rank)
+        # purge the free list, forget remaining page tables homed there
+        self.alloc.forget_rank(rank)
+        for req in lost:
+            if req in self.preempted:
+                # pages gone, but the host snapshot holds the rows:
+                # recompute-style resume (reserve at re-admission)
+                continue
+            self._requeue(req)
+        self.rank_death_log.append(
+            (self.steps, rank, graceful, drained, len(lost)))
+
+    def _requeue(self, req: GenRequest) -> None:
+        """An active request lost its KV pages: reset all generation
+        progress and put it back on the arrival queue (priority kept)."""
+        slot = req.slot
+        if slot >= 0 and self.active.get(slot) is req:
+            del self.active[slot]
+            self.free_slots.append(slot)
+            self.pending[slot, 0] = 0
+            self.host_pos[slot] = 0
+            self._set_pos(self.host_pos)
+        try:
+            self.dctx.rma.unregister(self._win(req))
+        except RMAError:
+            pass
+        if req.kv is not None:
+            self.alloc.forget_pages(req.kv)
+            self.alloc.forget(req.kv)
+            req.kv = None
+        req.slot = -1
+        req.fed = 0
+        req.out = []
+        req.done = False
+        req._snapshot = None
+        # deterministic replay: the fresh attempt samples the same stream
+        req._rng = np.random.default_rng(
+            self.seed * 1_000_003 + req.arrival)
+        self.requeued += 1
+        self.queue.append(req)
 
     # -- chunked prefill ----------------------------------------------------
     def _set_pos(self, pos: np.ndarray) -> None:

@@ -88,6 +88,7 @@ class PagedKVAllocator:
         self.requests: Dict[int, Request] = {}
         self._next_rid = 0
         self._free_pages: Dict[int, List[SecondLevelPtr]] = {}
+        self.dead_ranks: set = set()
         # (event, ...) tuples; tests assert the per-op allocation counts
         self.call_log: List[Tuple] = []
         self.stats = {
@@ -98,8 +99,7 @@ class PagedKVAllocator:
             "oom_events": 0,
             "migrations": 0,
             "bytes_migrated": 0,
-            "pages_lost": 0,        # pages on a dead rank: rank death is
-                                    # ROADMAP queue 1, item 14
+            "pages_lost": 0,        # pages on a dead rank (subset of freed)
             "retried_page_puts": 0,  # re-issued page transfers (faults)
         }
         # watermark-pressure denominator; the buddy allocator rounds each
@@ -110,6 +110,8 @@ class PagedKVAllocator:
 
     # -- page pool ------------------------------------------------------------
     def _alloc_page(self, home: int, rid: int, idx: int) -> Optional[SecondLevelPtr]:
+        if home in self.dead_ranks:
+            return None
         free = self._free_pages.get(home)
         if free:
             slp = free.pop()
@@ -310,6 +312,44 @@ class PagedKVAllocator:
         self.stats["bytes_migrated"] += moved
         return moved
 
+    # -- rank death -----------------------------------------------------------
+    def forget_pages(self, req: Request) -> int:
+        """A request's pages are GONE (their home rank died): unmap them
+        without recycling.  Lost pages count under ``pages_lost`` AND
+        ``pages_freed`` so the allocated-minus-freed == live ledger stays
+        balanced.  Returns the count."""
+        n = len(req.page_table)
+        if n == 0:
+            return 0
+        for slp in req.page_table:
+            self.memory.free(slp)
+        req.page_table = []
+        self.stats["pages_freed"] += n
+        self.stats["pages_lost"] += n
+        self.call_log.append(("forget_pages", req.rid, n))
+        return n
+
+    def forget(self, req: Request) -> None:
+        """Drop a request whose pages were forgotten (no release recycling)."""
+        req.page_table = []
+        self.requests.pop(req.rid, None)
+        self.call_log.append(("forget", req.rid))
+
+    def forget_rank(self, rank: int) -> int:
+        """Rank ``rank`` died abruptly: purge its free list, forget every
+        tracked request's pages homed there, and refuse future allocations
+        on it.  Returns pages lost from live requests (the engine decides
+        what to do with their owners)."""
+        self.dead_ranks.add(rank)
+        for slp in self._free_pages.pop(rank, []):
+            self.memory.free(slp)
+        lost = 0
+        for req in list(self.requests.values()):
+            if req.home_rank == rank and req.page_table:
+                lost += self.forget_pages(req)
+        self.call_log.append(("rank_death", rank, lost))
+        return lost
+
     # -- addressing -----------------------------------------------------------
     def lookup(self, req: Request, token_pos: int,
                rank: Optional[int] = None) -> Tuple[int, int]:
@@ -333,10 +373,12 @@ class PagedKVAllocator:
             if rank is None or k == rank)
 
     def pressure(self, ranks=None) -> float:
-        """max over ``ranks`` (default: all) of live-KV-page utilization —
-        the engine's watermark-preemption signal."""
+        """max over ``ranks`` (default: all live) of live-KV-page
+        utilization — the engine's watermark-preemption signal.  Dead
+        ranks are excluded: their heaps no longer exist."""
         ranks = range(self.memory.nranks) if ranks is None else ranks
-        util = [self.live_pages(r) / self.capacity_pages for r in ranks]
+        util = [self.live_pages(r) / self.capacity_pages
+                for r in ranks if r not in self.dead_ranks]
         return max(util, default=0.0)
 
     def trim(self) -> int:

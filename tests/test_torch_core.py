@@ -270,8 +270,41 @@ def test_analytic_backend_logs_reference_bytes(ring8):
 
 
 def test_fault_plan_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DiompContext(device="cpu", fault_plan=object())
+    """(Kept name: the context took no plan before fault injection was
+    ported.)  A context carries its plan: every backend it creates is
+    chaos-wrapped, with the reference's name, and its retries are counted
+    as the reference's context counts them."""
+    from repro.core.faults import FaultPlan as JFaultPlan
+    from repro.core.resilience import RetryPolicy as JRetryPolicy
+    from repro_torch.core.faults import ChaosBackend, FaultPlan
+    from repro_torch.core.resilience import RetryPolicy
+    plan = FaultPlan(5, p=0.5, kinds=("drop", "timeout"))
+    ctx = DiompContext(mesh=T_RING8, device="cpu", fault_plan=plan,
+                       retry_policy=RetryPolicy(sleep=False))
+    jctx = JContext(segment_bytes=1 << 20,
+                    fault_plan=JFaultPlan(5, p=0.5, kinds=("drop", "timeout")),
+                    retry_policy=JRetryPolicy(sleep=False))
+    g_t, g_j = DiompGroup(("x",)), JGroup(("x",))
+    comm, jcomm = ctx.communicator(g_t), jctx.communicator(g_j)
+    assert ctx.fault_plan is plan and comm.policy is ctx.retry_policy
+    assert isinstance(comm.backend, ChaosBackend)
+    assert comm.backend_name == jcomm.backend_name == "chaos:xla"
+    assert ctx.communicator(g_t, "hierarchical").backend_name \
+        == jctx.communicator(g_j, "hierarchical").backend_name
+    xs = stack_shards(RNG.randn(8, 3).astype(np.float32), T_RING8,
+                      ("x", None))
+    for _ in range(4):
+        got = comm.allreduce(xs)
+    calm = DiompContext(mesh=T_RING8, device="cpu",
+                        fault_plan=FaultPlan(0)).communicator(g_t)
+    assert torch.equal(got, calm.allreduce(xs))
+    assert [(f.call_index, f.kind, f.recovered) for f in plan.injected] \
+        == [(0, "drop", True), (1, "drop", True), (5, "timeout", True)]
+    assert ctx.retry_stats() == {g_t.descriptor(): {
+        "allreduce": len(plan.injected)}}
+    assert ctx.retry_byte_stats() == {g_t.descriptor(): {
+        "allreduce": len(plan.injected) * 3 * 4}}
+    assert ctx.stats() == {g_t.descriptor(): {"allreduce": 4}}
 
 
 def test_use_default_scopes_and_restores():

@@ -250,11 +250,28 @@ def test_call_log_counts_each_built_step_once(mesh8, weights):
 
 
 def test_rank_death_waits_for_fault_injection(mesh8, weights):
-    _, t = _engines(mesh8, weights, slots=1, max_len=64, prefill_chunk=8)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t.on_rank_death(1)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        DiompContext(mesh=MESH, device="cpu", fault_plan=object())
+    """(Kept name: rank death raised before fault injection was ported.)
+    A graceful death of the rank homing the requests' pages, mid-decode:
+    both engines drain it over the migrate path and finish with equal
+    tokens, logs and page ledgers."""
+    j, t = _engines(mesh8, weights, slots=2, max_len=64, prefill_chunk=8)
+    jr = [j.submit(p, max_new=4) for p in _prompts(LENGTHS[:3])]
+    tr = [t.submit(p, max_new=4) for p in _prompts(LENGTHS[:3])]
+    for _ in range(4):
+        j.step()
+        t.step()
+    for eng in (j, t):
+        eng.on_rank_death(0, graceful=True)
+    j.run()
+    t.run()
+    _same_requests(jr, tr)
+    assert t.rank_death_log == j.rank_death_log
+    (_, rank, graceful, drained, lost), = t.rank_death_log
+    assert rank == 0 and graceful and drained > 0 and lost == 0
+    assert t.kv_stats == j.kv_stats and t.kv_stats["pages_lost"] == 0
+    assert t.alloc.call_log == j.alloc.call_log
+    assert t.alloc.stats["bytes_migrated"] \
+        == j.alloc.stats["bytes_migrated"] > 0
 
 
 # -- the paged allocator against the reference's tables ----------------------

@@ -567,9 +567,21 @@ def test_launcher_trains_on_the_cpu(tmp_path, monkeypatch):
         assert all(np.isfinite(run["grad_norms"]))
         from repro_torch.train.checkpoint import CheckpointManager
         assert CheckpointManager(str(tmp_path)).steps() == [4, 8]
-        with pytest.raises(NotImplementedError, match="item 14"):
-            launcher.main(["--reduced", "--device", "cpu",
-                           "--chaos-seed", "1"])
+        # under chaos (every dispatch faults with probability 0.2, each
+        # fault retried) the run's numbers are the calm run's, bit for bit
+        chaos = launcher.main(["--arch", "stablelm-3b", "--reduced",
+                               "--steps", "8", "--batch", "8", "--seq", "32",
+                               "--lr", "5e-3", "--microbatch", "2",
+                               "--device", "cpu", "--chaos-seed", "1",
+                               "--chaos-p", "0.2"])
+        assert chaos["losses"] == run["losses"]
+        assert chaos["grad_norms"] == run["grad_norms"]
+        plan = chaos["context"].fault_plan
+        assert plan.injected and plan.unrecovered() == []
+        assert sum(sum(ops.values()) for ops in
+                   chaos["context"].retry_stats().values()) \
+            == len(plan.injected)
+        assert chaos["context"].stats() == run["context"].stats()
     finally:
         reset_default_context()
 
