@@ -146,6 +146,19 @@ ragged shapes, then drives the port's main path at the paper's sizes:
   run's (the reduction order's gap, well under what a broken restore
   makes) and the final loss within the reference's 5e-2;
 
+* rows 1-4 from several processes on the card: the ring at N = 30240 and
+  Minimod at 1024³ (fused and host) at 1 x 4 in this process, then in 2
+  and 4 worker processes (this script re-invoked with ``--mp-worker``,
+  loading the kernels built above) joined over torch.distributed's gloo,
+  a verb that crosses processes moving host copies staged through pinned
+  memory: every rank's output bytes and the logical logs equal to the
+  1 x 4 run's, each process's launches and routes of rows 1-4 as
+  predicted (the ring across processes step by step on row 1, Minimod's
+  carried step over each process's box on row 4), the 2 x 2 ring under a
+  seeded chaos plan recovering every fault, each topology's times and
+  the transport's latency and bandwidth beside ``LinkModel``'s; a worker
+  that fails or hangs fails the run;
+
 with every kernel's launch count (and the per-route counts of the two GEMM
 and the two attention kernels, the attention gradient, the wave step and
 the scan, and flash's split-combine count) zeroed
@@ -7432,7 +7445,463 @@ def train_chaos_phase(torch, k, dev, wrappers) -> dict:
     return out
 
 
+# -- the multi-process phase: rows 1-4 driven from several processes ---------
+# The main path's ring (N = 30240 bf16) and Minimod (1024^3 over nz = 4, 10
+# steps, fused and host) at 1 x 4 (this process, no job), then in 2 and 4
+# worker processes on the same card (2 x 2, 4 x 1: processes x ranks each),
+# each joined over torch.distributed's gloo (``diomp.init(coordinator=...)``;
+# a verb that crosses processes moves host copies staged through pinned
+# memory).  Inputs come from one seed on every process, which keeps its box.
+# Held: every rank's bytes of every output equal to the 1 x 4 run's, the
+# logical logs (``gather_stats``) equal and equal on every process, each
+# process's launches and routes of rows 1-4 as predicted, and at 2 x 2 the
+# fused ring under a seeded chaos plan (drop, fail at MP_CHAOS_P) recovering
+# every fault with the calm run's outputs and logical logs.  The 2 x 2
+# workers also time the transport: the least of MP_LATENCY_REPS 8-byte
+# exchanges, and one exchange of a ring stripe (t_loc x N bf16, 457 MB).
+MP_SPLITS = ((2, 2), (4, 1))            # worker launches: processes x ranks
+MP_TIMEOUT_S = 300                      # a launch's limit, start to results
+MP_SEED, MP_CHAOS_SEED, MP_CHAOS_P = 7, 1234, 0.15
+MP_LATENCY_REPS = 9
+MP_DIR = ROOT / "build" / "chip_smoke_mp"
+MP_ROWS = ("matmul", "fused_ring_allgather_matmul", "wave_step",
+           "fused_wave_step")
+
+
+def _mp_row_launches(ranks: int) -> dict:
+    """A process's predicted launches of rows 1-4 for its ``ranks`` of the
+    ring of RING_RANKS (and of Minimod's Z ring of NZ): the host ring's GEMM
+    every step a rank; the fused ring one launch of row 2 when the process
+    holds the ring, else its schedule's four GEMM steps a rank on row 1;
+    Minimod one launch a step of row 4 (carried) and of row 3 (host)."""
+    whole = ranks == RING_RANKS
+    host = RING_RANKS * ranks
+    fused = 0 if whole else 4 * ranks
+    return {"matmul": host + fused,
+            "fused_ring_allgather_matmul": 1 if whole else 0,
+            "wave_step": STEPS, "fused_wave_step": STEPS}
+
+
+def _mp_ring_inputs(torch, dev, mesh):
+    """The ring's stacked operands from MP_SEED, generated rank by rank on
+    every process (the same stream at every split); this process keeps
+    its box."""
+    g = torch.Generator(device=dev).manual_seed(MP_SEED)
+    n, N = RING_RANKS, RING_N
+    t_loc = n_loc = N // n
+    scale = N ** -0.25
+    mine = set(mesh.local_ranks)
+    x, w = [], []
+    for shape, keep in (((t_loc, N), x), ((N, n_loc), w)):
+        for r in range(n):
+            t = (torch.randn(*shape, generator=g, device=dev) * scale).to(
+                torch.bfloat16)
+            if r in mine:
+                keep.append(t)
+            del t
+    return torch.stack(x), torch.stack(w)
+
+
+def _mp_fields(torch, dev):
+    """Minimod's initial fields from MP_SEED + 1, made on the card and
+    kept whole on the host of every process (``run_minimod`` keeps its box
+    on the card: four processes' whole fields would not fit there)."""
+    g = torch.Generator(device=dev).manual_seed(MP_SEED + 1)
+    return [(torch.randn((GRID,) * 3, generator=g, device=dev) * 0.1).cpu()
+            for _ in range(2)]
+
+
+def _digests(torch, coord, pairs) -> list:
+    """sha256 of each ``(rank, tensor)``'s host bytes, gathered over the job
+    in rank order."""
+    import hashlib
+
+    mine = [[r, hashlib.sha256(t.contiguous().view(-1).view(torch.uint8)
+                               .cpu().numpy().tobytes()).hexdigest()]
+            for r, t in pairs]
+    rows = sorted(row for part in coord.allgather(mine) for row in part)
+    return [d for _, d in rows]
+
+
+def _logical(ctx) -> dict:
+    """gather_stats: whether every process's row is equal, and the logical
+    part (retries left out) of this process's."""
+    rows = ctx.gather_stats()
+    canon = json.loads(json.dumps(
+        [{k: v for k, v in r.items() if k != "process_id"} for r in rows]))
+    mine = canon[0]
+    rma = {k: v for k, v in mine["rma"].items()
+           if k not in ("retry_puts", "retry_bytes")}
+    return {"parity": all(r == mine for r in canon),
+            "logical": json.loads(json.dumps(
+                {k: mine[k] for k in ("stats", "byte_stats", "pgas")}
+                | {"rma": rma}, sort_keys=True)),
+            "retries": sum(sum(d.values())
+                           for d in mine["retry_stats"].values())}
+
+
+def _timed(torch, fn):
+    """``fn()`` timed by CUDA events on this process's stream and by the
+    host clock (s), the card synchronized around it."""
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    t0 = time.perf_counter()
+    marks[0].record()
+    out = fn()
+    marks[1].record()
+    torch.cuda.synchronize()
+    return out, marks[0].elapsed_time(marks[1]), time.perf_counter() - t0
+
+
+def _mp_run(torch, dev, wrappers, link: bool = False,
+            chaos: bool = False) -> dict:
+    """This process's part of the multi-process phase: both rings and both
+    Minimod modes at the main path's sizes over the job's ranks (the whole
+    ring in a process of no job), each timed, every rank's output bytes
+    digested; the launches and routes of rows 1-4 counted from zero; the
+    ring's logical logs; with ``link`` the transport's latency and
+    bandwidth; with ``chaos`` the rings again under a seeded plan."""
+    from repro_torch.apps.minimod import run_minimod
+    from repro_torch.core import coordination
+    from repro_torch.core.context import DiompContext, use_default
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.groups import DiompGroup
+    from repro_torch.core.resilience import RetryPolicy
+    from repro_torch.kernels.ring_matmul import fused as r_fused
+    from repro_torch.kernels.ring_matmul.ops import ring_allgather_matmul
+    from repro_torch.kernels.stencil import fused as s_fused
+    from repro_torch.launch.mesh import RankMesh, make_process_mesh
+
+    names = MP_ROWS
+    coord = coordination.coordinator_for()
+    mesh = make_process_mesh(shape=(RING_RANKS,), axes=("ring",)) \
+        if coordination.is_distributed() else RankMesh(("ring",),
+                                                       (RING_RANKS,))
+    ring = DiompGroup(("ring",), name="ring")
+    out = {"process_id": coord.process_id, "ranks": mesh.local_size}
+    x, w = _mp_ring_inputs(torch, dev, mesh)
+    zl = GRID // NZ
+
+    def snap():
+        """The counters of rows 1-4: launches, per route, and the fused
+        entries' route choices."""
+        return {"launches": {n: wrappers[n].launches for n in names},
+                "route_launches": {n: dict(wrappers[n].route_launches)
+                                   for n in names},
+                "ring": dict(r_fused.fused_ring_allgather_matmul.routes),
+                "step": dict(s_fused.fused_wave_step.routes)}
+
+    def since(a, b):
+        """``b - a`` of two snapshots, nonzero entries only for the
+        routes' choices."""
+        return {"launches": {n: b["launches"][n] - a["launches"][n]
+                             for n in names},
+                "route_launches": {n: {r: c - a["route_launches"][n][r]
+                                       for r, c in
+                                       b["route_launches"][n].items()}
+                                   for n in names},
+                "routes": {key: {r: c - a[key][r] for r, c in b[key].items()
+                                 if c != a[key][r]}
+                           for key in ("ring", "step")}}
+
+    _zero_counts({n: wrappers[n] for n in names})
+    start = snap()
+    moved, sent = {}, [coordination.TRANSPORT["sent_bytes"]]
+
+    def mark(what):
+        """The bytes this process sent over the transport for ``what``."""
+        moved[what] = coordination.TRANSPORT["sent_bytes"] - sent[0]
+        sent[0] = coordination.TRANSPORT["sent_bytes"]
+
+    def rings(plan=None):
+        ctx = DiompContext(mesh=mesh, device=dev, fault_plan=plan,
+                           retry_policy=RetryPolicy(sleep=False))
+        got = {}
+        with use_default(ctx):
+            for impl in ("fused", "host"):
+                y, ev, host = _timed(torch, lambda impl=impl:
+                                     ring_allgather_matmul(x, w, ring,
+                                                           impl=impl))
+                got[impl] = {"digests": _digests(torch, coord, zip(
+                    mesh.local_ranks, y)), "event_ms": ev, "host_s": host}
+                del y
+        return got, _logical(ctx)
+
+    out["ring"], out["ring_logs"] = rings(FaultPlan(0, p=0.0))
+    mark("rings")
+    calm = snap()
+    if chaos:
+        plan = FaultPlan(MP_CHAOS_SEED, p=MP_CHAOS_P, kinds=("drop", "fail"))
+        got, logs = rings(plan)
+        out["chaos"] = {"ring": got, "ring_logs": logs,
+                        "injected": len(plan.injected),
+                        "by_kind": plan.injected_counts(),
+                        "unrecovered": len(plan.unrecovered())}
+        mark("chaos rings")
+    if link:
+        src = [mesh.flat(((c - 1) % RING_RANKS,)) for c, in
+               map(mesh.coords, range(mesh.size))]
+        tok = torch.zeros(mesh.local_size, 1, dtype=torch.float64,
+                          device=dev)
+        lat = []
+        for _ in range(MP_LATENCY_REPS):
+            _, _, s = _timed(torch, lambda: coordination.rank_gather(
+                tok, mesh, src))
+            lat.append(s)
+        coordination.rank_gather(x, mesh, src)      # pinned buffers warm
+        _, ev, s = _timed(torch, lambda: coordination.rank_gather(
+            x, mesh, src))
+        out["link"] = {"latency_s": lat, "stripe_bytes":
+                       x[0].numel() * x.element_size(), "stripe_s": s,
+                       "stripe_event_ms": ev}
+        mark("link")
+    del x, w
+    torch.cuda.empty_cache()
+    mid = snap()
+    u0, up0 = _mp_fields(torch, dev)
+    out["minimod"] = {}
+    for mode in ("fused", "host"):
+        t0 = time.perf_counter()
+        r = run_minimod(grid=(GRID,) * 3, nz=NZ, steps=STEPS, mode=mode,
+                        u0=u0, u_prev0=up0, device=dev)
+        host = time.perf_counter() - t0
+        mark(f"minimod {mode}")
+        zmesh = make_process_mesh(shape=(NZ, 1), axes=("z", "y")) \
+            if coordination.is_distributed() else RankMesh(("z", "y"),
+                                                           (NZ, 1))
+        out["minimod"][mode] = {
+            "digests": _digests(torch, coord,
+                                [(z, r.field[z * zl:(z + 1) * zl])
+                                        for z in zmesh.local_ranks]),
+            "event_ms": r.wall_s * 1e3, "run_host_s": host,
+            "counters": json.loads(json.dumps(
+                {a: getattr(r, a) for a in MINIMOD_COUNTERS}))}
+        del r
+        torch.cuda.empty_cache()
+    del u0, up0
+    torch.cuda.synchronize()
+    # the calm rings' and Minimod's counts (the chaos rings' apart)
+    rings_d, mm_d = since(start, calm), since(mid, snap())
+    out["launches"] = {n: rings_d["launches"][n] + mm_d["launches"][n]
+                       for n in names}
+    out["route_launches"] = {n: {r: c + mm_d["route_launches"][n][r]
+                                 for r, c in
+                                 rings_d["route_launches"][n].items()}
+                             for n in names}
+    out["routes"] = {"ring": rings_d["routes"]["ring"],
+                     "step": mm_d["routes"]["step"]}
+    if chaos:
+        out["chaos"]["launches"] = since(calm, mid)["launches"]
+    out["transport"] = dict(coordination.TRANSPORT, sent_by_path=moved)
+    return out
+
+
+def mp_worker_main(argv) -> int:
+    """One worker process of the multi-process phase (``--mp-worker``):
+    joins the job, runs :func:`_mp_run` on the card with the kernels the
+    parent built, writes its result as JSON."""
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mp-worker", action="store_true")
+    for flag in ("--coordinator", "--out"):
+        ap.add_argument(flag, required=True)
+    for flag in ("--num-processes", "--process-id", "--ranks"):
+        ap.add_argument(flag, type=int, required=True)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke worker: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    import repro_torch as diomp
+    from repro_torch.core import coordination
+    from repro_torch.kernels import _build
+
+    stale = [n for n in ("matmul", "ring_matmul", "wave_step",
+                         "fused_wave_step") if _build._stale(n)]
+    check(not stale, f"worker: kernels {stale} not built by the parent")
+    diomp.init(coordinator=args.coordinator,
+               num_processes=args.num_processes, process_id=args.process_id,
+               local_device_count=args.ranks, device=dev)
+    k = load_port()
+    wrappers = {"matmul": k.matmul_kernel,
+                "fused_ring_allgather_matmul":
+                    k.fused_ring_allgather_matmul_kernel,
+                "wave_step": k.leap,
+                "fused_wave_step": k.fused_wave_step_kernel}
+    two = args.num_processes == 2
+    res = _mp_run(torch, dev, wrappers, link=two, chaos=two)
+    tmp = Path(args.out + ".tmp")
+    tmp.write_text(json.dumps(res))
+    tmp.replace(args.out)
+    coordination.TorchCoordinator().barrier("done")
+    coordination.shutdown()
+    return 0
+
+
+def _mp_launch(procs: int, ranks: int) -> list:
+    """Run ``procs`` worker processes of ``ranks`` ranks each on the card;
+    their results, or a failure with their logs' tails (a worker that
+    fails, or a launch that outlives MP_TIMEOUT_S, fails the phase at once;
+    every worker is killed and reaped)."""
+    import socket
+
+    MP_DIR.mkdir(parents=True, exist_ok=True)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    tag = f"{procs}x{ranks}"
+    ps, logs, outs = [], [], []
+    try:
+        for pid in range(procs):
+            logs.append(MP_DIR / f"{tag}.proc{pid}.log")
+            outs.append(MP_DIR / f"{tag}.result{pid}.json")
+            outs[-1].unlink(missing_ok=True)
+            with open(logs[-1], "w") as fh:
+                ps.append(subprocess.Popen(
+                    [sys.executable, str(Path(__file__).resolve()),
+                     "--mp-worker", "--coordinator", f"127.0.0.1:{port}",
+                     "--num-processes", str(procs), "--process-id", str(pid),
+                     "--ranks", str(ranks), "--out", str(outs[-1])],
+                    cwd=str(ROOT), stdout=fh, stderr=subprocess.STDOUT))
+        # until every worker exits, one fails (its peers would wait on it
+        # in gloo) or the time is up
+        deadline = time.monotonic() + MP_TIMEOUT_S
+        while time.monotonic() < deadline and any(p.poll() is None
+                                                  for p in ps):
+            if any(p.poll() for p in ps):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in ps:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    tails = "\n".join(f"--- {tag} proc{i} (exit {p.returncode}) ---\n"
+                      + "\n".join(lg.read_text(errors="replace")
+                                  .splitlines()[-25:])
+                      for i, (p, lg) in enumerate(zip(ps, logs)))
+    check(all(p.returncode == 0 for p in ps) and all(o.exists()
+                                                     for o in outs),
+          f"multi-process {tag}: a worker failed or timed out\n{tails}")
+    return [json.loads(o.read_text()) for o in outs]
+
+
+def multiproc_phase(torch, dev, wrappers) -> dict:
+    """Rows 1-4 from several processes on the card (see MP_SPLITS): the
+    1 x 4 run here, then each split's workers; every check of the phase;
+    returns the launches by topology and the timings."""
+    from repro_torch.core.backends import LinkModel
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    base = _mp_run(torch, dev, wrappers)
+    runs = {"1x4": [base]}
+    torch.cuda.empty_cache()
+    for procs, ranks in MP_SPLITS:
+        runs[f"{procs}x{ranks}"] = _mp_launch(procs, ranks)
+    seconds = time.perf_counter() - t0
+    rec = {"seconds": seconds, "launches": {}, "times": {}}
+    for tag, rows in runs.items():
+        for row in rows:
+            who = f"{tag} process {row['process_id']}"
+            for part in ("ring", "minimod"):
+                for impl, got in row[part].items():
+                    check(got["digests"] == base[part][impl]["digests"],
+                          f"multi-process {who}: {part} {impl}'s bytes "
+                          "differ from the 1 x 4 run's")
+            for mode, got in row["minimod"].items():
+                check(got["counters"] == base["minimod"][mode]["counters"],
+                      f"multi-process {who}: minimod {mode}'s logs differ")
+            logs = row["ring_logs"]
+            check(logs["parity"] and logs["logical"]
+                  == base["ring_logs"]["logical"] and logs["retries"] == 0,
+                  f"multi-process {who}: the ring's gather_stats rows "
+                  "differ")
+            want = _mp_row_launches(row["ranks"])
+            check(row["launches"] == want,
+                  f"multi-process {who}: launches {row['launches']}, "
+                  f"predicted {want}")
+            routes = row["route_launches"]
+            check(routes["matmul"]["simt"] == 0
+                  and routes["fused_ring_allgather_matmul"]["simt"] == 0
+                  and routes["wave_step"]["simt"] == 0
+                  and routes["fused_wave_step"]["simt"] == 0,
+                  f"multi-process {who}: a launch left its route: {routes}")
+            whole = row["ranks"] == RING_RANKS
+            check(row["routes"] == {
+                "ring": {"kernel" if whole else "stepwise": 1},
+                "step": {"carried" if whole else "carried_part": STEPS}},
+                f"multi-process {who}: routes {row['routes']}")
+            check(whole or row["transport"]["sent_bytes"] > 0,
+                  f"multi-process {who}: nothing crossed the transport")
+            if "chaos" in row:
+                c = row["chaos"]
+                check(c["injected"] > 0 and c["unrecovered"] == 0
+                      and c["ring_logs"]["retries"] == c["injected"]
+                      and c["ring_logs"]["logical"]
+                      == base["ring_logs"]["logical"]
+                      and all(c["ring"][i]["digests"]
+                              == base["ring"][i]["digests"]
+                              for i in ("fused", "host")),
+                      f"multi-process {who}: chaos ring {c['injected']} "
+                      f"faults, {c['unrecovered']} unrecovered, retries "
+                      f"{c['ring_logs']['retries']}, or outputs / logs "
+                      "differ from the calm run's")
+        rec["launches"][tag] = [row["launches"] for row in rows]
+        rec["times"][tag] = [{
+            "ring": {i: [v["event_ms"], v["host_s"]]
+                     for i, v in row["ring"].items()},
+            "minimod_ms_per_step": {m: v["event_ms"] / STEPS
+                                    for m, v in row["minimod"].items()},
+            "minimod_run_host_s": {m: v["run_host_s"]
+                                   for m, v in row["minimod"].items()},
+            "transport": row["transport"]} for row in rows]
+        for row in rows:
+            log(f"multi-process {tag} process {row['process_id']}: ring "
+                f"fused {row['ring']['fused']['event_ms']:.2f} ms (events), "
+                f"{row['ring']['fused']['host_s']:.4f} s (host); host "
+                f"{row['ring']['host']['event_ms']:.2f} ms, "
+                f"{row['ring']['host']['host_s']:.4f} s; minimod fused "
+                f"{row['minimod']['fused']['event_ms'] / STEPS:.3f} ms a "
+                f"step (events; the run "
+                f"{row['minimod']['fused']['run_host_s']:.3f} s host, "
+                f"set-up and fetched field included), host "
+                f"{row['minimod']['host']['event_ms'] / STEPS:.3f} ms "
+                f"({row['minimod']['host']['run_host_s']:.3f} s); launches "
+                f"{row['launches']}; transport "
+                f"{row['transport']}")
+    lk = runs["2x2"][0]["link"]
+    link = LinkModel()
+    rec["link"] = {**lk, "latency_min_s": min(lk["latency_s"]),
+                   "stripe_GBps": lk["stripe_bytes"] / lk["stripe_s"] / 1e9,
+                   "model_latency_s": link.latency_s + 8 / link.bandwidth_Bps,
+                   "model_stripe_s": link.latency_s
+                   + lk["stripe_bytes"] / link.bandwidth_Bps}
+    rec["chaos"] = {key: runs["2x2"][0]["chaos"][key]
+                    for key in ("injected", "by_kind")}
+    log(f"multi-process transport (gloo, host copies via pinned memory, 2 "
+        f"processes on one card): latency "
+        f"{rec['link']['latency_min_s'] * 1e6:.1f} us (least of "
+        f"{MP_LATENCY_REPS} 8-byte exchanges; all "
+        f"{[round(s * 1e6, 1) for s in lk['latency_s']]}), one "
+        f"{lk['stripe_bytes']} B stripe {lk['stripe_s']:.4f} s = "
+        f"{rec['link']['stripe_GBps']:.3f} GB/s; LinkModel (NVLink): "
+        f"{rec['link']['model_latency_s'] * 1e6:.4f} us and "
+        f"{rec['link']['model_stripe_s'] * 1e3:.4f} ms for the same verbs")
+    log(f"multi-process: 2 x 2 chaos ring {rec['chaos']} recovered, outputs "
+        f"and logical logs the calm run's; phase {seconds:.1f} s")
+    return rec
+
+
 def main() -> int:
+    if "--mp-worker" in sys.argv[1:]:
+        return mp_worker_main(sys.argv[1:])
     import torch
 
     if not torch.cuda.is_available():
@@ -8023,6 +8492,17 @@ def main() -> int:
         "deepseek-v3 expert2d": e2d["launches"]["expert_mlp_bwd"]})
     row12["expert2d"]["deepseek_checks"] = {
         "layers": ds["checks"]["layers"], **ds["checks"]["expert2d"]}
+    # -- phase 23: rows 1-4 from 2 and 4 processes on the card ---------------
+    mp = multiproc_phase(torch, dev, wrappers)
+    log("multiprocess: " + json.dumps(mp))
+    for row in kernels:
+        if row["name"] in MP_ROWS:
+            per = {tag: [c[row["name"]] for c in counts]
+                   for tag, counts in mp["launches"].items()}
+            row.setdefault("launches_by_path", {})["multiprocess"] = sum(
+                sum(v) for v in per.values())
+            row["multiprocess"] = {"launches_by_process": per,
+                                   "times": mp["times"]}
     check(len(kernels) == len(wrappers) == 14, "kernels line incomplete")
     # the chaos phase's launches, by kernel: every row it drives launched
     by_name = {row["name"]: row for row in kernels}

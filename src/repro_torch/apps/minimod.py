@@ -25,6 +25,13 @@ Logs are per call site, as in the reference, which records its time loop's
 body once (it is traced once under ``lax.scan``): the first pass through
 the port's Python loop records against the run's context, later passes
 against a scratch context whose logs are dropped.
+
+In a multi-process job (``diomp.init(coordinator=...)``) the decomposition
+is laid over the job's processes (:func:`~repro_torch.launch.mesh.
+make_process_mesh`): every process builds the same initial fields, keeps
+its box of ranks, places its ranks' regions (``local_sizes``), steps its
+box, and the field comes back whole on every process through
+:func:`~repro_torch.core.coordination.fetch_global`.
 """
 
 from __future__ import annotations
@@ -38,8 +45,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..core import ompccl, rma
-from ..core.context import DiompContext, use_default
+from ..core import coordination, ompccl, rma
+from ..core.backends import zero_rank
+from ..core.context import DiompContext, default_context, use_default
 from ..core.faults import FaultPlan
 from ..core.groups import DiompGroup
 from ..core.resilience import RetryPolicy
@@ -48,7 +56,7 @@ from ..kernels.stencil.fused import (Halos, _zslice, exchange_halos,
                                      fused_wave_step)
 from ..kernels.stencil.kernel import leap
 from ..kernels.stencil.ref import RADIUS
-from ..launch.mesh import RankMesh
+from ..launch.mesh import RankMesh, make_process_mesh
 from ..launch.shapes import STENCIL_SHAPES, StencilShape
 
 __all__ = [
@@ -124,15 +132,17 @@ def _two_sided_halos(u, zgroup, *, ext):
     every slab materialized on every rank, then selected and barriered."""
     R = RADIUS
     n = len(ext)
-    down = _zslice(u, [e - R for e in ext], R)
+    mesh = default_context().require_mesh()
+    box = mesh.box[0]
+    down = _zslice(u, [e - R for e in ext[box]], R)
     up_slab = u[..., 0:R, :, :]
     all_down = ompccl.allgather(down, zgroup, axis=0).unflatten(-3, (n, R))
     all_up = ompccl.allgather(up_slab, zgroup, axis=0).unflatten(-3, (n, R))
-    iz = torch.arange(n, device=u.device)
-    left = all_down[iz, :, (iz + n - 1) % n]
-    right = all_up[iz, :, (iz + 1) % n]
-    left[0] = 0
-    right[n - 1] = 0
+    iz = torch.arange(box.stop - box.start, device=u.device)
+    left = all_down[iz, :, (iz + box.start + n - 1) % n]
+    right = all_up[iz, :, (iz + box.start + 1) % n]
+    zero_rank(left, mesh, 0, 0)
+    zero_rank(right, mesh, 0, n - 1)
     ompccl.barrier_value(zgroup)        # MPI_Waitall
     return Halos(left, right, None, None)
 
@@ -243,7 +253,8 @@ def run_minimod(
     zmax = max(z_extents)
     y_loc = Y // ny
 
-    mesh = RankMesh(("z", "y"), (nz, ny))
+    mesh = make_process_mesh(shape=(nz, ny), axes=("z", "y")) \
+        if coordination.is_distributed() else RankMesh(("z", "y"), (nz, ny))
     ctx = DiompContext(mesh=mesh, device=device, fault_plan=fault_plan,
                        retry_policy=retry_policy)
     replay = DiompContext(mesh=mesh, device=device, fault_plan=FaultPlan(0))
@@ -258,10 +269,13 @@ def run_minimod(
         item = torch.empty((), dtype=dtype).element_size()
         sizes = [z_extents[r // ny] * y_loc * X * item
                  for r in range(nz * ny)]
+        # each process speaks for its own ranks (the extent exchange)
         handles = [
-            ctx.memory.alloc_asymmetric(f"minimod.{nm}", sizes, grid_group,
-                                        logical_axes=("z", "y", None),
-                                        dtype=str(dtype).replace("torch.", ""))
+            ctx.memory.alloc_asymmetric(
+                f"minimod.{nm}", group=grid_group,
+                logical_axes=("z", "y", None),
+                dtype=str(dtype).replace("torch.", ""),
+                local_sizes=[sizes[r] for r in ctx.memory.local_ranks])
             for nm in ("u", "u_prev")
         ]
         region_sizes = tuple(handles[0].region.sizes)
@@ -269,10 +283,10 @@ def run_minimod(
         plan = default_planner().plan_halo_slots(
             zmax, y_loc, X, dtype, nz, ny=ny, halo=RADIUS)
         ext_arg = None if symmetric else tuple(z_extents)
-        u = _to_ranks(pad_shards(_initial(u0, grid, dtype, dev, True),
-                                 z_extents), nz, ny)
-        up = _to_ranks(pad_shards(_initial(u_prev0, grid, dtype, dev, False),
-                                  z_extents), nz, ny)
+        u = mesh.local_box(_to_ranks(pad_shards(
+            _initial(u0, grid, dtype, dev, True), z_extents), nz, ny))
+        up = mesh.local_box(_to_ranks(pad_shards(
+            _initial(u_prev0, grid, dtype, dev, False), z_extents), nz, ny))
         serial_plan = dataclasses.replace(plan, overlap=False)
 
         if mode == "fused":
@@ -325,7 +339,8 @@ def run_minimod(
         retries = ctx.retry_stats()
         rbytes = ctx.retry_byte_stats()
         return MinimodResult(
-            field=unpad_shards(_from_ranks(u), z_extents),
+            field=unpad_shards(
+                _from_ranks(coordination.fetch_global(u, mesh)), z_extents),
             wall_s=wall, mode=mode, grid=tuple(grid), steps=steps, nz=nz,
             ny=ny, z_extents=z_extents,
             plan=plan if mode == "fused" else serial_plan,

@@ -24,11 +24,24 @@ them.
 
 A backend instance never records call counts — that is the communicator
 handle's job (:mod:`repro_torch.core.context`).
+
+Across processes (a mesh of a multi-process job,
+:func:`repro_torch.launch.mesh.make_process_mesh`) a stacked operand holds
+only this process's box of ranks.  A verb whose group lies inside every
+process's box runs as above on the box.  A verb whose group crosses a
+process boundary moves the slices it needs through the data plane of
+:mod:`.coordination`: the one-sided verbs (``put``, ``put_perm``,
+``permute``, ``halo_exchange``) fetch only the source ranks' slices
+(:func:`~.coordination.rank_gather`); the collectives assemble the
+group-major stack of every group touching the box
+(:func:`~.coordination.assemble`) and apply the single-process verb to it
+in its own order, so every result is bit for bit the one-process verb's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
 from typing import Dict, List, Optional, Sequence, Tuple, Type
 
@@ -36,6 +49,7 @@ import numpy as np
 import torch
 
 from ..launch.mesh import RankMesh
+from . import coordination
 from .groups import DiompGroup
 
 __all__ = [
@@ -53,6 +67,10 @@ __all__ = [
     "payload_bytes",
     "fence",
     "check_stacked",
+    "crosses_processes",
+    "group_peers",
+    "ring_roll",
+    "zero_rank",
     "psum_axis",
     "psum_scatter_axis",
     "all_gather_axis",
@@ -88,6 +106,67 @@ def _ring_dim(group: DiompGroup, mesh: RankMesh) -> int:
     return group.rank_dims(mesh)[0]
 
 
+def crosses_processes(group: DiompGroup, mesh: RankMesh) -> bool:
+    """True when some instance of ``group`` spans ranks of more than one
+    process (its verbs need the cross-process data plane)."""
+    return mesh.multiprocess and not mesh.spans(group.rank_dims(mesh))
+
+
+def group_peers(group: DiompGroup, mesh: RankMesh, process: int) -> List[int]:
+    """Global ranks sharing a ``group`` instance with a rank of
+    ``process``: what a collective over the group reads there."""
+    dims = group.rank_dims(mesh)
+    out = set()
+    for r in mesh.ranks_of(process):
+        c = list(mesh.coords(r))
+        for idx in itertools.product(*(range(mesh.sizes[d]) for d in dims)):
+            for d, i in zip(dims, idx):
+                c[d] = i
+            out.add(mesh.flat(c))
+    return sorted(out)
+
+
+def _ring_sources(group: DiompGroup, mesh: RankMesh, shift: int,
+                  edge: Optional[int] = None) -> List[Optional[int]]:
+    """For every global rank, the rank ``shift`` behind it on the group's
+    ring (None for ranks whose ring index is ``edge``)."""
+    d = _ring_dim(group, mesh)
+    n = mesh.sizes[d]
+    src: List[Optional[int]] = []
+    for r in range(mesh.size):
+        c = list(mesh.coords(r))
+        if c[d] == edge:
+            src.append(None)
+            continue
+        c[d] = (c[d] - shift) % n
+        src.append(mesh.flat(c))
+    return src
+
+
+def ring_roll(x: torch.Tensor, group: DiompGroup, mesh: RankMesh,
+              shift: int, edge: Optional[int] = None) -> torch.Tensor:
+    """A ring roll of the stacked ``x`` along the group's rank dim, across
+    processes where the ring crosses them.  The ranks at ring index
+    ``edge`` receive zeros in place of the wrapped slice (a non-periodic
+    boundary: across processes nothing moves for them)."""
+    if crosses_processes(group, mesh):
+        return coordination.rank_gather(
+            x, mesh, _ring_sources(group, mesh, shift, edge))
+    d = _ring_dim(group, mesh)
+    out = torch.roll(x, shifts=shift, dims=d)
+    return out if edge is None else zero_rank(out, mesh, d, edge)
+
+
+def zero_rank(t: torch.Tensor, mesh: RankMesh, dim: int,
+              index: int) -> torch.Tensor:
+    """Zero, in place, the slices of leading ``dim`` at global ``index``
+    that lie in this process's box (a ring's non-periodic edge)."""
+    b = mesh.box[dim]
+    if b.start <= index < b.stop:
+        t.select(dim, index - b.start).zero_()
+    return t
+
+
 def _local_dim(x: torch.Tensor, mesh: RankMesh, axis: int) -> int:
     """Tensor dimension of the per-rank (local) ``axis``."""
     nloc = x.dim() - mesh.ndim
@@ -100,12 +179,12 @@ def _local_dim(x: torch.Tensor, mesh: RankMesh, axis: int) -> int:
 
 def check_stacked(x: torch.Tensor, group: DiompGroup, mesh: RankMesh) -> None:
     """Refuse the self group and a tensor that does not lead with the mesh
-    dims."""
+    dims (this process's box of them)."""
     _check_group(group)
-    if tuple(x.shape[:mesh.ndim]) != mesh.sizes:
+    if tuple(x.shape[:mesh.ndim]) != mesh.local_sizes:
         raise ValueError(
             f"stacked tensor of shape {tuple(x.shape)} does not lead with "
-            f"the mesh dims {mesh.sizes}")
+            f"the mesh dims {mesh.local_sizes}")
 
 
 def _group_major(x: torch.Tensor, group: DiompGroup, mesh: RankMesh):
@@ -114,6 +193,10 @@ def _group_major(x: torch.Tensor, group: DiompGroup, mesh: RankMesh):
     the permutation on a tensor of the same rank layout (local dims may
     have changed size)."""
     check_stacked(x, group, mesh)
+    if crosses_processes(group, mesh):
+        raise ValueError(
+            f"group {group.axes} crosses processes: run its verbs through "
+            "a Communicator (the cross-process data plane)")
     dims = group.rank_dims(mesh)
     rest = [d for d in range(x.dim()) if d not in dims]
     perm = list(dims) + rest
@@ -167,14 +250,15 @@ def group_size(group: DiompGroup, mesh: RankMesh) -> int:
 def group_rank(group: DiompGroup, mesh: RankMesh,
                device=None) -> torch.Tensor:
     """Linearized rank of every rank within the group (row-major over the
-    group's axes), as an int tensor of the mesh's shape."""
+    group's axes), as an int tensor of the mesh's shape (this process's
+    box of it)."""
     rank = torch.zeros(mesh.sizes, dtype=torch.int64, device=device)
     for ax in group.axes:
         d, n = mesh.dim(ax), mesh.shape[ax]
         idx = torch.arange(n, device=device).reshape(
             [n if i == d else 1 for i in range(mesh.ndim)])
         rank = rank * n + idx
-    return rank
+    return rank[mesh.box]
 
 
 def _leaves(x):
@@ -235,8 +319,21 @@ class CclBackend:
     name = "xla"
 
     # -- collectives ---------------------------------------------------------
+    def _across(self, verb: str, x, group: DiompGroup, mesh: RankMesh,
+                **kw):
+        """``verb`` over a group that crosses processes: the group-major
+        stack of every group touching this box assembled, the verb run on
+        it as one process runs it, this box's part of the result kept."""
+        check_stacked(x, group, mesh)
+        full = coordination.assemble(
+            x, mesh, lambda p: group_peers(group, mesh, p))
+        out = getattr(self, verb)(full, group, mesh.whole(), **kw)
+        return out[mesh.box].contiguous()
+
     def allreduce(self, x, group: DiompGroup, mesh: RankMesh, *,
                   op: str = "sum"):
+        if crosses_processes(group, mesh):
+            return self._across("allreduce", x, group, mesh, op=op)
         y, back = _group_major(x, group, mesh)
         if op == "sum":
             r = y.sum(0, keepdim=True)
@@ -255,7 +352,8 @@ class CclBackend:
         are zeroed and summed through ``self.allreduce``, so a backend that
         only overrides allreduce broadcasts over its own algorithm."""
         rank = group_rank(group, mesh, x.device)
-        rank = rank.reshape(*mesh.sizes, *([1] * (x.dim() - mesh.ndim)))
+        rank = rank.reshape(*mesh.local_sizes,
+                            *([1] * (x.dim() - mesh.ndim)))
         contribution = torch.where(rank == root, x, torch.zeros_like(x))
         return self.allreduce(contribution, group, mesh)
 
@@ -263,6 +361,9 @@ class CclBackend:
                   axis: int = 0, tiled: bool = True, invariant: bool = False):
         """Concatenate every member's shard along local ``axis`` in the
         group's row-major rank order (``invariant`` changes no bytes)."""
+        if crosses_processes(group, mesh):
+            return self._across("allgather", x, group, mesh, axis=axis,
+                                tiled=tiled, invariant=invariant)
         del invariant
         ld = _local_dim(x, mesh, axis)
         y, back = _group_major(x, group, mesh)
@@ -278,6 +379,8 @@ class CclBackend:
     def reducescatter(self, x, group: DiompGroup, mesh: RankMesh, *,
                       axis: int = 0):
         """Sum across the group; rank ``g`` keeps chunk ``g`` of ``axis``."""
+        if crosses_processes(group, mesh):
+            return self._across("reducescatter", x, group, mesh, axis=axis)
         ld = _local_dim(x, mesh, axis)
         y, back = _group_major(x, group, mesh)
         G, at = y.shape[0], ld - len(group.axes)
@@ -288,6 +391,10 @@ class CclBackend:
 
     def alltoall(self, x, group: DiompGroup, mesh: RankMesh, *,
                  split_axis: int = 0, concat_axis: int = 0):
+        if crosses_processes(group, mesh):
+            return self._across("alltoall", x, group, mesh,
+                                split_axis=split_axis,
+                                concat_axis=concat_axis)
         ls = _local_dim(x, mesh, split_axis) - len(group.axes)
         lc = _local_dim(x, mesh, concat_axis) - len(group.axes)
         y, back = _group_major(x, group, mesh)
@@ -304,12 +411,18 @@ class CclBackend:
                 shift: int = 1):
         if len(group.axes) != 1:
             raise ValueError("permute requires a single-axis group")
-        return torch.roll(x, shifts=shift, dims=_ring_dim(group, mesh))
+        check_stacked(x, group, mesh)
+        return ring_roll(x, group, mesh, shift)
 
     def barrier(self, group: DiompGroup, mesh: RankMesh, *, device=None):
-        """A collective-ordering token: the group sum of a zero per rank."""
+        """A collective-ordering token: the group sum of a zero per rank
+        (across processes, a real exchange among the group's processes)."""
         _check_group(group)
-        return torch.zeros(mesh.sizes, dtype=torch.float32, device=device)
+        token = torch.zeros(mesh.local_sizes, dtype=torch.float32,
+                            device=device)
+        if crosses_processes(group, mesh):
+            return self._across("allreduce", token, group, mesh)
+        return token
 
     # -- one-sided RMA -------------------------------------------------------
     def put(self, x, group: DiompGroup, mesh: RankMesh, *, shift: int = 1):
@@ -318,13 +431,26 @@ class CclBackend:
         Every rank's window receives the shard of the rank ``shift`` behind
         it (``shift`` may be negative): a roll along the ring's rank dim.
         """
-        return torch.roll(x, shifts=shift, dims=_ring_dim(group, mesh))
+        check_stacked(x, group, mesh)
+        return ring_roll(x, group, mesh, shift)
 
     def put_perm(self, x, group: DiompGroup, mesh: RankMesh,
                  perm: Sequence[Tuple[int, int]]):
         """General one-sided put along a (src, dst) permutation; ranks that
         receive nothing hold zeros."""
         d = _ring_dim(group, mesh)
+        check_stacked(x, group, mesh)
+        if crosses_processes(group, mesh):
+            of = dict((int(b), int(a)) for a, b in perm)
+            src: List[Optional[int]] = []
+            for r in range(mesh.size):
+                c = list(mesh.coords(r))
+                if c[d] not in of:
+                    src.append(None)
+                    continue
+                c[d] = of[c[d]]
+                src.append(mesh.flat(c))
+            return coordination.rank_gather(x, mesh, src)
         out = torch.zeros_like(x)
         for src, dst in perm:
             out.select(d, dst).copy_(x.select(d, src))
@@ -344,11 +470,12 @@ class CclBackend:
         extent = x.shape[ld]
         validate_halo(halo, extent, axis)
         d = _ring_dim(group, mesh)
-        n = x.shape[d]
-        from_left = torch.roll(x.narrow(ld, extent - halo, halo), 1, d)
-        from_right = torch.roll(x.narrow(ld, 0, halo), -1, d)
-        from_left.select(d, 0).zero_()
-        from_right.select(d, n - 1).zero_()
+        check_stacked(x, group, mesh)
+        n = mesh.sizes[d]
+        from_left = ring_roll(x.narrow(ld, extent - halo, halo), group,
+                              mesh, 1, edge=0)
+        from_right = ring_roll(x.narrow(ld, 0, halo), group, mesh, -1,
+                               edge=n - 1)
         return fence(from_left, from_right)
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
@@ -371,6 +498,8 @@ class HierarchicalBackend(CclBackend):
 
     def allreduce(self, x, group: DiompGroup, mesh: RankMesh, *,
                   op: str = "sum"):
+        if crosses_processes(group, mesh):
+            return self._across("allreduce", x, group, mesh, op=op)
         from ..distributed.hierarchical import hierarchical_allreduce
 
         return hierarchical_allreduce(x, group, mesh, op=op)
@@ -387,7 +516,7 @@ class HierarchicalBackend(CclBackend):
         handle's non-invariant allgather keeps the row-major concat order:
         pairing RS with ``invariant=False`` returns element-permuted data.
         """
-        if len(group.axes) < 2:
+        if len(group.axes) < 2 or crosses_processes(group, mesh):
             return super().reducescatter(x, group, mesh, axis=axis)
         check_stacked(x, group, mesh)
         dim = _local_dim(x, mesh, axis)
@@ -399,7 +528,8 @@ class HierarchicalBackend(CclBackend):
 
     def allgather(self, x, group: DiompGroup, mesh: RankMesh, *,
                   axis: int = 0, tiled: bool = True, invariant: bool = False):
-        if len(group.axes) < 2 or not tiled:
+        if len(group.axes) < 2 or not tiled \
+                or crosses_processes(group, mesh):
             return super().allgather(x, group, mesh, axis=axis, tiled=tiled,
                                      invariant=invariant)
         if not invariant:
@@ -436,6 +566,9 @@ class CompressedBackend(CclBackend):
             raise ValueError(
                 f"compressed backend reduces op='sum' only, got {op!r} "
                 "(min/max do not decompose through quantized chunks)")
+        if crosses_processes(group, mesh):
+            return self._across("allreduce", x, group, mesh, op=op,
+                                error=error)
         check_stacked(x, group, mesh)
         # compressed_allreduce returns the group MEAN; scale back to the
         # sum the CclBackend contract promises
@@ -459,7 +592,7 @@ class AnalyticBackend(CclBackend):
 
     def _note(self, op: str, x, group: DiompGroup, mesh: RankMesh,
               time_fn) -> None:
-        nbytes = payload_bytes(x, mesh.size)
+        nbytes = payload_bytes(x, mesh.local_size)
         ndev = group_size(group, mesh)
         self.estimates.append({"op": op, "bytes": nbytes, "ndev": ndev,
                                "est_s": time_fn(nbytes, ndev)})

@@ -17,6 +17,13 @@ shared per-group call/byte log, one handle per (group, backend) pair).
 Tensors are stacked: their leading dimensions are the mesh axes, so every
 verb needs the context's mesh.  The context also fixes the device its
 entry points run on: the card unless the caller asks for ``device="cpu"``.
+
+Multi-process jobs (``diomp.init(coordinator="host:port", ...)``, then a
+mesh from :func:`~repro_torch.launch.mesh.make_process_mesh`): a context
+over a mesh split between processes holds only its process's box of
+ranks, owns only their PGAS arenas, runs every collective allocation
+through the coordinated exchange and checks its group descriptors against
+every other process's at construction (the UniqueID handshake).
 """
 
 from __future__ import annotations
@@ -31,8 +38,10 @@ import torch
 from ..launch.mesh import RankMesh
 from . import backends as _backends
 from .backends import CclBackend, get_backend
+from .coordination import (LocalCoordinator, ProcessCoordinator,
+                           coordinator_for, init_distributed)
 from .faults import ChaosBackend, FaultPlan
-from .groups import DiompGroup, standard_groups
+from .groups import DiompGroup, GroupError, standard_groups
 from .pgas import GlobalMemory
 from .resilience import RetryPolicy, call_with_retries
 from .rma import RMATracker
@@ -116,7 +125,7 @@ class Communicator:
         self.calls[op] = self.calls.get(op, 0) + 1
         if payload is not None:
             self.nbytes[op] = self.nbytes.get(op, 0) \
-                + _backends.payload_bytes(payload, self._mesh().size)
+                + _backends.payload_bytes(payload, self._mesh().local_size)
 
     def record_retry(self, op: str, payload=None) -> None:
         """Account one re-issued wire attempt, kept OUT of the logical
@@ -124,7 +133,7 @@ class Communicator:
         self.retries[op] = self.retries.get(op, 0) + 1
         if payload is not None:
             self.retry_nbytes[op] = self.retry_nbytes.get(op, 0) \
-                + _backends.payload_bytes(payload, self._mesh().size)
+                + _backends.payload_bytes(payload, self._mesh().local_size)
 
     def _dispatch(self, op: str, payload, thunk):
         """Record the logical call once, then dispatch under the retry
@@ -161,7 +170,8 @@ class Communicator:
         full = self.allreduce(x, op=op)
         mesh = self._mesh()
         rank = _backends.group_rank(self.group, mesh, full.device)
-        rank = rank.reshape(*mesh.sizes, *([1] * (full.dim() - mesh.ndim)))
+        rank = rank.reshape(*mesh.local_sizes,
+                            *([1] * (full.dim() - mesh.ndim)))
         return torch.where(rank == root, full, torch.zeros_like(full))
 
     def bcast(self, x, *, root: int = 0):
@@ -381,6 +391,18 @@ class DiompContext:
     set) runs every backend the context creates under deterministic fault
     injection; ``retry_policy`` (a default policy is always attached)
     governs the communicators' retries, counted in :meth:`retry_stats`.
+
+    Multi-process: ``coordinator`` (default :func:`coordinator_for`) is the
+    job's exchange.  Over a mesh split between processes the context owns
+    only its process's ranks (the mesh's box; a process owning none
+    raises :class:`~repro_torch.core.groups.GroupError`), runs every
+    collective allocation through the coordinated protocol and performs
+    the UniqueID handshake across processes: the group-descriptor tables
+    are allgathered and any divergence raises on every process.  The call
+    and byte logs stay per process and record the logical verbs, as one
+    process does; :meth:`gather_stats` collects them all for
+    rank-against-rank diffing.  Construction is therefore **collective**
+    in a multi-process job.
     """
 
     def __init__(
@@ -395,14 +417,35 @@ class DiompContext:
         comm_backend: str = "gasnet-ex",  # config fidelity; no-op here
         fault_plan: Optional[FaultPlan] = None,
         retry_policy: Optional[RetryPolicy] = None,
+        coordinator: Optional[ProcessCoordinator] = None,
     ):
         self.device = resolve_device(device)
         self.mesh = mesh
         self.comm_backend = comm_backend
         self.default_backend = default_backend
         self.ndev = mesh.size if mesh is not None else 1
+        if coordinator is None:
+            coordinator = coordinator_for(mesh) if mesh is not None \
+                else LocalCoordinator()
+        self.coordinator = coordinator
+        self.process_id = coordinator.process_id
+        self.num_processes = coordinator.num_processes
+        local_ranks = None
+        if mesh is not None and (self.num_processes > 1
+                                 or mesh.multiprocess):
+            if (mesh.num_processes, mesh.process_id) != (
+                    self.num_processes, self.process_id):
+                raise GroupError(
+                    f"process {self.process_id} of {self.num_processes} "
+                    f"owns no rank of the mesh {mesh.shape} (split over "
+                    f"{mesh.num_processes} processes) — every participating "
+                    "process must contribute ranks: build the mesh with "
+                    "make_process_mesh")
+            local_ranks = list(mesh.local_ranks)
         self.memory = GlobalMemory(self.ndev, segment_bytes,
-                                   allocator=allocator)
+                                   allocator=allocator,
+                                   local_ranks=local_ranks,
+                                   coordinator=coordinator)
         self.groups: Dict[str, DiompGroup] = (
             standard_groups(mesh) if mesh is not None else {})
         self.streams = StreamPool(max_active=max_active_streams)
@@ -421,6 +464,67 @@ class DiompContext:
             name: g.validate(mesh).descriptor()
             for name, g in self.groups.items()
         } if mesh is not None else {}
+        if mesh is not None and self.num_processes > 1:
+            self._descriptor_handshake()
+
+    def _descriptor_handshake(self) -> None:
+        """The cross-process UniqueID handshake: every process broadcasts
+        its (group name -> descriptor) table and mesh signature; any
+        divergence means the processes did not construct consistent
+        communicators, and every process raises before a collective can
+        silently mismatch."""
+        mine = {
+            "descriptors": sorted(self._descriptors.items()),
+            "mesh": [list(self.mesh.shape.items()), self.ndev],
+        }
+        rows = self.coordinator.allgather(mine)
+        # compare post-JSON rows against my own round-tripped row, so the
+        # check sees value differences, not serialization artifacts
+        me = rows[self.process_id]
+        for pid, row in enumerate(rows):
+            if row != me:
+                raise GroupError(
+                    f"group-descriptor handshake failed: process {pid} "
+                    f"registered {row}, process {self.process_id} "
+                    f"registered {me} — inconsistent SPMD bootstrap")
+
+    @property
+    def multiprocess(self) -> bool:
+        return self.num_processes > 1
+
+    def gather_stats(self) -> list:
+        """Per-process log snapshot, allgathered for rank-vs-rank diffing.
+
+        One dict per process (indexed by process id) holding that
+        process's logical OMPCCL call/byte logs, retry logs, RMA tracker
+        counters and PGAS table.  In a single-process job this is a
+        one-element list around the local logs — same shape, no traffic.
+        Collective: every process must call it at the same point.
+        """
+        snapshot = {
+            "process_id": self.process_id,
+            "stats": self.stats(),
+            "byte_stats": self.byte_stats(),
+            "retry_stats": self.retry_stats(),
+            "retry_byte_stats": self.retry_byte_stats(),
+            "rma": {
+                "puts": self.rma.puts,
+                "fences": self.rma.fences,
+                "put_bytes": self.rma.put_bytes,
+                "window_bytes": dict(self.rma.window_bytes),
+                "retry_puts": self.rma.retry_puts,
+                "retry_bytes": self.rma.retry_bytes,
+            },
+            "pgas": {
+                "alloc_counts": dict(self.memory.alloc_counts),
+                "regions": [
+                    [r["name"], bool(r["symmetric"]), list(r["bytes"]),
+                     list(r["offsets"])]
+                    for r in self.memory.mapping_table()
+                ],
+            },
+        }
+        return self.coordinator.allgather(snapshot)
 
     def require_mesh(self) -> RankMesh:
         if self.mesh is None:
@@ -483,9 +587,11 @@ class DiompContext:
 
     def __repr__(self) -> str:  # pragma: no cover - cosmetic
         shape = self.mesh.shape if self.mesh is not None else None
+        proc = (f", process={self.process_id}/{self.num_processes}"
+                if self.num_processes > 1 else "")
         return (f"DiompContext(ndev={self.ndev}, mesh={shape}, "
                 f"device={self.device}, groups={sorted(self.groups)}, "
-                f"default_backend={self.default_backend!r})")
+                f"default_backend={self.default_backend!r}{proc})")
 
 
 # ---------------------------------------------------------------------------
@@ -509,8 +615,38 @@ def install_default(ctx: DiompContext) -> DiompContext:
     return ctx
 
 
-def init(mesh: Optional[RankMesh] = None, **kwargs) -> DiompContext:
-    """Create a :class:`DiompContext` and install it as the process default."""
+def init(mesh: Optional[RankMesh] = None, *, coordinator=None,
+         num_processes: Optional[int] = None,
+         process_id: Optional[int] = None,
+         local_device_count: Optional[int] = None,
+         **kwargs) -> DiompContext:
+    """Create a :class:`DiompContext` and install it as the process default.
+
+    Multi-process entry (built on ``torch.distributed`` over gloo)::
+
+        diomp.init(coordinator="host:1234", num_processes=4, process_id=i,
+                   local_device_count=2, device="cpu")  # join, no mesh yet
+        mesh = make_process_mesh(ndev_per_proc=2)
+        ctx = diomp.init(mesh=mesh, device="cpu")        # process-aware
+
+    ``coordinator`` is process 0's ``host:port`` (every process passes the
+    same address), or a ready
+    :class:`~repro_torch.core.coordination.ProcessCoordinator` for tests
+    that stub the exchange; ``local_device_count`` is the number of ranks
+    this process owns.  Passing ``mesh`` together with ``coordinator``
+    does both steps at once.
+    """
+    if isinstance(coordinator, str):
+        init_distributed(coordinator, num_processes, process_id,
+                         local_device_count=local_device_count)
+        coordinator = None
+    elif coordinator is None and (num_processes is not None
+                                  or process_id is not None):
+        raise ValueError(
+            "num_processes/process_id need coordinator='host:port' (the "
+            "torch.distributed rendezvous address)")
+    if coordinator is not None:
+        kwargs["coordinator"] = coordinator
     return install_default(DiompContext(mesh=mesh, **kwargs))
 
 
@@ -563,7 +699,8 @@ def scratch_context(ctx: DiompContext) -> DiompContext:
         if key not in _scratch:
             _scratch[key] = DiompContext(mesh=ctx.mesh, device=ctx.device,
                                          segment_bytes=1 << 20,
-                                         fault_plan=FaultPlan(0, p=0.0))
+                                         fault_plan=FaultPlan(0, p=0.0),
+                                         coordinator=ctx.coordinator)
         return _scratch[key]
 
 

@@ -14,8 +14,10 @@ The paper's §3.1–3.2 memory architecture:
 
 What the runtime owns is the *address space plan*: which arena offsets a
 logical region uses on which rank.  Every collective allocation goes through
-a :class:`ProcessCoordinator`; this package runs one process, so the only
-coordinator is :class:`LocalCoordinator`, whose exchanges are the identity.
+a :class:`~repro_torch.core.coordination.ProcessCoordinator`: the identity
+:class:`LocalCoordinator` in a single-process job, the gloo exchange
+(:class:`~repro_torch.core.coordination.TorchCoordinator`) across
+processes, where each process owns only its ranks' arenas.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import itertools
 import threading
 from typing import Dict, List, Optional, Sequence, Tuple
 
-import json
+from .coordination import LocalCoordinator, ProcessCoordinator
 from .groups import DiompGroup
 
 __all__ = [
@@ -45,25 +47,6 @@ _SLP_BYTES = 32  # the paper's 32-byte second-level pointer wrapper
 
 def _align_up(n: int, a: int = _ALIGN) -> int:
     return (n + a - 1) // a * a
-
-
-class LocalCoordinator:
-    """The single-process job: every exchange is the identity.
-
-    The interface of the reference's process coordinator (a deterministic,
-    process-indexed allgather of JSON payloads); exchanges round-trip
-    through JSON like the multi-process transport does, so callers see the
-    same value shapes (tuples come back as lists).
-    """
-
-    process_id: int = 0
-    num_processes: int = 1
-
-    def allgather(self, obj):
-        return [json.loads(json.dumps(obj, sort_keys=True))]
-
-
-ProcessCoordinator = LocalCoordinator
 
 
 class AllocError(RuntimeError):

@@ -157,7 +157,7 @@ def halo_exchange(x, group: DiompGroup, *, halo: int, axis: int = 0,
         return _comm(group, backend).halo_exchange(x, halo=halo, axis=axis)
     tracker = ctx.rma
     lo_w, hi_w = halo_window_names(group, axis)
-    slab_bytes = payload_bytes(x, mesh.size) // extent * halo
+    slab_bytes = payload_bytes(x, mesh.local_size) // extent * halo
     for w in (lo_w, hi_w):
         tracker.ensure(w)
         tracker.on_put(w, slab_bytes)

@@ -9,6 +9,11 @@ between the two layouts, so both packages compute on the same data.
 A spec has one entry per global dimension: a mesh axis name, a tuple of
 axis names (row-major over them), or None (not sharded).  A mesh axis no
 entry names holds replicas.
+
+Over a mesh split between the processes of a job, a process's stacked
+tensor is its box of the ranks: :func:`stack_shards` cuts that box out of
+the global array every process builds from the same seed, and
+:func:`unstack_shards` assembles the boxes back (a collective).
 """
 
 from __future__ import annotations
@@ -47,7 +52,9 @@ def _check_spec(mesh: RankMesh, spec: Sequence[SpecEntry], ndim: int):
 def stack_shards(global_array, mesh: RankMesh, spec: Sequence[SpecEntry],
                  *, device="cpu", dtype: Optional[torch.dtype] = None
                  ) -> torch.Tensor:
-    """Global array -> stacked tensor ``(*mesh.sizes, *local_shape)``."""
+    """Global array -> stacked tensor ``(*mesh.sizes, *local_shape)``
+    (this process's box of it, ``mesh.local_sizes``, over a multi-process
+    mesh)."""
     g = torch.as_tensor(np.array(global_array, order="C")) \
         if isinstance(global_array, np.ndarray) else torch.as_tensor(global_array)
     _check_spec(mesh, spec, g.dim())
@@ -74,15 +81,19 @@ def stack_shards(global_array, mesh: RankMesh, spec: Sequence[SpecEntry],
             mesh_pos[a] = t.dim() - 1
         lead.append(mesh_pos[a])
     t = t.permute(lead + local_pos)
-    t = t.expand(*mesh.sizes, *t.shape[mesh.ndim:])
+    t = t.expand(*mesh.sizes, *t.shape[mesh.ndim:])[mesh.box]
     return t.to(device=device, dtype=dtype).contiguous()
 
 
 def unstack_shards(stacked: torch.Tensor, mesh: RankMesh,
                    spec: Sequence[SpecEntry]) -> np.ndarray:
     """Inverse of :func:`stack_shards`; replicas are read from index 0.
-    bfloat16 comes back as float32 (numpy has no bfloat16)."""
-    t = stacked.detach().cpu()
+    bfloat16 comes back as float32 (numpy has no bfloat16).  Over a
+    multi-process mesh ``stacked`` is this process's box and every process
+    must call it (the boxes are assembled first)."""
+    from .core.coordination import fetch_global
+
+    t = fetch_global(stacked.detach(), mesh).cpu()
     if t.dtype == torch.bfloat16:
         t = t.float()
     nloc = t.dim() - mesh.ndim
@@ -102,8 +113,8 @@ def unstack_shards(stacked: torch.Tensor, mesh: RankMesh,
 
 def local_shape(global_shape: Sequence[int], mesh: RankMesh,
                 spec: Sequence[SpecEntry]) -> Tuple[int, ...]:
-    """The stacked shape ``(*mesh.sizes, *local_shape)`` of a global
-    array laid out by ``spec``."""
+    """The stacked shape ``(*mesh.local_sizes, *local_shape)`` of a global
+    array laid out by ``spec`` (this process's box of the mesh)."""
     _check_spec(mesh, spec, len(global_shape))
     local = []
     for n, e in zip(global_shape, spec):
@@ -111,7 +122,7 @@ def local_shape(global_shape: Sequence[int], mesh: RankMesh,
         if n % div:
             raise ValueError(f"extent {n} does not split over {e}")
         local.append(n // div)
-    return (*mesh.sizes, *local)
+    return (*mesh.local_sizes, *local)
 
 
 def params_from_reference(cfg, mesh: RankMesh, np_params, *, device="cpu",

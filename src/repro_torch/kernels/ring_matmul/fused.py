@@ -14,6 +14,14 @@ stacked ranks (``x (n, t_loc, K)``, ``w (n, K, n_loc)`` ->
 * :func:`fused_ring_allgather_matmul_emulated` — each put an ``ompx_put``
   (a roll along the ring's rank dim) started before the step's GEMMs, for
   any mesh, any ``dot``, and the CPU.
+
+:func:`fused_ring_route` picks between them.  A ring that crosses the
+processes of a job cannot run in one launch — the kernel's slots and grid
+barrier live in one process, and two processes' kernels on one card are
+time-sliced, not concurrent, so a spin on a peer process's flag could stall
+for a whole timeslice — so it runs the plan's schedule step by step: every
+GEMM one launch of the matmul kernel on the card, every cross-process put
+through the data plane of :mod:`repro_torch.core.coordination`.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ from typing import Callable, Optional
 
 import torch
 
+from ...core.backends import crosses_processes
 from ...core.context import default_communicator, default_context
 from ...core.groups import DiompGroup
 from ...core.rma import ompx_put
@@ -32,6 +41,7 @@ from .kernel import matmul_kernel
 from .ref import ring_allgather_matmul_plain
 
 __all__ = [
+    "fused_ring_route",
     "fused_ring_allgather_matmul",
     "fused_ring_allgather_matmul_emulated",
     "fused_ring_allgather_matmul_kernel",
@@ -106,6 +116,8 @@ def fused_ring_allgather_matmul_emulated(
     ``x``/``w`` are stacked over the context's mesh; the ring is
     ``group``'s rank dim.
     """
+    from .ops import box_lead
+
     dot = dot or matmul_kernel
     mesh = default_context().require_mesh()
     d = group.rank_dims(mesh)[0]
@@ -114,9 +126,8 @@ def fused_ring_allgather_matmul_emulated(
                       device=x.device)
     # (..., src, t_loc, n_loc) view: the ring writes whole source blocks
     blocks = out.unflatten(-2, (n, t_loc))
-    lead = torch.meshgrid(*[torch.arange(s, device=x.device)
-                            for s in mesh.sizes], indexing="ij")
-    rank = lead[d]
+    lead, coord = box_lead(mesh, x.device)
+    rank = coord[d]
 
     cw = ccw = x
     for st in plan.schedule():
@@ -140,6 +151,20 @@ def _record_traffic(x, group: DiompGroup, plan: RingPlan) -> None:
                 comm.kernel_put(x)
 
 
+def fused_ring_route(*, on_card: bool, custom_dot: bool, mesh_ndim: int,
+                     crosses: bool) -> str:
+    """Where :func:`fused_ring_allgather_matmul` sends a ring: ``"kernel"``
+    (row 2, every rank's ring in one launch: on the card, a mesh that is
+    the ring alone, no custom ``dot``, every rank in this process),
+    ``"stepwise"`` (the same on a ring that ``crosses`` processes: the
+    schedule step by step, each GEMM a launch of row 1, the puts over the
+    data plane) or ``"emulation"`` (the CPU, other meshes, a custom
+    ``dot``)."""
+    if not on_card or custom_dot or mesh_ndim != 1:
+        return "emulation"
+    return "stepwise" if crosses else "kernel"
+
+
 def fused_ring_allgather_matmul(
     x: torch.Tensor, w: torch.Tensor, group: DiompGroup, *,
     plan: Optional[RingPlan] = None,
@@ -154,7 +179,9 @@ def fused_ring_allgather_matmul(
     CUDA kernel — its puts are logged on the communicator before the
     launch (:meth:`~repro_torch.core.context.Communicator.kernel_put`:
     recorded, and rolled under the fault plan and retried, as the
-    emulation's ``ompx_put`` is); everything else runs the emulation.
+    emulation's ``ompx_put`` is); a ring that crosses processes runs step
+    by step, and everything else runs the emulation
+    (:func:`fused_ring_route`, counted in ``.routes``).
     """
     mesh = default_context().require_mesh()
     n = group.axis_size(mesh)
@@ -164,8 +191,16 @@ def fused_ring_allgather_matmul(
             direction=direction)
     if plan.n != n:
         raise ValueError(f"plan for n={plan.n} used on a ring of {n}")
-    if x.is_cuda and dot is None and mesh.ndim == 1:
+    route = fused_ring_route(on_card=x.is_cuda, custom_dot=dot is not None,
+                             mesh_ndim=mesh.ndim,
+                             crosses=crosses_processes(group, mesh))
+    fused_ring_allgather_matmul.routes[route] += 1
+    if route == "kernel":
         _record_traffic(x, group, plan)
         return fused_ring_allgather_matmul_kernel(x, w, plan=plan)
     return fused_ring_allgather_matmul_emulated(x, w, group, plan=plan,
                                                 dot=dot)
+
+
+fused_ring_allgather_matmul.routes = {"kernel": 0, "stepwise": 0,
+                                      "emulation": 0}

@@ -27,12 +27,13 @@ import torch
 from ...core.context import default_context
 from ...core.groups import DiompGroup
 from ...core.rma import ompx_put
+from ...launch.mesh import RankMesh
 from ..plan import RingPlan, resolve_ring_impl
 from .fused import fused_ring_allgather_matmul
 from .kernel import matmul_kernel
 from .ref import matmul_ref, ring_allgather_matmul_ref
 
-__all__ = ["matmul", "ring_allgather_matmul"]
+__all__ = ["box_lead", "matmul", "ring_allgather_matmul"]
 
 
 def matmul(x: torch.Tensor, w: torch.Tensor, *,
@@ -44,6 +45,15 @@ def matmul(x: torch.Tensor, w: torch.Tensor, *,
     raise ValueError(impl)
 
 
+def box_lead(mesh: RankMesh, device):
+    """Index grids over this process's box of the mesh's leading dims:
+    ``(local, rank)`` — each local rank's position in the box, and its
+    global mesh coordinates."""
+    local = torch.meshgrid(*[torch.arange(s, device=device)
+                             for s in mesh.local_sizes], indexing="ij")
+    return local, [g + b.start for g, b in zip(local, mesh.box)]
+
+
 def _host_ring(x, w, group: DiompGroup, dot: Callable):
     """The host-level unrolled ring (one put + GEMM per step, n-1 puts)."""
     mesh = default_context().require_mesh()
@@ -52,11 +62,10 @@ def _host_ring(x, w, group: DiompGroup, dot: Callable):
     out = torch.zeros(*x.shape[:-2], n * t_loc, w.shape[-1], dtype=x.dtype,
                       device=x.device)
     blocks = out.unflatten(-2, (n, t_loc))
-    lead = torch.meshgrid(*[torch.arange(s, device=x.device)
-                            for s in mesh.sizes], indexing="ij")
+    lead, coord = box_lead(mesh, x.device)
     chunk = x
     for s in range(n):
-        src = (lead[d] - s) % n           # whose stripe each rank holds
+        src = (coord[d] - s) % n          # whose stripe each rank holds
         blocks[(*lead, src)] = dot(chunk, w).to(out.dtype)
         if s != n - 1:
             chunk = ompx_put(chunk, group, shift=1)

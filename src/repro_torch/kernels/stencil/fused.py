@@ -27,6 +27,12 @@ Asymmetric extents: every rank's shard is padded to the largest extent and
 ``z_extents`` marks the valid rows; slabs are cut at each rank's valid edge
 and invalid rows are kept at zero.
 
+Across processes (a mesh split between the processes of a job) each
+process steps its box of ranks: the puts cross through the data plane of
+:mod:`repro_torch.core.coordination`, and on the card the carried step
+runs as one launch over the box, the halos at the box's edges then
+fetched from the neighbour processes (:func:`fused_step_route`).
+
 In place: halos are written into the padded copy of the field, and every
 pass writes straight into its slice of the step's output.
 """
@@ -38,7 +44,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ...core.backends import payload_bytes
+from ...core.backends import (crosses_processes, payload_bytes, ring_roll,
+                              zero_rank)
 from ...core.context import default_context
 from ...core.groups import DiompGroup
 from ...core.rma import RMAError, halo_window_names, ompx_fence, ompx_put
@@ -76,7 +83,8 @@ def _put_slab(slab, group: DiompGroup, *, shift: int, window: str):
     """One-sided slab put, recorded against the tracker's halo window."""
     ctx = default_context()
     ctx.rma.ensure(window)
-    ctx.rma.on_put(window, payload_bytes(slab, ctx.require_mesh().size))
+    mesh = ctx.require_mesh()
+    ctx.rma.on_put(window, payload_bytes(slab, mesh.local_size))
     return ompx_put(slab, group, shift=shift)
 
 
@@ -92,6 +100,16 @@ def _zslice(t: torch.Tensor, starts: Sequence[int], length: int):
         return t.narrow(-3, starts[0], length)
     return torch.stack([t[iz].narrow(-3, s, length)
                         for iz, s in enumerate(starts)])
+
+
+def _local_extents(z_extents: Optional[Tuple[int, ...]],
+                   zgroup: DiompGroup) -> Optional[Tuple[int, ...]]:
+    """This process's entries of the per-Z-rank extents (all of them when
+    the process holds the whole Z ring)."""
+    if z_extents is None:
+        return None
+    mesh = default_context().require_mesh()
+    return tuple(z_extents[mesh.box[zgroup.rank_dims(mesh)[0]]])
 
 
 def _mask_valid(a: torch.Tensor, z_extents: Optional[Tuple[int, ...]]):
@@ -158,15 +176,15 @@ def _halo_puts(slabs, zgroup: DiompGroup, ygroup: Optional[DiompGroup],
         lo_w, hi_w = halo_window_names(zgroup, 0)
         z_lo = _put_slab(slabs[1], zgroup, shift=1, window=lo_w)
         z_hi = _put_slab(slabs[0], zgroup, shift=-1, window=hi_w)
-        z_lo.select(d, 0).zero_()
-        z_hi.select(d, nz - 1).zero_()
+        zero_rank(z_lo, mesh, d, 0)
+        zero_rank(z_hi, mesh, d, nz - 1)
     if ny > 1:
         d = ygroup.rank_dims(mesh)[0]
         lo_w, hi_w = halo_window_names(ygroup, 1)
         y_lo = _put_slab(slabs[3], ygroup, shift=1, window=lo_w)
         y_hi = _put_slab(slabs[2], ygroup, shift=-1, window=hi_w)
-        y_lo.select(d, 0).zero_()
-        y_hi.select(d, ny - 1).zero_()
+        zero_rank(y_lo, mesh, d, 0)
+        zero_rank(y_hi, mesh, d, ny - 1)
     return Halos(z_lo, z_hi, y_lo, y_hi)
 
 
@@ -198,7 +216,14 @@ def _sizes(zgroup: DiompGroup, ygroup: Optional[DiompGroup]):
 def exchange_halos(u, zgroup: DiompGroup, ygroup: Optional[DiompGroup] = None,
                    *, z_extents: Optional[Tuple[int, ...]] = None) -> Halos:
     """One complete halo exchange of the current field (puts + one fence):
-    the time loop's prologue and the whole exchange of the fallback plan."""
+    the time loop's prologue and the whole exchange of the fallback plan.
+    ``z_extents`` has an entry for every Z rank of the mesh."""
+    return _exchange(u, zgroup, ygroup, _local_extents(z_extents, zgroup))
+
+
+def _exchange(u, zgroup: DiompGroup, ygroup: Optional[DiompGroup],
+              z_extents: Optional[Tuple[int, ...]]) -> Halos:
+    """:func:`exchange_halos` with this process's entries of the extents."""
     nz, ny = _sizes(zgroup, ygroup)
     ext = z_extents or (u.shape[-3],) * nz
     slabs = _slabs_of(u, ext=ext, z_extents=z_extents, nz=nz, ny=ny)
@@ -281,6 +306,7 @@ def fused_wave_step_emulated(
     R = plan.halo
     nz, ny = plan.nz, plan.ny
     Z = u.shape[-3]
+    z_extents = _local_extents(z_extents, zgroup)
     ext = z_extents or (Z,) * nz
     u = _mask_valid(u, z_extents)
     u_prev = _mask_valid(u_prev, z_extents)
@@ -288,7 +314,7 @@ def fused_wave_step_emulated(
 
     if halos is None and return_halos and plan.overlap:
         # entering the carried loop: prologue exchange of the current field
-        halos = exchange_halos(u, zgroup, ygroup, z_extents=z_extents)
+        halos = _exchange(u, zgroup, ygroup, z_extents)
     sched = plan.schedule(carried=halos is not None)
 
     if sched == ("all",):                      # no exchanging axis at all
@@ -297,7 +323,7 @@ def fused_wave_step_emulated(
 
     if sched == ("put", "fence", "all"):       # planner fallback: no overlap
         if halos is None:
-            halos = exchange_halos(u, zgroup, ygroup, z_extents=z_extents)
+            halos = _exchange(u, zgroup, ygroup, z_extents)
         uext = _assemble(upad, halos, ext)
         out = _mask_valid(leap(uext, u_prev, c2dt2, dx=dx), z_extents)
         # fallback halos are of the INPUT field — stale after the step, so
@@ -383,7 +409,7 @@ def operand_route(X: int, tensors) -> str:
 def fused_wave_step_kernel(u: torch.Tensor, u_prev: torch.Tensor,
                            c2dt2: C2, *, plan: HaloPlan, dx: float = 1.0,
                            halos: Optional[Halos] = None,
-                           return_halos: bool = False):
+                           return_halos: bool = False, part: bool = False):
     """One step of every rank of a 1-D symmetric Z ring in one launch of
     ``csrc/fused_wave_step.cu``; on CPU tensors, the plain versions.
     Fields are stacked ``(nz, 1, Z, Y, X)``.
@@ -396,6 +422,11 @@ def fused_wave_step_kernel(u: torch.Tensor, u_prev: torch.Tensor,
     ``(out, Halos(z_lo, z_hi, None, None))`` (``(out, None)`` on the single
     step).  A launch takes the route :func:`..plan.stencil_route` picks,
     counted in ``route_launches``.
+
+    ``part=True`` (carried only): the fields hold a process's consecutive
+    ranks of the plan's ring; the launch writes zeros into the halos its
+    first and last rank would receive from outside it, which the caller
+    fills from the neighbour processes.
     """
     R = RADIUS
     if u.dim() != 5 or u.shape[1] != 1 or u_prev.shape != u.shape:
@@ -409,10 +440,13 @@ def fused_wave_step_kernel(u: torch.Tensor, u_prev: torch.Tensor,
                        for h in (halos.z_lo, halos.z_hi)):
         raise ValueError(f"carried halos must be (nz, 1, R, Y, X) = "
                          f"{(nz, 1, R, Y, X)}")
-    if (plan.nz, plan.ny, plan.halo, plan.z_loc) != (nz, 1, R, Z):
+    ring = nz if not part else plan.nz
+    if (plan.nz, plan.ny, plan.halo, plan.z_loc) != (ring, 1, R, Z) \
+            or (part and (not carried or ring % nz)):
         raise ValueError(f"plan (nz={plan.nz}, ny={plan.ny}, halo="
                          f"{plan.halo}, z_loc={plan.z_loc}) vs fields of "
-                         f"{nz} Z ranks of {Z} rows")
+                         f"{nz} Z ranks of {Z} rows"
+                         + (" (a carried part of the ring)" if part else ""))
     if carried and not (plan.overlap and plan.exchange_axes):
         raise ValueError("carried halos need an overlapping plan over an "
                          "exchanging Z ring")
@@ -484,7 +518,7 @@ def _record_single_step(u, zgroup: DiompGroup) -> None:
     slab = u[..., 0:R, :, :]
     for w in (lo_w, hi_w):
         ctx.rma.ensure(w)
-        ctx.rma.on_put(w, payload_bytes(slab, ctx.require_mesh().size))
+        ctx.rma.on_put(w, payload_bytes(slab, ctx.require_mesh().local_size))
         comm.kernel_put(slab)
     ctx.rma.on_fence(lo_w, hi_w)
     ctx.rma.on_read(lo_w)
@@ -498,24 +532,31 @@ def _record_single_step(u, zgroup: DiompGroup) -> None:
 
 def fused_step_route(*, on_card: bool, dtype, dim: int, ny: int,
                      z_extents: Optional[Tuple[int, ...]], plan: HaloPlan,
-                     halos: Optional[Halos], return_halos: bool) -> str:
+                     halos: Optional[Halos], return_halos: bool,
+                     crosses: bool = False) -> str:
     """Where :func:`fused_wave_step` sends a step: ``"carried"`` or
-    ``"single"`` (the fused kernel's two schedules) or ``"emulation"``.
+    ``"single"`` (the fused kernel's two schedules), ``"carried_part"``
+    (the carried schedule over a process's box of a ring that crosses
+    processes) or ``"emulation"``.
 
     The kernel takes 1-D (``ny == 1``), symmetric, f32, stacked 5-D steps
     on the card.  Among those, an overlapping plan over an exchanging ring
     with carried halos (given, or asked for with ``return_halos``) runs
-    the carried schedule; given halos on the non-overlapping fallback are
-    the emulation's (it computes from them without an exchange); every
-    other step is the single step (a one-rank ring ignores halos).
+    the carried schedule — over the box, its edge halos then fetched from
+    the neighbour processes, where the ring ``crosses`` processes; given
+    halos on the non-overlapping fallback are the emulation's (it computes
+    from them without an exchange); every other step is the single step
+    (a one-rank ring ignores halos), whose puts land inside its launch, so
+    a ring that crosses processes takes the emulation (its passes are
+    wave-step kernel launches on the card) instead.
     """
     if not on_card or ny > 1 or z_extents is not None \
             or dtype != torch.float32 or dim != 5:
         return "emulation"
     overlapped = plan.overlap and bool(plan.exchange_axes)
     if overlapped and (halos is not None or return_halos):
-        return "carried"
-    if halos is not None and plan.exchange_axes:
+        return "carried_part" if crosses else "carried"
+    if (halos is not None and plan.exchange_axes) or crosses:
         return "emulation"
     return "single"
 
@@ -566,10 +607,14 @@ def fused_wave_step(
     if plan.halo != RADIUS:
         raise ValueError(f"plan.halo={plan.halo} != stencil radius {RADIUS}")
 
+    mesh = default_context().require_mesh()
+    crosses = crosses_processes(zgroup, mesh) or (
+        ygroup is not None and crosses_processes(ygroup, mesh))
     route = fused_step_route(
         on_card=u.is_cuda, dtype=u.dtype, dim=u.dim(), ny=ny,
         z_extents=z_extents, plan=plan, halos=halos,
-        return_halos=return_halos)
+        return_halos=return_halos, crosses=crosses)
+    fused_wave_step.routes[route] += 1
     if route == "emulation":
         return fused_wave_step_emulated(
             u, u_prev, c2dt2, zgroup, ygroup, plan=plan, dx=dx,
@@ -584,7 +629,32 @@ def fused_wave_step(
         # entering the carried loop: prologue exchange of the current field
         halos = exchange_halos(u, zgroup)
     _record_single_step(u, zgroup)      # the carried trail is the same
+    part = route == "carried_part"
     out, new = fused_wave_step_kernel(
         u, u_prev, c2dt2, plan=plan, dx=dx, return_halos=True,
-        halos=Halos(halos.z_lo.contiguous(), halos.z_hi.contiguous()))
+        halos=Halos(halos.z_lo.contiguous(), halos.z_hi.contiguous()),
+        part=part)
+    if part:
+        new = _edge_halos(out, new, zgroup, mesh)
     return (out, new) if return_halos else out
+
+
+fused_wave_step.routes = {"carried": 0, "carried_part": 0, "single": 0,
+                          "emulation": 0}
+
+
+def _edge_halos(out: torch.Tensor, new: Halos, zgroup: DiompGroup,
+                mesh) -> Halos:
+    """The halos a part launch leaves zero at its box's edges, fetched from
+    the neighbour processes' boundary output rows (the kernel's own puts,
+    made over the data plane: logged already by the step's recorder).
+    Ring ends stay zero."""
+    R = RADIUS
+    Z = out.shape[-3]
+    d = zgroup.rank_dims(mesh)[0]
+    last = mesh.local_sizes[d] - 1
+    new.z_lo[0] = ring_roll(out[..., Z - R:Z, :, :].contiguous(), zgroup,
+                            mesh, 1, edge=0)[0]
+    new.z_hi[last] = ring_roll(out[..., 0:R, :, :].contiguous(), zgroup,
+                               mesh, -1, edge=mesh.sizes[d] - 1)[last]
+    return new

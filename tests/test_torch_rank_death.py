@@ -232,6 +232,105 @@ def test_flaky_spill_rank_quarantined_and_recovers(mesh8, weights):  # noqa: F81
     assert t.dctx.retry_stats() == j.dctx.retry_stats()
 
 
+def test_engine_fault_stream_counts_first_traces(mesh8, weights,  # noqa: F811
+                                                 monkeypatch):
+    """The counting rule of the engine's fault stream.  The reference rolls
+    its plan while it traces a jitted step, the port on the first call of
+    a built step for each input signature (later calls replay against the
+    scratch context's inert plan).  jax 0.9 traces the chunk step a second
+    time once its cache is committed, and that retrace rolls the step's
+    verbs again, shifting every later call index; the port does not
+    retrace.  So, with the reference's retraces silenced (their verbs
+    counted, not rolled), the two engines give equal tokens, the port's
+    rolls of each first call equal the reference's of the matching first
+    trace (the built step's verbs and their retries), and the two injected
+    streams are equal; unsilenced, the reference's extra rolls are exactly
+    the retraces' verbs."""
+    import repro.models.api as japi
+    import repro.models.transformer as jtr
+    from repro_torch.serve import step as t_step
+
+    jplan = JFaultPlan(7, p=0.3, kinds=("drop", "fail"))
+    tplan = FaultPlan(7, p=0.3, kinds=("drop", "fail"))
+    traces, calls, silenced, retracing = [], [], [], [False]
+    seen = set()
+
+    def traced(kind, fn):
+        def body(params, tokens, *args, **kw):
+            key = (kind, tuple(tokens.shape))
+            retracing[0] = key in seen
+            seen.add(key)
+            before = dict(jplan._counters)
+            try:
+                out = fn(params, tokens, *args, **kw)
+            finally:
+                retracing[0] = False
+            traces.append((kind, before, dict(jplan._counters)))
+            return out
+        return body
+
+    rolled = jplan.next_fault
+
+    def next_fault(verb):
+        if retracing[0]:
+            silenced.append(verb)
+            return None
+        return rolled(verb)
+
+    jplan.next_fault = next_fault
+    decode_fn = japi.decode_fn
+    monkeypatch.setattr(japi, "decode_fn",
+                        lambda cfg: traced("decode", decode_fn(cfg)))
+    monkeypatch.setattr(jtr, "transformer_chunk_prefill",
+                        traced("chunk", jtr.transformer_chunk_prefill))
+    call = t_step.ServeStep.__call__
+
+    def counted(self, *args):
+        first = t_step._signature(args) not in self._seen
+        before = dict(tplan._counters)
+        out = call(self, *args)
+        calls.append((self, first, before, dict(tplan._counters)))
+        return out
+
+    monkeypatch.setattr(t_step.ServeStep, "__call__", counted)
+    j, t = _pair(mesh8, weights, jplan, tplan, JRetryPolicy(sleep=False),
+                 RetryPolicy(sleep=False))
+    jr, tr = _submit(j), _submit(t)
+    j.run()
+    t.run()
+    assert [r.out for r in tr] == [r.out for r in jr]
+
+    def delta(before, after):
+        return {v: n - before.get(v, 0) for v, n in after.items()
+                if n != before.get(v, 0)}
+
+    kinds = {id(t.decode_step): "decode", id(t.chunk_step): "chunk"}
+    t_first = [(kinds[id(s)], delta(b, a)) for s, f, b, a in calls if f]
+    j_first = [(k, delta(b, a)) for k, b, a in traces if delta(b, a)]
+    # one roll window a distinct signature, in the same order, the same
+    # verbs and retries; later calls roll nothing
+    assert t_first == j_first and len(t_first) == 2
+    assert all(delta(b, a) == {} for _, f, b, a in calls if not f)
+    assert tplan._counters == jplan._counters
+    # the port's stream is the reference's over its first traces
+    got = [(f.verb, f.call_index, f.kind) for f in tplan.injected]
+    assert got == [(f.verb, f.call_index, f.kind) for f in jplan.injected]
+    assert got and all(f.recovered for f in tplan.injected)
+    # what the retrace would have rolled: the chunk step's verbs once more
+    # (its first trace's rolls less one retry roll a fault)
+    (kind, lo, hi), = [row for row in traces if row[0] == "chunk"][:1]
+    faults = {}
+    for f in jplan.injected:
+        if lo.get(f.verb, 0) <= f.call_index < hi.get(f.verb, 0):
+            faults[f.verb] = faults.get(f.verb, 0) + 1
+    retraced = {}
+    for v in silenced:
+        retraced[v] = retraced.get(v, 0) + 1
+    assert [k for k, _, _ in traces] == ["chunk", "chunk", "decode"]
+    assert retraced == {v: n - faults.get(v, 0)
+                        for v, n in delta(lo, hi).items()}
+
+
 # ---------------------------------------------------------------------------
 # training: death -> escalate -> checkpoint -> shrink -> restore
 # ---------------------------------------------------------------------------
